@@ -1,0 +1,103 @@
+"""Checkpointing: atomic torch.save snapshots with rotation, milestones, best.
+
+Counterpart of `sample_factory_tpu/runner/checkpoint.py` (reference
+`sample_factory/algo/learning/learner.py:300-386`): the same payload fields
+{train_state, env_steps, best_performance, train_step}, written to a temp
+file and renamed (:43-83), rotated by --keep_checkpoints. The train state
+holds the model, the optimizer, the normalizers and the learning rate.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import time
+from os.path import basename, join
+from typing import List, Optional, Tuple
+
+import torch
+
+from sample_factory_tpu_torch.utils.utils import checkpoint_dir, log
+
+
+def checkpoint_name(train_step: int, env_steps: int) -> str:
+    return f"checkpoint_{train_step:012d}_{env_steps}.pth"
+
+
+def get_checkpoints(ckpt_dir: str, pattern: str = "checkpoint_*") -> List[str]:
+    return sorted(glob.glob(join(ckpt_dir, pattern)))
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    ckpts = get_checkpoints(ckpt_dir)
+    return ckpts[-1] if ckpts else None
+
+
+def best_checkpoint(ckpt_dir: str) -> Optional[str]:
+    ckpts = get_checkpoints(ckpt_dir, pattern="best_*")
+    return ckpts[-1] if ckpts else None
+
+
+def save_checkpoint(
+    cfg,
+    policy_id: int,
+    train_state,
+    env_steps: int,
+    best_performance: float,
+    is_best: bool = False,
+    milestone: bool = False,
+) -> str:
+    payload = {
+        "train_state": train_state.state_dict(),
+        "env_steps": env_steps,
+        "best_performance": best_performance,
+        "train_step": train_state.train_step,
+    }
+    d = checkpoint_dir(cfg, policy_id)
+    if milestone:
+        d = join(d, "milestones")
+        os.makedirs(d, exist_ok=True)
+
+    name = checkpoint_name(payload["train_step"], env_steps)
+    if is_best:
+        name = f"best_{name}"
+    tmp = join(d, f".tmp_{name}")
+    path = join(d, name)
+    torch.save(payload, tmp)
+    os.rename(tmp, path)  # atomic (reference :349-351)
+
+    if not milestone:
+        pattern = "best_*" if is_best else "checkpoint_*"
+        keep = 1 if is_best else cfg.keep_checkpoints
+        for old in get_checkpoints(d, pattern)[:-keep] if keep > 0 else []:
+            try:
+                os.remove(old)
+            except OSError:
+                pass
+    return path
+
+
+def load_checkpoint(cfg, policy_id: int, train_state) -> Optional[Tuple[int, float]]:
+    """Load the latest (or best) checkpoint into `train_state` in place.
+    Returns (env_steps, best_performance), or None when there is none.
+    Retries a few times against transient fs errors (reference :277-287)."""
+    d = checkpoint_dir(cfg, policy_id, mkdir=False)
+    path = best_checkpoint(d) if cfg.load_checkpoint_kind == "best" else latest_checkpoint(d)
+    if path is None and cfg.load_checkpoint_kind == "best":
+        path = latest_checkpoint(d)
+    if path is None:
+        return None
+
+    device = next(train_state.model.parameters()).device
+    for attempt in range(3):
+        try:
+            payload = torch.load(path, map_location=device, weights_only=True)
+            break
+        except OSError as e:
+            log.warning("Checkpoint load attempt %d failed: %s", attempt + 1, e)
+            time.sleep(0.5)
+    else:
+        raise RuntimeError(f"Could not load checkpoint {path}")
+    train_state.load_state_dict(payload["train_state"])
+    log.info("Loaded checkpoint %s (env_steps=%d)", basename(path), payload["env_steps"])
+    return int(payload["env_steps"]), float(payload["best_performance"])
