@@ -6,8 +6,11 @@
 Phases, each printing one JSON line:
   build     compile the hand-written kernels (csrc/rnn_seq.cu, sm_90a) from the checkout
   parity    each kernel against its plain PyTorch version on the card, forward and
-            gradient, float32 and bfloat16, at the main-path shape and at odd shapes
-  timing    each kernel, its plain version and the bound at the main-path shapes
+            gradient, float32 and bfloat16, at the main-path shape, the default width
+            and odd shapes; both designs of the launch plan (cluster and rows) run
+  timing    each kernel, its plain version and the bound at the main-path shapes; each
+            kernel in both dtypes at (32, 512, 256), warm and with L2 flushed, beside the
+            first design (rows) at the same shapes; torch.nn.GRU (cuDNN) as a yardstick
   main      sync PPO on grid_battle at full width (IMPALA conv, GRU-256, bf16,
             1024 envs, rollout 32) for 3 iterations through `run_rl`'s runner
   breakdown one more main-path iteration: rollout and learner times, then one under
@@ -20,6 +23,7 @@ Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -33,12 +37,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside the tensor cores
 MAIN_GRU = (32, 512, 256, "bfloat16")  # T, segments per minibatch (16384 / 32), H, dtype
 MAIN_LSTM = (32, 128, 256, "float32")  # the lstm phase: 128 envs x 32 steps in one minibatch
-PARITY_SHAPES = [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64)]
+# (32, 512, 512): the default rnn_size; (4, 16, 1024): no cluster slice fits, the row design
+PARITY_SHAPES = [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64), (32, 512, 512), (4, 16, 1024)]
 # bf16: kernel and plain version round every gate op to bf16 alike, but sum h @ wh in
 # another order, so a product can land one bf16 ulp apart; that flip (2^-8 relative,
 # up to 2^-6 absolute at the LSTM cell's magnitudes) feeds forward through the recurrence.
 BF16_TOL = 0.0625
 REPS = 25
+SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's 1980 MHz
+L2_FLUSH_BYTES = 100 * 2**20  # written between reps of a cold timing: twice the H100's 50 MB L2
 SOURCE = "sample_factory_tpu_torch/csrc/rnn_seq.cu"
 REPLACES = {
     "gru_seq": "sample_factory_tpu/ops/pallas_gru.py:148",
@@ -95,8 +102,12 @@ def phase_parity(torch, cuda_rnn):
             for T, B, H in PARITY_SHAPES:
                 args = make_inputs(torch, kind, T, B, H, dtype, seed=T + B + H)
                 args = [a.requires_grad_(i != 2) for i, a in enumerate(args)]
+                plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+                name = f"{kind}_seq" if plan.design == "cluster" else f"{kind}_seq_rows"
+                before = cuda_rnn.launch_counts()[name]
                 out, state = kernel_fn(*args)
                 torch.cuda.synchronize()
+                check(cuda_rnn.launch_counts()[name] == before + 1, f"{kind} {(T, B, H)}: {name} was not launched")
                 ref_out, ref_state = plain_fn(*args)
                 wrt = [a for i, a in enumerate(args) if i != 2]
                 grads = torch.autograd.grad((out**2).sum() + state.sum(), wrt)
@@ -108,7 +119,7 @@ def phase_parity(torch, cuda_rnn):
                 # gradients: the backward reruns the plain version, so they differ only
                 # through the forward outputs that seed it; scaled by the largest gradient
                 grad_tol = 1e-3 if dtype == "float32" else 4 * BF16_TOL
-                emit({"phase": "parity", "kernel": f"{kind}_seq", "dtype": dtype, "shape": [T, B, H],
+                emit({"phase": "parity", "kernel": name, "design": dataclasses.asdict(plan), "dtype": dtype, "shape": [T, B, H],
                       "fwd_max_abs_err": fwd, "fwd_tol": tol, "grad_rel_err": grad, "grad_tol": grad_tol})
                 check(fwd <= tol, f"{kind} {dtype} {(T, B, H)}: forward error {fwd} > {tol}")
                 check(grad <= grad_tol, f"{kind} {dtype} {(T, B, H)}: gradient error {grad} > {grad_tol}")
@@ -124,12 +135,19 @@ def phase_parity(torch, cuda_rnn):
     return main_err
 
 
-def time_ms(torch, fn, reps=REPS):
+def time_ms(torch, fn, reps=REPS, flush=None):
+    """Median of `reps` CUDA-event timings of fn after 3 warm-up calls; with `flush` (a tensor
+    of L2_FLUSH_BYTES), the L2 cache is overwritten before each timed call. Before the start
+    event the card spins for ~0.5 ms, so that the host has enqueued fn's kernels by the time
+    the event is reached: the interval is the device's time, not the host's launch cost."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.fill_(1.0)
+        torch.cuda._sleep(SPIN_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -154,19 +172,56 @@ def bound(kind, T, B, H, dtype):
 
 
 def phase_timing(torch, cuda_rnn, card):
-    fns = {"gru": (cuda_rnn.gru_seq, cuda_rnn.gru_seq_reference), "lstm": (cuda_rnn.lstm_seq, cuda_rnn.lstm_seq_reference)}
+    launches = {"gru": cuda_rnn._launch_gru, "lstm": cuda_rnn._launch_lstm}
+    plains = {"gru": cuda_rnn.gru_seq_reference, "lstm": cuda_rnn.lstm_seq_reference}
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     out = {}
-    for kind, (T, B, H, dtype) in (("gru", MAIN_GRU), ("lstm", MAIN_LSTM)):
-        kernel_fn, plain_fn = fns[kind]
-        args = make_inputs(torch, kind, T, B, H, dtype, seed=2)
-        with torch.no_grad():
-            ms = time_ms(torch, lambda: kernel_fn(*args))
-            plain_ms = time_ms(torch, lambda: plain_fn(*args))
-        bound_ms, bound_by, nbytes, flops = bound(kind, T, B, H, dtype)
-        out[f"{kind}_seq"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        emit({"phase": "timing", "kernel": f"{kind}_seq", "shape": [T, B, H], "dtype": dtype, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-              "reps": REPS, "stat": "median of CUDA-event times, L2 not flushed", "card": card})
+    with torch.no_grad():
+        # the main-path rows, comparable with the first design's numbers
+        for kind, (T, B, H, dtype) in (("gru", MAIN_GRU), ("lstm", MAIN_LSTM)):
+            args = make_inputs(torch, kind, T, B, H, dtype, seed=2)
+            plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+            rows = cuda_rnn.row_plan(kind, B, H)
+            ms = time_ms(torch, lambda: launches[kind](*args))
+            rows_ms = time_ms(torch, lambda: launches[kind](*args, plan=rows))
+            plain_ms = time_ms(torch, lambda: plains[kind](*args))
+            ms_l2_cold = time_ms(torch, lambda: launches[kind](*args), flush=flush)
+            rows_ms_l2_cold = time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush)
+            bound_ms, bound_by, nbytes, flops = bound(kind, T, B, H, dtype)
+            # for the kernels line: the plan, and the time of the kernel's first design (the row design)
+            out[f"{kind}_seq"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                                  "design": dataclasses.asdict(plan), "pr1_ms": rows_ms}
+            emit({"phase": "timing", "kernel": f"{kind}_seq", "shape": [T, B, H], "dtype": dtype, "ms": ms,
+                  "rows_ms": rows_ms, "ms_l2_cold": ms_l2_cold, "rows_ms_l2_cold": rows_ms_l2_cold, "plain_ms": plain_ms,
+                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                  "design": dataclasses.asdict(plan), "reps": REPS,
+                  "stat": "median of CUDA-event times; ms: L2 not flushed, l2_cold: 100 MB written before each; "
+                          "rows: the first design (row design) at the same shape", "card": card})
+        # each kernel in both dtypes at the GRU's main shape, warm and L2-cold, beside the row design
+        T, B, H = MAIN_GRU[:3]
+        for kind in ("gru", "lstm"):
+            for dtype in ("bfloat16", "float32"):
+                args = make_inputs(torch, kind, T, B, H, dtype, seed=3)
+                rows = cuda_rnn.row_plan(kind, B, H)
+                row = {"phase": "timing", "kernel": f"{kind}_seq", "shape": [T, B, H], "dtype": dtype,
+                       "design": dataclasses.asdict(cuda_rnn.launch_plan(kind, T, B, H, dtype))}
+                for label, flush_with in (("warm", None), ("l2_cold", flush)):
+                    row[f"ms_{label}"] = time_ms(torch, lambda: launches[kind](*args), flush=flush_with)
+                    row[f"rows_ms_{label}"] = time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush_with)
+                row["bound_ms"], row["bound_by"] = bound(kind, T, B, H, dtype)[:2]
+                emit({**row, "reps": REPS, "stat": "median of CUDA-event times; l2_cold: 100 MB written before each",
+                      "card": card})
+        # a yardstick of another function: cuDNN's GRU also computes the input product and has
+        # no resets; the port never calls it
+        gru = torch.nn.GRU(H, H).cuda().to(torch.bfloat16)
+        gru.flatten_parameters()
+        x = torch.randn(T, B, H, device="cuda", dtype=torch.bfloat16)
+        h0 = torch.zeros(1, B, H, device="cuda", dtype=torch.bfloat16)
+        emit({"phase": "timing", "yardstick": "torch.nn.GRU (cuDNN), a different function: input product included, "
+              "no resets", "shape": [T, B, H], "dtype": "bfloat16",
+              "ms_warm": time_ms(torch, lambda: gru(x, h0)), "ms_l2_cold": time_ms(torch, lambda: gru(x, h0), flush=flush),
+              "reps": REPS, "card": card})
+    del flush
     return out
 
 
@@ -258,12 +313,14 @@ def phase_breakdown(torch, runner, card):
     for e in on_device:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
     device_us = sum(by_name.values())
+    rnn_us = sum(e.time_range.elapsed_us() for e in on_device if "seq_cluster_kernel" in e.name or "rows_kernel" in e.name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "breakdown", "rollout_ms": (t1 - t0) * 1e3, "train_ms": (t2 - t1) * 1e3,
           "profiled_iteration_ms": wall_us / 1e3, "device_busy_ms": device_us / 1e3,
           "device_idle_share_profiled": 1.0 - device_us / wall_us,
           "device_idle_share_unprofiled": 1.0 - device_us / ((t2 - t0) * 1e6),
-          "device_activities": len(on_device), "top_device_ms": {k: v / 1e3 for k, v in top}, "card": card})
+          "device_activities": len(on_device), "rnn_kernel_ms": rnn_us / 1e3,
+          "rnn_kernel_share_of_device": rnn_us / device_us, "top_device_ms": {k: v / 1e3 for k, v in top}, "card": card})
 
 
 def phase_lstm(torch, cuda_rnn, card, tmp):
@@ -328,8 +385,16 @@ def main() -> int:
     lib_path = cuda_rnn.build()
     cuda_rnn.load_library()
     log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
+    # the launch plan assumes the cluster counts that run at once (cuda_rnn.MAX_CLUSTERS)
+    at_once = {}
+    for kind, (T, B, H, dtype) in (("gru", MAIN_GRU), ("lstm", MAIN_LSTM)):
+        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+        at_once[f"{kind}_seq"] = {"clusters": plan.grid // plan.cluster,
+                                  "card_runs_at_once": cuda_rnn.max_active_clusters(kind, dtype, plan)}
+        check(at_once[f"{kind}_seq"]["card_runs_at_once"] >= 1, f"{kind}: no cluster of {plan} fits the card")
     emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name,
-          "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]})
+          "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line],
+          "clusters_at_main_shapes": at_once})
 
     main_err = phase_parity(torch, cuda_rnn)
     timing = phase_timing(torch, cuda_rnn, card)

@@ -40,6 +40,11 @@ def _inputs(kind, T, B, H, dtype, device, seed=0):
     return args
 
 
+# the four shapes of the first design, the default width (rnn_size=512), and a shape whose
+# wh slice fits no block of a cluster (the row design)
+CARD_SHAPES = [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64), (32, 512, 512), (4, 16, 1024)]
+
+
 def _fns(kind):
     return (cuda_rnn.gru_seq, cuda_rnn.gru_seq_reference) if kind == "gru" else (cuda_rnn.lstm_seq, cuda_rnn.lstm_seq_reference)
 
@@ -80,14 +85,16 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["gru", "lstm"])
-@pytest.mark.parametrize("T,B,H", [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64)])
+@pytest.mark.parametrize("T,B,H", CARD_SHAPES)
 def test_kernel_matches_plain_on_card(cuda_device, kind, dtype, T, B, H):
     kernel_fn, plain_fn = _fns(kind)
     args = [a.requires_grad_(i != 2) for i, a in enumerate(_inputs(kind, T, B, H, dtype, cuda_device, seed=7))]
     cuda_rnn.reset_launch_counts()
     out, state = kernel_fn(*args)
     torch.cuda.synchronize()
-    assert cuda_rnn.launch_counts()[f"{kind}_seq"] == 1
+    plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+    name = f"{kind}_seq" if plan.design == "cluster" else f"{kind}_seq_rows"
+    assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, name: 1}
     ref_out, ref_state = plain_fn(*args)
     tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
     torch.testing.assert_close(out, ref_out, atol=tol, rtol=0)
@@ -98,3 +105,80 @@ def test_kernel_matches_plain_on_card(cuda_device, kind, dtype, T, B, H):
     for g, r in zip(grads, ref_grads):
         scale = max(1.0, float(r.float().abs().max()))
         assert float((g.float() - r.float()).abs().max()) / scale <= (1e-3 if dtype == "float32" else 4 * BF16_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T,B,H,dtype", [("gru", 32, 512, 256, "bfloat16"), ("lstm", 32, 128, 256, "float32")])
+def test_main_path_clusters_run_in_one_wave(cuda_device, kind, T, B, H, dtype):
+    """MAX_CLUSTERS holds on this card: every cluster of a main-path launch runs at once."""
+    plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+    assert plan.grid // plan.cluster <= cuda_rnn.max_active_clusters(kind, dtype, plan)
+
+
+# ------------------------------------------------------------------ launch plan (CPU)
+
+PLAN_B = [3, 8, 24, 128, 512, 4096]
+PLAN_H = [64, 128, 256, 512, 1024]
+
+
+@pytest.mark.parametrize("H", PLAN_H)
+@pytest.mark.parametrize("B", PLAN_B)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_launch_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H):
+    plan = cuda_rnn.launch_plan(kind, 32, B, H, dtype)
+    assert plan.smem <= 232_448  # a block's shared memory on the H100
+    if plan.design == "cluster":
+        assert plan.cluster in (8, 16)  # 16 is launched with the non-portable cluster size allowed
+        assert plan.smem == cuda_rnn.cluster_smem(kind, H, plan.cluster, plan.rows, 2 if dtype == "bfloat16" else 4)
+        assert plan.units * plan.cluster == H and plan.units >= 8 and plan.units & (plan.units - 1) == 0
+        assert plan.rows % (16 if dtype == "bfloat16" else 8) == 0
+    else:
+        assert plan == cuda_rnn.row_plan(kind, B, H)
+        assert plan.smem <= 48 * 1024  # launched without raising the dynamic shared-memory limit
+    # the kernels' map from blockIdx to its tile: cluster = block // cluster size, rank = block % cluster size
+    owner = np.zeros((B, H), dtype=np.int64)
+    for block in range(plan.grid):
+        tile, rank = divmod(block, plan.cluster)
+        owner[tile * plan.rows:(tile + 1) * plan.rows, rank * plan.units:(rank + 1) * plan.units] += 1
+    assert (owner == 1).all(), "every (row, unit) pair belongs to exactly one block"
+
+
+@pytest.mark.parametrize(
+    "kind,T,B,H,dtype",
+    [("gru", 32, 512, 256, "bfloat16"), ("lstm", 32, 128, 256, "float32"), ("gru", 32, 512, 512, "bfloat16")],
+)
+def test_cluster_design_at_the_main_path_shapes(kind, T, B, H, dtype):
+    """Both main-path shapes and the default rnn_size=512 in bf16 run the cluster design."""
+    plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+    assert plan.design == "cluster"
+    assert plan.grid <= 2 * 132  # at most two waves over the SMs
+
+
+@pytest.mark.parametrize(
+    "kind,H,dtype", [("gru", 1024, "bfloat16"), ("lstm", 512, "float32"), ("gru", 100, "float32"), ("lstm", 192, "bfloat16")]
+)
+def test_row_design_where_no_cluster_slice_fits(kind, H, dtype):
+    assert cuda_rnn.launch_plan(kind, 4, 16, H, dtype).design == "rows"
+
+
+@pytest.mark.parametrize("H", [64, 256, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_pack_wh_holds_each_blocks_columns(kind, dtype, H):
+    G = 3 if kind == "gru" else 4
+    plan = cuda_rnn.launch_plan(kind, 8, 64, H, "bfloat16")  # a cluster plan at every H here
+    assert plan.design == "cluster"
+    wh = _inputs(kind, 1, 1, H, dtype, "cpu")[3]
+    packed = cuda_rnn.pack_wh(wh, plan)
+    assert packed.shape == (plan.cluster, G * plan.units, H) and packed.is_contiguous()
+    for r in range(plan.cluster):
+        cols = [g * H + r * plan.units + u for g in range(G) for u in range(plan.units)]
+        assert torch.equal(packed[r], wh[:, cols].t())
+    assert torch.equal(cuda_rnn.unpack_wh(packed, plan), wh)
+
+
+def test_pack_wh_leaves_the_row_design_alone():
+    plan = cuda_rnn.launch_plan("gru", 4, 16, 1024, "bfloat16")
+    wh = torch.zeros(1024, 3 * 1024, dtype=torch.bfloat16)
+    assert cuda_rnn.pack_wh(wh, plan) is wh

@@ -127,7 +127,9 @@ def test_autograd_function_gradients_match_jax(kind, tol):
 def test_cpu_path_launches_no_kernel(kind):
     cuda_rnn.reset_launch_counts()
     _port_fns(kind)[1](*map(torch.tensor, _inputs(kind, 2, 3, 64)))
-    assert cuda_rnn.launch_counts() == {"gru_seq": 0, "lstm_seq": 0}
+    counts = cuda_rnn.launch_counts()
+    assert {"gru_seq", "gru_seq_rows", "lstm_seq", "lstm_seq_rows"} <= set(counts)
+    assert all(n == 0 for n in counts.values())
 
 
 @pytest.mark.parametrize(
