@@ -17,6 +17,15 @@ Phases, each printing one JSON line:
             torch.profiler for the device's busy share and its top kernels
   lstm      the --rnn_type=lstm path (float32, 128 envs, 1 iteration), then the
             trained model on the card against the same model on the CPU
+  appo      the default regime at full width: the `main` configuration without --async_rl
+            (so async, a behaviour snapshot one train call behind) and with V-trace, 3
+            iterations; the policy lag, and env steps/s beside the sync run's
+  ant       continuous control at full width: the physics ant, MLP 256-128-64, 4096 envs,
+            rollout 16, batch 32768, 4 epochs, sync; env steps/s and the rollout/learner split
+  towers    the other model family through the LSTM kernel: resnet_impala, separate actor
+            and critic towers, 2-layer LSTM-256, LAMB with lookahead, float32, 128 envs,
+            1 iteration; the trained model on the card against a copy on the CPU
+  enjoy     `enjoy` on the checkpoint that `appo` wrote, on the card, 16 envs
 Then a `kernels` line, the card's name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
@@ -225,8 +234,11 @@ def phase_timing(torch, cuda_rnn, card):
     return out
 
 
-def train(torch, cuda_rnn, argv, train_dir):
-    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
+def train(torch, cuda_rnn, argv, train_dir, before_run=None):
+    """Drive `argv` through make_rl_runner / Runner.run, as `run_rl` does, with the kernels'
+    launch counts set to 0 just before the run and read just after. `before_run(runner)`
+    may instrument the initialised runner."""
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
     from sample_factory_tpu_torch.runner.runner import AlgoObserver
     from sample_factory_tpu_torch.train import make_rl_runner
 
@@ -240,11 +252,12 @@ def train(torch, cuda_rnn, argv, train_dir):
             torch.cuda.synchronize()
             self.times.append(time.perf_counter())
 
-    register_synthetic_components()
     _, runner = make_rl_runner(parse_custom_args(argv + [f"--train_dir={train_dir}", "--device=gpu", "--seed=0"]))
     clock = IterationClock()
     runner.register_observer(clock)
     runner.init()
+    if before_run is not None:
+        before_run(runner)
     torch.cuda.synchronize()
     cuda_rnn.reset_launch_counts()
     start = time.perf_counter()
@@ -261,30 +274,71 @@ def train(torch, cuda_rnn, argv, train_dir):
     return runner, counts, stats, [start] + clock.times
 
 
-COMMON = [
-    "--env=grid_battle", "--async_rl=False", "--use_rnn=True", "--rnn_size=256",
-    "--encoder_conv_architecture=convnet_impala", "--encoder_conv_mlp_layers", "256",
-    "--rollout=32", "--recurrence=32", "--num_epochs=1", "--num_workers=1", "--normalize_input=True",
-    "--save_every_sec=100000", "--save_best_every_sec=100000", "--experiment_summaries_interval=100000",
-]
+QUIET = ["--save_every_sec=100000", "--save_best_every_sec=100000", "--experiment_summaries_interval=100000", "--num_workers=1"]
+GRID_BATTLE = [
+    "--env=grid_battle", "--use_rnn=True", "--rnn_size=256", "--encoder_conv_mlp_layers", "256",
+    "--rollout=32", "--recurrence=32", "--num_epochs=1", "--normalize_input=True",
+] + QUIET
+COMMON = GRID_BATTLE + ["--async_rl=False", "--encoder_conv_architecture=convnet_impala"]
+MAIN_MODEL = ["--rnn_type=gru", "--compute_dtype=bfloat16", "--batch_size=16384"]
+
+
+def record_rollouts(runner, seen):
+    """Wrap the runner's rollout function: note the module and the version each rollout was
+    given, and the trajectory's stamps and action tensor."""
+    rollout_fn = runner._rollout_fn
+
+    def rollout(model, obs_rms, ss, version, pid):
+        out = rollout_fn(model, obs_rms, ss, version, pid)
+        traj = out[1]
+        seen.append({"model": model, "version": int(version), "train_step": runner.train_state.train_step,
+                     "stamp_min": traj["policy_version"].min(), "stamp_max": traj["policy_version"].max(),
+                     "actions_shape": tuple(traj["actions"].shape), "actions_dtype": traj["actions"].dtype})
+        return out
+
+    runner._rollout_fn = rollout
+
+
+def timed_iteration(torch, runner):
+    """One more iteration of the runner's regime with a sync after each part (host clock):
+    rollout, learner and, in the async regime, the refresh of the behaviour snapshot."""
+    ts, cfg = runner.train_state, runner.cfg
+    model, version = (runner.behavior_model, runner.behavior_version) if cfg.async_rl else (ts.model, ts.train_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.sampler_state, traj, _ = runner._rollout_fn(model, ts.obs_rms, runner.sampler_state, version, runner.policy_id)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    runner._train_fn(ts, traj, runner.train_generator)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = {"rollout_ms": (t1 - t0) * 1e3, "train_ms": (t2 - t1) * 1e3}
+    if cfg.async_rl:
+        with torch.no_grad():
+            torch._foreach_copy_(list(runner.behavior_model.parameters()), list(ts.model.parameters()))
+        runner.behavior_version = ts.train_step
+        torch.cuda.synchronize()
+        out["snapshot_copy_ms"] = (time.perf_counter() - t2) * 1e3
+    out["env_steps_per_s"] = cfg.num_envs * cfg.rollout / (time.perf_counter() - t0)
+    return out
 
 
 def phase_main(torch, cuda_rnn, card, tmp):
     iters, envs = 3, 1024
-    argv = COMMON + ["--rnn_type=gru", "--compute_dtype=bfloat16", "--batch_size=16384", f"--num_envs={envs}",
-                     f"--train_for_env_steps={iters * envs * 32}", "--experiment=grid_battle_gru"]
+    argv = COMMON + MAIN_MODEL + [f"--num_envs={envs}", f"--train_for_env_steps={iters * envs * 32}", "--experiment=grid_battle_gru"]
     runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp)
     per_iter = [b - a for a, b in zip(times, times[1:])]
     check(len(per_iter) == iters, f"expected {iters} iterations, ran {len(per_iter)}")
     check(counts["gru_seq"] == 2 * iters, f"GRU kernel launches {counts['gru_seq']}, expected {2 * iters}")
     check(counts["lstm_seq"] == 0, "LSTM kernel launched on the GRU path")
     steady = per_iter[1:]
+    steady_rate = envs * 32 * len(steady) / sum(steady)
     emit({"phase": "main", "env": "grid_battle", "envs": envs, "rollout": 32, "iterations": iters,
           "env_steps": runner.env_steps, "launches": counts, "iteration_s": per_iter,
-          "env_steps_per_s_steady": envs * 32 * len(steady) / sum(steady),
+          "env_steps_per_s_steady": steady_rate,
           "env_steps_per_s_all": runner.env_steps / sum(per_iter),
           "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
-    return runner, counts
+    return runner, counts, steady_rate
 
 
 def phase_breakdown(torch, runner, card):
@@ -365,14 +419,193 @@ def phase_lstm(torch, cuda_rnn, card, tmp):
     return counts
 
 
+def median_split(splits):
+    return {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+
+
+def advantage_loops_ms(torch, envs, segments, T=32, reps=10):
+    """Host-clock time (synced, median) of the two reverse-time loops at the main path's
+    sizes: V-trace on one minibatch [T, segments], which the async V-trace learner runs per
+    minibatch, and GAE on the whole rollout [T, envs], which it skips."""
+    from sample_factory_tpu_torch.algo.advantages import gae_advantages, vtrace
+
+    def rand(*shape):
+        return torch.rand(shape, device="cuda")
+
+    def timed(fn):
+        times = []
+        for _ in range(reps + 2):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        return statistics.median(times[2:])
+
+    r, d, v, ratio = rand(T, segments), (rand(T, segments) < 0.05).float(), rand(T, segments), rand(T, segments) + 0.5
+    gr, gd, gv, valids = rand(T, envs), (rand(T, envs) < 0.05).float(), rand(T + 1, envs), torch.ones(T + 1, envs, device="cuda")
+    return {"vtrace_loop_ms_per_minibatch": timed(lambda: vtrace(r, d, v, ratio, 0.99, 1.0, 1.0)),
+            "gae_loop_ms_per_rollout": timed(lambda: gae_advantages(gr, gd, gv, valids, 0.99, 0.95))}
+
+
+def phase_appo(torch, cuda_rnn, card, tmp, sync_runner, sync_rate):
+    """The default regime: no --async_rl flag, V-trace. The rollout of iteration k runs the
+    behaviour module at the version from before train call k; each train call takes 2 SGD
+    steps, so the learner sees a lag of 2 and never 0. Then the two regimes in turns
+    (sync, async, async, sync, three times): the host's clock drifts by tens of percent
+    within a run, so only iterations taken side by side compare."""
+    iters, envs, sgd_steps = 3, 1024, 2
+    argv = GRID_BATTLE + MAIN_MODEL + ["--encoder_conv_architecture=convnet_impala", "--with_vtrace=True", f"--num_envs={envs}",
+                                      f"--train_for_env_steps={iters * envs * 32}", "--experiment=grid_battle_appo"]
+    seen, lags = [], []
+
+    def before_run(runner):
+        from sample_factory_tpu_torch.runner.runner import AlgoObserver
+
+        class Lag(AlgoObserver):
+            def on_training_iteration(self, runner, stats):
+                lags.append(float(stats["version_diff_max"]))
+
+        check(runner.cfg.async_rl and runner.cfg.with_vtrace and not runner.cfg.normalize_returns, "not the async V-trace regime")
+        check(runner.behavior_model is not None and runner.behavior_model is not runner.train_state.model, "no behaviour snapshot")
+        record_rollouts(runner, seen)
+        runner.register_observer(Lag())
+
+    runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, before_run)
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    check(len(per_iter) == iters, f"expected {iters} iterations, ran {len(per_iter)}")
+    check(counts["gru_seq"] == 2 * iters, f"GRU kernel launches {counts['gru_seq']}, expected {2 * iters}")
+    check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched on the GRU path: {counts}")
+    live = list(runner.train_state.model.parameters())
+    snapshot = list(runner.behavior_model.parameters())
+    check(all(a.data_ptr() != b.data_ptr() for a, b in zip(live, snapshot)), "the snapshot shares storage with the trained model")
+    check(all(bool(torch.equal(a, b)) for a, b in zip(live, snapshot)), "the snapshot was not refreshed after the last train call")
+    versions = [it["version"] for it in seen]
+    check(all(it["model"] is runner.behavior_model for it in seen), "a rollout ran the trained model, not the snapshot")
+    check(versions == [sgd_steps * k for k in range(iters)], f"rollout versions {versions}")
+    check(all(int(it["stamp_min"]) == int(it["stamp_max"]) == it["version"] == it["train_step"] for it in seen),
+          "trajectory stamps differ from the version before the train call")
+    check(lags == [float(sgd_steps)] * iters, f"policy lag seen by the learner {lags}, expected {sgd_steps} each iteration")
+    steady = per_iter[1:]
+    rate = envs * 32 * len(steady) / sum(steady)
+    turns = {"sync": [], "appo": []}
+    for _ in range(3):
+        for name, which in (("sync", sync_runner), ("appo", runner), ("appo", runner), ("sync", sync_runner)):
+            turns[name].append(timed_iteration(torch, which))
+    split = {"reps": {k: len(v) for k, v in turns.items()}, "stat": "median of iterations taken in turns, host clock, synced",
+             "sync_gae": median_split(turns["sync"]), "async_vtrace": median_split(turns["appo"]),
+             **advantage_loops_ms(torch, envs, 16384 // 32)}
+    emit({"phase": "appo", "env": "grid_battle", "regime": "async_rl (default), with_vtrace", "envs": envs, "rollout": 32,
+          "iterations": iters, "env_steps": runner.env_steps, "launches": counts, "iteration_s": per_iter,
+          "rollout_versions": versions, "policy_lag_sgd_steps": lags, "env_steps_per_s_steady": rate,
+          "env_steps_per_s_steady_sync_main": sync_rate, "regimes_in_turns": split,
+          "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+    return counts
+
+
+def phase_ant(torch, cuda_rnn, card, tmp):
+    from sample_factory_tpu_torch.models.action_parameterization import ActionParameterizationDefault
+
+    iters, envs, rollout = 2, 4096, 16
+    argv = QUIET + ["--env=ant", "--use_rnn=False", "--encoder_mlp_layers", "256", "128", "64", f"--rollout={rollout}",
+                    "--recurrence=1", "--batch_size=32768", "--num_epochs=4", f"--num_envs={envs}", "--async_rl=False",
+                    "--normalize_input=True", "--normalize_returns=True",
+                    f"--train_for_env_steps={iters * envs * rollout}", "--experiment=ant"]
+    seen = []
+    runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, lambda runner: record_rollouts(runner, seen))
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    check(len(per_iter) == iters, f"expected {iters} iterations, ran {len(per_iter)}")
+    check(all(v == 0 for v in counts.values()), f"an RNN kernel launched on the feed-forward path: {counts}")
+    check(all(it["actions_shape"] == (rollout, envs, 8) and it["actions_dtype"] == torch.float32 for it in seen),
+          f"action tensors {[(it['actions_shape'], it['actions_dtype']) for it in seen]}")
+    obs = runner.sampler_state.obs["obs"]
+    check(tuple(obs.shape) == (envs, 59) and bool(torch.isfinite(obs).all()), "ant observations are not finite [4096, 59]")
+    state = runner.sampler_state.env_states
+    check(all(bool(torch.isfinite(v).all()) for k, v in state.items() if k != "steps"), "ant physics state is not finite")
+    head = runner.model.action_parameterization
+    check(runner.cfg.adaptive_stddev and isinstance(head, ActionParameterizationDefault)
+          and head.distribution_linear.out_features == 16, "not the adaptive-stddev head (8 means + 8 log-stddevs)")
+    check(runner.train_state.returns_rms is not None and runner.train_state.obs_rms is not None, "normalizers missing")
+    split = median_split([timed_iteration(torch, runner) for _ in range(3)])
+    emit({"phase": "ant", "env": "ant", "envs": envs, "rollout": rollout, "iterations": iters, "env_steps": runner.env_steps,
+          "launches": counts, "iteration_s": per_iter, "env_steps_per_s_last": envs * rollout / per_iter[-1],
+          "split_median_of_3_more_iterations": split, "epochs_executed": stats["epochs_executed"],
+          "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+    return counts
+
+
+def phase_towers(torch, cuda_rnn, card, tmp):
+    import copy
+
+    import numpy as np
+
+    envs, minibatches, layers, H = 128, 1, 2, 256
+    argv = GRID_BATTLE + ["--encoder_conv_architecture=resnet_impala", "--actor_critic_share_weights=False", "--rnn_type=lstm",
+                          f"--rnn_num_layers={layers}", "--optimizer=lamb", "--lamb_lookahead=True", "--compute_dtype=float32",
+                          "--batch_size=4096", f"--num_envs={envs}", f"--train_for_env_steps={envs * 32}",
+                          "--experiment=grid_battle_towers"]
+    runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp)
+    per_minibatch = 2 * layers  # 2 towers x 2 layers, one launch each per minibatch
+    check(counts["lstm_seq"] == per_minibatch * minibatches, f"LSTM kernel launches {counts}, expected {per_minibatch * minibatches}")
+    check(all(v == 0 for k, v in counts.items() if k != "lstm_seq"), f"other kernels launched on the LSTM path: {counts}")
+    group = runner.train_state.optimizer.param_groups[0]
+    check(group["lookahead"] and group["step"] == minibatches, f"LAMB with lookahead took {group['step']} steps")
+
+    # the trained model on the card against a deep copy on the CPU (plain versions)
+    model = runner.train_state.model
+    cpu_model = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(3)
+    S, R = 4, 32
+    obs = torch.tensor(rng.random((S, R, 24, 24, 3)).astype(np.float32))
+    rnn = torch.tensor((rng.normal(size=(S, 2 * layers * 2 * H)) * 0.5).astype(np.float32))
+    resets = torch.tensor((rng.random((R, S)) < 0.1).astype(np.float32))
+
+    def forward(m, device):
+        head = m.forward_head({"obs": obs.to(device)})
+        outs, final = m.forward_core_seq(head.transpose(0, 1), rnn.to(device), resets.to(device))
+        logits, values = m.forward_tail(outs.transpose(0, 1).reshape(S * R, -1))
+        return logits, values, final
+
+    with torch.no_grad():
+        before = sum(cuda_rnn.launch_counts().values())
+        on_card = forward(model, "cuda")
+        torch.cuda.synchronize()
+        check(sum(cuda_rnn.launch_counts().values()) == before + per_minibatch, "model check did not run the LSTM kernels")
+        on_cpu = forward(cpu_model, "cpu")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    tol = 1e-3  # float32 with TF32 off; convolution and matmul sums run in other orders on the two devices
+    emit({"phase": "towers", "envs": envs, "env_steps": runner.env_steps, "launches": counts,
+          "launches_per_minibatch": per_minibatch, "iteration_s": [b - a for a, b in zip(times, times[1:])],
+          "loss": stats["loss"], "grad_norm": stats["grad_norm"], "model_card_vs_cpu_max_abs_err": err, "tol": tol, "card": card})
+    check(all(bool(torch.isfinite(t).all()) for t in on_card), "non-finite model outputs")
+    check(err <= tol, f"model on the card vs the CPU: {err} > {tol}")
+    return counts
+
+
+def phase_enjoy(torch, card, tmp):
+    from sample_factory_tpu_torch.enjoy import enjoy
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+
+    cfg = parse_custom_args(["--env=grid_battle", "--experiment=grid_battle_appo", f"--train_dir={tmp}", "--no_render"], evaluation=True)
+    episodes = []
+    start = time.perf_counter()
+    status, avg_reward = enjoy(cfg, num_episodes=8, num_envs=16, collect_episodes=episodes)
+    check(status == 0, f"enjoy returned status {status}")
+    check(len(episodes) >= 8 and math.isfinite(avg_reward), f"enjoy: {len(episodes)} episodes, average reward {avg_reward}")
+    emit({"phase": "enjoy", "checkpoint_of": "appo", "envs": 16, "episodes": len(episodes), "avg_reward": avg_reward,
+          "avg_len": sum(n for _, n in episodes) / len(episodes), "seconds": time.perf_counter() - start, "card": card})
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    from sample_factory_tpu_torch.examples.train_synthetic import register_synthetic_components
     from sample_factory_tpu_torch.ops import cuda_rnn
 
+    register_synthetic_components()
     # full-precision float32 products for the comparisons (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -399,13 +632,21 @@ def main() -> int:
     main_err = phase_parity(torch, cuda_rnn)
     timing = phase_timing(torch, cuda_rnn, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        runner, gru_counts = phase_main(torch, cuda_rnn, card, tmp)
+        paths = {}
+        runner, paths["main"], sync_rate = phase_main(torch, cuda_rnn, card, tmp)
         phase_breakdown(torch, runner, card)
-        lstm_counts = phase_lstm(torch, cuda_rnn, card, tmp)
+        paths["lstm"] = phase_lstm(torch, cuda_rnn, card, tmp)
+        paths["appo"] = phase_appo(torch, cuda_rnn, card, tmp, runner, sync_rate)
+        del runner
+        paths["ant"] = phase_ant(torch, cuda_rnn, card, tmp)
+        paths["towers"] = phase_towers(torch, cuda_rnn, card, tmp)
+        phase_enjoy(torch, card, tmp)
 
-    launches = {"gru_seq": gru_counts["gru_seq"], "lstm_seq": lstm_counts["lstm_seq"]}
+    # launches: each path was driven with the counts at 0 just before it and read just after
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+         "launches": sum(counts[name] for counts in paths.values()),
+         "paths": {path: counts[name] for path, counts in paths.items()},
          "max_abs_err": main_err[name], **timing[name], "library_ms": None}
         for name in ("gru_seq", "lstm_seq")
     ]})

@@ -1,25 +1,26 @@
-"""Categorical action distribution with optional masking.
+"""Action distributions: categorical (with masking), diagonal Gaussian, tuple.
 
-Counterpart of `CategoricalDistribution` in `sample_factory_tpu/algo/distributions.py:32-100`
-(reference `sample_factory/algo/utils/action_distributions.py`: masked softmax
-:84-95, Categorical :100-196). Continuous and tuple distributions follow in a
-later slice (ROADMAP).
+Counterpart of `sample_factory_tpu/algo/distributions.py` (reference
+`sample_factory/algo/utils/action_distributions.py`: masked softmax :84-95,
+Categorical :100-196, Tuple :197-286, Continuous :290-323).
 
 Conventions (the trajectory schema): actions carry a trailing action dim
-(Discrete -> [..., 1]); log_prob/entropy/kl return shape [...].
-Sampling is Gumbel-max on uniform noise from a `torch.Generator`; `sample`
-also takes the noise as a tensor, so that a test can feed the JAX draws.
+(Discrete -> [..., 1], Box(d) -> [..., d], Tuple -> [..., sum(num_actions)]);
+log_prob/entropy/kl return shape [...].
+Sampling draws its noise from a `torch.Generator`; the categorical `sample`
+(Gumbel-max on uniform noise) also takes the noise as a tensor, so that a test
+can feed the JAX draws.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from sample_factory_tpu_torch.envs.spaces import Discrete, num_action_parameters
+from sample_factory_tpu_torch.envs.spaces import Box, Discrete, TupleSpec, num_action_parameters, num_actions
 
 
 def masked_softmax(logits, mask):
@@ -92,15 +93,97 @@ class CategoricalDistribution:
         return 0.5 * (fwd + bwd)
 
 
+class ContinuousDistribution:
+    """Diagonal Gaussian over flat Box actions (independent normals)."""
+
+    stddev_min: float = 1e-4
+    stddev_max: float = 1e4
+
+    def __init__(self, params):
+        # params [..., 2d] = concat(means, log_std)
+        d = params.shape[-1] // 2
+        self.means = params[..., :d]
+        self.log_std = params[..., d:]
+        self.stddevs = torch.exp(self.log_std).clamp(self.stddev_min, self.stddev_max)
+
+    def sample(self, generator: Optional[torch.Generator] = None):
+        eps = torch.randn(self.means.shape, generator=generator, device=self.means.device, dtype=self.means.dtype)
+        return self.means + self.stddevs * eps
+
+    def argmax(self):
+        return self.means
+
+    def log_prob(self, actions):
+        lp = -0.5 * (actions - self.means).square() / self.stddevs.square() - torch.log(self.stddevs) - 0.5 * math.log(2 * math.pi)
+        return lp.sum(dim=-1)
+
+    def entropy(self):
+        return (0.5 + 0.5 * math.log(2 * math.pi) + torch.log(self.stddevs)).sum(dim=-1)
+
+    def kl_divergence(self, other: "ContinuousDistribution"):
+        kl = (
+            torch.log(other.stddevs / self.stddevs)
+            + (self.stddevs.square() + (self.means - other.means).square()) / (2.0 * other.stddevs.square())
+            - 0.5
+        )
+        return kl.sum(dim=-1)
+
+    def symmetric_kl_with_uniform_prior(self):
+        # as the reference: a uniform prior over the reals is undefined, so negative entropy
+        return -self.entropy()
+
+
+class TupleDistribution:
+    """Tuple of independent action distributions (reference :197-286)."""
+
+    def __init__(self, space: TupleSpec, logits_flat, action_mask: Optional[Sequence] = None):
+        self.space = space
+        self.action_lengths = [num_actions(s) for s in space.spaces]
+        self.distributions = []
+        offset = 0
+        for i, s in enumerate(space.spaces):
+            width = num_action_parameters(s)
+            mask = action_mask[i] if action_mask is not None else None
+            self.distributions.append(get_action_distribution(s, logits_flat[..., offset : offset + width], mask))
+            offset += width
+
+    def sample(self, generator: Optional[torch.Generator] = None):
+        return torch.cat([d.sample(generator).float() for d in self.distributions], dim=-1)
+
+    def argmax(self):
+        return torch.cat([d.argmax().float() for d in self.distributions], dim=-1)
+
+    def log_prob(self, actions):
+        parts = torch.split(actions, self.action_lengths, dim=-1)
+        return sum(d.log_prob(a) for d, a in zip(self.distributions, parts))
+
+    def entropy(self):
+        return sum(d.entropy() for d in self.distributions)
+
+    def kl_divergence(self, other: "TupleDistribution"):
+        return sum(d.kl_divergence(o) for d, o in zip(self.distributions, other.distributions))
+
+    def symmetric_kl_with_uniform_prior(self):
+        return sum(d.symmetric_kl_with_uniform_prior() for d in self.distributions)
+
+
 def get_action_distribution(space, raw_logits, action_mask=None):
     assert num_action_parameters(space) == raw_logits.shape[-1], (
         f"expected {num_action_parameters(space)} action params for {space}, got {raw_logits.shape[-1]}"
     )
     if isinstance(space, Discrete):
         return CategoricalDistribution(raw_logits, action_mask)
-    raise NotImplementedError(f"Action space {space!r} is not ported yet (ROADMAP: continuous/tuple distributions)")
+    if isinstance(space, TupleSpec):
+        return TupleDistribution(space, raw_logits, action_mask)
+    if isinstance(space, Box):
+        return ContinuousDistribution(raw_logits)
+    raise NotImplementedError(f"Action space {space!r} not supported")
 
 
 def sample_actions_log_probs(distribution, generator=None):
     actions = distribution.sample(generator)
     return actions, distribution.log_prob(actions)
+
+
+def argmax_actions(distribution):
+    return distribution.argmax()

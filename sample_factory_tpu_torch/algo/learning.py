@@ -1,9 +1,9 @@
-"""The learner: sync PPO over one collected trajectory.
+"""The learner: PPO/APPO over one collected trajectory.
 
-Counterpart of `sample_factory_tpu/algo/learning.py` without V-trace (ROADMAP
-A9), with the same math: `prepare_batch` (:238-317: valids, obs
+Counterpart of `sample_factory_tpu/algo/learning.py`, with the same math:
+`prepare_batch` (:238-317: valids from policy id and policy lag, obs
 normalization, T+1 bootstrap value, GAE, returns normalization),
-`compute_losses` (:127-205), `sgd_step` (:209-236: manual clip by
+`compute_losses` (:127-205, with per-minibatch V-trace under --with_vtrace), `sgd_step` (:209-236: manual clip by
 max_grad_norm, LR x valid fraction) and `make_train_fn` (:322-405:
 contiguous or shuffled minibatches over epochs, early stop on a policy-loss
 plateau of 1e-6, summary stats from a random minibatch). The JAX package fuses
@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
-from sample_factory_tpu_torch.algo.advantages import gae_advantages
+from sample_factory_tpu_torch.algo.advantages import gae_advantages, vtrace
 from sample_factory_tpu_torch.algo.distributions import get_action_distribution
 from sample_factory_tpu_torch.algo.losses import (
     clamp_ratio,
@@ -121,8 +121,6 @@ def init_train_state(cfg, env_info, model: nn.Module, device) -> PolicyTrainStat
 def build_train_pieces(cfg, env_info, policy_id: int = 0):
     """The learner in two pieces: prepare_batch(ts, traj, pid) -> (dataset, valid_frac)
     and sgd_step(ts, valid_frac, minibatch) -> aux."""
-    if cfg.with_vtrace:
-        raise NotImplementedError("--with_vtrace is not ported yet (ROADMAP A9)")
     action_space = env_info.action_space
     use_rnn = cfg.use_rnn
     recurrence = max(1, cfg.recurrence)
@@ -159,8 +157,22 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
         ratio = clamp_ratio(torch.exp(log_probs - mb["log_prob_actions"]))
         valids = mb["valids"]
 
-        adv, adv_mean, adv_std = normalize_advantages(mb["advantages"], valids)
-        targets = mb["returns"]
+        if cfg.with_vtrace:
+            # per-minibatch V-trace on fresh values and ratios (reference :602-639);
+            # segments are whole rollouts (recurrence == rollout, checked by verify_cfg)
+            def time_major(x):
+                return seg(x).transpose(0, 1)  # [R, S]
+
+            with torch.no_grad():
+                vs, adv_tm = vtrace(
+                    time_major(mb["rewards"]), time_major(mb["dones"]), time_major(new_values), time_major(ratio),
+                    hp["gamma"], cfg.vtrace_rho, cfg.vtrace_c,
+                )
+            targets = vs.transpose(0, 1).reshape(B)
+            adv = adv_tm.transpose(0, 1).reshape(B)
+        else:
+            adv, targets = mb["advantages"], mb["returns"]
+        adv, adv_mean, adv_std = normalize_advantages(adv, valids)
 
         clip_ratio_high = 1.0 + hp["ppo_clip_ratio"]
         clip_ratio_low = 1.0 / clip_ratio_high
@@ -270,12 +282,17 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
             # count only timeouts in terminal states (reference :980-990)
             rewards = rewards + gamma * denorm_values[:-1] * traj["time_outs"] * traj["dones"]
 
-        advantages = gae_advantages(rewards, traj["dones"], denorm_values, valids, gamma, cfg.gae_lambda)
-        returns = advantages + valids[:-1] * denorm_values[:-1]
-        if cfg.normalize_returns and ts.returns_rms is not None:
-            # masked by valids: invalid slots carry structurally-zero returns
-            ts.returns_rms = rms_update(ts.returns_rms, returns.reshape(-1, 1), mask=valids_t.reshape(-1))
-            returns = rms_normalize(ts.returns_rms, returns[..., None])[..., 0]
+        if not cfg.with_vtrace:
+            advantages = gae_advantages(rewards, traj["dones"], denorm_values, valids, gamma, cfg.gae_lambda)
+            returns = advantages + valids[:-1] * denorm_values[:-1]
+            if cfg.normalize_returns and ts.returns_rms is not None:
+                # masked by valids: invalid slots carry structurally-zero returns
+                ts.returns_rms = rms_update(ts.returns_rms, returns.reshape(-1, 1), mask=valids_t.reshape(-1))
+                returns = rms_normalize(ts.returns_rms, returns[..., None])[..., 0]
+        else:
+            # V-trace computes both per minibatch, from fresh values and ratios
+            advantages = torch.zeros_like(rewards)
+            returns = torch.zeros_like(rewards)
 
         # flatten to an env-major dataset [N*T] with each env's rollout contiguous
         def to_dataset(x):

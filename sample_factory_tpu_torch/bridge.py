@@ -12,8 +12,10 @@ without the top-level "params" key); the output is the port model's
   NCHW flatten order.
 
 Module names follow flax's: `Conv_i` -> `conv.i`, `Dense_i` -> `dense.i`,
-`encoder/enc_<key>` -> `encoder.encoders.enc_<key>`, and the action head's
-`Dense_0` -> `distribution_linear`.
+`ResBlock_i` -> `resblock.i`, `<tower_>encoder/enc_<key>` ->
+`<tower_>encoder.encoders.enc_<key>` (the shared model's `encoder`, the
+separate model's `actor_encoder` and `critic_encoder`), and the action head's
+`Dense_0` -> `distribution_linear`; its `learned_stddev` keeps its name.
 """
 
 from __future__ import annotations
@@ -25,9 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from sample_factory_tpu_torch.models.encoder import ConvEncoder
-
-_LAYER = re.compile(r"(Conv|Dense)_(\d+)")
+_LAYER = re.compile(r"(Conv|Dense|ResBlock)_(\d+)")
+_FLAX_LAYER = {"conv": "Conv", "dense": "Dense", "resblock": "ResBlock"}
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -51,7 +52,7 @@ def _torch_name(path: Tuple[str, ...]) -> str:
             out.append("distribution_linear")
         elif m:
             out += [m.group(1).lower(), m.group(2)]
-        elif seg.startswith("enc_") and parent == "encoder":
+        elif seg.startswith("enc_") and parent is not None and parent.endswith("encoder"):
             out += ["encoders", seg]
         else:
             out.append(seg)
@@ -64,8 +65,8 @@ def _flax_path(name: str) -> Tuple[str, ...]:
     i = 0
     while i < len(segs):
         seg = segs[i]
-        if seg in ("conv", "dense") and i + 1 < len(segs) and segs[i + 1].isdigit():
-            out.append(f"{seg.capitalize()}_{segs[i + 1]}")
+        if seg in _FLAX_LAYER and i + 1 < len(segs) and segs[i + 1].isdigit():
+            out.append(f"{_FLAX_LAYER[seg]}_{segs[i + 1]}")
             i += 2
             continue
         if seg == "weight":
@@ -79,12 +80,12 @@ def _flax_path(name: str) -> Tuple[str, ...]:
 
 
 def _conv_owner(model: nn.Module, name: str):
-    """The ConvEncoder whose first dense layer holds parameter `name`, else None."""
+    """The conv or resnet encoder whose first dense layer holds parameter `name`, else None."""
     parts = name.split(".")
     if len(parts) < 4 or parts[-3:-1] != ["dense", "0"]:
         return None
     owner = model.get_submodule(".".join(parts[:-3]))
-    return owner if isinstance(owner, ConvEncoder) else None
+    return owner if hasattr(owner, "conv_out_hwc") else None
 
 
 def flax_to_state_dict(flax_params: Dict[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:

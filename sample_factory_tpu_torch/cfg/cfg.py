@@ -56,8 +56,7 @@ def add_rl_args(p: ArgumentParser) -> None:
         default=True,
         type=str2bool,
         help="Collect experience with a snapshot of the policy while the learner updates the live params "
-        "(policy-lag regime, V-trace/valids-aware). False = strictly on-policy sync PPO. "
-        "The PyTorch port implements the sync regime so far (ROADMAP A9).",
+        "(policy-lag regime, V-trace/valids-aware). False = strictly on-policy sync PPO.",
     )
     p.add_argument(
         "--serial_mode",

@@ -1,12 +1,11 @@
-"""Observation encoders: MLP, conv stacks, multi-input.
+"""Observation encoders: MLP, conv stacks, IMPALA resnet, multi-input.
 
 Counterpart of `sample_factory_tpu/models/encoder.py` (reference
 `sample_factory/model/encoder.py`: MultiInputEncoder :33, MlpEncoder :72,
-ConvEncoder :122-151). Observations stay NHWC at the encoder's interface, as on
+ConvEncoder :122-151, ResnetEncoder :173-231). Observations stay NHWC at the encoder's interface, as on
 the JAX side; the conv stack permutes to NCHW inside and flattens in NCHW
 order. `bridge.py` permutes the rows of the first Dense after the convs so that
 parameters carried over from flax give the same function.
-The IMPALA resnet encoder (`resnet_impala`) follows in a later slice.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from __future__ import annotations
 from typing import Dict, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sample_factory_tpu_torch.models.model_utils import Conv, Dense, nonlinearity
@@ -90,18 +90,77 @@ class ConvEncoder(nn.Module):
         return x
 
 
+class ResBlock(nn.Module):
+    def __init__(self, cfg, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.act = nonlinearity(cfg)
+        self.conv = nn.ModuleList([Conv(channels, channels, 3, 1, cfg, dtype, padding=1) for _ in range(2)])
+
+    def forward(self, x):
+        out = self.conv[0](self.act(x))
+        out = self.conv[1](self.act(out))
+        return out + x
+
+
+RESNET_CONF = ((16, 2), (32, 2), (32, 2))  # (channels, res blocks) per stage
+
+
+def max_pool_same(x):
+    """3x3 max-pool at stride 2 with XLA's SAME padding: an even size is padded by 0 before
+    and 1 after, an odd size by 1 on both sides (`nn.MaxPool2d(padding=1)` pads both sides
+    always). The padding is -inf, so it never wins."""
+    h, w = x.shape[-2:]
+    x = F.pad(x, (w % 2, 1, h % 2, 1), value=float("-inf"))
+    return F.max_pool2d(x, 3, stride=2)
+
+
+class ResnetEncoder(nn.Module):
+    """IMPALA resnet: three stages of conv, max-pool and two residual blocks (reference :173-231)."""
+
+    def __init__(self, cfg, obs_shape: Sequence[int], dtype=torch.float32):
+        super().__init__()
+        height, width, channels = obs_shape
+        self.act = nonlinearity(cfg)
+        self.dtype = dtype
+        self.conv = nn.ModuleList()
+        self.resblock = nn.ModuleList()
+        self.blocks_per_stage = [blocks for _, blocks in RESNET_CONF]
+        for out_ch, blocks in RESNET_CONF:
+            self.conv.append(Conv(channels, out_ch, 3, 1, cfg, dtype, padding=1))
+            self.resblock.extend(ResBlock(cfg, out_ch, dtype) for _ in range(blocks))
+            channels = out_ch
+            height, width = (height + 1) // 2, (width + 1) // 2
+        self.conv_out_hwc = (height, width, channels)
+        self.dense, self.out_features = dense_stack(cfg, height * width * channels, cfg.encoder_conv_mlp_layers, dtype)
+
+    def forward(self, obs):
+        """obs: [..., H, W, C] float (already normalized)."""
+        x = obs.to(self.dtype)
+        batch_dims = x.shape[:-3]
+        x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)
+        blocks = iter(self.resblock)
+        for conv, num_blocks in zip(self.conv, self.blocks_per_stage):
+            x = max_pool_same(conv(x))
+            for _ in range(num_blocks):
+                x = next(blocks)(x)
+        x = self.act(x).reshape(batch_dims + (-1,))
+        for layer in self.dense:
+            x = self.act(layer(x))
+        return x
+
+
 def make_img_encoder(cfg, obs_shape, dtype):
     if cfg.encoder_conv_architecture.startswith("convnet"):
         return ConvEncoder(cfg, obs_shape, dtype=dtype)
     if cfg.encoder_conv_architecture.startswith("resnet"):
-        raise NotImplementedError("resnet_impala is not ported to the PyTorch package yet (ROADMAP: other encoders)")
+        return ResnetEncoder(cfg, obs_shape, dtype=dtype)
     raise NotImplementedError(f"Unknown conv architecture {cfg.encoder_conv_architecture}")
 
 
 class MultiInputEncoder(nn.Module):
     """Encode each obs key (sorted order) and concatenate (reference :33-70).
 
-    1-D subspaces get the MLP encoder, >=2-D get a conv encoder. `action_mask`
+    1-D subspaces get the MLP encoder, >=2-D get a conv or resnet encoder. `action_mask`
     rides in the obs dict but feeds the action distribution, not the encoder.
     """
 

@@ -74,11 +74,12 @@ class Dense(nn.Module):
 
 
 class Conv(nn.Module):
-    """VALID-padded 2-D convolution on NCHW input, float32 params computed in `dtype`."""
+    """2-D convolution on NCHW input, float32 params computed in `dtype`. VALID padding by
+    default; `padding=kernel // 2` is flax's SAME for an odd kernel at stride 1."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int, cfg=None, dtype=torch.float32):
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int, cfg=None, dtype=torch.float32, padding: int = 0):
         super().__init__()
-        self.cfg, self.dtype, self.stride = cfg, dtype, stride
+        self.cfg, self.dtype, self.stride, self.padding = cfg, dtype, stride, padding
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_channels))
 
@@ -89,7 +90,7 @@ class Conv(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=self.stride)
+        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=self.stride, padding=self.padding)
 
 
 def init_parameters_(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:

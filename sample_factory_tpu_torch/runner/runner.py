@@ -1,16 +1,24 @@
-"""The Runner: host-side orchestration of sync PPO on one device.
+"""The Runner: host-side orchestration of PPO/APPO on one device.
 
-Counterpart of the sync path of `sample_factory_tpu/runner/runner.py`
-(reference `sample_factory/algo/runners/runner.py`: main loop, stats,
-periodic checkpoint/summary timers, termination). One iteration is a rollout
-with the live parameters (on-policy) followed by the learner update
-(`train_iteration_sync`, :194-213); `--fused_iterations=K` runs K of them per
-iteration, with episodic sums added up. Stats stay on the device until a
-report reads them. The async regime (policy lag) is ROADMAP A9.
+Counterpart of `sample_factory_tpu/runner/runner.py` (reference
+`sample_factory/algo/runners/runner.py`: main loop, stats, periodic
+checkpoint/summary timers, termination). Regimes:
+  - sync (--async_rl=False): a rollout with the live parameters followed by the
+    learner update (`train_iteration_sync`, :194-213); `--fused_iterations=K`
+    runs K of them per iteration, with episodic sums added up.
+  - async (--async_rl=True, the default): the rollout runs a behaviour model, a
+    snapshot of the parameters with the version they had when it was taken
+    (`train_iteration_async`, :215-223); after the train call the snapshot is
+    refreshed for the next rollout (:258-260). The optimizer updates the
+    trained model in place, so the snapshot is a second module that the
+    parameters are copied into on the device. The version-stamped trajectory
+    passes through the learner's policy-lag mask and V-trace.
+Stats stay on the device until a report reads them.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Any, Dict, Optional
@@ -55,7 +63,7 @@ class AlgoObserver:
 
 
 class Runner:
-    """Single-policy, single-device, on-device-env sync training runner."""
+    """Single-policy, single-device, on-device-env training runner."""
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -69,6 +77,8 @@ class Runner:
         self.model = None
         self.train_state = None
         self.sampler_state = None
+        self.behavior_model = None  # async regime: the rollout's snapshot of the parameters
+        self.behavior_version = 0
         self.train_generator: Optional[torch.Generator] = None
 
         self.env_steps = 0
@@ -128,7 +138,14 @@ class Runner:
 
         self._rollout_fn = make_rollout_fn(cfg, env, self.env_info)
         self._train_fn = make_train_fn(cfg, self.env_info, self.policy_id)
-        self._fused_iterations = max(1, int(getattr(cfg, "fused_iterations", 1)))
+        fused = max(1, int(getattr(cfg, "fused_iterations", 1)))
+        if cfg.async_rl:
+            if fused > 1:
+                log.warning("--fused_iterations>1 requires sync mode (async policy lag assumes K=1); using 1")
+                fused = 1
+            self.behavior_model = copy.deepcopy(self.model).requires_grad_(False)
+            self.behavior_version = self.train_state.train_step
+        self._fused_iterations = fused
         for obs in self.observers:
             obs.on_init(self)
 
@@ -143,6 +160,19 @@ class Runner:
             ep_total = ep_stats if ep_total is None else {k: ep_total[k] + v for k, v in ep_stats.items()}
         self.sampler_state = ss
         return stats, ep_total
+
+    def train_iteration_async(self):
+        """Policy-lag regime: rollout with the behaviour snapshot and its version, train
+        the live parameters, then refresh the snapshot for the next rollout."""
+        ts = self.train_state
+        self.sampler_state, traj, ep_stats = self._rollout_fn(
+            self.behavior_model, ts.obs_rms, self.sampler_state, self.behavior_version, self.policy_id
+        )
+        stats = self._train_fn(ts, traj, self.train_generator)
+        with torch.no_grad():
+            torch._foreach_copy_(list(self.behavior_model.parameters()), list(ts.model.parameters()))
+        self.behavior_version = ts.train_step
+        return stats, ep_stats
 
     # ------------------------------------------------------------------- run
 
@@ -159,7 +189,7 @@ class Runner:
         iterations = 0
         try:
             while not self._should_end_training():
-                stats, ep_stats = self.train_iteration_sync()
+                stats, ep_stats = self.train_iteration_async() if cfg.async_rl else self.train_iteration_sync()
                 iterations += 1
                 if profiler is not None and iterations == PROFILED_ITERATIONS:
                     self._stop_profiler(profiler)

@@ -2,9 +2,9 @@
 reference `sample_factory/train.py`): resolve the config, with resume-merge of
 the saved config.json, build the runner and run it.
 
-Ported so far: single-policy sync PPO on a single-agent on-device env. Every
-other branch of the JAX package raises NotImplementedError naming its
-ROADMAP item.
+Ported: the single-policy runner on a single-agent on-device env, sync and
+async (the default). Populations and multi-agent envs, host envs, multi-host
+runs and wandb raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,8 +27,6 @@ def make_rl_runner(cfg, register_fn=None):
         )
     if cfg.jax_distributed:
         raise NotImplementedError("multi-host runs are not ported yet (ROADMAP A13)")
-    if cfg.async_rl:
-        raise NotImplementedError("--async_rl=True (APPO policy lag) is not ported yet (ROADMAP A9); pass --async_rl=False")
     if cfg.with_wandb:
         raise NotImplementedError("--with_wandb is not ported yet (ROADMAP A14)")
 

@@ -203,3 +203,67 @@ def test_adam_under_injected_lr_matches_optax():
         opt.step()
     for k in p0:
         _close(tp[k], jp[k], atol=1e-6)
+
+
+@pytest.mark.parametrize("rho_hat,c_hat", [(1.0, 1.0), (0.8, 1.3)])
+def test_vtrace_matches_jax(rho_hat, c_hat):
+    """Random [R, S] with dones and importance ratios on both sides of the clips: 1e-6."""
+    rng = np.random.default_rng(8)
+    R, S = 12, 7
+    rewards = rng.normal(size=(R, S)).astype(np.float32)
+    dones = (rng.random((R, S)) < 0.2).astype(np.float32)
+    values = rng.normal(size=(R, S)).astype(np.float32)
+    ratios = np.exp(rng.normal(size=(R, S)) * 0.5).astype(np.float32)
+    assert (ratios > max(rho_hat, c_hat)).any() and (ratios < min(rho_hat, c_hat)).any() and dones[-1].any()
+    jvs, jadv_ = jadv.vtrace(*map(jnp.asarray, (rewards, dones, values, ratios)), 0.99, rho_hat, c_hat)
+    tvs, tadv = advantages.vtrace(*map(torch.tensor, (rewards, dones, values, ratios)), 0.99, rho_hat, c_hat)
+    _close(tvs, jvs)
+    _close(tadv, jadv_)
+
+
+@pytest.mark.parametrize("lookahead", [False, True], ids=["lamb", "lamb-lookahead"])
+def test_lamb_under_injected_lr_matches_optax(lookahead):
+    """K=12 updates on identical gradients: with --lamb_lookahead_k=5 the slow weights sync at
+    updates 1, 6 and 11 (the count starts at 0). A zero weight vector and a zero gradient
+    take the trust-ratio-1 branch. Then the optimizer state goes through its state_dict."""
+    argv = ["--optimizer=lamb", f"--lamb_lookahead={lookahead}", "--lamb_lookahead_k=5", "--lamb_lookahead_alpha=0.5"]
+    jcfg, tcfg = jax_default_cfg(env="e", argv=argv), default_cfg(env="e", argv=argv + ["--device=cpu"])
+    rng = np.random.default_rng(7)
+    p0 = {"w": rng.normal(size=(4, 3)).astype(np.float32), "b": np.zeros((3,), np.float32), "big": (rng.normal(size=(40,)) * 5).astype(np.float32)}
+    grads = [{k: (rng.normal(size=v.shape) * 10.0 ** rng.integers(-3, 1)).astype(np.float32) for k, v in p0.items()} for _ in range(12)]
+    grads[0]["b"][:] = 0.0  # zero weights and a zero step: trust 1
+    lrs = [1e-3, 5e-4, 2e-3, 1e-4, 7e-4, 1e-3] * 2
+
+    tx = jax_make_optimizer(jcfg)
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    state = tx.init(jp)
+    tp = {k: torch.nn.Parameter(torch.tensor(v)) for k, v in p0.items()}
+    opt = make_optimizer(tcfg, list(tp.values()))
+
+    def update(opt, tp, g, lr):
+        for k, p in tp.items():
+            p.grad = torch.tensor(g[k])
+        set_lr(opt, lr)
+        opt.step()
+
+    for step, (g, lr) in enumerate(zip(grads, lrs)):
+        if step == 8:
+            # a fresh optimizer that loads the state (moments, count, slow weights) goes on alike
+            saved = {k: v.detach().clone() for k, v in tp.items()}
+            tp2 = {k: torch.nn.Parameter(torch.zeros_like(v)) for k, v in tp.items()}
+            opt2 = make_optimizer(tcfg, list(tp2.values()))
+            opt2.load_state_dict(opt.state_dict())
+            for k in tp2:
+                tp2[k].data.copy_(saved[k])
+            opt, tp = opt2, tp2
+        state.hyperparams["learning_rate"] = jnp.asarray(lr)
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, jp)
+        jp = jax.tree.map(lambda p, u: p + u, jp, updates)
+        update(opt, tp, g, lr)
+        for k in p0:
+            _close(tp[k], jp[k], atol=1e-6)
+    assert opt.param_groups[0]["step"] == 12
+    if lookahead:
+        slow = state.inner_state[-1].slow
+        for k, p in tp.items():
+            _close(opt.state[p]["slow"], slow[k], atol=1e-6)

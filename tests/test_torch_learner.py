@@ -43,7 +43,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T, N, RNN, OBS = 8, 4, 32, (36, 36, 3)
 
 
-def _trajectory(seed=0):
+def _trajectory(seed=0, versions=None):
     rng = np.random.default_rng(seed)
     dones = (rng.random((T, N)) < 0.15).astype(np.float32)
     return {
@@ -57,7 +57,7 @@ def _trajectory(seed=0):
         "dones": dones,
         "time_outs": dones * (rng.random((T, N)) < 0.5),
         # one env's last steps come from another policy -> invalid, reset in BPTT
-        "policy_version": np.zeros((T, N), np.int32),
+        "policy_version": np.zeros((T, N), np.int32) if versions is None else versions.astype(np.int32),
         "policy_id": np.where((np.arange(N)[None] == 1) & (np.arange(T)[:, None] >= 5), 1, 0).astype(np.int32),
     }
 
@@ -129,6 +129,62 @@ def test_one_train_call_matches_jax(extra):
         assert np.isfinite(float(tstats[key]))
 
 
+def test_vtrace_update_with_policy_lag_matches_jax():
+    """One train call under --with_vtrace (GRU, recurrence == rollout) at train step 10 with
+    --max_policy_lag=5: env 2 was collected at version 3 (lag 7, masked out as a whole) and
+    env 3's first steps at version 5 (lag 5, masked), the rest at version 8. Parameters and
+    stats against the JAX train call: 1e-5, as for GAE above."""
+    extra = ["--with_vtrace=True", "--vtrace_rho=0.9", "--vtrace_c=1.1", "--max_policy_lag=5", "--normalize_returns=False"]
+    (jcfg, jinfo, jmodel, tx, jts), (tcfg, tinfo, tts) = _setup(extra)
+    versions = np.full((T, N), 8)
+    versions[:, 2] = 3
+    versions[:3, 3] = 5
+    traj = _trajectory(versions=versions)
+    jtraj, ttraj = _to(traj, jnp.asarray), _to(traj, torch.tensor)
+    jts = jts.replace(train_step=jnp.asarray(10, jnp.int32))
+    tts.train_step = 10
+    assert tts.returns_rms is None and jts.returns_rms is None
+
+    _, jax_prepare = jax_build_train_pieces(jcfg, jinfo, jmodel, tx)
+    _, jdata, jfrac = jax.jit(jax_prepare, static_argnums=2)(jts, jtraj, 0)
+    _, prepare = build_train_pieces(tcfg, tinfo)
+    _, fresh = _setup(extra)
+    fresh[2].train_step = 10
+    tdata, tfrac = prepare(fresh[2], ttraj, 0)
+    valids = tdata["valids"].reshape(N, T)
+    assert valids[2].sum() == 0 and valids[3, :3].sum() == 0 and valids[0].sum() == T  # the lag mask, from the tensor
+    np.testing.assert_array_equal(tdata["valids"].numpy(), np.asarray(jdata["valids"]))
+    assert tfrac == pytest.approx(float(jfrac))
+    assert not tdata["advantages"].any() and not tdata["returns"].any()  # V-trace computes them per minibatch
+
+    jts2, jstats = jax.jit(jax_make_train_fn(jcfg, jinfo, jmodel, tx))(jts, jtraj, jax.random.PRNGKey(1))
+    tstats = make_train_fn(tcfg, tinfo)(tts, ttraj, torch.Generator().manual_seed(1))
+    assert tts.train_step == int(jts2.train_step) == 12
+    want = bridge.flax_to_state_dict(jax.tree.map(np.asarray, jts2.params), tts.model)
+    for name, value in tts.model.state_dict().items():
+        np.testing.assert_allclose(value.numpy(), want[name].numpy(), atol=1e-5, rtol=0, err_msg=name)
+    assert float(tstats["version_diff_max"]) == float(jstats["version_diff_max"]) == 9.0
+    # the summary minibatch is drawn by each side's own generator: compare what does not depend on it
+    for key in ("valids_fraction", "epochs_executed", "lr"):
+        np.testing.assert_allclose(float(tstats[key]), float(jstats[key]), atol=1e-5, err_msg=key)
+
+
+def test_vtrace_minibatch_stats_match_jax():
+    """compute_losses under V-trace on one minibatch, every stat against JAX: 1e-5."""
+    extra = ["--with_vtrace=True", "--vtrace_rho=0.9", "--max_policy_lag=5", "--normalize_returns=False", "--batch_size=32"]
+    (jcfg, jinfo, jmodel, tx, jts), (tcfg, tinfo, tts) = _setup(extra)
+    versions = np.full((T, N), 8)
+    versions[:, 2] = 3
+    traj = _trajectory(versions=versions)
+    jts = jts.replace(train_step=jnp.asarray(10, jnp.int32))
+    tts.train_step = 10
+    jts2, jstats = jax.jit(jax_make_train_fn(jcfg, jinfo, jmodel, tx))(jts, _to(traj, jnp.asarray), jax.random.PRNGKey(1))
+    tstats = make_train_fn(tcfg, tinfo)(tts, _to(traj, torch.tensor), torch.Generator().manual_seed(1))
+    assert set(tstats) == set(jstats)  # one minibatch an epoch: both summaries are of that minibatch
+    for key, value in tstats.items():
+        np.testing.assert_allclose(float(value), float(jstats[key]), atol=1e-5, rtol=1e-5, err_msg=key)
+
+
 def _smoke_argv(train_dir, steps):
     return [
         "--env=grid_battle",
@@ -181,16 +237,27 @@ def test_unported_branches_raise(tmp_path):
     from sample_factory_tpu_torch.train import make_rl_runner
 
     register_synthetic_components()
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_rl_runner(parse_custom_args([a for a in _smoke_argv(tmp_path, 64) if a != "--async_rl=False"]))
+    with pytest.raises(NotImplementedError, match="A10"):
+        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--num_policies=2"]))
+    with pytest.raises(NotImplementedError, match="A13"):
+        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--jax_distributed=True"]))
+    with pytest.raises(NotImplementedError, match="A14"):
+        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--with_wandb=True"]))
+    # the default regime (async) is ported: no flag needed
+    cfg, runner = make_rl_runner(parse_custom_args([a for a in _smoke_argv(tmp_path, 64) if a != "--async_rl=False"]))
+    assert cfg.async_rl and runner is not None
     with pytest.raises(SystemExit):  # argparse refuses the JAX package's platform
         parse_custom_args(_smoke_argv(tmp_path, 64) + ["--device=tpu"])
 
 
 def test_port_imports_no_jax():
-    """Import the port and train with it in a fresh interpreter: no JAX module loads."""
+    """Import every module of the port and train with it in a fresh interpreter: no JAX module loads."""
     code = (
-        "import sys, tempfile\n"
+        "import sys, tempfile, pkgutil, importlib\n"
+        "import sample_factory_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(sample_factory_tpu_torch.__path__, 'sample_factory_tpu_torch.')]\n"
+        "assert {'sample_factory_tpu_torch.enjoy', 'sample_factory_tpu_torch.eval', 'sample_factory_tpu_torch.envs.builtin.ant'} <= set(names)\n"
+        "for name in names: importlib.import_module(name)\n"
         "from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components\n"
         "from sample_factory_tpu_torch.train import run_rl\n"
         "register_synthetic_components()\n"

@@ -82,3 +82,25 @@ def test_rollout_bookkeeping():
     assert traj["actions"].dtype == torch.int32 and traj["actions"].shape == (T, N, 1)
     # the sampler state carries the last obs and rnn state: the T+1 entries
     assert torch.equal(traj["obs"]["obs"][-1], ss.obs["obs"]) and torch.equal(traj["rnn_states"][-1], ss.rnn_state)
+
+
+@pytest.mark.parametrize("env_name,width,dtype", [("synthetic_tuple", 3, torch.float32), ("synthetic_continuous", 2, torch.float32),
+                                                  ("synthetic_masked", 1, torch.int32)])
+def test_rollout_action_tensors_of_other_spaces(env_name, width, dtype):
+    """Tuple actions are stored as one float32 vector (the discrete part cast), Box actions as
+    float32, and a masked env never sees its masked action."""
+    from sample_factory_tpu_torch.envs.builtin.synthetic import make_synthetic_env
+
+    tcfg = default_cfg(env="e", argv=["--use_rnn=False", "--encoder_mlp_layers", "16", f"--rollout={T}", f"--num_envs={N}", "--device=cpu", "--seed=0"])
+    env = make_synthetic_env(env_name)
+    info = extract_env_info(env, tcfg)
+    model = create_actor_critic(tcfg, info.obs_space, info.action_space, torch.Generator().manual_seed(0))
+    ss = init_sampler_state(tcfg, env, N, "cpu", torch.Generator().manual_seed(1))
+    _, traj, _ = make_rollout_fn(tcfg, env, info)(model, None, ss, 0, 0)
+    assert traj["actions"].shape == (T, N, width) and traj["actions"].dtype == dtype
+    assert torch.isfinite(traj["log_prob_actions"]).all() and traj["rnn_states"].shape == (T + 1, N, 1)
+    if env_name == "synthetic_tuple":
+        assert set(traj["actions"][..., 0].unique().tolist()) <= {0.0, 1.0, 2.0}
+    if env_name == "synthetic_masked":
+        mask = traj["obs"]["action_mask"][:T]
+        assert (mask[..., -1] == 0).any() and bool(torch.gather(mask, -1, traj["actions"].long()).all())
