@@ -25,7 +25,16 @@ Phases, each printing one JSON line:
   towers    the other model family through the LSTM kernel: resnet_impala, separate actor
             and critic towers, 2-layer LSTM-256, LAMB with lookahead, float32, 128 envs,
             1 iteration; the trained model on the card against a copy on the CPU
-  enjoy     `enjoy` on the checkpoint that `appo` wrote, on the card, 16 envs
+  population the `main` configuration with --num_policies=2 --with_pbt=True (unmixed: 512 envs a
+            policy), 4 iterations with two PBT rounds in which policy 1 is the worst: its files,
+            its shaping in the sampler state, per-policy checkpoints, and the exploit copy
+            (`_replace_weights`) checked tensor by tensor on the card
+  selfplay  grid_duel (2 agents) at full width: resnet_impala, GRU-512 (the default rnn_size),
+            bf16, 2 policies mixed inside every env, 512 envs (1024 slots), 3 iterations; each
+            policy trains on the shared trajectory masked to its slots; then one train call in
+            float32 at a cut depth on the card against the same call on a CPU copy
+  enjoy     `enjoy` on the checkpoint that `appo` wrote, on the card, 16 envs; then with
+            --policy_index=1 on `population`'s
 Then a `kernels` line, the card's name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
@@ -46,6 +55,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside the tensor cores
 MAIN_GRU = (32, 512, 256, "bfloat16")  # T, segments per minibatch (16384 / 32), H, dtype
 MAIN_LSTM = (32, 128, 256, "float32")  # the lstm phase: 128 envs x 32 steps in one minibatch
+SELFPLAY_GRU = (32, 512, 512, "bfloat16")  # the selfplay phase: the default rnn_size, 512 segments a minibatch
 # (32, 512, 512): the default rnn_size; (4, 16, 1024): no cluster slice fits, the row design
 PARITY_SHAPES = [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64), (32, 512, 512), (4, 16, 1024)]
 # bf16: kernel and plain version round every gate op to bf16 alike, but sum h @ wh in
@@ -186,8 +196,8 @@ def phase_timing(torch, cuda_rnn, card):
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     out = {}
     with torch.no_grad():
-        # the main-path rows, comparable with the first design's numbers
-        for kind, (T, B, H, dtype) in (("gru", MAIN_GRU), ("lstm", MAIN_LSTM)):
+        # the main-path rows (and the selfplay path's shape), comparable with the first design's numbers
+        for kind, (T, B, H, dtype) in (("gru", MAIN_GRU), ("lstm", MAIN_LSTM), ("gru", SELFPLAY_GRU)):
             args = make_inputs(torch, kind, T, B, H, dtype, seed=2)
             plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
             rows = cuda_rnn.row_plan(kind, B, H)
@@ -198,8 +208,9 @@ def phase_timing(torch, cuda_rnn, card):
             rows_ms_l2_cold = time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush)
             bound_ms, bound_by, nbytes, flops = bound(kind, T, B, H, dtype)
             # for the kernels line: the plan, and the time of the kernel's first design (the row design)
-            out[f"{kind}_seq"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                                  "design": dataclasses.asdict(plan), "pr1_ms": rows_ms}
+            if (T, B, H, dtype) != SELFPLAY_GRU:  # the kernels line reports each kernel at its first path's shape
+                out[f"{kind}_seq"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                                      "design": dataclasses.asdict(plan), "first_design_ms": rows_ms}
             emit({"phase": "timing", "kernel": f"{kind}_seq", "shape": [T, B, H], "dtype": dtype, "ms": ms,
                   "rows_ms": rows_ms, "ms_l2_cold": ms_l2_cold, "rows_ms_l2_cold": rows_ms_l2_cold, "plain_ms": plain_ms,
                   "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
@@ -234,10 +245,10 @@ def phase_timing(torch, cuda_rnn, card):
     return out
 
 
-def train(torch, cuda_rnn, argv, train_dir, before_run=None):
+def train(torch, cuda_rnn, argv, train_dir, before_run=None, observers=()):
     """Drive `argv` through make_rl_runner / Runner.run, as `run_rl` does, with the kernels'
     launch counts set to 0 just before the run and read just after. `before_run(runner)`
-    may instrument the initialised runner."""
+    may instrument the initialised runner; `observers` are registered before its init."""
     from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
     from sample_factory_tpu_torch.runner.runner import AlgoObserver
     from sample_factory_tpu_torch.train import make_rl_runner
@@ -255,6 +266,8 @@ def train(torch, cuda_rnn, argv, train_dir, before_run=None):
     _, runner = make_rl_runner(parse_custom_args(argv + [f"--train_dir={train_dir}", "--device=gpu", "--seed=0"]))
     clock = IterationClock()
     runner.register_observer(clock)
+    for observer in observers:
+        runner.register_observer(observer)
     runner.init()
     if before_run is not None:
         before_run(runner)
@@ -264,8 +277,9 @@ def train(torch, cuda_rnn, argv, train_dir, before_run=None):
     check(runner.run() == 0, "runner.run() failed")
     torch.cuda.synchronize()
     counts = cuda_rnn.launch_counts()
-    stats = runner.host_stats()
-    check(stats and all(math.isfinite(v) for v in stats.values()), f"non-finite training stats: {stats}")
+    stats = runner.host_stats()  # one dict, or one per policy from the population runner
+    per_policy = stats if isinstance(stats, list) else [stats]
+    check(per_policy and all(s and all(math.isfinite(v) for v in s.values()) for s in per_policy), f"non-finite training stats: {stats}")
     exp = os.path.join(train_dir, runner.cfg.experiment)
     check(os.path.isfile(os.path.join(exp, "config.json")), "config.json missing")
     check(os.path.isfile(os.path.join(exp, "done")), "done file missing")
@@ -341,6 +355,32 @@ def phase_main(torch, cuda_rnn, card, tmp):
     return runner, counts, steady_rate
 
 
+def profiled_device_time(torch, fn):
+    """Run fn under torch.profiler: (wall us, device busy us, RNN kernels' us, the device
+    activities, their us by name). Device activities only (kernels, copies, sets): one
+    stream, so their times add up."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        w0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - w0) * 1e6
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in on_device:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
+    rnn_us = sum(e.time_range.elapsed_us() for e in on_device if "seq_cluster_kernel" in e.name or "rows_kernel" in e.name)
+    return wall_us, sum(by_name.values()), rnn_us, on_device, by_name
+
+
+def device_share(torch, fn, unprofiled_s):
+    """The device's busy time in one call of fn under the profiler, against an unprofiled
+    iteration of `unprofiled_s` seconds: the profiler slows the host, not the device."""
+    _, device_us, rnn_us, on_device, _ = profiled_device_time(torch, fn)
+    return {"device_busy_ms": device_us / 1e3, "device_activities": len(on_device), "rnn_kernel_ms": rnn_us / 1e3,
+            "rnn_kernel_share_of_device": rnn_us / device_us, "device_idle_share_unprofiled": 1.0 - device_us / (unprofiled_s * 1e6)}
+
+
 def phase_breakdown(torch, runner, card):
     """Where an iteration's time goes: rollout vs learner (host clock, synced), then
     the device's busy time under torch.profiler (sum of kernel times / wall time)."""
@@ -355,19 +395,7 @@ def phase_breakdown(torch, runner, card):
     t2 = time.perf_counter()
     runner.sampler_state = ss
 
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        w0 = time.perf_counter()
-        runner.train_iteration_sync()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - w0) * 1e6
-    # device activities only (kernels, copies, sets): one stream, so their times add up
-    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in on_device:
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
-    device_us = sum(by_name.values())
-    rnn_us = sum(e.time_range.elapsed_us() for e in on_device if "seq_cluster_kernel" in e.name or "rows_kernel" in e.name)
+    wall_us, device_us, rnn_us, on_device, by_name = profiled_device_time(torch, runner.train_iteration_sync)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "breakdown", "rollout_ms": (t1 - t0) * 1e3, "train_ms": (t2 - t1) * 1e3,
           "profiled_iteration_ms": wall_us / 1e3, "device_busy_ms": device_us / 1e3,
@@ -582,6 +610,231 @@ def phase_towers(torch, cuda_rnn, card, tmp):
     return counts
 
 
+def worst_policy_objective(values):
+    """An observer that publishes the stat `--pbt_target_objective` names, as a user's observer
+    would (`policy_avg_stats`): which policy PBT finds the worst then does not hang on the luck
+    of a few random-policy episodes."""
+    from sample_factory_tpu_torch.runner.runner import AlgoObserver
+
+    class Objective(AlgoObserver):
+        def on_init(self, runner):
+            runner.policy_avg_stats[runner.cfg.pbt_target_objective] = [[v] for v in values]
+
+    return Objective()
+
+
+def policy_tensors(torch, ts):
+    """Every tensor of one policy's train state: parameters, optimizer state, normalizers."""
+    out = dict(ts.model.state_dict())
+    for i, state in ts.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer.{i}.{k}": v for k, v in state.items() if torch.is_tensor(v)})
+    for key, rms in (ts.obs_rms or {}).items():
+        out.update({f"obs_rms.{key}.{k}": v for k, v in rms.state_dict().items()})
+    if ts.returns_rms is not None:
+        out.update({f"returns_rms.{k}": v for k, v in ts.returns_rms.state_dict().items()})
+    return out
+
+
+def phase_population(torch, cuda_rnn, card, tmp):
+    """Two policies, each on its own 512 envs, with PBT. A policy's 16384 env steps an iteration
+    make PBT due after iterations 2 and 4 (start and period 32768 env steps a policy)."""
+    iters, envs, P = 4, 1024, 2
+    argv = COMMON + MAIN_MODEL + [f"--num_envs={envs}", f"--num_policies={P}", "--with_pbt=True", "--pbt_start_mutation=32768",
+                                  "--pbt_period_env_steps=32768", "--pbt_mutation_rate=1.0", "--pbt_replace_fraction=0.5",
+                                  "--pbt_replace_reward_gap=0.0", "--pbt_replace_reward_gap_absolute=0.0",
+                                  f"--train_for_env_steps={iters * envs * 32}", "--experiment=grid_battle_population"]
+    runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, observers=[worst_policy_objective([1.0, 0.0])])
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    check(type(runner).__name__ == "MultiPolicyRunner" and not runner.mixed and runner.envs_per_policy == envs // P, "not the unmixed population runner")
+    check(len(per_iter) == iters, f"expected {iters} iterations, ran {len(per_iter)}")
+    check(counts["gru_seq"] == P * iters, f"GRU kernel launches {counts['gru_seq']}, expected {P * iters} (1 a policy and iteration)")
+    check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched: {counts}")
+    plan = cuda_rnn.launch_plan("gru", *MAIN_GRU)
+    check(plan.design == "cluster", "the population's (32, 512, 256) bf16 launches do not take the cluster design")
+
+    # PBT: policy 1 was updated; its files, its shaping where the rollout reads it, its hparams where the learner does
+    exp = os.path.join(tmp, "grid_battle_population")
+    check(runner.pbt.last_update == [iters * envs * 32 // P] * P, f"PBT rounds at {runner.pbt.last_update}")
+    with open(os.path.join(exp, "policy_01_reward_shaping.json")) as f:
+        shaping = json.load(f)
+    with open(os.path.join(exp, "policy_01_cfg.json")) as f:
+        hparams = json.load(f)
+    check(runner.sampler_state[1].shaping == shaping and shaping != runner.env.reward_shaping, f"policy 1's shaping {runner.sampler_state[1].shaping} vs file {shaping}")
+    check(runner.sampler_state[0].shaping == runner.env.reward_shaping, "policy 0's shaping moved")
+    check(runner.train_state[1].hparams == hparams and hparams != runner.train_state[0].hparams, "policy 1's hparams are not the file's")
+    for p in range(P):
+        ckpts = [f for f in os.listdir(os.path.join(exp, f"checkpoint_p{p}")) if f.startswith("checkpoint_")]
+        check(len(ckpts) >= 1, f"no checkpoint of policy {p}")
+    rewards = [es.avg_reward for es in runner.episode_stats_per_policy]
+    episodes = [es.total_episodes for es in runner.episode_stats_per_policy]
+    check(all(r is None or math.isfinite(r) for r in rewards), f"per-policy rewards {rewards}")
+
+    # one more iteration with a sync after each part, per policy
+    split = []
+    for p, ts in enumerate(runner.train_state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.sampler_state[p], traj, _ = runner._rollout_fn(ts.model, ts.obs_rms, runner.sampler_state[p], ts.train_step, p)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runner._train_fn(ts, traj, runner.train_generators[p], pid=p)
+        torch.cuda.synchronize()
+        split.append({"policy": p, "rollout_ms": (t1 - t0) * 1e3, "train_ms": (time.perf_counter() - t1) * 1e3})
+
+    one_more_s = sum(part["rollout_ms"] + part["train_ms"] for part in split) / 1e3
+    device = device_share(torch, runner._train_iteration, one_more_s)
+
+    # the exploit step by itself: policy 0 into policy 1, on the card
+    ts0, ts1 = runner.train_state
+    with torch.no_grad():
+        next(ts1.model.parameters()).add_(1.0)  # they differ before the copy whatever PBT did last
+    step_before = ts1.train_step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.pbt._replace_weights(runner.train_state, dst=1, src=0)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    src, dst = policy_tensors(torch, ts0), policy_tensors(torch, ts1)
+    check(set(src) == set(dst) and any(k.startswith("optimizer.") for k in src) and any(k.startswith("obs_rms.") for k in src),
+          f"tensors of the two policies: {sorted(set(src) ^ set(dst))}")
+    on_card = [k for k in src if src[k].is_cuda]
+    check(len(on_card) >= len(list(ts0.model.parameters())) * 3, "parameters and moments are not on the card")
+    check(all(bool(torch.equal(src[k], dst[k])) for k in src), "the exploit copy left a tensor of policy 1 different from policy 0's")
+    check(all(src[k].data_ptr() != dst[k].data_ptr() for k in src), "the exploit copy shares storage between the policies")
+    check(ts1.train_step == step_before + runner.cfg.max_policy_lag + 1, f"train_step {step_before} -> {ts1.train_step}")
+    steady = per_iter[1:]
+    emit({"phase": "population", "env": "grid_battle", "policies": P, "envs_per_policy": envs // P, "rollout": 32, "iterations": iters,
+          "env_steps": runner.env_steps, "launches": counts, "launches_per_iteration": counts["gru_seq"] / iters, "iteration_s": per_iter,
+          "env_steps_per_s_steady": envs * 32 * len(steady) / sum(steady), "split_one_more_iteration": split,
+          "device_in_one_profiled_iteration": device, "exploit_copy_ms": copy_ms, "exploit_copy_tensors": len(src), "pbt_last_update": runner.pbt.last_update,
+          "policy_1_hparams": hparams, "policy_1_shaping": shaping, "avg_reward": rewards, "episodes": episodes,
+          "loss": [s["loss"] for s in stats], "grad_norm": [s["grad_norm"] for s in stats], "card": card})
+    return counts
+
+
+SELFPLAY = ["--env=grid_duel", "--encoder_conv_architecture=resnet_impala", "--use_rnn=True", "--num_policies=2",
+            "--pbt_mix_policies_in_one_env=True", "--async_rl=False", "--rollout=32", "--recurrence=32", "--num_epochs=1"] + QUIET
+
+
+def phase_selfplay(torch, cuda_rnn, card, tmp):
+    import copy
+
+    import numpy as np
+
+    from sample_factory_tpu_torch.algo.learning import init_train_state
+
+    iters, envs, P, A = 3, 512, 2, 2
+    slots = envs * A
+    argv = SELFPLAY + ["--compute_dtype=bfloat16", "--batch_size=16384", f"--num_envs={envs}",
+                       f"--train_for_env_steps={iters * slots * 32}", "--experiment=grid_duel_selfplay"]
+    seen = []
+
+    def before_run(runner):
+        rollout_fn = runner._rollout_fn
+
+        def rollout(models, obs_rms, ss, slot_policies, versions):
+            out = rollout_fn(models, obs_rms, ss, slot_policies, versions)
+            want = torch.arange(slots, device=out[1]["policy_id"].device, dtype=torch.int32) % P
+            seen.append({"policy_id_is_slot_mod_P": (out[1]["policy_id"] == want[None, :]).all(), "versions": list(versions),
+                         "shape": tuple(out[1]["policy_id"].shape)})
+            return out
+
+        runner._rollout_fn = rollout
+
+    runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, before_run)
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    cfg = runner.cfg
+    check(runner.mixed and runner.num_slots == slots and cfg.rnn_size == 512 and cfg.compute_dtype == "bfloat16", "not the mixed GRU-512 bf16 run")
+    check(len(per_iter) == iters == len(seen), f"expected {iters} iterations, ran {len(per_iter)}")
+    # each policy trains on all 1024 slots x 32 steps: 2 minibatches of 512 segments, so 4 launches an iteration
+    check(counts["gru_seq"] == 2 * P * iters, f"GRU kernel launches {counts['gru_seq']}, expected {2 * P * iters}")
+    check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched: {counts}")
+    check(all(bool(it["policy_id_is_slot_mod_P"]) and it["shape"] == (32, slots) for it in seen), "policy_id is not slot % 2 everywhere")
+    check([it["versions"] for it in seen] == [[2 * k] * P for k in range(iters)], f"rollout versions {[it['versions'] for it in seen]}")
+    check(all(s["valids_fraction"] == 0.5 for s in stats), f"valids fractions {[s['valids_fraction'] for s in stats]}")
+    params = [list(ts.model.parameters()) for ts in runner.train_state]
+    check(all(bool(torch.isfinite(p).all()) for ps in params for p in ps), "non-finite parameters")
+    check(any(not bool(torch.equal(a, b)) for a, b in zip(*params)), "the two policies' parameters are equal")
+    runner._drain_ep_stats()
+    episodes = [es.total_episodes for es in runner.episode_stats_per_policy]
+    check(episodes[0] == episodes[1], f"per-policy episode counts {episodes}")
+
+    # one more iteration, a sync after each part: the shared rollout, then each policy's train call
+    states = runner.train_state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.sampler_state, traj, _ = runner._rollout_fn([ts.model for ts in states], [ts.obs_rms for ts in states], runner.sampler_state,
+                                                       runner._slot_policies, [ts.train_step for ts in states])
+    torch.cuda.synchronize()
+    split = {"rollout_ms": (time.perf_counter() - t0) * 1e3, "train_ms": []}
+    for p, ts in enumerate(states):
+        t1 = time.perf_counter()
+        runner._train_fn(ts, traj, runner.train_generators[p], pid=p)
+        torch.cuda.synchronize()
+        split["train_ms"].append((time.perf_counter() - t1) * 1e3)
+    device = device_share(torch, runner._train_iteration, (split["rollout_ms"] + sum(split["train_ms"])) / 1e3)
+    steady = per_iter[1:]
+    emit({"phase": "selfplay", "env": "grid_duel", "policies": P, "envs": envs, "slots": slots, "rollout": 32, "rnn_size": cfg.rnn_size,
+          "iterations": iters, "env_steps": runner.env_steps, "launches": counts, "launches_per_iteration": counts["gru_seq"] / iters,
+          "iteration_s": per_iter, "env_steps_per_s_steady": slots * 32 * len(steady) / sum(steady), "split_one_more_iteration": split,
+          "device_in_one_profiled_iteration": device, "valids_fraction": [s["valids_fraction"] for s in stats], "loss": [s["loss"] for s in stats],
+          "grad_norm": [s["grad_norm"] for s in stats], "episodes": episodes, "card": card})
+    del runner, states, traj, params
+
+    # float32 at a cut depth (16 envs, 32 slots; the widths stay): one train call of policy 0 on the
+    # card against the same call on a CPU copy, from the same trajectory
+    small, small_slots = 16, 32
+    argv = SELFPLAY + ["--compute_dtype=float32", "--batch_size=512", f"--num_envs={small}",
+                       f"--train_for_env_steps={small_slots * 32}", "--experiment=grid_duel_selfplay_f32"]
+    runner, f32_counts, _, _ = train(torch, cuda_rnn, argv, tmp)
+    check(sum(f32_counts.values()) == 2 * P, f"float32 self-play launches {f32_counts}")
+    ts = runner.train_state[0]
+    cpu_model = copy.deepcopy(ts.model).cpu()
+    cpu_ts = init_train_state(runner.cfg, runner.env_info, cpu_model, "cpu")
+    # onto the CPU: parameters, Adam's moments, normalizers (a deep copy first: an optimizer keeps
+    # the tensors it is given where device and type already match)
+    cpu_ts.load_state_dict(copy.deepcopy(ts.state_dict()))
+    states = runner.train_state
+    runner.sampler_state, traj, _ = runner._rollout_fn([t.model for t in states], [t.obs_rms for t in states], runner.sampler_state,
+                                                       runner._slot_policies, [t.train_step for t in states])
+    cpu_traj = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu()) for k, v in traj.items()}
+    before = sum(cuda_rnn.launch_counts().values())
+    runner._train_fn(ts, traj, runner.train_generators[0], pid=0)
+    torch.cuda.synchronize()
+    check(sum(cuda_rnn.launch_counts().values()) == before + 2, "the float32 train call did not launch the kernel twice")
+    runner._train_fn(cpu_ts, cpu_traj, torch.Generator().manual_seed(0), pid=0)
+    check(cpu_ts.train_step == ts.train_step, "the two train calls took different numbers of steps")
+    param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in zip(ts.model.parameters(), cpu_model.parameters()))
+
+    rng = np.random.default_rng(3)
+    S, R = 4, 32
+    obs = torch.tensor(rng.random((S, R, 16, 16, 3)).astype(np.float32))
+    rnn = torch.tensor((rng.normal(size=(S, 512)) * 0.5).astype(np.float32))
+    resets = torch.tensor((rng.random((R, S)) < 0.1).astype(np.float32))
+    resets[:, 1::2] = 1.0  # every second segment reset at every step, as another policy's slots are
+
+    def forward(m, device):
+        head = m.forward_head({"obs": obs.to(device)})
+        outs, final = m.forward_core_seq(head.transpose(0, 1), rnn.to(device), resets.to(device))
+        logits, values = m.forward_tail(outs.transpose(0, 1).reshape(S * R, -1))
+        return logits, values, final
+
+    with torch.no_grad():
+        on_card = forward(ts.model, "cuda")
+        torch.cuda.synchronize()
+        on_cpu = forward(cpu_model, "cpu")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card, on_cpu))
+    # float32 with TF32 off; sums run in other orders on the two devices, and Adam's first steps move a
+    # parameter by about lr whatever its gradient's size, so a gradient near 0 can move it by 2 lr apart
+    tol = 1e-3
+    emit({"phase": "selfplay", "check": "one float32 train call of policy 0, card vs CPU copy", "envs": small, "slots": small_slots,
+          "rnn_size": runner.cfg.rnn_size, "launches": f32_counts, "plan": dataclasses.asdict(cuda_rnn.launch_plan("gru", 32, 16, 512, "float32")),
+          "params_max_abs_err": param_err, "model_outputs_max_abs_err": err, "tol": tol, "card": card})
+    check(all(bool(torch.isfinite(t).all()) for t in on_card), "non-finite model outputs")
+    check(param_err <= tol and err <= tol, f"card vs CPU after one train call: parameters {param_err}, outputs {err} > {tol}")
+    return counts
+
+
 def phase_enjoy(torch, card, tmp):
     from sample_factory_tpu_torch.enjoy import enjoy
     from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
@@ -594,6 +847,16 @@ def phase_enjoy(torch, card, tmp):
     check(len(episodes) >= 8 and math.isfinite(avg_reward), f"enjoy: {len(episodes)} episodes, average reward {avg_reward}")
     emit({"phase": "enjoy", "checkpoint_of": "appo", "envs": 16, "episodes": len(episodes), "avg_reward": avg_reward,
           "avg_len": sum(n for _, n in episodes) / len(episodes), "seconds": time.perf_counter() - start, "card": card})
+
+    # a policy of a population, by its index
+    cfg = parse_custom_args(["--env=grid_battle", "--experiment=grid_battle_population", f"--train_dir={tmp}", "--no_render",
+                             "--policy_index=1"], evaluation=True)
+    episodes = []
+    start = time.perf_counter()
+    status, avg_reward = enjoy(cfg, num_episodes=8, num_envs=16, collect_episodes=episodes)
+    check(status == 0 and len(episodes) >= 8 and math.isfinite(avg_reward), f"enjoy --policy_index=1: status {status}, {len(episodes)} episodes")
+    emit({"phase": "enjoy", "checkpoint_of": "population", "policy_index": 1, "envs": 16, "episodes": len(episodes),
+          "avg_reward": avg_reward, "seconds": time.perf_counter() - start, "card": card})
 
 
 def main() -> int:
@@ -620,11 +883,12 @@ def main() -> int:
     log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
     # the launch plan assumes the cluster counts that run at once (cuda_rnn.MAX_CLUSTERS)
     at_once = {}
-    for kind, (T, B, H, dtype) in (("gru", MAIN_GRU), ("lstm", MAIN_LSTM)):
+    for name, kind, (T, B, H, dtype) in (("gru_seq", "gru", MAIN_GRU), ("lstm_seq", "lstm", MAIN_LSTM), ("gru_seq_selfplay", "gru", SELFPLAY_GRU)):
         plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
-        at_once[f"{kind}_seq"] = {"clusters": plan.grid // plan.cluster,
-                                  "card_runs_at_once": cuda_rnn.max_active_clusters(kind, dtype, plan)}
-        check(at_once[f"{kind}_seq"]["card_runs_at_once"] >= 1, f"{kind}: no cluster of {plan} fits the card")
+        check(plan.design == "cluster", f"{name}: {(T, B, H, dtype)} does not take the cluster design")
+        at_once[name] = {"shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster,
+                         "card_runs_at_once": cuda_rnn.max_active_clusters(kind, dtype, plan)}
+        check(at_once[name]["card_runs_at_once"] >= 1, f"{name}: no cluster of {plan} fits the card")
     emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name,
           "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line],
           "clusters_at_main_shapes": at_once})
@@ -640,6 +904,8 @@ def main() -> int:
         del runner
         paths["ant"] = phase_ant(torch, cuda_rnn, card, tmp)
         paths["towers"] = phase_towers(torch, cuda_rnn, card, tmp)
+        paths["population"] = phase_population(torch, cuda_rnn, card, tmp)
+        paths["selfplay"] = phase_selfplay(torch, cuda_rnn, card, tmp)
         phase_enjoy(torch, card, tmp)
 
     # launches: each path was driven with the counts at 0 just before it and read just after

@@ -16,11 +16,17 @@ Module names follow flax's: `Conv_i` -> `conv.i`, `Dense_i` -> `dense.i`,
 `<tower_>encoder.encoders.enc_<key>` (the shared model's `encoder`, the
 separate model's `actor_encoder` and `critic_encoder`), and the action head's
 `Dense_0` -> `distribution_linear`; its `learned_stddev` keeps its name.
+
+`load_jax_checkpoint` reads a checkpoint file of the JAX package
+(`checkpoint_<train_step>_<env_steps>.msgpack`, written by
+`flax.serialization.to_bytes`) without flax or the msgpack package: `unpack_msgpack`
+decodes the subset of MessagePack that flax writes.
 """
 
 from __future__ import annotations
 
 import re
+import struct
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -132,3 +138,120 @@ def load_flax_params(model: nn.Module, flax_params: Dict[str, Any]) -> nn.Module
     """Copy flax parameters into `model` (strict: every name must match)."""
     model.load_state_dict(flax_to_state_dict(flax_params, model), strict=True)
     return model
+
+
+# ------------------------------------------------ checkpoint files of the JAX package
+
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3  # flax.serialization._MsgpackExtType
+_CHUNKED = "__msgpack_chunked_array__"  # flax splits arrays above 2**30 bytes into chunks
+
+
+def _ndarray_from_ext(data: bytes) -> np.ndarray:
+    """flax's array payload: MessagePack of (shape, dtype name, C-order bytes)."""
+    shape, dtype_name, buffer = unpack_msgpack(data)
+    if dtype_name == "bfloat16":  # numpy has no bfloat16: the upper half of a float32
+        return (np.frombuffer(buffer, np.uint16).astype(np.uint32) << 16).view(np.float32).reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(dtype_name)).reshape(shape)
+
+
+def unpack_msgpack(data: bytes) -> Any:
+    """Decode one MessagePack object: maps, arrays, strings, ints, floats, nil, booleans, bin,
+    and flax's extension types for numpy arrays and scalars. Anything else raises ValueError."""
+    pos = 0
+
+    def take(n: int) -> bytes:
+        nonlocal pos
+        if pos + n > len(data):
+            raise ValueError("truncated MessagePack data")
+        pos += n
+        return data[pos - n : pos]
+
+    def number(fmt: str):
+        return struct.unpack(">" + fmt, take(struct.calcsize(fmt)))[0]
+
+    def ext(code: int, payload: bytes):
+        if code == _EXT_NDARRAY:
+            return _ndarray_from_ext(payload)
+        if code == _EXT_NPSCALAR:
+            return _ndarray_from_ext(payload)[()]
+        raise ValueError(f"unsupported MessagePack extension type {code}")
+
+    sized = {  # first byte -> (format of the length, kind)
+        0xC4: ("B", "bin"), 0xC5: ("H", "bin"), 0xC6: ("I", "bin"),
+        0xD9: ("B", "str"), 0xDA: ("H", "str"), 0xDB: ("I", "str"),
+        0xDC: ("H", "array"), 0xDD: ("I", "array"), 0xDE: ("H", "map"), 0xDF: ("I", "map"),
+        0xC7: ("B", "ext"), 0xC8: ("H", "ext"), 0xC9: ("I", "ext"),
+    }
+    numbers = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I", 0xCF: "Q", 0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+    constants = {0xC0: None, 0xC2: False, 0xC3: True}
+
+    def collection(kind: str, n: int):
+        if kind == "bin":
+            return take(n)
+        if kind == "str":
+            return take(n).decode("utf-8")
+        if kind == "array":
+            return [item() for _ in range(n)]
+        if kind == "map":
+            return {item(): item() for _ in range(n)}
+        code = number("b")
+        return ext(code, take(n))
+
+    def item():
+        b = number("B")
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if b <= 0x8F:
+            return collection("map", b & 0x0F)
+        if b <= 0x9F:
+            return collection("array", b & 0x0F)
+        if b <= 0xBF:
+            return collection("str", b & 0x1F)
+        if b in constants:
+            return constants[b]
+        if b in numbers:
+            return number(numbers[b])
+        if b in sized:
+            fmt, kind = sized[b]
+            return collection(kind, number(fmt))
+        if 0xD4 <= b <= 0xD8:  # fixext 1, 2, 4, 8, 16
+            return collection("ext", 1 << (b - 0xD4))
+        raise ValueError(f"unsupported MessagePack type byte 0x{b:02x}")
+
+    out = item()
+    if pos != len(data):
+        raise ValueError("trailing bytes after the MessagePack object")
+    return out
+
+
+def _unchunk(tree: Any) -> Any:
+    if not isinstance(tree, dict):
+        return tree
+    if _CHUNKED in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        return np.concatenate([tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def load_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a checkpoint file of the JAX package. Returns numpy trees and numbers:
+    `params` (the flax parameter tree, for `load_flax_params`), `obs_rms` ({key: {running_mean,
+    running_var, count}} or None), `returns_rms` (the same three fields or None), `curr_lr`,
+    `hparams`, `train_step`, `env_steps`, `best_performance`. The optimizer state (optax's
+    moments and counts) is in the file but is not carried: its tree follows optax's chain, not
+    a torch optimizer's state."""
+    with open(path, "rb") as f:
+        payload = _unchunk(unpack_msgpack(f.read()))
+    ts = payload["train_state"]
+    return {
+        "params": ts["params"],
+        "obs_rms": ts.get("obs_rms"),
+        "returns_rms": ts.get("returns_rms"),
+        "curr_lr": float(ts["curr_lr"]),
+        "hparams": {k: float(v) for k, v in (ts.get("hparams") or {}).items()},
+        "train_step": int(payload["train_step"]),
+        "env_steps": int(payload["env_steps"]),
+        "best_performance": float(payload["best_performance"]),
+    }

@@ -3,7 +3,9 @@
 Counterpart of `sample_factory_tpu/enjoy.py` (reference
 `sample_factory/enjoy.py:103-292`: checkpoint load, config merge,
 deterministic-argmax option, episode bookkeeping). On-device envs are stepped
-in a batch of `num_envs`; the host-env loop (render, video, hub) waits for the
+in a batch of `num_envs`; `--policy_index=p` takes `checkpoint_p{p}` of a
+population run (single-agent envs: as in the JAX package, there is no
+multi-agent loop here); the host-env loop (render, video, hub) waits for the
 host sampler (ROADMAP A11).
 """
 

@@ -7,7 +7,8 @@ length): the harness that exercises runner, sampler, learner and checkpoints
 at once. A continuous twin covers Gaussian policies, a tuple twin the hybrid
 action space, a masked twin the `action_mask` path. Every observation is a
 draw (`reset_draws`/`step_draws`), so a test can feed the JAX env's.
-The multi-agent variant waits for the population runner (ROADMAP A10).
+The JAX package's multi-agent matching game is a host env and comes with the
+host path (ROADMAP A11); the multi-agent device env is `grid_duel.py`.
 """
 
 from __future__ import annotations

@@ -6,7 +6,13 @@ Usage (on the card; add --device=cpu to run on the CPU):
     python -m sample_factory_tpu_torch.examples.train_synthetic --env=grid_battle --use_rnn=True \
         --encoder_conv_architecture=convnet_impala --encoder_conv_mlp_layers 256 --rnn_size=256 \
         --compute_dtype=bfloat16 --num_envs=1024 --batch_size=16384 --with_vtrace=True --experiment=gb1
-Envs: the synthetic_* family, grid_battle(_small), ant and ant_short.
+A population (each policy on its own block of envs) with PBT, and self-play (two policies
+mixed inside every 2-agent env):
+    python -m sample_factory_tpu_torch.examples.train_synthetic --env=synthetic_vector_discrete \
+        --num_policies=4 --with_pbt=True --experiment=pop1
+    python -m sample_factory_tpu_torch.examples.train_synthetic --env=grid_duel --num_policies=2 \
+        --pbt_mix_policies_in_one_env=True --encoder_conv_architecture=resnet_impala --use_rnn=True --experiment=duel1
+Envs: the synthetic_* family, grid_battle(_small), grid_duel(_small), ant and ant_short.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import sys
 
 from sample_factory_tpu_torch.cfg.arguments import parse_full_cfg, parse_sf_args
 from sample_factory_tpu_torch.envs.builtin.ant import register_ant
+from sample_factory_tpu_torch.envs.builtin.grid_duel import register_grid_duel
 from sample_factory_tpu_torch.envs.builtin.synthetic import ENV_NAMES, make_synthetic_env
 from sample_factory_tpu_torch.envs.env_utils import register_env
 from sample_factory_tpu_torch.train import run_rl
@@ -48,6 +55,8 @@ def register_synthetic_components():
     # on-device physics ant (envs/builtin/ant.py)
     register_ant("ant")
     register_ant("ant_short")
+    # on-device 2-agent self-play env (envs/builtin/grid_duel.py)
+    register_grid_duel()
 
 
 def parse_custom_args(argv=None, evaluation=False):

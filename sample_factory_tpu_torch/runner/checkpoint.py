@@ -5,6 +5,8 @@ Counterpart of `sample_factory_tpu/runner/checkpoint.py` (reference
 {train_state, env_steps, best_performance, train_step}, written to a temp
 file and renamed (:43-83), rotated by --keep_checkpoints. The train state
 holds the model, the optimizer, the normalizers and the learning rate.
+`restore_from_jax_checkpoint` takes a train state from a checkpoint file of the
+JAX package instead (the parameters and normalizers; not the optimizer state).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import time
 from os.path import basename, join
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sample_factory_tpu_torch.utils.utils import checkpoint_dir, log
@@ -101,3 +104,27 @@ def load_checkpoint(cfg, policy_id: int, train_state) -> Optional[Tuple[int, flo
     train_state.load_state_dict(payload["train_state"])
     log.info("Loaded checkpoint %s (env_steps=%d)", basename(path), payload["env_steps"])
     return int(payload["env_steps"]), float(payload["best_performance"])
+
+
+def restore_from_jax_checkpoint(train_state, path: str) -> Tuple[int, float]:
+    """Load a `.msgpack` checkpoint of the JAX package into `train_state` in place: the
+    parameters (through the bridge), the normalizers, the learning rate, the PBT
+    hyperparameters and the train step. The optimizer starts fresh: optax's moments are not
+    carried. Returns (env_steps, best_performance)."""
+    from sample_factory_tpu_torch import bridge
+
+    ckpt = bridge.load_jax_checkpoint(path)
+    bridge.load_flax_params(train_state.model, ckpt["params"])
+
+    def as_tensors(fields):
+        return {k: torch.tensor(np.array(fields[k], dtype=np.float32)) for k in ("running_mean", "running_var", "count")}
+
+    if train_state.obs_rms is not None:
+        train_state.obs_rms = {k: v.load_state_dict(as_tensors(ckpt["obs_rms"][k])) for k, v in train_state.obs_rms.items()}
+    if train_state.returns_rms is not None:
+        train_state.returns_rms = train_state.returns_rms.load_state_dict(as_tensors(ckpt["returns_rms"]))
+    train_state.curr_lr = ckpt["curr_lr"]
+    train_state.train_step = ckpt["train_step"]
+    train_state.hparams = {k: ckpt["hparams"].get(k, v) for k, v in train_state.hparams.items()}
+    log.info("Loaded JAX checkpoint %s (env_steps=%d)", basename(path), ckpt["env_steps"])
+    return ckpt["env_steps"], ckpt["best_performance"]

@@ -105,7 +105,8 @@ class Runner:
 
     # ------------------------------------------------------------------ init
 
-    def init(self) -> None:
+    def _init_experiment(self):
+        """Experiment directory, log file, saved config, device, env and its info."""
         cfg = self.cfg
         if cfg.restart_behavior == "overwrite":
             import shutil
@@ -115,12 +116,15 @@ class Runner:
         experiment_dir(cfg)  # create
         init_file_logger(cfg)
         save_cfg(cfg)
-        self.writer = SummaryWriter(cfg, self.policy_id)
-
         self.device = resolve_device(cfg)
-        env = create_env(cfg.env, cfg=cfg, env_config=None)
-        self.env = env
-        self.env_info = extract_env_info(env, cfg)
+        self.env = create_env(cfg.env, cfg=cfg, env_config=None)
+        self.env_info = extract_env_info(self.env, cfg)
+
+    def init(self) -> None:
+        cfg = self.cfg
+        self._init_experiment()
+        env = self.env
+        self.writer = SummaryWriter(cfg, self.policy_id)
         log.info("Runner: %d envs, rollout %d, device %s", cfg.num_envs, cfg.rollout, self.device)
 
         init_gen = torch.Generator().manual_seed(cfg.seed)
@@ -176,11 +180,24 @@ class Runner:
 
     # ------------------------------------------------------------------- run
 
+    def _train_iteration(self):
+        return self.train_iteration_async() if self.cfg.async_rl else self.train_iteration_sync()
+
+    def _transitions_per_iteration(self) -> int:
+        return self.cfg.num_envs * self.cfg.rollout * self._fused_iterations
+
+    def _after_iteration(self) -> None:
+        """Between an iteration's bookkeeping and its periodic tasks (the population runner's PBT step)."""
+
+    def _close_writers(self) -> None:
+        if self.writer is not None:
+            self.writer.close()
+
     def run(self) -> int:
         cfg = self.cfg
         self._start_time = time.time()
         self._last_report = self._last_checkpoint = self._last_best_check = self._last_milestone = self._start_time
-        transitions_per_iter = cfg.num_envs * cfg.rollout * self._fused_iterations
+        transitions_per_iter = self._transitions_per_iteration()
         frameskip = cfg.env_frameskip if cfg.summaries_use_frameskip else 1
 
         log.info("Starting training for %d env steps (current: %d)", cfg.train_for_env_steps, self.env_steps)
@@ -189,13 +206,14 @@ class Runner:
         iterations = 0
         try:
             while not self._should_end_training():
-                stats, ep_stats = self.train_iteration_async() if cfg.async_rl else self.train_iteration_sync()
+                stats, ep_stats = self._train_iteration()
                 iterations += 1
                 if profiler is not None and iterations == PROFILED_ITERATIONS:
                     self._stop_profiler(profiler)
                     profiler = None
                 self.env_steps += transitions_per_iter * frameskip
                 self._process_stats(stats, ep_stats)
+                self._after_iteration()
                 self._periodic_tasks(stats)
                 self._notify_observers(stats)
         except KeyboardInterrupt:
@@ -206,8 +224,7 @@ class Runner:
                 self._stop_profiler(profiler)
             self._drain_ep_stats()
             self._save(is_final=True)
-            if self.writer is not None:
-                self.writer.close()
+            self._close_writers()
             for obs in self.observers:
                 obs.on_stop(self)
             log.info("Timing: %s", self.timing.flat_str())

@@ -2,9 +2,10 @@
 reference `sample_factory/train.py`): resolve the config, with resume-merge of
 the saved config.json, build the runner and run it.
 
-Ported: the single-policy runner on a single-agent on-device env, sync and
-async (the default). Populations and multi-agent envs, host envs, multi-host
-runs and wandb raise NotImplementedError naming their ROADMAP item.
+Ported: on-device envs. A single policy on a single-agent env goes to `Runner`
+(sync and async, the default); `--num_policies > 1` or a multi-agent env goes to
+`MultiPolicyRunner` (:46-55). Host envs (refused by `create_env`), multi-host runs
+and wandb raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,7 +36,9 @@ def make_rl_runner(cfg, register_fn=None):
     env_info = obtain_env_info(cfg, register_fn=register_fn)
     verify_cfg(cfg)
     if cfg.num_policies > 1 or env_info.num_agents > 1:
-        raise NotImplementedError("populations and multi-agent envs are not ported yet (ROADMAP A10)")
+        from sample_factory_tpu_torch.runner.multi_policy_runner import MultiPolicyRunner
+
+        return cfg, MultiPolicyRunner(cfg)
     return cfg, Runner(cfg)
 
 

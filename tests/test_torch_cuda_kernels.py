@@ -107,6 +107,57 @@ def test_kernel_matches_plain_on_card(cuda_device, kind, dtype, T, B, H):
         assert float((g.float() - r.float()).abs().max()) / scale <= (1e-3 if dtype == "float32" else 4 * BF16_ATOL)
 
 
+def _masked_inputs(kind, T, B, H, dtype, device, seed=11):
+    """What a policy's train call on a shared mixed trajectory feeds the recurrence: the other
+    policies' slots (here every second row) are invalid for the whole segment, so their
+    `resets` are 1 at every step; their inputs are another policy's finite values."""
+    args = _inputs(kind, T, B, H, dtype, device, seed=seed)
+    args[2][:, 1::2] = 1.0
+    return args
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_plain_version_on_rows_reset_at_every_step(kind, dtype):
+    """The plain versions on the CPU: a row reset at every step gives finite outputs that, from
+    step 1 on, depend on that step's input alone (the carry entering it is zero)."""
+    T, B, H = 6, 8, 64
+    args = _masked_inputs(kind, T, B, H, dtype, "cpu")
+    plain_fn = _fns(kind)[1]
+    out, state = plain_fn(*args)
+    assert torch.isfinite(out).all() and torch.isfinite(state).all() and (state[1::2] == 0).all()
+    zero_state = torch.zeros_like(args[1])
+    for t in range(1, T):
+        step_out, _ = plain_fn(args[0][t:t + 1], zero_state, args[2][t:t + 1], *args[3:])
+        assert torch.equal(out[t, 1::2], step_out[0, 1::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["planned", "rows"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_kernel_on_rows_reset_at_every_step(cuda_device, kind, dtype, design):
+    """Both kernels, both designs, at the population paths' widths: rows whose resets are 1 for
+    all T come out finite (the loss multiplies them by 0, and 0 * nan is nan) and equal to the
+    plain version; a second launch with another `wh` gives that matrix's result, not the first's."""
+    T, B, H = 32, 512, 512 if (kind, dtype, design) == ("gru", "bfloat16", "planned") else 256
+    args = _masked_inputs(kind, T, B, H, dtype, cuda_device)
+    launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
+    plan = cuda_rnn.row_plan(kind, B, H) if design == "rows" else cuda_rnn.launch_plan(kind, T, B, H, dtype)
+    plain_fn = _fns(kind)[1]
+    tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
+    other_wh = torch.flip(args[3], dims=(0,)).contiguous()
+    with torch.no_grad():
+        for wh in (args[3], other_wh):
+            call = args[:3] + [wh] + args[4:]
+            out, state = launch(*call, plan=plan)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out).all() and torch.isfinite(state).all() and (state[1::2] == 0).all()
+            ref_out, ref_state = plain_fn(*call)
+            torch.testing.assert_close(out, ref_out, atol=tol, rtol=0)
+            torch.testing.assert_close(state, ref_state, atol=tol, rtol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,T,B,H,dtype", [("gru", 32, 512, 256, "bfloat16"), ("lstm", 32, 128, 256, "float32")])
 def test_main_path_clusters_run_in_one_wave(cuda_device, kind, T, B, H, dtype):

@@ -237,8 +237,15 @@ def test_unported_branches_raise(tmp_path):
     from sample_factory_tpu_torch.train import make_rl_runner
 
     register_synthetic_components()
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--num_policies=2"]))
+    # populations and multi-agent envs are ported: the population runner takes them
+    for extra in (["--num_policies=2"], ["--env=grid_duel", "--encoder_conv_architecture=resnet_impala"]):
+        _, runner = make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + extra))
+        assert type(runner).__name__ == "MultiPolicyRunner"
+    from sample_factory_tpu_torch.envs.env_utils import register_env
+
+    register_env("a_host_env", lambda name, cfg, env_config, render_mode=None: object())
+    with pytest.raises(NotImplementedError, match="A11"):
+        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--env=a_host_env"]))
     with pytest.raises(NotImplementedError, match="A13"):
         make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--jax_distributed=True"]))
     with pytest.raises(NotImplementedError, match="A14"):
@@ -256,12 +263,19 @@ def test_port_imports_no_jax():
         "import sys, tempfile, pkgutil, importlib\n"
         "import sample_factory_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(sample_factory_tpu_torch.__path__, 'sample_factory_tpu_torch.')]\n"
-        "assert {'sample_factory_tpu_torch.enjoy', 'sample_factory_tpu_torch.eval', 'sample_factory_tpu_torch.envs.builtin.ant'} <= set(names)\n"
+        "assert {'sample_factory_tpu_torch.enjoy', 'sample_factory_tpu_torch.eval', 'sample_factory_tpu_torch.envs.builtin.ant',\n"
+        "        'sample_factory_tpu_torch.runner.multi_policy_runner', 'sample_factory_tpu_torch.pbt.pbt',\n"
+        "        'sample_factory_tpu_torch.algo.agent_policy_mapping', 'sample_factory_tpu_torch.algo.sampling_api',\n"
+        "        'sample_factory_tpu_torch.envs.builtin.grid_duel'} <= set(names)\n"
         "for name in names: importlib.import_module(name)\n"
         "from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components\n"
         "from sample_factory_tpu_torch.train import run_rl\n"
         "register_synthetic_components()\n"
         f"assert run_rl(parse_custom_args({_smoke_argv('TMP', 64)!r}[:-3] + ['--train_dir=' + tempfile.mkdtemp(), '--experiment=e', '--seed=1'])) == 0\n"
+        f"assert run_rl(parse_custom_args({_smoke_argv('TMP', 64)!r}[:-3] + ['--train_dir=' + tempfile.mkdtemp(), '--experiment=p', '--seed=1',\n"
+        "    '--num_policies=2', '--with_pbt=True', '--pbt_start_mutation=0', '--pbt_period_env_steps=16'])) == 0\n"
+        "from sample_factory_tpu_torch import bridge\n"
+        "assert bridge.unpack_msgpack(bytes([0x81, 0xa1, 0x61, 0x01])) == {'a': 1}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sample_factory_tpu'))\n"
         "print('FOREIGN', bad)\n"
     )

@@ -2,6 +2,7 @@
 (keys, shapes, dtypes, T+1 obs/rnn entries) and the same bookkeeping rules (the rnn
 state reset where an episode ended, episodic sums, version/id stamps)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -104,3 +105,73 @@ def test_rollout_action_tensors_of_other_spaces(env_name, width, dtype):
     if env_name == "synthetic_masked":
         mask = traj["obs"]["action_mask"][:T]
         assert (mask[..., -1] == 0).any() and bool(torch.gather(mask, -1, traj["actions"].long()).all())
+
+
+# ------------------------------------------------------------ the sampling API (device envs)
+
+
+def _api_cfg(env, tmp_path, extra=()):
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
+
+    register_synthetic_components()
+    return parse_custom_args([
+        f"--env={env}", "--experiment=api_test", f"--train_dir={tmp_path}", "--seed=4", "--device=cpu", "--num_workers=2",
+        "--num_envs_per_worker=8", "--rollout=8", "--batch_size=64", "--use_rnn=False", "--encoder_mlp_layers", "32", *extra,
+    ])
+
+
+def test_sync_sampling_api_device_env(tmp_path):
+    """Counterpart of `tests/test_sampling_api.py:37-49`."""
+    from sample_factory_tpu_torch.algo.sampling_api import SyncSamplingAPI
+
+    api = SyncSamplingAPI(_api_cfg("synthetic_vector_discrete", tmp_path))
+    api.start()
+    traj = api.get_trajectories_sync()
+    assert traj["rewards"].shape == (8, 16)
+    assert traj["obs"]["obs"].shape == (9, 16, 8)  # T+1
+    assert traj["actions"].shape == (8, 16, 1)
+    assert int(traj["policy_version"].max()) == 0
+    # the second batch continues from the same env state
+    traj2 = api.get_trajectories_sync()
+    assert torch.equal(traj2["obs"]["obs"][0], traj["obs"]["obs"][-1])
+    assert not torch.allclose(traj["obs"]["obs"], traj2["obs"]["obs"])
+    # 16-step episodes: the second rollout closes one in every env
+    assert api._last_ep_stats["count"] == 16.0 and api._last_ep_stats["len_sum"] == 256.0
+    api.stop()
+
+
+def test_sampling_api_masked_env_actions_respect_mask(tmp_path):
+    """Counterpart of `tests/test_sampling_api.py:52-62`."""
+    from sample_factory_tpu_torch.algo.sampling_api import SyncSamplingAPI
+
+    api = SyncSamplingAPI(_api_cfg("synthetic_masked", tmp_path))
+    api.start()
+    traj = api.get_trajectories_sync()
+    taken = torch.gather(traj["obs"]["action_mask"][:-1], -1, traj["actions"].long())[..., 0]
+    assert (traj["obs"]["action_mask"][:-1, :, -1] == 0).any() and (taken > 0).all(), "sampled a masked action"
+    api.stop()
+
+
+def test_sampling_api_uses_a_given_or_checkpointed_train_state(tmp_path):
+    """`start(train_state)`, `set_train_state`, and the evaluation sampler, which loads the
+    checkpoint of `--policy_index` and returns per-episode (return, length) pairs."""
+    from sample_factory_tpu_torch.algo.sampling_api import EvalSamplingAPI, SyncSamplingAPI
+    from sample_factory_tpu_torch.train import run_rl
+
+    cfg = _api_cfg("synthetic_vector_discrete", tmp_path, ["--train_for_env_steps=1024", "--async_rl=False"])
+    assert run_rl(cfg) == 0
+    evaluator = EvalSamplingAPI(cfg)
+    evaluator.start()
+    assert evaluator.train_state.train_step == 16  # 8 iterations x 2 minibatches, from the checkpoint
+    episodes = evaluator.sample_episodes(20)
+    assert len(episodes) == 20 and evaluator.episodic == episodes and all(n == 16 and np.isfinite(r) for r, n in episodes)
+
+    api = SyncSamplingAPI(cfg)
+    api.start(train_state=evaluator.train_state)
+    assert api.train_state is evaluator.train_state
+    assert int(api.get_trajectories_sync()["policy_version"].min()) == 16
+    fresh = SyncSamplingAPI(cfg)
+    fresh.start()
+    assert fresh.train_state.train_step == 0
+    fresh.set_train_state(evaluator.train_state)
+    assert int(fresh.get_trajectories_sync()["policy_version"].max()) == 16
