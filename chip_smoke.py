@@ -35,6 +35,17 @@ Phases, each printing one JSON line:
             float32 at a cut depth on the card against the same call on a CPU copy
   enjoy     `enjoy` on the checkpoint that `appo` wrote, on the card, 16 envs; then with
             --policy_index=1 on `population`'s
+  host      host envs at full width: `bench_host_pixel` (42x42x4 uint8 frames, 6 actions), 2 worker
+            processes x 1024 envs in 2 splits over the shared-memory queue, rollout 32, batch 8192,
+            convnet_simple + MLP 128, the default regime (async: learner quanta dispatched inside the
+            rollouts, a behaviour snapshot), 6 iterations; per-slot host times; then the same
+            configuration with --async_rl=False in turns with it
+  host_rnn  the same with GRU-256 over BPTT segments of 32 in bf16, 3 iterations: the learner's
+            `gru_seq` launches at (32, 256, 256), none in the rollout's step mode
+  host_selfplay  the 2-agent matching game (a host env), 2 policies mixed inside the envs, 2 worker
+            processes, PBT once: `policy_id` against the slot mapping and `active`, the mapping drawn
+            anew, the mutated shaping in the workers' envs, both policies' checkpoints
+  host_enjoy  `enjoy` and `eval` on the checkpoint that `host` wrote
 Then a `kernels` line, the card's name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
@@ -245,10 +256,11 @@ def phase_timing(torch, cuda_rnn, card):
     return out
 
 
-def train(torch, cuda_rnn, argv, train_dir, before_run=None, observers=()):
+def train(torch, cuda_rnn, argv, train_dir, before_run=None, observers=(), register_fn=None, device_flag=("--device=gpu",)):
     """Drive `argv` through make_rl_runner / Runner.run, as `run_rl` does, with the kernels'
     launch counts set to 0 just before the run and read just after. `before_run(runner)`
-    may instrument the initialised runner; `observers` are registered before its init."""
+    may instrument the initialised runner; `observers` are registered before its init;
+    `register_fn` registers a host env inside its worker processes."""
     from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
     from sample_factory_tpu_torch.runner.runner import AlgoObserver
     from sample_factory_tpu_torch.train import make_rl_runner
@@ -263,7 +275,7 @@ def train(torch, cuda_rnn, argv, train_dir, before_run=None, observers=()):
             torch.cuda.synchronize()
             self.times.append(time.perf_counter())
 
-    _, runner = make_rl_runner(parse_custom_args(argv + [f"--train_dir={train_dir}", "--device=gpu", "--seed=0"]))
+    _, runner = make_rl_runner(parse_custom_args(argv + [f"--train_dir={train_dir}", *device_flag, "--seed=0"]), register_fn=register_fn)
     clock = IterationClock()
     runner.register_observer(clock)
     for observer in observers:
@@ -859,16 +871,360 @@ def phase_enjoy(torch, card, tmp):
           "avg_reward": avg_reward, "seconds": time.perf_counter() - start, "card": card})
 
 
+# ------------------------------------------------------------------ host envs
+
+QUIET_HOST = [a for a in QUIET if a != "--num_workers=1"]
+HOST_PIXEL = ["--env=bench_host_pixel", "--num_workers=2", "--num_envs_per_worker=1024", "--worker_num_splits=2", "--rollout=32",
+              "--batch_size=8192", "--num_epochs=1", "--encoder_conv_architecture=convnet_simple", "--encoder_conv_mlp_layers", "128",
+              "--normalize_input=True", "--decorrelate_envs_on_one_worker=False"] + QUIET_HOST
+HOST_SLOTS, HOST_ENVS, HOST_OBS_BYTES = 64, 2048, 42 * 42 * 4  # (timestep, split) slots a rollout; envs; bytes a frame stack
+
+
+def shm_segments():
+    """This process's host-sampler segments still in /dev/shm (ShmSlabs names them sftpu_<pid>_...)."""
+    return [n for n in os.listdir("/dev/shm") if n.startswith(f"sftpu_{os.getpid()}_")]
+
+
+def record_host_rollouts(runner, seen):
+    """Wrap the host sampler's collect_rollout: what each rollout was given and what came out."""
+    collect = runner.sampler.collect_rollout
+
+    def recording_collect(model, obs_rms, version, *args, **kwargs):
+        q = runner._quantizer
+        dispatched_before = (q.total_quanta_enqueued - q.pending) if q is not None else 0
+        traj, stats = collect(model, obs_rms, version, *args, **kwargs)
+        tensors = {**{f"obs/{k}": v for k, v in traj["obs"].items()}, **{k: v for k, v in traj.items() if k != "obs"}}
+        seen.append({"model": model, "version": version, "behavior_version_host": runner._behavior_version_host,
+                     "devices": {str(v.device) for v in tensors.values()}, "obs_dtype": traj["obs"]["obs"].dtype,
+                     "obs_shape": tuple(traj["obs"]["obs"].shape), "stamp_min": traj["policy_version"].min(), "stamp_max": traj["policy_version"].max(),
+                     "quanta_in_rollout": ((q.total_quanta_enqueued - q.pending) - dispatched_before) if q is not None else 0,
+                     "episodes": stats["count"]})
+        return traj, stats
+
+    runner.sampler.collect_rollout = recording_collect
+
+
+def slot_ms(sampler):
+    return {k: 1e3 * v / max(1, sampler.slots_timed) for k, v in sampler.slot_seconds.items()}
+
+
+def reset_slot_timers(sampler):
+    sampler.slot_seconds = dict.fromkeys(sampler.slot_seconds, 0.0)
+    sampler.slots_timed = 0
+
+
+def host_run(torch, cuda_rnn, tmp, argv, iters, experiment):
+    """One run of the host path through make_rl_runner -> init -> run with no --device flag."""
+    from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
+    from sample_factory_tpu_torch.runner.runner import AlgoObserver
+
+    seen, initial, workers = [], [], []
+
+    class SteadyTimers(AlgoObserver):
+        """The per-slot timers count from the second iteration on."""
+
+        def __init__(self):
+            self.iterations = 0
+
+        def on_training_iteration(self, runner, stats):
+            self.iterations += 1
+            if self.iterations == 1:
+                reset_slot_timers(runner.sampler)
+
+    def before_run(runner):
+        check(type(runner).__name__ == "HostEnvRunner" and runner.device.type == "cuda", "not the host runner on the card")
+        check(runner.sampler.transport == "shm_queue", f"transport {runner.sampler.transport}: the shared-memory queue did not build")
+        check(runner.cfg.async_rl and runner._quantizer is not None, "not the default regime with the quantized learner")
+        check(runner.behavior_model is not None and runner.behavior_model is not runner.train_state.model, "no behaviour snapshot")
+        check(len(runner.sampler.workers) == 2 and all(p.is_alive() for p in runner.sampler.workers), "worker processes are not running")
+        check(len(shm_segments()) >= 6, f"shared-memory slabs: {shm_segments()}")
+        initial.extend(p.detach().clone() for p in runner.train_state.model.parameters())
+        workers.extend(runner.sampler.workers)
+        record_host_rollouts(runner, seen)
+
+    full = argv + [f"--train_for_env_steps={iters * HOST_ENVS * 32}", f"--experiment={experiment}"]
+    runner, counts, stats, times = train(torch, cuda_rnn, full, tmp, before_run, observers=[SteadyTimers()],
+                                         register_fn=register_bench_pixel, device_flag=())
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    check(len(per_iter) == iters == len(seen), f"expected {iters} iterations, ran {len(per_iter)}")
+    q, sgd = runner._quantizer, runner._quantizer.sgd_steps_per_train
+    check(sgd == 8 and q.num_minibatches == 8, f"{q.num_minibatches} minibatches a train step")
+    for k, it in enumerate(seen):
+        check(it["model"] is runner.behavior_model, "a rollout ran the trained model, not the snapshot")
+        check(it["devices"] == {"cuda:0"}, f"trajectory tensors on {it['devices']}")
+        check(it["obs_dtype"] == torch.uint8 and it["obs_shape"] == (33, HOST_ENVS, 42, 42, 4), f"observations {it['obs_dtype']} {it['obs_shape']}")
+        check(int(it["stamp_min"]) == int(it["stamp_max"]) == it["version"] == it["behavior_version_host"] == sgd * max(0, k - 1),
+              f"rollout {k}: stamps {int(it['stamp_min'])}..{int(it['stamp_max'])}, version {it['version']}")
+    in_rollouts = q.total_quanta_enqueued - q.quanta_drained_at_flush
+    check(q.total_quanta_enqueued == iters * (sgd + 2), f"{q.total_quanta_enqueued} quanta queued")
+    check(all(it["quanta_in_rollout"] == sgd + 2 for it in seen[1:]) and seen[0]["quanta_in_rollout"] == 0 and in_rollouts == (iters - 1) * (sgd + 2),
+          f"quanta inside rollouts {[it['quanta_in_rollout'] for it in seen]}, at flush {q.quanta_drained_at_flush}")
+    check(runner.train_state.train_step == runner._version_host == iters * sgd, f"train_step {runner.train_state.train_step}, mirror {runner._version_host}")
+    params = list(runner.train_state.model.parameters())
+    check(all(bool(torch.isfinite(p).all()) for p in params), "non-finite parameters")
+    check(all(not bool(torch.equal(a, b)) for a, b in zip(params, initial)), "a parameter did not change")
+    check(all(not p.is_alive() for p in workers), "a worker process outlived the run")
+    check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
+    return runner, counts, stats, per_iter, seen
+
+
+def phase_host(torch, cuda_rnn, card, tmp):
+    from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    iters = 6
+    runner, counts, stats, per_iter, seen = host_run(torch, cuda_rnn, tmp, HOST_PIXEL + ["--use_rnn=False"], iters, "host_pixel")
+    check(all(v == 0 for v in counts.values()), f"an RNN kernel launched on the feed-forward host path: {counts}")
+    steady = per_iter[1:]
+    q = runner._quantizer
+    emit({"phase": "host", "env": "bench_host_pixel", "workers": 2, "envs": HOST_ENVS, "splits": 2, "rollout": 32, "batch": 8192,
+          "transport": runner.sampler.transport, "iterations": iters, "env_steps": runner.env_steps, "launches": counts,
+          "iteration_s": per_iter, "env_steps_per_s_steady": HOST_ENVS * 32 * len(steady) / sum(steady),
+          "upload_bytes_per_iteration": 33 * HOST_ENVS * HOST_OBS_BYTES,
+          "slot_ms_host_clock_iterations_2_on": slot_ms(runner.sampler), "slots_timed": runner.sampler.slots_timed,
+          "quanta_per_train_step": q.sgd_steps_per_train + 2, "quanta_in_rollouts": q.total_quanta_enqueued - q.quanta_drained_at_flush,
+          "quanta_at_flush": q.quanta_drained_at_flush, "rollout_versions": [it["version"] for it in seen],
+          "policy_lag_sgd_steps": stats["version_diff_max"], "timing": runner.timing.flat_str(),
+          "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+    del runner
+
+    # the two regimes in turns (sync, async, async, sync, three times), each on its own workers
+    runners = {}
+    try:
+        for name in ("sync", "async"):
+            argv = HOST_PIXEL + ["--use_rnn=False", f"--async_rl={name == 'async'}", "--train_for_env_steps=1000000000",
+                                 f"--experiment=host_pixel_turns_{name}", f"--train_dir={tmp}", "--seed=0"]
+            _, runners[name] = make_rl_runner(parse_custom_args(argv), register_fn=register_bench_pixel)
+            runners[name].init()
+            check(runners[name].sampler.transport == "shm_queue", "the turns do not run over the shared-memory queue")
+
+        # the learner's share of an iteration on the host's clock: the fused train call (sync), or
+        # the quanta that the pacer dispatches between the rollout's slots (async)
+        learner_s = {"sync": 0.0, "async": 0.0}
+
+        def clocked(name, fn):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                learner_s[name] += time.perf_counter() - t0
+                return out
+            return call
+
+        runners["sync"]._train_fn = clocked("sync", runners["sync"]._train_fn)
+        pacer = runners["async"]._pacer
+        pacer.q.dispatch_one = clocked("async", pacer.q.dispatch_one)
+
+        def timed(name):
+            reset_slot_timers(runners[name].sampler)
+            learner_s[name] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runners[name]._train_iteration()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            slots = slot_ms(runners[name].sampler)
+            return {"iteration_ms": seconds * 1e3, "env_steps_per_s": HOST_ENVS * 32 / seconds,
+                    "slots_ms": HOST_SLOTS * sum(slots.values()), "learner_host_ms": learner_s[name] * 1e3,
+                    **{f"slot_{k}_ms": v for k, v in slots.items()}}
+
+        for name in ("sync", "async", "async"):  # warm-up; the async runner needs a train step under way
+            timed(name)
+        turns = {"sync": [], "async": []}
+        for _ in range(3):
+            for name in ("sync", "async", "async", "sync"):
+                turns[name].append(timed(name))
+        split = {name: median_split(rows) for name, rows in turns.items()}
+        device = device_share(torch, runners["async"]._train_iteration, split["async"]["iteration_ms"] / 1e3)
+        qa = runners["async"]._quantizer
+        check(qa.quanta_drained_at_flush == 0 and qa.total_quanta_enqueued > qa.pending, "the async runner in turns drained quanta at a flush")
+        # one train step quantum by quantum, nothing else on the card: the host's time to dispatch
+        # each, and the time until the device has finished it
+        a = runners["async"]
+        qa.flush()
+        traj, _ = a.sampler.collect_rollout(a.behavior_model, a.behavior_obs_rms, a._behavior_version_host, a.policy_id)
+        torch.cuda.synchronize()
+        qa.enqueue(a.train_state, traj, a.train_generator)
+        quanta = []
+        while qa.pending:
+            t0 = time.perf_counter()
+            qa.dispatch_one()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            quanta.append({"host_ms": (t1 - t0) * 1e3, "until_device_done_ms": (time.perf_counter() - t0) * 1e3})
+        a._version_host += qa.sgd_steps_per_train
+        a._pending = False
+        emit({"phase": "host", "check": "the regimes in turns", "reps": {k: len(v) for k, v in turns.items()},
+              "stat": "median of iterations taken in turns, host clock, synced; slot times are host-clock ms per (timestep, split), "
+                      "slots_ms their sum over the rollout's 64 slots, learner_host_ms the host's time in the train call (sync) or in the quanta (async)",
+              "sync_fused_train_call": split["sync"], "async_quantized": split["async"],
+              "async_over_sync_rate": split["async"]["env_steps_per_s"] / split["sync"]["env_steps_per_s"],
+              "device_in_one_profiled_async_iteration": device,
+              "one_train_step_quantum_by_quantum": {"order": "prepare, 8 sgd, lr", "host_ms": [q["host_ms"] for q in quanta],
+                                                    "until_device_done_ms": [q["until_device_done_ms"] for q in quanta]}, "card": card})
+    finally:
+        for r in runners.values():
+            r._finish_pending_work()
+            r._release_resources()
+            r._close_writers()
+    check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
+    return counts
+
+
+HOST_GRU = (32, 256, 256, "bfloat16")  # the host_rnn phase: 8192 / 32 segments a minibatch
+
+
+def phase_host_rnn(torch, cuda_rnn, card, tmp):
+    iters, minibatches = 3, 8
+    plan = cuda_rnn.launch_plan("gru", *HOST_GRU)
+    check(plan.design == "cluster" and plan.cluster == 8, f"(32, 256, 256) bf16 takes {plan}")
+    argv = HOST_PIXEL + ["--use_rnn=True", "--rnn_size=256", "--recurrence=32", "--compute_dtype=bfloat16"]
+    runner, counts, stats, per_iter, seen = host_run(torch, cuda_rnn, tmp, argv, iters, "host_pixel_gru")
+    # every queued train step ran (two inside rollouts, the last at the final flush): 8 launches each, in the learner only
+    check(counts["gru_seq"] == minibatches * iters, f"GRU kernel launches {counts['gru_seq']}, expected {minibatches * iters}")
+    check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched on the host GRU path: {counts}")
+    check(tuple(runner.sampler.rnn_states[0].shape) == (1024, 256), "the sampler's rnn state is not [1024, 256]")
+    args = make_inputs(torch, "gru", *HOST_GRU, seed=4)
+    with torch.no_grad():
+        kernel_ms = time_ms(torch, lambda: cuda_rnn._launch_gru(*args))
+        plain_ms = time_ms(torch, lambda: cuda_rnn.gru_seq_reference(*args))
+        out, state = cuda_rnn._launch_gru(*args)
+        ref_out, ref_state = cuda_rnn.gru_seq_reference(*args)
+    err = max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max()))
+    check(err <= fwd_tol("bfloat16", 32), f"gru_seq at (32, 256, 256) bf16 disagrees with its plain version: {err}")
+    bound_ms, bound_by, nbytes, flops = bound("gru", *HOST_GRU)
+    steady = per_iter[1:]
+    emit({"phase": "host_rnn", "env": "bench_host_pixel", "envs": HOST_ENVS, "rollout": 32, "rnn_size": 256, "iterations": iters,
+          "env_steps": runner.env_steps, "launches": counts, "launches_per_train_step": minibatches, "iteration_s": per_iter,
+          "env_steps_per_s_steady": HOST_ENVS * 32 * len(steady) / sum(steady), "slot_ms_host_clock_iterations_2_on": slot_ms(runner.sampler),
+          "kernel_shape": list(HOST_GRU[:3]), "dtype": HOST_GRU[3], "design": dataclasses.asdict(plan), "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "reps": REPS,
+          "timing": runner.timing.flat_str(), "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+    return counts
+
+
+def phase_host_selfplay(torch, cuda_rnn, card, tmp):
+    """Smoke depth: the matching game (2 agents an env; pure numpy, its spaces in the port's own
+    specs), 2 policies mixed inside the envs, 2 worker processes, async (the default), PBT due
+    once, after iteration 3 (384 agent steps a policy), with policy 1 the worst."""
+    from sample_factory_tpu_torch.examples import train_custom_multi_env as game
+
+    game.register_custom_components()
+    iters, slots, rollout, P = 5, 32, 16, 2
+    per_iter = slots * rollout
+    argv = QUIET_HOST + [f"--env={game.ENV_NAME}", "--num_policies=2", "--num_workers=2", "--num_envs_per_worker=8", "--worker_num_splits=2",
+                         f"--rollout={rollout}", "--batch_size=256", "--encoder_mlp_layers", "64", "64", "--use_rnn=False",
+                         "--custom_env_episode_len=4", "--pbt_mix_policies_in_one_env=True", "--with_pbt=True",
+                         f"--pbt_start_mutation={3 * per_iter // 2}", f"--pbt_period_env_steps={3 * per_iter // 2}", "--pbt_mutation_rate=1.0",
+                         "--pbt_replace_fraction=0.5", "--pbt_replace_reward_gap=0.0", "--pbt_replace_reward_gap_absolute=0.0",
+                         f"--train_for_env_steps={iters * per_iter}", "--experiment=host_selfplay"]
+    seen, pushed, workers = [], [], []
+
+    def before_run(runner):
+        check(type(runner).__name__ == "HostMultiPolicyRunner" and runner.device.type == "cuda", "not the host multi-policy runner on the card")
+        check(runner.sampler.transport == "shm_queue" and runner.sampler.num_envs == slots and runner.env_info.num_agents == 2, "not 32 agent slots over the shared-memory queue")
+        workers.extend(runner.sampler.workers)
+        sampler = runner.sampler
+        collect, finish, push = sampler.collect_rollout, sampler._finish_trajectory, sampler.set_reward_shaping
+        active = []
+
+        def recording_finish(*args):
+            active.append(torch.as_tensor(sampler._host_buf["active"].copy()))
+            return finish(*args)
+
+        def recording_collect(models, obs_rms, versions, **kwargs):
+            traj, stats = collect(models, obs_rms, versions, **kwargs)
+            seen.append({"traj": traj, "slot_policies": kwargs["slot_policies"].copy(), "active": active.pop(), "iteration": len(seen),
+                         "behaviour": models is runner.behavior_models})
+            return traj, stats
+
+        def recording_push(shaping, slot_mask=None):
+            pushed.append({"shaping": dict(shaping), "mask": slot_mask.copy(), "after_iteration": len(seen)})
+            return push(shaping, slot_mask)
+
+        sampler._finish_trajectory, sampler.collect_rollout, sampler.set_reward_shaping = recording_finish, recording_collect, recording_push
+
+    runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, before_run, observers=[worst_policy_objective([1.0, 0.0])],
+                                         register_fn=game.register_custom_components, device_flag=())
+    check(all(v == 0 for v in counts.values()), f"an RNN kernel launched: {counts}")
+    check(len(seen) == iters and all(it["behaviour"] for it in seen), f"{len(seen)} rollouts, or one ran the trained modules")
+    for it in seen:
+        pid = it["traj"]["policy_id"].cpu()
+        flat = torch.as_tensor(it["slot_policies"].reshape(-1))[None].expand_as(pid)
+        inactive = it["active"] == 0
+        check(str(it["traj"]["policy_id"].device) == "cuda:0" and bool((pid[~inactive] == flat[~inactive]).all()), "policy_id differs from the slot's policy")
+        check(bool((pid[inactive] == -1).all()) and bool(((pid == -1) == inactive).all()), "policy_id is -1 elsewhere than on inactive agents")
+    check(bool(seen[0]["active"][:2].eq(0).all()) and int((seen[0]["active"] == 0).sum()) >= 2 * slots, "the agents did not sit out their first steps")
+    check(runner.mapping_resamples >= 1, "the agent-policy mapping was never drawn anew")
+    check(all(0.0 < s["valids_fraction"] < 1.0 for s in stats) and sum(s["valids_fraction"] for s in stats) <= 1.0 + 1e-6,
+          f"valids fractions {[s['valids_fraction'] for s in stats]}")
+    # PBT ran once: policy 1's mutated penalty went to the workers' envs, for the agents it drove then
+    exp = os.path.join(tmp, "host_selfplay")
+    with open(os.path.join(exp, "policy_01_reward_shaping.json")) as f:
+        shaping = json.load(f)
+    check(len(pushed) == 1 and pushed[0]["shaping"] == shaping and shaping["rew"] != -1.0, f"shaping pushed {pushed}, file {shaping}")
+    mask = torch.as_tensor(pushed[0]["mask"].reshape(-1))
+    check(0 < int(mask.sum()) < slots, "the shaping mask selects no slot, or all")
+    later = [it for it in seen if it["iteration"] >= pushed[0]["after_iteration"]]
+    check(len(later) >= 2, "no rollout after the PBT round")
+    for it in later:
+        rewards = it["traj"]["rewards"].cpu()
+        paid_new = {round(float(v), 5) for v in rewards[:, mask].unique()}
+        paid_old = {round(float(v), 5) for v in rewards[:, ~mask].unique()}
+        check(paid_new <= {0.0, round(shaping["rew"], 5)} and round(shaping["rew"], 5) in paid_new, f"rewards of the reshaped agents {paid_new}, shaping {shaping}")
+        check(paid_old <= {0.0, -1.0} and -1.0 in paid_old, f"rewards of the other agents {paid_old}")
+    for p in range(P):
+        ckpts = [f for f in os.listdir(os.path.join(exp, f"checkpoint_p{p}")) if f.startswith("checkpoint_")]
+        check(len(ckpts) >= 1, f"no checkpoint of policy {p}")
+    episodes = [es.total_episodes for es in runner.episode_stats_per_policy]
+    check(sum(episodes) == iters * slots * (rollout // 4) and all(n > 0 for n in episodes), f"episodes credited {episodes}")
+    check(all(not p.is_alive() for p in workers) and not shm_segments(), "a worker or a shared-memory segment outlived the run")
+    per_iter_s = [b - a for a, b in zip(times, times[1:])]
+    emit({"phase": "host_selfplay", "env": game.ENV_NAME, "policies": P, "agent_slots": slots, "rollout": rollout, "iterations": iters,
+          "env_steps": runner.env_steps, "launches": counts, "iteration_s": per_iter_s, "mapping_resamples": runner.mapping_resamples,
+          "valids_fraction": [s["valids_fraction"] for s in stats], "policy_1_shaping": shaping, "reshaped_slots": int(mask.sum()),
+          "pbt_after_iteration": pushed[0]["after_iteration"], "episodes_credited": episodes,
+          "inactive_share": float(sum(float((it["active"] == 0).float().mean()) for it in seen) / iters),
+          "loss": [s["loss"] for s in stats], "card": card})
+    return counts
+
+
+def phase_host_enjoy(torch, card, tmp):
+    from sample_factory_tpu_torch.enjoy import enjoy
+    from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
+    from sample_factory_tpu_torch.eval import do_eval
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+
+    base = ["--env=bench_host_pixel", "--experiment=host_pixel", f"--train_dir={tmp}"]
+    episodes = []
+    start = time.perf_counter()
+    status, avg_reward = enjoy(parse_custom_args(base + ["--no_render", "--max_num_episodes=2"], evaluation=True), collect_episodes=episodes)
+    check(status == 0 and len(episodes) == 2 and avg_reward == 512.0, f"enjoy on the host env: status {status}, episodes {episodes}")
+    enjoy_s = time.perf_counter() - start
+    # eval through the worker pool, at a cut depth: 2 workers x 64 envs (episodes last 512 steps)
+    start = time.perf_counter()
+    status = do_eval(parse_custom_args(base + ["--sample_env_episodes=64", "--num_envs_per_worker=64"], evaluation=True), register_fn=register_bench_pixel)
+    with open(os.path.join(tmp, "host_pixel", "eval", "eval_p0.csv")) as f:
+        rows = f.read().strip().splitlines()
+    check(status == 0 and len(rows) == 65 and rows[1] == "0,512.0,512", f"eval on the host env: status {status}, {len(rows)} rows")
+    check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
+    emit({"phase": "host_enjoy", "checkpoint_of": "host", "enjoy_episodes": len(episodes), "avg_reward": avg_reward, "enjoy_seconds": enjoy_s,
+          "eval_episodes": len(rows) - 1, "eval_seconds": time.perf_counter() - start, "card": card})
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
     from sample_factory_tpu_torch.examples.train_synthetic import register_synthetic_components
+    from sample_factory_tpu_torch.native import shm_queue
     from sample_factory_tpu_torch.ops import cuda_rnn
 
     register_synthetic_components()
+    register_bench_pixel()
     # full-precision float32 products for the comparisons (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -878,6 +1234,7 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "card": card})
 
     start = time.perf_counter()
+    queue_path = shm_queue.build()  # g++; raises where it fails, so that the pipe transport cannot hide it
     lib_path = cuda_rnn.build()
     cuda_rnn.load_library()
     log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
@@ -889,7 +1246,7 @@ def main() -> int:
         at_once[name] = {"shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster,
                          "card_runs_at_once": cuda_rnn.max_active_clusters(kind, dtype, plan)}
         check(at_once[name]["card_runs_at_once"] >= 1, f"{name}: no cluster of {plan} fits the card")
-    emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name,
+    emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name, "shm_queue_library": queue_path.name,
           "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line],
           "clusters_at_main_shapes": at_once})
 
@@ -907,6 +1264,10 @@ def main() -> int:
         paths["population"] = phase_population(torch, cuda_rnn, card, tmp)
         paths["selfplay"] = phase_selfplay(torch, cuda_rnn, card, tmp)
         phase_enjoy(torch, card, tmp)
+        paths["host"] = phase_host(torch, cuda_rnn, card, tmp)
+        paths["host_rnn"] = phase_host_rnn(torch, cuda_rnn, card, tmp)
+        paths["host_selfplay"] = phase_host_selfplay(torch, cuda_rnn, card, tmp)
+        phase_host_enjoy(torch, card, tmp)
 
     # launches: each path was driven with the counts at 0 just before it and read just after
     emit({"kernels": [

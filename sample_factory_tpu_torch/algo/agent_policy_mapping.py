@@ -40,7 +40,7 @@ class AgentPolicyMapping:
 
     def maybe_resample(self, slot_policies: np.ndarray, episodes_completed: int) -> np.ndarray:
         """Async mode: draw the assignment anew every RESAMPLE_EVERY_EPISODES episodes an env
-        (reference :47-59). No runner calls it yet, as in the JAX package."""
+        (reference :47-59). The host multi-policy runner calls it after each iteration."""
         if self.sync_mode:
             return slot_policies
         self._episodes_seen += episodes_completed

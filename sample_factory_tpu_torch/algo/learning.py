@@ -12,7 +12,9 @@ recurrence runs the CUDA kernels of `ops/cuda_rnn.py`.
 
 Host syncs per train call: the valid fraction (it scales the learning rate),
 one per extra epoch (early stop), and the KL value under a KL-adaptive
-schedule.
+schedule. An sgd step has none: host scalars that become stats are filled on the
+device (`torch.full`), not copied to it (`torch.tensor(x, device=...)` waits for
+the stream), so that the host can run ahead of the learner's device work.
 """
 
 from __future__ import annotations
@@ -241,7 +243,7 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
         ts.curr_lr = lr_after_minibatch(cfg, ts.curr_lr, aux["kl_divergence"], ts.train_step)
         ts.train_step += 1
         aux["grad_norm"] = grad_norm.detach()
-        aux["actual_lr"] = torch.tensor(actual_lr, device=grad_norm.device)
+        aux["actual_lr"] = grad_norm.new_full((), actual_lr)  # filled on the device: no copy for the host to wait on
         return aux
 
     @torch.no_grad()
@@ -382,9 +384,9 @@ def make_train_fn(cfg, env_info, policy_id: int = 0) -> Callable:
         # summaries from a random minibatch of the last executed epoch (reference learner.py:693-703)
         mb_idx = torch.randint(0, num_minibatches, (), generator=generator, device=device)
         stats = {k: v[mb_idx] for k, v in aux_seq.items()}
-        stats["epochs_executed"] = torch.tensor(float(epochs_executed), device=device)
-        stats["valids_fraction"] = torch.tensor(valid_frac, device=device)
-        stats["lr"] = torch.tensor(ts.curr_lr, device=device)
+        stats["epochs_executed"] = torch.full((), float(epochs_executed), device=device)
+        stats["valids_fraction"] = torch.full((), valid_frac, device=device)
+        stats["lr"] = torch.full((), ts.curr_lr, device=device)
         stats["version_diff_max"] = (ts.train_step - traj["policy_version"]).max().float()
         return stats
 

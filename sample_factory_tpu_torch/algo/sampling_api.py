@@ -3,9 +3,9 @@
 Counterpart of `sample_factory_tpu/algo/sampling_api.py` (reference
 `sample_factory/algo/sampling/sync_sampling_api.py:16`,
 SyncSamplingAPI.get_trajectories_sync, and `evaluation_sampling_api.py:31,234`).
-On-device envs only so far: a host env is refused when its env info is built
-(ROADMAP A11). The trajectory is the port's standard time-major [T, N, ...]
-dict (`algo/sampling.py`).
+One class serves on-device envs (`algo/sampling.py`) and host envs
+(`algo/host_sampling.py`, `HostVectorSampler`); the trajectory is the port's
+standard time-major [T, N, ...] dict either way.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ class SyncSamplingAPI:
         self.device = resolve_device(cfg)
 
         self._device_env = None
+        self._host_sampler = None
         self._rollout_fn = None
         self._sampler_state = None
         self.train_state: Optional[PolicyTrainState] = None
@@ -44,10 +45,21 @@ class SyncSamplingAPI:
 
     def start(self, train_state: Optional[PolicyTrainState] = None) -> None:
         cfg = self.cfg
-        self._device_env = create_env(cfg.env, cfg=cfg, env_config=None)
-        generator = torch.Generator(self.device).manual_seed(self.seed + 1)
-        self._sampler_state = init_sampler_state(cfg, self._device_env, cfg.num_envs, self.device, generator)
-        self._rollout_fn = make_rollout_fn(cfg, self._device_env, self.env_info)
+        if self.env_info.is_device_env:
+            self._device_env = create_env(cfg.env, cfg=cfg, env_config=None)
+            generator = torch.Generator(self.device).manual_seed(self.seed + 1)
+            self._sampler_state = init_sampler_state(cfg, self._device_env, cfg.num_envs, self.device, generator)
+            self._rollout_fn = make_rollout_fn(cfg, self._device_env, self.env_info)
+        else:
+            from sample_factory_tpu_torch.algo.host_sampling import HostVectorSampler
+
+            self._host_sampler = HostVectorSampler(cfg, self.env_info, self.device, register_fn=self.register_fn)
+            cfg.num_envs = self._host_sampler.num_envs
+            try:
+                self._host_sampler.start()
+            except BaseException:
+                self._host_sampler.close()
+                raise
 
         if train_state is not None:
             self.train_state = train_state
@@ -64,6 +76,11 @@ class SyncSamplingAPI:
     def get_trajectories_sync(self) -> Dict[str, Any]:
         """Collect one rollout's worth of trajectories from all envs."""
         ts = self.train_state
+        if self._host_sampler is not None:
+            traj, stats = self._host_sampler.collect_rollout(ts.model, ts.obs_rms, ts.train_step, int(self.cfg.policy_index))
+            self.episodic.extend(stats["episodes"])
+            self._last_ep_stats = stats
+            return traj
         self._sampler_state, traj, ep_stats = self._rollout_fn(
             ts.model, ts.obs_rms, self._sampler_state, ts.train_step, int(self.cfg.policy_index)
         )
@@ -71,7 +88,9 @@ class SyncSamplingAPI:
         return traj
 
     def stop(self) -> None:
-        """Nothing to release: on-device envs hold no process or file."""
+        """Stop a host sampler's workers; on-device envs hold no process or file."""
+        if self._host_sampler is not None:
+            self._host_sampler.close()
 
 
 class EvalSamplingAPI(SyncSamplingAPI):
@@ -81,11 +100,15 @@ class EvalSamplingAPI(SyncSamplingAPI):
         super().__init__(cfg, env_info, register_fn, load_from_checkpoint=True)
 
     def sample_episodes(self, num_episodes: int) -> List[Tuple[float, int]]:
-        """At least `num_episodes` (return, length) pairs: the episodes a rollout completed
-        enter as that many copies of their average, as the aggregate stats give no more."""
+        """At least `num_episodes` (return, length) pairs. A host sampler reports every episode;
+        on the device path the episodes a rollout completed enter as that many copies of their
+        average, as the aggregate stats give no more."""
         episodes: List[Tuple[float, int]] = []
         while len(episodes) < num_episodes:
             self.get_trajectories_sync()
+            if self._host_sampler is not None:
+                episodes = list(self.episodic)
+                continue
             stats = self._last_ep_stats
             n = int(stats["count"])
             if n:

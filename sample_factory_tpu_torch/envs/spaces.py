@@ -3,7 +3,8 @@
 Copy of `sample_factory_tpu/envs/spaces.py`, so that the port's trajectories
 and models have the same shapes (reference
 `algo/utils/action_distributions.py:14-42` calc_num_actions /
-calc_num_action_parameters). Gymnasium spaces convert at the boundary.
+calc_num_action_parameters). Gymnasium spaces convert at the host-env boundary
+(`from_gym_space`); an env that declares its spaces in these specs needs no gymnasium.
 """
 
 from __future__ import annotations
@@ -92,6 +93,26 @@ def action_dtype(space) -> str:
         # mixed tuples store everything as float32 and cast discrete components on use
         return "float32" if any(isinstance(s, Box) for s in space.spaces) else "int32"
     raise NotImplementedError(f"Action space {space!r} not supported")
+
+
+def from_gym_space(space):
+    """A gymnasium space as a static spec (the host-env boundary). The port's own specs pass
+    through unchanged, so gymnasium is imported only when something else arrives."""
+    if isinstance(space, (Discrete, Box, TupleSpec, DictSpec)):
+        return space
+    import gymnasium as gym
+
+    if isinstance(space, gym.spaces.Discrete):
+        return Discrete(int(space.n))
+    if isinstance(space, gym.spaces.Box):
+        low = float(space.low.min()) if hasattr(space.low, "min") else float(space.low)
+        high = float(space.high.max()) if hasattr(space.high, "max") else float(space.high)
+        return Box(tuple(int(s) for s in space.shape), low, high, str(space.dtype))
+    if isinstance(space, gym.spaces.Tuple):
+        return TupleSpec(tuple(from_gym_space(s) for s in space.spaces))
+    if isinstance(space, gym.spaces.Dict):
+        return make_dict_spec({k: from_gym_space(v) for k, v in space.spaces.items()})
+    raise NotImplementedError(f"Gym space {space!r} not supported")
 
 
 def obs_space_as_dict(space) -> DictSpec:

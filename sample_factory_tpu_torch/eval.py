@@ -2,8 +2,8 @@
 
 Counterpart of `sample_factory_tpu/eval.py` (reference `sample_factory/eval.py:77-119`,
 `do_eval`: sampler without learner, per-episode stats to a CSV file). On-device
-envs go through `enjoy`'s batched loop; host envs wait for the host sampler
-(ROADMAP A11).
+envs go through `enjoy`'s batched loop; host envs through the training sampler
+(`HostVectorSampler`: the worker pool, or inline in --serial_mode).
 """
 
 from __future__ import annotations
@@ -32,7 +32,34 @@ def _eval_device_env(cfg, num_episodes: int) -> List[Tuple[float, int]]:
 
 
 def _eval_host_env(cfg, num_episodes: int, register_fn=None) -> List[Tuple[float, int]]:
-    raise NotImplementedError("evaluation on host (gymnasium) envs is not ported yet (ROADMAP A11)")
+    import torch
+
+    from sample_factory_tpu_torch.algo.host_sampling import HostVectorSampler
+    from sample_factory_tpu_torch.algo.learning import init_train_state
+    from sample_factory_tpu_torch.models.actor_critic import create_actor_critic
+    from sample_factory_tpu_torch.runner.checkpoint import load_checkpoint
+    from sample_factory_tpu_torch.utils.utils import resolve_device
+
+    env_info = obtain_env_info(cfg, register_fn=register_fn)
+    device = resolve_device(cfg)
+    seed = cfg.seed if cfg.seed is not None else 0
+    model = create_actor_critic(cfg, env_info.obs_space, env_info.action_space, torch.Generator().manual_seed(seed)).to(device)
+    ts = init_train_state(cfg, env_info, model, device)
+    restored = load_checkpoint(cfg, cfg.policy_index, ts)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint for policy {cfg.policy_index}")
+    log.info("Evaluating checkpoint at %d env steps", restored[0])
+
+    sampler = HostVectorSampler(cfg, env_info, device, register_fn=register_fn)
+    try:
+        sampler.start()
+        episodes: List[Tuple[float, int]] = []
+        while len(episodes) < num_episodes:
+            _, stats = sampler.collect_rollout(ts.model, ts.obs_rms, ts.train_step, cfg.policy_index)
+            episodes.extend(stats["episodes"])
+        return episodes[:num_episodes]
+    finally:
+        sampler.close()
 
 
 def do_eval(cfg, register_fn=None) -> int:
@@ -72,10 +99,11 @@ def do_eval(cfg, register_fn=None) -> int:
 
 def main() -> int:
     """python -m sample_factory_tpu_torch.eval --env=... --experiment=... --sample_env_episodes=64"""
-    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
+    from sample_factory_tpu_torch.enjoy import register_env_by_name
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
 
-    register_synthetic_components()
-    return do_eval(parse_custom_args(evaluation=True))
+    cfg = parse_custom_args(evaluation=True)
+    return do_eval(cfg, register_fn=register_env_by_name(cfg.env))
 
 
 if __name__ == "__main__":

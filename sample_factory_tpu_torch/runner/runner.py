@@ -117,8 +117,13 @@ class Runner:
         init_file_logger(cfg)
         save_cfg(cfg)
         self.device = resolve_device(cfg)
-        self.env = create_env(cfg.env, cfg=cfg, env_config=None)
-        self.env_info = extract_env_info(self.env, cfg)
+        self._init_env()
+
+    def _init_env(self) -> None:
+        """The env and its info. On-device envs are built here, in this process; the host
+        runners probe theirs in a child process instead."""
+        self.env = create_env(self.cfg.env, cfg=self.cfg, env_config=None)
+        self.env_info = extract_env_info(self.env, self.cfg)
 
     def init(self) -> None:
         cfg = self.cfg
@@ -189,6 +194,12 @@ class Runner:
     def _after_iteration(self) -> None:
         """Between an iteration's bookkeeping and its periodic tasks (the population runner's PBT step)."""
 
+    def _finish_pending_work(self) -> None:
+        """Before the final checkpoint (the host runner dispatches the learner quanta still queued)."""
+
+    def _release_resources(self) -> None:
+        """At the very end of run(), whatever happened (the host runners stop their env workers)."""
+
     def _close_writers(self) -> None:
         if self.writer is not None:
             self.writer.close()
@@ -220,11 +231,15 @@ class Runner:
             log.info("Interrupted, saving checkpoint...")
             status = 1
         finally:
-            if profiler is not None:
-                self._stop_profiler(profiler)
-            self._drain_ep_stats()
-            self._save(is_final=True)
-            self._close_writers()
+            try:
+                if profiler is not None:
+                    self._stop_profiler(profiler)
+                self._finish_pending_work()
+                self._drain_ep_stats()
+                self._save(is_final=True)
+            finally:
+                self._release_resources()
+                self._close_writers()
             for obs in self.observers:
                 obs.on_stop(self)
             log.info("Timing: %s", self.timing.flat_str())

@@ -2,10 +2,11 @@
 reference `sample_factory/train.py`): resolve the config, with resume-merge of
 the saved config.json, build the runner and run it.
 
-Ported: on-device envs. A single policy on a single-agent env goes to `Runner`
-(sync and async, the default); `--num_policies > 1` or a multi-agent env goes to
-`MultiPolicyRunner` (:46-55). Host envs (refused by `create_env`), multi-host runs
-and wandb raise NotImplementedError naming their ROADMAP item.
+On-device envs: a single policy on a single-agent env goes to `Runner` (sync and
+async, the default); `--num_policies > 1` or a multi-agent env goes to
+`MultiPolicyRunner` (:46-55). Host envs: `--num_policies > 1` goes to
+`HostMultiPolicyRunner`, anything else to `HostEnvRunner` (:56-63). Multi-host
+runs and wandb raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,12 +35,24 @@ def make_rl_runner(cfg, register_fn=None):
     from sample_factory_tpu_torch.envs.env_info import obtain_env_info
 
     env_info = obtain_env_info(cfg, register_fn=register_fn)
+    if not env_info.is_device_env and env_info.num_agents > 1:
+        # num_envs counts agent slots (transitions per step), like the reference's
+        # total_num_agents (rl_utils.py:28-33)
+        cfg.num_envs = cfg.num_workers * cfg.num_envs_per_worker * env_info.num_agents
     verify_cfg(cfg)
-    if cfg.num_policies > 1 or env_info.num_agents > 1:
-        from sample_factory_tpu_torch.runner.multi_policy_runner import MultiPolicyRunner
+    if env_info.is_device_env:
+        if cfg.num_policies > 1 or env_info.num_agents > 1:
+            from sample_factory_tpu_torch.runner.multi_policy_runner import MultiPolicyRunner
 
-        return cfg, MultiPolicyRunner(cfg)
-    return cfg, Runner(cfg)
+            return cfg, MultiPolicyRunner(cfg)
+        return cfg, Runner(cfg)
+    if cfg.num_policies > 1:
+        from sample_factory_tpu_torch.runner.host_multi_policy_runner import HostMultiPolicyRunner
+
+        return cfg, HostMultiPolicyRunner(cfg, register_fn=register_fn)
+    from sample_factory_tpu_torch.runner.host_runner import HostEnvRunner
+
+    return cfg, HostEnvRunner(cfg, register_fn=register_fn)
 
 
 def run_rl(cfg, register_fn=None) -> int:

@@ -241,11 +241,13 @@ def test_unported_branches_raise(tmp_path):
     for extra in (["--num_policies=2"], ["--env=grid_duel", "--encoder_conv_architecture=resnet_impala"]):
         _, runner = make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + extra))
         assert type(runner).__name__ == "MultiPolicyRunner"
-    from sample_factory_tpu_torch.envs.env_utils import register_env
+    # host envs are ported too: a host env goes to the host runners (tests/test_torch_host_runner.py)
+    from sample_factory_tpu_torch.envs.batched_host_env import register_batched_cartpole
 
-    register_env("a_host_env", lambda name, cfg, env_config, render_mode=None: object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--env=a_host_env"]))
+    register_batched_cartpole("a_host_env")
+    for extra, want in ((["--serial_mode=True"], "HostEnvRunner"), (["--serial_mode=True", "--num_policies=2"], "HostMultiPolicyRunner")):
+        _, runner = make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--env=a_host_env", "--use_rnn=False"] + extra))
+        assert type(runner).__name__ == want
     with pytest.raises(NotImplementedError, match="A13"):
         make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--jax_distributed=True"]))
     with pytest.raises(NotImplementedError, match="A14"):
@@ -257,29 +259,79 @@ def test_unported_branches_raise(tmp_path):
         parse_custom_args(_smoke_argv(tmp_path, 64) + ["--device=tpu"])
 
 
+IMPORT_EVERY_MODULE = (
+    "import sys, tempfile, pkgutil, importlib\n"
+    "import sample_factory_tpu_torch\n"
+    "names = [m.name for m in pkgutil.walk_packages(sample_factory_tpu_torch.__path__, 'sample_factory_tpu_torch.')]\n"
+    "assert {'sample_factory_tpu_torch.enjoy', 'sample_factory_tpu_torch.eval', 'sample_factory_tpu_torch.envs.builtin.ant',\n"
+    "        'sample_factory_tpu_torch.runner.multi_policy_runner', 'sample_factory_tpu_torch.pbt.pbt',\n"
+    "        'sample_factory_tpu_torch.algo.agent_policy_mapping', 'sample_factory_tpu_torch.algo.sampling_api',\n"
+    "        'sample_factory_tpu_torch.envs.builtin.grid_duel', 'sample_factory_tpu_torch.native.shm_queue',\n"
+    "        'sample_factory_tpu_torch.algo.host_worker', 'sample_factory_tpu_torch.algo.host_sampling',\n"
+    "        'sample_factory_tpu_torch.algo.quantized_train', 'sample_factory_tpu_torch.runner.host_runner',\n"
+    "        'sample_factory_tpu_torch.runner.host_multi_policy_runner', 'sample_factory_tpu_torch.envs.batched_host_env',\n"
+    "        'sample_factory_tpu_torch.envs.gym_wrappers', 'sample_factory_tpu_torch.envs.gymnasium_compat',\n"
+    "        'sample_factory_tpu_torch.envs.pettingzoo_adapter', 'sample_factory_tpu_torch.examples.train_gym_env',\n"
+    "        'sample_factory_tpu_torch.examples.train_custom_multi_env'} <= set(names)\n"
+    "for name in names: importlib.import_module(name)\n"
+    "import chip_smoke\n"
+)
+REPORT_FOREIGN = (
+    "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sample_factory_tpu', 'sf_examples_tpu'))\n"
+    "print('FOREIGN', bad)\n"
+)
+
+
+def _fresh_interpreter(code):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout
+
+
 def test_port_imports_no_jax():
-    """Import every module of the port and train with it in a fresh interpreter: no JAX module loads."""
-    code = (
-        "import sys, tempfile, pkgutil, importlib\n"
-        "import sample_factory_tpu_torch\n"
-        "names = [m.name for m in pkgutil.walk_packages(sample_factory_tpu_torch.__path__, 'sample_factory_tpu_torch.')]\n"
-        "assert {'sample_factory_tpu_torch.enjoy', 'sample_factory_tpu_torch.eval', 'sample_factory_tpu_torch.envs.builtin.ant',\n"
-        "        'sample_factory_tpu_torch.runner.multi_policy_runner', 'sample_factory_tpu_torch.pbt.pbt',\n"
-        "        'sample_factory_tpu_torch.algo.agent_policy_mapping', 'sample_factory_tpu_torch.algo.sampling_api',\n"
-        "        'sample_factory_tpu_torch.envs.builtin.grid_duel'} <= set(names)\n"
-        "for name in names: importlib.import_module(name)\n"
+    """Import every module of the port and train with it in a fresh interpreter, on a device env,
+    a population and a host env with worker processes: no JAX module loads."""
+    code = IMPORT_EVERY_MODULE + (
         "from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components\n"
         "from sample_factory_tpu_torch.train import run_rl\n"
         "register_synthetic_components()\n"
         f"assert run_rl(parse_custom_args({_smoke_argv('TMP', 64)!r}[:-3] + ['--train_dir=' + tempfile.mkdtemp(), '--experiment=e', '--seed=1'])) == 0\n"
         f"assert run_rl(parse_custom_args({_smoke_argv('TMP', 64)!r}[:-3] + ['--train_dir=' + tempfile.mkdtemp(), '--experiment=p', '--seed=1',\n"
         "    '--num_policies=2', '--with_pbt=True', '--pbt_start_mutation=0', '--pbt_period_env_steps=16'])) == 0\n"
+        "from sample_factory_tpu_torch.envs.batched_host_env import register_batched_cartpole\n"
+        "register_batched_cartpole()\n"
+        "assert run_rl(parse_custom_args(['--env=batched_cartpole', '--device=cpu', '--num_workers=2', '--num_envs_per_worker=4', '--rollout=8',\n"
+        "    '--batch_size=32', '--train_for_env_steps=192', '--train_dir=' + tempfile.mkdtemp(), '--experiment=h', '--seed=1']),\n"
+        "    register_fn=register_batched_cartpole) == 0\n"
         "from sample_factory_tpu_torch import bridge\n"
         "assert bridge.unpack_msgpack(bytes([0x81, 0xa1, 0x61, 0x01])) == {'a': 1}\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sample_factory_tpu'))\n"
-        "print('FOREIGN', bad)\n"
-    )
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    assert "FOREIGN []" in out.stdout
+    ) + REPORT_FOREIGN
+    assert "FOREIGN []" in _fresh_interpreter(code)
+
+
+def test_port_imports_and_trains_without_gymnasium():
+    """The same imports with gymnasium made unimportable, as on a machine that lacks it: every
+    module imports, and the host envs that declare their spaces in the port's own specs train:
+    the 2-agent matching game with two policies, the batched cart-pole and the pixel env."""
+    code = "import sys\nsys.modules['gymnasium'] = None\n" + IMPORT_EVERY_MODULE + (
+        "from sample_factory_tpu_torch.train import run_rl\n"
+        "from sample_factory_tpu_torch.envs.batched_host_env import register_batched_cartpole, register_bench_pixel\n"
+        "from sample_factory_tpu_torch.examples import train_custom_multi_env as game\n"
+        "from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args\n"
+        "game.register_custom_components(); register_batched_cartpole(); register_bench_pixel()\n"
+        "common = ['--device=cpu', '--serial_mode=True', '--num_workers=2', '--num_envs_per_worker=4', '--rollout=8', '--batch_size=32', '--seed=1']\n"
+        "cfg = game.parse_custom_args(['--env=' + game.ENV_NAME, '--num_policies=2', '--train_for_env_steps=256',\n"
+        "    '--train_dir=' + tempfile.mkdtemp(), '--experiment=g'] + common)\n"
+        "assert run_rl(cfg, register_fn=game.register_custom_components) == 0\n"
+        "for env in ('batched_cartpole', 'bench_host_pixel'):\n"
+        "    cfg = parse_custom_args(['--env=' + env, '--train_for_env_steps=128', '--encoder_conv_mlp_layers', '32',\n"
+        "        '--train_dir=' + tempfile.mkdtemp(), '--experiment=' + env] + common)\n"
+        "    assert run_rl(cfg) == 0\n"
+        "try:\n"
+        "    import gymnasium\n"
+        "    raise SystemExit('gymnasium imported')\n"
+        "except ImportError:\n"
+        "    pass\n"
+    ) + REPORT_FOREIGN
+    assert "FOREIGN []" in _fresh_interpreter(code)
