@@ -35,6 +35,11 @@ Phases, each printing one JSON line:
             float32 at a cut depth on the card against the same call on a CPU copy
   enjoy     `enjoy` on the checkpoint that `appo` wrote, on the card, 16 envs; then with
             --policy_index=1 on `population`'s
+  export    `export_model` (torch.export) of `main`'s checkpoint at batch 1024 on the card; the
+            reloaded program steps 1024 envs for 32 steps with its own rnn state fed back, beside
+            the eager deterministic policy on the same inputs (rnn state within 0.03, equal actions
+            where the top two logits differ by more); its outputs on cuda:0; ms per step of both;
+            the sampling program (draws as an input) once, actions in range
   host      host envs at full width: `bench_host_pixel` (42x42x4 uint8 frames, 6 actions), 2 worker
             processes x 1024 envs in 2 splits over the shared-memory queue, rollout 32, batch 8192,
             convnet_simple + MLP 128, the default regime (async: learner quanta dispatched inside the
@@ -871,6 +876,83 @@ def phase_enjoy(torch, card, tmp):
           "avg_reward": avg_reward, "seconds": time.perf_counter() - start, "card": card})
 
 
+EXPORT_BATCH = 1024
+EXPORT_STEPS = 32
+EXPORT_TOL = 0.03  # the bf16 tolerance of tests/test_torch_models.py
+
+
+def phase_export(torch, card, tmp):
+    """`export_model` on `main`'s checkpoint (grid_battle, convnet_impala + Dense 256, GRU-256,
+    bf16) at batch 1024 on the card; the reloaded program steps 1024 envs for 32 steps with
+    its own rnn state fed back, beside the eager deterministic policy on the same inputs."""
+    from sample_factory_tpu_torch.algo.sampling import init_sampler_state, normalize_obs
+    from sample_factory_tpu_torch.envs.device_env import autoreset_step
+    from sample_factory_tpu_torch.envs.env_utils import create_env
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.export_model import build_inference_fn, export_model, load_exported_model, load_policy
+    from sample_factory_tpu_torch.models.actor_critic import initial_actor_critic_state
+
+    def export_cfg(deterministic):
+        return parse_custom_args(["--env=grid_battle", "--experiment=grid_battle_gru", f"--train_dir={tmp}",
+                                  f"--eval_deterministic={deterministic}"], evaluation=True)
+
+    torch.cuda.synchronize()
+    start = phase_start = time.perf_counter()
+    path = export_model(export_cfg(True), batch_size=EXPORT_BATCH, output_path=os.path.join(tmp, "policy_greedy.pt2"))
+    export_s = time.perf_counter() - start
+    program = load_exported_model(path)
+    cfg, env_info, ts = load_policy(export_cfg(True))
+    eager = build_inference_fn(cfg, env_info, ts.model, ts, deterministic=True)
+    check(cfg.compute_dtype == "bfloat16" and cfg.rnn_size == 256, f"export: not main's model ({cfg.compute_dtype}, {cfg.rnn_size})")
+
+    env = create_env(cfg.env, cfg=cfg)
+    generator = torch.Generator("cuda").manual_seed(7)
+    ss = init_sampler_state(cfg, env, EXPORT_BATCH, torch.device("cuda"), generator)
+    rnn = initial_actor_critic_state(cfg, EXPORT_BATCH, "cuda")
+    rnn_err, mismatched, ties, decided = 0.0, 0, 0, 0
+    with torch.no_grad():
+        for _ in range(EXPORT_STEPS):
+            obs = {k: v.float() for k, v in ss.obs.items()}
+            actions, new_rnn = program(obs, rnn)
+            check(actions.device == torch.device("cuda", 0) and new_rnn.device == torch.device("cuda", 0),
+                  f"export: outputs on {actions.device} and {new_rnn.device}")
+            eager_actions, eager_rnn = eager(obs, rnn)
+            rnn_err = max(rnn_err, float((new_rnn - eager_rnn).abs().max()))
+            logits = eager.model(normalize_obs(cfg, eager.obs_rms, obs), rnn)[0].float()
+            top2 = logits.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > EXPORT_TOL
+            mismatched += int(((actions != eager_actions)[:, 0] & clear).sum())
+            ties += int((~clear).sum())
+            decided += int(clear.sum())
+            ss.obs, ss.env_states, _, dones, _ = autoreset_step(env, ss.env_states, actions, generator=generator)
+            rnn = torch.where(dones[:, None].bool(), torch.zeros_like(new_rnn), new_rnn)
+        torch.cuda.synchronize()
+        check(rnn_err <= EXPORT_TOL, f"export: rnn state {rnn_err} from the eager policy's (tol {EXPORT_TOL})")
+        check(mismatched == 0, f"export: {mismatched} of {decided} clear actions differ from the eager policy's")
+
+        obs = {k: v.float() for k, v in ss.obs.items()}
+        ms = time_ms(torch, lambda: program(obs, rnn))
+        eager_ms = time_ms(torch, lambda: eager(obs, rnn))
+
+        # a sampling policy takes its draws as its third input
+        sampling_path = export_model(export_cfg(False), batch_size=EXPORT_BATCH, output_path=os.path.join(tmp, "policy_sampling.pt2"))
+        sampler = load_exported_model(sampling_path)
+        noise = torch.rand((EXPORT_BATCH, eager.noise_width), generator=generator, device="cuda")
+        sampled, sampled_rnn = sampler(obs, rnn, noise)
+        torch.cuda.synchronize()
+        n_actions = env_info.action_space.n
+        check(sampled.shape == (EXPORT_BATCH, 1) and sampled.dtype == torch.int32 and sampled.device == torch.device("cuda", 0),
+              f"export: sampled actions {tuple(sampled.shape)} {sampled.dtype} on {sampled.device}")
+        check(0 <= int(sampled.min()) and int(sampled.max()) < n_actions, "export: sampled actions out of range")
+        check(bool(torch.isfinite(sampled_rnn).all()), "export: non-finite rnn state from the sampling program")
+        sampled_share = float((sampled != program(obs, rnn)[0]).float().mean())
+    emit({"phase": "export", "checkpoint_of": "main", "batch": EXPORT_BATCH, "steps": EXPORT_STEPS, "export_s": export_s,
+          "pt2_bytes": os.path.getsize(path), "rnn_max_abs_err": rnn_err, "tol": EXPORT_TOL, "tie_share": ties / (ties + decided),
+          "clear_actions": decided, "mismatched_clear_actions": mismatched, "ms_per_exported_step": ms, "ms_per_eager_step": eager_ms,
+          "sampled_actions_not_greedy_share": sampled_share, "phase_s": time.perf_counter() - phase_start, "reps": REPS,
+          "stat": "median of CUDA-event times after warm-up, a spin of the card before each", "card": card})
+
+
 # ------------------------------------------------------------------ host envs
 
 QUIET_HOST = [a for a in QUIET if a != "--num_workers=1"]
@@ -1264,6 +1346,7 @@ def main() -> int:
         paths["population"] = phase_population(torch, cuda_rnn, card, tmp)
         paths["selfplay"] = phase_selfplay(torch, cuda_rnn, card, tmp)
         phase_enjoy(torch, card, tmp)
+        phase_export(torch, card, tmp)
         paths["host"] = phase_host(torch, cuda_rnn, card, tmp)
         paths["host_rnn"] = phase_host_rnn(torch, cuda_rnn, card, tmp)
         paths["host_selfplay"] = phase_host_selfplay(torch, cuda_rnn, card, tmp)

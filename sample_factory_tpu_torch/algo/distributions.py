@@ -7,9 +7,10 @@ Categorical :100-196, Tuple :197-286, Continuous :290-323).
 Conventions (the trajectory schema): actions carry a trailing action dim
 (Discrete -> [..., 1], Box(d) -> [..., d], Tuple -> [..., sum(num_actions)]);
 log_prob/entropy/kl return shape [...].
-Sampling draws its noise from a `torch.Generator`; the categorical `sample`
-(Gumbel-max on uniform noise) also takes the noise as a tensor, so that a test
-can feed the JAX draws.
+Sampling draws its noise from a `torch.Generator`, or takes it as a tensor of
+uniform draws (`uniform`, `noise_width(space)` of them an action), so that a test
+can feed the JAX draws and an exported program is a pure function of its inputs:
+Gumbel-max for a categorical, the inverse normal CDF for a Gaussian.
 """
 
 from __future__ import annotations
@@ -21,6 +22,19 @@ import torch
 import torch.nn.functional as F
 
 from sample_factory_tpu_torch.envs.spaces import Box, Discrete, TupleSpec, num_action_parameters, num_actions
+
+
+UNIFORM_EPS = 1e-7
+
+
+def noise_width(space) -> int:
+    """Uniform draws that sampling one action of `space` takes: one a category (Gumbel-max),
+    one a dimension of a Box (inverse normal CDF)."""
+    if isinstance(space, TupleSpec):
+        return sum(noise_width(s) for s in space.spaces)
+    if isinstance(space, Discrete):
+        return space.n
+    return num_actions(space)
 
 
 def masked_softmax(logits, mask):
@@ -106,8 +120,13 @@ class ContinuousDistribution:
         self.log_std = params[..., d:]
         self.stddevs = torch.exp(self.log_std).clamp(self.stddev_min, self.stddev_max)
 
-    def sample(self, generator: Optional[torch.Generator] = None):
-        eps = torch.randn(self.means.shape, generator=generator, device=self.means.device, dtype=self.means.dtype)
+    def sample(self, generator: Optional[torch.Generator] = None, uniform: Optional[torch.Tensor] = None):
+        """`uniform`: noise in (0, 1) of the means' shape, taken through the inverse normal CDF
+        (clamped to 1e-7 from either end: at most 5.2 standard deviations)."""
+        if uniform is None:
+            eps = torch.randn(self.means.shape, generator=generator, device=self.means.device, dtype=self.means.dtype)
+        else:
+            eps = torch.special.ndtri(uniform.clamp(UNIFORM_EPS, 1.0 - UNIFORM_EPS)).to(self.means.dtype)
         return self.means + self.stddevs * eps
 
     def argmax(self):
@@ -147,8 +166,11 @@ class TupleDistribution:
             self.distributions.append(get_action_distribution(s, logits_flat[..., offset : offset + width], mask))
             offset += width
 
-    def sample(self, generator: Optional[torch.Generator] = None):
-        return torch.cat([d.sample(generator).float() for d in self.distributions], dim=-1)
+    def sample(self, generator: Optional[torch.Generator] = None, uniform: Optional[torch.Tensor] = None):
+        if uniform is None:
+            return torch.cat([d.sample(generator).float() for d in self.distributions], dim=-1)
+        parts = torch.split(uniform, [noise_width(s) for s in self.space.spaces], dim=-1)
+        return torch.cat([d.sample(uniform=u).float() for d, u in zip(self.distributions, parts)], dim=-1)
 
     def argmax(self):
         return torch.cat([d.argmax().float() for d in self.distributions], dim=-1)

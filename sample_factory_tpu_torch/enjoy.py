@@ -7,9 +7,11 @@ in a batch of `num_envs`; `--policy_index=p` takes `checkpoint_p{p}` of a
 population run (single-agent envs: as in the JAX package, there is no
 multi-agent device loop here). A host (gymnasium) env goes to `enjoy_host`: one
 env stepped in this process (single- or multi-agent, or a batched vector env as
-a batch of one), with `--no_render` or a
-window (`render_mode="human"`); `--save_video` and `--push_to_hub` are refused,
-their tooling is not ported (ROADMAP A14).
+a batch of one), with `--no_render`, a window (`render_mode="human"`) or, with
+`--save_video`, frames (`render_mode="rgb_array"`) written to a replay video;
+`--push_to_hub` then writes a model card and pushes the experiment directory
+(`hub/huggingface_hub_utils.py`). Both loops act through the policy that
+`export_model` exports (`build_inference_fn`).
 """
 
 from __future__ import annotations
@@ -21,17 +23,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sample_factory_tpu_torch.algo.distributions import argmax_actions, get_action_distribution
 from sample_factory_tpu_torch.algo.learning import init_train_state
-from sample_factory_tpu_torch.algo.sampling import init_sampler_state, normalize_obs
+from sample_factory_tpu_torch.algo.sampling import init_sampler_state
 from sample_factory_tpu_torch.cfg.arguments import load_from_checkpoint
 from sample_factory_tpu_torch.envs.device_env import autoreset_step
 from sample_factory_tpu_torch.envs.env_info import extract_env_info
 from sample_factory_tpu_torch.envs.env_utils import create_env, is_device_env
-from sample_factory_tpu_torch.envs.spaces import action_dtype
+from sample_factory_tpu_torch.export_model import build_inference_fn
 from sample_factory_tpu_torch.models.actor_critic import create_actor_critic
 from sample_factory_tpu_torch.runner.checkpoint import load_checkpoint
-from sample_factory_tpu_torch.utils.utils import log, resolve_device
+from sample_factory_tpu_torch.utils.utils import experiment_dir, log, resolve_device
 
 
 def enjoy(cfg, num_episodes: Optional[int] = None, num_envs: int = 16, collect_episodes: Optional[list] = None) -> Tuple[int, float]:
@@ -60,14 +61,13 @@ def enjoy(cfg, num_episodes: Optional[int] = None, num_envs: int = 16, collect_e
 
     generator = torch.Generator(device).manual_seed(seed + 1)
     ss = init_sampler_state(cfg, env, num_envs, device, generator)
-    a_dtype = torch.int32 if action_dtype(env_info.action_space) == "int32" else torch.float32
+    policy = build_inference_fn(cfg, env_info, model, ts, deterministic=cfg.eval_deterministic)
 
     @torch.no_grad()
     def eval_step():
-        action_params, _, new_rnn = model(normalize_obs(cfg, ts.obs_rms, ss.obs), ss.rnn_state)
-        dist = get_action_distribution(env_info.action_space, action_params, ss.obs.get("action_mask"))
-        actions = argmax_actions(dist) if cfg.eval_deterministic else dist.sample(generator)
-        ss.obs, ss.env_states, rewards, dones, _ = autoreset_step(env, ss.env_states, actions.to(a_dtype), generator=generator)
+        noise = None if policy.deterministic else policy.draw_noise(num_envs, generator)
+        actions, new_rnn = policy(ss.obs, ss.rnn_state, noise)
+        ss.obs, ss.env_states, rewards, dones, _ = autoreset_step(env, ss.env_states, actions, generator=generator)
         done_f = dones.float()
         ep_return, ep_len = ss.ep_return + rewards, ss.ep_len + 1.0
         ss.rnn_state = torch.where(done_f[:, None] > 0, torch.zeros_like(new_rnn), new_rnn)
@@ -106,9 +106,11 @@ def enjoy_host(cfg, max_episodes: int, collect_episodes: Optional[list] = None) 
     from sample_factory_tpu_torch.envs.gym_wrappers import wrap_host_env
     from sample_factory_tpu_torch.models.actor_critic import initial_actor_critic_state
 
-    if cfg.save_video or cfg.push_to_hub:
-        raise NotImplementedError("--save_video and --push_to_hub are not ported yet (ROADMAP A14); use --no_render")
-    render_mode = None if cfg.no_render else "human"
+    render_mode = None
+    if cfg.save_video:
+        render_mode = "rgb_array"
+    elif not cfg.no_render:
+        render_mode = "human"
     device = resolve_device(cfg)
 
     # eval-time frameskip override: repeat each policy action so that the effective
@@ -148,20 +150,26 @@ def enjoy_host(cfg, max_episodes: int, collect_episodes: Optional[list] = None) 
     log.info("Evaluating checkpoint at %d env steps", restored[0])
 
     generator = torch.Generator(device).manual_seed(seed + 1)
-    a_dtype = torch.int32 if action_dtype(env_info.action_space) == "int32" else torch.float32
+    policy = build_inference_fn(cfg, env_info, model, ts, deterministic=cfg.eval_deterministic)
 
     @torch.no_grad()
     def policy_step(obs, rnn_state):
-        action_params, _, new_rnn = model(normalize_obs(cfg, ts.obs_rms, obs), rnn_state)
-        dist = get_action_distribution(env_info.action_space, action_params, obs.get("action_mask"))
-        actions = argmax_actions(dist) if cfg.eval_deterministic else dist.sample(generator)
-        return actions.to(a_dtype), new_rnn
+        return policy(obs, rnn_state, None if policy.deterministic else policy.draw_noise(rnn_state.shape[0], generator))
 
     obs, _ = env.reset(seed=cfg.seed)
     rnn = initial_actor_critic_state(cfg, num_agents, device)
+    frames = []
     episodes, reward_sum, len_sum = 0, 0.0, 0.0
     ep_reward, ep_len, total_frames = np.zeros(num_agents), 0, 0
     fps_delay = 1.0 / cfg.fps if cfg.fps > 0 else 0.0
+
+    def render_frame():
+        if render_mode == "rgb_array" and len(frames) < cfg.video_frames:
+            frames.append(env.render())
+        elif render_mode == "human":
+            env.render()
+            if fps_delay:
+                time.sleep(fps_delay)
 
     while episodes < max_episodes and total_frames < cfg.max_num_frames:
         actions, rnn = policy_step(to_batched_obs(obs), rnn)
@@ -185,10 +193,7 @@ def enjoy_host(cfg, max_episodes: int, collect_episodes: Optional[list] = None) 
                 done = terminated or truncated
             ep_len += 1
             total_frames += 1
-            if render_mode == "human":
-                env.render()
-                if fps_delay:
-                    time.sleep(fps_delay)
+            render_frame()
             if done:
                 break
 
@@ -208,6 +213,19 @@ def enjoy_host(cfg, max_episodes: int, collect_episodes: Optional[list] = None) 
     env.close()
     avg_reward = reward_sum / max(1, episodes)
     log.info("Avg episode reward: %.3f over %d episodes", avg_reward, episodes)
+
+    if cfg.save_video and frames:
+        from sample_factory_tpu_torch.hub.huggingface_hub_utils import generate_replay_video
+
+        generate_replay_video(experiment_dir(cfg), frames, cfg.fps if cfg.fps > 0 else 30, cfg)
+
+    if cfg.push_to_hub and cfg.hf_repository:
+        from sample_factory_tpu_torch.hub.huggingface_hub_utils import generate_model_card, push_to_hf
+
+        rewards = [r for r, _ in (collect_episodes or [])] or [avg_reward]
+        generate_model_card(experiment_dir(cfg), cfg.algo, cfg.env, cfg.hf_repository, rewards)
+        push_to_hf(experiment_dir(cfg), cfg.hf_repository)
+
     return 0, avg_reward
 
 

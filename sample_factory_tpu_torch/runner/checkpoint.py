@@ -6,7 +6,8 @@ Counterpart of `sample_factory_tpu/runner/checkpoint.py` (reference
 file and renamed (:43-83), rotated by --keep_checkpoints. The train state
 holds the model, the optimizer, the normalizers and the learning rate.
 `restore_from_jax_checkpoint` takes a train state from a checkpoint file of the
-JAX package instead (the parameters and normalizers; not the optimizer state).
+JAX package instead (the parameters and normalizers; not the optimizer state);
+`load_checkpoint` calls it for a `.msgpack` file found in the directory.
 """
 
 from __future__ import annotations
@@ -82,8 +83,10 @@ def save_checkpoint(
 
 def load_checkpoint(cfg, policy_id: int, train_state) -> Optional[Tuple[int, float]]:
     """Load the latest (or best) checkpoint into `train_state` in place.
-    Returns (env_steps, best_performance), or None when there is none.
-    Retries a few times against transient fs errors (reference :277-287)."""
+    Returns (env_steps, best_performance), or None when there is none. A `.msgpack` file of
+    the JAX package in the directory is read through `restore_from_jax_checkpoint`, so that
+    a JAX experiment resumes or plays back in the port. Retries a few times whatever the
+    failure, as the JAX package does (reference :277-287)."""
     d = checkpoint_dir(cfg, policy_id, mkdir=False)
     path = best_checkpoint(d) if cfg.load_checkpoint_kind == "best" else latest_checkpoint(d)
     if path is None and cfg.load_checkpoint_kind == "best":
@@ -92,18 +95,20 @@ def load_checkpoint(cfg, policy_id: int, train_state) -> Optional[Tuple[int, flo
         return None
 
     device = next(train_state.model.parameters()).device
+    error = None
     for attempt in range(3):
         try:
+            if path.endswith(".msgpack"):
+                return restore_from_jax_checkpoint(train_state, path)
             payload = torch.load(path, map_location=device, weights_only=True)
-            break
-        except OSError as e:
+            train_state.load_state_dict(payload["train_state"])
+            log.info("Loaded checkpoint %s (env_steps=%d)", basename(path), payload["env_steps"])
+            return int(payload["env_steps"]), float(payload["best_performance"])
+        except Exception as e:  # noqa: BLE001 - a file being written or synced; retried, then raised below
             log.warning("Checkpoint load attempt %d failed: %s", attempt + 1, e)
+            error = e
             time.sleep(0.5)
-    else:
-        raise RuntimeError(f"Could not load checkpoint {path}")
-    train_state.load_state_dict(payload["train_state"])
-    log.info("Loaded checkpoint %s (env_steps=%d)", basename(path), payload["env_steps"])
-    return int(payload["env_steps"]), float(payload["best_performance"])
+    raise RuntimeError(f"Could not load checkpoint {path}") from error
 
 
 def restore_from_jax_checkpoint(train_state, path: str) -> Tuple[int, float]:

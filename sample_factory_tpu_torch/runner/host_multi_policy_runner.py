@@ -152,6 +152,8 @@ class HostMultiPolicyRunner(MultiPolicyRunner):
         for p in range(self.P):
             self.episode_stats_per_policy[p].add_rollout_stats(*sums[p])
         self._episodes_last_rollout = int(ep_stats["count"])
+        # an episode's custom stats go to policy 0, as in the JAX runner (:271-276)
+        self._dispatch_extra_stats(ep_stats.get("extra_stats", ()), 0)
         self._last_stats = stats
 
     def _after_iteration(self) -> None:

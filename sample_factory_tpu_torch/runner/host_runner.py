@@ -180,6 +180,7 @@ class HostEnvRunner(Runner):
         kept pending on the device."""
         self.fps_tracker.add(time.time(), self.env_steps)
         self.episode_stats.add_rollout_stats(ep_stats["count"], ep_stats["return_sum"], ep_stats["len_sum"])
+        self._dispatch_extra_stats(ep_stats.get("extra_stats", ()), self.policy_id)
         if stats:
             self._last_stats = stats
 

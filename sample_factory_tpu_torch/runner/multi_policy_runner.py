@@ -25,7 +25,7 @@ to observers and `host_stats` are lists of P dicts.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -55,8 +55,6 @@ class MultiPolicyRunner(Runner):
         self.writers: List[Optional[SummaryWriter]] = [None] * self.P
         self.pbt: Optional[PopulationBasedTraining] = None
         self.best_performance_per_policy = [-1e9] * self.P
-        # {stat name: per-policy windows}, filled by observers; PBT reads --pbt_target_objective from it
-        self.policy_avg_stats: Dict[str, Any] = {}
         self.train_generators: List[torch.Generator] = []
         self._slot_policies = None
 

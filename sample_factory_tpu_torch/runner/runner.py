@@ -42,6 +42,7 @@ from sample_factory_tpu_torch.utils.utils import (
     resolve_device,
     save_cfg,
 )
+from sample_factory_tpu_torch.utils.wandb_utils import finish_wandb, init_wandb
 
 PROFILED_ITERATIONS = 12
 
@@ -70,6 +71,10 @@ class Runner:
         self.policy_id = 0
         self.timing = Timing("runner")
         self.observers: list = []
+        # custom per-episode stats: handlers called once an episode (host envs), and the
+        # per-policy windows that observers fill and PBT reads for --pbt_target_objective
+        self.episodic_stats_handlers: list = []
+        self.policy_avg_stats: Dict[str, Any] = {}
 
         self.device: Optional[torch.device] = None
         self.env: Optional[DeviceEnv] = None
@@ -106,7 +111,8 @@ class Runner:
     # ------------------------------------------------------------------ init
 
     def _init_experiment(self):
-        """Experiment directory, log file, saved config, device, env and its info."""
+        """Experiment directory, log file, saved config, the W&B run, device, env and its
+        info. Every runner's `init` starts here, before it makes its summary writers."""
         cfg = self.cfg
         if cfg.restart_behavior == "overwrite":
             import shutil
@@ -116,6 +122,7 @@ class Runner:
         experiment_dir(cfg)  # create
         init_file_logger(cfg)
         save_cfg(cfg)
+        init_wandb(cfg)
         self.device = resolve_device(cfg)
         self._init_env()
 
@@ -240,6 +247,7 @@ class Runner:
             finally:
                 self._release_resources()
                 self._close_writers()
+                finish_wandb(self.cfg)
             for obs in self.observers:
                 obs.on_stop(self)
             log.info("Timing: %s", self.timing.flat_str())
@@ -252,6 +260,17 @@ class Runner:
 
     def register_observer(self, observer: AlgoObserver) -> None:
         self.observers.append(observer)
+
+    def register_episodic_stats_handler(self, fn) -> None:
+        """fn(runner, extra_stats: Dict[str, float], policy_id) is called once per completed
+        episode that carried `episode_extra_stats` in its final info dict (reference
+        Runner.register_episodic_stats_handler)."""
+        self.episodic_stats_handlers.append(fn)
+
+    def _dispatch_extra_stats(self, extra_stats_list, policy_id: int) -> None:
+        for extras in extra_stats_list:
+            for handler in self.episodic_stats_handlers:
+                handler(self, extras, policy_id)
 
     def _notify_observers(self, stats) -> None:
         for obs in self.observers:

@@ -2,8 +2,11 @@
 
 Counterpart of `sample_factory_tpu/runner/stats.py` (reference
 `sample_factory/algo/runners/runner.py:119-142,291-343,368-423`). Summaries go
-to a JSONL file. The JAX package also writes TensorBoard events through
-`torch.utils.tensorboard`; the port does not, because that module imports
+to a JSONL file, which is the record. Beside it, where `tensorboardX` imports,
+the same scalars go to TensorBoard event files in the same directory, and with
+`--with_wandb` to the open W&B run (`step=env_steps`; keys prefixed `p<id>/` in a
+population). The JAX package writes its events through
+`torch.utils.tensorboard`; the port never imports that module, because it imports
 TensorFlow, which imports JAX where it is installed.
 """
 
@@ -15,7 +18,8 @@ from collections import deque
 from os.path import join
 from typing import Deque, Dict, Optional, Tuple
 
-from sample_factory_tpu_torch.utils.utils import summaries_dir
+from sample_factory_tpu_torch.utils.utils import log, summaries_dir
+from sample_factory_tpu_torch.utils.wandb_utils import wandb_run
 
 
 class FpsTracker:
@@ -69,25 +73,50 @@ class EpisodeStats:
         return sum(self.lengths) / len(self.lengths) if self.lengths else None
 
 
+def _event_writer(logdir: str):
+    """A tensorboardX event writer in `logdir`, or None where tensorboardX is missing."""
+    try:
+        from tensorboardX import SummaryWriter as EventWriter
+    except ImportError:
+        log.debug("tensorboardX is not installed: summaries go to JSONL only")
+        return None
+    return EventWriter(logdir=logdir)
+
+
 class SummaryWriter:
     def __init__(self, cfg, policy_id: int = 0):
         self.cfg = cfg
         self.dir = summaries_dir(cfg, policy_id)
         self.jsonl_path = join(self.dir, "summaries.jsonl")
         self._jsonl = open(self.jsonl_path, "a")
+        self._events = _event_writer(self.dir)
+        self._wandb = wandb_run(cfg)  # init_wandb runs before the runners make their writers
+        self._wandb_prefix = f"p{policy_id}/" if cfg.num_policies > 1 else ""
+
+    def _mirror(self, env_steps: int, scalars: Dict[str, float]) -> None:
+        if self._events is not None:
+            for k, v in scalars.items():
+                self._events.add_scalar(k, v, env_steps)
+        if self._wandb is not None:
+            self._wandb.log({self._wandb_prefix + k: v for k, v in scalars.items()}, step=env_steps)
 
     def write(self, env_steps: int, scalars: Dict[str, float], prefix: str = "train") -> None:
-        record = {"env_steps": env_steps, "time": time.time()}
-        record.update({f"{prefix}/{k}": v for k, v in scalars.items()})
-        self._jsonl.write(json.dumps(record) + "\n")
+        named = {f"{prefix}/{k}": v for k, v in scalars.items()}
+        self._jsonl.write(json.dumps({"env_steps": env_steps, "time": time.time(), **named}) + "\n")
+        self._mirror(env_steps, named)
 
     def add_scalar(self, key: str, value: float, env_steps: int) -> None:
         """tensorboardX-compatible single-scalar write (AlgoObserver.extra_summaries hooks)."""
         self._jsonl.write(json.dumps({"env_steps": env_steps, "time": time.time(), key: float(value)}) + "\n")
+        self._mirror(env_steps, {key: float(value)})
 
     def flush(self) -> None:
         self._jsonl.flush()
+        if self._events is not None:
+            self._events.flush()
 
     def close(self) -> None:
         self.flush()
         self._jsonl.close()
+        if self._events is not None:
+            self._events.close()

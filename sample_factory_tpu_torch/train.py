@@ -6,7 +6,8 @@ On-device envs: a single policy on a single-agent env goes to `Runner` (sync and
 async, the default); `--num_policies > 1` or a multi-agent env goes to
 `MultiPolicyRunner` (:46-55). Host envs: `--num_policies > 1` goes to
 `HostMultiPolicyRunner`, anything else to `HostEnvRunner` (:56-63). Multi-host
-runs and wandb raise NotImplementedError naming their ROADMAP item.
+runs and a device mesh of more than one device (`--mesh_data`, `--mesh_model`)
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,8 +30,11 @@ def make_rl_runner(cfg, register_fn=None):
         )
     if cfg.jax_distributed:
         raise NotImplementedError("multi-host runs are not ported yet (ROADMAP A13)")
-    if cfg.with_wandb:
-        raise NotImplementedError("--with_wandb is not ported yet (ROADMAP A14)")
+    # -1 means all devices, which is the one device a run of the port has
+    if cfg.mesh_model > 1 or cfg.mesh_data > 1:
+        raise NotImplementedError(
+            f"--mesh_data={cfg.mesh_data} --mesh_model={cfg.mesh_model}: multi-device runs are not ported yet (ROADMAP A13)"
+        )
 
     from sample_factory_tpu_torch.envs.env_info import obtain_env_info
 

@@ -149,8 +149,9 @@ def test_enjoy_eval_and_sampling_api_on_a_host_env(tmp_path):
     status, avg_reward = enjoy(eval_cfg("--no_render", "--max_num_episodes=3"), collect_episodes=episodes)
     assert status == 0 and len(episodes) == 3 and avg_reward == pytest.approx(np.mean([r for r, _ in episodes]))
     assert all(r == n >= 5 for r, n in episodes)  # CartPole pays 1 a step
-    with pytest.raises(NotImplementedError, match="A14"):
-        enjoy(eval_cfg("--save_video"))
+    # --save_video renders rgb_array frames into the experiment's replay video
+    assert enjoy(eval_cfg("--save_video", "--max_num_episodes=1", "--video_frames=16"))[0] == 0
+    assert (tmp_path / "api_host" / "replay.mp4").stat().st_size > 0
 
     assert do_eval(eval_cfg("--sample_env_episodes=12"), register_fn=register_fn) == 0
     rows = (tmp_path / "api_host" / "eval" / "eval_p0.csv").read_text().strip().splitlines()

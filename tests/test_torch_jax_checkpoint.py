@@ -151,3 +151,36 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path, case):
     _, traj, _ = make_rollout_fn(tcfg, env, tinfo)(tts.model, tts.obs_rms, ss, tts.train_step, 0)
     stats = make_train_fn(tcfg, tinfo)(tts, traj, torch.Generator().manual_seed(1))
     assert tts.train_step == 11 and all(bool(torch.isfinite(v)) for v in stats.values())
+
+
+def test_port_resumes_and_plays_back_a_jax_experiment(tmp_path):
+    """An experiment directory whose only checkpoint the JAX package wrote: the port's `enjoy`
+    plays it back and the port's trainer resumes from it (train step, env steps, parameters),
+    then writes its own checkpoint beside it."""
+    from sample_factory_tpu_torch.enjoy import enjoy
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    common = CASES["gru"] + ["--experiment=jax_run", f"--train_dir={tmp_path}", "--seed=2", "--device=cpu", "--num_workers=1",
+                             "--num_envs_per_worker=8", "--rollout=8", "--batch_size=64", "--async_rl=False"]
+    reset_global_context()
+    jax_register_synthetic_components()
+    assert jax_run_rl(jax_parse_custom_args(common + ["--train_for_env_steps=640"])) == 0
+    reset_global_context()
+    ckpt_dir = tmp_path / "jax_run" / "checkpoint_p0"
+    (jax_file,) = [p.name for p in ckpt_dir.iterdir()]
+    assert jax_file.endswith(".msgpack")
+
+    register_synthetic_components()
+    episodes = []
+    status, avg_reward = enjoy(parse_custom_args(common + ["--no_render"], evaluation=True), num_episodes=4, num_envs=4,
+                               collect_episodes=episodes)
+    assert status == 0 and len(episodes) >= 4 and np.isfinite(avg_reward)
+
+    cfg, runner = make_rl_runner(parse_custom_args(common + ["--train_for_env_steps=1280"]))
+    runner.init()
+    assert runner.env_steps == 640 and runner.train_state.train_step == 10
+    want = bridge.flax_to_state_dict(bridge.load_jax_checkpoint(str(ckpt_dir / jax_file))["params"], runner.train_state.model)
+    torch.testing.assert_close(runner.train_state.model.state_dict(), want, atol=0, rtol=0)
+    assert runner.run() == 0
+    assert runner.env_steps == 1280 and runner.train_state.train_step == 20
+    assert sorted(p.suffix for p in ckpt_dir.iterdir()) == [".msgpack", ".pth"]

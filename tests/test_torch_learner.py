@@ -248,10 +248,15 @@ def test_unported_branches_raise(tmp_path):
     for extra, want in ((["--serial_mode=True"], "HostEnvRunner"), (["--serial_mode=True", "--num_policies=2"], "HostMultiPolicyRunner")):
         _, runner = make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--env=a_host_env", "--use_rnn=False"] + extra))
         assert type(runner).__name__ == want
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--jax_distributed=True"]))
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--with_wandb=True"]))
+    # multi-device runs are not ported: refused, not run on one device
+    for extra in (["--jax_distributed=True"], ["--mesh_model=2"], ["--mesh_data=2"], ["--mesh_data=4", "--mesh_model=2"]):
+        with pytest.raises(NotImplementedError, match="A13"):
+            make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + extra))
+    # all devices (-1, the default) and one device are the one device the port runs on
+    for extra in (["--mesh_data=-1"], ["--mesh_data=1", "--mesh_model=1"]):
+        assert make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + extra))[1] is not None
+    # wandb is ported (tests/test_torch_tooling.py): without the package it warns and trains
+    assert make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--with_wandb=True"]))[1] is not None
     # the default regime (async) is ported: no flag needed
     cfg, runner = make_rl_runner(parse_custom_args([a for a in _smoke_argv(tmp_path, 64) if a != "--async_rl=False"]))
     assert cfg.async_rl and runner is not None
@@ -272,7 +277,13 @@ IMPORT_EVERY_MODULE = (
     "        'sample_factory_tpu_torch.runner.host_multi_policy_runner', 'sample_factory_tpu_torch.envs.batched_host_env',\n"
     "        'sample_factory_tpu_torch.envs.gym_wrappers', 'sample_factory_tpu_torch.envs.gymnasium_compat',\n"
     "        'sample_factory_tpu_torch.envs.pettingzoo_adapter', 'sample_factory_tpu_torch.examples.train_gym_env',\n"
-    "        'sample_factory_tpu_torch.examples.train_custom_multi_env'} <= set(names)\n"
+    "        'sample_factory_tpu_torch.examples.train_custom_multi_env', 'sample_factory_tpu_torch.utils.wandb_utils',\n"
+    "        'sample_factory_tpu_torch.hub.huggingface_hub_utils', 'sample_factory_tpu_torch.launcher.run',\n"
+    "        'sample_factory_tpu_torch.launcher.run_description', 'sample_factory_tpu_torch.launcher.run_processes',\n"
+    "        'sample_factory_tpu_torch.launcher.run_slurm', 'sample_factory_tpu_torch.launcher.run_ngc',\n"
+    "        'sample_factory_tpu_torch.export_model', 'sample_factory_tpu_torch.export_onnx',\n"
+    "        'sample_factory_tpu_torch.onnx.onnx_pb2', 'sample_factory_tpu_torch.onnx.builder',\n"
+    "        'sample_factory_tpu_torch.onnx.interp', 'sample_factory_tpu_torch.examples.export_gym_env'} <= set(names)\n"
     "for name in names: importlib.import_module(name)\n"
     "import chip_smoke\n"
 )
@@ -296,7 +307,12 @@ def test_port_imports_no_jax():
         "from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components\n"
         "from sample_factory_tpu_torch.train import run_rl\n"
         "register_synthetic_components()\n"
-        f"assert run_rl(parse_custom_args({_smoke_argv('TMP', 64)!r}[:-3] + ['--train_dir=' + tempfile.mkdtemp(), '--experiment=e', '--seed=1'])) == 0\n"
+        "d = tempfile.mkdtemp()\n"
+        f"assert run_rl(parse_custom_args({_smoke_argv('TMP', 64)!r}[:-3] + ['--train_dir=' + d, '--experiment=e', '--seed=1'])) == 0\n"
+        "from sample_factory_tpu_torch.export_model import export_model\n"
+        "from sample_factory_tpu_torch.export_onnx import export_policy_onnx\n"
+        "for export in (export_model, export_policy_onnx):\n"
+        "    export(parse_custom_args(['--env=grid_battle', '--experiment=e', '--train_dir=' + d], evaluation=True))\n"
         f"assert run_rl(parse_custom_args({_smoke_argv('TMP', 64)!r}[:-3] + ['--train_dir=' + tempfile.mkdtemp(), '--experiment=p', '--seed=1',\n"
         "    '--num_policies=2', '--with_pbt=True', '--pbt_start_mutation=0', '--pbt_period_env_steps=16'])) == 0\n"
         "from sample_factory_tpu_torch.envs.batched_host_env import register_batched_cartpole\n"
