@@ -51,6 +51,16 @@ Phases, each printing one JSON line:
             processes, PBT once: `policy_id` against the slot mapping and `active`, the mapping drawn
             anew, the mutated shaping in the workers' envs, both policies' checkpoints
   host_enjoy  `enjoy` and `eval` on the checkpoint that `host` wrote
+  custom_model  `examples/train_custom_env_custom_model.py` at its own defaults (2 workers x 32 envs of the
+            42x42x4 quadrant task, async, the quantized learner, its registered encoder on the card) for
+            300,000 env steps: average episode reward at least 100 (random play 32); then `enjoy`
+  atari     `examples/envpool/train_envpool_atari.py` (envpool_atari_breakout, atari_params: convnet_atari +
+            Dense 512 over 84x84x4 uint8, sync PPO, 4 epochs of 256-sample minibatches) with 8 workers x 32
+            envs in 2 splits over the stand-in envpool module of tests/standins/ (the card's machine has
+            none): 4 iterations; the 4th's rollout and first epoch under the profiler, against the 3rd's
+            unprofiled; uint8 frames on cuda:0, the decaying learning rate, no RNN kernel
+  sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
+            the synthetic env on the card for 200,000 env steps
 Then a `kernels` line, the card's name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
@@ -261,14 +271,17 @@ def phase_timing(torch, cuda_rnn, card):
     return out
 
 
-def train(torch, cuda_rnn, argv, train_dir, before_run=None, observers=(), register_fn=None, device_flag=("--device=gpu",)):
+def train(torch, cuda_rnn, argv, train_dir, before_run=None, observers=(), register_fn=None, device_flag=("--device=gpu",), parse=None):
     """Drive `argv` through make_rl_runner / Runner.run, as `run_rl` does, with the kernels'
     launch counts set to 0 just before the run and read just after. `before_run(runner)`
     may instrument the initialised runner; `observers` are registered before its init;
-    `register_fn` registers a host env inside its worker processes."""
+    `register_fn` registers a host env inside its worker processes; `parse` is an example's
+    own argument parser (`train_synthetic`'s by default)."""
     from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
     from sample_factory_tpu_torch.runner.runner import AlgoObserver
     from sample_factory_tpu_torch.train import make_rl_runner
+
+    parse = parse or parse_custom_args
 
     class IterationClock(AlgoObserver):
         """The host time at the end of each iteration, after a sync."""
@@ -280,7 +293,7 @@ def train(torch, cuda_rnn, argv, train_dir, before_run=None, observers=(), regis
             torch.cuda.synchronize()
             self.times.append(time.perf_counter())
 
-    _, runner = make_rl_runner(parse_custom_args(argv + [f"--train_dir={train_dir}", *device_flag, "--seed=0"]), register_fn=register_fn)
+    _, runner = make_rl_runner(parse(argv + [f"--train_dir={train_dir}", *device_flag, "--seed=0"]), register_fn=register_fn)
     clock = IterationClock()
     runner.register_observer(clock)
     for observer in observers:
@@ -372,22 +385,27 @@ def phase_main(torch, cuda_rnn, card, tmp):
     return runner, counts, steady_rate
 
 
-def profiled_device_time(torch, fn):
-    """Run fn under torch.profiler: (wall us, device busy us, RNN kernels' us, the device
-    activities, their us by name). Device activities only (kernels, copies, sets): one
+def device_activities(torch, prof):
+    """(device busy us, RNN kernels' us, the device activities, their us by name) of a finished
+    torch.profiler run that recorded the device's activities alone (kernels, copies, sets): one
     stream, so their times add up."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        w0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - w0) * 1e6
     on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
     for e in on_device:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
     rnn_us = sum(e.time_range.elapsed_us() for e in on_device if "seq_cluster_kernel" in e.name or "rows_kernel" in e.name)
-    return wall_us, sum(by_name.values()), rnn_us, on_device, by_name
+    return sum(by_name.values()), rnn_us, on_device, by_name
+
+
+def profiled_device_time(torch, fn):
+    """Run fn under torch.profiler, recording CUDA activity only: (wall us, device busy us,
+    RNN kernels' us, the device activities, their us by name)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - w0) * 1e6
+    return (wall_us, *device_activities(torch, prof))
 
 
 def device_share(torch, fn, unprofiled_s):
@@ -1294,6 +1312,226 @@ def phase_host_enjoy(torch, card, tmp):
           "eval_episodes": len(rows) - 1, "eval_seconds": time.perf_counter() - start, "card": card})
 
 
+# ------------------------------------------------------------------ the examples users start from
+
+CUSTOM_MODEL_STEPS, CUSTOM_MODEL_MIN_REWARD = 300_000, 100.0  # random play 32 an episode, perfect 128
+
+
+def phase_custom_model(torch, cuda_rnn, card, tmp):
+    """`examples/train_custom_env_custom_model.py` at its own defaults (2 workers x 32 envs, 2 splits,
+    rollout 32, batch 1024, async with the quantized learner, normalize_input): the registered
+    encoder on the card, trained to an average episode reward of at least 100; then `enjoy`."""
+    from sample_factory_tpu_torch.algo.context import global_model_factory
+
+    factory = global_model_factory()
+    previous = factory.encoder_factory
+    try:
+        return custom_model_run(torch, cuda_rnn, card, tmp)
+    finally:
+        factory.encoder_factory = previous  # the later phases build the default encoders
+
+
+def custom_model_run(torch, cuda_rnn, card, tmp):
+    from sample_factory_tpu_torch.enjoy import enjoy
+    from sample_factory_tpu_torch.examples import train_custom_env_custom_model as pixel
+    from sample_factory_tpu_torch.examples.custom_encoders import CustomPixelEncoder
+
+    pixel.register_custom_components()
+    seen = []
+
+    def before_run(runner):
+        model = runner.train_state.model
+        check(type(runner).__name__ == "HostEnvRunner" and runner.device.type == "cuda", "not the host runner on the card")
+        check(runner.sampler.transport == "shm_queue", f"transport {runner.sampler.transport}")
+        check(runner.cfg.async_rl and runner._quantizer is not None and runner.cfg.normalize_input, "not the example's defaults")
+        check(isinstance(model.encoder, CustomPixelEncoder) and isinstance(runner.behavior_model.encoder, CustomPixelEncoder),
+              f"the encoder is {type(model.encoder).__name__}, not the registered one")
+        check({str(p.device) for p in model.parameters()} == {"cuda:0"}, "the model's parameters are not all on cuda:0")
+        record_host_rollouts(runner, seen)
+
+    argv = QUIET_HOST + ["--env=my_custom_pixel_env", f"--train_for_env_steps={CUSTOM_MODEL_STEPS}", "--experiment=custom_model"]
+    start = time.perf_counter()
+    runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, before_run, register_fn=pixel.register_custom_components,
+                                         parse=pixel.parse_custom_args)
+    seconds = time.perf_counter() - start
+    check(all(v == 0 for v in counts.values()), f"an RNN kernel launched on a feed-forward path: {counts}")
+    envs = runner.sampler.num_envs
+    check(envs == 64 and runner.cfg.rollout == 32 and runner.cfg.batch_size == 1024, f"{envs} envs, not the example's 2 x 32")
+    check(all(it["devices"] == {"cuda:0"} and it["obs_dtype"] == torch.uint8 and it["obs_shape"] == (33, envs, 42, 42, 4) for it in seen),
+          "observations did not arrive on cuda:0 as uint8 [33, 64, 42, 42, 4]")
+    reward = runner.episode_stats.avg_reward
+    check(reward is not None and reward >= CUSTOM_MODEL_MIN_REWARD, f"average episode reward {reward} after {runner.env_steps} env steps")
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+
+    episodes = []
+    enjoy_start = time.perf_counter()
+    status, enjoy_reward = enjoy(pixel.parse_custom_args(["--env=my_custom_pixel_env", "--experiment=custom_model", f"--train_dir={tmp}",
+                                                          "--no_render", "--max_num_episodes=4"], evaluation=True), collect_episodes=episodes)
+    check(status == 0 and len(episodes) == 4 and all(n == pixel.EPISODE_LEN for _, n in episodes), f"enjoy: status {status}, {episodes}")
+    check(enjoy_reward >= CUSTOM_MODEL_MIN_REWARD, f"enjoy's average reward {enjoy_reward}")
+    check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
+    emit({"phase": "custom_model", "env": "my_custom_pixel_env", "encoder": "CustomPixelEncoder", "workers": 2, "envs": envs, "rollout": 32,
+          "transport": runner.sampler.transport, "iterations": len(per_iter), "env_steps": runner.env_steps, "seconds": seconds,
+          "env_steps_per_s": runner.env_steps / sum(per_iter), "avg_episode_reward": reward, "min_reward": CUSTOM_MODEL_MIN_REWARD,
+          "enjoy_episodes": len(episodes), "enjoy_avg_reward": enjoy_reward, "enjoy_seconds": time.perf_counter() - enjoy_start,
+          "launches": counts, "timing": runner.timing.flat_str(), "card": card})
+    return counts
+
+
+STANDIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "standins")  # envpool.py
+ATARI_FRAME_BYTES = 84 * 84 * 4
+
+
+def phase_atari(torch, cuda_rnn, card, tmp):
+    """`examples/envpool/train_envpool_atari.py` with --env=envpool_atari_breakout on the atari_params
+    defaults and the module's usage line (32 envs a worker in 2 splits), over the stand-in envpool
+    module of `tests/standins/`, which the workers import from the path: 4 iterations. The window
+    from the start of an iteration to its first epoch's last SGD step is timed in every iteration,
+    and in the 4th it runs under the profiler."""
+    from sample_factory_tpu_torch.examples.envpool import train_envpool_atari as atari
+
+    workers = min(8, os.cpu_count() or 1)
+    envs, rollout, iters = workers * 32, 128, 4
+    epoch_steps = envs * rollout // 256
+    old_path = os.environ.get("PYTHONPATH")
+    sys.path.insert(0, STANDIN_DIR)
+    os.environ["PYTHONPATH"] = STANDIN_DIR + (os.pathsep + old_path if old_path else "")  # spawned workers import it too
+    atari.register_envpool_atari_components()
+    calls, rollouts, profile, slots = [], [], {}, {}
+    window = {"t0": None, "steps": 0, "prof": None, "ms": []}
+
+    def end_of_first_epoch(optimizer, args, kwargs):
+        window["steps"] += 1
+        if window["steps"] != epoch_steps:
+            return
+        torch.cuda.synchronize()
+        window["ms"].append((time.perf_counter() - window["t0"]) * 1e3)
+        prof, window["prof"] = window["prof"], None
+        if prof is not None:
+            stop = time.perf_counter()
+            prof.stop()
+            device_us, _, on_device, by_name = device_activities(torch, prof)
+            profile.update(wall_ms=window["ms"][-1], device_us=device_us, activities=len(on_device), stop_s=time.perf_counter() - stop,
+                           top={k: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]})
+
+    def before_run(runner):
+        cfg = runner.cfg
+        check(type(runner).__name__ == "HostEnvRunner" and runner.device.type == "cuda" and not cfg.async_rl, "not sync PPO on the card")
+        check(runner.sampler.transport == "shm_queue" and len(runner.sampler.workers) == workers, f"{len(runner.sampler.workers)} workers")
+        check(cfg.encoder_conv_architecture == "convnet_atari" and cfg.obs_scale == 255.0 and cfg.normalize_input and cfg.normalize_returns
+              and cfg.lr_schedule == "linear_decay" and cfg.adam_eps == 1e-5 and cfg.batch_size == 256 and cfg.num_epochs == 4,
+              "not the atari_params defaults")
+        collect, train_fn, iteration = runner.sampler.collect_rollout, runner._train_fn, runner._train_iteration
+        runner.train_state.optimizer.register_step_post_hook(end_of_first_epoch)
+
+        def timed_collect(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            traj, ep = collect(*args, **kwargs)
+            torch.cuda.synchronize()
+            obs = traj["obs"]["obs"]
+            rollouts.append({"ms": (time.perf_counter() - t0) * 1e3, "device": str(obs.device), "dtype": obs.dtype, "shape": tuple(obs.shape)})
+            return traj, ep
+
+        def timed_train(ts, traj, generator):
+            step0 = ts.train_step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window["steps"] = 0
+            out = train_fn(ts, traj, generator)
+            torch.cuda.synchronize()
+            calls.append({"ms": (time.perf_counter() - t0) * 1e3, "sgd_steps": ts.train_step - step0, "lr": ts.curr_lr,
+                          "epochs": float(out["epochs_executed"]), "finite": all(bool(torch.isfinite(v).all()) for v in out.values())})
+            return out
+
+        def windowed_iteration():
+            if len(rollouts) == 1:
+                reset_slot_timers(runner.sampler)  # the per-slot host times of iterations 2 and 3
+            if len(rollouts) == iters - 1:
+                slots.update(slot_ms(runner.sampler), slots_timed=runner.sampler.slots_timed)
+                window["prof"] = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                window["prof"].start()
+            torch.cuda.synchronize()
+            window["t0"] = time.perf_counter()
+            return iteration()
+
+        runner.sampler.collect_rollout, runner._train_fn, runner._train_iteration = timed_collect, timed_train, windowed_iteration
+
+    argv = QUIET_HOST + ["--env=envpool_atari_breakout", f"--num_workers={workers}", "--num_envs_per_worker=32", "--worker_num_splits=2",
+                         f"--train_for_env_steps={iters * envs * rollout * 4}", "--experiment=atari"]  # env steps count frames (frameskip 4)
+    try:
+        runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, before_run, register_fn=atari.register_envpool_atari_components,
+                                             parse=atari.parse_envpool_atari_args)
+    finally:
+        sys.path.remove(STANDIN_DIR)
+        sys.modules.pop("envpool", None)
+        if old_path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = old_path
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    check(len(per_iter) == len(calls) == len(rollouts) == len(window["ms"]) == iters, f"{len(per_iter)} iterations, {len(calls)} train calls")
+    check(all(v == 0 for v in counts.values()), f"an RNN kernel launched on the atari path: {counts}")
+    check(all(r["device"] == "cuda:0" and r["dtype"] == torch.uint8 and r["shape"] == (rollout + 1, envs, 84, 84, 4) for r in rollouts),
+          f"observations {rollouts[0]['device']} {rollouts[0]['dtype']} {rollouts[0]['shape']}")
+    lrs = [runner.cfg.learning_rate] + [c["lr"] for c in calls]
+    check(all(a > b for a, b in zip(lrs, lrs[1:])), f"the learning rate did not fall after each train call: {lrs}")
+    check(all(c["finite"] for c in calls) and all(math.isfinite(v) for v in stats.values()), "non-finite losses")
+    check(all(c["sgd_steps"] == c["epochs"] * epoch_steps for c in calls), f"sgd steps {[c['sgd_steps'] for c in calls]}")
+    check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
+    check(profile.get("device_us", 0) > 0 and profile["activities"] > 0, f"the profiler saw no device activity: {profile}")
+    timed = per_iter[1:iters - 1]
+    emit({"phase": "atari", "env": "envpool_atari_breakout (stand-in pool)", "workers": workers, "cpu_count": os.cpu_count(), "envs": envs,
+          "splits": 2, "rollout": rollout, "iterations": iters, "env_steps_frames": runner.env_steps, "launches": counts, "iteration_s": per_iter,
+          "env_steps_per_s_iterations_2_3": envs * rollout * len(timed) / sum(timed), "rollout_ms": [r["ms"] for r in rollouts],
+          "learner_ms": [c["ms"] for c in calls], "sgd_steps_per_iteration": [c["sgd_steps"] for c in calls], "lr": lrs,
+          "upload_bytes_per_iteration": (rollout + 1) * envs * ATARI_FRAME_BYTES, "slot_ms_host_clock_iterations_2_3": slots,
+          "window": f"the rollout and the first epoch ({epoch_steps} SGD steps), host clock, synced", "window_ms": window["ms"],
+          "profiled_window_iteration_4": {"wall_ms": profile["wall_ms"], "profiler_stop_s": profile["stop_s"],
+                                          "device_busy_ms": profile["device_us"] / 1e3, "device_activities": profile["activities"],
+                                          "top_device_ms": profile["top"],
+                                          "device_idle_share_vs_unprofiled_window_3": 1.0 - profile["device_us"] / (window["ms"][2] * 1e3)},
+          "loss": stats["loss"], "grad_norm": stats["grad_norm"], "timing": runner.timing.flat_str(), "card": card})
+    return counts
+
+
+SAMPLER_STEPS = 200_000
+
+
+def phase_sampler(torch, card, tmp):
+    """`examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE
+    here): the synthetic on-device env at train_synthetic's defaults, on the card."""
+    from sample_factory_tpu_torch.algo.sampling_api import SyncSamplingAPI
+    from sample_factory_tpu_torch.examples.sampler import use_simplified_sampling_api as sampler
+
+    parse, register = sampler._components()
+    check(register.__module__ == "sample_factory_tpu_torch.examples.train_synthetic", f"the sampler took {register.__module__}, not the fallback")
+    register()
+    cfg = parse(["--env=synthetic_vector_discrete", "--experiment=sampler", f"--train_dir={tmp}", "--device=gpu", "--seed=0"])
+    shapes, collect = [], SyncSamplingAPI.get_trajectories_sync
+
+    def recording_collect(self):
+        traj = collect(self)
+        shapes.append(({str(v.device) for k, v in traj.items() if k != "obs"}, tuple(traj["rewards"].shape)))
+        return traj
+
+    SyncSamplingAPI.get_trajectories_sync = recording_collect
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        check(sampler.generate_trajectories(cfg, register, SAMPLER_STEPS) == 0, "generate_trajectories failed")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    finally:
+        SyncSamplingAPI.get_trajectories_sync = collect
+    per_call = cfg.num_envs * cfg.rollout
+    check(all(devices == {"cuda:0"} and shape == (cfg.rollout, cfg.num_envs) for devices, shape in shapes), f"trajectories {shapes[:2]}")
+    check(len(shapes) == -(-SAMPLER_STEPS // per_call), f"{len(shapes)} calls of {per_call} samples for {SAMPLER_STEPS}")
+    emit({"phase": "sampler", "env": cfg.env, "envs": cfg.num_envs, "rollout": cfg.rollout, "calls": len(shapes), "samples_per_call": per_call,
+          "env_steps": len(shapes) * per_call, "seconds": seconds, "env_steps_per_s": len(shapes) * per_call / seconds,
+          "stat": "host clock around generate_trajectories (start, the calls, stop), synced", "card": card})
+
+
 def main() -> int:
     import torch
 
@@ -1351,6 +1589,11 @@ def main() -> int:
         paths["host_rnn"] = phase_host_rnn(torch, cuda_rnn, card, tmp)
         paths["host_selfplay"] = phase_host_selfplay(torch, cuda_rnn, card, tmp)
         phase_host_enjoy(torch, card, tmp)
+        paths["custom_model"] = phase_custom_model(torch, cuda_rnn, card, tmp)
+        paths["atari"] = phase_atari(torch, cuda_rnn, card, tmp)
+        cuda_rnn.reset_launch_counts()
+        phase_sampler(torch, card, tmp)
+        check(all(v == 0 for v in cuda_rnn.launch_counts().values()), "an RNN kernel launched in the sampler phase")
 
     # launches: each path was driven with the counts at 0 just before it and read just after
     emit({"kernels": [

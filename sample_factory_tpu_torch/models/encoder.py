@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sample_factory_tpu_torch.models.model_utils import Conv, Dense, nonlinearity
+from sample_factory_tpu_torch.models.model_utils import Conv, Dense, nonlinearity, pad_same
 
 # conv filter stacks: (out_channels, kernel, stride), VALID padding
 CONV_FILTERS = {
@@ -94,7 +94,7 @@ class ResBlock(nn.Module):
     def __init__(self, cfg, channels: int, dtype=torch.float32):
         super().__init__()
         self.act = nonlinearity(cfg)
-        self.conv = nn.ModuleList([Conv(channels, channels, 3, 1, cfg, dtype, padding=1) for _ in range(2)])
+        self.conv = nn.ModuleList([Conv(channels, channels, 3, 1, cfg, dtype, padding="same") for _ in range(2)])
 
     def forward(self, x):
         out = self.conv[0](self.act(x))
@@ -109,9 +109,7 @@ def max_pool_same(x):
     """3x3 max-pool at stride 2 with XLA's SAME padding: an even size is padded by 0 before
     and 1 after, an odd size by 1 on both sides (`nn.MaxPool2d(padding=1)` pads both sides
     always). The padding is -inf, so it never wins."""
-    h, w = x.shape[-2:]
-    x = F.pad(x, (w % 2, 1, h % 2, 1), value=float("-inf"))
-    return F.max_pool2d(x, 3, stride=2)
+    return F.max_pool2d(pad_same(x, 3, 2, value=float("-inf")), 3, stride=2)
 
 
 class ResnetEncoder(nn.Module):
@@ -126,7 +124,7 @@ class ResnetEncoder(nn.Module):
         self.resblock = nn.ModuleList()
         self.blocks_per_stage = [blocks for _, blocks in RESNET_CONF]
         for out_ch, blocks in RESNET_CONF:
-            self.conv.append(Conv(channels, out_ch, 3, 1, cfg, dtype, padding=1))
+            self.conv.append(Conv(channels, out_ch, 3, 1, cfg, dtype, padding="same"))
             self.resblock.extend(ResBlock(cfg, out_ch, dtype) for _ in range(blocks))
             channels = out_ch
             height, width = (height + 1) // 2, (width + 1) // 2

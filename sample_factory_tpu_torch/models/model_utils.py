@@ -10,7 +10,7 @@ does; `--compute_dtype=bfloat16` therefore changes no stored parameter.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,13 +73,34 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-class Conv(nn.Module):
-    """2-D convolution on NCHW input, float32 params computed in `dtype`. VALID padding by
-    default; `padding=kernel // 2` is flax's SAME for an odd kernel at stride 1."""
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one axis, (before, after): the output has ceil(size / stride)
+    pixels, and an odd pixel of padding goes after."""
+    out = math.ceil(size / stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int, cfg=None, dtype=torch.float32, padding: int = 0):
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """Pad an NCHW tensor so that a VALID window of `kernel` at `stride` computes XLA's SAME."""
+    top, bottom = same_padding(x.shape[-2], kernel, stride)
+    left, right = same_padding(x.shape[-1], kernel, stride)
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+class Conv(nn.Module):
+    """2-D convolution on NCHW input, float32 params computed in `dtype`, with flax's
+    padding: "valid" or "same". SAME pads asymmetrically where the kernel is even or the
+    stride above 1 (`nn.Conv2d` pads both sides alike and refuses "same" at a stride above
+    1); for an odd kernel at stride 1 it is the conv's own `kernel // 2` on both sides."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int, cfg=None, dtype=torch.float32,
+                 padding: str = "valid"):
         super().__init__()
-        self.cfg, self.dtype, self.stride, self.padding = cfg, dtype, stride, padding
+        assert padding in ("valid", "same"), padding
+        self.cfg, self.dtype, self.kernel, self.stride = cfg, dtype, kernel, stride
+        self.pad_same = padding == "same" and (stride > 1 or kernel % 2 == 0)
+        self.padding = kernel // 2 if padding == "same" and not self.pad_same else 0
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_channels))
 
@@ -90,6 +111,8 @@ class Conv(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
+        if self.pad_same:
+            x = pad_same(x, self.kernel, self.stride)
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=self.stride, padding=self.padding)
 
 

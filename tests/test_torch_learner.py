@@ -283,7 +283,16 @@ IMPORT_EVERY_MODULE = (
     "        'sample_factory_tpu_torch.launcher.run_slurm', 'sample_factory_tpu_torch.launcher.run_ngc',\n"
     "        'sample_factory_tpu_torch.export_model', 'sample_factory_tpu_torch.export_onnx',\n"
     "        'sample_factory_tpu_torch.onnx.onnx_pb2', 'sample_factory_tpu_torch.onnx.builder',\n"
-    "        'sample_factory_tpu_torch.onnx.interp', 'sample_factory_tpu_torch.examples.export_gym_env'} <= set(names)\n"
+    "        'sample_factory_tpu_torch.onnx.interp', 'sample_factory_tpu_torch.examples.export_gym_env',\n"
+    "        'sample_factory_tpu_torch.examples.train_custom_env_custom_model', 'sample_factory_tpu_torch.examples.custom_encoders',\n"
+    "        'sample_factory_tpu_torch.examples.enjoy_synthetic', 'sample_factory_tpu_torch.examples.enjoy_gym_env',\n"
+    "        'sample_factory_tpu_torch.examples.sampler.use_simplified_sampling_api', 'sample_factory_tpu_torch.examples.train_pettingzoo_env',\n"
+    "        'sample_factory_tpu_torch.examples.enjoy_pettingzoo_env', 'sample_factory_tpu_torch.examples.mujoco.mujoco_utils',\n"
+    "        'sample_factory_tpu_torch.examples.mujoco.mujoco_params', 'sample_factory_tpu_torch.examples.mujoco.train_mujoco',\n"
+    "        'sample_factory_tpu_torch.examples.mujoco.enjoy_mujoco', 'sample_factory_tpu_torch.examples.mujoco.fast_eval_mujoco',\n"
+    "        'sample_factory_tpu_torch.examples.atari.atari_utils', 'sample_factory_tpu_torch.examples.atari.atari_params',\n"
+    "        'sample_factory_tpu_torch.examples.atari.train_atari', 'sample_factory_tpu_torch.examples.envpool.envpool_utils',\n"
+    "        'sample_factory_tpu_torch.examples.envpool.train_envpool_atari'} <= set(names)\n"
     "for name in names: importlib.import_module(name)\n"
     "import chip_smoke\n"
 )
@@ -302,7 +311,8 @@ def _fresh_interpreter(code):
 
 def test_port_imports_no_jax():
     """Import every module of the port and train with it in a fresh interpreter, on a device env,
-    a population and a host env with worker processes: no JAX module loads."""
+    a population, and host envs with worker processes (the batched cart-pole; the custom pixel env
+    with its registered encoder): no JAX module loads."""
     code = IMPORT_EVERY_MODULE + (
         "from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components\n"
         "from sample_factory_tpu_torch.train import run_rl\n"
@@ -320,6 +330,11 @@ def test_port_imports_no_jax():
         "assert run_rl(parse_custom_args(['--env=batched_cartpole', '--device=cpu', '--num_workers=2', '--num_envs_per_worker=4', '--rollout=8',\n"
         "    '--batch_size=32', '--train_for_env_steps=192', '--train_dir=' + tempfile.mkdtemp(), '--experiment=h', '--seed=1']),\n"
         "    register_fn=register_batched_cartpole) == 0\n"
+        "from sample_factory_tpu_torch.examples import train_custom_env_custom_model as pixel\n"
+        "pixel.register_custom_components()\n"
+        "assert run_rl(pixel.parse_custom_args(['--env=my_custom_pixel_env', '--device=cpu', '--num_workers=2', '--num_envs_per_worker=4',\n"
+        "    '--rollout=8', '--batch_size=32', '--train_for_env_steps=256', '--train_dir=' + tempfile.mkdtemp(), '--experiment=px', '--seed=1']),\n"
+        "    register_fn=pixel.register_custom_components) == 0\n"
         "from sample_factory_tpu_torch import bridge\n"
         "assert bridge.unpack_msgpack(bytes([0x81, 0xa1, 0x61, 0x01])) == {'a': 1}\n"
     ) + REPORT_FOREIGN

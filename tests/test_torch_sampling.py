@@ -175,3 +175,47 @@ def test_sampling_api_uses_a_given_or_checkpointed_train_state(tmp_path):
     assert fresh.train_state.train_step == 0
     fresh.set_train_state(evaluator.train_state)
     assert int(fresh.get_trajectories_sync()["policy_version"].max()) == 16
+
+
+def test_simplified_sampling_api_example(tmp_path, monkeypatch):
+    """`examples/sampler/use_simplified_sampling_api.py` against the JAX example: without ALE both
+    fall back to the synthetic envs; the sample count of a trajectory is T x N either way; the
+    example's `main` collects at least `--sample_env_steps` and stops its sampler."""
+    import sys
+
+    from sf_examples_tpu.sampler import use_simplified_sampling_api as jax_example
+    from sample_factory_tpu_torch.algo.sampling_api import SyncSamplingAPI
+    from sample_factory_tpu_torch.examples.sampler import use_simplified_sampling_api as example
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
+
+    monkeypatch.setitem(sys.modules, "ale_py", None)
+    parse, register = example._components()
+    assert (parse, register) == (parse_custom_args, register_synthetic_components)
+    assert jax_example._components()[1].__module__ == "sf_examples_tpu.train_synthetic"
+
+    traj = {"obs": {"obs": np.zeros((9, 16, 8), np.float32)}, "rewards": np.zeros((8, 16), np.float32),
+            "actions": np.zeros((8, 16, 1), np.int32)}
+    assert example._samples_per_trajectory({k: torch.tensor(v) if k != "obs" else {"obs": torch.tensor(v["obs"])} for k, v in traj.items()}) \
+        == jax_example._samples_per_trajectory({"actions": traj["actions"], "rewards": traj["rewards"]}) == 128
+
+    calls = []
+    sync = SyncSamplingAPI.get_trajectories_sync
+    stops = []
+    stop = SyncSamplingAPI.stop
+
+    def recording_sync(self):
+        out = sync(self)
+        calls.append((tuple(out["rewards"].shape), str(out["rewards"].device)))
+        return out
+
+    def recording_stop(self):
+        stops.append(self)
+        return stop(self)
+
+    monkeypatch.setattr(SyncSamplingAPI, "get_trajectories_sync", recording_sync)
+    monkeypatch.setattr(SyncSamplingAPI, "stop", recording_stop)
+    monkeypatch.setattr(sys, "argv", ["use_simplified_sampling_api", "--env=synthetic_vector_discrete", "--experiment=sampler",
+                                      f"--train_dir={tmp_path}", "--device=cpu", "--num_envs=32", "--rollout=16", "--seed=0",
+                                      "--sample_env_steps=2000"])
+    assert example.main() == 0
+    assert calls == [((16, 32), "cpu")] * 4 and len(stops) == 1  # 4 x 512 >= 2000
