@@ -7,10 +7,12 @@ Phases, each printing one JSON line:
   build     compile the hand-written kernels (csrc/rnn_seq.cu, sm_90a) from the checkout
   parity    each kernel against its plain PyTorch version on the card, forward and
             gradient, float32 and bfloat16, at the main-path shape, the default width
-            and odd shapes; both designs of the launch plan (cluster and rows) run
-  timing    each kernel, its plain version and the bound at the main-path shapes; each
-            kernel in both dtypes at (32, 512, 256), warm and with L2 flushed, beside the
-            first design (rows) at the same shapes; torch.nn.GRU (cuDNN) as a yardstick
+            and odd shapes; both designs of the launch plan (cluster and rows) run; then the
+            doom and dmlab paths' shapes in float32, each asserting the design its plan picks
+  timing    each kernel, its plain version and the bound at the main-path shapes and the doom and
+            dmlab paths' shapes, warm and with L2 flushed, beside the first design (rows) at the
+            same shapes; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a
+            yardstick
   main      sync PPO on grid_battle at full width (IMPALA conv, GRU-256, bf16,
             1024 envs, rollout 32) for 3 iterations through `run_rl`'s runner
   breakdown one more main-path iteration: rollout and learner times, then one under
@@ -59,14 +61,25 @@ Phases, each printing one JSON line:
             envs in 2 splits over the stand-in envpool module of tests/standins/ (the card's machine has
             none): 4 iterations; the 4th's rollout and first epoch under the profiler, against the 3rd's
             unprofiled; uint8 frames on cuda:0, the decaying learning rate, no RNN kernel
+  doom      the paper's doom_battle command line (`sf_examples_tpu/vizdoom/experiments/doom_battle_appo.py`)
+            through `examples/vizdoom/train_vizdoom.py`'s flags: GRU-512 float32, convnet_simple over
+            72x128x3 + the measurements MLP, the tuple head, 400 envs, batch 2048, async with the
+            quantized learner, 4 iterations, over the env-level stand-in of tests/standins/ (the card's
+            machine has neither gymnasium nor vizdoom); `gru_seq_rows` once a minibatch at (32, 64, 512)
+  dmlab     dmlab_30 at dmlab_params (convnet_impala ++ the instruction encoder, LSTM-256 float32), 128
+            envs of the port's DmlabEnv with its level cache over the stand-in deepmind_lab of
+            tests/standins/, batch 1024, async, 4 iterations, the DMLab-30 score tracker registered;
+            `lstm_seq` launches by site (core, instruction encoder in the rollout and the learner)
   sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
             the synthetic env on the card for 200,000 env steps
-Then a `kernels` line, the card's name and power limit, and the result line.
+Then a `kernels` line (each kernel's launches per path and per design: cluster, `*_seq`, and rows,
+`*_seq_rows`), the card's name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -84,6 +97,18 @@ MAIN_LSTM = (32, 128, 256, "float32")  # the lstm phase: 128 envs x 32 steps in 
 SELFPLAY_GRU = (32, 512, 512, "bfloat16")  # the selfplay phase: the default rnn_size, 512 segments a minibatch
 # (32, 512, 512): the default rnn_size; (4, 16, 1024): no cluster slice fits, the row design
 PARITY_SHAPES = [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64), (32, 512, 512), (4, 16, 1024)]
+# the doom and dmlab paths' shapes in the dtype each path runs, with the design its plan picks
+# (kind, T, B, H, dtype, design, cluster): GRU-512 float32 over 2048 / 32 segments (16 blocks of the
+# row design); the DMLab core's LSTM-256 over 1024 / 32; the instruction encoder's LSTM-64 over 16
+# tokens in a rollout slot (64 envs a split), in a minibatch of 1024 (32 clusters: three waves) and
+# in the learner's value of the last observation of all 128 envs
+DOOM_GRU = (32, 64, 512, "float32")
+DMLAB_CORE = (32, 32, 256, "float32")
+DMLAB_INSTR_ROLLOUT = (16, 64, 64, "float32")
+DMLAB_INSTR_LEARNER = (16, 1024, 64, "float32")
+DMLAB_INSTR_BOOTSTRAP = (16, 128, 64, "float32")
+PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "rows", 1), ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "cluster", 8),
+                      ("lstm", *DMLAB_INSTR_LEARNER, "cluster", 8), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8)]
 # bf16: kernel and plain version round every gate op to bf16 alike, but sum h @ wh in
 # another order, so a product can land one bf16 ulp apart; that flip (2^-8 relative,
 # up to 2^-6 absolute at the LSTM cell's magnitudes) feeds forward through the recurrence.
@@ -96,6 +121,11 @@ REPLACES = {
     "gru_seq": "sample_factory_tpu/ops/pallas_gru.py:148",
     "lstm_seq": "sample_factory_tpu/ops/pallas_gru.py:271",
 }
+# each kernel has two designs (cluster: `gru_seq`/`lstm_seq`; rows: `gru_seq_rows`/`lstm_seq_rows`); the
+# kernels line reports the cluster designs at their main paths' shapes, the GRU's row design at the doom
+# path's (where it runs) and the LSTM's at the lstm phase's (no path runs it; the first design's shape)
+KERNEL_LINE_SHAPES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM),
+                      "gru_seq_rows": ("gru", DOOM_GRU), "lstm_seq_rows": ("lstm", MAIN_LSTM)}
 
 
 def emit(record):
@@ -139,44 +169,56 @@ def rel_err(a, b):
     return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
 
 
+def parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=False):
+    """The planned kernel once against its plain version, forward and gradient."""
+    args = make_inputs(torch, kind, T, B, H, dtype, seed=T + B + H)
+    args = [a.requires_grad_(i != 2) for i, a in enumerate(args)]
+    name = f"{kind}_seq" if plan.design == "cluster" else f"{kind}_seq_rows"
+    before = cuda_rnn.launch_counts()[name]
+    out, state = kernel_fn(*args)
+    torch.cuda.synchronize()
+    check(cuda_rnn.launch_counts()[name] == before + 1, f"{kind} {(T, B, H)}: {name} was not launched")
+    ref_out, ref_state = plain_fn(*args)
+    wrt = [a for i, a in enumerate(args) if i != 2]
+    grads = torch.autograd.grad((out**2).sum() + state.sum(), wrt)
+    ref_grads = torch.autograd.grad((ref_out**2).sum() + ref_state.sum(), wrt)
+    torch.cuda.synchronize()
+    fwd = max(float((out - ref_out).detach().abs().max()), float((state - ref_state).detach().abs().max()))
+    grad = max(rel_err(g, r) for g, r in zip(grads, ref_grads))
+    tol = fwd_tol(dtype, T)
+    # gradients: the backward reruns the plain version, so they differ only
+    # through the forward outputs that seed it; scaled by the largest gradient
+    grad_tol = 1e-3 if dtype == "float32" else 4 * BF16_TOL
+    emit({"phase": "parity", "kernel": name, "design": dataclasses.asdict(plan), "dtype": dtype, "shape": [T, B, H],
+          "path_shape": path_shape, "fwd_max_abs_err": fwd, "fwd_tol": tol, "grad_rel_err": grad, "grad_tol": grad_tol})
+    check(fwd <= tol, f"{kind} {dtype} {(T, B, H)}: forward error {fwd} > {tol}")
+    check(grad <= grad_tol, f"{kind} {dtype} {(T, B, H)}: gradient error {grad} > {grad_tol}")
+
+
 def phase_parity(torch, cuda_rnn):
     fns = {"gru": (cuda_rnn.gru_seq, cuda_rnn.gru_seq_reference), "lstm": (cuda_rnn.lstm_seq, cuda_rnn.lstm_seq_reference)}
     main_err = {}
     for kind, (kernel_fn, plain_fn) in fns.items():
         for dtype in ("float32", "bfloat16"):
             for T, B, H in PARITY_SHAPES:
-                args = make_inputs(torch, kind, T, B, H, dtype, seed=T + B + H)
-                args = [a.requires_grad_(i != 2) for i, a in enumerate(args)]
-                plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
-                name = f"{kind}_seq" if plan.design == "cluster" else f"{kind}_seq_rows"
-                before = cuda_rnn.launch_counts()[name]
-                out, state = kernel_fn(*args)
-                torch.cuda.synchronize()
-                check(cuda_rnn.launch_counts()[name] == before + 1, f"{kind} {(T, B, H)}: {name} was not launched")
-                ref_out, ref_state = plain_fn(*args)
-                wrt = [a for i, a in enumerate(args) if i != 2]
-                grads = torch.autograd.grad((out**2).sum() + state.sum(), wrt)
-                ref_grads = torch.autograd.grad((ref_out**2).sum() + ref_state.sum(), wrt)
-                torch.cuda.synchronize()
-                fwd = max(float((out - ref_out).detach().abs().max()), float((state - ref_state).detach().abs().max()))
-                grad = max(rel_err(g, r) for g, r in zip(grads, ref_grads))
-                tol = fwd_tol(dtype, T)
-                # gradients: the backward reruns the plain version, so they differ only
-                # through the forward outputs that seed it; scaled by the largest gradient
-                grad_tol = 1e-3 if dtype == "float32" else 4 * BF16_TOL
-                emit({"phase": "parity", "kernel": name, "design": dataclasses.asdict(plan), "dtype": dtype, "shape": [T, B, H],
-                      "fwd_max_abs_err": fwd, "fwd_tol": tol, "grad_rel_err": grad, "grad_tol": grad_tol})
-                check(fwd <= tol, f"{kind} {dtype} {(T, B, H)}: forward error {fwd} > {tol}")
-                check(grad <= grad_tol, f"{kind} {dtype} {(T, B, H)}: gradient error {grad} > {grad_tol}")
-        # the error reported for the kernel: at the shape and dtype of its main path
-        T, B, H, dtype = MAIN_GRU if kind == "gru" else MAIN_LSTM
+                parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, cuda_rnn.launch_plan(kind, T, B, H, dtype))
+    for kind, T, B, H, dtype, design, cluster in PARITY_PATH_SHAPES:
+        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+        check(plan.design == design and plan.cluster == cluster, f"{kind} {(T, B, H, dtype)} takes {plan}, not the {design} design")
+        kernel_fn, plain_fn = fns[kind]
+        parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=True)
+    # the error reported for each design: at the shape and dtype of the first path that runs it
+    for name, (kind, (T, B, H, dtype)) in KERNEL_LINE_SHAPES.items():
+        kernel_fn, plain_fn = fns[kind]
         args = make_inputs(torch, kind, T, B, H, dtype, seed=1)
+        launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
+        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype) if name.endswith("_seq") else cuda_rnn.row_plan(kind, B, H)
         with torch.no_grad():
-            out, state = kernel_fn(*args)
+            out, state = launch(*args, plan=plan)
             torch.cuda.synchronize()
             ref_out, ref_state = plain_fn(*args)
-        main_err[f"{kind}_seq"] = max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max()))
-        check(main_err[f"{kind}_seq"] <= fwd_tol(dtype, T), f"{kind} at its main-path shape disagrees")
+        main_err[name] = max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max()))
+        check(main_err[name] <= fwd_tol(dtype, T), f"{name} at {(T, B, H, dtype)} disagrees with its plain version")
     return main_err
 
 
@@ -220,29 +262,26 @@ def phase_timing(torch, cuda_rnn, card):
     launches = {"gru": cuda_rnn._launch_gru, "lstm": cuda_rnn._launch_lstm}
     plains = {"gru": cuda_rnn.gru_seq_reference, "lstm": cuda_rnn.lstm_seq_reference}
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
-    out = {}
+    rows_by_shape = {}
     with torch.no_grad():
-        # the main-path rows (and the selfplay path's shape), comparable with the first design's numbers
-        for kind, (T, B, H, dtype) in (("gru", MAIN_GRU), ("lstm", MAIN_LSTM), ("gru", SELFPLAY_GRU)):
+        # the main-path rows (and the selfplay, doom and dmlab paths' shapes): the planned design and
+        # the first design (rows) at the same shape, warm and L2-cold, the plain version and the bound
+        shapes = [("gru", MAIN_GRU), ("lstm", MAIN_LSTM), ("gru", SELFPLAY_GRU)] + [(k, (T, B, H, dt)) for k, T, B, H, dt, _, _ in PARITY_PATH_SHAPES]
+        for kind, (T, B, H, dtype) in shapes:
             args = make_inputs(torch, kind, T, B, H, dtype, seed=2)
             plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
             rows = cuda_rnn.row_plan(kind, B, H)
-            ms = time_ms(torch, lambda: launches[kind](*args))
-            rows_ms = time_ms(torch, lambda: launches[kind](*args, plan=rows))
-            plain_ms = time_ms(torch, lambda: plains[kind](*args))
-            ms_l2_cold = time_ms(torch, lambda: launches[kind](*args), flush=flush)
-            rows_ms_l2_cold = time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush)
+            row = {"ms": time_ms(torch, lambda: launches[kind](*args)),
+                   "rows_ms": time_ms(torch, lambda: launches[kind](*args, plan=rows)),
+                   "plain_ms": time_ms(torch, lambda: plains[kind](*args)),
+                   "ms_l2_cold": time_ms(torch, lambda: launches[kind](*args), flush=flush),
+                   "rows_ms_l2_cold": time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush)}
             bound_ms, bound_by, nbytes, flops = bound(kind, T, B, H, dtype)
-            # for the kernels line: the plan, and the time of the kernel's first design (the row design)
-            if (T, B, H, dtype) != SELFPLAY_GRU:  # the kernels line reports each kernel at its first path's shape
-                out[f"{kind}_seq"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                                      "design": dataclasses.asdict(plan), "first_design_ms": rows_ms}
-            emit({"phase": "timing", "kernel": f"{kind}_seq", "shape": [T, B, H], "dtype": dtype, "ms": ms,
-                  "rows_ms": rows_ms, "ms_l2_cold": ms_l2_cold, "rows_ms_l2_cold": rows_ms_l2_cold, "plain_ms": plain_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-                  "design": dataclasses.asdict(plan), "reps": REPS,
-                  "stat": "median of CUDA-event times; ms: L2 not flushed, l2_cold: 100 MB written before each; "
-                          "rows: the first design (row design) at the same shape", "card": card})
+            row.update(bound_ms=bound_ms, bound_by=bound_by, design=dataclasses.asdict(plan))
+            rows_by_shape[(kind, T, B, H, dtype)] = row
+            emit({"phase": "timing", "kernel": f"{kind}_seq", "shape": [T, B, H], "dtype": dtype, **row, "bytes": nbytes, "flops": flops,
+                  "reps": REPS, "stat": "median of CUDA-event times; ms: L2 not flushed, l2_cold: 100 MB written before each; "
+                                        "rows: the first design (row design) at the same shape", "card": card})
         # each kernel in both dtypes at the GRU's main shape, warm and L2-cold, beside the row design
         T, B, H = MAIN_GRU[:3]
         for kind in ("gru", "lstm"):
@@ -268,6 +307,16 @@ def phase_timing(torch, cuda_rnn, card):
               "ms_warm": time_ms(torch, lambda: gru(x, h0)), "ms_l2_cold": time_ms(torch, lambda: gru(x, h0), flush=flush),
               "reps": REPS, "card": card})
     del flush
+    # for the kernels line: each design at the shape of the first path that runs it (the cluster
+    # designs' rows carry the row design's time there as `first_design_ms`)
+    out = {}
+    for name, (kind, shape) in KERNEL_LINE_SHAPES.items():
+        row = rows_by_shape[(kind, *shape)]
+        ms = row["ms"] if name.endswith("_seq") else row["rows_ms"]
+        out[name] = {"ms": ms, "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                     "shape": list(shape[:3]), "dtype": shape[3]}
+        if name.endswith("_seq"):
+            out[name].update(design=row["design"], first_design_ms=row["rows_ms"])
     return out
 
 
@@ -1317,18 +1366,36 @@ def phase_host_enjoy(torch, card, tmp):
 CUSTOM_MODEL_STEPS, CUSTOM_MODEL_MIN_REWARD = 300_000, 100.0  # random play 32 an episode, perfect 128
 
 
-def phase_custom_model(torch, cuda_rnn, card, tmp):
-    """`examples/train_custom_env_custom_model.py` at its own defaults (2 workers x 32 envs, 2 splits,
-    rollout 32, batch 1024, async with the quantized learner, normalize_input): the registered
-    encoder on the card, trained to an average episode reward of at least 100; then `enjoy`."""
+@contextlib.contextmanager
+def restored_encoder_factory():
+    """A phase that registers an example's encoder factory leaves the previous one in place after it:
+    the factory is global, and the later phases build their own encoders."""
     from sample_factory_tpu_torch.algo.context import global_model_factory
 
     factory = global_model_factory()
     previous = factory.encoder_factory
     try:
-        return custom_model_run(torch, cuda_rnn, card, tmp)
+        yield
     finally:
-        factory.encoder_factory = previous  # the later phases build the default encoders
+        factory.encoder_factory = previous
+
+
+def check_host_example(runner, workers, encoder_cls):
+    model = runner.train_state.model
+    check(type(runner).__name__ == "HostEnvRunner" and runner.device.type == "cuda", "not the host runner on the card")
+    check(runner.sampler.transport == "shm_queue" and len(runner.sampler.workers) == workers, f"{len(runner.sampler.workers)} workers")
+    check(runner.cfg.async_rl and runner._quantizer is not None, "not the default regime with the quantized learner")
+    check(isinstance(model.encoder, encoder_cls) and isinstance(runner.behavior_model.encoder, encoder_cls),
+          f"the encoder is {type(model.encoder).__name__}, not the example's")
+    check({str(p.device) for p in model.parameters()} == {"cuda:0"}, "the model's parameters are not all on cuda:0")
+
+
+def phase_custom_model(torch, cuda_rnn, card, tmp):
+    """`examples/train_custom_env_custom_model.py` at its own defaults (2 workers x 32 envs, 2 splits,
+    rollout 32, batch 1024, async with the quantized learner, normalize_input): the registered
+    encoder on the card, trained to an average episode reward of at least 100; then `enjoy`."""
+    with restored_encoder_factory():
+        return custom_model_run(torch, cuda_rnn, card, tmp)
 
 
 def custom_model_run(torch, cuda_rnn, card, tmp):
@@ -1340,13 +1407,8 @@ def custom_model_run(torch, cuda_rnn, card, tmp):
     seen = []
 
     def before_run(runner):
-        model = runner.train_state.model
-        check(type(runner).__name__ == "HostEnvRunner" and runner.device.type == "cuda", "not the host runner on the card")
-        check(runner.sampler.transport == "shm_queue", f"transport {runner.sampler.transport}")
-        check(runner.cfg.async_rl and runner._quantizer is not None and runner.cfg.normalize_input, "not the example's defaults")
-        check(isinstance(model.encoder, CustomPixelEncoder) and isinstance(runner.behavior_model.encoder, CustomPixelEncoder),
-              f"the encoder is {type(model.encoder).__name__}, not the registered one")
-        check({str(p.device) for p in model.parameters()} == {"cuda:0"}, "the model's parameters are not all on cuda:0")
+        check_host_example(runner, 2, CustomPixelEncoder)
+        check(runner.cfg.normalize_input, "not the example's defaults")
         record_host_rollouts(runner, seen)
 
     argv = QUIET_HOST + ["--env=my_custom_pixel_env", f"--train_for_env_steps={CUSTOM_MODEL_STEPS}", "--experiment=custom_model"]
@@ -1378,8 +1440,27 @@ def custom_model_run(torch, cuda_rnn, card, tmp):
     return counts
 
 
-STANDIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "standins")  # envpool.py
+STANDIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "standins")  # envpool, vizdoom, deepmind_lab
 ATARI_FRAME_BYTES = 84 * 84 * 4
+
+
+@contextlib.contextmanager
+def standins_on_path(*modules):
+    """tests/standins/ on sys.path and PYTHONPATH (spawned workers import the stand-ins from there);
+    `modules` are dropped from sys.modules afterwards."""
+    old_path = os.environ.get("PYTHONPATH")
+    sys.path.insert(0, STANDIN_DIR)
+    os.environ["PYTHONPATH"] = STANDIN_DIR + (os.pathsep + old_path if old_path else "")
+    try:
+        yield
+    finally:
+        sys.path.remove(STANDIN_DIR)
+        for name in modules:
+            sys.modules.pop(name, None)
+        if old_path is None:
+            del os.environ["PYTHONPATH"]
+        else:
+            os.environ["PYTHONPATH"] = old_path
 
 
 def phase_atari(torch, cuda_rnn, card, tmp):
@@ -1393,9 +1474,6 @@ def phase_atari(torch, cuda_rnn, card, tmp):
     workers = min(8, os.cpu_count() or 1)
     envs, rollout, iters = workers * 32, 128, 4
     epoch_steps = envs * rollout // 256
-    old_path = os.environ.get("PYTHONPATH")
-    sys.path.insert(0, STANDIN_DIR)
-    os.environ["PYTHONPATH"] = STANDIN_DIR + (os.pathsep + old_path if old_path else "")  # spawned workers import it too
     atari.register_envpool_atari_components()
     calls, rollouts, profile, slots = [], [], {}, {}
     window = {"t0": None, "steps": 0, "prof": None, "ms": []}
@@ -1459,16 +1537,9 @@ def phase_atari(torch, cuda_rnn, card, tmp):
 
     argv = QUIET_HOST + ["--env=envpool_atari_breakout", f"--num_workers={workers}", "--num_envs_per_worker=32", "--worker_num_splits=2",
                          f"--train_for_env_steps={iters * envs * rollout * 4}", "--experiment=atari"]  # env steps count frames (frameskip 4)
-    try:
+    with standins_on_path("envpool"):
         runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, before_run, register_fn=atari.register_envpool_atari_components,
                                              parse=atari.parse_envpool_atari_args)
-    finally:
-        sys.path.remove(STANDIN_DIR)
-        sys.modules.pop("envpool", None)
-        if old_path is None:
-            del os.environ["PYTHONPATH"]
-        else:
-            os.environ["PYTHONPATH"] = old_path
     per_iter = [b - a for a, b in zip(times, times[1:])]
     check(len(per_iter) == len(calls) == len(rollouts) == len(window["ms"]) == iters, f"{len(per_iter)} iterations, {len(calls)} train calls")
     check(all(v == 0 for v in counts.values()), f"an RNN kernel launched on the atari path: {counts}")
@@ -1492,6 +1563,240 @@ def phase_atari(torch, cuda_rnn, card, tmp):
                                           "top_device_ms": profile["top"],
                                           "device_idle_share_vs_unprofiled_window_3": 1.0 - profile["device_us"] / (window["ms"][2] * 1e3)},
           "loss": stats["loss"], "grad_norm": stats["grad_norm"], "timing": runner.timing.flat_str(), "card": card})
+    return counts
+
+
+@contextlib.contextmanager
+def launch_shapes(cuda_rnn):
+    """Record (kind, T, B, H) of each kernel launch while the block runs; the wrappers count as before."""
+    seen, launch = [], cuda_rnn._launch
+
+    def recording(kind, x_proj, *args):
+        seen.append((kind, x_proj.shape[0], x_proj.shape[1], x_proj.shape[2] // (3 if kind == "gru" else 4)))
+        return launch(kind, x_proj, *args)
+
+    cuda_rnn._launch = recording
+    try:
+        yield seen
+    finally:
+        cuda_rnn._launch = launch
+
+
+def host_workers(paper_workers, envs, splits=2):
+    """The paper's worker count where the machine has a core for each, else the most workers (one a
+    core) that keep all `envs` in equal splits: the env count is never cut."""
+    cores = os.cpu_count() or 1
+    for w in range(min(paper_workers, cores), 0, -1):
+        if envs % w == 0 and (envs // w) % splits == 0:
+            return w
+    raise RuntimeError(f"no worker count divides {envs} envs")
+
+
+def instrument_host_iterations(torch, runner, iters, record):
+    """Per iteration (host clock, synced): the iteration, its rollout (with the learner quanta the
+    pacer dispatches inside it) and the host time in quanta and in the flush; the per-slot times
+    count from iteration 2; the last iteration runs under the profiler (CUDA activity only)."""
+    q, sampler, iteration = runner._quantizer, runner.sampler, runner._train_iteration
+    collect, dispatch_one, flush = sampler.collect_rollout, q.dispatch_one, q.flush
+    learner = {"quanta": 0.0, "flush": 0.0}
+
+    def clocked(key, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            learner[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    def timed_collect(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collect(*args, **kwargs)
+        torch.cuda.synchronize()
+        record["rollout_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_iteration():
+        k = len(record["iteration_ms"])
+        if k == 1:
+            reset_slot_timers(sampler)
+        if k == iters - 1:
+            record["slot_ms"] = dict(slot_ms(sampler), slots_timed=sampler.slots_timed)  # iterations 2 to N-1, unprofiled
+        learner.update(quanta=0.0, flush=0.0)
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) if k == iters - 1 else None
+        if prof is not None:
+            prof.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = iteration()
+        torch.cuda.synchronize()
+        record["iteration_ms"].append((time.perf_counter() - t0) * 1e3)
+        record["learner_quanta_ms"].append(learner["quanta"] * 1e3)
+        record["learner_flush_ms"].append(learner["flush"] * 1e3)
+        if prof is not None:
+            prof.stop()
+            device_us, rnn_us, on_device, by_name = device_activities(torch, prof)
+            unprofiled_ms = record["iteration_ms"][-2]
+            record["profile"] = {"profiled_iteration_ms": record["iteration_ms"][-1], "device_busy_ms": device_us / 1e3,
+                                 "device_activities": len(on_device), "rnn_kernel_ms": rnn_us / 1e3,
+                                 "device_idle_share_vs_unprofiled_iteration": 1.0 - device_us / (unprofiled_ms * 1e3),
+                                 "top_device_ms": {k2: v / 1e3 for k2, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}}
+        return out
+
+    sampler.collect_rollout, runner._train_iteration = timed_collect, timed_iteration
+    q.dispatch_one, q.flush = clocked("quanta", dispatch_one), clocked("flush", flush)
+
+
+def host_example_line(runner, iters, record, envs):
+    steady = record["iteration_ms"][1:]
+    return {"iterations": iters, "env_steps_frames": runner.env_steps, "iteration_ms": record["iteration_ms"],
+            "env_steps_per_s_iterations_2_on": envs * runner.cfg.rollout * len(steady) / (sum(steady) / 1e3),
+            "rollout_ms": record["rollout_ms"], "learner_quanta_host_ms": record["learner_quanta_ms"],
+            "learner_flush_host_ms": record["learner_flush_ms"], "slot_ms_host_clock_unprofiled_iterations_2_on": record["slot_ms"],
+            "device_in_the_last_iteration": record["profile"],
+            "stat": "host clock, synced; the rollout includes the learner quanta dispatched inside it; the last iteration "
+                    "under torch.profiler (CUDA activity only), its busy time against the iteration before, unprofiled",
+            "timing": runner.timing.flat_str()}
+
+
+DOOM_ENVS, DOOM_PAPER_WORKERS, DOOM_ITERS = 400, 20, 4
+
+
+def phase_doom(torch, cuda_rnn, card, tmp):
+    """The paper's doom_battle command line (`sf_examples_tpu/vizdoom/experiments/doom_battle_appo.py`)
+    through the port's `train_vizdoom` flags: doom_params, GRU-512 float32 (the cfg's defaults),
+    convnet_simple over 72x128x3, the measurements MLP, the tuple head, 400 envs, batch 2048, async
+    with the quantized learner; 4 iterations over the env-level stand-in of
+    `tests/standins/doom_battle_standin.py` (the card's machine has neither gymnasium nor vizdoom)."""
+    with restored_encoder_factory(), standins_on_path("doom_battle_standin"):
+        return doom_run(torch, cuda_rnn, card, tmp)
+
+
+def doom_run(torch, cuda_rnn, card, tmp):
+    import doom_battle_standin as standin
+
+    from sample_factory_tpu_torch.envs.spaces import TupleSpec
+    from sample_factory_tpu_torch.examples.custom_encoders import VizdoomEncoder
+    from sample_factory_tpu_torch.examples.vizdoom.train_vizdoom import parse_vizdoom_cfg
+
+    workers = host_workers(DOOM_PAPER_WORKERS, DOOM_ENVS)
+    cut = None if workers == DOOM_PAPER_WORKERS else f"{workers} workers x {DOOM_ENVS // workers} envs (paper: 20 x 20; {os.cpu_count()} cores)"
+    if cut:
+        print(f"doom: {cut}", flush=True)
+    standin.register_doom_battle_standin()
+    record = {"iteration_ms": [], "rollout_ms": [], "learner_quanta_ms": [], "learner_flush_ms": [], "slot_ms": {}, "profile": {}}
+
+    def before_run(runner):
+        cfg = runner.cfg
+        check_host_example(runner, workers, VizdoomEncoder)
+        check((cfg.rnn_type, cfg.rnn_size, cfg.compute_dtype, cfg.use_rnn, cfg.recurrence) == ("gru", 512, "float32", True, 32)
+              and cfg.encoder_conv_architecture == "convnet_simple" and cfg.exploration_loss == "symmetric_kl" and cfg.normalize_input
+              and cfg.normalize_returns and cfg.reward_scale == 0.5 and cfg.batch_size == 2048 and cfg.env_frameskip == 4
+              and cfg.ppo_clip_value == 0.2, "not the paper's doom_battle configuration")
+        check(runner.env_info.obs_space == standin.DoomBattleStandIn().observation_space
+              and isinstance(runner.env_info.action_space, TupleSpec), f"spaces {runner.env_info.obs_space}")
+        instrument_host_iterations(torch, runner, DOOM_ITERS, record)
+
+    argv = QUIET_HOST + ["--env=doom_battle", "--env_frameskip=4", "--use_rnn=True", "--reward_scale=0.5", f"--num_workers={workers}",
+                         f"--num_envs_per_worker={DOOM_ENVS // workers}", "--batch_size=2048", "--wide_aspect_ratio=False",
+                         f"--train_for_env_steps={DOOM_ITERS * DOOM_ENVS * 32 * 4}", "--experiment=doom"]  # env steps count frames
+    with launch_shapes(cuda_rnn) as shapes:
+        runner, counts, stats, _ = train(torch, cuda_rnn, argv, tmp, before_run, register_fn=standin.register_doom_battle_standin,
+                                         parse=parse_vizdoom_cfg)
+    minibatches = runner._quantizer.num_minibatches
+    check(len(record["iteration_ms"]) == DOOM_ITERS, f"{len(record['iteration_ms'])} iterations")
+    check(minibatches == DOOM_ENVS * 32 // 2048 and counts["gru_seq_rows"] == DOOM_ITERS * minibatches,
+          f"gru_seq_rows launches {counts['gru_seq_rows']}, expected {DOOM_ITERS} train steps x {minibatches} minibatches")
+    check(all(v == 0 for k, v in counts.items() if k != "gru_seq_rows"), f"other kernels launched on the doom path: {counts}")
+    check(set(shapes) == {("gru", *DOOM_GRU[:3])}, f"launch shapes {set(shapes)}")
+    check(runner.episode_stats.avg_reward is not None, "no episode finished")
+    check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
+    emit({"phase": "doom", "env": "doom_battle (env-level stand-in)", "workers": workers, "envs": DOOM_ENVS, "cut": cut,
+          "cpu_count": os.cpu_count(), "splits": runner.cfg.worker_num_splits, "rollout": 32, "batch": 2048, "model": "convnet_simple + "
+          "measurements MLP, GRU-512 float32", "launches": counts, "launch_shapes": sorted(set(shapes)), "minibatches_per_train_step": minibatches,
+          **host_example_line(runner, DOOM_ITERS, record, DOOM_ENVS), "avg_episode_reward": runner.episode_stats.avg_reward,
+          "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+    return counts
+
+
+DMLAB_ENVS, DMLAB_PAPER_WORKERS, DMLAB_ITERS = 128, 32, 4
+
+
+def phase_dmlab(torch, cuda_rnn, card, tmp):
+    """dmlab_30 at dmlab_params and the usage line of `docs/integrations/dmlab.md:20-21` (32 workers x
+    4 envs, batch 1024): LSTM-256 over convnet_impala ++ the instruction encoder (embedding and
+    LSTM-64 over 16 tokens), async with the quantized learner, 4 iterations. The envs are the port's
+    own `DmlabEnv` (with its level cache in the run's directory, tokenization and reward clip) over the
+    stand-in engine `tests/standins/deepmind_lab.py`; the DMLab-30 score tracker is registered as
+    `train_dmlab.main` registers it."""
+    with restored_encoder_factory(), standins_on_path("deepmind_lab"):
+        return dmlab_run(torch, cuda_rnn, card, tmp)
+
+
+def dmlab_run(torch, cuda_rnn, card, tmp):
+    from sample_factory_tpu_torch.examples.custom_encoders import DmlabEncoder
+    from sample_factory_tpu_torch.examples.dmlab import train_dmlab
+    from sample_factory_tpu_torch.examples.dmlab.dmlab_summaries import TARGET_OBJECTIVE_STAT, Dmlab30ScoreTracker
+
+    workers = host_workers(DMLAB_PAPER_WORKERS, DMLAB_ENVS)
+    cut = None if workers == DMLAB_PAPER_WORKERS else f"{workers} workers x {DMLAB_ENVS // workers} envs (usage line: 32 x 4; {os.cpu_count()} cores)"
+    if cut:
+        print(f"dmlab: {cut}", flush=True)
+    train_dmlab.register_dmlab_components()
+    record = {"iteration_ms": [], "rollout_ms": [], "learner_quanta_ms": [], "learner_flush_ms": [], "slot_ms": {}, "profile": {}}
+    episodes = {}
+
+    class CountingTracker(Dmlab30ScoreTracker):
+        def on_episode_extra_stats(self, runner, extra_stats, policy_id):
+            for key in extra_stats:
+                if key.endswith("_dmlab_raw_score"):
+                    level = key[len("z_00_"):-len("_dmlab_raw_score")]
+                    episodes[level] = episodes.get(level, 0) + 1
+            super().on_episode_extra_stats(runner, extra_stats, policy_id)
+
+    tracker = {}
+
+    def before_run(runner):
+        cfg = runner.cfg
+        check_host_example(runner, workers, DmlabEncoder)
+        check((cfg.rnn_type, cfg.rnn_size, cfg.compute_dtype, cfg.rollout, cfg.recurrence, cfg.batch_size, cfg.num_epochs)
+              == ("lstm", 256, "float32", 32, 32, 1024, 1) and cfg.encoder_conv_architecture == "convnet_impala"
+              and cfg.normalize_input_keys == ["obs"], "not dmlab_params")
+        check(set(runner.train_state.obs_rms) == {"obs"}, "the instruction tokens are normalized")
+        tracker["t"] = CountingTracker(cfg)  # as train_dmlab.main registers it
+        runner.register_episodic_stats_handler(tracker["t"].on_episode_extra_stats)
+        runner.register_observer(tracker["t"])
+        instrument_host_iterations(torch, runner, DMLAB_ITERS, record)
+
+    argv = QUIET_HOST + ["--env=dmlab_30", f"--num_workers={workers}", f"--num_envs_per_worker={DMLAB_ENVS // workers}",
+                         f"--dmlab_level_cache_path={tmp}/dmlab_cache", f"--train_for_env_steps={DMLAB_ITERS * DMLAB_ENVS * 32 * 4}",
+                         "--experiment=dmlab"]  # env steps count frames (frameskip 4)
+    with launch_shapes(cuda_rnn) as shapes:
+        runner, counts, stats, _ = train(torch, cuda_rnn, argv, tmp, before_run, register_fn=train_dmlab.register_dmlab_components,
+                                         parse=train_dmlab.parse_dmlab_args)
+    cfg, minibatches = runner.cfg, runner._quantizer.num_minibatches
+    split = DMLAB_ENVS // cfg.worker_num_splits
+    # the core (learner minibatches); the instruction encoder in a rollout slot, in a learner minibatch,
+    # and in the learner's value of each env's last observation (prepare, once a train step)
+    sites = {"core": ("lstm", *DMLAB_CORE[:3]), "instruction_rollout": ("lstm", *DMLAB_INSTR_ROLLOUT[:3]),
+             "instruction_learner": ("lstm", *DMLAB_INSTR_LEARNER[:3]), "instruction_learner_last_value": ("lstm", *DMLAB_INSTR_BOOTSTRAP[:3])}
+    by_site = {site: shapes.count(shape) for site, shape in sites.items()}
+    check(len(record["iteration_ms"]) == DMLAB_ITERS and minibatches == 4 and split == DMLAB_INSTR_ROLLOUT[1], f"{minibatches} minibatches")
+    check(by_site["core"] == by_site["instruction_learner"] == DMLAB_ITERS * minibatches
+          and by_site["instruction_learner_last_value"] == DMLAB_ITERS, f"learner launches by site {by_site}")
+    check(by_site["instruction_rollout"] >= DMLAB_ITERS * cfg.rollout * cfg.worker_num_splits, f"rollout launches by site {by_site}")
+    check(sum(by_site.values()) == len(shapes) == counts["lstm_seq"] and all(v == 0 for k, v in counts.items() if k != "lstm_seq"),
+          f"launches {counts}, shapes {set(shapes)}")
+    check(sum(episodes.values()) > 0 and not shm_segments(), f"episodes {episodes}, segments {shm_segments()}")
+    cache = os.path.join(tmp, "dmlab_cache")
+    emit({"phase": "dmlab", "env": "dmlab_30 (DmlabEnv over the stand-in engine)", "workers": workers, "envs": DMLAB_ENVS, "cut": cut,
+          "cpu_count": os.cpu_count(), "splits": cfg.worker_num_splits, "rollout": 32, "batch": 1024,
+          "model": "convnet_impala ++ instruction embedding + LSTM-64, LSTM-256 float32", "launches": counts,
+          "lstm_seq_launches_by_site": by_site, "minibatches_per_train_step": minibatches,
+          **host_example_line(runner, DMLAB_ITERS, record, DMLAB_ENVS), "episodes_by_task": episodes, "tasks_seen": len(episodes),
+          "dmlab_target_objective": [list(d) for d in runner.policy_avg_stats.get(TARGET_OBJECTIVE_STAT, [])],
+          "level_cache_maps": len(os.listdir(os.path.join(cache, "maps"))) if os.path.isdir(os.path.join(cache, "maps")) else 0,
+          "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
     return counts
 
 
@@ -1560,7 +1865,11 @@ def main() -> int:
     log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
     # the launch plan assumes the cluster counts that run at once (cuda_rnn.MAX_CLUSTERS)
     at_once = {}
-    for name, kind, (T, B, H, dtype) in (("gru_seq", "gru", MAIN_GRU), ("lstm_seq", "lstm", MAIN_LSTM), ("gru_seq_selfplay", "gru", SELFPLAY_GRU)):
+    cluster_shapes = [("gru_seq", "gru", MAIN_GRU), ("lstm_seq", "lstm", MAIN_LSTM), ("gru_seq_selfplay", "gru", SELFPLAY_GRU),
+                      ("lstm_seq_dmlab_core", "lstm", DMLAB_CORE), ("lstm_seq_dmlab_instr_rollout", "lstm", DMLAB_INSTR_ROLLOUT),
+                      ("lstm_seq_dmlab_instr_learner", "lstm", DMLAB_INSTR_LEARNER),
+                      ("lstm_seq_dmlab_instr_last_value", "lstm", DMLAB_INSTR_BOOTSTRAP)]
+    for name, kind, (T, B, H, dtype) in cluster_shapes:
         plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
         check(plan.design == "cluster", f"{name}: {(T, B, H, dtype)} does not take the cluster design")
         at_once[name] = {"shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster,
@@ -1591,16 +1900,25 @@ def main() -> int:
         phase_host_enjoy(torch, card, tmp)
         paths["custom_model"] = phase_custom_model(torch, cuda_rnn, card, tmp)
         paths["atari"] = phase_atari(torch, cuda_rnn, card, tmp)
+        paths["doom"] = phase_doom(torch, cuda_rnn, card, tmp)
+        paths["dmlab"] = phase_dmlab(torch, cuda_rnn, card, tmp)
         cuda_rnn.reset_launch_counts()
         phase_sampler(torch, card, tmp)
         check(all(v == 0 for v in cuda_rnn.launch_counts().values()), "an RNN kernel launched in the sampler phase")
 
-    # launches: each path was driven with the counts at 0 just before it and read just after
+    # launches: each path was driven with the counts at 0 just before it and read just after, and
+    # each kernel's are counted by design (cluster: `*_seq`; rows: `*_seq_rows`); the kernel's numbers
+    # are its cluster design's at the main-path shape, the row design's at its first path's shape
+    def by_design(name, counts):
+        return {"cluster": counts[name], "rows": counts[f"{name}_rows"]}
+
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": sum(counts[name] for counts in paths.values()),
-         "paths": {path: counts[name] for path, counts in paths.items()},
-         "max_abs_err": main_err[name], **timing[name], "library_ms": None}
+         "launches": sum(sum(by_design(name, counts).values()) for counts in paths.values()),
+         "launches_by_design": {d: sum(by_design(name, counts)[d] for counts in paths.values()) for d in ("cluster", "rows")},
+         "paths": {path: by_design(name, counts) for path, counts in paths.items()},
+         "max_abs_err": main_err[name], **timing[name], "library_ms": None,
+         "row_design": {"max_abs_err": main_err[f"{name}_rows"], **timing[f"{name}_rows"]}}
         for name in ("gru_seq", "lstm_seq")
     ]})
     print(card, flush=True)

@@ -137,6 +137,23 @@ def _convert_host_action(space, a: np.ndarray):
     return a
 
 
+def _random_action(space, rng: np.random.Generator):
+    """A uniform random action: gymnasium's `sample()`, or drawn from `rng` for the port's specs
+    (which have no sampler; an unbounded Box side is taken as 1 in size)."""
+    if hasattr(space, "sample"):
+        return space.sample()
+    kind = type(space).__name__
+    if kind == "Discrete":
+        return int(rng.integers(space.n))
+    if kind == "TupleSpec":
+        return tuple(_random_action(sub, rng) for sub in space.spaces)
+    if kind == "Box":
+        low = space.low if np.isfinite(space.low) else -1.0
+        high = space.high if np.isfinite(space.high) else 1.0
+        return rng.uniform(low, high, space.shape).astype(space.dtype)
+    raise NotImplementedError(f"no random action for {space!r}")
+
+
 class EnvSlotStepper:
     """Owns one worker's envs and maps them onto agent-slots in the slabs.
 
@@ -251,7 +268,7 @@ class EnvSlotStepper:
                         env = self.envs[s][e]
                         warmup = int(rng.integers(0, max(1, self.cfg.rollout * (s * self.E + e + 1) // total_envs + 1)))
                         for _ in range(warmup):
-                            obs2, _, term, trunc, _ = env.step(env.action_space.sample())
+                            obs2, _, term, trunc, _ = env.step(_random_action(env.action_space, rng))
                             if term or trunc:
                                 obs2, _ = env.reset()
                             obs = obs2

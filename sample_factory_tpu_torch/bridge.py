@@ -6,13 +6,17 @@ without the top-level "params" key); the output is the port model's
 
 - Dense `kernel [in, out]` -> `weight [out, in]`;
 - Conv `kernel` HWIO -> `weight` OIHW;
-- GRU `wi/wh/bi/bh` and LSTM `wi/wh/bi` keep the JAX layout `[in, G*H]`;
+- GRU `wi/wh/bi/bh` and LSTM `wi/wh/bi` keep the JAX layout `[in, G*H]` (the LSTM's
+  +1.0 forget offset is inside the gate on both sides, not in `bi`);
+- Embed `embedding [num, features]` -> `weight`, unchanged;
 - the first Dense after a conv stack: its rows are permuted from the NHWC
   flatten order of the JAX encoder (`models/encoder.py:63`) to the port's
   NCHW flatten order.
 
 Module names follow flax's: `Conv_i` -> `conv.i`, `Dense_i` -> `dense.i`,
-`ResBlock_i` -> `resblock.i`, `<tower_>encoder/enc_<key>` ->
+`ResBlock_i` -> `resblock.i`, `Embed_i` -> `embed.i`, `FusedLSTMCell_i` -> `fused_lstm.i`
+(the examples' encoders; a named layer such as `measurements_fc0` keeps its name),
+`<tower_>encoder/enc_<key>` ->
 `<tower_>encoder.encoders.enc_<key>` (the shared model's `encoder`, the
 separate model's `actor_encoder` and `critic_encoder`), and the action head's
 `Dense_0` -> `distribution_linear`; its `learned_stddev` keeps its name.
@@ -33,8 +37,9 @@ import numpy as np
 import torch
 from torch import nn
 
-_LAYER = re.compile(r"(Conv|Dense|ResBlock)_(\d+)")
-_FLAX_LAYER = {"conv": "Conv", "dense": "Dense", "resblock": "ResBlock"}
+_FLAX_LAYER = {"conv": "Conv", "dense": "Dense", "resblock": "ResBlock", "embed": "Embed", "fused_lstm": "FusedLSTMCell"}
+_TORCH_LAYER = {v: k for k, v in _FLAX_LAYER.items()}
+_LAYER = re.compile(rf"({'|'.join(_TORCH_LAYER)})_(\d+)")
 
 
 def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -52,12 +57,12 @@ def _torch_name(path: Tuple[str, ...]) -> str:
     for i, seg in enumerate(path):
         parent = path[i - 1] if i else None
         m = _LAYER.fullmatch(seg)
-        if seg == "kernel":
+        if seg in ("kernel", "embedding"):
             out.append("weight")
         elif m and parent == "action_parameterization":
             out.append("distribution_linear")
         elif m:
-            out += [m.group(1).lower(), m.group(2)]
+            out += [_TORCH_LAYER[m.group(1)], m.group(2)]
         elif seg.startswith("enc_") and parent is not None and parent.endswith("encoder"):
             out += ["encoders", seg]
         else:
@@ -76,7 +81,7 @@ def _flax_path(name: str) -> Tuple[str, ...]:
             i += 2
             continue
         if seg == "weight":
-            out.append("kernel")
+            out.append("embedding" if out and out[-1].startswith("Embed_") else "kernel")
         elif seg == "distribution_linear":
             out.append("Dense_0")
         elif seg != "encoders":

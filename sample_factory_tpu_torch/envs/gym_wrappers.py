@@ -20,6 +20,7 @@ try:
 except ImportError:  # pragma: no cover
     gym = None
 
+from sample_factory_tpu_torch.envs.spaces import DictSpec
 from sample_factory_tpu_torch.utils.utils import log
 
 
@@ -230,15 +231,25 @@ class EpisodeCounterWrapper(gym.Wrapper if gym else object):
 
 
 def wrap_host_env(env, cfg):
-    """Standard wrapper stack for host envs (reference create_env + make_env)."""
-    if cfg is not None and cfg.env_frameskip > 1 and not getattr(env, "_sf_handles_frameskip", False):
+    """Standard wrapper stack for host envs (reference create_env + make_env).
+
+    An env that repeats its actions itself says so with `_sf_handles_frameskip`, on itself or
+    on the base env under its gymnasium wrappers (gymnasium's wrappers do not forward the
+    attribute: the JAX package misses it there and repeats a Doom env's actions twice). An env
+    whose observation space is already one of the port's `DictSpec`s gets no layout wrapper,
+    so that it runs without gymnasium."""
+    handles_frameskip = getattr(env, "_sf_handles_frameskip", False) or getattr(
+        getattr(env, "unwrapped", env), "_sf_handles_frameskip", False
+    )
+    if cfg is not None and cfg.env_frameskip > 1 and not handles_frameskip:
         env = FrameskipWrapper(env, cfg.env_frameskip)
-    if isinstance(env.observation_space, gym.spaces.Box) and len(env.observation_space.shape) == 3:
+    own_spec = isinstance(env.observation_space, DictSpec)
+    if not own_spec and isinstance(env.observation_space, gym.spaces.Box) and len(env.observation_space.shape) == 3:
         env = ImageToHWC(env)
     if cfg is not None and cfg.use_record_episode_statistics:
         env = gym.wrappers.RecordEpisodeStatistics(env)
     if cfg is not None and cfg.episode_counter:
         env = EpisodeCounterWrapper(env)
-    if not isinstance(env.observation_space, gym.spaces.Dict):
+    if not own_spec and not isinstance(env.observation_space, gym.spaces.Dict):
         env = DictObservationWrapper(env)
     return env

@@ -82,11 +82,43 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# the ViZDoom and DMLab paths' shapes in the dtype each runs, and the design the plan picks: Doom's
+# GRU-512 over 2048 / 32 segments (the row design, 16 blocks); the DMLab core's LSTM-256 over 1024 / 32;
+# the instruction encoder's LSTM-64 over 16 tokens in a rollout slot of 64 envs, in a minibatch of 1024
+# (32 clusters of 8: three waves) and over the 128 envs' last observations
+PATH_SHAPES = [("gru", 32, 64, 512, "float32", "rows"), ("lstm", 32, 32, 256, "float32", "cluster"),
+               ("lstm", 16, 64, 64, "float32", "cluster"), ("lstm", 16, 1024, 64, "float32", "cluster"),
+               ("lstm", 16, 128, 64, "float32", "cluster")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["gru", "lstm"])
 @pytest.mark.parametrize("T,B,H", CARD_SHAPES)
 def test_kernel_matches_plain_on_card(cuda_device, kind, dtype, T, B, H):
+    _kernel_matches_plain(cuda_device, kind, dtype, T, B, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T,B,H,dtype,design", PATH_SHAPES)
+def test_kernel_matches_plain_on_card_at_the_path_shapes(cuda_device, kind, T, B, H, dtype, design):
+    assert cuda_rnn.launch_plan(kind, T, B, H, dtype).design == design
+    _kernel_matches_plain(cuda_device, kind, dtype, T, B, H)
+
+
+@pytest.mark.parametrize("kind,T,B,H,dtype,design", PATH_SHAPES)
+def test_path_shapes_take_their_design(kind, T, B, H, dtype, design):
+    """H=512 in float32 fits no cluster slice; H=64 takes the smallest slice the cluster design
+    allows (8 units a block); every cluster plan fits the card."""
+    plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+    assert plan.design == design
+    if design == "cluster":
+        assert plan.cluster == 8 and plan.units == H // 8 and plan.rows * (plan.grid // plan.cluster) >= B
+    else:
+        assert plan == cuda_rnn.row_plan(kind, B, H) and plan.grid == 16
+
+
+def _kernel_matches_plain(cuda_device, kind, dtype, T, B, H):
     kernel_fn, plain_fn = _fns(kind)
     args = [a.requires_grad_(i != 2) for i, a in enumerate(_inputs(kind, T, B, H, dtype, cuda_device, seed=7))]
     cuda_rnn.reset_launch_counts()

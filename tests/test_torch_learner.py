@@ -292,7 +292,19 @@ IMPORT_EVERY_MODULE = (
     "        'sample_factory_tpu_torch.examples.mujoco.enjoy_mujoco', 'sample_factory_tpu_torch.examples.mujoco.fast_eval_mujoco',\n"
     "        'sample_factory_tpu_torch.examples.atari.atari_utils', 'sample_factory_tpu_torch.examples.atari.atari_params',\n"
     "        'sample_factory_tpu_torch.examples.atari.train_atari', 'sample_factory_tpu_torch.examples.envpool.envpool_utils',\n"
-    "        'sample_factory_tpu_torch.examples.envpool.train_envpool_atari'} <= set(names)\n"
+    "        'sample_factory_tpu_torch.examples.envpool.train_envpool_atari', 'sample_factory_tpu_torch.examples.vizdoom.doom_utils',\n"
+    "        'sample_factory_tpu_torch.examples.vizdoom.doom.action_space', 'sample_factory_tpu_torch.examples.vizdoom.doom.wrappers',\n"
+    "        'sample_factory_tpu_torch.examples.vizdoom.doom.doom_env', 'sample_factory_tpu_torch.examples.vizdoom.doom.multiplayer',\n"
+    "        'sample_factory_tpu_torch.examples.vizdoom.doom.doom_render', 'sample_factory_tpu_torch.examples.vizdoom.doom.human_play',\n"
+    "        'sample_factory_tpu_torch.examples.vizdoom.doom_params', 'sample_factory_tpu_torch.examples.vizdoom.train_vizdoom',\n"
+    "        'sample_factory_tpu_torch.examples.vizdoom.enjoy_vizdoom', 'sample_factory_tpu_torch.examples.vizdoom.train_custom_vizdoom_env',\n"
+    "        'sample_factory_tpu_torch.examples.vizdoom.enjoy_custom_vizdoom_env', 'sample_factory_tpu_torch.examples.vizdoom.play_doom',\n"
+    "        'sample_factory_tpu_torch.examples.vizdoom.doom_play_demo', 'sample_factory_tpu_torch.examples.vizdoom.experiments.doom_basic_envs',\n"
+    "        'sample_factory_tpu_torch.examples.vizdoom.experiments.doom_battle_appo', 'sample_factory_tpu_torch.examples.vizdoom.experiments.doom_duel_pbt',\n"
+    "        'sample_factory_tpu_torch.examples.dmlab.dmlab30', 'sample_factory_tpu_torch.examples.dmlab.dmlab_level_cache',\n"
+    "        'sample_factory_tpu_torch.examples.dmlab.dmlab_env', 'sample_factory_tpu_torch.examples.dmlab.dmlab_params',\n"
+    "        'sample_factory_tpu_torch.examples.dmlab.dmlab_summaries', 'sample_factory_tpu_torch.examples.dmlab.train_dmlab',\n"
+    "        'sample_factory_tpu_torch.examples.dmlab.enjoy_dmlab'} <= set(names)\n"
     "for name in names: importlib.import_module(name)\n"
     "import chip_smoke\n"
 )
@@ -344,7 +356,9 @@ def test_port_imports_no_jax():
 def test_port_imports_and_trains_without_gymnasium():
     """The same imports with gymnasium made unimportable, as on a machine that lacks it: every
     module imports, and the host envs that declare their spaces in the port's own specs train:
-    the 2-agent matching game with two policies, the batched cart-pole and the pixel env."""
+    the 2-agent matching game with two policies, the batched cart-pole and the pixel env, and
+    per-env envs: the doom_battle stand-in (tuple actions, GRU) and the DMLab example over the
+    stand-in engine (instructions, LSTM), each with the random warm-up actions of the workers."""
     code = "import sys\nsys.modules['gymnasium'] = None\n" + IMPORT_EVERY_MODULE + (
         "from sample_factory_tpu_torch.train import run_rl\n"
         "from sample_factory_tpu_torch.envs.batched_host_env import register_batched_cartpole, register_bench_pixel\n"
@@ -359,6 +373,16 @@ def test_port_imports_and_trains_without_gymnasium():
         "    cfg = parse_custom_args(['--env=' + env, '--train_for_env_steps=128', '--encoder_conv_mlp_layers', '32',\n"
         "        '--train_dir=' + tempfile.mkdtemp(), '--experiment=' + env] + common)\n"
         "    assert run_rl(cfg) == 0\n"
+        "sys.path.insert(0, 'tests/standins')\n"
+        "import doom_battle_standin\n"
+        "from sample_factory_tpu_torch.examples.vizdoom.train_vizdoom import parse_vizdoom_cfg\n"
+        "from sample_factory_tpu_torch.examples.dmlab import train_dmlab\n"
+        "doom_battle_standin.register_doom_battle_standin()\n"
+        "small = ['--train_for_env_steps=512', '--use_rnn=True', '--rnn_size=16', '--encoder_conv_mlp_layers', '16', '--train_dir=' + tempfile.mkdtemp()]\n"
+        "cfg = parse_vizdoom_cfg(['--env=doom_battle', '--experiment=doom'] + common + small)\n"
+        "assert run_rl(cfg, register_fn=doom_battle_standin.register_doom_battle_standin) == 0\n"
+        "assert train_dmlab.main(['--env=dmlab_30', '--experiment=dmlab', '--rnn_size=16', '--recurrence=8', '--dmlab_level_cache_path=' + tempfile.mkdtemp()]\n"
+        "    + common + small) == 0\n"
         "try:\n"
         "    import gymnasium\n"
         "    raise SystemExit('gymnasium imported')\n"
