@@ -8,9 +8,10 @@ Phases, each printing one JSON line:
   parity    each kernel against its plain PyTorch version on the card, forward and
             gradient, float32 and bfloat16, at the main-path shape, the default width
             and odd shapes; both designs of the launch plan (cluster and rows) run; then the
-            doom and dmlab paths' shapes in float32, each asserting the design its plan picks
-  timing    each kernel, its plain version and the bound at the main-path shapes and the doom and
-            dmlab paths' shapes, warm and with L2 flushed, beside the first design (rows) at the
+            doom, dmlab, nethack and isaacgym paths' shapes in float32, each asserting the design its
+            plan picks (LSTM-512 at (32, 32, 512), (32, 24, 512) and (16, 2048, 512): rows)
+  timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
+            nethack and isaacgym paths' shapes, warm and with L2 flushed, beside the first design (rows) at the
             same shapes; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a
             yardstick
   main      sync PPO on grid_battle at full width (IMPALA conv, GRU-256, bf16,
@@ -70,10 +71,22 @@ Phases, each printing one JSON line:
             envs of the port's DmlabEnv with its level cache over the stand-in deepmind_lab of
             tests/standins/, batch 1024, async, 4 iterations, the DMLab-30 score tracker registered;
             `lstm_seq` launches by site (core, instruction encoder in the rollout and the learner)
+  nethack   nethack_challenge through `examples/nethack/train_nethack.py`'s flags at their defaults (LSTM-512
+            float32, batch 1024, rollout 32, async with the quantized learner; 12 workers x 2 envs, cut to one
+            worker a core keeping the 24 envs) over the env-level stand-in of tests/standins/ (the card's
+            machine has neither gymnasium nor nle): ChaoticDwarvenGPT5 over the 108x108x2 screen image for 4
+            iterations, then ScaledNet (h_dim 1738, the crop branch, GroupNorm) for 2; `lstm_seq_rows` once a
+            train step at (32, 24, 512) (a train step takes one rollout: 768 samples), the extra stats
+  isaacgym  `examples/isaacgym_examples/train_isaacgym.py` at its per-task defaults (serial, sync) over the
+            stand-ins of isaacgym, isaacgymenvs and hydra in tests/standins/ (a batched torch sim on cuda:0):
+            Ant (MLP 256-128-64, 4096 sim agents) for 4 iterations, AllegroHandLSTM (sim states, LSTM-512
+            float32, 16384 sim agents) for 2, `lstm_seq_rows` 8 an epoch at (16, 2048, 512); the host's
+            time converting the sim's tensors a step
   sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
             the synthetic env on the card for 200,000 env steps
 Then a `kernels` line (each kernel's launches per path and per design: cluster, `*_seq`, and rows,
-`*_seq_rows`), the card's name and power limit, and the result line.
+`*_seq_rows`; the LSTM's row design also by site: the NetHack and AllegroHandLSTM learners), the card's
+name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
 
@@ -107,8 +120,18 @@ DMLAB_CORE = (32, 32, 256, "float32")
 DMLAB_INSTR_ROLLOUT = (16, 64, 64, "float32")
 DMLAB_INSTR_LEARNER = (16, 1024, 64, "float32")
 DMLAB_INSTR_BOOTSTRAP = (16, 128, 64, "float32")
+# the NetHack and IsaacGym paths: LSTM-512 float32 takes the row design (no cluster slice fits). NetHack's
+# defaults name batch 1024 (32 segments of 32); a train step takes one rollout of the 24 envs, 768 samples
+# (the quantized learner clips the batch to the rollout), so its learner launches at 24 segments.
+# AllegroHandLSTM: 16384 sim agents x 16 steps in 8 minibatches of 32768 (2048 segments), 4 epochs.
+NETHACK_LSTM_BATCH = (32, 32, 512, "float32")
+NETHACK_LSTM = (32, 24, 512, "float32")
+ALLEGRO_LSTM = (16, 2048, 512, "float32")
 PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "rows", 1), ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "cluster", 8),
-                      ("lstm", *DMLAB_INSTR_LEARNER, "cluster", 8), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8)]
+                      ("lstm", *DMLAB_INSTR_LEARNER, "cluster", 8), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
+                      ("lstm", *NETHACK_LSTM_BATCH, "rows", 1), ("lstm", *NETHACK_LSTM, "rows", 1), ("lstm", *ALLEGRO_LSTM, "rows", 1)]
+# the sites of `lstm_seq_rows` that the kernels line reports one by one
+ROW_SITES = {"nethack_learner": NETHACK_LSTM, "allegro_hand_lstm_learner": ALLEGRO_LSTM}
 # bf16: kernel and plain version round every gate op to bf16 alike, but sum h @ wh in
 # another order, so a product can land one bf16 ulp apart; that flip (2^-8 relative,
 # up to 2^-6 absolute at the LSTM cell's magnitudes) feeds forward through the recurrence.
@@ -123,9 +146,10 @@ REPLACES = {
 }
 # each kernel has two designs (cluster: `gru_seq`/`lstm_seq`; rows: `gru_seq_rows`/`lstm_seq_rows`); the
 # kernels line reports the cluster designs at their main paths' shapes, the GRU's row design at the doom
-# path's (where it runs) and the LSTM's at the lstm phase's (no path runs it; the first design's shape)
+# path's and the LSTM's at the nethack path's (the first paths that run them), and the LSTM's row design
+# at each of its sites
 KERNEL_LINE_SHAPES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM),
-                      "gru_seq_rows": ("gru", DOOM_GRU), "lstm_seq_rows": ("lstm", MAIN_LSTM)}
+                      "gru_seq_rows": ("gru", DOOM_GRU), "lstm_seq_rows": ("lstm", NETHACK_LSTM)}
 
 
 def emit(record):
@@ -207,8 +231,10 @@ def phase_parity(torch, cuda_rnn):
         check(plan.design == design and plan.cluster == cluster, f"{kind} {(T, B, H, dtype)} takes {plan}, not the {design} design")
         kernel_fn, plain_fn = fns[kind]
         parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=True)
-    # the error reported for each design: at the shape and dtype of the first path that runs it
-    for name, (kind, (T, B, H, dtype)) in KERNEL_LINE_SHAPES.items():
+    # the error reported for each design: at the shape and dtype of the first path that runs it, and at
+    # each site of the LSTM's row design
+    line_shapes = dict(KERNEL_LINE_SHAPES, **{f"lstm_seq_rows@{site}": ("lstm", shape) for site, shape in ROW_SITES.items()})
+    for name, (kind, (T, B, H, dtype)) in line_shapes.items():
         kernel_fn, plain_fn = fns[kind]
         args = make_inputs(torch, kind, T, B, H, dtype, seed=1)
         launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
@@ -264,8 +290,9 @@ def phase_timing(torch, cuda_rnn, card):
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     rows_by_shape = {}
     with torch.no_grad():
-        # the main-path rows (and the selfplay, doom and dmlab paths' shapes): the planned design and
-        # the first design (rows) at the same shape, warm and L2-cold, the plain version and the bound
+        # the main-path rows (and the selfplay, doom, dmlab, nethack and isaacgym paths' shapes): the
+        # planned design and the first design (rows) at the same shape, warm and L2-cold, the plain
+        # version and the bound
         shapes = [("gru", MAIN_GRU), ("lstm", MAIN_LSTM), ("gru", SELFPLAY_GRU)] + [(k, (T, B, H, dt)) for k, T, B, H, dt, _, _ in PARITY_PATH_SHAPES]
         for kind, (T, B, H, dtype) in shapes:
             args = make_inputs(torch, kind, T, B, H, dtype, seed=2)
@@ -317,6 +344,10 @@ def phase_timing(torch, cuda_rnn, card):
                      "shape": list(shape[:3]), "dtype": shape[3]}
         if name.endswith("_seq"):
             out[name].update(design=row["design"], first_design_ms=row["rows_ms"])
+    for site, shape in ROW_SITES.items():
+        row = rows_by_shape[("lstm", *shape)]
+        out[f"lstm_seq_rows@{site}"] = {"shape": list(shape[:3]), "dtype": shape[3], "ms": row["ms"], "ms_l2_cold": row["ms_l2_cold"],
+                                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
     return out
 
 
@@ -1440,7 +1471,7 @@ def custom_model_run(torch, cuda_rnn, card, tmp):
     return counts
 
 
-STANDIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "standins")  # envpool, vizdoom, deepmind_lab
+STANDIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "standins")  # envpool, vizdoom, deepmind_lab, nle, isaacgym
 ATARI_FRAME_BYTES = 84 * 84 * 4
 
 
@@ -1800,6 +1831,210 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
     return counts
 
 
+NETHACK_ENVS, NETHACK_PAPER_WORKERS, NETHACK_ITERS, SCALEDNET_ITERS = 24, 12, 4, 2
+NETHACK_EXTRA_STATS = {"score", "turns", "dlvl", "max_hitpoints", "max_energy", "armor_class", "experience_level", "experience_points",
+                       "eating_score", "gold_score", "scout_score", "sokoban_fill_pit_score", "sokoban_reached_score",
+                       "staircase_pet_score", "staircase_score"}
+
+
+def phase_nethack(torch, cuda_rnn, card, tmp):
+    """nethack_challenge through `train_nethack`'s flags at their defaults (nethack_params: LSTM-512
+    float32, batch 1024, rollout 32, one epoch of one minibatch, async with the quantized learner,
+    normalized returns, reward clip 10; 12 workers x 2 envs in 2 splits): ChaoticDwarvenGPT5 over the
+    108x108x2 screen image for 4 iterations, then ScaledNet at its defaults (h_dim 1738, the crop
+    branch, GroupNorm) for 2, over the env-level stand-in of `tests/standins/nethack_standin.py` (the
+    card's machine has neither gymnasium nor nle)."""
+    with restored_encoder_factory(), standins_on_path("nethack_standin", "nethack_sim", "nle", "nle.nethack"):
+        return nethack_run(torch, cuda_rnn, card, tmp)
+
+
+def nethack_run(torch, cuda_rnn, card, tmp):
+    import nethack_standin as standin
+
+    from sample_factory_tpu_torch.examples.nethack.models import ChaoticDwarvenGPT5, ScaledNet
+    from sample_factory_tpu_torch.examples.nethack.train_nethack import parse_nethack_args
+
+    workers = host_workers(NETHACK_PAPER_WORKERS, NETHACK_ENVS)
+    cut = None if workers == NETHACK_PAPER_WORKERS else f"{workers} workers x {NETHACK_ENVS // workers} envs (defaults: 12 x 2; {os.cpu_count()} cores)"
+    if cut:
+        print(f"nethack: {cut}", flush=True)
+    standin.register_nethack_standin()
+    total = {}
+    for model, encoder_cls, iters in (("ChaoticDwarvenGPT5", ChaoticDwarvenGPT5, NETHACK_ITERS), ("ScaledNet", ScaledNet, SCALEDNET_ITERS)):
+        record = {"iteration_ms": [], "rollout_ms": [], "learner_quanta_ms": [], "learner_flush_ms": [], "slot_ms": {}, "profile": {}}
+        extras = {"episodes": 0, "keys": set()}
+
+        def on_extra_stats(runner, extra_stats, policy_id):
+            extras["episodes"] += 1
+            extras["keys"] |= set(extra_stats)
+
+        def before_run(runner):
+            cfg = runner.cfg
+            check_host_example(runner, workers, encoder_cls)
+            check((cfg.rnn_type, cfg.rnn_size, cfg.compute_dtype, cfg.use_rnn, cfg.rollout, cfg.recurrence, cfg.batch_size, cfg.num_epochs,
+                   cfg.num_batches_per_epoch) == ("lstm", 512, "float32", True, 32, 32, 1024, 1, 1) and cfg.normalize_returns
+                  and not cfg.normalize_input and cfg.reward_clip == 10.0 and cfg.crop_dim == 18 and cfg.pixel_size == 6
+                  and (model == "ChaoticDwarvenGPT5" or (cfg.h_dim, cfg.use_crop, cfg.use_crop_norm) == (1738, True, True)),
+                  "not the NetHack defaults")
+            check(runner.env_info.obs_space == standin.NetHackStandIn().observation_space, f"spaces {runner.env_info.obs_space}")
+            runner.register_episodic_stats_handler(on_extra_stats)
+            instrument_host_iterations(torch, runner, iters, record)
+
+        argv = QUIET_HOST + ["--env=nethack_challenge", f"--model={model}", f"--num_workers={workers}",
+                             f"--num_envs_per_worker={NETHACK_ENVS // workers}", f"--train_for_env_steps={iters * NETHACK_ENVS * 32}",
+                             f"--experiment=nethack_{model}"]
+        with launch_shapes(cuda_rnn) as shapes:
+            runner, counts, stats, _ = train(torch, cuda_rnn, argv, tmp, before_run, register_fn=standin.register_nethack_standin,
+                                             parse=parse_nethack_args)
+        minibatches = runner._quantizer.num_minibatches
+        check(len(record["iteration_ms"]) == iters and minibatches == 1, f"{len(record['iteration_ms'])} iterations, {minibatches} minibatches")
+        check(counts["lstm_seq_rows"] == iters and all(v == 0 for k, v in counts.items() if k != "lstm_seq_rows"),
+              f"launches {counts}: expected one lstm_seq_rows a train step and no other kernel")
+        check(set(shapes) == {("lstm", *NETHACK_LSTM[:3])}, f"launch shapes {set(shapes)}")
+        check(extras["episodes"] > 0 and extras["keys"] == NETHACK_EXTRA_STATS, f"episode extra stats {extras}")
+        check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
+        profile = record["profile"]
+        emit({"phase": "nethack", "env": "nethack_challenge (env-level stand-in)", "model": f"{model}, LSTM-512 float32",
+              "workers": workers, "envs": NETHACK_ENVS, "cut": cut, "cpu_count": os.cpu_count(), "splits": runner.cfg.worker_num_splits,
+              "rollout": 32, "batch": runner._quantizer.batch_size, "launches": counts, "launch_shapes": sorted(set(shapes)),
+              "row_design_share_of_device_busy": profile["rnn_kernel_ms"] / profile["device_busy_ms"],
+              **host_example_line(runner, iters, record, NETHACK_ENVS), "episodes_with_extra_stats": extras["episodes"],
+              "extra_stat_keys": sorted(extras["keys"]), "avg_episode_reward": runner.episode_stats.avg_reward,
+              "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    return total
+
+
+IG_TASKS = (("Ant", 4096, 60, 4), ("AllegroHandLSTM", 16384, 88, 2))  # task, sim agents (IGE's default), obs width, iterations
+
+
+def instrument_sync_iterations(torch, runner, iters, record):
+    """Per iteration of the sync host runner (host clock, synced): the iteration, its rollout and its
+    train call, the epochs the train call ran; the last iteration under the profiler (CUDA activity
+    only), its busy time against the iteration before, unprofiled."""
+    sampler, iteration, train_fn = runner.sampler, runner._train_iteration, runner._train_fn
+
+    def clocked(key, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "train_ms":
+                record["epochs"].append(float(out["epochs_executed"]))
+            return out
+        return call
+
+    def timed_iteration():
+        last = len(record["iteration_ms"]) == iters - 1
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) if last else None
+        if prof is not None:
+            prof.start()
+        out = clocked("iteration_ms", iteration)()
+        if prof is not None:
+            prof.stop()
+            device_us, rnn_us, on_device, _ = device_activities(torch, prof)
+            record["profile"] = {"device_busy_ms": device_us / 1e3, "device_activities": len(on_device), "rnn_kernel_ms": rnn_us / 1e3,
+                                 "device_idle_share_vs_unprofiled_iteration": 1.0 - device_us / (record["iteration_ms"][-2] * 1e3)}
+        return out
+
+    sampler.collect_rollout, runner._train_fn = clocked("rollout_ms", sampler.collect_rollout), clocked("train_ms", train_fn)
+    runner._train_iteration = timed_iteration
+
+
+def phase_isaacgym(torch, cuda_rnn, card, tmp):
+    """`train_isaacgym` at its per-task defaults (serial mode, sync, rollout 16, batch 32768, 4 epochs,
+    kl_adaptive_epoch) over the stand-ins of `isaacgym`, `isaacgymenvs` and `hydra` in
+    `tests/standins/`, whose sim steps batched torch dynamics on cuda:0: Ant (MLP 256-128-64 elu,
+    4096 sim agents, 2 minibatches) for 4 iterations, then AllegroHandLSTM (its sim states, LSTM-512
+    float32, 16384 sim agents, 8 minibatches) for 2. The sim's tensors come to host numpy each step,
+    as the JAX adapter's do."""
+    with restored_encoder_factory(), standins_on_path("isaacgymenvs", "isaacgymenvs.tasks", "isaacgymenvs.utils",
+                                                       "isaacgymenvs.utils.reformat", "hydra", "hydra.core", "hydra.core.global_hydra"):
+        return isaacgym_run(torch, cuda_rnn, card, tmp)
+
+
+def isaacgym_run(torch, cuda_rnn, card, tmp):
+    from isaacgymenvs.tasks import StandInVecTask
+
+    from sample_factory_tpu_torch.examples.isaacgym_examples import train_isaacgym as ig
+
+    check("isaacgym" in sys.modules and ig.isaacgym_available(), "isaacgym is not importable")
+    ig.register_isaacgym_components()
+    clock = {"adapter_step_s": 0.0, "sim_step_s": 0.0, "steps": 0}
+    adapter_step, sim_step = ig.IsaacGymBatchedEnv.step, StandInVecTask.step
+
+    def timed_adapter_step(self, action_list):
+        t0 = time.perf_counter()
+        out = adapter_step(self, action_list)
+        clock["adapter_step_s"] += time.perf_counter() - t0
+        clock["steps"] += 1
+        return out
+
+    def timed_sim_step(self, actions):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim_step(self, actions)
+        torch.cuda.synchronize()
+        clock["sim_step_s"] += time.perf_counter() - t0
+        return out
+
+    ig.IsaacGymBatchedEnv.step, StandInVecTask.step = timed_adapter_step, timed_sim_step
+    total = {}
+    try:
+        for task, agents, width, iters in IG_TASKS:
+            record = {"iteration_ms": [], "rollout_ms": [], "train_ms": [], "epochs": [], "profile": {}}
+            lstm = task == "AllegroHandLSTM"
+
+            def before_run(runner):
+                cfg = runner.cfg
+                check(runner.device.type == "cuda", "the runner is not on the card")
+                check(type(runner).__name__ == "HostEnvRunner" and runner.sampler.transport == "serial" and not cfg.async_rl
+                      and runner._quantizer is None, "not the serial sync host runner")
+                check((cfg.rollout, cfg.batch_size, cfg.num_epochs, cfg.lr_schedule, cfg.use_rnn, cfg.num_envs)
+                      == (16, 32768, 4, "kl_adaptive_epoch", lstm, agents), f"not {task}'s configuration")
+                check(lstm or (cfg.encoder_mlp_layers == [256, 128, 64] and cfg.num_batches_per_epoch == 2), "not Ant's configuration")
+                check(not lstm or ((cfg.rnn_type, cfg.rnn_size, cfg.compute_dtype, cfg.obs_key, cfg.num_batches_per_epoch)
+                                   == ("lstm", 512, "float32", "states", 8)), "not AllegroHandLSTM's configuration")
+                check(runner.env_info.obs_space["obs"].shape == (width,) and runner.env_info.num_agents == agents, f"spaces {runner.env_info}")
+                check({str(p.device) for p in runner.model.parameters()} == {"cuda:0"}, "the model is not on cuda:0")
+                clock.update(adapter_step_s=0.0, sim_step_s=0.0, steps=0)
+                instrument_sync_iterations(torch, runner, iters, record)
+
+            argv = QUIET + [f"--env={task}", f"--train_for_env_steps={iters * agents * 16}", f"--experiment=isaacgym_{task}"]
+            with launch_shapes(cuda_rnn) as shapes:
+                runner, counts, stats, _ = train(torch, cuda_rnn, argv, tmp, before_run, register_fn=ig.register_isaacgym_components,
+                                                 parse=ig.parse_isaacgym_args)
+            epochs = record["epochs"]
+            check(len(record["iteration_ms"]) == iters and len(epochs) == iters, f"{len(record['iteration_ms'])} iterations")
+            if lstm:
+                check(counts["lstm_seq_rows"] == 8 * sum(epochs) and all(v == 0 for k, v in counts.items() if k != "lstm_seq_rows"),
+                      f"launches {counts}: expected 8 lstm_seq_rows an epoch ({epochs})")
+                check(set(shapes) == {("lstm", *ALLEGRO_LSTM[:3])}, f"launch shapes {set(shapes)}")
+            else:
+                check(all(v == 0 for v in counts.values()), f"an RNN kernel launched on the feed-forward path: {counts}")
+            steady = record["iteration_ms"][1:]
+            profile = record["profile"]
+            emit({"phase": "isaacgym", "task": task, "sim": "stand-in batched torch dynamics on cuda:0 (tests/standins/isaacgymenvs)",
+                  "sim_agents": agents, "obs_width": width, "rollout": 16, "batch": 32768, "iterations": iters, "launches": counts,
+                  "launch_shapes": sorted(set(shapes)), "epochs_executed": epochs, "iteration_ms": record["iteration_ms"],
+                  "rollout_ms": record["rollout_ms"], "train_ms": record["train_ms"],
+                  "agent_steps_per_s_iterations_2_on": agents * 16 * len(steady) / (sum(steady) / 1e3),
+                  "adapter_step_ms": clock["adapter_step_s"] / clock["steps"] * 1e3, "sim_step_ms": clock["sim_step_s"] / clock["steps"] * 1e3,
+                  "host_conversion_ms_per_step": (clock["adapter_step_s"] - clock["sim_step_s"]) / clock["steps"] * 1e3,
+                  "device_in_the_last_iteration": profile,
+                  "row_design_share_of_device_busy": profile["rnn_kernel_ms"] / profile["device_busy_ms"],
+                  "episodes_reported": runner.episode_stats.avg_reward is not None,
+                  "stat": "host clock, synced; adapter step: the IsaacGymBatchedEnv.step call (sim step, the tensors to numpy, the "
+                          "per-agent lists), the sim step synced on its own; the last iteration under torch.profiler (CUDA activity only)",
+                  "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    finally:
+        ig.IsaacGymBatchedEnv.step, StandInVecTask.step = adapter_step, sim_step
+    return total
+
+
 SAMPLER_STEPS = 200_000
 
 
@@ -1838,6 +2073,10 @@ def phase_sampler(torch, card, tmp):
 
 
 def main() -> int:
+    # the isaacgym phase's stand-in refuses a process that has imported torch, as NVIDIA's isaacgym
+    # does: it is imported first, as a user's script imports it
+    with standins_on_path():
+        import isaacgym  # noqa: F401
     import torch
 
     if not torch.cuda.is_available():
@@ -1902,6 +2141,8 @@ def main() -> int:
         paths["atari"] = phase_atari(torch, cuda_rnn, card, tmp)
         paths["doom"] = phase_doom(torch, cuda_rnn, card, tmp)
         paths["dmlab"] = phase_dmlab(torch, cuda_rnn, card, tmp)
+        paths["nethack"] = phase_nethack(torch, cuda_rnn, card, tmp)
+        paths["isaacgym"] = phase_isaacgym(torch, cuda_rnn, card, tmp)
         cuda_rnn.reset_launch_counts()
         phase_sampler(torch, card, tmp)
         check(all(v == 0 for v in cuda_rnn.launch_counts().values()), "an RNN kernel launched in the sampler phase")
@@ -1918,7 +2159,11 @@ def main() -> int:
          "launches_by_design": {d: sum(by_design(name, counts)[d] for counts in paths.values()) for d in ("cluster", "rows")},
          "paths": {path: by_design(name, counts) for path, counts in paths.items()},
          "max_abs_err": main_err[name], **timing[name], "library_ms": None,
-         "row_design": {"max_abs_err": main_err[f"{name}_rows"], **timing[f"{name}_rows"]}}
+         "row_design": {"max_abs_err": main_err[f"{name}_rows"], **timing[f"{name}_rows"], "library_ms": None,
+                        **({"sites": {site: {"launches": paths[path][f"{name}_rows"], "max_abs_err": main_err[f"{name}_rows@{site}"],
+                                             **timing[f"{name}_rows@{site}"], "library_ms": None}
+                                      for site, path in (("nethack_learner", "nethack"), ("allegro_hand_lstm_learner", "isaacgym"))}}
+                           if name == "lstm_seq" else {})}}
         for name in ("gru_seq", "lstm_seq")
     ]})
     print(card, flush=True)

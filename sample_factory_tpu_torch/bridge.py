@@ -9,6 +9,9 @@ without the top-level "params" key); the output is the port model's
 - GRU `wi/wh/bi/bh` and LSTM `wi/wh/bi` keep the JAX layout `[in, G*H]` (the LSTM's
   +1.0 forget offset is inside the gate on both sides, not in `bi`);
 - Embed `embedding [num, features]` -> `weight`, unchanged;
+- 1-D Conv `kernel` [K, I, O] -> `weight` [O, I, K];
+- GroupNorm `scale` -> `weight` (and `bias`); a module names its `weight`'s flax leaf by a
+  `flax_weight_name` attribute (`embedding`, `scale`), else it is a `kernel`;
 - the first Dense after a conv stack: its rows are permuted from the NHWC
   flatten order of the JAX encoder (`models/encoder.py:63`) to the port's
   NCHW flatten order.
@@ -57,7 +60,7 @@ def _torch_name(path: Tuple[str, ...]) -> str:
     for i, seg in enumerate(path):
         parent = path[i - 1] if i else None
         m = _LAYER.fullmatch(seg)
-        if seg in ("kernel", "embedding"):
+        if seg in ("kernel", "embedding", "scale"):
             out.append("weight")
         elif m and parent == "action_parameterization":
             out.append("distribution_linear")
@@ -81,7 +84,7 @@ def _flax_path(name: str) -> Tuple[str, ...]:
             i += 2
             continue
         if seg == "weight":
-            out.append("embedding" if out and out[-1].startswith("Embed_") else "kernel")
+            out.append("kernel")
         elif seg == "distribution_linear":
             out.append("Dense_0")
         elif seg != "encoders":
@@ -108,6 +111,8 @@ def flax_to_state_dict(flax_params: Dict[str, Any], model: nn.Module) -> Dict[st
         name = _torch_name(path)
         if path[-1] == "kernel" and value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif path[-1] == "kernel" and value.ndim == 3:
+            value = value.transpose(2, 1, 0)  # KIO -> OIK
         elif path[-1] == "kernel":
             owner = _conv_owner(model, name)
             if owner is not None:
@@ -124,8 +129,13 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor], model: nn.Module) ->
     for name, tensor in state_dict.items():
         value = tensor.detach().cpu().float().numpy()
         path = _flax_path(name)
+        if path[-1] == "kernel":
+            owner = model.get_submodule(name.rsplit(".", 1)[0])
+            path = path[:-1] + (getattr(owner, "flax_weight_name", "kernel"),)
         if path[-1] == "kernel" and value.ndim == 4:
             value = value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif path[-1] == "kernel" and value.ndim == 3:
+            value = value.transpose(2, 1, 0)  # OIK -> KIO
         elif path[-1] == "kernel":
             value = value.T
             owner = _conv_owner(model, name)

@@ -124,6 +124,8 @@ class VizdoomEncoder(nn.Module):
 class Embed(nn.Module):
     """flax's `nn.Embed`: a float32 table [num, features] read in `dtype`."""
 
+    flax_weight_name = "embedding"
+
     def __init__(self, num: int, features: int, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype

@@ -85,10 +85,13 @@ def cuda_device():
 # the ViZDoom and DMLab paths' shapes in the dtype each runs, and the design the plan picks: Doom's
 # GRU-512 over 2048 / 32 segments (the row design, 16 blocks); the DMLab core's LSTM-256 over 1024 / 32;
 # the instruction encoder's LSTM-64 over 16 tokens in a rollout slot of 64 envs, in a minibatch of 1024
-# (32 clusters of 8: three waves) and over the 128 envs' last observations
+# (32 clusters of 8: three waves) and over the 128 envs' last observations; LSTM-512 float32 (the row
+# design) in NetHack's learner over 768 / 32 segments (a train step takes one rollout of 24 envs) and the
+# 1024 / 32 its defaults name, and in AllegroHandLSTM's over 32768 / 16 (512 blocks of 4 rows)
 PATH_SHAPES = [("gru", 32, 64, 512, "float32", "rows"), ("lstm", 32, 32, 256, "float32", "cluster"),
                ("lstm", 16, 64, 64, "float32", "cluster"), ("lstm", 16, 1024, 64, "float32", "cluster"),
-               ("lstm", 16, 128, 64, "float32", "cluster")]
+               ("lstm", 16, 128, 64, "float32", "cluster"), ("lstm", 32, 24, 512, "float32", "rows"),
+               ("lstm", 32, 32, 512, "float32", "rows"), ("lstm", 16, 2048, 512, "float32", "rows")]
 
 
 @pytest.mark.cuda
@@ -115,7 +118,7 @@ def test_path_shapes_take_their_design(kind, T, B, H, dtype, design):
     if design == "cluster":
         assert plan.cluster == 8 and plan.units == H // 8 and plan.rows * (plan.grid // plan.cluster) >= B
     else:
-        assert plan == cuda_rnn.row_plan(kind, B, H) and plan.grid == 16
+        assert plan == cuda_rnn.row_plan(kind, B, H) and plan.rows == 4 and plan.grid == B // 4
 
 
 def _kernel_matches_plain(cuda_device, kind, dtype, T, B, H):
