@@ -23,6 +23,16 @@ Phases, each printing one JSON line:
   appo      the default regime at full width: the `main` configuration without --async_rl
             (so async, a behaviour snapshot one train call behind) and with V-trace, 3
             iterations; the policy lag, and env steps/s beside the sync run's
+  dp        data parallelism (`parallel/`), in child processes that import nothing of JAX: (a) `main`
+            in a world of 1 over NCCL, through the port's train.py with --jax_distributed=True under
+            `python -m torch.distributed.run`, in turns with the same run without a group in the same
+            process (group, none, none, group): env steps/s and their ratio, the all-reduces and the NCCL kernels' device time of an
+            iteration (torch.profiler), GRU launches, one checkpoint; (b) two gloo ranks of 512 envs on
+            cuda:0 (LOCAL_RANK=0 in both) against one rank of 1024, `main` in float32 at one sync GAE
+            iteration of 2 shuffled minibatches (each holds rows of both ranks): the ranks' reset rows,
+            at least DP_ACTIONS_EQUAL of the rollout's actions equal to the one-rank rollout's rows, the
+            parameters after the train call within DP_TOL and its stats (DP_STATS) within DP_STATS_TOL
+            of the one rank's, the two replicas equal
   ant       continuous control at full width: the physics ant, MLP 256-128-64, 4096 envs,
             rollout 16, batch 32768, 4 epochs, sync; env steps/s and the rollout/learner split
   towers    the other model family through the LSTM kernel: resnet_impala, separate actor
@@ -84,7 +94,7 @@ Phases, each printing one JSON line:
             time converting the sim's tensors a step
   sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
             the synthetic env on the card for 200,000 env steps
-Then a `kernels` line (each kernel's launches per path and per design: cluster, `*_seq`, and rows,
+Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two legs of `dp`) included, and per design: cluster, `*_seq`, and rows,
 `*_seq_rows`; the LSTM's row design also by site: the NetHack and AllegroHandLSTM learners), the card's
 name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
@@ -2072,6 +2082,233 @@ def phase_sampler(torch, card, tmp):
           "stat": "host clock around generate_trajectories (start, the calls, stop), synced", "card": card})
 
 
+DP_TOL = 1e-6  # float32 on the card, two ranks against one: each sum of the learner in another order
+DP_STATS = ("loss", "policy_loss", "value_loss", "kl_divergence", "grad_norm", "adv_mean", "adv_std", "valids_fraction")
+DP_STATS_TOL = 1e-5  # relative to max(1, |one rank's value|)
+DP_ACTIONS_EQUAL = 0.999  # share of the sharded rollout's actions equal to the one-rank rollout's rows
+DP2 = COMMON + ["--rnn_type=gru", "--compute_dtype=float32", "--batch_size=16384", "--num_envs=1024", "--shuffle_minibatches=True",
+                "--train_for_env_steps=32768", "--experiment=dp2"]  # `main` in float32, one sync GAE iteration: 2 minibatches
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def full_precision(torch):
+    """Float32 products in float32 (TF32 keeps ~3 digits), in every process that compares."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+DP_TURNS = ("nccl", "nogroup", "nogroup", "nccl")
+
+
+def dp_child(mode, out_path, train_dir, traj_path=None):
+    """A child of phase `dp`: `turns` (under torch.distributed.run: `main` in a world of 1 over
+    NCCL in turns with the same run without a group, DP_TURNS, the group joined and left for each
+    run) or `gloo` (a rank of two on cuda:0). Imports nothing of JAX; writes its result as JSON
+    to `out_path`."""
+    import torch
+
+    from sample_factory_tpu_torch.examples.train_synthetic import register_synthetic_components
+    from sample_factory_tpu_torch.ops import cuda_rnn
+    from sample_factory_tpu_torch.parallel import multihost
+
+    check(torch.cuda.is_available(), "the dp child found no card")
+    register_synthetic_components()
+    full_precision(torch)
+    cuda_rnn.load_library()
+    try:
+        if mode == "gloo":
+            out = dp_gloo_rank(torch, cuda_rnn, train_dir, traj_path)
+        else:
+            out = []
+            for k, run in enumerate(DP_TURNS):
+                # the profiler's tracing slows the host's launches for the rest of the process: the last run alone
+                out.append(dp_rate_run(torch, cuda_rnn, run, train_dir, f"dp_{k}_{run}", profile=k == len(DP_TURNS) - 1))
+                multihost.shutdown()
+    finally:
+        multihost.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def dp_rate_run(torch, cuda_rnn, mode, train_dir, experiment, profile):
+    """`main`'s configuration for 3 iterations through make_rl_runner (with --jax_distributed=True
+    when `mode` is `nccl`), then, with `profile`, one more iteration under the profiler for the NCCL
+    kernels' device time. NCCL may reduce in place without a kernel on one rank: the all-reduce calls
+    are counted too."""
+    import torch.distributed as dist
+
+    iters, envs = 3, 1024
+    argv = COMMON + MAIN_MODEL + [f"--num_envs={envs}", f"--train_for_env_steps={iters * envs * 32}", f"--experiment={experiment}"]
+    calls, all_reduce = [], dist.all_reduce
+
+    def counting_all_reduce(*args, **kwargs):
+        calls.append(1)
+        return all_reduce(*args, **kwargs)
+
+    def one_iteration():
+        stats, ep_stats = runner._train_iteration()
+        runner._process_stats(stats, ep_stats)  # under a group: the iteration's all-reduce of the episode sums and the stop
+
+    dist.all_reduce = counting_all_reduce
+    try:
+        runner, counts, stats, times = train(torch, cuda_rnn, argv + (["--jax_distributed=True"] if mode == "nccl" else []), train_dir)
+        calls_in_run = len(calls)
+        profiled = profiled_device_time(torch, one_iteration) if profile else None
+    finally:
+        dist.all_reduce = all_reduce
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    check(len(per_iter) == iters, f"{mode}: expected {iters} iterations, ran {len(per_iter)}")
+    check(runner.mesh.distributed == (mode == "nccl") and runner.mesh.world == 1, f"{mode}: mesh {runner.mesh}")
+    check(calls_in_run > 0 if mode == "nccl" else not calls, f"{mode}: {len(calls)} all-reduces")
+    if mode == "nccl":
+        check(dist.get_backend() == "nccl" and runner.device == torch.device("cuda", 0), f"backend {dist.get_backend()}, device {runner.device}")
+    ckpts = sorted(f for f in os.listdir(os.path.join(train_dir, experiment, "checkpoint_p0")) if f.startswith("checkpoint_"))
+    check(ckpts == [f"checkpoint_{2 * iters:012d}_{iters * envs * 32}.pth"], f"{mode}: checkpoints {ckpts}, expected the final one alone")
+    out = {"mode": mode, "iteration_s": per_iter, "env_steps_per_s_steady": envs * 32 * (iters - 1) / sum(per_iter[1:]),
+           "launches": counts, "gru_seq_per_iteration": counts["gru_seq"] / iters, "checkpoints": ckpts, "loss": stats["loss"],
+           "all_reduce_calls": {"run": calls_in_run, "profiled_iteration": len(calls) - calls_in_run}}
+    if profiled is not None:
+        wall_us, device_us, _, on_device, _ = profiled
+        nccl = [e for e in on_device if "nccl" in e.name.lower()]
+        out["profiled_iteration"] = {"device_busy_ms": device_us / 1e3, "wall_ms": wall_us / 1e3, "nccl_kernels": len(nccl),
+                                     "nccl_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
+                                     "nccl_names": sorted({e.name[:60] for e in nccl})}
+    return out
+
+
+def dp_gloo_rank(torch, cuda_rnn, train_dir, traj_path):
+    """One of two gloo ranks on cuda:0 (LOCAL_RANK=0 in both: NCCL refuses two ranks on one card):
+    its sharded rollout, then the train call on its rows of the one-rank trajectory."""
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.parallel import multihost
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    multihost.init_distributed(backend="gloo")
+    _, runner = make_rl_runner(parse_custom_args(DP2 + [f"--train_dir={train_dir}", "--device=gpu", "--seed=0", "--jax_distributed=True"]))
+    runner.init()
+    shard, ts = runner.sampler_state.shard, runner.train_state
+    check(runner.device == torch.device("cuda", 0) and shard.size == 512, f"rank on {runner.device}, envs {shard}")
+    _, own, _ = runner._rollout_fn(ts.model, ts.obs_rms, runner.sampler_state, ts.train_step, runner.policy_id)
+    whole = torch.load(traj_path, map_location=runner.device)
+
+    def rows(x):
+        return {k: rows(v) for k, v in x.items()} if isinstance(x, dict) else x[:, shard.start : shard.stop]
+
+    mine = rows(whole)
+    torch.cuda.synchronize()
+    cuda_rnn.reset_launch_counts()
+    stats = runner._train_fn(ts, mine, runner.train_generator)
+    torch.cuda.synchronize()
+    counts = cuda_rnn.launch_counts()
+    params_path = os.path.join(train_dir, f"rank{runner.mesh.rank}.pt")
+    torch.save({k: v.cpu() for k, v in ts.model.state_dict().items()}, params_path)
+    return {"rank": runner.mesh.rank, "shard": [shard.start, shard.stop], "launches": counts, "params": params_path,
+            "reset_rows_equal": bool(torch.equal(own["obs"]["obs"][0], mine["obs"]["obs"][0])),
+            "rollout_actions_equal_share": float((own["actions"] == mine["actions"]).float().mean()),
+            "stats": {k: float(stats[k]) for k in DP_STATS}, "train_step": ts.train_step}
+
+
+def run_child(cmd, env, out_path, timeout=300):
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(out.returncode == 0, f"{' '.join(cmd[:6])} failed ({out.returncode}):\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    with open(out_path) as f:
+        return json.load(f)
+
+
+def phase_dp(torch, cuda_rnn, card, tmp):
+    """Data parallelism (`parallel/`). (a) `main` at full width in a world of 1 over NCCL, under
+    torch.distributed.run through the port's train.py with --jax_distributed=True, in turns with the
+    same run without a group (DP_TURNS, one child process): env steps/s, the all-reduces and the NCCL
+    kernels' device time an iteration, GRU launches, one checkpoint. (b) two gloo ranks of 512 envs on cuda:0 against one
+    rank of 1024 in float32: the parameters after the train call within DP_TOL, the replicas equal."""
+    script = os.path.abspath(__file__)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(script) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("WORLD_SIZE", None)
+    start = time.perf_counter()
+    out_path = os.path.join(tmp, "dp_turns.json")
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1"]
+    runs = run_child(launch + [script, "--dp-child", "turns", out_path, os.path.join(tmp, "dp_turns")], env, out_path)
+    check([r["mode"] for r in runs] == list(DP_TURNS), f"runs {[r['mode'] for r in runs]}")
+    for r in runs:
+        check(r["gru_seq_per_iteration"] == 2, f"{r['mode']}: {r['gru_seq_per_iteration']} GRU launches an iteration, expected 2")
+    profiled = runs[-1]["profiled_iteration"]
+    runs = [(r["mode"], r) for r in runs]
+    rate = {mode: [r["env_steps_per_s_steady"] for m, r in runs if m == mode] for mode in ("nccl", "nogroup")}
+    emit({"phase": "dp", "leg": "nccl_world_of_1", "config": "main (grid_battle, convnet_impala, GRU-256 bf16, 1024 envs, rollout 32, batch 16384)",
+          "turns": [m for m, _ in runs], "env_steps_per_s_steady": rate,
+          "ratio_group_over_no_group": statistics.mean(rate["nccl"]) / statistics.mean(rate["nogroup"]),
+          "profiled_iteration_of_the_last_group_run": profiled,
+          "all_reduce_calls": {f"{k}_{m}": r["all_reduce_calls"] for k, (m, r) in enumerate(runs)},
+          "gru_seq_per_iteration": [r["gru_seq_per_iteration"] for _, r in runs], "checkpoints": runs[0][1]["checkpoints"],
+          "iteration_s": {f"{k}_{m}": r["iteration_s"] for k, (m, r) in enumerate(runs)}, "seconds": time.perf_counter() - start, "card": card})
+
+    # (b) the one-rank reference: its rollout goes to the ranks, which train on their rows of it
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    start_b = time.perf_counter()
+    one_dir = os.path.join(tmp, "dp2_one")
+    _, one = make_rl_runner(parse_custom_args(DP2 + [f"--train_dir={one_dir}", "--device=gpu", "--seed=0"]))
+    one.init()
+    ts = one.train_state
+    _, traj, _ = one._rollout_fn(ts.model, ts.obs_rms, one.sampler_state, ts.train_step, one.policy_id)
+    traj_path = os.path.join(tmp, "dp2_trajectory.pt")
+    torch.save(traj, traj_path)
+    port = free_port()
+    procs = []
+    for rank in (0, 1):
+        rank_env = dict(env, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        out_path = os.path.join(tmp, f"dp2_rank{rank}.json")
+        cmd = [sys.executable, script, "--dp-child", "gloo", out_path, os.path.join(tmp, "dp2"), traj_path]
+        procs.append((subprocess.Popen(cmd, env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out_path))
+    full_precision(torch)
+    one_stats = one._train_fn(ts, traj, one.train_generator)  # meanwhile, the reference train call
+    one_stats = {k: float(one_stats[k]) for k in DP_STATS}
+    want = {k: v.cpu() for k, v in ts.model.state_dict().items()}
+    ranks = []
+    for proc, out_path in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        check(proc.returncode == 0, f"a gloo rank failed ({proc.returncode}):\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        with open(out_path) as f:
+            ranks.append(json.load(f))
+    got = [torch.load(r["params"]) for r in ranks]
+    diff = max(float((g[k] - v).abs().max()) for g in got for k, v in want.items())
+    identical = all(bool(torch.equal(got[0][k], got[1][k])) for k in want)
+    stats_err = {k: max(abs(r["stats"][k] - v) / max(1.0, abs(v)) for r in ranks) for k, v in one_stats.items()}
+    check(all(r["reset_rows_equal"] for r in ranks), "a rank's reset observations differ from its rows of the one-rank reset")
+    shares = [r["rollout_actions_equal_share"] for r in ranks]
+    check(min(shares) >= DP_ACTIONS_EQUAL, f"the ranks' rollout actions equal the one-rank rollout's rows at {shares} < {DP_ACTIONS_EQUAL}")
+    check(max(stats_err.values()) <= DP_STATS_TOL, f"two ranks' train stats against one rank's: {stats_err} > {DP_STATS_TOL}")
+    check(identical, "the two ranks' replicas differ after the train call")
+    check(diff <= DP_TOL, f"two ranks against one rank: max |param diff| {diff} > {DP_TOL}")
+    check(all(r["launches"]["gru_seq"] == 2 for r in ranks), f"a rank did not launch the GRU kernel once a minibatch: {[r['launches'] for r in ranks]}")
+    check(ranks[0]["train_step"] == ranks[1]["train_step"] == ts.train_step == 2, "train steps differ")
+    emit({"phase": "dp", "leg": "gloo_two_ranks_on_cuda0", "config": "main in float32, 1 sync GAE iteration, 2 shuffled minibatches of 16384",
+          "max_abs_param_diff": diff, "tol": DP_TOL, "replicas_identical": identical,
+          "stats_rel_err": stats_err, "stats_tol": DP_STATS_TOL, "stats_one_rank": one_stats,
+          "shards": [r["shard"] for r in ranks], "reset_rows_equal": [r["reset_rows_equal"] for r in ranks],
+          "rollout_actions_equal_share": shares, "actions_equal_min": DP_ACTIONS_EQUAL,
+          "gru_seq_by_rank": [r["launches"]["gru_seq"] for r in ranks],
+          "seconds": time.perf_counter() - start_b, "card": card})
+    del one
+    counts_a = [r["launches"] for m, r in runs if m == "nccl"]
+    return ({k: sum(c[k] for c in counts_a) for k in counts_a[0]},
+            {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
+
+
 def main() -> int:
     # the isaacgym phase's stand-in refuses a process that has imported torch, as NVIDIA's isaacgym
     # does: it is imported first, as a user's script imports it
@@ -2089,10 +2326,7 @@ def main() -> int:
 
     register_synthetic_components()
     register_bench_pixel()
-    # full-precision float32 products for the comparisons (TF32 keeps ~3 digits)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    full_precision(torch)  # for the comparisons
     card = card_line()
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
@@ -2127,6 +2361,7 @@ def main() -> int:
         paths["lstm"] = phase_lstm(torch, cuda_rnn, card, tmp)
         paths["appo"] = phase_appo(torch, cuda_rnn, card, tmp, runner, sync_rate)
         del runner
+        paths["dp"], paths["dp2"] = phase_dp(torch, cuda_rnn, card, tmp)
         paths["ant"] = phase_ant(torch, cuda_rnn, card, tmp)
         paths["towers"] = phase_towers(torch, cuda_rnn, card, tmp)
         paths["population"] = phase_population(torch, cuda_rnn, card, tmp)
@@ -2173,4 +2408,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:
+        sys.exit(dp_child(*sys.argv[2:]))
     sys.exit(main())

@@ -176,7 +176,7 @@ class EnvSlotStepper:
         self.env_info = env_info
         self.slabs = slabs
         self.w = worker_idx
-        self.seed = cfg.seed or 0
+        self.seed = (cfg.seed or 0) + getattr(cfg, "env_seed_offset", 0)  # a rank's envs step their own episodes
         self.K = cfg.worker_num_splits
         self.A = env_info.num_agents
         self.E = cfg.num_envs_per_worker // self.K  # envs per split

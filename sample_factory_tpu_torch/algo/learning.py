@@ -15,11 +15,23 @@ one per extra epoch (early stop), and the KL value under a KL-adaptive
 schedule. An sgd step has none: host scalars that become stats are filled on the
 device (`torch.full`), not copied to it (`torch.tensor(x, device=...)` waits for
 the stream), so that the host can run ahead of the learner's device work.
+
+Data parallelism (a `mesh` with a process group, `parallel/mesh.py`): each of R ranks
+holds the rows of its own envs, and the learner computes what one rank with every
+env computes, as GSPMD does for the JAX package. Every reduction is global: the valid
+fraction, the normalizers' moments, the minibatch's valid count (each rank's masked
+means are its own sums over it), the advantages' mean and std, the gradients (summed
+before the clip by the global norm), the stats and the early stop. Minibatch i is rows
+[i·B, (i+1)·B) of the global env-major dataset, or the i-th slice of one global
+permutation drawn from the generator that every rank seeds alike; a rank computes the
+loss over the rows of it that it holds, none included, and joins every collective.
+Shuffled minibatches take one more host sync an epoch, to split the permutation.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -49,6 +61,8 @@ from sample_factory_tpu_torch.algo.running_mean_std import (
 )
 from sample_factory_tpu_torch.algo.sampling import _static_preprocess
 from sample_factory_tpu_torch.algo.schedules import lr_after_epoch, lr_after_minibatch
+from sample_factory_tpu_torch.envs.spaces import num_action_parameters
+from sample_factory_tpu_torch.parallel.multihost import all_reduce
 
 PBT_HPARAMS = (
     "learning_rate",
@@ -61,6 +75,11 @@ PBT_HPARAMS = (
 )
 
 EARLY_STOPPING_TOLERANCE = 1e-6
+
+# data parallelism: stats that are sums of the ranks' parts, and those that are maxima (ratio_min negated)
+SUMMED_STATS = ("loss", "policy_loss", "value_loss", "exploration_loss", "kl_loss", "kl_divergence", "entropy", "value",
+                "ratio_mean", "fraction_clipped", "value_delta")
+MAXED_STATS = ("kl_divergence_max", "ratio_max", "max_abs_logprob")
 
 
 def default_hparams(cfg) -> Dict[str, float]:
@@ -120,16 +139,28 @@ def init_train_state(cfg, env_info, model: nn.Module, device) -> PolicyTrainStat
     )
 
 
-def build_train_pieces(cfg, env_info, policy_id: int = 0):
+def _data_parallel(mesh):
+    """(all_sum, all_max, rank, world) of a data-parallel run; all_sum is None without a group."""
+    if mesh is None or not mesh.distributed:
+        return None, None, 0, 1
+    return partial(all_reduce, op="sum"), partial(all_reduce, op="max"), mesh.rank, mesh.data
+
+
+def build_train_pieces(cfg, env_info, policy_id: int = 0, mesh=None):
     """The learner in two pieces: prepare_batch(ts, traj, pid) -> (dataset, valid_frac)
-    and sgd_step(ts, valid_frac, minibatch) -> aux."""
+    and sgd_step(ts, valid_frac, minibatch) -> aux. With a data-parallel `mesh` the
+    reductions of both are global (the module's docstring)."""
     action_space = env_info.action_space
     use_rnn = cfg.use_rnn
     recurrence = max(1, cfg.recurrence)
+    all_sum, all_max, _, world = _data_parallel(mesh)
 
     def forward_seq(model, norm_obs, init_rnn_state, reset_flags):
         """norm_obs: dict [S, R, ...]; init_rnn_state [S, H]; reset_flags [S, R] -> ([S*R, P], [S*R])."""
         S, R = reset_flags.shape
+        if S == 0:  # a data-parallel rank that holds no row of this minibatch
+            params = torch.zeros((0, num_action_parameters(action_space)), device=reset_flags.device, requires_grad=True)
+            return params, params.detach()[:, 0]
         head_out = model.forward_head(norm_obs)  # [S, R, D]
         if use_rnn:
             # BPTT: input projections for all R steps in one matmul, the recurrence in the kernel
@@ -139,6 +170,10 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
             flat = head_out.reshape(S * R, -1)
             core_out, _ = model.forward_core(flat, torch.zeros((S * R, 1), device=flat.device))
         return model.forward_tail(core_out)
+
+    def _max(x):
+        """x.max(); on a data-parallel rank that holds no row, -inf (the all-reduce takes the maximum)."""
+        return x.max() if x.numel() else x.new_full((), float("-inf"))
 
     def compute_losses(model, mb, hp):
         """mb: dict of [B, ...] tensors (B = batch, segments contiguous)."""
@@ -174,25 +209,27 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
             adv = adv_tm.transpose(0, 1).reshape(B)
         else:
             adv, targets = mb["advantages"], mb["returns"]
-        adv, adv_mean, adv_std = normalize_advantages(adv, valids)
+        # the minibatch's valid count over every rank: each rank's masked means are its parts
+        count = None if all_sum is None else all_sum([valids.sum()])[0].clamp(min=1.0)
+        adv, adv_mean, adv_std = normalize_advantages(adv, valids, all_sum)
 
         clip_ratio_high = 1.0 + hp["ppo_clip_ratio"]
         clip_ratio_low = 1.0 / clip_ratio_high
-        p_loss = policy_loss(ratio, adv, clip_ratio_low, clip_ratio_high, valids)
+        p_loss = policy_loss(ratio, adv, clip_ratio_low, clip_ratio_high, valids, count)
 
         entropy = dist.entropy()
         if cfg.exploration_loss == "entropy":
-            expl_loss = entropy_exploration_loss(entropy, valids, hp["exploration_loss_coeff"])
+            expl_loss = entropy_exploration_loss(entropy, valids, hp["exploration_loss_coeff"], count)
         else:
             expl_loss = symmetric_kl_exploration_loss(
-                dist.symmetric_kl_with_uniform_prior(), valids, hp["exploration_loss_coeff"]
+                dist.symmetric_kl_with_uniform_prior(), valids, hp["exploration_loss_coeff"], count, all_sum, world
             )
 
         old_dist = get_action_distribution(action_space, mb["action_logits"])
         kl_old = dist.kl_divergence(old_dist)
-        kl_old_mean, kl_penalty = kl_loss_fn(kl_old, valids, cfg.kl_loss_coeff)
+        kl_old_mean, kl_penalty = kl_loss_fn(kl_old, valids, cfg.kl_loss_coeff, count)
 
-        v_loss = value_loss(new_values, mb["values"], targets, hp["ppo_clip_value"], valids, hp["value_loss_coeff"])
+        v_loss = value_loss(new_values, mb["values"], targets, hp["ppo_clip_value"], valids, hp["value_loss_coeff"], count)
         loss = p_loss + expl_loss + kl_penalty + v_loss
 
         with torch.no_grad():
@@ -204,17 +241,17 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
                 "exploration_loss": expl_loss,
                 "kl_loss": kl_penalty,
                 "kl_divergence": kl_old_mean,
-                "kl_divergence_max": (kl_old * valids).max(),
-                "entropy": masked_mean(entropy, valids),
-                "value": masked_mean(new_values, valids),
+                "kl_divergence_max": _max(kl_old * valids),
+                "entropy": masked_mean(entropy, valids, count),
+                "value": masked_mean(new_values, valids, count),
                 "adv_mean": adv_mean,
                 "adv_std": adv_std,
-                "ratio_mean": masked_mean((1.0 - ratio).abs(), valids),
-                "ratio_min": torch.where(valids > 0, ratio, inf).min(),
-                "ratio_max": torch.where(valids > 0, ratio, -inf).max(),
-                "fraction_clipped": masked_mean(((ratio < clip_ratio_low) | (ratio > clip_ratio_high)).float(), valids),
-                "max_abs_logprob": mb["action_logits"].abs().max(),
-                "value_delta": masked_mean((new_values - mb["values"]).abs(), valids),
+                "ratio_mean": masked_mean((1.0 - ratio).abs(), valids, count),
+                "ratio_min": -_max(-torch.where(valids > 0, ratio, inf)),
+                "ratio_max": _max(torch.where(valids > 0, ratio, -inf)),
+                "fraction_clipped": masked_mean(((ratio < clip_ratio_low) | (ratio > clip_ratio_high)).float(), valids, count),
+                "max_abs_logprob": _max(mb["action_logits"].abs()),
+                "value_delta": masked_mean((new_values - mb["values"]).abs(), valids, count),
             }
             aux = {k: v.detach() for k, v in aux.items()}
         return loss, aux
@@ -229,6 +266,14 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        if all_sum is not None:
+            # each rank's loss is its part of the global one: the parts' gradients and stats add up
+            summed = all_sum(grads + [aux[k] for k in SUMMED_STATS])
+            torch._foreach_copy_(grads, summed[: len(grads)])
+            aux.update(zip(SUMMED_STATS, summed[len(grads) :]))
+            maxed = all_max([aux[k] for k in MAXED_STATS] + [-aux["ratio_min"]])
+            aux.update(zip(MAXED_STATS, maxed))
+            aux["ratio_min"] = -maxed[-1]
         grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         if cfg.max_grad_norm > 0.0:
             # manual clip so the bound can be a per-policy (PBT) value
@@ -262,7 +307,7 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
         pre_obs = _static_preprocess(cfg, traj["obs"])
         if ts.obs_rms is not None:
             flat_obs = {k: pre_obs[k].reshape((-1,) + tuple(pre_obs[k].shape[2:])) for k in ts.obs_rms}
-            ts.obs_rms = obs_rms_update(ts.obs_rms, flat_obs, mask=valids.reshape(-1))
+            ts.obs_rms = obs_rms_update(ts.obs_rms, flat_obs, mask=valids.reshape(-1), all_sum=all_sum)
             normalized_obs = obs_rms_normalize(ts.obs_rms, pre_obs)
         else:
             normalized_obs = pre_obs
@@ -289,7 +334,7 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
             returns = advantages + valids[:-1] * denorm_values[:-1]
             if cfg.normalize_returns and ts.returns_rms is not None:
                 # masked by valids: invalid slots carry structurally-zero returns
-                ts.returns_rms = rms_update(ts.returns_rms, returns.reshape(-1, 1), mask=valids_t.reshape(-1))
+                ts.returns_rms = rms_update(ts.returns_rms, returns.reshape(-1, 1), mask=valids_t.reshape(-1), all_sum=all_sum)
                 returns = rms_normalize(ts.returns_rms, returns[..., None])[..., 0]
         else:
             # V-trace computes both per minibatch, from fresh values and ratios
@@ -319,7 +364,10 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0):
         invalid = dataset["valids"] == 0
         dataset["actions"] = torch.where(invalid[:, None], torch.zeros_like(dataset["actions"]), dataset["actions"])
         dataset["log_prob_actions"] = torch.where(invalid, torch.full_like(dataset["log_prob_actions"], -1.0), dataset["log_prob_actions"])
-        return dataset, float(dataset["valids"].mean())
+        if all_sum is None:
+            return dataset, float(dataset["valids"].mean())
+        (num_valid,) = all_sum([dataset["valids"].sum()])
+        return dataset, float(num_valid) / (dataset["valids"].numel() * world)
 
     return sgd_step, prepare_batch
 
@@ -330,36 +378,50 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def make_train_fn(cfg, env_info, policy_id: int = 0) -> Callable:
+def make_train_fn(cfg, env_info, policy_id: int = 0, mesh=None) -> Callable:
     """Build train(ts, traj, generator) -> stats. traj is time-major [T(+1), N, ...];
-    `generator` draws the minibatch shuffle and the summary minibatch."""
+    `generator` draws the minibatch shuffle and the summary minibatch. With a data-parallel
+    `mesh`, traj holds this rank's envs and the generator is seeded alike on every rank."""
     recurrence = max(1, cfg.recurrence)
-    sgd_step, prepare_batch = build_train_pieces(cfg, env_info, policy_id)
+    sgd_step, prepare_batch = build_train_pieces(cfg, env_info, policy_id, mesh)
+    all_sum, all_max, rank, world = _data_parallel(mesh)
 
     def train(ts: PolicyTrainState, traj: Dict[str, Any], generator: Optional[torch.Generator] = None, pid: int = policy_id):
         dataset, valid_frac = prepare_batch(ts, traj, pid)
         device = dataset["valids"].device
 
-        dataset_size = dataset["valids"].shape[0]
+        local_size = dataset["valids"].shape[0]
+        dataset_size = local_size * world
         batch_size = min(cfg.batch_size, dataset_size)
         num_minibatches = dataset_size // batch_size
         num_segments = dataset_size // recurrence
         segs_per_mb = batch_size // recurrence
+        first_row, local_segments = rank * local_size, local_size // recurrence  # this rank's rows of the global dataset
+
+        def own_rows(i):
+            """This rank's rows of global minibatch i: a view, empty where it holds none."""
+            lo, hi = max(i * batch_size, first_row), min((i + 1) * batch_size, first_row + local_size)
+            return _tree_map(lambda x: x[lo - first_row : max(lo, hi) - first_row], dataset)
 
         def epoch_minibatches():
             if not cfg.shuffle_minibatches:
                 # contiguous minibatches: views, no data movement (the reference default)
-                return [_tree_map(lambda x: x[i * batch_size : (i + 1) * batch_size], dataset) for i in range(num_minibatches)]
+                return [own_rows(i) for i in range(num_minibatches)]
             perm = torch.randperm(num_segments, generator=generator, device=device)[: num_minibatches * segs_per_mb]
+            selections = [perm[i * segs_per_mb : (i + 1) * segs_per_mb] for i in range(num_minibatches)]
+            if all_sum is not None:
+                # the segments of each slice of the global permutation that this rank holds, in its order
+                first_segment = rank * local_segments
+                selections = [
+                    (sel[(sel >= first_segment) & (sel < first_segment + local_segments)] - first_segment).to(device)
+                    for sel in perm.cpu().split(segs_per_mb)
+                ]
 
             def gather(x, sel):
-                seg_view = x.reshape((num_segments, recurrence) + tuple(x.shape[1:]))
-                return seg_view[sel].reshape((batch_size,) + tuple(x.shape[1:]))
+                seg_view = x.reshape((local_segments, recurrence) + tuple(x.shape[1:]))
+                return seg_view[sel].reshape((sel.shape[0] * recurrence,) + tuple(x.shape[1:]))
 
-            return [
-                _tree_map(lambda x: gather(x, perm[i * segs_per_mb : (i + 1) * segs_per_mb]), dataset)
-                for i in range(num_minibatches)
-            ]
+            return [_tree_map(lambda x: gather(x, sel), dataset) for sel in selections]
 
         def run_epoch():
             auxes = [sgd_step(ts, valid_frac, mb) for mb in epoch_minibatches()]
@@ -388,6 +450,8 @@ def make_train_fn(cfg, env_info, policy_id: int = 0) -> Callable:
         stats["valids_fraction"] = torch.full((), valid_frac, device=device)
         stats["lr"] = torch.full((), ts.curr_lr, device=device)
         stats["version_diff_max"] = (ts.train_step - traj["policy_version"]).max().float()
+        if all_max is not None:
+            (stats["version_diff_max"],) = all_max([stats["version_diff_max"]])
         return stats
 
     return train

@@ -11,9 +11,11 @@ JAX side's, and `rms_update` takes the same optional mask (:69-120).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+AllSum = Optional[Callable[[List[torch.Tensor]], List[torch.Tensor]]]
 
 NORM_EPS = 1e-5
 DEFAULT_CLIP = 5.0
@@ -64,13 +66,20 @@ def _reduce_axes(state: RunningMeanStdState, x: torch.Tensor) -> Tuple[int, ...]
     return tuple(range(x.dim() - state.running_mean.dim()))
 
 
-def rms_update(state: RunningMeanStdState, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> RunningMeanStdState:
+def rms_update(
+    state: RunningMeanStdState, x: torch.Tensor, mask: Optional[torch.Tensor] = None, all_sum: AllSum = None
+) -> RunningMeanStdState:
     """Merge batch moments into running moments (reference :50-62).
 
     `mask` (optional) weights samples along the leading batch dims of `x`;
     masked-out samples contribute nothing, and an all-masked batch leaves the
     state unchanged. See `sample_factory_tpu/algo/running_mean_std.py:69-83`.
+    With `all_sum` (data parallelism, masked updates only) the batch is every rank's:
+    the count, the sum and the squared deviations from the global mean are all-reduced.
     """
+    if all_sum is not None and mask is None:
+        raise ValueError("a data-parallel rms_update takes a mask")
+    reduce = all_sum or (lambda tensors: tensors)
     x = x.float()
     axes = _reduce_axes(state, x)
     if mask is None:
@@ -87,10 +96,11 @@ def rms_update(state: RunningMeanStdState, x: torch.Tensor, mask: Optional[torch
         for a in axes:
             if a >= w.dim():
                 extra *= x.shape[a]
-        batch_count = w.sum() * extra
+        batch_count, batch_sum = reduce([w.sum() * extra, (w_full * x).sum(dim=axes)])
         safe_count = batch_count.clamp(min=1.0)
-        batch_mean = (w_full * x).sum(dim=axes) / safe_count
-        batch_var = (w_full * (x - batch_mean).square()).sum(dim=axes) / safe_count
+        batch_mean = batch_sum / safe_count
+        (squares,) = reduce([(w_full * (x - batch_mean).square()).sum(dim=axes)])
+        batch_var = squares / safe_count
 
     delta = batch_mean - state.running_mean
     tot_count = state.count + batch_count
@@ -140,8 +150,10 @@ def obs_rms_init(obs_space, keys_to_normalize: Optional[Sequence[str]] = None, d
     return out
 
 
-def obs_rms_update(state: ObsRmsState, obs: Dict[str, torch.Tensor], mask: Optional[torch.Tensor] = None) -> ObsRmsState:
-    return {k: rms_update(v, obs[k], mask=mask) for k, v in state.items()}
+def obs_rms_update(
+    state: ObsRmsState, obs: Dict[str, torch.Tensor], mask: Optional[torch.Tensor] = None, all_sum: AllSum = None
+) -> ObsRmsState:
+    return {k: rms_update(v, obs[k], mask=mask, all_sum=all_sum) for k, v in state.items()}
 
 
 def obs_rms_normalize(state: ObsRmsState, obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -8,6 +8,13 @@ time-major [T, N, ...] tensors with the keys of `TRAJECTORY_KEYS`, obs and
 rnn_states with T+1 entries for the bootstrap value, and the rnn state reset
 to zero where an episode ended.
 
+Data parallelism (`parallel/mesh.py`): a rank that steps rows [start, stop) of N envs
+(`SamplerState.shard`) makes every draw of the one-rank rollout, at the global size N
+from the generator that every rank seeds alike, and keeps its rows: the env's reset and
+step draws and the action noise. Its rollout then equals those rows of the one-rank
+rollout, given the same parameters, and the ranks step different episodes. It costs the
+draws of N envs a step on every rank.
+
 Multi-agent envs go through the mixed-policy rollout (:159-302): the agents of
 all envs are flattened into policy slots (env-major, `env * A + agent`), each
 slot is driven by the policy assigned to it, and the episodic sums come back
@@ -28,6 +35,7 @@ from sample_factory_tpu_torch.algo.running_mean_std import obs_rms_normalize
 from sample_factory_tpu_torch.envs.device_env import DeviceEnv, autoreset_step, autoreset_step_ma
 from sample_factory_tpu_torch.envs.spaces import action_dtype
 from sample_factory_tpu_torch.models.actor_critic import initial_actor_critic_state
+from sample_factory_tpu_torch.parallel.mesh import EnvShard
 
 TRAJECTORY_KEYS = (
     "obs", "rnn_states", "actions", "action_logits", "log_prob_actions", "values",
@@ -48,10 +56,27 @@ class SamplerState:
     ep_return_raw: torch.Tensor  # before reward scaling/clipping
     # runtime reward-shaping coefficients (PBT): floats, or [P] tensors in the mixed-policy state
     shaping: Optional[Dict[str, Any]] = None
+    # data parallelism: this rank's rows of the global env axis (None: all of them)
+    shard: Optional[EnvShard] = None
 
 
-def init_sampler_state(cfg, env: DeviceEnv, num_envs: int, device, generator: torch.Generator) -> SamplerState:
-    obs, env_states = env.reset(num_envs, device, generator=generator)
+def _own_rows(draws: Dict[str, torch.Tensor], shard: EnvShard) -> Dict[str, torch.Tensor]:
+    return {k: v[shard.start : shard.stop] for k, v in draws.items()}
+
+
+def _global_rows(x: torch.Tensor, shard: EnvShard, fill: float) -> torch.Tensor:
+    """x [n, ...] at this rank's rows of a [total, ...] tensor filled with `fill`."""
+    out = x.new_full((shard.total,) + tuple(x.shape[1:]), fill)
+    out[shard.start : shard.stop] = x
+    return out
+
+
+def init_sampler_state(cfg, env: DeviceEnv, num_envs: int, device, generator: torch.Generator, shard: Optional[EnvShard] = None) -> SamplerState:
+    if shard is None:
+        obs, env_states = env.reset(num_envs, device, generator=generator)
+    else:
+        draws = _own_rows(env.reset_draws(shard.total, generator, device), shard)
+        obs, env_states = env.reset(num_envs, device, draws=draws)
     shaping = None
     if getattr(env, "supports_dynamic_shaping", False) and env.reward_shaping:
         shaping = dict(env.reward_shaping)
@@ -65,7 +90,22 @@ def init_sampler_state(cfg, env: DeviceEnv, num_envs: int, device, generator: to
         ep_len=zeros.clone(),
         ep_return_raw=zeros.clone(),
         shaping=shaping,
+        shard=shard,
     )
+
+
+def _sharded_step(env, action_space, ss: SamplerState, action_params, action_mask):
+    """The draws of a rank's step, in the one-rank order (actions, env step, env reset), at
+    the global size, keeping this rank's rows: the actions, their log-probabilities and the
+    env's step and reset draws."""
+    shard = ss.shard
+    mask = None if action_mask is None else _global_rows(action_mask, shard, 1.0)
+    global_dist = get_action_distribution(action_space, _global_rows(action_params, shard, 0.0), mask)
+    actions = global_dist.sample(ss.generator)[shard.start : shard.stop]
+    log_probs = get_action_distribution(action_space, action_params, action_mask).log_prob(actions)
+    step_draws = _own_rows(env.step_draws(shard.total, ss.generator, action_params.device), shard)
+    reset_draws = _own_rows(env.reset_draws(shard.total, ss.generator, action_params.device), shard)
+    return actions, log_probs, step_draws, reset_draws
 
 
 def _process_rewards(cfg, rewards):
@@ -111,12 +151,19 @@ def make_rollout_fn(cfg, env: DeviceEnv, env_info) -> Callable:
         for _ in range(cfg.rollout):
             action_params, values, new_rnn = model(normalize_obs(cfg, obs_rms, ss.obs), ss.rnn_state)
             # optional action masking: the env publishes a mask under obs['action_mask']
-            dist = get_action_distribution(action_space, action_params, ss.obs.get("action_mask"))
-            actions, log_probs = sample_actions_log_probs(dist, ss.generator)
+            if ss.shard is None:
+                dist = get_action_distribution(action_space, action_params, ss.obs.get("action_mask"))
+                actions, log_probs = sample_actions_log_probs(dist, ss.generator)
+                step_draws = reset_draws = None
+            else:
+                actions, log_probs, step_draws, reset_draws = _sharded_step(
+                    env, action_space, ss, action_params, ss.obs.get("action_mask")
+                )
             actions = actions.to(a_dtype)
 
             next_obs, env_states, rewards, dones, info = autoreset_step(
-                env, ss.env_states, actions, generator=ss.generator, shaping=ss.shaping
+                env, ss.env_states, actions, generator=ss.generator, step_draws=step_draws, reset_draws=reset_draws,
+                shaping=ss.shaping,
             )
             proc_rewards = _process_rewards(cfg, rewards)
 

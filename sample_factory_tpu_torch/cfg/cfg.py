@@ -358,7 +358,13 @@ def add_tpu_args(p: ArgumentParser) -> None:
         "always runs the hand-written CUDA kernel on the card (ops/cuda_rnn.py) and its plain version "
         "on the CPU",
     )
-    p.add_argument("--jax_distributed", default=False, type=str2bool, help="Multi-host runs (not ported yet: ROADMAP A13)")
+    p.add_argument(
+        "--jax_distributed",
+        default=False,
+        type=str2bool,
+        help="Data-parallel run on torch.distributed, one process a device, started by python -m torch.distributed.run "
+        "(NCCL on the card, gloo on the CPU); the envs of --num_envs are split over the ranks",
+    )
     p.add_argument("--profiler_dir", default=None, type=str, help="If set, capture a torch.profiler trace of the first iterations into this dir")
 
 

@@ -72,9 +72,12 @@ _lib_lock = threading.Lock()
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-x)) with each op in x's dtype: the kernels' form (and the Pallas
-    kernels', `pallas_gru.py:70-75`); torch.sigmoid rounds differently in bf16."""
+    kernels', `pallas_gru.py:70-75`); torch.sigmoid rounds differently in bf16. x is held
+    at -88 and above, where exp(-x) is finite: below, the gate is 0 to within 7e-39 and its
+    gradient 0, where exp's overflow would make it 0 * inf = NaN (the backward reruns this
+    version, on the card too)."""
     one = torch.ones((), dtype=x.dtype, device=x.device)
-    return one / (one + torch.exp(-x))
+    return one / (one + torch.exp(-x.clamp(min=-88.0)))
 
 
 def gru_seq_reference(x_proj, h0, resets, wh, bh) -> Tuple[torch.Tensor, torch.Tensor]:

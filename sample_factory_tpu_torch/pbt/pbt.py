@@ -27,6 +27,7 @@ from typing import Dict, List, Optional
 import torch
 
 from sample_factory_tpu_torch.algo.learning import PBT_HPARAMS, PolicyTrainState
+from sample_factory_tpu_torch.parallel.multihost import is_primary_host
 from sample_factory_tpu_torch.utils.utils import experiment_dir, log
 
 EPS = 1e-5
@@ -159,6 +160,8 @@ class PopulationBasedTraining:
         to.train_step += self.cfg.max_policy_lag + 1
 
     def _save_policy_cfg(self, policy_id: int) -> None:
+        if not is_primary_host():
+            return  # every rank takes the same decision (broadcast objectives); rank 0 records it
         with open(policy_cfg_file(self.cfg, policy_id), "w") as f:
             json.dump(self.policy_hparams[policy_id], f, indent=2)
         if self.policy_reward_shaping[policy_id] is not None:

@@ -21,6 +21,12 @@ changes the initial slot mapping. PBT's exploit and explore steps run on the
 host between iterations (`pbt/pbt.py`). `train_state` is the list of P train
 states, `sampler_state` a list of P (unmixed) or one (mixed); the stats handed
 to observers and `host_stats` are lists of P dicts.
+
+Under a process group, as the JAX runner, every rank runs the whole population from the
+same seed on the same envs (no sharding, no collective in the learner): the ranks are
+identical copies (ROADMAP C). The ranks share three things: the
+PBT objectives, broadcast from rank 0 before PBT decides (:249-253); the writes, which
+rank 0 alone makes (:306-308); and the stop, agreed every iteration (`Runner`).
 """
 
 from __future__ import annotations
@@ -38,16 +44,17 @@ from sample_factory_tpu_torch.algo.sampling import (
     make_rollout_fn,
 )
 from sample_factory_tpu_torch.models.actor_critic import create_actor_critic
+from sample_factory_tpu_torch.parallel.multihost import broadcast_objectives, is_primary_host
 from sample_factory_tpu_torch.pbt.pbt import PopulationBasedTraining
 from sample_factory_tpu_torch.runner.checkpoint import load_checkpoint, save_checkpoint
-from sample_factory_tpu_torch.runner.runner import Runner
+from sample_factory_tpu_torch.runner.runner import EPISODIC_KEYS, Runner
 from sample_factory_tpu_torch.runner.stats import EpisodeStats, SummaryWriter
 from sample_factory_tpu_torch.utils.utils import done_filename, log
 
-EPISODIC_KEYS = ("count", "return_sum", "len_sum")
-
 
 class MultiPolicyRunner(Runner):
+    shards_envs = False  # every rank runs the whole population
+
     def __init__(self, cfg):
         super().__init__(cfg)
         self.P = cfg.num_policies
@@ -180,8 +187,10 @@ class MultiPolicyRunner(Runner):
         self._drain_ep_stats()
         custom = self.policy_avg_stats.get(self.cfg.pbt_target_objective)
         if custom is not None:
-            return [float(sum(custom[p]) / len(custom[p])) if len(custom[p]) else None for p in range(self.P)]
-        return [es.avg_reward for es in self.episode_stats_per_policy]
+            objectives = [float(sum(custom[p]) / len(custom[p])) if len(custom[p]) else None for p in range(self.P)]
+        else:
+            objectives = [es.avg_reward for es in self.episode_stats_per_policy]
+        return broadcast_objectives(objectives)
 
     def _drain_ep_stats(self) -> None:
         if not self._pending_ep:
@@ -229,6 +238,8 @@ class MultiPolicyRunner(Runner):
         self.writer = None
 
     def _save(self, is_final: bool = False, milestone: bool = False) -> None:
+        if not is_primary_host():
+            return
         with self.timing.add_time("save"):
             for p, ts in enumerate(self.train_state):
                 save_checkpoint(self.cfg, p, ts, self.env_steps, self.best_performance_per_policy[p], milestone=milestone)
@@ -238,7 +249,7 @@ class MultiPolicyRunner(Runner):
 
     def _maybe_save_best(self) -> None:
         self._drain_ep_stats()
-        if self.env_steps < self.cfg.save_best_after:
+        if self.env_steps < self.cfg.save_best_after or not is_primary_host():
             return
         for p, ts in enumerate(self.train_state):
             metric = self.episode_stats_per_policy[p].avg_reward

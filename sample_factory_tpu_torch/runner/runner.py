@@ -14,6 +14,14 @@ checkpoint/summary timers, termination). Regimes:
     parameters are copied into on the device. The version-stamped trajectory
     passes through the learner's policy-lag mask and V-trace.
 Stats stay on the device until a report reads them.
+
+Data parallelism (`--jax_distributed=True`, `parallel/mesh.py`): rank r of R steps envs
+[r·N/R, (r+1)·N/R) of the `--num_envs` N, from a train state broadcast from rank 0 after
+init (and resume), and the learner's reductions are global, so that the ranks compute
+what one rank with N envs computes (runner.py:147-180). Every iteration one all-reduce
+sums the episode stats and agrees on the stop, so that every rank runs the same
+iterations: the JAX runner reads each process's own clock (ROADMAP C). Only rank 0
+writes checkpoints and summaries; every rank loads the same checkpoint on resume.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from sample_factory_tpu_torch.envs.device_env import DeviceEnv
 from sample_factory_tpu_torch.envs.env_info import EnvInfo, extract_env_info
 from sample_factory_tpu_torch.envs.env_utils import create_env
 from sample_factory_tpu_torch.models.actor_critic import create_actor_critic
+from sample_factory_tpu_torch.parallel.mesh import make_mesh, replicate_tree, shard_env_axis
+from sample_factory_tpu_torch.parallel.multihost import agree_on_stop, all_reduce, is_primary_host, sync_barrier
 from sample_factory_tpu_torch.runner.checkpoint import load_checkpoint, save_checkpoint
 from sample_factory_tpu_torch.runner.stats import EpisodeStats, FpsTracker, SummaryWriter
 from sample_factory_tpu_torch.utils.timing import Timing
@@ -39,12 +49,12 @@ from sample_factory_tpu_torch.utils.utils import (
     experiment_dir,
     init_file_logger,
     log,
-    resolve_device,
     save_cfg,
 )
 from sample_factory_tpu_torch.utils.wandb_utils import finish_wandb, init_wandb
 
 PROFILED_ITERATIONS = 12
+EPISODIC_KEYS = ("count", "return_sum", "len_sum")
 
 
 class AlgoObserver:
@@ -64,7 +74,9 @@ class AlgoObserver:
 
 
 class Runner:
-    """Single-policy, single-device, on-device-env training runner."""
+    """Single-policy, on-device-env training runner: one device, or one rank of a data-parallel run."""
+
+    shards_envs = True  # under a process group each rank steps its own envs
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -76,6 +88,7 @@ class Runner:
         self.episodic_stats_handlers: list = []
         self.policy_avg_stats: Dict[str, Any] = {}
 
+        self.mesh = None
         self.device: Optional[torch.device] = None
         self.env: Optional[DeviceEnv] = None
         self.env_info: Optional[EnvInfo] = None
@@ -107,23 +120,32 @@ class Runner:
         self._last_milestone = 0.0
         self._start_time = None
         self._stop_requested = False
+        self._agreed_stop = None  # under a process group: the stop the ranks agreed on last iteration
 
     # ------------------------------------------------------------------ init
 
     def _init_experiment(self):
-        """Experiment directory, log file, saved config, the W&B run, device, env and its
-        info. Every runner's `init` starts here, before it makes its summary writers."""
+        """Experiment directory, log file, saved config, the W&B run, mesh, device, env and its
+        info. Every runner's `init` starts here, before it makes its summary writers. Under a
+        process group rank 0 alone clears, records and reports the experiment."""
         cfg = self.cfg
-        if cfg.restart_behavior == "overwrite":
-            import shutil
+        self.mesh = make_mesh(cfg)
+        primary = is_primary_host()
+        sync_barrier("config_read")  # every rank has read the saved config (make_rl_runner) before rank 0 rewrites it
+        if primary:
+            if cfg.restart_behavior == "overwrite":
+                import shutil
 
-            shutil.rmtree(experiment_dir(cfg, mkdir=False), ignore_errors=True)
+                shutil.rmtree(experiment_dir(cfg, mkdir=False), ignore_errors=True)
+            experiment_dir(cfg)  # create
+            save_cfg(cfg)
+        sync_barrier("experiment_dir")  # no rank opens a file in the directory before rank 0 has made it
 
-        experiment_dir(cfg)  # create
+        experiment_dir(cfg)
         init_file_logger(cfg)
-        save_cfg(cfg)
-        init_wandb(cfg)
-        self.device = resolve_device(cfg)
+        if primary:
+            init_wandb(cfg)
+        self.device = self.mesh.device
         self._init_env()
 
     def _init_env(self) -> None:
@@ -137,23 +159,26 @@ class Runner:
         self._init_experiment()
         env = self.env
         self.writer = SummaryWriter(cfg, self.policy_id)
-        log.info("Runner: %d envs, rollout %d, device %s", cfg.num_envs, cfg.rollout, self.device)
+        shard = shard_env_axis(self.mesh, cfg.num_envs)  # raises unless num_envs divides over the data shards
+        log.info("Runner: %d envs, rollout %d, mesh %s, device %s, envs [%d, %d) on rank %d", cfg.num_envs, cfg.rollout,
+                 self.mesh.shape, self.device, shard.start, shard.stop, self.mesh.rank)
 
         init_gen = torch.Generator().manual_seed(cfg.seed)
         self.model = create_actor_critic(cfg, self.env_info.obs_space, self.env_info.action_space, init_gen)
         self.model.to(self.device)
         self.train_state = init_train_state(cfg, self.env_info, self.model, self.device)
         sampler_gen = torch.Generator(self.device).manual_seed(cfg.seed + 1)
-        self.sampler_state = init_sampler_state(cfg, env, cfg.num_envs, self.device, sampler_gen)
+        self.sampler_state = init_sampler_state(cfg, env, shard.size, self.device, sampler_gen, shard if self.mesh.distributed else None)
         self.train_generator = torch.Generator(self.device).manual_seed(cfg.seed + 2)
 
-        # resume from checkpoint (reference learner.py:300)
+        # resume from checkpoint (reference learner.py:300); every rank loads the same one
         restored = load_checkpoint(cfg, self.policy_id, self.train_state)
         if restored is not None:
             self.env_steps, self.best_performance = restored
+        replicate_tree(self.train_state, self.mesh)
 
         self._rollout_fn = make_rollout_fn(cfg, env, self.env_info)
-        self._train_fn = make_train_fn(cfg, self.env_info, self.policy_id)
+        self._train_fn = make_train_fn(cfg, self.env_info, self.policy_id, self.mesh)
         fused = max(1, int(getattr(cfg, "fused_iterations", 1)))
         if cfg.async_rl:
             if fused > 1:
@@ -295,14 +320,31 @@ class Runner:
         profiler.export_chrome_trace(path)
         log.info("torch.profiler trace of the first iterations written to %s", path)
 
-    def _should_end_training(self) -> bool:
+    def _wants_to_stop(self) -> bool:
         if self._stop_requested:
             return True
         if self.env_steps >= self.cfg.train_for_env_steps:
             return True
         return time.time() - self._start_time >= self.cfg.train_for_seconds
 
+    def _should_end_training(self) -> bool:
+        if not self.mesh.distributed:
+            return self._wants_to_stop()
+        if self._agreed_stop is None:  # before the first iteration
+            return agree_on_stop(self._wants_to_stop())
+        return bool(self._agreed_stop.item() > 0)
+
+    def _reduce_across_ranks(self, ep_stats: Dict[str, Any]) -> Dict[str, Any]:
+        """One all-reduce an iteration, on every rank: the episode sums (when the envs are
+        sharded) and the stop flags, of which any one stops every rank."""
+        keys = EPISODIC_KEYS if self.shards_envs else ()
+        flag = torch.full((), float(self._wants_to_stop()), device=self.device)
+        *sums, self._agreed_stop = all_reduce([ep_stats[k] for k in keys] + [flag])
+        return {**ep_stats, **dict(zip(keys, sums))}
+
     def _process_stats(self, stats: Dict[str, Any], ep_stats: Dict[str, Any]) -> None:
+        if self.mesh.distributed:
+            ep_stats = self._reduce_across_ranks(ep_stats)
         self.fps_tracker.add(time.time(), self.env_steps)
         self._pending_ep.append(ep_stats)
         if len(self._pending_ep) >= self._max_pending_ep:
@@ -368,6 +410,8 @@ class Runner:
         self.writer.flush()
 
     def _save(self, is_final: bool = False, milestone: bool = False) -> None:
+        if not is_primary_host():
+            return  # a shared file system: rank 0 writes for every rank
         with self.timing.add_time("save"):
             save_checkpoint(
                 self.cfg, self.policy_id, self.train_state, self.env_steps, self.best_performance, milestone=milestone
@@ -378,6 +422,8 @@ class Runner:
 
     def _maybe_save_best(self) -> None:
         self._drain_ep_stats()
+        if not is_primary_host():
+            return
         metric = self.episode_stats.avg_reward
         if metric is None or self.env_steps < self.cfg.save_best_after:
             return

@@ -7,7 +7,9 @@ the same scalars go to TensorBoard event files in the same directory, and with
 `--with_wandb` to the open W&B run (`step=env_steps`; keys prefixed `p<id>/` in a
 population). The JAX package writes its events through
 `torch.utils.tensorboard`; the port never imports that module, because it imports
-TensorFlow, which imports JAX where it is installed.
+TensorFlow, which imports JAX where it is installed. Under a process group only rank 0
+writes (`SummaryWriter` is a no-op elsewhere, as the JAX one :82-84): the stats it is
+given are global, and the ranks share the experiment directory.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from collections import deque
 from os.path import join
 from typing import Deque, Dict, Optional, Tuple
 
+from sample_factory_tpu_torch.parallel.multihost import is_primary_host
 from sample_factory_tpu_torch.utils.utils import log, summaries_dir
 from sample_factory_tpu_torch.utils.wandb_utils import wandb_run
 
@@ -86,6 +89,9 @@ def _event_writer(logdir: str):
 class SummaryWriter:
     def __init__(self, cfg, policy_id: int = 0):
         self.cfg = cfg
+        self._noop = not is_primary_host()
+        if self._noop:
+            return
         self.dir = summaries_dir(cfg, policy_id)
         self.jsonl_path = join(self.dir, "summaries.jsonl")
         self._jsonl = open(self.jsonl_path, "a")
@@ -101,21 +107,29 @@ class SummaryWriter:
             self._wandb.log({self._wandb_prefix + k: v for k, v in scalars.items()}, step=env_steps)
 
     def write(self, env_steps: int, scalars: Dict[str, float], prefix: str = "train") -> None:
+        if self._noop:
+            return
         named = {f"{prefix}/{k}": v for k, v in scalars.items()}
         self._jsonl.write(json.dumps({"env_steps": env_steps, "time": time.time(), **named}) + "\n")
         self._mirror(env_steps, named)
 
     def add_scalar(self, key: str, value: float, env_steps: int) -> None:
         """tensorboardX-compatible single-scalar write (AlgoObserver.extra_summaries hooks)."""
+        if self._noop:
+            return
         self._jsonl.write(json.dumps({"env_steps": env_steps, "time": time.time(), key: float(value)}) + "\n")
         self._mirror(env_steps, {key: float(value)})
 
     def flush(self) -> None:
+        if self._noop:
+            return
         self._jsonl.flush()
         if self._events is not None:
             self._events.flush()
 
     def close(self) -> None:
+        if self._noop:
+            return
         self.flush()
         self._jsonl.close()
         if self._events is not None:

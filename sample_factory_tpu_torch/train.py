@@ -5,16 +5,26 @@ the saved config.json, build the runner and run it.
 On-device envs: a single policy on a single-agent env goes to `Runner` (sync and
 async, the default); `--num_policies > 1` or a multi-agent env goes to
 `MultiPolicyRunner` (:46-55). Host envs: `--num_policies > 1` goes to
-`HostMultiPolicyRunner`, anything else to `HostEnvRunner` (:56-63). Multi-host
-runs and a device mesh of more than one device (`--mesh_data`, `--mesh_model`)
-raise NotImplementedError naming their ROADMAP item.
+`HostMultiPolicyRunner`, anything else to `HostEnvRunner` (:56-63).
+
+`--jax_distributed=True` joins the process group that `python -m torch.distributed.run`
+describes (`parallel/multihost.py`); both device-env runners run under it. Under a group
+the host runners (ROADMAP A13b) and, anywhere, a 'model' mesh axis above 1 (tensor
+parallelism, ROADMAP A13c) raise NotImplementedError. A launcher's world of more than one
+process without the flag raises, so that R copies never train unaware of each other.
+
+    python -m torch.distributed.run --nproc_per_node=R -m sample_factory_tpu_torch.train \\
+        --env=grid_battle ... --jax_distributed=True
 """
 
 from __future__ import annotations
 
 import os
+import sys
 
 from sample_factory_tpu_torch.cfg.arguments import maybe_load_from_checkpoint, verify_cfg
+from sample_factory_tpu_torch.parallel.mesh import mesh_axes
+from sample_factory_tpu_torch.parallel.multihost import has_group, init_distributed, world_size
 from sample_factory_tpu_torch.runner.runner import Runner
 from sample_factory_tpu_torch.utils.utils import cfg_file
 
@@ -29,16 +39,23 @@ def make_rl_runner(cfg, register_fn=None):
             f"Experiment {cfg.experiment} already exists and --restart_behavior=restart; use resume or overwrite"
         )
     if cfg.jax_distributed:
-        raise NotImplementedError("multi-host runs are not ported yet (ROADMAP A13)")
-    # -1 means all devices, which is the one device a run of the port has
-    if cfg.mesh_model > 1 or cfg.mesh_data > 1:
-        raise NotImplementedError(
-            f"--mesh_data={cfg.mesh_data} --mesh_model={cfg.mesh_model}: multi-device runs are not ported yet (ROADMAP A13)"
+        init_distributed(cfg)
+    elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError(
+            f"WORLD_SIZE={os.environ['WORLD_SIZE']}: a launcher started several processes, but without "
+            "--jax_distributed=True each would train alone; pass the flag"
         )
+    if cfg.mesh_model > 1:
+        raise NotImplementedError(
+            f"--mesh_model={cfg.mesh_model}: tensor parallelism is not ported yet (ROADMAP A13c)"
+        )
+    mesh_axes(cfg, world_size())  # raises where --mesh_data/--mesh_model do not cover the processes
 
     from sample_factory_tpu_torch.envs.env_info import obtain_env_info
 
     env_info = obtain_env_info(cfg, register_fn=register_fn)
+    if not env_info.is_device_env and has_group():
+        raise NotImplementedError("host envs under a process group are not ported yet (ROADMAP A13b)")
     if not env_info.is_device_env and env_info.num_agents > 1:
         # num_envs counts agent slots (transitions per step), like the reference's
         # total_num_agents (rl_utils.py:28-33)
@@ -63,3 +80,20 @@ def run_rl(cfg, register_fn=None) -> int:
     _, runner = make_rl_runner(cfg, register_fn=register_fn)
     runner.init()
     return runner.run()
+
+
+def main(argv=None) -> int:
+    """The built-in on-device envs (`examples/train_synthetic.py`'s flags), alone or as one
+    rank of a data-parallel run; leaves the process group the run joined."""
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
+    from sample_factory_tpu_torch.parallel.multihost import shutdown
+
+    register_synthetic_components()
+    try:
+        return run_rl(parse_custom_args(argv))
+    finally:
+        shutdown()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -219,10 +219,20 @@ def _assert_slabs_equal(jslabs, tslabs):
         np.testing.assert_array_equal(tslabs.arrays[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("env", ["batched_cartpole", "CartPole-v1"])
-def test_env_slot_stepper_matches_jax_exactly(env):
+@pytest.mark.parametrize(
+    "env, env_seed_offset",
+    [
+        pytest.param("batched_cartpole", 0, id="batched_cartpole"),
+        pytest.param("CartPole-v1", 0, id="CartPole-v1"),
+        # the offset that the JAX host runners give rank 1 (runner/host_runner.py:101)
+        pytest.param("batched_cartpole", 1000003, id="batched_cartpole-env_seed_offset"),
+        pytest.param("CartPole-v1", 1000003, id="CartPole-v1-env_seed_offset"),
+    ],
+)
+def test_env_slot_stepper_matches_jax_exactly(env, env_seed_offset):
     """Worker 1 of 2, two splits, 60 steps of the same drawn actions: every slab array and
-    every completed episode (return, raw return, length) equal, exactly."""
+    every completed episode (return, raw return, length) equal, exactly; also on a rank
+    whose envs are seeded `env_seed_offset` higher."""
     if env == "CartPole-v1":
         from sample_factory_tpu_torch.examples.train_gym_env import register_gym_env
         from sf_examples_tpu.train_gym_env import register_gym_env as jax_register_gym_env
@@ -232,6 +242,8 @@ def test_env_slot_stepper_matches_jax_exactly(env):
     else:
         _register_both()
     jcfg, tcfg = _cfgs(["--serial_mode=True", "--worker_num_splits=2"], env=env)
+    if env_seed_offset:
+        jcfg.env_seed_offset = tcfg.env_seed_offset = env_seed_offset
     jinfo, tinfo = jax_obtain_env_info(jcfg), obtain_env_info(tcfg)
     jslabs, tslabs, jst, tst = _stepper_pair(jcfg, tcfg, jinfo, tinfo)
     try:

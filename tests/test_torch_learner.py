@@ -185,6 +185,66 @@ def test_vtrace_minibatch_stats_match_jax():
         np.testing.assert_allclose(float(value), float(jstats[key]), atol=1e-5, rtol=1e-5, err_msg=key)
 
 
+def _invariants_setup(extra=()):
+    """`tests/test_learner_invariants.py:_setup` in the port: the synthetic env (4 actions,
+    episodes of 6 steps), MLP 32 + GRU-16, 16 envs x 8 steps over BPTT segments of 4, and
+    one rollout of the initial parameters."""
+    from sample_factory_tpu_torch.algo.sampling import init_sampler_state, make_rollout_fn
+    from sample_factory_tpu_torch.envs.builtin.synthetic import SyntheticVectorDiscreteEnv
+    from sample_factory_tpu_torch.envs.env_info import extract_env_info
+
+    argv = ["--use_rnn=True", "--rnn_size=16", "--encoder_mlp_layers", "32", "--rollout=8", "--recurrence=4",
+            "--batch_size=64", "--num_epochs=1", "--num_envs=16", "--seed=3", "--normalize_input=True",
+            "--normalize_returns=True", "--device=cpu"] + list(extra)
+    cfg = default_cfg(env="t", argv=argv)
+    env = SyntheticVectorDiscreteEnv(num_actions=4, episode_len=6)
+    info = extract_env_info(env, cfg)
+    ts = init_train_state(cfg, info, create_actor_critic(cfg, info.obs_space, info.action_space, torch.Generator().manual_seed(0)), "cpu")
+    ss = init_sampler_state(cfg, env, cfg.num_envs, "cpu", torch.Generator().manual_seed(1))
+    _, traj, _ = make_rollout_fn(cfg, env, info)(ts.model, ts.obs_rms, ss, 0, 0)
+    return cfg, info, ts, traj
+
+
+def test_train_is_deterministic():
+    """`tests/test_learner_invariants.py::test_train_is_deterministic`: two train calls on one
+    input agree bit for bit (the replicas of a data-parallel run rest on it)."""
+    import copy
+
+    cfg, info, ts, traj = _invariants_setup()
+    train = make_train_fn(cfg, info)
+    runs = [copy.deepcopy(ts) for _ in range(2)]
+    stats = [train(run, traj, torch.Generator().manual_seed(1)) for run in runs]
+    assert float(stats[0]["loss"]) == float(stats[1]["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(*(run.model.state_dict().values() for run in runs)))
+    assert all(torch.equal(a, b) for a, b in zip(*(run.obs_rms["obs"].state_dict().values() for run in runs)))
+
+
+def test_invalid_data_does_not_change_update():
+    """`tests/test_learner_invariants.py::test_invalid_data_does_not_change_update` (:54-96):
+    garbage transitions (values of 0 and -4242, `policy_id` -1) beside the real ones, in a
+    minibatch twice as large, leave the losses and the gradient of the one minibatch as
+    they were. Normalizers off, so that the garbage cannot move their moments."""
+    common = ["--normalize_input=False", "--normalize_returns=False"]
+    cfg, info, ts, traj = _invariants_setup(common + ["--batch_size=128"])
+    base = make_train_fn(cfg, info)(ts, traj, torch.Generator().manual_seed(1))
+    cfg2, info2, ts2, traj2 = _invariants_setup(common + ["--batch_size=256"])
+    rng = np.random.default_rng(0)
+
+    def splice(x):
+        garbage = torch.as_tensor(rng.integers(-1, 1, size=tuple(x.shape)) * 4242).to(x.dtype)
+        return torch.cat([x, garbage], dim=1)
+
+    n = traj2["rewards"].shape[1]
+    spliced = _to(traj2, splice)
+    spliced["policy_id"][:, n:] = -1  # the inactive-agent marker: invalid
+    for key in ("dones", "time_outs"):
+        spliced[key][:, n:] = 0.0
+    stats = make_train_fn(cfg2, info2)(ts2, spliced, torch.Generator().manual_seed(1))
+    assert float(stats["valids_fraction"]) == 0.5
+    for key in ("policy_loss", "exploration_loss", "value_loss", "kl_divergence", "entropy", "adv_mean", "adv_std", "grad_norm"):
+        np.testing.assert_allclose(float(stats[key]), float(base[key]), rtol=1e-5, atol=1e-6, err_msg=key)
+
+
 def _smoke_argv(train_dir, steps):
     return [
         "--env=grid_battle",
@@ -232,7 +292,15 @@ def test_run_rl_on_cpu_writes_checkpoint_and_resumes(tmp_path):
     assert (exp / "done").read_text() == "192"
 
 
-def test_unported_branches_raise(tmp_path):
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_unported_branches_raise(tmp_path, monkeypatch):
     from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
     from sample_factory_tpu_torch.train import make_rl_runner
 
@@ -248,11 +316,39 @@ def test_unported_branches_raise(tmp_path):
     for extra, want in ((["--serial_mode=True"], "HostEnvRunner"), (["--serial_mode=True", "--num_policies=2"], "HostMultiPolicyRunner")):
         _, runner = make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--env=a_host_env", "--use_rnn=False"] + extra))
         assert type(runner).__name__ == want
-    # multi-device runs are not ported: refused, not run on one device
-    for extra in (["--jax_distributed=True"], ["--mesh_model=2"], ["--mesh_data=2"], ["--mesh_data=4", "--mesh_model=2"]):
-        with pytest.raises(NotImplementedError, match="A13"):
+    # data parallelism on the device-env path is ported (tests/test_torch_multihost.py); what is not is
+    # refused, never run on one device: tensor parallelism (A13c), a mesh that does not cover the
+    # processes, a run that asks for a process group without the launcher's environment, and a
+    # launcher's world without the flag
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    for extra, error, match in (
+        (["--mesh_model=2"], NotImplementedError, "A13c"),
+        (["--mesh_data=4", "--mesh_model=2"], NotImplementedError, "A13c"),
+        (["--mesh_data=2"], ValueError, "mesh 2x1 does not cover 1 devices"),
+        (["--jax_distributed=True"], RuntimeError, "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT not set"),
+    ):
+        with pytest.raises(error, match=match):
             make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + extra))
-    # all devices (-1, the default) and one device are the one device the port runs on
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="without --jax_distributed=True each would train alone"):
+        make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64)))
+    # the host runners under a process group (A13b): a world of one, left before the test ends
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    from sample_factory_tpu_torch.parallel.multihost import shutdown
+
+    try:
+        with pytest.raises(NotImplementedError, match="A13b"):
+            make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--env=a_host_env", "--use_rnn=False", "--jax_distributed=True"]))
+    finally:
+        shutdown()
+    assert not torch.distributed.is_initialized()
+    for name in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name)
+    # all devices (-1, the default) and one device are the one device of a run without a group
     for extra in (["--mesh_data=-1"], ["--mesh_data=1", "--mesh_model=1"]):
         assert make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + extra))[1] is not None
     # wandb is ported (tests/test_torch_tooling.py): without the package it warns and trains
