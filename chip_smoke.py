@@ -8,10 +8,11 @@ Phases, each printing one JSON line:
   parity    each kernel against its plain PyTorch version on the card, forward and
             gradient, float32 and bfloat16, at the main-path shape, the default width
             and odd shapes; both designs of the launch plan (cluster and rows) run; then the
-            doom, dmlab, nethack and isaacgym paths' shapes in float32, each asserting the design its
-            plan picks (LSTM-512 at (32, 32, 512), (32, 24, 512) and (16, 2048, 512): rows)
+            doom, dmlab, nethack, isaacgym and dp_host paths' shapes in float32, each asserting the design its
+            plan picks (LSTM-512 at (32, 32, 512), (32, 24, 512) and (16, 2048, 512): rows; dp_host's
+            GRU-256 at 37, 128, 131 and 255 segments: clusters of 8)
   timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
-            nethack and isaacgym paths' shapes, warm and with L2 flushed, beside the first design (rows) at the
+            nethack, isaacgym and dp_host paths' shapes, warm and with L2 flushed, beside the first design (rows) at the
             same shapes; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a
             yardstick
   main      sync PPO on grid_battle at full width (IMPALA conv, GRU-256, bf16,
@@ -60,6 +61,17 @@ Phases, each printing one JSON line:
             configuration with --async_rl=False in turns with it
   host_rnn  the same with GRU-256 over BPTT segments of 32 in bf16, 3 iterations: the learner's
             `gru_seq` launches at (32, 256, 256), none in the rollout's step mode
+  dp_host   the host runners under a process group, in child processes that import nothing of JAX: (a) two
+            gloo ranks on cuda:0 (LOCAL_RANK=0 in both), each with its own sampler over 1 worker x 256
+            `bench_host_pixel` envs, `host_rnn` in float32 with the quantized learner (2 shuffled minibatches
+            of 8,192 of the 16,384 rows both ranks hold, 2 epochs), 2 iterations, against one rank handed
+            the ranks' first trajectories joined on the env axis in rank order: the parameters of the first
+            flushed train step within DP_TOL, its stats (DP_HOST_STATS) within DP_STATS_TOL, the replicas
+            equal after the run, the envs seeded apart and the actions drawn apart, `gru_seq` once a
+            minibatch on each rank, one checkpoint, written by rank 0; (b) `host` in a world of 1 over NCCL
+            under `python -m torch.distributed.run`, in turns with the same run without a group (after an
+            uncounted warm-up run: group, none, none, group; 3 iterations each): env steps/s and their
+            ratio, the all-reduces an iteration, one profiled iteration's NCCL kernels and device time
   host_selfplay  the 2-agent matching game (a host env), 2 policies mixed inside the envs, 2 worker
             processes, PBT once: `policy_id` against the slot mapping and `active`, the mapping drawn
             anew, the mutated shaping in the workers' envs, both policies' checkpoints
@@ -94,7 +106,7 @@ Phases, each printing one JSON line:
             time converting the sim's tensors a step
   sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
             the synthetic env on the card for 200,000 env steps
-Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two legs of `dp`) included, and per design: cluster, `*_seq`, and rows,
+Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two legs of `dp`) and `dp_host` included, and per design: cluster, `*_seq`, and rows,
 `*_seq_rows`; the LSTM's row design also by site: the NetHack and AllegroHandLSTM learners), the card's
 name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
@@ -137,7 +149,12 @@ DMLAB_INSTR_BOOTSTRAP = (16, 128, 64, "float32")
 NETHACK_LSTM_BATCH = (32, 32, 512, "float32")
 NETHACK_LSTM = (32, 24, 512, "float32")
 ALLEGRO_LSTM = (16, 2048, 512, "float32")
-PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "rows", 1), ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "cluster", 8),
+# dp_host: GRU-256 float32 over the segments of one rank's share of a shuffled minibatch, which the
+# shuffle varies from 1 to 256 (about 128 at two ranks): 16 rows a cluster, full (128) and with a partly
+# filled last cluster (131); 8 rows (37) and 24 rows (255), each with a partly filled last cluster
+DP_HOST_GRUS = [(32, B, 256, "float32") for B in (128, 131, 37, 255)]
+PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "rows", 1), *[("gru", *shape, "cluster", 8) for shape in DP_HOST_GRUS],
+                      ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "cluster", 8),
                       ("lstm", *DMLAB_INSTR_LEARNER, "cluster", 8), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
                       ("lstm", *NETHACK_LSTM_BATCH, "rows", 1), ("lstm", *NETHACK_LSTM, "rows", 1), ("lstm", *ALLEGRO_LSTM, "rows", 1)]
 # the sites of `lstm_seq_rows` that the kernels line reports one by one
@@ -2106,31 +2123,39 @@ def full_precision(torch):
 
 
 DP_TURNS = ("nccl", "nogroup", "nogroup", "nccl")
+# a fresh process's first conv and learner calls are slow (1.4-1.5 s an iteration of `host` against 0.32-0.38 s
+# after, on an H100 80GB HBM3 at 700 W): the host path's turns start after an uncounted run without a group
+DP_HOST_TURNS = ("warmup",) + DP_TURNS
 
 
 def dp_child(mode, out_path, train_dir, traj_path=None):
-    """A child of phase `dp`: `turns` (under torch.distributed.run: `main` in a world of 1 over
-    NCCL in turns with the same run without a group, DP_TURNS, the group joined and left for each
-    run) or `gloo` (a rank of two on cuda:0). Imports nothing of JAX; writes its result as JSON
-    to `out_path`."""
+    """A child of phase `dp` or `dp_host`: `turns` / `host_turns` (under torch.distributed.run: `main` /
+    `host` in a world of 1 over NCCL in turns with the same run without a group, DP_TURNS, the group
+    joined and left for each run; DP_HOST_TURNS for `host`) or `gloo` / `host_gloo` (a rank of two on cuda:0). Imports nothing
+    of JAX; writes its result as JSON to `out_path`."""
     import torch
 
+    from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
     from sample_factory_tpu_torch.examples.train_synthetic import register_synthetic_components
     from sample_factory_tpu_torch.ops import cuda_rnn
     from sample_factory_tpu_torch.parallel import multihost
 
     check(torch.cuda.is_available(), "the dp child found no card")
     register_synthetic_components()
+    register_bench_pixel()
     full_precision(torch)
     cuda_rnn.load_library()
     try:
         if mode == "gloo":
             out = dp_gloo_rank(torch, cuda_rnn, train_dir, traj_path)
+        elif mode == "host_gloo":
+            out = dp_host_gloo_rank(torch, cuda_rnn, train_dir)
         else:
+            rate_run, turns = (dp_host_rate_run, DP_HOST_TURNS) if mode == "host_turns" else (dp_rate_run, DP_TURNS)
             out = []
-            for k, run in enumerate(DP_TURNS):
+            for k, run in enumerate(turns):
                 # the profiler's tracing slows the host's launches for the rest of the process: the last run alone
-                out.append(dp_rate_run(torch, cuda_rnn, run, train_dir, f"dp_{k}_{run}", profile=k == len(DP_TURNS) - 1))
+                out.append(rate_run(torch, cuda_rnn, run, train_dir, f"dp_{k}_{run}", profile=k == len(turns) - 1))
                 multihost.shutdown()
     finally:
         multihost.shutdown()
@@ -2309,6 +2334,270 @@ def phase_dp(torch, cuda_rnn, card, tmp):
             {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
 
 
+# phase `dp_host`: (a) `host_rnn` in float32 with the quantized learner, two gloo ranks of 256 envs on cuda:0
+# against one rank of 512: 16,384 rows a train step in 2 shuffled minibatches of 8,192, 2 epochs, 2 iterations
+DP_HOST_ENVS = 256  # a rank's: 1 worker x 256 envs
+DP_HOST_ITERS = 2
+DP_HOST_STATS = DP_STATS + ("epochs_executed",)
+DP_HOST = [a for a in HOST_PIXEL if not a.startswith(("--num_workers=", "--num_envs_per_worker=", "--batch_size=", "--num_epochs="))] + [
+    "--num_workers=1", f"--num_envs_per_worker={DP_HOST_ENVS}", "--use_rnn=True", "--rnn_size=256", "--recurrence=32",
+    "--compute_dtype=float32", "--batch_size=8192", "--shuffle_minibatches=True", "--num_epochs=2",
+    f"--train_for_env_steps={DP_HOST_ITERS * 2 * DP_HOST_ENVS * 32}", "--experiment=dp_host"]
+DP_HOST_GRU_PER_RANK = DP_HOST_ITERS * 2 * 2  # train steps x epochs x minibatches: one launch a minibatch
+
+
+def dp_host_gloo_rank(torch, cuda_rnn, train_dir):
+    """One of two gloo ranks on cuda:0 in `DP_HOST`, through make_rl_runner -> init -> run: its first
+    trajectory, the parameters and stats of the first flushed train step, its launches, its saves."""
+    import sample_factory_tpu_torch.runner.runner as runner_module
+    from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.parallel import multihost
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    multihost.init_distributed(backend="gloo")
+    rank = multihost.process_index()
+    argv = DP_HOST + [f"--train_dir={train_dir}", "--device=gpu", "--seed=0", "--jax_distributed=True"]
+    _, runner = make_rl_runner(parse_custom_args(argv), register_fn=register_bench_pixel)
+    runner.init()
+    q = runner._quantizer
+    check(type(runner).__name__ == "HostEnvRunner" and runner.device == torch.device("cuda", 0) and q is not None,
+          f"rank {rank}: {type(runner).__name__} on {runner.device}, quantizer {q}")
+    check(runner.sampler.num_envs == DP_HOST_ENVS and q.num_minibatches == 2 and q.sgd_steps_per_train == 4,
+          f"rank {rank}: {runner.sampler.num_envs} envs, {q.num_minibatches} minibatches, {q.sgd_steps_per_train} sgd steps a train step")
+    first = {}
+    enqueue, flush = q.enqueue, q.flush
+
+    def first_enqueue(ts, traj, generator):
+        if "traj" not in first:
+            first["traj"] = os.path.join(train_dir, f"traj_rank{rank}.pt")
+            torch.save(traj, first["traj"])
+        return enqueue(ts, traj, generator)
+
+    def first_flush():
+        stats = flush()
+        if "stats" not in first:
+            first["stats"] = {k: float(v) for k, v in stats.items()}
+            first["params"] = os.path.join(train_dir, f"first_params_rank{rank}.pt")
+            torch.save({k: v.cpu() for k, v in runner.train_state.model.state_dict().items()}, first["params"])
+        return stats
+
+    q.enqueue, q.flush = first_enqueue, first_flush
+    saves, save_checkpoint = [], runner_module.save_checkpoint
+
+    def counting_save(*args, **kwargs):
+        saves.append(args[3])  # env_steps
+        return save_checkpoint(*args, **kwargs)
+
+    runner_module.save_checkpoint = counting_save
+    torch.cuda.synchronize()
+    cuda_rnn.reset_launch_counts()
+    check(runner.run() == 0, f"rank {rank}: runner.run() failed")
+    torch.cuda.synchronize()
+    counts = cuda_rnn.launch_counts()
+    multihost.sync_barrier()  # rank 0's final checkpoint is on disk
+    final = os.path.join(train_dir, f"final_params_rank{rank}.pt")
+    torch.save({k: v.cpu() for k, v in runner.train_state.model.state_dict().items()}, final)
+    ckpts = sorted(f for f in os.listdir(os.path.join(train_dir, "dp_host", "checkpoint_p0")) if f.startswith("checkpoint_"))
+    return {"rank": rank, "launches": counts, "saves": saves, "checkpoints": ckpts, "env_steps": runner.env_steps,
+            "env_seed_offset": runner.cfg.env_seed_offset, "final_params": final, "train_step": runner.train_state.train_step, **first}
+
+
+def dp_host_rate_run(torch, cuda_rnn, mode, train_dir, experiment, profile):
+    """`host` (feed-forward, async, 2 workers x 1024 envs) for 3 iterations through make_rl_runner (with
+    --jax_distributed=True when `mode` is `nccl`); with `profile`, a 4th iteration under the profiler for the
+    NCCL kernels' device time. The all-reduce calls, the host's time inside them and in the runner's
+    `_process_stats` (where the episode sums and the stop go up) are read at the end of each iteration."""
+    import torch.distributed as dist
+
+    from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
+    from sample_factory_tpu_torch.runner.runner import AlgoObserver
+
+    iters = 4 if profile else 3
+    argv = HOST_PIXEL + ["--use_rnn=False", f"--train_for_env_steps={iters * HOST_ENVS * 32}", f"--experiment={experiment}"]
+    calls, all_reduce, host_s = [], dist.all_reduce, {"all_reduce": 0.0, "process_stats": 0.0}
+
+    def counting_all_reduce(*args, **kwargs):
+        calls.append(1)
+        t0 = time.perf_counter()
+        try:
+            return all_reduce(*args, **kwargs)
+        finally:
+            host_s["all_reduce"] += time.perf_counter() - t0
+
+    class Marks(AlgoObserver):
+        """The all-reduce calls made and the host seconds spent by the end of each iteration; stops the
+        profiler after the last."""
+
+        def __init__(self):
+            self.at_end, self.host_s_at_end, self.prof, self.wall_s = [], [], None, None
+
+        def on_training_iteration(self, runner, stats):
+            self.at_end.append(len(calls))
+            self.host_s_at_end.append(dict(host_s))
+            if self.prof is not None and self.wall_s is None:
+                torch.cuda.synchronize()
+                self.wall_s = time.perf_counter() - self.t0
+                self.prof.stop()
+
+    marks = Marks()
+
+    def before_run(runner):
+        train_iteration, process_stats = runner._train_iteration, runner._process_stats
+
+        def timed_process_stats(*args):
+            t0 = time.perf_counter()
+            process_stats(*args)
+            host_s["process_stats"] += time.perf_counter() - t0
+
+        runner._process_stats = timed_process_stats
+
+        def profiled_last():
+            if profile and len(marks.at_end) == iters - 1:
+                torch.cuda.synchronize()
+                marks.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                marks.prof.start()
+                marks.t0 = time.perf_counter()
+            return train_iteration()
+
+        runner._train_iteration = profiled_last
+
+    dist.all_reduce = counting_all_reduce
+    try:
+        runner, counts, stats, times = train(torch, cuda_rnn, argv + (["--jax_distributed=True"] if mode == "nccl" else []), train_dir,
+                                             before_run, observers=[marks], register_fn=register_bench_pixel, device_flag=())
+    finally:
+        dist.all_reduce = all_reduce
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    check(len(per_iter) == iters, f"{mode}: expected {iters} iterations, ran {len(per_iter)}")
+    check(type(runner).__name__ == "HostEnvRunner" and runner._quantizer is not None, f"{mode}: {type(runner).__name__}")
+    check(runner.mesh.distributed == (mode == "nccl") and runner.mesh.world == 1, f"{mode}: mesh {runner.mesh}")
+    check(calls if mode == "nccl" else not calls, f"{mode}: {len(calls)} all-reduces")
+    if mode == "nccl":
+        check(dist.get_backend() == "nccl" and runner.device == torch.device("cuda", 0), f"backend {dist.get_backend()}, device {runner.device}")
+    out = {"mode": mode, "iteration_s": per_iter, "env_steps_per_s_steady": HOST_ENVS * 32 * 2 / sum(per_iter[1:3]),
+           "launches": counts, "loss": stats["loss"], "all_reduce_calls_by_iteration_end": marks.at_end,
+           "all_reduce_calls_an_iteration": marks.at_end[2] - marks.at_end[1], "all_reduce_calls_run": len(calls),
+           "host_ms_in_iteration_3": {k: 1e3 * (marks.host_s_at_end[2][k] - marks.host_s_at_end[1][k]) for k in host_s}}
+    if marks.prof is not None:
+        device_us, _, on_device, _ = device_activities(torch, marks.prof)
+        nccl = [e for e in on_device if "nccl" in e.name.lower()]
+        out["profiled_iteration"] = {"device_busy_ms": device_us / 1e3, "wall_ms": marks.wall_s * 1e3, "nccl_kernels": len(nccl),
+                                     "nccl_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
+                                     "nccl_names": sorted({e.name[:60] for e in nccl})}
+    return out
+
+
+def phase_dp_host(torch, cuda_rnn, card, tmp):
+    """The host runners under a process group (`runner/host_runner.py`). (a) two gloo ranks on cuda:0, each
+    with its own sampler over 256 `bench_host_pixel` envs, GRU-256 float32 and the quantized learner, against
+    one rank handed their first trajectories joined on the env axis in rank order: the parameters of the first
+    flushed train step within DP_TOL, its stats within DP_STATS_TOL, the replicas equal after both iterations,
+    the envs seeded RANK_SEED_STRIDE apart and the first rollout's actions drawn apart, `gru_seq` once a
+    minibatch on each rank, one checkpoint. (b) `host` in a world of 1 over NCCL under torch.distributed.run, in turns with the same run
+    without a group (DP_HOST_TURNS: DP_TURNS after an uncounted warm-up run): env steps/s, the all-reduces an
+    iteration, one profiled iteration's NCCL kernels and device time."""
+    from sample_factory_tpu_torch.algo.learning import init_train_state
+    from sample_factory_tpu_torch.algo.quantized_train import QuantizedTrainer
+    from sample_factory_tpu_torch.cfg.arguments import verify_cfg
+    from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
+    from sample_factory_tpu_torch.envs.env_info import obtain_env_info
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.models.actor_critic import create_actor_critic
+
+    script = os.path.abspath(__file__)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(script) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("WORLD_SIZE", None)
+    start = time.perf_counter()
+    port, rank_dir, procs = free_port(), os.path.join(tmp, "dp_host"), []
+    for rank in (0, 1):
+        rank_env = dict(env, RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        out_path = os.path.join(tmp, f"dp_host_rank{rank}.json")
+        cmd = [sys.executable, script, "--dp-child", "host_gloo", out_path, rank_dir]
+        procs.append((subprocess.Popen(cmd, env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out_path))
+    # meanwhile, the one-rank reference's initial state, rebuilt from the seed as the runner builds it
+    cfg = parse_custom_args(DP_HOST + [f"--train_dir={os.path.join(tmp, 'dp_host_one')}", "--device=gpu", "--seed=0"])
+    verify_cfg(cfg)
+    env_info = obtain_env_info(cfg, register_fn=register_bench_pixel)
+    device = torch.device("cuda", 0)
+    model = create_actor_critic(cfg, env_info.obs_space, env_info.action_space, torch.Generator().manual_seed(cfg.seed)).to(device)
+    ts = init_train_state(cfg, env_info, model, device)
+    ranks = []
+    for proc, out_path in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        check(proc.returncode == 0, f"a gloo rank of dp_host failed ({proc.returncode}):\n{stdout[-2000:]}\n{stderr[-4000:]}")
+        with open(out_path) as f:
+            ranks.append(json.load(f))
+    trajs = [torch.load(r["traj"], map_location=device) for r in ranks]
+
+    def join(parts):
+        return {k: join([p[k] for p in parts]) if isinstance(v, dict) else torch.cat([p[k] for p in parts], dim=1) for k, v in parts[0].items()}
+
+    joined = join(trajs)
+    q = QuantizedTrainer(cfg, env_info, 0, num_envs=2 * DP_HOST_ENVS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q.enqueue(ts, joined, torch.Generator(device).manual_seed(cfg.seed + 2))
+    while q.dispatch_one():
+        pass
+    one_stats = {k: float(v) for k, v in q.flush().items()}
+    torch.cuda.synchronize()
+    reference_s = time.perf_counter() - t0
+    want = {k: v.cpu() for k, v in ts.model.state_dict().items()}
+    got = [torch.load(r["params"]) for r in ranks]
+    diff = max(float((g[k] - v).abs().max()) for g in got for k, v in want.items())
+    finals = [torch.load(r["final_params"]) for r in ranks]
+    identical = all(bool(torch.equal(finals[0][k], finals[1][k])) for k in finals[0])
+    stats_err = {k: max(abs(r["stats"][k] - one_stats[k]) / max(1.0, abs(one_stats[k])) for r in ranks) for k in DP_HOST_STATS}
+    # bench_host_pixel's frames ignore the env seed (as bench.py:434-474's do): the ranks see equal frames, so
+    # their actions differ through their own draws alone (ROADMAP C, P1)
+    obs_equal = bool(torch.equal(trajs[0]["obs"]["obs"], trajs[1]["obs"]["obs"]))
+    actions_equal_share = float((trajs[0]["actions"] == trajs[1]["actions"]).float().mean())
+    steps = DP_HOST_ITERS * 2 * DP_HOST_ENVS * 32
+    check(q.num_minibatches == 2 and joined["rewards"].shape[1] == 2 * DP_HOST_ENVS, f"reference: {q.num_minibatches} minibatches")
+    check([r["env_seed_offset"] for r in ranks] == [0, 1000003], f"env seed offsets {[r['env_seed_offset'] for r in ranks]}")
+    check(actions_equal_share < 0.5, f"the ranks drew the same actions on {actions_equal_share} of the first rollout's steps")
+    check(max(stats_err.values()) <= DP_STATS_TOL, f"two ranks' first train step against one rank's: {stats_err} > {DP_STATS_TOL}")
+    check(diff <= DP_TOL, f"two ranks against one rank after the first train step: max |param diff| {diff} > {DP_TOL}")
+    check(identical, "the two ranks' replicas differ after the run")
+    check(all(r["launches"]["gru_seq"] == DP_HOST_GRU_PER_RANK and sum(r["launches"].values()) == DP_HOST_GRU_PER_RANK for r in ranks),
+          f"a rank did not launch gru_seq once a minibatch ({DP_HOST_GRU_PER_RANK}): {[r['launches'] for r in ranks]}")
+    check(ranks[0]["saves"] == [steps] and ranks[1]["saves"] == [] and all(r["checkpoints"] == [f"checkpoint_{2 * 4:012d}_{steps}.pth"] for r in ranks),
+          f"saves {[r['saves'] for r in ranks]}, checkpoints {[r['checkpoints'] for r in ranks]}: rank 0 alone writes one")
+    check(all(r["env_steps"] == steps and r["train_step"] == 2 * 4 for r in ranks), "env steps or train steps differ")
+    emit({"phase": "dp_host", "leg": "gloo_two_ranks_on_cuda0",
+          "config": "host_rnn in float32 (bench_host_pixel 42x42x4, convnet_simple + MLP 128, GRU-256, recurrence 32), async quantized, "
+                    "1 worker x 256 envs a rank, 2 shuffled minibatches of 8192, 2 epochs, 2 iterations",
+          "max_abs_param_diff": diff, "tol": DP_TOL, "stats_rel_err": stats_err, "stats_tol": DP_STATS_TOL, "stats_one_rank": one_stats,
+          "replicas_identical": identical, "first_rollout_frames_equal": obs_equal, "first_rollout_actions_equal_share": actions_equal_share,
+          "gru_seq_by_rank": [r["launches"]["gru_seq"] for r in ranks], "saves_by_rank": [r["saves"] for r in ranks],
+          "reference_train_step_s": reference_s, "seconds": time.perf_counter() - start, "card": card})
+    del ts, q, joined, trajs
+
+    start_b = time.perf_counter()
+    out_path = os.path.join(tmp, "dp_host_turns.json")
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1"]
+    runs = run_child(launch + [script, "--dp-child", "host_turns", out_path, os.path.join(tmp, "dp_host_turns")], env, out_path)
+    check([r["mode"] for r in runs] == list(DP_HOST_TURNS), f"runs {[r['mode'] for r in runs]}")
+    rate = {mode: [r["env_steps_per_s_steady"] for r in runs if r["mode"] == mode] for mode in ("nccl", "nogroup")}
+    emit({"phase": "dp_host", "leg": "nccl_world_of_1", "config": "host (bench_host_pixel, 2 workers x 1024 envs, rollout 32, batch 8192, async quantized)",
+          "turns": [r["mode"] for r in runs], "env_steps_per_s_steady_iterations_2_3": rate,
+          "warmup_env_steps_per_s_iterations_2_3": runs[0]["env_steps_per_s_steady"],
+          "ratio_group_over_no_group": statistics.mean(rate["nccl"]) / statistics.mean(rate["nogroup"]),
+          "all_reduce_calls_an_iteration": {f"{k}_{r['mode']}": r["all_reduce_calls_an_iteration"] for k, r in enumerate(runs)},
+          "all_reduce_calls_by_iteration_end": {f"{k}_{r['mode']}": r["all_reduce_calls_by_iteration_end"] for k, r in enumerate(runs)},
+          "host_ms_in_iteration_3": {f"{k}_{r['mode']}": r["host_ms_in_iteration_3"] for k, r in enumerate(runs)},
+          "profiled_iteration_of_the_last_group_run": runs[-1]["profiled_iteration"],
+          "iteration_s": {f"{k}_{r['mode']}": r["iteration_s"] for k, r in enumerate(runs)}, "seconds": time.perf_counter() - start_b,
+          "phase_s": time.perf_counter() - start, "card": card})
+    counts = [r["launches"] for r in ranks] + [r["launches"] for r in runs if r["mode"] == "nccl"]
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def main() -> int:
     # the isaacgym phase's stand-in refuses a process that has imported torch, as NVIDIA's isaacgym
     # does: it is imported first, as a user's script imports it
@@ -2370,6 +2659,7 @@ def main() -> int:
         phase_export(torch, card, tmp)
         paths["host"] = phase_host(torch, cuda_rnn, card, tmp)
         paths["host_rnn"] = phase_host_rnn(torch, cuda_rnn, card, tmp)
+        paths["dp_host"] = phase_dp_host(torch, cuda_rnn, card, tmp)
         paths["host_selfplay"] = phase_host_selfplay(torch, cuda_rnn, card, tmp)
         phase_host_enjoy(torch, card, tmp)
         paths["custom_model"] = phase_custom_model(torch, cuda_rnn, card, tmp)

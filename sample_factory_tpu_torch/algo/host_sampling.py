@@ -95,8 +95,9 @@ class HostVectorSampler:
         self._closed = False
 
         self.a_dtype = torch.int32 if action_dtype(env_info.action_space) == "int32" else torch.float32
-        seed = cfg.seed if cfg.seed is not None else 0
-        self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        # each rank of a data-parallel run draws its own actions: its runner offsets them as its envs' seeds
+        seed = (cfg.seed if cfg.seed is not None else 0) + 1 + getattr(cfg, "env_seed_offset", 0)
+        self.generator = torch.Generator(self.device).manual_seed(seed)
         # per-split policy state on the device
         self.rnn_states = [initial_actor_critic_state(cfg, self.split_size, self.device) for _ in range(self.K)]
 

@@ -23,9 +23,10 @@ fraction, the normalizers' moments, the minibatch's valid count (each rank's mas
 means are its own sums over it), the advantages' mean and std, the gradients (summed
 before the clip by the global norm), the stats and the early stop. Minibatch i is rows
 [i·B, (i+1)·B) of the global env-major dataset, or the i-th slice of one global
-permutation drawn from the generator that every rank seeds alike; a rank computes the
-loss over the rows of it that it holds, none included, and joins every collective.
-Shuffled minibatches take one more host sync an epoch, to split the permutation.
+permutation drawn from the generator that every rank seeds alike (`select_minibatches`,
+which the quantized learner calls too); a rank computes the loss over the rows of it that
+it holds, none included, and joins every collective. Shuffled minibatches take one more
+host sync an epoch on more than one rank, to split the permutation.
 """
 
 from __future__ import annotations
@@ -378,53 +379,63 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def select_minibatches(dataset, rank: int, world: int, batch_size: int, recurrence: int, shuffle: bool,
+                       generator: Optional[torch.Generator] = None):
+    """This rank's rows of every global minibatch of one epoch, in order: a list of
+    `dataset`-shaped dicts, empty where the rank holds no row of a minibatch.
+
+    `dataset` holds this rank's `local` rows of the global env-major dataset of `local * world`
+    rows, rank-major; `batch_size` is already clipped to the global dataset. Contiguous
+    minibatches are rows [i·B, (i+1)·B) (views, no data movement: the reference default);
+    shuffled ones are the i-th slice of one permutation of the global segments drawn from
+    `generator`, which every rank seeds alike (one host sync to split it on more than one rank)."""
+    local_size = dataset["valids"].shape[0]
+    dataset_size = local_size * world
+    num_minibatches = dataset_size // batch_size
+    first_row, local_segments = rank * local_size, local_size // recurrence
+
+    if not shuffle:
+        def own_rows(i):
+            lo, hi = max(i * batch_size, first_row), min((i + 1) * batch_size, first_row + local_size)
+            return _tree_map(lambda x: x[lo - first_row : max(lo, hi) - first_row], dataset)
+
+        return [own_rows(i) for i in range(num_minibatches)]
+
+    segs_per_mb = batch_size // recurrence
+    device = dataset["valids"].device
+    perm = torch.randperm(dataset_size // recurrence, generator=generator, device=device)[: num_minibatches * segs_per_mb]
+    selections = [perm[i * segs_per_mb : (i + 1) * segs_per_mb] for i in range(num_minibatches)]
+    if world > 1:
+        # the segments of each slice of the global permutation that this rank holds, in its order
+        first_segment = rank * local_segments
+        selections = [
+            (sel[(sel >= first_segment) & (sel < first_segment + local_segments)] - first_segment).to(device)
+            for sel in perm.cpu().split(segs_per_mb)
+        ]
+
+    def gather(x, sel):
+        seg_view = x.reshape((local_segments, recurrence) + tuple(x.shape[1:]))
+        return seg_view[sel].reshape((sel.shape[0] * recurrence,) + tuple(x.shape[1:]))
+
+    return [_tree_map(lambda x: gather(x, sel), dataset) for sel in selections]
+
+
 def make_train_fn(cfg, env_info, policy_id: int = 0, mesh=None) -> Callable:
     """Build train(ts, traj, generator) -> stats. traj is time-major [T(+1), N, ...];
     `generator` draws the minibatch shuffle and the summary minibatch. With a data-parallel
     `mesh`, traj holds this rank's envs and the generator is seeded alike on every rank."""
     recurrence = max(1, cfg.recurrence)
     sgd_step, prepare_batch = build_train_pieces(cfg, env_info, policy_id, mesh)
-    all_sum, all_max, rank, world = _data_parallel(mesh)
+    _, all_max, rank, world = _data_parallel(mesh)
 
     def train(ts: PolicyTrainState, traj: Dict[str, Any], generator: Optional[torch.Generator] = None, pid: int = policy_id):
         dataset, valid_frac = prepare_batch(ts, traj, pid)
         device = dataset["valids"].device
-
-        local_size = dataset["valids"].shape[0]
-        dataset_size = local_size * world
-        batch_size = min(cfg.batch_size, dataset_size)
-        num_minibatches = dataset_size // batch_size
-        num_segments = dataset_size // recurrence
-        segs_per_mb = batch_size // recurrence
-        first_row, local_segments = rank * local_size, local_size // recurrence  # this rank's rows of the global dataset
-
-        def own_rows(i):
-            """This rank's rows of global minibatch i: a view, empty where it holds none."""
-            lo, hi = max(i * batch_size, first_row), min((i + 1) * batch_size, first_row + local_size)
-            return _tree_map(lambda x: x[lo - first_row : max(lo, hi) - first_row], dataset)
-
-        def epoch_minibatches():
-            if not cfg.shuffle_minibatches:
-                # contiguous minibatches: views, no data movement (the reference default)
-                return [own_rows(i) for i in range(num_minibatches)]
-            perm = torch.randperm(num_segments, generator=generator, device=device)[: num_minibatches * segs_per_mb]
-            selections = [perm[i * segs_per_mb : (i + 1) * segs_per_mb] for i in range(num_minibatches)]
-            if all_sum is not None:
-                # the segments of each slice of the global permutation that this rank holds, in its order
-                first_segment = rank * local_segments
-                selections = [
-                    (sel[(sel >= first_segment) & (sel < first_segment + local_segments)] - first_segment).to(device)
-                    for sel in perm.cpu().split(segs_per_mb)
-                ]
-
-            def gather(x, sel):
-                seg_view = x.reshape((local_segments, recurrence) + tuple(x.shape[1:]))
-                return seg_view[sel].reshape((sel.shape[0] * recurrence,) + tuple(x.shape[1:]))
-
-            return [_tree_map(lambda x: gather(x, sel), dataset) for sel in selections]
+        batch_size = min(cfg.batch_size, dataset["valids"].shape[0] * world)
 
         def run_epoch():
-            auxes = [sgd_step(ts, valid_frac, mb) for mb in epoch_minibatches()]
+            minibatches = select_minibatches(dataset, rank, world, batch_size, recurrence, cfg.shuffle_minibatches, generator)
+            auxes = [sgd_step(ts, valid_frac, mb) for mb in minibatches]
             aux_seq = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
             ts.curr_lr = lr_after_epoch(cfg, ts.curr_lr, aux_seq["kl_divergence"].mean())
             return aux_seq
@@ -444,7 +455,7 @@ def make_train_fn(cfg, env_info, policy_id: int = 0, mesh=None) -> Callable:
                 prev_epoch_loss = epoch_loss
 
         # summaries from a random minibatch of the last executed epoch (reference learner.py:693-703)
-        mb_idx = torch.randint(0, num_minibatches, (), generator=generator, device=device)
+        mb_idx = torch.randint(0, aux_seq["loss"].shape[0], (), generator=generator, device=device)
         stats = {k: v[mb_idx] for k, v in aux_seq.items()}
         stats["epochs_executed"] = torch.full((), float(epochs_executed), device=device)
         stats["valids_fraction"] = torch.full((), valid_frac, device=device)

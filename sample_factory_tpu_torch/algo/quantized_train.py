@@ -14,7 +14,9 @@ gets from separate learner and inference processes (reference
 `algo/sampling/inference_worker.py:349-368`, `algo/learning/batcher.py:170-218`).
 
 Semantics are those of the fused train call (`learning.make_train_fn`), piece by
-piece and draw by draw: contiguous minibatches are views made once; with
+piece and draw by draw, data parallelism included (a `mesh`: every reduction global,
+the minibatches sized from every rank's rows): both select their minibatches through
+`learning.select_minibatches`; contiguous minibatches are views made once; with
 --shuffle_minibatches a per-epoch quantum draws the segment permutation from the
 same generator; epochs 0 and 1 always run and epoch e >= 2 runs only if the two
 previous epoch-mean policy losses differ by more than 1e-6 (reference
@@ -39,8 +41,9 @@ import torch
 from sample_factory_tpu_torch.algo.learning import (
     EARLY_STOPPING_TOLERANCE,
     PolicyTrainState,
-    _tree_map,
+    _data_parallel,
     build_train_pieces,
+    select_minibatches,
 )
 from sample_factory_tpu_torch.algo.schedules import lr_after_epoch
 
@@ -48,20 +51,23 @@ from sample_factory_tpu_torch.algo.schedules import lr_after_epoch
 class QuantizedTrainer:
     early_stopping_tolerance = EARLY_STOPPING_TOLERANCE
 
-    def __init__(self, cfg, env_info, policy_id: int = 0, num_envs: Optional[int] = None):
+    def __init__(self, cfg, env_info, policy_id: int = 0, num_envs: Optional[int] = None, mesh=None):
+        """`num_envs`: this rank's envs (cfg.num_envs by default). With a data-parallel `mesh`
+        the dataset is every rank's, `num_envs * rollout * world` rows: the batch clip, the
+        minibatch count and the sgd steps of a train step come from it, so that every rank
+        runs the same quanta."""
         self.cfg = cfg
         self.policy_id = policy_id
-        self._sgd_step, self._prepare_batch = build_train_pieces(cfg, env_info, policy_id)
+        self._sgd_step, self._prepare_batch = build_train_pieces(cfg, env_info, policy_id, mesh)
+        _, self._all_max, self.rank, self.world = _data_parallel(mesh)
 
         n = num_envs if num_envs is not None else cfg.num_envs
-        dataset_size = n * cfg.rollout
+        dataset_size = n * cfg.rollout * self.world
         self.batch_size = min(cfg.batch_size, dataset_size)
         self.num_minibatches = dataset_size // self.batch_size
         self.num_epochs = cfg.num_epochs
         self.shuffle = bool(cfg.shuffle_minibatches)
         self.recurrence = max(1, cfg.recurrence)
-        self.num_segments = dataset_size // self.recurrence
-        self.segs_per_mb = self.batch_size // self.recurrence
         # train_step advances one per sgd quantum: the runner mirrors the policy version on
         # the host from this count alone (early-stop skips are corrected at flush through
         # last_skipped_sgd_steps)
@@ -80,20 +86,9 @@ class QuantizedTrainer:
     def pending(self) -> int:
         return len(self._thunks)
 
-    def _contiguous_minibatches(self, dataset):
-        B = self.batch_size
-        return [_tree_map(lambda x: x[i * B : (i + 1) * B], dataset) for i in range(self.num_minibatches)]
-
-    def _shuffled_minibatches(self, dataset, generator):
-        """Segment-level permutation gather, the fused call's (`learning.py`, epoch_minibatches)."""
-        S, R, B, per_mb = self.num_segments, self.recurrence, self.batch_size, self.segs_per_mb
-        device = dataset["valids"].device
-        perm = torch.randperm(S, generator=generator, device=device)[: self.num_minibatches * per_mb]
-
-        def gather(x, sel):
-            return x.reshape((S, R) + tuple(x.shape[1:]))[sel].reshape((B,) + tuple(x.shape[1:]))
-
-        return [_tree_map(lambda x: gather(x, perm[i * per_mb : (i + 1) * per_mb]), dataset) for i in range(self.num_minibatches)]
+    def _minibatches(self, dataset, generator):
+        """This rank's rows of the epoch's minibatches, as the fused call selects them."""
+        return select_minibatches(dataset, self.rank, self.world, self.batch_size, self.recurrence, self.shuffle, generator)
 
     def enqueue(self, ts: PolicyTrainState, traj: Dict[str, Any], generator: Optional[torch.Generator] = None) -> None:
         """Queue the train step for `traj` as dispatchable quanta. The caller must flush() the
@@ -111,7 +106,7 @@ class QuantizedTrainer:
             st["dataset"], st["vf"] = self._prepare_batch(ts, traj, self.policy_id)
             if not self.shuffle:
                 # the minibatch layout does not change with the epoch: views, made once
-                st["mbs"] = self._contiguous_minibatches(st["dataset"])
+                st["mbs"] = self._minibatches(st["dataset"], generator)
 
         self._thunks.append(q_prepare)
         for e in range(E):
@@ -126,7 +121,7 @@ class QuantizedTrainer:
                 self._thunks.append(q_check)
             if self.shuffle:
                 def q_shuffle():
-                    st["mbs"] = self._shuffled_minibatches(st["dataset"], generator)
+                    st["mbs"] = self._minibatches(st["dataset"], generator)
 
                 self._thunks.append(q_shuffle)
 
@@ -175,5 +170,7 @@ class QuantizedTrainer:
         stats["valids_fraction"] = torch.full((), st["vf"], device=device)
         stats["lr"] = torch.full((), ts.curr_lr, device=device)
         stats["version_diff_max"] = (ts.train_step - traj["policy_version"]).max().float()
+        if self._all_max is not None:
+            (stats["version_diff_max"],) = self._all_max([stats["version_diff_max"]])
         self._state = {}  # let go of the trajectory and the dataset
         return stats

@@ -16,9 +16,8 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 
-from sample_factory_tpu_torch.parallel.multihost import has_group, local_rank, process_index, world_size
+from sample_factory_tpu_torch.parallel.multihost import broadcast_from_primary, has_group, local_rank, process_index, world_size
 from sample_factory_tpu_torch.utils.utils import resolve_device
 
 DATA_AXIS = "data"
@@ -100,35 +99,27 @@ def shard_env_axis(mesh: Mesh, num_envs: int) -> EnvShard:
     return EnvShard(mesh.rank * per_rank, (mesh.rank + 1) * per_rank, num_envs)
 
 
-def _tensors(tree):
+def _to_cpu(tree):
     if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
 
 
 def replicate_tree(train_state, mesh: Mesh) -> None:
-    """Broadcast a train state from rank 0, in place: the parameters and buffers, the
-    optimizer's state and the normalizers. A tensor where the backend cannot take it (a
-    CPU step count under NCCL) goes through the rank's device. No-op without a group."""
+    """Rank 0's train state on every rank, in place: the parameters and buffers, the
+    optimizer's state, the normalizers, the learning rate, the train step and the PBT
+    hyperparameters. It travels as rank 0's checkpoint payload, so that a rank that restored
+    no checkpoint (an empty optimizer state, step 0) or another one takes rank 0's all the
+    same. No-op without a group."""
     if not mesh.distributed:
         return
-    rms = [train_state.returns_rms] + list((train_state.obs_rms or {}).values())
-    tensors = list(train_state.model.state_dict().values())
-    tensors += list(_tensors(list(train_state.optimizer.state.values())))
-    tensors += [t for s in rms if s is not None for t in s.state_dict().values()]
-    nccl = dist.get_backend() == "nccl"
-    for t in tensors:
-        if nccl and t.device != mesh.device:
-            staged = t.to(mesh.device)
-            dist.broadcast(staged, src=0)
-            t.copy_(staged)
-        else:
-            dist.broadcast(t, src=0)
+    payload = broadcast_from_primary(_to_cpu(train_state.state_dict()) if mesh.rank == 0 else None)
+    if mesh.rank != 0:
+        train_state.load_state_dict(payload)
 
 
 def shard_params_tp(tree, mesh: Mesh, min_width: int = 512):

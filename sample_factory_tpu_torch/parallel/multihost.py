@@ -4,34 +4,36 @@ Counterpart of `sample_factory_tpu/parallel/multihost.py`. The JAX package runs 
 SPMD program over the processes of `jax.distributed`; the port runs one process per
 device in a process group (NCCL on CUDA, gloo on the CPU), started by a launcher such
 as `python -m torch.distributed.run`, which sets `RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
-`MASTER_ADDR` and `MASTER_PORT`. These helpers are the host-side residue: stats
-aggregation, checkpoint gating and control broadcast. Each one is a no-op without a
+`MASTER_ADDR` and `MASTER_PORT`. These helpers are the host-side residue: the packed
+all-reduce, checkpoint gating and control broadcast. Each one is a no-op without a
 process group, and calls no `torch.distributed` collective then.
 
 `globalize_host_trajectory`, `globalize_replicated` and `localize_replicated` (:160-211)
 have no counterpart: they move between JAX's global arrays and process-local ones, and
 here each rank holds only its local shard to begin with.
 
-Two faults of the JAX helpers are not copied: bool stats are not summed as ints
-(:115), and `AmortizedEpisodeSums` keeps sums of keys absent on the flush iteration
-(:128).
-
-`is_multihost`, `aggregate_scalar_stats`, `aggregate_episode_sums` and
-`AmortizedEpisodeSums` have no caller in the port yet: they wait for the host runners'
-multi-process branches (ROADMAP A13b). The device-env runners reduce their episode sums
-with `all_reduce` on the device, in the iteration's one collective.
+What the runners call: `all_reduce` (the learner's global sums and maxima, and the
+iteration's one reduce of the episode sums with the stop, `runner/runner.py:_reduce_across_ranks`,
+for the device-env and the host runners alike), `agree_on_stop` (before the first iteration),
+`broadcast_objectives` (PBT), `is_primary_host` (the writes) and `sync_barrier`; the host
+runners decorrelate their ranks by RANK_SEED_STRIDE. `is_multihost`, `aggregate_scalar_stats`,
+`aggregate_episode_sums` and `AmortizedEpisodeSums` (:88-144) have no counterpart: the episode
+sums join the stop's all-reduce every iteration instead of a collective of their own every
+8 iterations (ROADMAP C, deviations), so the two faults of the JAX helpers (bool stats summed
+as ints, :115; sums of keys absent on the flush iteration dropped, :128) cannot arise.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 LAUNCHER_VARIABLES = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+RANK_SEED_STRIDE = 1000003  # rank r's envs and action draws are seeded r * this apart (`host_runner.py:101`)
 
 
 def has_group() -> bool:
@@ -50,10 +52,6 @@ def process_index() -> int:
 def local_rank() -> int:
     """The rank within this host, which picks the card: the launcher's `LOCAL_RANK`."""
     return int(os.environ.get("LOCAL_RANK", process_index()))
-
-
-def is_multihost() -> bool:
-    return world_size() > 1
 
 
 def is_primary_host() -> bool:
@@ -122,39 +120,6 @@ def agree_on_stop(stop: bool) -> bool:
     return bool(all_reduce([flag], "max")[0].item() > 0)
 
 
-def _is_numeric(v: Any) -> bool:
-    """Numbers and numeric arrays; bools (an int subclass) and bool arrays are flags, not sums."""
-    if isinstance(v, (bool, np.bool_)):
-        return False
-    if isinstance(v, np.ndarray):
-        return v.dtype != np.bool_ and np.issubdtype(v.dtype, np.number)
-    return isinstance(v, (int, float, np.floating, np.integer))
-
-
-def _numeric_keys(ep: Dict[str, Any]) -> List[str]:
-    return sorted(k for k, v in ep.items() if _is_numeric(v))
-
-
-def _host_all_reduce(values: List[np.ndarray], op: str) -> List[np.ndarray]:
-    """Reduce host arrays across ranks in float64, in one collective."""
-    device = _comm_device()
-    tensors = [torch.from_numpy(np.asarray(v, np.float64)).to(device) for v in values]
-    return [t.cpu().numpy() for t in all_reduce(tensors, op, dtype=torch.float64)]
-
-
-def aggregate_scalar_stats(stats: Dict[str, float], reduce: str = "mean") -> Dict[str, float]:
-    """Scalar host stats reduced across ranks (`mean` or `sum`); unchanged without a group."""
-    if not has_group():
-        return stats
-    if reduce not in ("mean", "sum"):
-        raise ValueError(reduce)
-    keys = sorted(stats)
-    (summed,) = _host_all_reduce([np.asarray([float(stats[k]) for k in keys])], "sum")
-    if reduce == "mean":
-        summed = summed / world_size()
-    return {k: float(v) for k, v in zip(keys, summed)}
-
-
 def broadcast_from_primary(tree: Any) -> Any:
     """Rank 0's value of a picklable tree (arrays, numbers, lists, dicts) on every rank."""
     if not has_group():
@@ -162,71 +127,6 @@ def broadcast_from_primary(tree: Any) -> Any:
     box = [tree]
     dist.broadcast_object_list(box, src=0, device=_comm_device())
     return box[0]
-
-
-def aggregate_episode_sums(ep: Dict[str, Any]) -> Dict[str, Any]:
-    """Numeric episode sums (count, return_sum, len_sum; scalars or per-policy arrays) summed
-    across ranks, so that every rank's windows, reports and PBT objectives agree. Other
-    entries (the per-episode `extra_stats` list, bool flags) stay rank-local. A collective:
-    every rank calls it at the same point, with the same numeric keys and shapes."""
-    if not has_group():
-        return ep
-    keys = _numeric_keys(ep)
-    if not keys:
-        return ep
-    summed = _host_all_reduce([np.asarray(ep[k]) for k in keys], "sum")
-    out = dict(ep)
-    for k, value in zip(keys, summed):
-        out[k] = _like(ep[k], value)
-    return out
-
-
-def _like(original: Any, value: np.ndarray) -> Any:
-    if isinstance(original, np.ndarray):
-        return value.astype(original.dtype, copy=False)
-    return type(original)(value.reshape(()))
-
-
-class AmortizedEpisodeSums:
-    """Episode sums accumulated on each rank and reduced across ranks every `every`
-    lockstep iterations (`parallel/multihost.py:88-144`): the collective is a barrier, so
-    the host runners pay it 1/`every` as often. On other iterations the numeric fields come
-    back as zeros; on the flush iteration they are the global sums since the last flush,
-    keys absent on that iteration included. Non-numeric fields pass through rank-local.
-    `flush()` hands back what is still pending. Without a group it passes `ep` through."""
-
-    def __init__(self, every: int = 8):
-        self.every = max(1, int(every))
-        self._acc: Dict[str, np.ndarray] = {}
-        self._like: Dict[str, Any] = {}
-        self._n = 0
-
-    def add(self, ep: Dict[str, Any]) -> Dict[str, Any]:
-        if not has_group() or self.every == 1:
-            return aggregate_episode_sums(ep)
-        keys = _numeric_keys(ep)
-        for k in keys:
-            v = np.asarray(ep[k], np.float64)
-            self._acc[k] = self._acc[k] + v if k in self._acc else v.copy()
-            self._like[k] = ep[k]
-        self._n += 1
-        out = dict(ep)
-        flushed = self.flush() if self._n >= self.every else None
-        for k in keys:
-            out[k] = _like(ep[k], np.zeros(np.shape(ep[k])))
-        if flushed is not None:
-            out.update(flushed)
-        return out
-
-    def flush(self) -> Optional[Dict[str, Any]]:
-        """Global sums of what is pending, or None when nothing is; a lockstep collective."""
-        if not has_group() or self._n == 0:
-            return None
-        keys = sorted(self._acc)
-        summed = _host_all_reduce([self._acc[k] for k in keys], "sum")
-        out = {k: _like(self._like[k], v) for k, v in zip(keys, summed)}
-        self._acc, self._like, self._n = {}, {}, 0
-        return out
 
 
 def broadcast_objectives(objectives: list) -> list:

@@ -1,13 +1,13 @@
 """Multi-policy self-play on host (gymnasium) envs.
 
-Counterpart of `sample_factory_tpu/runner/host_multi_policy_runner.py`, without
-its multi-host branches. It joins the host sampler's mixed-policy collection
-(each policy's forward on its own agent slots, `algo/host_sampling.py`) with the
-population of `MultiPolicyRunner` (a list of P train states, per-policy writers
-and checkpoints) and PBT (`pbt/pbt.py`). Every policy trains on the whole shared
-trajectory, masked to its own agents by the learner's valids: mid-episode policy
-changes and inactive agents (`policy_id == -1`) are handled as in the reference
-(non_batched_sampling.py:259-276, masking in learner.py:949-955).
+Counterpart of `sample_factory_tpu/runner/host_multi_policy_runner.py`. It joins
+the host sampler's mixed-policy collection (each policy's forward on its own agent
+slots, `algo/host_sampling.py`) with the population of `MultiPolicyRunner` (a list
+of P train states, per-policy writers and checkpoints) and PBT (`pbt/pbt.py`). Every
+policy trains on the whole shared trajectory, masked to its own agents by the
+learner's valids: mid-episode policy changes and inactive agents (`policy_id == -1`)
+are handled as in the reference (non_batched_sampling.py:259-276, masking in
+learner.py:949-955).
 
 Async mode (the default) keeps the JAX runner's schedule (:157-198): the rollout
 runs a snapshot of each policy taken just before the last train call (the
@@ -22,6 +22,16 @@ Episode attribution (a deviation from the JAX runner, which gives every policy
 the same share of the aggregate window, :268-270): a completed episode is
 credited to the policy that drove its agent slot during that rollout, so that
 PBT compares what each policy earned.
+
+Data parallelism (`--jax_distributed=True`, the JAX runner's multi-process branch,
+:58-69, 149-189, 222-233, 248-260): as `HostEnvRunner`, every rank steps its own
+envs (seeded RANK_SEED_STRIDE apart) from rank 0's train states, and each policy's
+train call reduces over the ranks. Each rank credits its own episodes by its own slot
+mapping into a [P, 3] array of (count, return, length), which is what the iteration's
+one all-reduce sums (read back an iteration late), so no chunk is ever credited by a
+later mapping. `maybe_resample` stays the rank's own, fed by its own episode count, and
+touches its own slots only; PBT's objectives come from rank 0 (`broadcast_objectives`),
+and its shaping goes to each rank's own slots of the policy.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ from sample_factory_tpu_torch.algo.host_sampling import HostVectorSampler
 from sample_factory_tpu_torch.algo.learning import init_train_state, make_train_fn
 from sample_factory_tpu_torch.envs.env_info import obtain_env_info
 from sample_factory_tpu_torch.models.actor_critic import create_actor_critic
+from sample_factory_tpu_torch.parallel.mesh import replicate_tree
+from sample_factory_tpu_torch.parallel.multihost import RANK_SEED_STRIDE, broadcast_from_primary
 from sample_factory_tpu_torch.pbt.pbt import PopulationBasedTraining
 from sample_factory_tpu_torch.runner.checkpoint import load_checkpoint
 from sample_factory_tpu_torch.runner.multi_policy_runner import MultiPolicyRunner
@@ -77,6 +89,8 @@ class HostMultiPolicyRunner(MultiPolicyRunner):
         self.model = self.train_state[0].model
         self.train_generators = [torch.Generator(device).manual_seed(cfg.seed + 2 + 2 * p) for p in range(P)]
 
+        if self.mesh.distributed:
+            cfg.env_seed_offset = self.mesh.rank * RANK_SEED_STRIDE  # this rank's envs step their own episodes
         self.sampler = HostVectorSampler(cfg, self.env_info, device, register_fn=self.register_fn)
         cfg.num_envs = self.sampler.num_envs
         try:
@@ -98,8 +112,10 @@ class HostMultiPolicyRunner(MultiPolicyRunner):
             if restored is not None:
                 steps_p, self.best_performance_per_policy[p] = restored
                 self.env_steps = max(self.env_steps, steps_p)
+            replicate_tree(ts, self.mesh)
+        self.env_steps, self.best_performance_per_policy = broadcast_from_primary((self.env_steps, self.best_performance_per_policy))
 
-        self._train_fn = make_train_fn(cfg, self.env_info, 0)  # the policy index goes in with each call
+        self._train_fn = make_train_fn(cfg, self.env_info, 0, self.mesh)  # the policy index goes in with each call
         if cfg.async_rl:
             self.behavior_models = [copy.deepcopy(ts.model).requires_grad_(False) for ts in self.train_state]
             self._refresh_behavior()
@@ -140,21 +156,30 @@ class HostMultiPolicyRunner(MultiPolicyRunner):
         return stats, ep_stats
 
     def _transitions_per_iteration(self) -> int:
-        return self.sampler.num_envs * self.cfg.rollout
+        return self.sampler.num_envs * self.cfg.rollout * self.mesh.world
 
     def _process_stats(self, stats, ep_stats) -> None:
-        """Credit each completed episode to the policy that drove its slot in this rollout."""
+        """Credit each completed episode to the policy that drove its slot in this rollout;
+        under a group the [P, 3] sums go into the iteration's one all-reduce and are counted
+        an iteration later."""
         self.fps_tracker.add(time.time(), self.env_steps)
         flat = self.slot_policies.reshape(-1)
         sums = np.zeros((self.P, 3))
         for (ret, length), slot in zip(ep_stats["episodes"], ep_stats["slots"]):
             sums[flat[slot]] += (1.0, ret, length)
-        for p in range(self.P):
-            self.episode_stats_per_policy[p].add_rollout_stats(*sums[p])
-        self._episodes_last_rollout = int(ep_stats["count"])
+        self._add_episode_sums(self._reduce_host_sums(sums) if self.mesh.distributed else sums)
+        self._episodes_last_rollout = int(ep_stats["count"])  # the rank's own: maybe_resample maps its own slots
         # an episode's custom stats go to policy 0, as in the JAX runner (:271-276)
         self._dispatch_extra_stats(ep_stats.get("extra_stats", ()), 0)
         self._last_stats = stats
+
+    def _add_episode_sums(self, sums) -> None:
+        if sums is not None:
+            for p in range(self.P):
+                self.episode_stats_per_policy[p].add_rollout_stats(*sums[p])
+
+    def _finish_pending_work(self) -> None:
+        self._add_episode_sums(self._last_host_sums())
 
     def _after_iteration(self) -> None:
         # async mode: periodically re-randomize the agent->policy mapping

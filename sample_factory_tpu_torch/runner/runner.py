@@ -29,8 +29,9 @@ from __future__ import annotations
 import copy
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from sample_factory_tpu_torch.algo.learning import init_train_state, make_train_fn
@@ -40,7 +41,7 @@ from sample_factory_tpu_torch.envs.env_info import EnvInfo, extract_env_info
 from sample_factory_tpu_torch.envs.env_utils import create_env
 from sample_factory_tpu_torch.models.actor_critic import create_actor_critic
 from sample_factory_tpu_torch.parallel.mesh import make_mesh, replicate_tree, shard_env_axis
-from sample_factory_tpu_torch.parallel.multihost import agree_on_stop, all_reduce, is_primary_host, sync_barrier
+from sample_factory_tpu_torch.parallel.multihost import agree_on_stop, all_reduce, broadcast_from_primary, is_primary_host, sync_barrier
 from sample_factory_tpu_torch.runner.checkpoint import load_checkpoint, save_checkpoint
 from sample_factory_tpu_torch.runner.stats import EpisodeStats, FpsTracker, SummaryWriter
 from sample_factory_tpu_torch.utils.timing import Timing
@@ -121,6 +122,7 @@ class Runner:
         self._start_time = None
         self._stop_requested = False
         self._agreed_stop = None  # under a process group: the stop the ranks agreed on last iteration
+        self._pending_host_sums = None  # host runners under a group: the last iteration's reduce, read one iteration late
 
     # ------------------------------------------------------------------ init
 
@@ -171,11 +173,12 @@ class Runner:
         self.sampler_state = init_sampler_state(cfg, env, shard.size, self.device, sampler_gen, shard if self.mesh.distributed else None)
         self.train_generator = torch.Generator(self.device).manual_seed(cfg.seed + 2)
 
-        # resume from checkpoint (reference learner.py:300); every rank loads the same one
+        # resume from checkpoint (reference learner.py:300); under a group every rank takes rank 0's
         restored = load_checkpoint(cfg, self.policy_id, self.train_state)
         if restored is not None:
             self.env_steps, self.best_performance = restored
         replicate_tree(self.train_state, self.mesh)
+        self.env_steps, self.best_performance = broadcast_from_primary((self.env_steps, self.best_performance))
 
         self._rollout_fn = make_rollout_fn(cfg, env, self.env_info)
         self._train_fn = make_train_fn(cfg, self.env_info, self.policy_id, self.mesh)
@@ -330,21 +333,55 @@ class Runner:
     def _should_end_training(self) -> bool:
         if not self.mesh.distributed:
             return self._wants_to_stop()
+        if self.env_steps >= self.cfg.train_for_env_steps:
+            return True  # every rank's experience, from rank 0's count at init: the same on every rank
         if self._agreed_stop is None:  # before the first iteration
-            return agree_on_stop(self._wants_to_stop())
+            self._agreed_stop = torch.tensor(float(agree_on_stop(self._wants_to_stop())))
         return bool(self._agreed_stop.item() > 0)
 
-    def _reduce_across_ranks(self, ep_stats: Dict[str, Any]) -> Dict[str, Any]:
-        """One all-reduce an iteration, on every rank: the episode sums (when the envs are
-        sharded) and the stop flags, of which any one stops every rank."""
-        keys = EPISODIC_KEYS if self.shards_envs else ()
+    def _reduce_across_ranks(self, sums: List[torch.Tensor], dtype: torch.dtype = torch.float32):
+        """One all-reduce an iteration, on every rank: `sums` (this rank's parts, on the
+        device) and the stop flags, of which any one stops every rank. Returns the global sums
+        and the agreed stop flag, on the device, without waiting for them."""
         flag = torch.full((), float(self._wants_to_stop()), device=self.device)
-        *sums, self._agreed_stop = all_reduce([ep_stats[k] for k in keys] + [flag])
-        return {**ep_stats, **dict(zip(keys, sums))}
+        *sums, stop = all_reduce(list(sums) + [flag], dtype=dtype)
+        return sums, stop
+
+    def _reduce_host_sums(self, sums: np.ndarray) -> Optional[np.ndarray]:
+        """The host runners' form of the iteration's one all-reduce: episode sums that are host
+        numbers go up without waiting for the stream (on NCCL they travel through the card) and
+        come back into pinned host memory behind an event, read one iteration late: the read
+        waits for the stream up to the reduce, not for the learner's quanta dispatched after
+        it. Returns the previous iteration's global sums, None on the first; their agreed stop
+        takes effect before the iteration after next."""
+        up = torch.from_numpy(np.asarray(sums, np.float64)).to(self.device, non_blocking=True)
+        (reduced,), stop = self._reduce_across_ranks([up], dtype=torch.float64)
+        packed, done = torch.cat([reduced.reshape(-1), stop.reshape(1)]), None
+        if packed.is_cuda:
+            host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            packed, done = host, torch.cuda.Event()
+            done.record()
+        previous, self._pending_host_sums = self._pending_host_sums, (packed, done, reduced.shape)
+        return None if previous is None else self._read_host_sums(previous)
+
+    def _read_host_sums(self, pending) -> np.ndarray:
+        host, done, shape = pending
+        if done is not None:
+            done.synchronize()
+        self._agreed_stop = host[-1]
+        return host[:-1].reshape(shape).numpy()
+
+    def _last_host_sums(self) -> Optional[np.ndarray]:
+        """At the end of a run: the last iteration's global sums, still pending."""
+        pending, self._pending_host_sums = self._pending_host_sums, None
+        return None if pending is None else self._read_host_sums(pending)
 
     def _process_stats(self, stats: Dict[str, Any], ep_stats: Dict[str, Any]) -> None:
         if self.mesh.distributed:
-            ep_stats = self._reduce_across_ranks(ep_stats)
+            keys = EPISODIC_KEYS if self.shards_envs else ()
+            sums, self._agreed_stop = self._reduce_across_ranks([ep_stats[k] for k in keys])
+            ep_stats = {**ep_stats, **dict(zip(keys, sums))}
         self.fps_tracker.add(time.time(), self.env_steps)
         self._pending_ep.append(ep_stats)
         if len(self._pending_ep) >= self._max_pending_ep:

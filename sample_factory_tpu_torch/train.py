@@ -8,13 +8,16 @@ async, the default); `--num_policies > 1` or a multi-agent env goes to
 `HostMultiPolicyRunner`, anything else to `HostEnvRunner` (:56-63).
 
 `--jax_distributed=True` joins the process group that `python -m torch.distributed.run`
-describes (`parallel/multihost.py`); both device-env runners run under it. Under a group
-the host runners (ROADMAP A13b) and, anywhere, a 'model' mesh axis above 1 (tensor
-parallelism, ROADMAP A13c) raise NotImplementedError. A launcher's world of more than one
-process without the flag raises, so that R copies never train unaware of each other.
+describes (`parallel/multihost.py`); all four runners run under it, the host runners
+with each rank's own samplers feeding one data-parallel learner. A 'model' mesh axis
+above 1 (tensor parallelism, ROADMAP A13c) raises NotImplementedError. A launcher's world
+of more than one process without the flag raises, so that R copies never train unaware
+of each other.
 
     python -m torch.distributed.run --nproc_per_node=R -m sample_factory_tpu_torch.train \\
         --env=grid_battle ... --jax_distributed=True
+    python -m torch.distributed.run --nproc_per_node=R -m sample_factory_tpu_torch.examples.train_gym_env \\
+        --env=CartPole-v1 ... --jax_distributed=True
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import sys
 
 from sample_factory_tpu_torch.cfg.arguments import maybe_load_from_checkpoint, verify_cfg
 from sample_factory_tpu_torch.parallel.mesh import mesh_axes
-from sample_factory_tpu_torch.parallel.multihost import has_group, init_distributed, world_size
+from sample_factory_tpu_torch.parallel.multihost import has_group, init_distributed, shutdown, world_size
 from sample_factory_tpu_torch.runner.runner import Runner
 from sample_factory_tpu_torch.utils.utils import cfg_file
 
@@ -54,8 +57,6 @@ def make_rl_runner(cfg, register_fn=None):
     from sample_factory_tpu_torch.envs.env_info import obtain_env_info
 
     env_info = obtain_env_info(cfg, register_fn=register_fn)
-    if not env_info.is_device_env and has_group():
-        raise NotImplementedError("host envs under a process group are not ported yet (ROADMAP A13b)")
     if not env_info.is_device_env and env_info.num_agents > 1:
         # num_envs counts agent slots (transitions per step), like the reference's
         # total_num_agents (rl_utils.py:28-33)
@@ -77,22 +78,24 @@ def make_rl_runner(cfg, register_fn=None):
 
 
 def run_rl(cfg, register_fn=None) -> int:
-    _, runner = make_rl_runner(cfg, register_fn=register_fn)
-    runner.init()
-    return runner.run()
+    """Build, init and run the runner; leaves a process group that the run joined."""
+    joins = not has_group()
+    try:
+        _, runner = make_rl_runner(cfg, register_fn=register_fn)
+        runner.init()
+        return runner.run()
+    finally:
+        if joins:
+            shutdown()
 
 
 def main(argv=None) -> int:
     """The built-in on-device envs (`examples/train_synthetic.py`'s flags), alone or as one
-    rank of a data-parallel run; leaves the process group the run joined."""
+    rank of a data-parallel run."""
     from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
-    from sample_factory_tpu_torch.parallel.multihost import shutdown
 
     register_synthetic_components()
-    try:
-        return run_rl(parse_custom_args(argv))
-    finally:
-        shutdown()
+    return run_rl(parse_custom_args(argv))
 
 
 if __name__ == "__main__":

@@ -333,16 +333,21 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="without --jax_distributed=True each would train alone"):
         make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64)))
-    # the host runners under a process group (A13b): a world of one, left before the test ends
+    # the host runners under a process group (A13b, tests/test_torch_multihost_hostenv.py) are ported, tensor
+    # parallelism is refused there too: a world of one, left before the test ends
     monkeypatch.setenv("WORLD_SIZE", "1")
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
     monkeypatch.setenv("MASTER_PORT", str(_free_port()))
     from sample_factory_tpu_torch.parallel.multihost import shutdown
 
+    host_dp = _smoke_argv(tmp_path, 64) + ["--env=a_host_env", "--use_rnn=False", "--serial_mode=True", "--jax_distributed=True"]
     try:
-        with pytest.raises(NotImplementedError, match="A13b"):
-            make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--env=a_host_env", "--use_rnn=False", "--jax_distributed=True"]))
+        for extra, want in (([], "HostEnvRunner"), (["--num_policies=2"], "HostMultiPolicyRunner")):
+            assert type(make_rl_runner(parse_custom_args(host_dp + extra))[1]).__name__ == want
+        assert torch.distributed.is_initialized()
+        with pytest.raises(NotImplementedError, match="A13c"):
+            make_rl_runner(parse_custom_args(host_dp + ["--mesh_model=2"]))
     finally:
         shutdown()
     assert not torch.distributed.is_initialized()

@@ -4,8 +4,8 @@ ranks on the CPU, small enough to run in tier-1.
 
 A module fixture starts three processes once: two ranks of one group (world 2) and one
 rank alone in another (world 1). Each runs `_child` and saves what it saw. The two ranks
-check the multihost helpers, PBT with and without the objectives' broadcast, the amortized
-episode sums and the writer's gating; then one learner call in four configurations on its
+check the multihost helpers, PBT with and without the objectives' broadcast and the
+writer's gating; then one learner call in four configurations on its
 half of the envs; then a data-parallel run of the device-env `Runner` whose clocks cross
 `--train_for_seconds` on different iterations, and its resume. This process computes the
 one-rank references without a group and compares:
@@ -18,7 +18,8 @@ one-rank references without a group and compares:
 - the runner's rollout rows equal the one-rank rollout's exactly (an MLP model, whose
   products give the same bits at either batch size on the CPU);
 - the replicas are identical after three iterations, and the ranks stop together;
-- only rank 0 writes a checkpoint, and both resume from it;
+- only rank 0 writes a checkpoint, and both resume from it, also where rank 1's train_dir
+  holds none (it takes rank 0's state and env steps);
 - a world of one equals the run without a group bit for bit, and without a group a
   train call makes no `torch.distributed` call.
 """
@@ -173,25 +174,15 @@ def _helper_cases(rank, train_dir):
     from sample_factory_tpu_torch.envs.builtin.synthetic import SyntheticVectorDiscreteEnv
     from sample_factory_tpu_torch.envs.env_info import extract_env_info
     from sample_factory_tpu_torch.parallel.multihost import (
-        AmortizedEpisodeSums,
-        aggregate_episode_sums,
-        aggregate_scalar_stats,
         broadcast_from_primary,
         broadcast_objectives,
-        is_multihost,
         is_primary_host,
         sync_barrier,
     )
     from sample_factory_tpu_torch.pbt.pbt import PopulationBasedTraining
     from sample_factory_tpu_torch.runner.stats import SummaryWriter
 
-    out = {"multihost": is_multihost(), "primary": is_primary_host()}
-    ep = aggregate_episode_sums({"count": float(rank + 1), "return_sum": np.asarray([10.0 * (rank + 1), 1.0]),
-                                 "truncated_any": bool(rank), "extra_stats": [{"rank": rank}]})
-    out["agg"] = {"count": ep["count"], "return_sum": ep["return_sum"].tolist(), "truncated_any": ep["truncated_any"],
-                  "extra_stats": ep["extra_stats"]}
-    out["agg_mean"] = aggregate_scalar_stats({"x": float(rank)}, reduce="mean")["x"]
-    out["agg_sum"] = aggregate_scalar_stats({"x": float(rank)}, reduce="sum")["x"]
+    out = {"primary": is_primary_host()}
     out["bcast"] = np.asarray(broadcast_from_primary(np.asarray([rank * 100 + 7], np.int32))).tolist()
 
     # PBT: objectives that rank each rank's population differently
@@ -212,22 +203,6 @@ def _helper_cases(rank, train_dir):
         pbt.on_training_step(states, [10] * P, objectives)
         out[f"pbt_{name}"] = {"objectives": objectives, "hparams": pbt.policy_hparams,
                               "train_steps": [ts.train_step for ts in states]}
-
-    # amortized sums: the flush iteration lacks `kills`, which iteration 1 had; `won` is a flag
-    agg = AmortizedEpisodeSums(every=3)
-    amortized = []
-    for it in range(3):
-        ep = {"count": 1.0 + rank, "return_sum": np.asarray([float(10 * (it + 1) * (rank + 1))]), "won": it == 1}
-        if it == 1:
-            ep["kills"] = np.asarray([2.0 + rank])
-        r = agg.add(ep)
-        amortized.append({"count": r["count"], "return_sum": float(r["return_sum"][0]), "won": r["won"],
-                          "kills": None if "kills" not in r else float(r["kills"][0])})
-    out["amortized"] = amortized
-    agg.add({"count": 1.0, "return_sum": np.asarray([1.0 + rank])})
-    tail = agg.flush()
-    out["amortized_tail"] = {"count": tail["count"], "return_sum": float(tail["return_sum"][0])}
-    out["amortized_tail_again"] = agg.flush()
 
     writer = SummaryWriter(cfg, 0)
     writer.write(0, {"x": 1.0})
@@ -281,6 +256,16 @@ def _runner_cases(rank, train_dir):
     out["resumed_final_env_steps"] = resumed.env_steps
     out["resumed_final_params"] = _params(resumed)
     out["saves_after_resume"] = list(saves)
+
+    # once more, with rank 1 in a train_dir that holds no checkpoint: it takes rank 0's state and env steps
+    own_dir = train_dir if rank == 0 else train_dir + "_empty"
+    _, again = make_rl_runner(parse_custom_args(_runner_argv(own_dir, 320, "dp", distributed)))
+    again.init()
+    out["empty_start"] = {"env_steps": again.env_steps, "train_step": again.train_state.train_step,
+                          "curr_lr": again.train_state.curr_lr, "optimizer_state": len(again.train_state.optimizer.state),
+                          "params": _params(again)}
+    assert again.run() == 0
+    out["empty_final"] = {"env_steps": again.env_steps, "params": _params(again), "saves": saves[len(out["saves_after_resume"]):]}
     runner_module.save_checkpoint = save_checkpoint
     return out
 
@@ -376,12 +361,8 @@ def _ranks(dp):
 
 def test_helpers_cross_process(dp):
     for rank, r in enumerate(_ranks(dp)):
-        assert r["world"] == 2 and r["rank"] == rank and r["multihost"] and r["primary"] == (rank == 0)
+        assert r["world"] == 2 and r["rank"] == rank and r["primary"] == (rank == 0)
         assert r["mesh"] == {"world": 2, "rank": rank, "data": 2, "device": "cpu"}
-        assert r["agg"]["count"] == 3.0 and r["agg"]["return_sum"] == [30.0, 2.0]
-        # a bool flag is not summed, and the per-episode list stays the rank's own
-        assert r["agg"]["truncated_any"] is bool(rank) and r["agg"]["extra_stats"] == [{"rank": rank}]
-        assert r["agg_mean"] == 0.5 and r["agg_sum"] == 1.0
         assert r["bcast"] == [7]
 
 
@@ -394,20 +375,6 @@ def test_pbt_agrees_with_broadcast(dp):
     r0, r1 = (r["pbt_sync"] for r in _ranks(dp))
     assert r0["objectives"] == r1["objectives"] == [0.1, 5.0, 1.0, 3.0]
     assert r0["hparams"] == r1["hparams"] and r0["train_steps"] == r1["train_steps"]
-
-
-def test_amortized_episode_sums(dp):
-    """every=3: zeros, zeros, then the global sums of all three iterations, `kills` included
-    although the flush iteration lacks it; the bool `won` passes through each rank's own.
-    One more add, then flush(): the tail; a second flush has nothing."""
-    for r in _ranks(dp):
-        assert r["amortized"] == [
-            {"count": 0.0, "return_sum": 0.0, "won": False, "kills": None},
-            {"count": 0.0, "return_sum": 0.0, "won": True, "kills": 0.0},
-            {"count": 9.0, "return_sum": 180.0, "won": False, "kills": 5.0},
-        ]
-        assert r["amortized_tail"] == {"count": 2.0, "return_sum": 3.0}
-        assert r["amortized_tail_again"] is None
 
 
 def test_writer_gated_to_primary(dp):
@@ -522,6 +489,20 @@ def test_only_rank0_writes_a_checkpoint_and_both_resume(dp):
     assert r0["saves_after_resume"] == [192, 256] and r1["saves_after_resume"] == []
     assert all(torch.equal(r0["resumed_final_params"][k], v) for k, v in r1["resumed_final_params"].items())
 
+
+
+def test_resume_takes_rank0s_state_where_a_rank_has_no_checkpoint(dp):
+    """Rank 1's train_dir holds no checkpoint: it starts from rank 0's parameters, optimizer
+    state, train step, learning rate and env steps, and stops with rank 0 on the env-step count."""
+    r0, r1 = (r["runner"] for r in _ranks(dp))
+    for r in (r0, r1):
+        start = r["empty_start"]
+        assert start["env_steps"] == 256 and start["train_step"] == 8 and start["optimizer_state"] > 0
+        assert all(torch.equal(v, r0["resumed_final_params"][k]) for k, v in start["params"].items())
+        assert r["empty_final"]["env_steps"] == 320
+    assert r0["empty_start"]["curr_lr"] == r1["empty_start"]["curr_lr"]
+    assert all(torch.equal(v, r0["empty_final"]["params"][k]) for k, v in r1["empty_final"]["params"].items())
+    assert r0["empty_final"]["saves"] == [320] and r1["empty_final"]["saves"] == []
 
 def test_population_runner_agrees_under_a_group(dp):
     """Each rank runs the whole population; rank 0's objectives reach rank 1, so both take rank
