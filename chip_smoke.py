@@ -34,6 +34,18 @@ Phases, each printing one JSON line:
             at least DP_ACTIONS_EQUAL of the rollout's actions equal to the one-rank rollout's rows, the
             parameters after the train call within DP_TOL and its stats (DP_STATS) within DP_STATS_TOL
             of the one rank's, the two replicas equal
+  tp        tensor parallelism over the 'model' axis, gloo ranks on cuda:0 (NCCL takes one rank a card), in
+            child processes that import nothing of JAX: first a probe of each collective the path uses on
+            cuda:0 tensors; (a) `main` in float32 on a 1 x 2 mesh (the GRU's wi, wh, bi, bh sharded at the
+            default --tp_min_layer_width=512) against one rank of 1024 envs: the rollout (acting with the
+            whole parameters, gathered in one collective) gives the two ranks equal actions bit for bit and
+            at least TP_ACTIONS_EQUAL of them equal to one rank's, the gathered parameters after one sync
+            train call of 2 shuffled minibatches within TP_TOL, `gru_seq` on the gathered `wh` once a
+            minibatch on each rank at (32, 512, 256), the collectives (calls, bytes, host ms) of the rollout
+            and the train call, and the device busy ms of a profiled iteration beside the one rank's; (b) the
+            JAX package's multichip configuration (`__graft_entry__.py`: convnet_atari + Dense 512, GRU-512
+            float32) on a 2 x 2 mesh of four ranks against 4 x 1 for one iteration: the row design
+            (`gru_seq_rows`) on the gathered `wh` at TP_MULTICHIP_GRU, which `parity` and `timing` hold
   ant       continuous control at full width: the physics ant, MLP 256-128-64, 4096 envs,
             rollout 16, batch 32768, 4 epochs, sync; env steps/s and the rollout/learner split
   towers    the other model family through the LSTM kernel: resnet_impala, separate actor
@@ -106,7 +118,8 @@ Phases, each printing one JSON line:
             time converting the sim's tensors a step
   sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
             the synthetic env on the card for 200,000 env steps
-Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two legs of `dp`) and `dp_host` included, and per design: cluster, `*_seq`, and rows,
+Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two legs of `dp`), `tp` (both legs' tensor-parallel
+runs) and `dp_host` included, and per design: cluster, `*_seq`, and rows,
 `*_seq_rows`; the LSTM's row design also by site: the NetHack and AllegroHandLSTM learners), the card's
 name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
@@ -153,7 +166,11 @@ ALLEGRO_LSTM = (16, 2048, 512, "float32")
 # shuffle varies from 1 to 256 (about 128 at two ranks): 16 rows a cluster, full (128) and with a partly
 # filled last cluster (131); 8 rows (37) and 24 rows (255), each with a partly filled last cluster
 DP_HOST_GRUS = [(32, B, 256, "float32") for B in (128, 131, 37, 255)]
+# tp leg (b): the JAX package's multichip configuration, GRU-512 float32 on the gathered `wh` over one data
+# index's contiguous minibatch, 4 segments of 16 steps (the row design)
+TP_MULTICHIP_GRU = (16, 4, 512, "float32")
 PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "rows", 1), *[("gru", *shape, "cluster", 8) for shape in DP_HOST_GRUS],
+                      ("gru", *TP_MULTICHIP_GRU, "rows", 1),
                       ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "cluster", 8),
                       ("lstm", *DMLAB_INSTR_LEARNER, "cluster", 8), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
                       ("lstm", *NETHACK_LSTM_BATCH, "rows", 1), ("lstm", *NETHACK_LSTM, "rows", 1), ("lstm", *ALLEGRO_LSTM, "rows", 1)]
@@ -2131,7 +2148,8 @@ DP_HOST_TURNS = ("warmup",) + DP_TURNS
 def dp_child(mode, out_path, train_dir, traj_path=None):
     """A child of phase `dp` or `dp_host`: `turns` / `host_turns` (under torch.distributed.run: `main` /
     `host` in a world of 1 over NCCL in turns with the same run without a group, DP_TURNS, the group
-    joined and left for each run; DP_HOST_TURNS for `host`) or `gloo` / `host_gloo` (a rank of two on cuda:0). Imports nothing
+    joined and left for each run; DP_HOST_TURNS for `host`), `gloo` / `host_gloo` (a rank of two on cuda:0), or of phase
+    `tp`: `tp_gloo` (a rank of a 1 x 2 mesh on cuda:0) / `tp_multichip` (a rank of four on cuda:0). Imports nothing
     of JAX; writes its result as JSON to `out_path`."""
     import torch
 
@@ -2148,6 +2166,10 @@ def dp_child(mode, out_path, train_dir, traj_path=None):
     try:
         if mode == "gloo":
             out = dp_gloo_rank(torch, cuda_rnn, train_dir, traj_path)
+        elif mode == "tp_gloo":
+            out = tp_gloo_rank(torch, cuda_rnn, train_dir, traj_path)
+        elif mode == "tp_multichip":
+            out = tp_multichip_rank(torch, cuda_rnn, train_dir)
         elif mode == "host_gloo":
             out = dp_host_gloo_rank(torch, cuda_rnn, train_dir)
         else:
@@ -2332,6 +2354,298 @@ def phase_dp(torch, cuda_rnn, card, tmp):
     counts_a = [r["launches"] for m, r in runs if m == "nccl"]
     return ({k: sum(c[k] for c in counts_a) for k in counts_a[0]},
             {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]})
+
+
+# phase `tp`: tensor parallelism over the 'model' axis, gloo ranks on cuda:0 (NCCL takes one rank a card)
+TP_TOL = 1e-6  # float32 on the card, a 1 x 2 mesh against one rank: x @ wi split by columns, wh gathered whole
+TP_ACTIONS_EQUAL = 0.999  # share of a 1 x 2 rank's rollout actions equal to the one-rank rollout's (the two ranks': all)
+TP_MAIN = DP2 + ["--mesh_model=2", "--experiment=tp"]  # `main` in float32, the default --tp_min_layer_width=512
+# the GRU's leaves (3H = 768) are the only ones 512 wide: the convs (16, 32 channels) and the Dense 256 stay whole
+TP_MAIN_SHARDED = {f"core.gru_0.{leaf}": dim for leaf, dim in (("wi", 1), ("wh", 1), ("bi", 0), ("bh", 0))}
+# leg (b): `__graft_entry__.py:9-31, 84-95`, the JAX package's multichip dry run: SyntheticDiscreteEnv(6 actions,
+# episodes of 32, 36x36), convnet_atari + Dense 512, GRU-512 float32, rollout 16, 4 envs a data shard, batch
+# num_envs * 16 / 2, one epoch, --tp_min_layer_width=256; one iteration (smoke depth) on 2 x 2 and on 4 x 1
+TP_MULTICHIP_ENV = "tp_multichip_synthetic"
+TP_MULTICHIP = ["--env=" + TP_MULTICHIP_ENV, "--use_rnn=True", "--rnn_size=512", "--encoder_conv_architecture=convnet_atari",
+                "--encoder_conv_mlp_layers", "512", "--rollout=16", "--recurrence=16", "--batch_size=64", "--num_envs=8",
+                "--num_epochs=1", "--tp_min_layer_width=256", "--async_rl=False", "--compute_dtype=float32",
+                "--train_for_env_steps=128", "--seed=0", "--device=gpu", "--jax_distributed=True", *QUIET]
+
+
+def register_tp_multichip_env():
+    from sample_factory_tpu_torch.envs.builtin.synthetic import SyntheticDiscreteEnv
+    from sample_factory_tpu_torch.envs.env_utils import register_env
+
+    register_env(TP_MULTICHIP_ENV, lambda name, cfg=None, env_config=None, render_mode=None: SyntheticDiscreteEnv(
+        num_actions=6, episode_len=32, res=36))
+
+
+class CollectiveTraffic:
+    """The torch.distributed collectives of this process, by label: calls, bytes (an all-gather's
+    whole output, an all-reduce's buffer) and the host's ms inside them (gloo waits for the card's
+    stream, copies, exchanges and copies back inside the call)."""
+
+    def __init__(self, dist):
+        self.dist, self.label, self.by_label, self.saved = dist, None, {}, {}
+
+    def __enter__(self):
+        for name in ("all_gather", "all_reduce", "broadcast"):
+            self.saved[name] = getattr(self.dist, name)
+            setattr(self.dist, name, self._counting(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.dist, name, fn)
+
+    def _counting(self, name, fn):
+        def counted(tensor_or_list, *args, **kwargs):
+            start = time.perf_counter()
+            out = fn(tensor_or_list, *args, **kwargs)
+            if self.label is not None:
+                row = self.by_label.setdefault(self.label, {})
+                entry = row.setdefault(name, {"calls": 0, "bytes": 0, "host_ms": 0.0})
+                tensors = tensor_or_list if isinstance(tensor_or_list, list) else [tensor_or_list]
+                entry["calls"] += 1
+                entry["bytes"] += sum(t.numel() * t.element_size() for t in tensors)
+                entry["host_ms"] += (time.perf_counter() - start) * 1e3
+            return out
+
+        return counted
+
+
+def probe_collectives(torch, device="cuda"):
+    """Each collective the tensor-parallel path uses, on cuda:0 tensors over gloo, held against its
+    exact value before anything relies on it: all_gather of float32 slices (a layer's gather and its
+    shards' gather for a checkpoint), all_reduce (a column-parallel input's gradient, the norms), both
+    in a group made by new_group, and the object broadcast of replicate_tree."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    group = dist.new_group(list(range(world)))
+    x = torch.arange(6, dtype=torch.float32, device=device).reshape(3, 2) + 100 * rank
+    out = {}
+    for name, g in (("world", None), ("new_group", group)):
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x, group=g)
+        out[f"all_gather_{name}"] = all(bool(torch.equal(p, x - 100 * rank + 100 * r)) and p.device == x.device for r, p in enumerate(parts))
+        y = x.clone()
+        dist.all_reduce(y, group=g)
+        out[f"all_reduce_{name}"] = bool(torch.equal(y, world * (x - 100 * rank) + 100 * world * (world - 1) / 2)) and y.device == x.device
+    box = [{"rank": rank}]
+    dist.broadcast_object_list(box, src=0)
+    out["broadcast_object_list"] = box[0] == {"rank": 0}
+    check(all(out.values()), f"a collective failed on cuda:0 over gloo: {out}")
+    return out
+
+
+def tp_gloo_rank(torch, cuda_rnn, train_dir, traj_path):
+    """Leg (a): one of the two ranks of a 1 x 2 mesh on cuda:0, `main` in float32: its rollout (the
+    model group steps all 1024 envs), then the train call on the one-rank trajectory, then one more
+    iteration under the profiler. Imports nothing of JAX."""
+    import torch.distributed as dist
+
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.parallel import multihost
+    from sample_factory_tpu_torch.runner.checkpoint import full_state_dict
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    multihost.init_distributed(backend="gloo")
+    probe = probe_collectives(torch)
+    _, runner = make_rl_runner(parse_custom_args(TP_MAIN + [f"--train_dir={train_dir}", "--device=gpu", "--seed=0", "--jax_distributed=True"]))
+    runner.init()
+    shard, ts, mesh = runner.sampler_state.shard, runner.train_state, runner.mesh
+    check(runner.device == torch.device("cuda", 0) and (shard.start, shard.stop) == (0, 1024), f"rank on {runner.device}, envs {shard}")
+    check(ts.tp is not None and ts.tp.dims == TP_MAIN_SHARDED, f"sharded leaves {None if ts.tp is None else ts.tp.dims}")
+    local = dict(ts.model.named_parameters())
+    for name, dim in TP_MAIN_SHARDED.items():
+        check(local[name].shape[dim] == 768 // 2, f"{name}: a shard of {tuple(local[name].shape)}")
+    whole = torch.load(traj_path, map_location=runner.device)
+    with CollectiveTraffic(dist) as traffic:
+        torch.cuda.synchronize()
+        traffic.label = "rollout"  # the runner's own: the shards gathered into the whole behaviour model, then the rollout
+        model = runner._update_behavior_model()
+        _, own, _ = runner._rollout_fn(model, ts.obs_rms, runner.sampler_state, ts.train_step, runner.policy_id)
+        torch.cuda.synchronize()
+        cuda_rnn.reset_launch_counts()
+        traffic.label = "train"
+        with launch_shapes(cuda_rnn) as shapes:
+            stats = runner._train_fn(ts, whole, runner.train_generator)
+            torch.cuda.synchronize()
+        counts, train_step = cuda_rnn.launch_counts(), ts.train_step
+        traffic.label = None
+    full = full_state_dict(ts)
+    params_path = os.path.join(train_dir, f"tp_rank{mesh.rank}.pt")
+    torch.save({"params": {k: v.cpu() for k, v in full["model"].items()}, "actions": own["actions"].cpu(),
+                "local": {k: v.detach().cpu() for k, v in ts.model.state_dict().items()}}, params_path)
+    adam = ts.optimizer.state_dict()["state"]
+    names = [name for name, _ in ts.model.named_parameters()]
+    moments_halved = all(adam[i]["exp_avg"].shape == local[n].shape for i, n in enumerate(names) if n in TP_MAIN_SHARDED)
+
+    def iteration():
+        runner._train_iteration()
+
+    wall_us, device_us, rnn_us, on_device, _ = profiled_device_time(torch, iteration)
+    return {"rank": mesh.rank, "model_index": mesh.model_index, "probe": probe, "launches": counts, "params": params_path,
+            "launch_shapes": sorted(set(shapes)),
+            "rollout_actions_equal_share": float((own["actions"] == whole["actions"]).float().mean()),
+            "stats": {k: float(stats[k]) for k in DP_STATS}, "train_step": train_step, "moments_halved": moments_halved,
+            "collectives": traffic.by_label,
+            "profiled_iteration": {"device_busy_ms": device_us / 1e3, "rnn_kernel_ms": rnn_us / 1e3, "wall_ms": wall_us / 1e3,
+                                   "device_activities": len(on_device)}}
+
+
+def tp_multichip_rank(torch, cuda_rnn, train_dir):
+    """Leg (b): one of four gloo ranks on cuda:0: the JAX package's multichip configuration for one
+    iteration on a 2 x 2 mesh, then on 4 x 1. Imports nothing of JAX."""
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.parallel import multihost
+    from sample_factory_tpu_torch.runner.checkpoint import full_state_dict
+    from sample_factory_tpu_torch.runner.runner import AlgoObserver
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    multihost.init_distributed(backend="gloo")
+    register_tp_multichip_env()
+    out = {"rank": multihost.process_index()}
+    for name, mesh_model in (("tp", 2), ("dp", 1)):
+        losses = []
+
+        class Losses(AlgoObserver):
+            def on_training_iteration(self, runner, stats):
+                losses.append(float(stats["loss"]))
+
+        _, runner = make_rl_runner(parse_custom_args(TP_MULTICHIP + [f"--mesh_model={mesh_model}", f"--train_dir={train_dir}",
+                                                                     f"--experiment=multichip_{name}"]))
+        runner.register_observer(Losses())
+        runner.init()
+        torch.cuda.synchronize()
+        cuda_rnn.reset_launch_counts()
+        with launch_shapes(cuda_rnn) as shapes:
+            check(runner.run() == 0, f"{name}: runner.run() failed")
+            torch.cuda.synchronize()
+        counts = cuda_rnn.launch_counts()
+        ts = runner.train_state
+        path = os.path.join(train_dir, f"multichip_{name}_rank{out['rank']}.pt")
+        torch.save({k: v.cpu() for k, v in full_state_dict(ts)["model"].items()}, path)
+        out[name] = {"losses": losses, "launches": counts, "launch_shapes": sorted(set(shapes)), "params": path, "env_steps": runner.env_steps,
+                     "sharded": sorted(ts.tp.dims) if ts.tp is not None else [],
+                     "mesh": [runner.mesh.data_index, runner.mesh.model_index], "episodes": runner.episode_stats.total_episodes}
+    return out
+
+
+def spawn_ranks(mode, args, env, out_paths):
+    """A gloo rank a path of `out_paths` on cuda:0 (LOCAL_RANK=0 in all), each `chip_smoke.py --dp-child mode out_path *args`."""
+    port, world = free_port(), len(out_paths)
+    procs = []
+    for rank, out_path in enumerate(out_paths):
+        rank_env = dict(env, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        cmd = [sys.executable, os.path.abspath(__file__), "--dp-child", mode, out_path, *args]
+        procs.append(subprocess.Popen(cmd, env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def collect_ranks(procs, out_paths, timeout=300):
+    results = []
+    try:
+        for proc, out_path in zip(procs, out_paths):
+            stdout, stderr = proc.communicate(timeout=timeout)
+            check(proc.returncode == 0, f"a gloo rank failed ({proc.returncode}):\n{stdout[-2000:]}\n{stderr[-4000:]}")
+            with open(out_path) as f:
+                results.append(json.load(f))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def phase_tp(torch, cuda_rnn, card, tmp):
+    """Tensor parallelism (`parallel/tensor_parallel.py`). (a) `main` in float32 on a 1 x 2 mesh of gloo
+    ranks on cuda:0 against one rank of 1024 envs: the probe of the collectives, the rollout's actions,
+    the parameters after one sync train call of 2 shuffled minibatches within TP_TOL, `gru_seq` on the
+    gathered `wh` once a minibatch on each rank, the collectives an iteration, and the device busy ms
+    of a profiled iteration beside the one rank's. (b) the JAX package's multichip configuration on a
+    2 x 2 mesh of four gloo ranks against 4 x 1: the row design (`gru_seq_rows`) on the gathered GRU-512."""
+    script = os.path.abspath(__file__)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(script) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("WORLD_SIZE", None)
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    start = time.perf_counter()
+    one_dir = os.path.join(tmp, "tp_one")
+    _, one = make_rl_runner(parse_custom_args(DP2 + [f"--train_dir={one_dir}", "--device=gpu", "--seed=0"]))
+    one.init()
+    ts = one.train_state
+    _, traj, _ = one._rollout_fn(ts.model, ts.obs_rms, one.sampler_state, ts.train_step, one.policy_id)
+    traj_path = os.path.join(tmp, "tp_trajectory.pt")
+    torch.save(traj, traj_path)
+    out_paths = [os.path.join(tmp, f"tp_rank{r}.json") for r in range(2)]
+    procs = spawn_ranks("tp_gloo", [os.path.join(tmp, "tp"), traj_path], env, out_paths)
+    full_precision(torch)
+    one_stats = one._train_fn(ts, traj, one.train_generator)  # meanwhile, the reference train call
+    one_stats = {k: float(one_stats[k]) for k in DP_STATS}
+    want = {k: v.detach().cpu().clone() for k, v in ts.model.state_dict().items()}  # before the profiled iteration trains on
+    ranks = collect_ranks(procs, out_paths)
+    wall_us, device_us, rnn_us, _, _ = profiled_device_time(torch, one._train_iteration)
+    got = [torch.load(r["params"]) for r in ranks]
+    diff = max(float((g["params"][k] - v).abs().max()) for g in got for k, v in want.items())
+    replicas_diff = {k: float((got[0]["local"][k] - got[1]["local"][k]).abs().max()) for k in want if k not in TP_MAIN_SHARDED}
+    replicated_equal = not any(replicas_diff.values())
+    shards_differ = all(not torch.equal(got[0]["local"][k], got[1]["local"][k]) for k in TP_MAIN_SHARDED)
+    stats_err = {k: max(abs(r["stats"][k] - v) / max(1.0, abs(v)) for r in ranks) for k, v in one_stats.items()}
+    shares = [r["rollout_actions_equal_share"] for r in ranks]
+    check(torch.equal(got[0]["actions"], got[1]["actions"]), "the 1 x 2 ranks' rollouts acted differently: their envs would part")
+    check(min(shares) >= TP_ACTIONS_EQUAL, f"the 1 x 2 ranks' rollout actions equal one rank's at {shares} < {TP_ACTIONS_EQUAL}")
+    rollout_calls = [{k: v["calls"] for k, v in r["collectives"]["rollout"].items()} for r in ranks]
+    check(rollout_calls == [{"all_gather": 1}] * 2, f"a rollout's collectives: {rollout_calls}, not the one gather of the shards")
+    check(diff <= TP_TOL, f"1 x 2 against one rank: max |param diff| {diff} > {TP_TOL}")
+    check(max(stats_err.values()) <= DP_STATS_TOL, f"1 x 2 ranks' train stats against one rank's: {stats_err} > {DP_STATS_TOL}")
+    check(replicated_equal and shards_differ, f"the model group's replicated leaves differ ({replicas_diff}), or its shards are equal")
+    check(all(r["moments_halved"] for r in ranks), "an Adam moment of a sharded leaf is not its shard's shape")
+    check(all(r["launches"]["gru_seq"] == 2 and r["launches"]["gru_seq_rows"] == 0 for r in ranks),
+          f"a rank did not launch the GRU kernel (cluster design) once a minibatch: {[r['launches'] for r in ranks]}")
+    check(all(r["launch_shapes"] == [["gru", 32, 512, 256]] for r in ranks), f"launch shapes {[r['launch_shapes'] for r in ranks]}")
+    check(all(r["train_step"] == 2 for r in ranks), "train steps differ")
+    emit({"phase": "tp", "leg": "main_float32_1x2_gloo_on_cuda0",
+          "config": "main (grid_battle, convnet_impala + Dense 256, GRU-256) in float32, 1024 envs, rollout 32, 1 sync train call of 2 "
+                    "shuffled minibatches of 16384, --tp_min_layer_width=512: the GRU's wi, wh, bi, bh sharded",
+          "probe": ranks[0]["probe"], "max_abs_param_diff": diff, "tol": TP_TOL, "stats_rel_err": stats_err,
+          "rollout_actions_equal_share": shares, "ranks_actions_equal": True, "gru_seq_by_rank": [r["launches"]["gru_seq"] for r in ranks],
+          "collectives_by_rank": [r["collectives"] for r in ranks],
+          "profiled_iteration_by_rank": [r["profiled_iteration"] for r in ranks],
+          "profiled_iteration_one_rank": {"device_busy_ms": device_us / 1e3, "rnn_kernel_ms": rnn_us / 1e3, "wall_ms": wall_us / 1e3},
+          "seconds": time.perf_counter() - start, "card": card})
+    del one
+
+    start_b = time.perf_counter()
+    out_paths = [os.path.join(tmp, f"tp_multichip_rank{r}.json") for r in range(4)]
+    procs = spawn_ranks("tp_multichip", [os.path.join(tmp, "tp_multichip")], env, out_paths)
+    ranks_b = collect_ranks(procs, out_paths)
+    params = {name: [torch.load(r[name]["params"]) for r in ranks_b] for name in ("tp", "dp")}
+    diff_b = max(float((g[k] - v).abs().max()) for g in params["tp"] for k, v in params["dp"][0].items())
+    losses = {name: ranks_b[0][name]["losses"] for name in ("tp", "dp")}
+    check([r["tp"]["mesh"] for r in ranks_b] == [[0, 0], [0, 1], [1, 0], [1, 1]], "the 2 x 2 layout")
+    check(all("core.gru_0.wh" in r["tp"]["sharded"] for r in ranks_b), f"wh not sharded: {ranks_b[0]['tp']['sharded']}")
+    check(all(len(r[name]["losses"]) == 1 and math.isfinite(r[name]["losses"][0]) for r in ranks_b for name in ("tp", "dp")), "losses")
+    check(math.isclose(losses["tp"][0], losses["dp"][0], rel_tol=2e-3, abs_tol=2e-4), f"2 x 2 loss against 4 x 1: {losses}")
+    check(diff_b <= 1e-5, f"2 x 2 against 4 x 1: max |param diff| {diff_b} > 1e-5")
+    # two contiguous minibatches of 64 rows: the first is data index 0's rows, the second data index 1's, and a
+    # rank launches the recurrence only on a minibatch it holds rows of
+    check(all(r["tp"]["launches"]["gru_seq_rows"] == 1 and r["tp"]["launches"]["gru_seq"] == 0 for r in ranks_b),
+          f"a 2 x 2 rank did not launch the GRU's row design on its minibatch: {[r['tp']['launches'] for r in ranks_b]}")
+    check(all(r["tp"]["launch_shapes"] == [["gru", *TP_MULTICHIP_GRU[:3]]] for r in ranks_b),
+          f"2 x 2 launch shapes {[r['tp']['launch_shapes'] for r in ranks_b]}, not {TP_MULTICHIP_GRU[:3]}")
+    check(all(r["tp"]["episodes"] == r["dp"]["episodes"] for r in ranks_b), "episode counts differ between the meshes")
+    emit({"phase": "tp", "leg": "jax_multichip_config_2x2_against_4x1",
+          "config": "__graft_entry__.py's dry run: convnet_atari + Dense 512, GRU-512 float32, 8 envs, rollout 16, batch 64, "
+                    "--tp_min_layer_width=256, one iteration",
+          "sharded": ranks_b[0]["tp"]["sharded"], "losses": losses, "max_abs_param_diff": diff_b, "tol": 1e-5,
+          "gru_seq_rows_by_rank": [r["tp"]["launches"]["gru_seq_rows"] for r in ranks_b],
+          "seconds": time.perf_counter() - start_b, "card": card})
+    counts = [r["launches"] for r in ranks] + [r["tp"]["launches"] for r in ranks_b]
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 # phase `dp_host`: (a) `host_rnn` in float32 with the quantized learner, two gloo ranks of 256 envs on cuda:0
@@ -2651,6 +2965,7 @@ def main() -> int:
         paths["appo"] = phase_appo(torch, cuda_rnn, card, tmp, runner, sync_rate)
         del runner
         paths["dp"], paths["dp2"] = phase_dp(torch, cuda_rnn, card, tmp)
+        paths["tp"] = phase_tp(torch, cuda_rnn, card, tmp)
         paths["ant"] = phase_ant(torch, cuda_rnn, card, tmp)
         paths["towers"] = phase_towers(torch, cuda_rnn, card, tmp)
         paths["population"] = phase_population(torch, cuda_rnn, card, tmp)

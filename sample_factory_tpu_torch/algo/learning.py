@@ -27,6 +27,15 @@ permutation drawn from the generator that every rank seeds alike (`select_miniba
 which the quantized learner calls too); a rank computes the loss over the rows of it that
 it holds, none included, and joins every collective. Shuffled minibatches take one more
 host sync an epoch on more than one rank, to split the permutation.
+
+Tensor parallelism (a mesh with a 'model' axis, `parallel/tensor_parallel.py`): the ranks of
+a model group hold the same rows and compute the same loss, each with its shards of the wide
+leaves. So every reduction above runs over the data group alone (a sum over the world would
+count each row M times), and so does the gradients' sum; the clip's norm counts a sharded
+leaf's squares over the model group once and a replicated leaf's once. The replicas' gradients
+of the replicated leaves, and the stats, are averaged over the model group: on the card the
+replicas' backward is not bit-identical (the encoder's weight gradients differ in the last bits
+between two processes fed the same inputs), and the replicas must not drift apart.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from sample_factory_tpu_torch.algo.sampling import _static_preprocess
 from sample_factory_tpu_torch.algo.schedules import lr_after_epoch, lr_after_minibatch
 from sample_factory_tpu_torch.envs.spaces import num_action_parameters
 from sample_factory_tpu_torch.parallel.multihost import all_reduce
+from sample_factory_tpu_torch.parallel.tensor_parallel import TPLayout
 
 PBT_HPARAMS = (
     "learning_rate",
@@ -98,6 +108,7 @@ class PolicyTrainState:
     curr_lr: float
     train_step: int  # policy version: one per SGD step
     hparams: Dict[str, float]
+    tp: Optional[TPLayout] = None  # the leaves sharded over the 'model' axis (`parallel/mesh.py:shard_train_state`)
 
     def state_dict(self) -> Dict[str, Any]:
         """Checkpoint payload: tensors, numbers and dicts only (loads with weights_only=True)."""
@@ -141,10 +152,12 @@ def init_train_state(cfg, env_info, model: nn.Module, device) -> PolicyTrainStat
 
 
 def _data_parallel(mesh):
-    """(all_sum, all_max, rank, world) of a data-parallel run; all_sum is None without a group."""
+    """(all_sum, all_max, data index, data shards) of a run under a process group, the
+    reductions over this rank's data group; all_sum is None without a group."""
     if mesh is None or not mesh.distributed:
         return None, None, 0, 1
-    return partial(all_reduce, op="sum"), partial(all_reduce, op="max"), mesh.rank, mesh.data
+    group = mesh.data_group
+    return partial(all_reduce, op="sum", group=group), partial(all_reduce, op="max", group=group), mesh.data_index, mesh.data
 
 
 def build_train_pieces(cfg, env_info, policy_id: int = 0, mesh=None):
@@ -275,7 +288,17 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0, mesh=None):
             maxed = all_max([aux[k] for k in MAXED_STATS] + [-aux["ratio_min"]])
             aux.update(zip(MAXED_STATS, maxed))
             aux["ratio_min"] = -maxed[-1]
-        grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        if ts.tp is None:
+            grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        else:
+            # the model group's replicas compute the same backward, but not bit for bit on the card: their
+            # mean keeps the replicated leaves, and every decision taken from the stats, equal on its ranks
+            dims, size = ts.tp.param_dims(model), ts.tp.axis.size
+            shared = [g for g, d in zip(grads, dims) if d is None]
+            means = all_reduce(shared + list(aux.values()), group=ts.tp.axis.group)
+            torch._foreach_copy_(shared, [m / size for m in means[: len(shared)]])
+            aux.update((k, m / size) for k, m in zip(list(aux), means[len(shared) :]))
+            grad_norm = ts.tp.global_sq_norm(grads, dims).sqrt()
         if cfg.max_grad_norm > 0.0:
             # manual clip so the bound can be a per-policy (PBT) value
             scale = (ts.hparams["max_grad_norm"] / (grad_norm + 1e-6)).clamp(max=1.0)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 
 class Lamb(torch.optim.Optimizer):
@@ -27,7 +28,13 @@ class Lamb(torch.optim.Optimizer):
     that the first update syncs, and the fast weights snap to them. The update
     count sits in the param group and the slow weights in the per-parameter
     state, so both travel in `state_dict()`.
+
+    Under tensor parallelism `model_shards` is (model axis, the split dim of each parameter or
+    None), set by `parallel/mesh.py:shard_train_state`: a sharded leaf's weight and step norms
+    are the whole leaf's, its squares summed over the model group in one all-reduce a step.
     """
+
+    model_shards = None
 
     def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-6, weight_decay=1e-4, min_trust=0.01,
                  lookahead=False, lookahead_k=10, lookahead_alpha=0.5):
@@ -50,7 +57,8 @@ class Lamb(torch.optim.Optimizer):
             bc1, sqrt_bc2 = 1.0 - b1**count, math.sqrt(1.0 - b2**count)
             min_trust = group["min_trust"]
             sync = group["lookahead"] and group["step"] % group["lookahead_k"] == 0
-            for p in group["params"]:
+            updates = []
+            for i, p in enumerate(group["params"]):
                 if p.grad is None:
                     continue
                 state = self.state[p]
@@ -59,8 +67,12 @@ class Lamb(torch.optim.Optimizer):
                 step = (mu / bc1) / (nu.sqrt() / sqrt_bc2 + group["eps"])
                 if group["weight_decay"] > 0:
                     step = step + group["weight_decay"] * p
+                updates.append((i, p, state, step))
+            if min_trust != 1.0:
+                norms = self._norms(updates)
+            for k, (_, p, state, step) in enumerate(updates):
                 if min_trust != 1.0:
-                    weight_norm, step_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(step)
+                    weight_norm, step_norm = norms[k]
                     trust = (weight_norm.clamp(max=10.0) / step_norm.clamp(min=1e-20)).clamp(min_trust, 1.0 / min_trust)
                     trust = torch.where((weight_norm == 0) | (step_norm == 0), torch.ones_like(trust), trust)
                     step = step * trust
@@ -69,6 +81,20 @@ class Lamb(torch.optim.Optimizer):
                     slow = state["slow"].lerp_(p, group["lookahead_alpha"])
                     p.copy_(slow)
             group["step"] = count
+
+    def _norms(self, updates):
+        """(weight norm, step norm) of each update's leaf, whole where the leaf is a shard."""
+        norms = [(torch.linalg.vector_norm(p), torch.linalg.vector_norm(step)) for _, p, _, step in updates]
+        if self.model_shards is None:
+            return norms
+        axis, dims = self.model_shards
+        sharded = [k for k, (i, *_) in enumerate(updates) if dims[i] is not None]
+        if sharded:
+            squares = torch.stack([torch.stack(norms[k]) for k in sharded]).square()
+            dist.all_reduce(squares, group=axis.group)
+            for k, whole in zip(sharded, squares.sqrt()):
+                norms[k] = (whole[0], whole[1])
+        return norms
 
 
 def make_optimizer(cfg, params) -> torch.optim.Optimizer:

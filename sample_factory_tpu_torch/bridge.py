@@ -24,6 +24,10 @@ Module names follow flax's: `Conv_i` -> `conv.i`, `Dense_i` -> `dense.i`,
 separate model's `actor_encoder` and `critic_encoder`), and the action head's
 `Dense_0` -> `distribution_linear`; its `learned_stddev` keeps its name.
 
+The unit of exchange is the whole `state_dict`, also under tensor parallelism: a model sharded
+over the 'model' axis is gathered first (`runner/checkpoint.py:full_state_dict`), and
+`restore_from_jax_checkpoint` keeps each rank's shards of what the bridge maps.
+
 `load_jax_checkpoint` reads a checkpoint file of the JAX package
 (`checkpoint_<train_step>_<env_steps>.msgpack`, written by
 `flax.serialization.to_bytes`) without flax or the msgpack package: `unpack_msgpack`

@@ -15,6 +15,7 @@ from torch import nn
 
 from sample_factory_tpu_torch.envs.spaces import num_action_parameters
 from sample_factory_tpu_torch.models.model_utils import Dense
+from sample_factory_tpu_torch.parallel.tensor_parallel import full_param
 
 
 class ActionParameterizationDefault(nn.Module):
@@ -29,6 +30,8 @@ class ActionParameterizationDefault(nn.Module):
 class ActionParameterizationContinuousNonAdaptiveStddev(nn.Module):
     """Means from the net; the log-stddev is one learned vector, the same in every state."""
 
+    takes_model_shards = "gathered"
+
     def __init__(self, cfg, input_size: int, action_space, dtype=torch.float32):
         super().__init__()
         d = num_action_parameters(action_space) // 2
@@ -40,4 +43,4 @@ class ActionParameterizationContinuousNonAdaptiveStddev(nn.Module):
         means = self.distribution_linear(core_output).float()
         if self.tanh_scale > 0:
             means = torch.tanh(means / self.tanh_scale) * self.tanh_scale
-        return torch.cat([means, self.learned_stddev.expand_as(means)], dim=-1)
+        return torch.cat([means, full_param(self, "learned_stddev").expand_as(means)], dim=-1)

@@ -5,6 +5,11 @@ Counterpart of `sample_factory_tpu/models/model_utils.py` (reference
 `model/actor_critic.py:73-96`). Layers keep float32 parameters and cast them,
 with their input, to the compute dtype in the forward, as flax's `dtype=`
 does; `--compute_dtype=bfloat16` therefore changes no stored parameter.
+
+Under tensor parallelism (`parallel/mesh.py:shard_params_tp`) a wide `Dense` or `Conv`
+holds its share of the output features, rows of the weight and of the bias, and runs
+column-parallel: `gather_from_model(layer(copy_to_model(x)))`, the whole output on every
+rank of the model group.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sample_factory_tpu_torch.parallel.tensor_parallel import copy_to_model, gather_from_model
 
 
 def nonlinearity(cfg) -> Callable:
@@ -57,6 +64,9 @@ def default_compute_dtype(cfg) -> torch.dtype:
 class Dense(nn.Module):
     """Linear layer with float32 params computed in `dtype` (flax `nn.Dense(dtype=...)`)."""
 
+    takes_model_shards = "columns"
+    model_axis = None  # set by shard_params_tp: this layer holds its rank's output features
+
     def __init__(self, in_features: int, out_features: int, cfg=None, dtype=torch.float32):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
@@ -70,7 +80,10 @@ class Dense(nn.Module):
 
     def forward(self, x):
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.model_axis is None:
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        y = F.linear(copy_to_model(x, self.model_axis).to(dt), self.weight.to(dt), self.bias.to(dt))
+        return gather_from_model(y, -1, self.model_axis)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -94,6 +107,9 @@ class Conv(nn.Module):
     stride above 1 (`nn.Conv2d` pads both sides alike and refuses "same" at a stride above
     1); for an odd kernel at stride 1 it is the conv's own `kernel // 2` on both sides."""
 
+    takes_model_shards = "columns"
+    model_axis = None  # set by shard_params_tp: this layer holds its rank's output channels
+
     def __init__(self, in_channels: int, out_channels: int, kernel: int, stride: int, cfg=None, dtype=torch.float32,
                  padding: str = "valid"):
         super().__init__()
@@ -113,7 +129,11 @@ class Conv(nn.Module):
         dt = self.dtype
         if self.pad_same:
             x = pad_same(x, self.kernel, self.stride)
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=self.stride, padding=self.padding)
+        if self.model_axis is None:
+            return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=self.stride, padding=self.padding)
+        x = copy_to_model(x, self.model_axis)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride=self.stride, padding=self.padding)
+        return gather_from_model(y, 1, self.model_axis)
 
 
 def init_parameters_(model: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:

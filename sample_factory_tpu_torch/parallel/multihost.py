@@ -12,7 +12,7 @@ process group, and calls no `torch.distributed` collective then.
 have no counterpart: they move between JAX's global arrays and process-local ones, and
 here each rank holds only its local shard to begin with.
 
-What the runners call: `all_reduce` (the learner's global sums and maxima, and the
+What the runners call: `all_reduce` (the learner's sums and maxima over the data group, and the
 iteration's one reduce of the episode sums with the stop, `runner/runner.py:_reduce_across_ranks`,
 for the device-env and the host runners alike), `agree_on_stop` (before the first iteration),
 `broadcast_objectives` (PBT), `is_primary_host` (the writes) and `sync_barrier`; the host
@@ -96,14 +96,15 @@ def _reduce_op(op: str):
     return {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
 
-def all_reduce(tensors: Sequence[torch.Tensor], op: str = "sum", dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+def all_reduce(tensors: Sequence[torch.Tensor], op: str = "sum", dtype: torch.dtype = torch.float32,
+               group=None) -> List[torch.Tensor]:
     """One collective over several tensors of one device: they are packed into one buffer of
-    `dtype`, reduced (`sum` or `max`) and handed back in their shapes and dtypes. Without a
-    group they come back as they are."""
+    `dtype`, reduced (`sum` or `max`) over `group` (None: the world) and handed back in their
+    shapes and dtypes. Without a process group they come back as they are."""
     if not has_group():
         return list(tensors)
     flat = torch.cat([t.detach().reshape(-1).to(dtype) for t in tensors])
-    dist.all_reduce(flat, op=_reduce_op(op))
+    dist.all_reduce(flat, op=_reduce_op(op), group=group)
     out, offset = [], 0
     for t in tensors:
         out.append(flat[offset : offset + t.numel()].reshape(t.shape).to(t.dtype))

@@ -8,6 +8,11 @@ holds the model, the optimizer, the normalizers and the learning rate.
 `restore_from_jax_checkpoint` takes a train state from a checkpoint file of the
 JAX package instead (the parameters and normalizers; not the optimizer state);
 `load_checkpoint` calls it for a `.msgpack` file found in the directory.
+
+A file always holds the whole train state. Under tensor parallelism the runner gathers the
+shards before a save (`full_state_dict`, on every rank of the model group), and a load keeps
+this rank's shards of what it reads; so a checkpoint resumes, plays back and exports at any
+`--mesh_model`.
 """
 
 from __future__ import annotations
@@ -42,6 +47,18 @@ def best_checkpoint(ckpt_dir: str) -> Optional[str]:
     return ckpts[-1] if ckpts else None
 
 
+def full_state_dict(train_state):
+    """The whole train state: this rank's own, or, where it is sharded over the 'model' axis, its
+    shards gathered over the model group (a collective: every rank of the group calls it)."""
+    state = train_state.state_dict()
+    return state if train_state.tp is None else train_state.tp.gather_state(state, train_state.model)
+
+
+def _local_state(train_state, state):
+    """This rank's part of a whole train state."""
+    return state if train_state.tp is None else train_state.tp.slice_state(state, train_state.model)
+
+
 def save_checkpoint(
     cfg,
     policy_id: int,
@@ -50,9 +67,11 @@ def save_checkpoint(
     best_performance: float,
     is_best: bool = False,
     milestone: bool = False,
+    state=None,
 ) -> str:
+    """Write `state`, the whole train state (`full_state_dict`), or `train_state`'s own where none is given."""
     payload = {
-        "train_state": train_state.state_dict(),
+        "train_state": train_state.state_dict() if state is None else state,
         "env_steps": env_steps,
         "best_performance": best_performance,
         "train_step": train_state.train_step,
@@ -101,7 +120,7 @@ def load_checkpoint(cfg, policy_id: int, train_state) -> Optional[Tuple[int, flo
             if path.endswith(".msgpack"):
                 return restore_from_jax_checkpoint(train_state, path)
             payload = torch.load(path, map_location=device, weights_only=True)
-            train_state.load_state_dict(payload["train_state"])
+            train_state.load_state_dict(_local_state(train_state, payload["train_state"]))
             log.info("Loaded checkpoint %s (env_steps=%d)", basename(path), payload["env_steps"])
             return int(payload["env_steps"]), float(payload["best_performance"])
         except Exception as e:  # noqa: BLE001 - a file being written or synced; retried, then raised below
@@ -119,7 +138,10 @@ def restore_from_jax_checkpoint(train_state, path: str) -> Tuple[int, float]:
     from sample_factory_tpu_torch import bridge
 
     ckpt = bridge.load_jax_checkpoint(path)
-    bridge.load_flax_params(train_state.model, ckpt["params"])
+    params = bridge.flax_to_state_dict(ckpt["params"], train_state.model)
+    if train_state.tp is not None:
+        params = train_state.tp.slice_state({"model": params, "optimizer": {"state": {}}}, train_state.model)["model"]
+    train_state.model.load_state_dict(params, strict=True)
 
     def as_tensors(fields):
         return {k: torch.tensor(np.array(fields[k], dtype=np.float32)) for k in ("running_mean", "running_var", "count")}

@@ -87,6 +87,8 @@ class _QuantaPacer:
 
 
 class HostEnvRunner(Runner):
+    shards_params = False  # the JAX host runner only replicates on its mesh: --mesh_model > 1 is refused (train.py)
+
     def __init__(self, cfg, register_fn: Optional[Callable] = None):
         super().__init__(cfg)
         self.register_fn = register_fn

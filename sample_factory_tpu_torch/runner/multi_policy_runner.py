@@ -54,6 +54,7 @@ from sample_factory_tpu_torch.utils.utils import done_filename, log
 
 class MultiPolicyRunner(Runner):
     shards_envs = False  # every rank runs the whole population
+    shards_params = False  # the JAX population runner builds no mesh: --mesh_model > 1 is refused (train.py)
 
     def __init__(self, cfg):
         super().__init__(cfg)

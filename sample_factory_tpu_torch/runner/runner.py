@@ -22,6 +22,17 @@ what one rank with N envs computes (runner.py:147-180). Every iteration one all-
 sums the episode stats and agrees on the stop, so that every rank runs the same
 iterations: the JAX runner reads each process's own clock (ROADMAP C). Only rank 0
 writes checkpoints and summaries; every rank loads the same checkpoint on resume.
+
+Tensor parallelism (`--mesh_model=M > 1`, this runner alone): the ranks of a model group step
+the same envs (their data index picks them) and share one replica of the train state, each
+holding its shards of the wide leaves, cut from the whole state after init and resume
+(`shard_train_state`). The rollout acts with a whole copy of the parameters, gathered once a
+rollout, in either regime. Every rank of a model group gathers the shards before a save, so
+the saves must fall on the same iterations everywhere: their timers' verdicts join the
+iteration's all-reduce, as the stop does. The model group's first rank alone contributes the
+episode sums to it: the others stepped the same episodes. And each rank puts in a checksum of
+its rollouts' actions: should two ranks of a model group ever act differently, their envs
+would part for good, so the run stops there with an error.
 """
 
 from __future__ import annotations
@@ -40,9 +51,9 @@ from sample_factory_tpu_torch.envs.device_env import DeviceEnv
 from sample_factory_tpu_torch.envs.env_info import EnvInfo, extract_env_info
 from sample_factory_tpu_torch.envs.env_utils import create_env
 from sample_factory_tpu_torch.models.actor_critic import create_actor_critic
-from sample_factory_tpu_torch.parallel.mesh import make_mesh, replicate_tree, shard_env_axis
+from sample_factory_tpu_torch.parallel.mesh import make_mesh, replicate_tree, shard_env_axis, shard_train_state
 from sample_factory_tpu_torch.parallel.multihost import agree_on_stop, all_reduce, broadcast_from_primary, is_primary_host, sync_barrier
-from sample_factory_tpu_torch.runner.checkpoint import load_checkpoint, save_checkpoint
+from sample_factory_tpu_torch.runner.checkpoint import full_state_dict, load_checkpoint, save_checkpoint
 from sample_factory_tpu_torch.runner.stats import EpisodeStats, FpsTracker, SummaryWriter
 from sample_factory_tpu_torch.utils.timing import Timing
 from sample_factory_tpu_torch.utils.utils import (
@@ -54,6 +65,7 @@ from sample_factory_tpu_torch.utils.utils import (
 )
 from sample_factory_tpu_torch.utils.wandb_utils import finish_wandb, init_wandb
 
+ACTIONS_CHECKSUM_PRIME = 9973  # `_tally_actions` weighs the action at place i by 1 + i mod this
 PROFILED_ITERATIONS = 12
 EPISODIC_KEYS = ("count", "return_sum", "len_sum")
 
@@ -78,6 +90,9 @@ class Runner:
     """Single-policy, on-device-env training runner: one device, or one rank of a data-parallel run."""
 
     shards_envs = True  # under a process group each rank steps its own envs
+    # tensor parallelism (--mesh_model > 1): this runner only, as in the JAX package
+    # (runner/runner.py:176-180); its host and population runners replicate on their mesh
+    shards_params = True
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -122,6 +137,8 @@ class Runner:
         self._start_time = None
         self._stop_requested = False
         self._agreed_stop = None  # under a process group: the stop the ranks agreed on last iteration
+        self._agreed_writes = None  # under tensor parallelism: the saves the ranks agreed on this iteration
+        self._actions_checksum = 0.0  # under tensor parallelism: of this iteration's rollouts, see `_tally_actions`
         self._pending_host_sums = None  # host runners under a group: the last iteration's reduce, read one iteration late
 
     # ------------------------------------------------------------------ init
@@ -132,6 +149,9 @@ class Runner:
         process group rank 0 alone clears, records and reports the experiment."""
         cfg = self.cfg
         self.mesh = make_mesh(cfg)
+        if self.mesh.distributed:
+            # a seed drawn from the OS (no --seed) differs between the processes: every rank takes rank 0's
+            cfg.seed = broadcast_from_primary(cfg.seed)
         primary = is_primary_host()
         sync_barrier("config_read")  # every rank has read the saved config (make_rl_runner) before rank 0 rewrites it
         if primary:
@@ -179,6 +199,7 @@ class Runner:
             self.env_steps, self.best_performance = restored
         replicate_tree(self.train_state, self.mesh)
         self.env_steps, self.best_performance = broadcast_from_primary((self.env_steps, self.best_performance))
+        shard_train_state(self.train_state, self.mesh, cfg.tp_min_layer_width)
 
         self._rollout_fn = make_rollout_fn(cfg, env, self.env_info)
         self._train_fn = make_train_fn(cfg, self.env_info, self.policy_id, self.mesh)
@@ -187,7 +208,9 @@ class Runner:
             if fused > 1:
                 log.warning("--fused_iterations>1 requires sync mode (async policy lag assumes K=1); using 1")
                 fused = 1
-            self.behavior_model = copy.deepcopy(self.model).requires_grad_(False)
+        tp = self.train_state.tp
+        if cfg.async_rl or tp is not None:
+            self.behavior_model = copy.deepcopy(self.model).requires_grad_(False) if tp is None else tp.whole_model(self.model)
             self.behavior_version = self.train_state.train_step
         self._fused_iterations = fused
         for obs in self.observers:
@@ -199,7 +222,9 @@ class Runner:
         ts, ss = self.train_state, self.sampler_state
         ep_total = None
         for _ in range(self._fused_iterations):
-            ss, traj, ep_stats = self._rollout_fn(ts.model, ts.obs_rms, ss, ts.train_step, self.policy_id)
+            model = ts.model if ts.tp is None else self._update_behavior_model()
+            ss, traj, ep_stats = self._rollout_fn(model, ts.obs_rms, ss, ts.train_step, self.policy_id)
+            self._tally_actions(traj)
             stats = self._train_fn(ts, traj, self.train_generator)
             ep_total = ep_stats if ep_total is None else {k: ep_total[k] + v for k, v in ep_stats.items()}
         self.sampler_state = ss
@@ -212,11 +237,31 @@ class Runner:
         self.sampler_state, traj, ep_stats = self._rollout_fn(
             self.behavior_model, ts.obs_rms, self.sampler_state, self.behavior_version, self.policy_id
         )
+        self._tally_actions(traj)
         stats = self._train_fn(ts, traj, self.train_generator)
-        with torch.no_grad():
-            torch._foreach_copy_(list(self.behavior_model.parameters()), list(ts.model.parameters()))
+        self._update_behavior_model()
         self.behavior_version = ts.train_step
         return stats, ep_stats
+
+    def _update_behavior_model(self):
+        """The behaviour module from the live parameters; returns it. Under tensor parallelism it
+        holds them whole: one all-gather of the shards, after which a rollout makes no collective."""
+        ts = self.train_state
+        if ts.tp is not None:
+            ts.tp.gather_into(self.behavior_model, ts.model)
+        else:
+            with torch.no_grad():
+                torch._foreach_copy_(list(self.behavior_model.parameters()), list(ts.model.parameters()))
+        return self.behavior_model
+
+    def _tally_actions(self, traj) -> None:
+        """On a mesh with a model axis: add a checksum of the rollout's actions (each weighted by
+        its place, so that a swap shows) to the iteration's, which `_process_stats` holds equal
+        across each model group."""
+        if self.mesh.model > 1:
+            actions = traj["actions"].reshape(-1).double()
+            place = torch.arange(actions.numel(), device=actions.device, dtype=torch.float64).remainder_(ACTIONS_CHECKSUM_PRIME)
+            self._actions_checksum = self._actions_checksum + (actions * (place + 1)).sum()
 
     # ------------------------------------------------------------------- run
 
@@ -380,7 +425,22 @@ class Runner:
     def _process_stats(self, stats: Dict[str, Any], ep_stats: Dict[str, Any]) -> None:
         if self.mesh.distributed:
             keys = EPISODIC_KEYS if self.shards_envs else ()
-            sums, self._agreed_stop = self._reduce_across_ranks([ep_stats[k] for k in keys])
+            sums = [ep_stats[k] for k in keys]
+            if self.mesh.model > 1:
+                # one rank of each model group counts its episodes; the saves' timers and each rank's
+                # checksum of its actions (in its own slot) join the reduce
+                sums = [v if self.mesh.model_index == 0 else torch.zeros_like(v) for v in sums]
+                sums.append(torch.tensor(self._writes_due(time.time()), dtype=torch.float32).to(self.device))
+                checksums = torch.zeros(self.mesh.world, device=self.device)
+                checksums[self.mesh.rank] = self._actions_checksum
+                sums.append(checksums)
+                self._actions_checksum = 0.0
+            sums, self._agreed_stop = self._reduce_across_ranks(sums)
+            if self.mesh.model > 1:
+                checksums, writes = sums.pop(), sums.pop()
+                host = torch.cat([writes, checksums]).tolist()
+                self._agreed_writes = tuple(v > 0 for v in host[:3])
+                self._check_model_groups_agree(host[3:])
             ep_stats = {**ep_stats, **dict(zip(keys, sums))}
         self.fps_tracker.add(time.time(), self.env_steps)
         self._pending_ep.append(ep_stats)
@@ -398,19 +458,38 @@ class Runner:
         for count, return_sum, len_sum in host:
             self.episode_stats.add_rollout_stats(count, return_sum, len_sum)
 
+    def _check_model_groups_agree(self, checksums: List[float]) -> None:
+        """Raise, on every rank alike, where the ranks of a model group acted differently."""
+        model = self.mesh.model
+        for d in range(self.mesh.data):
+            group = checksums[d * model : (d + 1) * model]
+            if len(set(group)) > 1:
+                raise RuntimeError(
+                    f"the ranks of model group {d} (ranks {d * model}-{(d + 1) * model - 1}) sampled different actions "
+                    f"(checksums {group}): their envs have parted, and tensor parallelism needs them to step alike"
+                )
+
+    def _writes_due(self, now: float):
+        """(checkpoint, milestone, best check) due by this rank's clock."""
+        cfg = self.cfg
+        return (now - self._last_checkpoint >= cfg.save_every_sec,
+                cfg.save_milestones_sec > 0 and now - self._last_milestone >= cfg.save_milestones_sec,
+                now - self._last_best_check >= cfg.save_best_every_sec)
+
     def _periodic_tasks(self, stats) -> None:
         cfg = self.cfg
         now = time.time()
         if now - self._last_report >= cfg.experiment_summaries_interval:
             self._report(stats)
             self._last_report = now
-        if now - self._last_checkpoint >= cfg.save_every_sec:
+        checkpoint, milestone, best = self._writes_due(now) if self._agreed_writes is None else self._agreed_writes
+        if checkpoint:
             self._save()
             self._last_checkpoint = now
-        if cfg.save_milestones_sec > 0 and now - self._last_milestone >= cfg.save_milestones_sec:
+        if milestone:
             self._save(milestone=True)
             self._last_milestone = now
-        if now - self._last_best_check >= cfg.save_best_every_sec:
+        if best:
             self._maybe_save_best()
             self._last_best_check = now
 
@@ -447,25 +526,30 @@ class Runner:
         self.writer.flush()
 
     def _save(self, is_final: bool = False, milestone: bool = False) -> None:
+        state = full_state_dict(self.train_state)  # on every rank: under tensor parallelism a gather
         if not is_primary_host():
             return  # a shared file system: rank 0 writes for every rank
         with self.timing.add_time("save"):
             save_checkpoint(
-                self.cfg, self.policy_id, self.train_state, self.env_steps, self.best_performance, milestone=milestone
+                self.cfg, self.policy_id, self.train_state, self.env_steps, self.best_performance, milestone=milestone,
+                state=state,
             )
         if is_final:
             with open(done_filename(self.cfg), "w") as f:
                 f.write(str(self.env_steps))
 
     def _maybe_save_best(self) -> None:
+        """On every rank: the episode stats are the global ones everywhere, so the ranks agree on
+        the verdict, and under tensor parallelism each joins the gather."""
         self._drain_ep_stats()
-        if not is_primary_host():
-            return
         metric = self.episode_stats.avg_reward
         if metric is None or self.env_steps < self.cfg.save_best_after:
             return
         if metric - self.best_performance > 1e-9:
             self.best_performance = metric
-            save_checkpoint(
-                self.cfg, self.policy_id, self.train_state, self.env_steps, self.best_performance, is_best=True
-            )
+            state = full_state_dict(self.train_state)
+            if is_primary_host():
+                save_checkpoint(
+                    self.cfg, self.policy_id, self.train_state, self.env_steps, self.best_performance, is_best=True,
+                    state=state,
+                )

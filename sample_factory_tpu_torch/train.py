@@ -10,12 +10,14 @@ async, the default); `--num_policies > 1` or a multi-agent env goes to
 `--jax_distributed=True` joins the process group that `python -m torch.distributed.run`
 describes (`parallel/multihost.py`); all four runners run under it, the host runners
 with each rank's own samplers feeding one data-parallel learner. A 'model' mesh axis
-above 1 (tensor parallelism, ROADMAP A13c) raises NotImplementedError. A launcher's world
+above 1 (tensor parallelism, `--mesh_model=M`) runs on the single-policy device-env `Runner`,
+as in the JAX package; the host and population runners refuse it, since the JAX package
+shards nothing there. A mesh that does not cover the processes raises. A launcher's world
 of more than one process without the flag raises, so that R copies never train unaware
 of each other.
 
     python -m torch.distributed.run --nproc_per_node=R -m sample_factory_tpu_torch.train \\
-        --env=grid_battle ... --jax_distributed=True
+        --env=grid_battle ... --jax_distributed=True [--mesh_model=M]
     python -m torch.distributed.run --nproc_per_node=R -m sample_factory_tpu_torch.examples.train_gym_env \\
         --env=CartPole-v1 ... --jax_distributed=True
 """
@@ -48,11 +50,6 @@ def make_rl_runner(cfg, register_fn=None):
             f"WORLD_SIZE={os.environ['WORLD_SIZE']}: a launcher started several processes, but without "
             "--jax_distributed=True each would train alone; pass the flag"
         )
-    if cfg.mesh_model > 1:
-        raise NotImplementedError(
-            f"--mesh_model={cfg.mesh_model}: tensor parallelism is not ported yet (ROADMAP A13c)"
-        )
-    mesh_axes(cfg, world_size())  # raises where --mesh_data/--mesh_model do not cover the processes
 
     from sample_factory_tpu_torch.envs.env_info import obtain_env_info
 
@@ -62,19 +59,31 @@ def make_rl_runner(cfg, register_fn=None):
         # total_num_agents (rl_utils.py:28-33)
         cfg.num_envs = cfg.num_workers * cfg.num_envs_per_worker * env_info.num_agents
     verify_cfg(cfg)
+    runner = _make_runner(cfg, env_info, register_fn)
+    if cfg.mesh_model > 1 and not runner.shards_params:
+        raise NotImplementedError(
+            f"--mesh_model={cfg.mesh_model}: {type(runner).__name__} does not shard parameters over the 'model' axis, "
+            "as the JAX package's does not (it only replicates them on its mesh); tensor parallelism runs on the "
+            "single-policy device-env Runner"
+        )
+    mesh_axes(cfg, world_size())  # raises where --mesh_data/--mesh_model do not cover the processes
+    return cfg, runner
+
+
+def _make_runner(cfg, env_info, register_fn):
     if env_info.is_device_env:
         if cfg.num_policies > 1 or env_info.num_agents > 1:
             from sample_factory_tpu_torch.runner.multi_policy_runner import MultiPolicyRunner
 
-            return cfg, MultiPolicyRunner(cfg)
-        return cfg, Runner(cfg)
+            return MultiPolicyRunner(cfg)
+        return Runner(cfg)
     if cfg.num_policies > 1:
         from sample_factory_tpu_torch.runner.host_multi_policy_runner import HostMultiPolicyRunner
 
-        return cfg, HostMultiPolicyRunner(cfg, register_fn=register_fn)
+        return HostMultiPolicyRunner(cfg, register_fn=register_fn)
     from sample_factory_tpu_torch.runner.host_runner import HostEnvRunner
 
-    return cfg, HostEnvRunner(cfg, register_fn=register_fn)
+    return HostEnvRunner(cfg, register_fn=register_fn)
 
 
 def run_rl(cfg, register_fn=None) -> int:

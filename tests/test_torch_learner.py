@@ -316,15 +316,15 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
     for extra, want in ((["--serial_mode=True"], "HostEnvRunner"), (["--serial_mode=True", "--num_policies=2"], "HostMultiPolicyRunner")):
         _, runner = make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64) + ["--env=a_host_env", "--use_rnn=False"] + extra))
         assert type(runner).__name__ == want
-    # data parallelism on the device-env path is ported (tests/test_torch_multihost.py); what is not is
-    # refused, never run on one device: tensor parallelism (A13c), a mesh that does not cover the
-    # processes, a run that asks for a process group without the launcher's environment, and a
-    # launcher's world without the flag
+    # data and tensor parallelism on the device-env path are ported (tests/test_torch_multihost.py,
+    # tests/test_torch_tensor_parallel.py); what cannot run is refused, never run on one device: a mesh
+    # that does not cover the processes (a model axis of 2 on one process included), a run that asks
+    # for a process group without the launcher's environment, and a launcher's world without the flag
     for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
         monkeypatch.delenv(name, raising=False)
     for extra, error, match in (
-        (["--mesh_model=2"], NotImplementedError, "A13c"),
-        (["--mesh_data=4", "--mesh_model=2"], NotImplementedError, "A13c"),
+        (["--mesh_model=2"], ValueError, "mesh 0x2 does not cover 1 devices"),
+        (["--mesh_data=4", "--mesh_model=2"], ValueError, "mesh 4x2 does not cover 1 devices"),
         (["--mesh_data=2"], ValueError, "mesh 2x1 does not cover 1 devices"),
         (["--jax_distributed=True"], RuntimeError, "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT not set"),
     ):
@@ -333,8 +333,9 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="without --jax_distributed=True each would train alone"):
         make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 64)))
-    # the host runners under a process group (A13b, tests/test_torch_multihost_hostenv.py) are ported, tensor
-    # parallelism is refused there too: a world of one, left before the test ends
+    # the host runners under a process group (A13b, tests/test_torch_multihost_hostenv.py) are ported; tensor
+    # parallelism is refused there, as the JAX package shards nothing on them: a world of one, left before
+    # the test ends
     monkeypatch.setenv("WORLD_SIZE", "1")
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
@@ -346,7 +347,7 @@ def test_unported_branches_raise(tmp_path, monkeypatch):
         for extra, want in (([], "HostEnvRunner"), (["--num_policies=2"], "HostMultiPolicyRunner")):
             assert type(make_rl_runner(parse_custom_args(host_dp + extra))[1]).__name__ == want
         assert torch.distributed.is_initialized()
-        with pytest.raises(NotImplementedError, match="A13c"):
+        with pytest.raises(NotImplementedError, match="HostEnvRunner does not shard parameters over the 'model' axis"):
             make_rl_runner(parse_custom_args(host_dp + ["--mesh_model=2"]))
     finally:
         shutdown()

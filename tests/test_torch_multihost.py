@@ -563,8 +563,16 @@ def test_mesh_layout_and_refusals(monkeypatch):
     assert (shard.start, shard.stop, shard.total, shard.size) == (512, 1024, 1024, 512)
     with pytest.raises(ValueError, match="divide over 2"):
         mesh_module.shard_env_axis(two, 1023)
-    with pytest.raises(NotImplementedError, match="A13c"):
-        mesh_module.shard_params_tp({}, two)
+    # without a model axis nothing is sharded
+    model = torch.nn.Linear(1024, 1024)
+    assert mesh_module.shard_params_tp(model, two) is None and model.weight.shape == (1024, 1024)
+    # a 2 x 2 mesh: rank r at data index r // 2 and model index r % 2, the envs by data index
+    layout = []
+    for rank in range(4):
+        m = mesh_module.Mesh(world=4, rank=rank, data=2, model=2, device=torch.device("cpu"), distributed=True)
+        shard = mesh_module.shard_env_axis(m, 1024)
+        layout.append((m.data_index, m.model_index, m.model_axis.index, m.model_axis.size, shard.start, shard.stop))
+    assert layout == [(0, 0, 0, 2, 0, 512), (0, 1, 1, 2, 0, 512), (1, 0, 0, 2, 512, 1024), (1, 1, 1, 2, 512, 1024)]
     for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(name, raising=False)
     with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT not set"):
