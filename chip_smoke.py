@@ -7,13 +7,13 @@ Phases, each printing one JSON line:
   build     compile the hand-written kernels (csrc/rnn_seq.cu, sm_90a) from the checkout
   parity    each kernel against its plain PyTorch version on the card, forward and
             gradient, float32 and bfloat16, at the main-path shape, the default width
-            and odd shapes; both designs of the launch plan (cluster and rows) run; then the
+            and odd shapes; every design of the launch plan (cluster, grid and rows) runs; then the
             doom, dmlab, nethack, isaacgym and dp_host paths' shapes in float32, each asserting the design its
-            plan picks (LSTM-512 at (32, 32, 512), (32, 24, 512) and (16, 2048, 512): rows; dp_host's
+            plan picks (LSTM-512 at (32, 32, 512), (32, 24, 512) and (16, 2048, 512): grid; dp_host's
             GRU-256 at 37, 128, 131 and 255 segments: clusters of 8)
   timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
             nethack, isaacgym and dp_host paths' shapes, warm and with L2 flushed, beside the first design (rows) at the
-            same shapes; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a
+            same shapes, in turns in one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a
             yardstick
   main      sync PPO on grid_battle at full width (IMPALA conv, GRU-256, bf16,
             1024 envs, rollout 32) for 3 iterations through `run_rl`'s runner
@@ -109,19 +109,19 @@ Phases, each printing one JSON line:
             float32, batch 1024, rollout 32, async with the quantized learner; 12 workers x 2 envs, cut to one
             worker a core keeping the 24 envs) over the env-level stand-in of tests/standins/ (the card's
             machine has neither gymnasium nor nle): ChaoticDwarvenGPT5 over the 108x108x2 screen image for 4
-            iterations, then ScaledNet (h_dim 1738, the crop branch, GroupNorm) for 2; `lstm_seq_rows` once a
+            iterations, then ScaledNet (h_dim 1738, the crop branch, GroupNorm) for 2; `lstm_seq_grid` once a
             train step at (32, 24, 512) (a train step takes one rollout: 768 samples), the extra stats
   isaacgym  `examples/isaacgym_examples/train_isaacgym.py` at its per-task defaults (serial, sync) over the
             stand-ins of isaacgym, isaacgymenvs and hydra in tests/standins/ (a batched torch sim on cuda:0):
             Ant (MLP 256-128-64, 4096 sim agents) for 4 iterations, AllegroHandLSTM (sim states, LSTM-512
-            float32, 16384 sim agents) for 2, `lstm_seq_rows` 8 an epoch at (16, 2048, 512); the host's
+            float32, 16384 sim agents) for 2, `lstm_seq_grid` 8 an epoch at (16, 2048, 512); the host's
             time converting the sim's tensors a step
   sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
             the synthetic env on the card for 200,000 env steps
 Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two legs of `dp`), `tp` (both legs' tensor-parallel
-runs) and `dp_host` included, and per design: cluster, `*_seq`, and rows,
-`*_seq_rows`; the LSTM's row design also by site: the NetHack and AllegroHandLSTM learners), the card's
-name and power limit, and the result line.
+runs) and `dp_host` included, and per design: cluster, `*_seq`, grid, `lstm_seq_grid`, and rows,
+`*_seq_rows`; `lstm_seq_grid` also as a kernel of its own, by site: the NetHack and AllegroHandLSTM
+learners, beside the row design at the same shapes), the card's name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
 
@@ -155,7 +155,7 @@ DMLAB_CORE = (32, 32, 256, "float32")
 DMLAB_INSTR_ROLLOUT = (16, 64, 64, "float32")
 DMLAB_INSTR_LEARNER = (16, 1024, 64, "float32")
 DMLAB_INSTR_BOOTSTRAP = (16, 128, 64, "float32")
-# the NetHack and IsaacGym paths: LSTM-512 float32 takes the row design (no cluster slice fits). NetHack's
+# the NetHack and IsaacGym paths: LSTM-512 float32 takes the grid design (no cluster slice fits). NetHack's
 # defaults name batch 1024 (32 segments of 32); a train step takes one rollout of the 24 envs, 768 samples
 # (the quantized learner clips the batch to the rollout), so its learner launches at 24 segments.
 # AllegroHandLSTM: 16384 sim agents x 16 steps in 8 minibatches of 32768 (2048 segments), 4 epochs.
@@ -173,9 +173,10 @@ PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "rows", 1), *[("gru", *shape, "cluster"
                       ("gru", *TP_MULTICHIP_GRU, "rows", 1),
                       ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "cluster", 8),
                       ("lstm", *DMLAB_INSTR_LEARNER, "cluster", 8), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
-                      ("lstm", *NETHACK_LSTM_BATCH, "rows", 1), ("lstm", *NETHACK_LSTM, "rows", 1), ("lstm", *ALLEGRO_LSTM, "rows", 1)]
-# the sites of `lstm_seq_rows` that the kernels line reports one by one
-ROW_SITES = {"nethack_learner": NETHACK_LSTM, "allegro_hand_lstm_learner": ALLEGRO_LSTM}
+                      ("lstm", *NETHACK_LSTM_BATCH, "grid", 128), ("lstm", *NETHACK_LSTM, "grid", 128),
+                      ("lstm", *ALLEGRO_LSTM, "grid", 32)]
+# the sites of `lstm_seq_grid` that the kernels line reports one by one
+GRID_SITES = {"nethack_learner": NETHACK_LSTM, "allegro_hand_lstm_learner": ALLEGRO_LSTM}
 # bf16: kernel and plain version round every gate op to bf16 alike, but sum h @ wh in
 # another order, so a product can land one bf16 ulp apart; that flip (2^-8 relative,
 # up to 2^-6 absolute at the LSTM cell's magnitudes) feeds forward through the recurrence.
@@ -188,11 +189,11 @@ REPLACES = {
     "gru_seq": "sample_factory_tpu/ops/pallas_gru.py:148",
     "lstm_seq": "sample_factory_tpu/ops/pallas_gru.py:271",
 }
-# each kernel has two designs (cluster: `gru_seq`/`lstm_seq`; rows: `gru_seq_rows`/`lstm_seq_rows`); the
+# the designs (cluster: `gru_seq`/`lstm_seq`; grid: `lstm_seq_grid`; rows: `gru_seq_rows`/`lstm_seq_rows`); the
 # kernels line reports the cluster designs at their main paths' shapes, the GRU's row design at the doom
-# path's and the LSTM's at the nethack path's (the first paths that run them), and the LSTM's row design
-# at each of its sites
-KERNEL_LINE_SHAPES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM),
+# path's (the first path that runs it), the grid design at the nethack path's and at each of its sites,
+# and the LSTM's row design, which no path runs since the grid design, at the nethack path's shape
+KERNEL_LINE_SHAPES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM), "lstm_seq_grid": ("lstm", NETHACK_LSTM),
                       "gru_seq_rows": ("gru", DOOM_GRU), "lstm_seq_rows": ("lstm", NETHACK_LSTM)}
 
 
@@ -241,7 +242,7 @@ def parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan
     """The planned kernel once against its plain version, forward and gradient."""
     args = make_inputs(torch, kind, T, B, H, dtype, seed=T + B + H)
     args = [a.requires_grad_(i != 2) for i, a in enumerate(args)]
-    name = f"{kind}_seq" if plan.design == "cluster" else f"{kind}_seq_rows"
+    name = cuda_rnn._kernel_name(kind, plan)
     before = cuda_rnn.launch_counts()[name]
     out, state = kernel_fn(*args)
     torch.cuda.synchronize()
@@ -276,13 +277,14 @@ def phase_parity(torch, cuda_rnn):
         kernel_fn, plain_fn = fns[kind]
         parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=True)
     # the error reported for each design: at the shape and dtype of the first path that runs it, and at
-    # each site of the LSTM's row design
-    line_shapes = dict(KERNEL_LINE_SHAPES, **{f"lstm_seq_rows@{site}": ("lstm", shape) for site, shape in ROW_SITES.items()})
+    # each site of the grid design
+    line_shapes = dict(KERNEL_LINE_SHAPES, **{f"lstm_seq_grid@{site}": ("lstm", shape) for site, shape in GRID_SITES.items()})
     for name, (kind, (T, B, H, dtype)) in line_shapes.items():
         kernel_fn, plain_fn = fns[kind]
         args = make_inputs(torch, kind, T, B, H, dtype, seed=1)
         launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
-        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype) if name.endswith("_seq") else cuda_rnn.row_plan(kind, B, H)
+        plan = cuda_rnn.row_plan(kind, B, H) if name.endswith("_rows") else cuda_rnn.launch_plan(kind, T, B, H, dtype)
+        check(cuda_rnn._kernel_name(kind, plan) == name.split("@")[0], f"{name} at {(T, B, H, dtype)} takes {plan}")
         with torch.no_grad():
             out, state = launch(*args, plan=plan)
             torch.cuda.synchronize()
@@ -378,19 +380,20 @@ def phase_timing(torch, cuda_rnn, card):
               "ms_warm": time_ms(torch, lambda: gru(x, h0)), "ms_l2_cold": time_ms(torch, lambda: gru(x, h0), flush=flush),
               "reps": REPS, "card": card})
     del flush
-    # for the kernels line: each design at the shape of the first path that runs it (the cluster
-    # designs' rows carry the row design's time there as `first_design_ms`)
+    # for the kernels line: each design at the shape of the first path that runs it (the cluster and
+    # grid designs' rows carry the row design's time there as `first_design_ms`)
     out = {}
     for name, (kind, shape) in KERNEL_LINE_SHAPES.items():
         row = rows_by_shape[(kind, *shape)]
-        ms = row["ms"] if name.endswith("_seq") else row["rows_ms"]
+        ms = row["rows_ms"] if name.endswith("_rows") else row["ms"]
         out[name] = {"ms": ms, "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                      "shape": list(shape[:3]), "dtype": shape[3]}
-        if name.endswith("_seq"):
+        if not name.endswith("_rows"):
             out[name].update(design=row["design"], first_design_ms=row["rows_ms"])
-    for site, shape in ROW_SITES.items():
+    for site, shape in GRID_SITES.items():
         row = rows_by_shape[("lstm", *shape)]
-        out[f"lstm_seq_rows@{site}"] = {"shape": list(shape[:3]), "dtype": shape[3], "ms": row["ms"], "ms_l2_cold": row["ms_l2_cold"],
+        out[f"lstm_seq_grid@{site}"] = {"shape": list(shape[:3]), "dtype": shape[3], "ms": row["ms"], "ms_l2_cold": row["ms_l2_cold"],
+                                        "rows_ms": row["rows_ms"], "rows_ms_l2_cold": row["rows_ms_l2_cold"],
                                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
     return out
 
@@ -517,7 +520,8 @@ def device_activities(torch, prof):
     by_name = {}
     for e in on_device:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
-    rnn_us = sum(e.time_range.elapsed_us() for e in on_device if "seq_cluster_kernel" in e.name or "rows_kernel" in e.name)
+    rnn_us = sum(e.time_range.elapsed_us() for e in on_device
+                 if any(k in e.name for k in ("seq_cluster_kernel", "lstm_grid_kernel", "rows_kernel")))
     return sum(by_name.values()), rnn_us, on_device, by_name
 
 
@@ -1932,8 +1936,8 @@ def nethack_run(torch, cuda_rnn, card, tmp):
                                              parse=parse_nethack_args)
         minibatches = runner._quantizer.num_minibatches
         check(len(record["iteration_ms"]) == iters and minibatches == 1, f"{len(record['iteration_ms'])} iterations, {minibatches} minibatches")
-        check(counts["lstm_seq_rows"] == iters and all(v == 0 for k, v in counts.items() if k != "lstm_seq_rows"),
-              f"launches {counts}: expected one lstm_seq_rows a train step and no other kernel")
+        check(counts["lstm_seq_grid"] == iters and all(v == 0 for k, v in counts.items() if k != "lstm_seq_grid"),
+              f"launches {counts}: expected one lstm_seq_grid a train step and no other kernel")
         check(set(shapes) == {("lstm", *NETHACK_LSTM[:3])}, f"launch shapes {set(shapes)}")
         check(extras["episodes"] > 0 and extras["keys"] == NETHACK_EXTRA_STATS, f"episode extra stats {extras}")
         check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
@@ -1941,7 +1945,7 @@ def nethack_run(torch, cuda_rnn, card, tmp):
         emit({"phase": "nethack", "env": "nethack_challenge (env-level stand-in)", "model": f"{model}, LSTM-512 float32",
               "workers": workers, "envs": NETHACK_ENVS, "cut": cut, "cpu_count": os.cpu_count(), "splits": runner.cfg.worker_num_splits,
               "rollout": 32, "batch": runner._quantizer.batch_size, "launches": counts, "launch_shapes": sorted(set(shapes)),
-              "row_design_share_of_device_busy": profile["rnn_kernel_ms"] / profile["device_busy_ms"],
+              "grid_design_share_of_device_busy": profile["rnn_kernel_ms"] / profile["device_busy_ms"],
               **host_example_line(runner, iters, record, NETHACK_ENVS), "episodes_with_extra_stats": extras["episodes"],
               "extra_stat_keys": sorted(extras["keys"]), "avg_episode_reward": runner.episode_stats.avg_reward,
               "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
@@ -2053,8 +2057,8 @@ def isaacgym_run(torch, cuda_rnn, card, tmp):
             epochs = record["epochs"]
             check(len(record["iteration_ms"]) == iters and len(epochs) == iters, f"{len(record['iteration_ms'])} iterations")
             if lstm:
-                check(counts["lstm_seq_rows"] == 8 * sum(epochs) and all(v == 0 for k, v in counts.items() if k != "lstm_seq_rows"),
-                      f"launches {counts}: expected 8 lstm_seq_rows an epoch ({epochs})")
+                check(counts["lstm_seq_grid"] == 8 * sum(epochs) and all(v == 0 for k, v in counts.items() if k != "lstm_seq_grid"),
+                      f"launches {counts}: expected 8 lstm_seq_grid an epoch ({epochs})")
                 check(set(shapes) == {("lstm", *ALLEGRO_LSTM[:3])}, f"launch shapes {set(shapes)}")
             else:
                 check(all(v == 0 for v in counts.values()), f"an RNN kernel launched on the feed-forward path: {counts}")
@@ -2068,7 +2072,7 @@ def isaacgym_run(torch, cuda_rnn, card, tmp):
                   "adapter_step_ms": clock["adapter_step_s"] / clock["steps"] * 1e3, "sim_step_ms": clock["sim_step_s"] / clock["steps"] * 1e3,
                   "host_conversion_ms_per_step": (clock["adapter_step_s"] - clock["sim_step_s"]) / clock["steps"] * 1e3,
                   "device_in_the_last_iteration": profile,
-                  "row_design_share_of_device_busy": profile["rnn_kernel_ms"] / profile["device_busy_ms"],
+                  "lstm_kernel_share_of_device_busy": profile["rnn_kernel_ms"] / profile["device_busy_ms"],
                   "episodes_reported": runner.episode_stats.avg_reward is not None,
                   "stat": "host clock, synced; adapter step: the IsaacGymBatchedEnv.step call (sim step, the tensors to numpy, the "
                           "per-agent lists), the sim step synced on its own; the last iteration under torch.profiler (CUDA activity only)",
@@ -2951,9 +2955,18 @@ def main() -> int:
         at_once[name] = {"shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster,
                          "card_runs_at_once": cuda_rnn.max_active_clusters(kind, dtype, plan)}
         check(at_once[name]["card_runs_at_once"] >= 1, f"{name}: no cluster of {plan} fits the card")
+    # the grid design's cooperative launches need every block resident at once (cuda_rnn.GRID_BLOCKS, one a SM)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid_at_once = {}
+    for site, (T, B, H, dtype) in GRID_SITES.items():
+        plan = cuda_rnn.launch_plan("lstm", T, B, H, dtype)
+        check(plan.design == "grid", f"{site}: {(T, B, H, dtype)} does not take the grid design")
+        grid_at_once[site] = {"shape": [T, B, H], "dtype": dtype, "blocks": plan.grid, "threads": plan.threads, "smem": plan.smem,
+                              "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(plan), "sms": sms}
+        check(plan.grid <= min(cuda_rnn.GRID_BLOCKS, grid_at_once[site]["blocks_per_sm"] * sms), f"{site}: {plan} is not resident at once")
     emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name, "shm_queue_library": queue_path.name,
           "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line],
-          "clusters_at_main_shapes": at_once})
+          "clusters_at_main_shapes": at_once, "grid_at_path_shapes": grid_at_once})
 
     main_err = phase_parity(torch, cuda_rnn)
     timing = phase_timing(torch, cuda_rnn, card)
@@ -2988,23 +3001,29 @@ def main() -> int:
         check(all(v == 0 for v in cuda_rnn.launch_counts().values()), "an RNN kernel launched in the sampler phase")
 
     # launches: each path was driven with the counts at 0 just before it and read just after, and
-    # each kernel's are counted by design (cluster: `*_seq`; rows: `*_seq_rows`); the kernel's numbers
-    # are its cluster design's at the main-path shape, the row design's at its first path's shape
+    # each kernel's are counted by design (cluster: `*_seq`; grid: `lstm_seq_grid`; rows: `*_seq_rows`);
+    # `lstm_seq` counts every design of the LSTM's port, `lstm_seq_grid` the grid design alone. The
+    # kernel's numbers are its cluster design's at the main-path shape, the row design's at its first
+    # path's shape, the grid design's at the nethack path's shape and at each of its sites
     def by_design(name, counts):
-        return {"cluster": counts[name], "rows": counts[f"{name}_rows"]}
+        return {"cluster": counts[name], "rows": counts[f"{name}_rows"], **({"grid": counts[f"{name}_grid"]} if name == "lstm_seq" else {})}
 
+    grid_sites = {"nethack_learner": "nethack", "allegro_hand_lstm_learner": "isaacgym"}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": sum(sum(by_design(name, counts).values()) for counts in paths.values()),
-         "launches_by_design": {d: sum(by_design(name, counts)[d] for counts in paths.values()) for d in ("cluster", "rows")},
+         "launches_by_design": {d: sum(by_design(name, counts)[d] for counts in paths.values()) for d in by_design(name, paths["main"])},
          "paths": {path: by_design(name, counts) for path, counts in paths.items()},
          "max_abs_err": main_err[name], **timing[name], "library_ms": None,
-         "row_design": {"max_abs_err": main_err[f"{name}_rows"], **timing[f"{name}_rows"], "library_ms": None,
-                        **({"sites": {site: {"launches": paths[path][f"{name}_rows"], "max_abs_err": main_err[f"{name}_rows@{site}"],
-                                             **timing[f"{name}_rows@{site}"], "library_ms": None}
-                                      for site, path in (("nethack_learner", "nethack"), ("allegro_hand_lstm_learner", "isaacgym"))}}
-                           if name == "lstm_seq" else {})}}
+         "row_design": {"max_abs_err": main_err[f"{name}_rows"], **timing[f"{name}_rows"], "library_ms": None}}
         for name in ("gru_seq", "lstm_seq")
+    ] + [
+        {"name": "lstm_seq_grid", "route": "cuda", "source": SOURCE, "replaces": REPLACES["lstm_seq"],
+         "launches": sum(counts["lstm_seq_grid"] for counts in paths.values()),
+         "paths": {path: counts["lstm_seq_grid"] for path, counts in paths.items()},
+         "max_abs_err": main_err["lstm_seq_grid"], **timing["lstm_seq_grid"], "library_ms": None,
+         "sites": {site: {"launches": paths[path]["lstm_seq_grid"], "max_abs_err": main_err[f"lstm_seq_grid@{site}"],
+                          **timing[f"lstm_seq_grid@{site}"], "library_ms": None} for site, path in grid_sites.items()}}
     ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 // GRU and LSTM recurrences over one BPTT segment, written by hand for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of sample_factory_tpu/ops/pallas_gru.py:
-//   gru_seq_forward  <- _gru_kernel  (:78-109, pallas_call at :148)
-//   lstm_seq_forward <- _lstm_kernel (:226-253, pallas_call at :271)
+//   gru_seq_forward, gru_rows_forward                     <- _gru_kernel  (:78-109, pallas_call at :148)
+//   lstm_seq_forward, lstm_rows_forward, lstm_grid_forward <- _lstm_kernel (:226-253, pallas_call at :271)
 //
 // What is computed (the input projection of all T steps is done beforehand by one matmul):
 //   GRU : h_proj = T(h @ wh, f32 accumulation) + bh; r = s(xr + hr); z = s(xz + hz);
@@ -39,10 +39,41 @@
 // The launch plan (ops/cuda_rnn.py:launch_plan) keeps every cluster in one wave: on the H100
 // at most 15 clusters of 8 (7 of 16) run at once with one block per SM.
 //
+// Design "grid" (lstm_grid_kernel, the f32 LSTM where no cluster slice fits, e.g. H=512: a
+// slice of 16 would need 128 x 516 x 4 = 264 KB). Also replaces _lstm_kernel. What bounds it:
+// at large B the f32 product on the CUDA cores, 2*B*H*4H operations a step at 67 TFLOP/s
+// (64 us at B=2048, H=512); at small B the chain of T dependent steps, each a grid barrier and
+// an L2 round trip of the new carry. The design:
+//   - one persistent cooperative launch for all T steps: Q batch tiles x S unit slices,
+//     Q*S <= 132 blocks, one a SM, all resident (cudaLaunchCooperativeKernel refuses a grid
+//     that does not fit); one grid barrier (cg::this_grid().sync()) a step;
+//   - block (q, r) owns BT batch rows and U = H/S hidden units with all four gates of each,
+//     the 4U columns of wh that pack_wh lays out for it; it copies them into shared memory
+//     once and keeps them for all T steps (weight-stationary: 32 KB at U=4, 128 KB at U=16);
+//   - only h crosses blocks: the new carry goes to a global double buffer [2][B][H] that the
+//     wrapper allocates, and every block reads its tile's h at the next step with cp.async.cg
+//     (L2 only, so no L1 line of an earlier step is read), in K chunks of up to 128, double
+//     buffered; the cell state stays with its owning thread (in hc_final's c half, which only
+//     that thread touches until the end);
+//   - the product h[BT,H] @ wh_slice[H,4U] in f32 FMAs (no TF32: it would break the f32
+//     tolerance), a register tile of TM x TN a thread (TN/4 units x 4 gates, so the cells
+//     are applied from registers); at small B 4 x 4 tiles with the K range split 8 or 4 ways
+//     across threads (partial sums added through shared memory, a cell a thread), at large B
+//     8 x 8 tiles at 256 threads (a thread's 64 accumulators and operands fill its 255
+//     registers; larger tiles spill) in passes over the tile's rows;
+//   - a cell's x_proj, c and reset are loaded before they are needed: ahead of the product
+//     where a thread owns one cell, a row ahead where it owns a tile's; step t+1's x_proj slice
+//     and resets are prefetched into L2 during step t (a prefetch, not a copy into shared
+//     memory: at B=2048 a block's slice is 128 KB a step).
+// The plan (ops/cuda_rnn.py:grid_plan) takes at small B one batch tile and many narrow slices
+// (S=128, U=4: the whole card shares each step's product), at large B four batch tiles of wide
+// slices (S=32, U=16: the L2 reads of h, S*B*H*4 bytes a step, fall fourfold).
+//
 // Design "rows" (gru_rows_kernel, lstm_rows_kernel: the first design, kept for the shapes
-// whose wh slice does not fit a block even at C = 16, e.g. bf16 GRU at H=1024 or f32 LSTM
-// at H=512). One block owns 4 batch rows and runs all T steps; wh is re-read from L2 each
-// step with CUDA-core FMAs. The wrapper's launch plan picks the design from the shape.
+// whose wh slice does not fit a block even at C = 16 and that the grid design does not take,
+// e.g. bf16 GRU at H=1024 or f32 GRU at H=512). One block owns 4 batch rows and runs all T
+// steps; wh is re-read from L2 each step with CUDA-core FMAs. The wrapper's launch plan picks
+// the design from the shape.
 //
 // Plain C interface for ctypes. Pointers are device pointers, the stream is a cudaStream_t.
 // Nothing is allocated here; each function returns a CUDA error code: the configuration
@@ -618,6 +649,323 @@ inline int block_threads(int H) {
     return warps * 32 < 256 ? warps * 32 : 256;
 }
 
+// ------------------------------------------------------------------ design "grid" (LSTM, f32)
+
+// Most threads of a grid-design block with TM x TN accumulators a thread: 512 with 16 (at most
+// 128 registers a thread), 256 with 64 (at most 255: the tile and its operands stay in registers).
+__host__ __device__ constexpr int grid_max_threads(int TM, int TN) { return TM * TN >= 64 ? 256 : 512; }
+
+// Threads of a grid-design block: KS splits of K x the row tiles of one pass (BT / passes / TM) x
+// 4U/TN column tiles. A block covers its BT rows in `passes` passes of the same threads.
+__host__ __device__ constexpr int grid_threads(int U, int BT, int TM, int TN, int KS, int passes) {
+    return KS * (BT / passes / TM) * (4 * U / TN);
+}
+
+// Dynamic shared memory of one grid-design block; ops/cuda_rnn.py:grid_smem is the same formula:
+// the wh slice [H][4U], a pass's h chunks [stages][BT/passes][KC+4] (one stage where the chunk is
+// all of H, else two), the K splits' partial sums [threads][TM*TN].
+inline size_t grid_smem_bytes(int H, int U, int BT, int TM, int TN, int KS, int KC, int passes) {
+    const size_t stages = KC == H ? 1 : 2;
+    const size_t partials = KS > 1 ? static_cast<size_t>(grid_threads(U, BT, TM, TN, KS, passes)) * TM * TN : 0;
+    return 4 * (static_cast<size_t>(H) * 4 * U + stages * (BT / passes) * (KC + 4) + partials);
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) { asm volatile("prefetch.global.L2 [%0];" ::"l"(p)); }
+
+// V neighbouring floats in one access (V = 1, 2 or 4; the address is a multiple of 4V bytes)
+template <int V>
+__device__ __forceinline__ void load_v(float (&d)[V], const float* p) {
+    if constexpr (V == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(p);
+        d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+    } else if constexpr (V == 2) {
+        const float2 v = *reinterpret_cast<const float2*>(p);
+        d[0] = v.x, d[1] = v.y;
+    } else {
+        d[0] = *p;
+    }
+}
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&d)[V]) {
+    if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+    } else if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+    } else {
+        *p = d[0];
+    }
+}
+
+// V neighbouring LSTM cells (batch row b, hidden units col .. col + V - 1) at step t. The cell
+// state lives in hc_final's c half, read and written by the cells' one owning thread. The inputs
+// are loaded apart from the math (`load`, then `step`), so that a thread issues them before it
+// waits on them: ahead of the product where a thread owns one cell, a row ahead where it owns a
+// register tile's cells.
+template <int V>
+struct GridCells {
+    float x[4][V];  // step t's x_proj of the four gates
+    float c[V];     // the cell states entering step t
+    float reset;    // resets[t][b]
+
+    __device__ __forceinline__ void load(const float* __restrict__ xs, const float* __restrict__ resets, const float* hc,
+                                         int t, int B, int H, int b, int col) {
+        const float* xp = xs + ((size_t)t * B + b) * 4 * H + col;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) load_v<V>(x[g], xp + g * H);
+        load_v<V>(c, hc + (size_t)b * 2 * H + H + col);
+        reset = resets[(size_t)t * B + b];
+    }
+
+    // From the gate sums a[g][v] = h @ wh (f32): outs[t], the new carry into the next h buffer (read
+    // by every block after the grid barrier), the new cell states, and at the last step the carry
+    // into hc_final's h half.
+    __device__ __forceinline__ void step(const float (&a)[4][V], float* h_next, float* __restrict__ outs, float* hc, int t,
+                                         int B, int H, int b, int col, bool last) const {
+        const bool keep = !(reset > 0.0f);
+        float h[V], carry[V], cell[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            const float pi = add<float>(x[0][v], a[0][v]), pf = add<float>(x[1][v], a[1][v]);
+            const float pg = add<float>(x[2][v], a[2][v]), po = add<float>(x[3][v], a[3][v]);
+            const float new_c = add<float>(mul<float>(sigmoid_t<float>(add<float>(pf, 1.0f)), c[v]),
+                                           mul<float>(sigmoid_t<float>(pi), tanh_t<float>(pg)));
+            h[v] = mul<float>(sigmoid_t<float>(po), tanh_t<float>(new_c));
+            carry[v] = keep ? h[v] : 0.0f;
+            cell[v] = keep ? new_c : 0.0f;
+        }
+        store_v<V>(outs + ((size_t)t * B + b) * H + col, h);
+        store_v<V>(h_next + (size_t)b * H + col, carry);
+        store_v<V>(hc + (size_t)b * 2 * H + H + col, cell);
+        if (last) store_v<V>(hc + (size_t)b * 2 * H + col, carry);
+    }
+};
+
+// A persistent cooperative grid of Q batch tiles x S unit slices (blockIdx = tile * S + slice).
+// A thread holds TM x TN accumulators: TM rows (p0 + rt + i * RT in the pass from tile row p0) x
+// V = TN/4 units (ct * V + v) x 4 gates. Where K is split (KS > 1: one pass, at most as many
+// cells as threads) thread tid owns cell tid: it loads the cell's inputs before the product and
+// applies it after the splits' sum.
+template <int TM, int TN>
+__global__ void __launch_bounds__(grid_max_threads(TM, TN), 1)
+    lstm_grid_kernel(const float* __restrict__ x, const float* __restrict__ hc0, const float* __restrict__ resets,
+                     const float* __restrict__ wpk, float* hbuf, float* __restrict__ outs, float* hc_final, int steps,
+                     int B, int H, int U, int BT, int KS, int KC, int passes) {
+    constexpr int V = TN / 4;  // units a thread: V units x 4 gates = TN accumulator columns
+    cg::grid_group grid = cg::this_grid();
+    const int S = H / U, N = 4 * U, NCT = U / V, PR = BT / passes, RT = PR / TM, tiles = RT * NCT;
+    const int r = static_cast<int>(blockIdx.x) % S, b0 = static_cast<int>(blockIdx.x) / S * BT;
+    const int tid = threadIdx.x, threads = blockDim.x;
+    const int ct = tid % NCT, rt = tid / NCT % RT, ks = tid / tiles;  // tid = (ks * RT + rt) * NCT + ct
+    const int rows = min(BT, B - b0);                                   // live rows of this tile
+    const int HS = KC + 4, stages = KC == H ? 1 : 2, L = KC / KS, chunks = H / KC;
+    const bool own_cell = KS > 1 && tid < rows * U;
+    const int cell_row = tid / U, cell_col = r * U + tid % U;
+
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* w_s = reinterpret_cast<float*>(smem);  // [H][N]: this block's gate columns, permuted (below)
+    float* h_s = w_s + H * N;                     // [stages][PR][HS]: chunks of a pass's carry h, K contiguous
+    float* red = h_s + stages * PR * HS;          // [KS][tiles][TM * TN]: partial sums of the K splits
+
+    // The wh slice, once: pack_wh's rows g*U + u (K contiguous) become columns, ordered so that a
+    // thread's TN columns are V float4 at p = jh * 4 * NCT + ct * 4 + e (j = 4 * jh + e = g * V + v),
+    // and a warp's loads of one k read neighbouring 16-byte words.
+    for (int i = tid; i < N * (H / 4); i += threads) {
+        const int p = i % N, k = i / N * 4;
+        const int jh = p / (4 * NCT), c = p % (4 * NCT) / 4, j = jh * 4 + (p & 3);
+        const int g = j / V, u = c * V + j % V;
+        const float4 w = *reinterpret_cast<const float4*>(wpk + ((size_t)r * N + g * U + u) * H + k);
+        w_s[k * N + p] = w.x;
+        w_s[(k + 1) * N + p] = w.y;
+        w_s[(k + 2) * N + p] = w.z;
+        w_s[(k + 3) * N + p] = w.w;
+    }
+    for (int i = tid; i < stages * PR * HS; i += threads) h_s[i] = 0.0f;  // rows past B stay zero
+    // h0 into the first h buffer, and the tile's h0 and c0 into hc_final, whose c half holds the cell state
+    for (int i = tid; i < rows * U; i += threads) {
+        const int b = b0 + i / U, col = r * U + i % U;
+        const float h = hc0[(size_t)b * 2 * H + col];
+        hbuf[(size_t)b * H + col] = h;
+        hc_final[(size_t)b * 2 * H + col] = h;
+        hc_final[(size_t)b * 2 * H + H + col] = hc0[(size_t)b * 2 * H + H + col];
+    }
+    // step t's x_proj slice (one line a row and gate: U floats) and resets into L2
+    auto prefetch_step = [&](int t) {
+        for (int i = tid; i < rows * 4; i += threads) prefetch_l2(x + ((size_t)t * B + b0 + i / 4) * 4 * H + (i % 4) * H + r * U);
+        for (int i = tid * 32; i < rows; i += threads * 32) prefetch_l2(resets + (size_t)t * B + b0 + i);
+    };
+    prefetch_step(0);
+    grid.sync();  // every block holds its wh slice; h0 is in the first buffer
+
+    for (int t = 0; t < steps; ++t) {
+        PHASE_MARK(c0);
+        const float* h_cur = hbuf + (size_t)(t & 1) * B * H;
+        float* h_next = hbuf + (size_t)((t + 1) & 1) * B * H;
+        const bool last = t + 1 == steps;
+        if (!last) prefetch_step(t + 1);
+        GridCells<1> mine;
+        if (own_cell) mine.load(x, resets, hc_final, t, B, H, b0 + cell_row, cell_col);
+        PHASE_MARK(c1);
+
+        for (int pass = 0; pass < passes; ++pass) {
+            const int p0 = pass * PR, prows = min(PR, rows - p0);
+            if (prows <= 0) break;
+            PHASE_MARK(q0);
+            // chunk c of the pass's h: prows x KC, 16-byte copies through L2 only (cp.async.cg), so
+            // that no line of an earlier step is read from L1
+            auto load_chunk = [&](int c) {
+                float* dst = h_s + (c & 1) * PR * HS;
+                const int pieces = KC / 4;
+                for (int i = tid; i < prows * pieces; i += threads) {
+                    const int row = i / pieces, k = i % pieces * 4;
+                    cp_async16(dst + row * HS + k, h_cur + (size_t)(b0 + p0 + row) * H + c * KC + k);
+                }
+                cp_async_commit();
+            };
+            float acc[TM][TN];
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+                for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+            // two stages where the chunk is not all of H: chunk c + 1 loads while chunk c is multiplied
+            load_chunk(0);
+            for (int c = 0; c < chunks; ++c) {
+                if (c + 1 < chunks) {
+                    load_chunk(c + 1);
+                    cp_async_wait<1>();
+                } else {
+                    cp_async_wait<0>();
+                }
+                __syncthreads();
+                // this thread's split of the chunk: K from c * KC + ks * L, L long; the h of its rows
+                // and the wh of its columns for 4 k are loaded before their products
+                const float* hs = h_s + (c & 1) * PR * HS + ks * L;
+                const float* ws = w_s + (size_t)(c * KC + ks * L) * N + ct * 4;
+                for (int kk = 0; kk < L; kk += 4) {
+                    float4 a[TM], w[4][V];
+#pragma unroll
+                    for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(hs + (rt + i * RT) * HS + kk);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+#pragma unroll
+                        for (int jh = 0; jh < V; ++jh) w[e][jh] = *reinterpret_cast<const float4*>(ws + (kk + e) * N + jh * 4 * NCT);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+#pragma unroll
+                        for (int i = 0; i < TM; ++i) {
+                            const float hv = e == 0 ? a[i].x : e == 1 ? a[i].y : e == 2 ? a[i].z : a[i].w;
+#pragma unroll
+                            for (int jh = 0; jh < V; ++jh) {
+                                acc[i][4 * jh] = fmaf(hv, w[e][jh].x, acc[i][4 * jh]);
+                                acc[i][4 * jh + 1] = fmaf(hv, w[e][jh].y, acc[i][4 * jh + 1]);
+                                acc[i][4 * jh + 2] = fmaf(hv, w[e][jh].z, acc[i][4 * jh + 2]);
+                                acc[i][4 * jh + 3] = fmaf(hv, w[e][jh].w, acc[i][4 * jh + 3]);
+                            }
+                        }
+                }
+                __syncthreads();  // the stage is free for chunk c + 2 (or the next pass)
+            }
+            PHASE_MARK(q1);
+
+            if (KS > 1) {
+                // the splits' partial sums through shared memory; each cell adds its four gates'
+                float* part = red + (size_t)tid * TM * TN;
+#pragma unroll
+                for (int i = 0; i < TM; ++i)
+#pragma unroll
+                    for (int j = 0; j < TN; j += 4)
+                        *reinterpret_cast<float4*>(part + i * TN + j) = make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+                __syncthreads();
+                if (own_cell) {
+                    const int u = tid % U;
+                    const float* p = red + (size_t)(cell_row % RT * NCT + u / V) * TM * TN + cell_row / RT * TN + u % V;
+                    float a[4][1] = {{0.0f}, {0.0f}, {0.0f}, {0.0f}};
+#pragma unroll 4
+                    for (int s = 0; s < KS; ++s)
+#pragma unroll
+                        for (int g = 0; g < 4; ++g) a[g][0] += p[(size_t)s * tiles * TM * TN + g * V];
+                    mine.step(a, h_next, outs, hc_final, t, B, H, b0 + cell_row, cell_col, last);
+                }
+            } else {
+                // row by row, the next row's inputs loaded before this row's cells are applied
+                const int col = r * U + ct * V;
+                GridCells<V> cells[2];
+                if (p0 + rt < rows) cells[0].load(x, resets, hc_final, t, B, H, b0 + p0 + rt, col);
+#pragma unroll
+                for (int i = 0; i < TM; ++i) {
+                    const int row = p0 + rt + i * RT;
+                    if (i + 1 < TM && row + RT < rows) cells[(i + 1) & 1].load(x, resets, hc_final, t, B, H, b0 + row + RT, col);
+                    if (row < rows) {
+                        float a[4][V];
+#pragma unroll
+                        for (int g = 0; g < 4; ++g)
+#pragma unroll
+                            for (int v = 0; v < V; ++v) a[g][v] = acc[i][g * V + v];
+                        cells[i & 1].step(a, h_next, outs, hc_final, t, B, H, b0 + row, col, last);
+                    }
+                }
+            }
+            PHASE_MARK(q2);
+            PHASE_ADD(0, q0, q1);  // the h loads and the product
+            PHASE_ADD(1, q1, q2);  // the splits' sums and the cells
+        }
+        PHASE_MARK(c3);
+        if (!last) grid.sync();  // the new carry is in L2 for every block; this step's buffers are free
+        PHASE_MARK(c4);
+        PHASE_ADD(2, c0, c1);  // the next step's prefetch and the split path's input loads
+        PHASE_ADD(3, c3, c4);  // the grid barrier
+    }
+}
+
+template <int TM, int TN>
+int launch_grid(const void* x, const void* hc0, const void* resets, const void* wpk, void* hbuf, void* outs,
+                void* hc_final, int steps, int B, int H, int U, int BT, int KS, int KC, int passes, int threads, int smem,
+                cudaStream_t stream) {
+    if (U < TN / 4 || U % (TN / 4) != 0 || H % U != 0 || passes < 1 || BT % (passes * TM) != 0 || KS < 1 || KC < 4 ||
+        H % KC != 0 || KC % (4 * KS) != 0 || threads != grid_threads(U, BT, TM, TN, KS, passes) ||
+        threads > grid_max_threads(TM, TN) || (KS > 1 && (passes > 1 || BT * U > threads)) ||
+        (size_t)smem != grid_smem_bytes(H, U, BT, TM, TN, KS, KC, passes))
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = lstm_grid_kernel<TM, TN>;
+    const int grid = (B + BT - 1) / BT * (H / U);
+
+    // The shared-memory limit and the check that the whole grid is resident at once, once per
+    // configuration, device and process; a cooperative launch that does not fit is refused.
+    static std::mutex lock;
+    static int smem_set = 0;
+    static std::set<std::pair<int, std::pair<int, int>>> checked;  // (device, (threads, smem))
+    cudaError_t err = cudaSuccess;
+    {
+        std::lock_guard<std::mutex> guard(lock);
+        if (smem > smem_set) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err != cudaSuccess) return static_cast<int>(err);
+            smem_set = smem;
+        }
+        int dev = 0;
+        err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (!checked.count({dev, {threads, smem}})) {
+            int per_sm = 0, sms = 0;
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+            if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+            if (err != cudaSuccess) return static_cast<int>(err);
+            if (per_sm * sms < grid) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+            checked.insert({dev, {threads, smem}});
+        }
+    }
+    const float* xf = static_cast<const float*>(x);
+    const float* hc0f = static_cast<const float*>(hc0);
+    const float* rf = static_cast<const float*>(resets);
+    const float* wf = static_cast<const float*>(wpk);
+    float* hb = static_cast<float*>(hbuf);
+    float* of = static_cast<float*>(outs);
+    float* hcf = static_cast<float*>(hc_final);
+    void* args[] = {&xf, &hc0f, &rf, &wf, &hb, &of, &hcf, &steps, &B, &H, &U, &BT, &KS, &KC, &passes};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(threads), args, smem, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -663,6 +1011,37 @@ int max_active_clusters(int gates, int is_bf16, int cluster, int smem) {
     };
     if (gates == 3) return is_bf16 ? query(seq_cluster_kernel<__nv_bfloat16, 3>) : query(seq_cluster_kernel<float, 3>);
     return is_bf16 ? query(seq_cluster_kernel<__nv_bfloat16, 4>) : query(seq_cluster_kernel<float, 4>);
+}
+
+// Design "grid" (LSTM, f32): wpk is wh packed by ops/cuda_rnn.py:pack_wh as [H/units][4*units][H];
+// hbuf is a [2][B][H] f32 scratch buffer; a thread's register tile is tile_rows x tile_cols (4 x 4
+// or 8 x 8).
+int lstm_grid_forward(const void* x, const void* hc0, const void* resets, const void* wpk, void* hbuf, void* outs,
+                      void* hc_final, int steps, int B, int H, int units, int rows, int tile_rows, int tile_cols,
+                      int ksplit, int kchunk, int passes, int threads, int smem, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (tile_rows == 4 && tile_cols == 4)
+        return launch_grid<4, 4>(x, hc0, resets, wpk, hbuf, outs, hc_final, steps, B, H, units, rows, ksplit, kchunk,
+                                 passes, threads, smem, s);
+    if (tile_rows == 8 && tile_cols == 8)
+        return launch_grid<8, 8>(x, hc0, resets, wpk, hbuf, outs, hc_final, steps, B, H, units, rows, ksplit, kchunk,
+                                 passes, threads, smem, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of a grid-design kernel with `threads` threads and `smem` bytes that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 if none).
+int grid_blocks_per_sm(int tile_rows, int tile_cols, int threads, int smem) {
+    auto query = [&](auto kernel) {
+        cudaFuncAttributes attrs;  // raise the limit only: launch_grid remembers the largest it set
+        if (cudaFuncGetAttributes(&attrs, kernel) != cudaSuccess) return 0;
+        if (attrs.maxDynamicSharedSizeBytes < smem) cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        int n = 0;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) == cudaSuccess ? n : 0;
+    };
+    if (tile_rows == 4 && tile_cols == 4) return query(lstm_grid_kernel<4, 4>);
+    if (tile_rows == 8 && tile_cols == 8) return query(lstm_grid_kernel<8, 8>);
+    return 0;
 }
 
 #ifdef RNN_SEQ_PHASES

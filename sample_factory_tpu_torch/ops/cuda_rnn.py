@@ -21,9 +21,18 @@ shape alone (see the source note in `csrc/rnn_seq.cu`):
   steps and the new carry is exchanged through distributed shared memory, one
   cluster barrier per step; bf16 products on the tensor cores. The wrapper
   repacks `wh` into per-block slices (`pack_wh`, one gather per call);
+- "grid" (LSTM, float32, where no cluster slice fits: H=512 on the NetHack and
+  AllegroHandLSTM learners): one persistent cooperative launch of Q batch tiles
+  x S unit slices (`grid_plan`), each block keeping the 4U columns of its U
+  hidden units in shared memory for all T steps; only h crosses blocks,
+  through a global double buffer in L2, one grid barrier a step. f32 FMAs on
+  the CUDA cores (TF32 would break the f32 tolerance), which bound it at large
+  B (2*B*H*4H operations a step at 67 TFLOP/s); a step's barrier and L2 round
+  trip bound it at small B;
 - "rows": the first design, for shapes whose slice does not fit a block even
-  at 16 blocks per cluster, or whose width per block is no power of two: one
-  block per 4 batch rows, `wh` re-read from L2.
+  at 16 blocks per cluster, or whose width per block is no power of two, and
+  that the grid design does not take: one block per 4 batch rows, `wh`
+  re-read from L2.
 
 Gradients: each kernel sits in a `torch.autograd.Function` whose backward
 recomputes through the plain version under autograd. The JAX package has no
@@ -32,7 +41,8 @@ reference), so this is the same design. `resets` get no gradient.
 
 Dispatch: a CUDA tensor launches the planned kernel or raises; a CPU tensor
 runs the plain version. `launch_counts()` counts the launches of each kernel,
-per design ("gru_seq" is the cluster design, "gru_seq_rows" the row design).
+per design ("gru_seq" is the cluster design, "gru_seq_rows" the row design,
+"lstm_seq_grid" the grid design).
 """
 
 from __future__ import annotations
@@ -61,6 +71,10 @@ SMEM_LIMIT = 232_448  # shared memory one block may use on the H100 (227 KB)
 # clusters of 8 and of 16 blocks that run at once on the H100 SXM with one block per SM
 # (cudaOccupancyMaxActiveClusters): a cluster lives in one GPC, so 15 x 8 = 120 SMs, not 132
 MAX_CLUSTERS = {8: 15, 16: 7}
+# blocks of a grid-design launch: one on each of the H100 SXM's 132 SMs (a block of the plan takes up
+# to 512 threads and most of an SM's shared memory; cudaLaunchCooperativeKernel needs every block resident)
+GRID_BLOCKS = 132
+GRID_WIDE_ROWS = 1024  # from this batch on, the grid design takes 8 x 8 register tiles and 16 units a block
 ROW_TILE = 4  # batch rows per block in the row design (kTile in csrc/rnn_seq.cu)
 
 _lib = None
@@ -128,14 +142,24 @@ def lstm_seq_reference(x_proj, hc0, resets, wh) -> Tuple[torch.Tensor, torch.Ten
 class Plan:
     """How one call is laid out on the card. A "cluster" launch has `grid` blocks in clusters of
     `cluster`; each cluster owns `rows` batch rows and each of its blocks `units` hidden units.
+    A "grid" launch has `grid` blocks, `grid // cluster` batch tiles of `rows` rows times `cluster`
+    unit slices of `units` units (block = tile * cluster + slice), `threads` threads each with
+    `tile_rows` x `tile_cols` accumulators, K split `ksplit` ways and streamed in chunks of `kchunk`,
+    the block's rows covered in `passes` passes.
     A "rows" launch has one block per `rows` batch rows, each owning all `units` = H units."""
 
-    design: str  # "cluster" or "rows"
-    cluster: int  # blocks per cluster (1 in the row design)
-    rows: int  # batch rows per cluster (per block in the row design)
+    design: str  # "cluster", "grid" or "rows"
+    cluster: int  # blocks per cluster; unit slices in the grid design (1 in the row design)
+    rows: int  # batch rows per cluster (per block in the grid and row designs)
     units: int  # hidden units per block
     smem: int  # dynamic shared memory per block, bytes
     grid: int  # blocks
+    tile_rows: int = 0  # grid design: a thread's register tile, batch rows ...
+    tile_cols: int = 0  # ... x gate columns (tile_cols / 4 units, 4 gates each)
+    ksplit: int = 1  # grid design: threads that share one register tile's K range
+    kchunk: int = 0  # grid design: K columns of h in shared memory at a time (H: all of them)
+    passes: int = 1  # grid design: passes of the block's threads over its rows
+    threads: int = 0  # grid design: threads per block
 
 
 def _gates(kind: str) -> int:
@@ -153,6 +177,65 @@ def cluster_smem(kind: str, H: int, cluster: int, rows: int, itemsize: int) -> i
     return itemsize * (N * HS + 2 * rows * HS + 2 * rows * N) + 4 * (partials * rows * N + (N if kind == "gru" else rows * U) + 2 * rows)
 
 
+def grid_max_threads(tile_rows: int, tile_cols: int) -> int:
+    """Most threads of a grid-design block (`grid_max_threads` in csrc/rnn_seq.cu): 512 with 16
+    accumulators a thread, 256 with 64, where a thread needs more than 128 registers."""
+    return 256 if tile_rows * tile_cols >= 64 else 512
+
+
+def grid_threads(units: int, rows: int, tile_rows: int, tile_cols: int, ksplit: int, passes: int = 1) -> int:
+    """Threads of a grid-design block: `ksplit` x the row tiles of one pass x column tiles
+    (`grid_threads` in csrc/rnn_seq.cu)."""
+    return ksplit * (rows // passes // tile_rows) * (4 * units // tile_cols)
+
+
+def grid_smem(H: int, units: int, rows: int, tile_rows: int, tile_cols: int, ksplit: int, kchunk: int, passes: int = 1) -> int:
+    """Shared memory of one grid-design block (`grid_smem_bytes` in csrc/rnn_seq.cu), all f32: the
+    wh slice [H][4U], a pass's h chunks [stages][rows / passes][kchunk + 4] (one stage when the chunk
+    is all of H, else two), and where K is split, every thread's partial sums [threads][tile_rows * tile_cols]."""
+    stages = 1 if kchunk == H else 2
+    threads = grid_threads(units, rows, tile_rows, tile_cols, ksplit, passes)
+    partials = threads * tile_rows * tile_cols if ksplit > 1 else 0
+    return 4 * (H * 4 * units + stages * (rows // passes) * (kchunk + 4) + partials)
+
+
+@functools.lru_cache(maxsize=256)
+def grid_plan(kind: str, B: int, H: int, dtype):
+    """The grid design's plan for the float32 LSTM, or None where it takes none.
+
+    Below GRID_WIDE_ROWS batch rows: 4 x 4 register tiles and the narrowest slices that fit in
+    GRID_BLOCKS (U = 4 at H = 512: 128 slices of one batch tile share each step's product);
+    from there on 8 x 8 tiles and 16 units a slice (32 slices x 4 batch tiles at H = 512: each
+    block reads its tile's h from L2, so wider slices mean fewer reads). Rows per tile: the fewest
+    that fill GRID_BLOCKS, in steps of the tile height. Then the most K splits (8 at most) that
+    stay within `grid_max_threads` and give each cell a thread of its own (the kernel's split
+    path applies one cell a thread), else the fewest passes over the rows that do; then the
+    widest K chunk of at most 128 whose shared memory fits (two stages: the next chunk loads
+    while this one is multiplied)."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if kind != "lstm" or dtype != torch.float32 or H % 64:
+        return None
+    tm, tn = (8, 8) if B >= GRID_WIDE_ROWS else (4, 4)
+    for units in ((16, 8) if tn == 8 else (4, 8, 16)):
+        slices = H // units
+        if slices > GRID_BLOCKS:
+            continue
+        tiles = min(GRID_BLOCKS // slices, -(-B // tm))
+        rows = -(-B // (tiles * tm)) * tm
+        tiles = -(-B // rows)
+        for ksplit, passes in ((8, 1), (4, 1), (1, 1), (1, 2), (1, 4)):
+            threads = grid_threads(units, rows, tm, tn, ksplit, passes)
+            if rows % (passes * tm) or threads > grid_max_threads(tm, tn) or (ksplit > 1 and rows * units > threads):
+                continue
+            for kchunk in (128, 64, 32, 16):
+                if H % kchunk or kchunk % (4 * ksplit):
+                    continue
+                smem = grid_smem(H, units, rows, tm, tn, ksplit, kchunk, passes)
+                if smem <= SMEM_LIMIT:
+                    return Plan("grid", slices, rows, units, smem, tiles * slices, tm, tn, ksplit, kchunk, passes, threads)
+    return None
+
+
 @functools.lru_cache(maxsize=256)
 def launch_plan(kind: str, T: int, B: int, H: int, dtype) -> Plan:
     """The design and its launch configuration, from the shape and dtype alone.
@@ -162,7 +245,7 @@ def launch_plan(kind: str, T: int, B: int, H: int, dtype) -> Plan:
     mma's n8, 16-byte copies, and index arithmetic by shifts). Rows per cluster: the fewest that let all clusters run in one wave
     (MAX_CLUSTERS), in steps of the product's row granularity (16 for bf16's m16 tiles, 8
     for f32), at most 64 / 32, lowered until the block's shared memory fits. Otherwise the
-    row design."""
+    grid design where `grid_plan` gives one (the float32 LSTM), else the row design."""
     del T  # every step is alike; the plan does not depend on the sequence length
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     itemsize = 2 if dtype == torch.bfloat16 else 4
@@ -176,7 +259,7 @@ def launch_plan(kind: str, T: int, B: int, H: int, dtype) -> Plan:
             smem = cluster_smem(kind, H, cluster, rows, itemsize)
             if smem <= SMEM_LIMIT:
                 return Plan("cluster", cluster, rows, H // cluster, smem, -(-B // rows) * cluster)
-    return row_plan(kind, B, H)
+    return grid_plan(kind, B, H, dtype) or row_plan(kind, B, H)
 
 
 def max_active_clusters(kind: str, dtype, plan: Plan) -> int:
@@ -186,10 +269,16 @@ def max_active_clusters(kind: str, dtype, plan: Plan) -> int:
     return load_library().max_active_clusters(_gates(kind), int(dtype == torch.bfloat16), plan.cluster, plan.smem)
 
 
+def grid_blocks_per_sm(plan: Plan) -> int:
+    """Blocks of the grid plan's size that one SM of the card holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the plan counts on one (GRID_BLOCKS)."""
+    return load_library().grid_blocks_per_sm(plan.tile_rows, plan.tile_cols, plan.threads, plan.smem)
+
+
 def pack_wh(wh: torch.Tensor, plan: Plan) -> torch.Tensor:
     """wh [H, G*H] -> [cluster, G*U, H]: block r's gate columns g*H + r*U + u (u < U) as rows
-    g*U + u, each contiguous along K, which is the layout of the mma's B operand. The row
-    design reads wh as it is."""
+    g*U + u, each contiguous along K, which is the layout of the mma's B operand (in the grid
+    design, slice r's columns). The row design reads wh as it is."""
     if plan.design == "rows":
         return wh
     H = wh.shape[0]
@@ -255,9 +344,11 @@ def load_library(defines: Tuple[str, ...] = ()):
             lib.lstm_seq_forward.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
             lib.gru_rows_forward.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
             lib.lstm_rows_forward.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+            lib.lstm_grid_forward.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
             lib.max_active_clusters.argtypes = [i32] * 4
+            lib.grid_blocks_per_sm.argtypes = [i32] * 4
             for fn in (lib.gru_seq_forward, lib.lstm_seq_forward, lib.gru_rows_forward, lib.lstm_rows_forward,
-                       lib.max_active_clusters):
+                       lib.lstm_grid_forward, lib.max_active_clusters, lib.grid_blocks_per_sm):
                 fn.restype = i32
             _lib = lib
     return _lib
@@ -290,7 +381,7 @@ def _check_common(x_proj: torch.Tensor, gates: int) -> Tuple[int, int, int]:
 
 
 def _kernel_name(kind: str, plan: Plan) -> str:
-    return f"{kind}_seq" if plan.design == "cluster" else f"{kind}_seq_rows"
+    return {"cluster": f"{kind}_seq", "grid": f"{kind}_seq_grid", "rows": f"{kind}_seq_rows"}[plan.design]
 
 
 def _launch(kind, x_proj, state0, resets, wh, bh, plan):
@@ -304,6 +395,8 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
     if kind == "gru":
         _check("bh", bh, (G * H,), dt, dev)
     plan = plan or launch_plan(kind, T, B, H, dt)
+    if plan.design == "grid" and (kind, dt) != ("lstm", torch.float32):
+        raise ValueError(f"the grid design takes the float32 LSTM, not {kind} in {dt}")
     if plan.design == "cluster" and x_proj.data_ptr() % 16:
         x_proj = x_proj.clone()  # a view at an odd offset: the kernel copies x_proj in 16-byte pieces
     lib = load_library()
@@ -316,7 +409,11 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
     dims = [T, B, H, int(dt == torch.bfloat16)]
     if plan.design == "cluster":
         dims += [plan.cluster, plan.rows, plan.smem]
-    fn = getattr(lib, f"{kind}_{'seq' if plan.design == 'cluster' else 'rows'}_forward")
+    if plan.design == "grid":  # the carry's double buffer between the steps; the kernel allocates nothing
+        ptrs.insert(4, torch.empty((2, B, H), dtype=torch.float32, device=dev).data_ptr())
+        dims = [T, B, H, plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit, plan.kchunk, plan.passes,
+                plan.threads, plan.smem]
+    fn = getattr(lib, {"cluster": f"{kind}_seq_forward", "grid": "lstm_grid_forward", "rows": f"{kind}_rows_forward"}[plan.design])
     with torch.cuda.device(dev):
         err = fn(*ptrs, *dims, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -397,7 +494,7 @@ def lstm_seq(x_proj, hc0, resets, wh):
     return LSTMSeqFunction.apply(x_proj, hc0, resets, wh)
 
 
-_launches = {"gru_seq": 0, "gru_seq_rows": 0, "lstm_seq": 0, "lstm_seq_rows": 0}
+_launches = {"gru_seq": 0, "gru_seq_rows": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0}
 
 
 def reset_launch_counts() -> None:
@@ -407,5 +504,5 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset: "gru_seq"/"lstm_seq" for the cluster
-    design, "gru_seq_rows"/"lstm_seq_rows" for the row design."""
+    design, "lstm_seq_grid" for the grid design, "gru_seq_rows"/"lstm_seq_rows" for the row design."""
     return dict(_launches)

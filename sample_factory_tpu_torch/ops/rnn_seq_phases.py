@@ -1,16 +1,18 @@
-"""Where a step of the cluster-design RNN kernels spends its time, on the card.
+"""Where a step of the cluster-design and grid-design RNN kernels spends its time, on the card.
 
     python -m sample_factory_tpu_torch.ops.rnn_seq_phases
 
 Builds `csrc/rnn_seq.cu` with -DRNN_SEQ_PHASES, which makes thread 0 of every block add
-the SM cycles (clock64) of each phase of each step: the product h @ wh, the gate math
-(with the wait for the step's x_proj), the copy of the new carry to the other blocks
-plus the issue of the next step's prefetch, and the cluster barrier. Runs each kernel at
-the main-path shapes and prints one JSON line per case: the mean cycles per block and
-step of each phase, the kernel's time over back-to-back launches (CUDA events), the
-plan, and the clusters of that plan the card runs at once. The clock calls cost a few
-cycles a phase; the kernel times of `chip_smoke.py` come from the plain build.
-Needs a CUDA card.
+the SM cycles (clock64) of each phase of each step. Cluster design: the product h @ wh,
+the gate math (with the wait for the step's x_proj), the copy of the new carry to the
+other blocks plus the issue of the next step's prefetch, and the cluster barrier. Grid
+design: the h loads and the product, the K splits' sums and the cells, the issue of the
+next step's prefetch, and the grid barrier. Runs each kernel at the main-path shapes and
+at the NetHack and AllegroHandLSTM learners' and prints one JSON line per case: the mean
+cycles per block and step of each phase, the kernel's time over back-to-back launches
+(CUDA events), the plan, and the clusters (blocks an SM) of that plan the card runs at
+once. The clock calls cost a few cycles a phase; the kernel times of `chip_smoke.py` come
+from the plain build. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -29,8 +31,10 @@ CASES = [
     ("lstm", 32, 128, 256, "float32"),  # the lstm path
     ("gru", 32, 512, 256, "float32"),
     ("lstm", 32, 512, 256, "bfloat16"),
+    ("lstm", 32, 24, 512, "float32"),  # the NetHack learner (grid design)
+    ("lstm", 16, 2048, 512, "float32"),  # the AllegroHandLSTM learner (grid design)
 ]
-PHASES = ["product", "gates", "push_and_prefetch", "barrier"]
+PHASES = {"cluster": ["product", "gates", "push_and_prefetch", "barrier"], "grid": ["product", "cells", "prefetch", "barrier"]}
 
 
 def _inputs(kind, T, B, H, dtype):
@@ -82,11 +86,12 @@ def main() -> int:
             torch.cuda.synchronize()
         cycles = (ctypes.c_ulonglong * 4)()
         lib.rnn_seq_phases_read(ctypes.addressof(cycles))
-        per_step = {name: cycles[i] / (plan.grid * T) for i, name in enumerate(PHASES)}
+        per_step = {name: cycles[i] / (plan.grid * T) for i, name in enumerate(PHASES[plan.design])}
+        at_once = ({"clusters": plan.grid // plan.cluster, "max_active_clusters": cuda_rnn.max_active_clusters(kind, dtype, plan)}
+                   if plan.design == "cluster" else {"blocks": plan.grid, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(plan)})
         print(json.dumps({
-            "kernel": f"{kind}_seq", "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(plan),
-            "clusters": plan.grid // plan.cluster, "max_active_clusters": cuda_rnn.max_active_clusters(kind, dtype, plan),
-            "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
+            "kernel": cuda_rnn._kernel_name(kind, plan), "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(plan),
+            **at_once, "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
             "card": card,
         }), flush=True)
     return 0

@@ -85,13 +85,13 @@ def cuda_device():
 # the ViZDoom and DMLab paths' shapes in the dtype each runs, and the design the plan picks: Doom's
 # GRU-512 over 2048 / 32 segments (the row design, 16 blocks); the DMLab core's LSTM-256 over 1024 / 32;
 # the instruction encoder's LSTM-64 over 16 tokens in a rollout slot of 64 envs, in a minibatch of 1024
-# (32 clusters of 8: three waves) and over the 128 envs' last observations; LSTM-512 float32 (the row
+# (32 clusters of 8: three waves) and over the 128 envs' last observations; LSTM-512 float32 (the grid
 # design) in NetHack's learner over 768 / 32 segments (a train step takes one rollout of 24 envs) and the
-# 1024 / 32 its defaults name, and in AllegroHandLSTM's over 32768 / 16 (512 blocks of 4 rows)
+# 1024 / 32 its defaults name, and in AllegroHandLSTM's over 32768 / 16 (4 tiles of 512 rows)
 PATH_SHAPES = [("gru", 32, 64, 512, "float32", "rows"), ("lstm", 32, 32, 256, "float32", "cluster"),
                ("lstm", 16, 64, 64, "float32", "cluster"), ("lstm", 16, 1024, 64, "float32", "cluster"),
-               ("lstm", 16, 128, 64, "float32", "cluster"), ("lstm", 32, 24, 512, "float32", "rows"),
-               ("lstm", 32, 32, 512, "float32", "rows"), ("lstm", 16, 2048, 512, "float32", "rows")]
+               ("lstm", 16, 128, 64, "float32", "cluster"), ("lstm", 32, 24, 512, "float32", "grid"),
+               ("lstm", 32, 32, 512, "float32", "grid"), ("lstm", 16, 2048, 512, "float32", "grid")]
 
 
 @pytest.mark.cuda
@@ -111,12 +111,19 @@ def test_kernel_matches_plain_on_card_at_the_path_shapes(cuda_device, kind, T, B
 
 @pytest.mark.parametrize("kind,T,B,H,dtype,design", PATH_SHAPES)
 def test_path_shapes_take_their_design(kind, T, B, H, dtype, design):
-    """H=512 in float32 fits no cluster slice; H=64 takes the smallest slice the cluster design
-    allows (8 units a block); every cluster plan fits the card."""
+    """H=512 in float32 fits no cluster slice: the GRU takes the row design, the LSTM the grid design
+    (one batch tile of 128 slices of 4 units at NetHack's segments, 4 tiles of 32 slices of 16 units
+    at AllegroHandLSTM's); H=64 takes the smallest slice the cluster design allows (8 units a block);
+    every cluster plan fits the card."""
     plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
     assert plan.design == design
     if design == "cluster":
         assert plan.cluster == 8 and plan.units == H // 8 and plan.rows * (plan.grid // plan.cluster) >= B
+    elif design == "grid":
+        assert plan == cuda_rnn.grid_plan(kind, B, H, dtype) and plan.grid <= cuda_rnn.GRID_BLOCKS
+        tiles, units = (4, 16) if B >= cuda_rnn.GRID_WIDE_ROWS else (1, 4)
+        assert plan.units == units and plan.cluster == H // units and plan.grid == tiles * plan.cluster
+        assert plan.rows * tiles >= B > plan.rows * (tiles - 1)
     else:
         assert plan == cuda_rnn.row_plan(kind, B, H) and plan.rows == 4 and plan.grid == B // 4
 
@@ -127,8 +134,7 @@ def _kernel_matches_plain(cuda_device, kind, dtype, T, B, H):
     cuda_rnn.reset_launch_counts()
     out, state = kernel_fn(*args)
     torch.cuda.synchronize()
-    plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
-    name = f"{kind}_seq" if plan.design == "cluster" else f"{kind}_seq_rows"
+    name = cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, dtype))
     assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, name: 1}
     ref_out, ref_state = plain_fn(*args)
     tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
@@ -168,17 +174,23 @@ def test_plain_version_on_rows_reset_at_every_step(kind, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", ["planned", "rows"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["gru", "lstm"])
+@pytest.mark.parametrize(
+    "kind,dtype,design",
+    [(kind, dtype, design) for design in ("planned", "rows") for dtype in ("float32", "bfloat16") for kind in ("gru", "lstm")]
+    + [("lstm", "float32", "grid")],
+)
 def test_kernel_on_rows_reset_at_every_step(cuda_device, kind, dtype, design):
-    """Both kernels, both designs, at the population paths' widths: rows whose resets are 1 for
-    all T come out finite (the loss multiplies them by 0, and 0 * nan is nan) and equal to the
-    plain version; a second launch with another `wh` gives that matrix's result, not the first's."""
+    """Both kernels, every design, at the population paths' widths (the grid design at NetHack's
+    learner's, LSTM-512 float32 over 24 segments): rows whose resets are 1 for all T come out finite
+    (the loss multiplies them by 0, and 0 * nan is nan) and equal to the plain version; a second
+    launch with another `wh` gives that matrix's result, not the first's."""
     T, B, H = 32, 512, 512 if (kind, dtype, design) == ("gru", "bfloat16", "planned") else 256
+    if design == "grid":
+        B, H = 24, 512
     args = _masked_inputs(kind, T, B, H, dtype, cuda_device)
     launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
-    plan = cuda_rnn.row_plan(kind, B, H) if design == "rows" else cuda_rnn.launch_plan(kind, T, B, H, dtype)
+    plan = {"rows": cuda_rnn.row_plan(kind, B, H), "grid": cuda_rnn.grid_plan(kind, B, H, dtype)}.get(
+        design, cuda_rnn.launch_plan(kind, T, B, H, dtype))
     plain_fn = _fns(kind)[1]
     tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
     other_wh = torch.flip(args[3], dims=(0,)).contiguous()
@@ -201,6 +213,19 @@ def test_main_path_clusters_run_in_one_wave(cuda_device, kind, T, B, H, dtype):
     assert plan.grid // plan.cluster <= cuda_rnn.max_active_clusters(kind, dtype, plan)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H", [(32, 24, 512), (16, 2048, 512)])
+def test_grid_plans_are_resident_at_once(cuda_device, T, B, H):
+    """GRID_BLOCKS holds on this card (one block on each SM), and every block of the NetHack and
+    AllegroHandLSTM learners' grid launches is resident at once, as a cooperative launch needs
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the plan's threads and shared memory)."""
+    plan = cuda_rnn.launch_plan("lstm", T, B, H, "float32")
+    assert plan.design == "grid"
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert sms == cuda_rnn.GRID_BLOCKS and plan.grid <= cuda_rnn.GRID_BLOCKS
+    assert plan.grid <= cuda_rnn.grid_blocks_per_sm(plan) * sms
+
+
 # ------------------------------------------------------------------ launch plan (CPU)
 
 PLAN_B = [3, 8, 24, 128, 512, 4096]
@@ -219,10 +244,20 @@ def test_launch_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H):
         assert plan.smem == cuda_rnn.cluster_smem(kind, H, plan.cluster, plan.rows, 2 if dtype == "bfloat16" else 4)
         assert plan.units * plan.cluster == H and plan.units >= 8 and plan.units & (plan.units - 1) == 0
         assert plan.rows % (16 if dtype == "bfloat16" else 8) == 0
+    elif plan.design == "grid":  # the float32 LSTM where no cluster slice fits
+        assert (kind, dtype) == ("lstm", "float32") and plan == cuda_rnn.grid_plan(kind, B, H, dtype)
+        assert plan.grid <= cuda_rnn.GRID_BLOCKS and plan.units * plan.cluster == H  # one block a SM, all resident
+        assert plan.threads == cuda_rnn.grid_threads(plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit, plan.passes)
+        assert 32 <= plan.threads <= cuda_rnn.grid_max_threads(plan.tile_rows, plan.tile_cols)
+        assert plan.smem == cuda_rnn.grid_smem(H, plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit,
+                                               plan.kchunk, plan.passes)
+        assert plan.rows % (plan.passes * plan.tile_rows) == 0 and H % plan.kchunk == 0 and plan.kchunk % (4 * plan.ksplit) == 0
+        assert plan.ksplit == 1 or (plan.passes == 1 and plan.rows * plan.units <= plan.threads)  # a cell a thread
     else:
         assert plan == cuda_rnn.row_plan(kind, B, H)
         assert plan.smem <= 48 * 1024  # launched without raising the dynamic shared-memory limit
     # the kernels' map from blockIdx to its tile: cluster = block // cluster size, rank = block % cluster size
+    # (grid design: batch tile = block // unit slices, unit slice = block % unit slices)
     owner = np.zeros((B, H), dtype=np.int64)
     for block in range(plan.grid):
         tile, rank = divmod(block, plan.cluster)
@@ -242,10 +277,14 @@ def test_cluster_design_at_the_main_path_shapes(kind, T, B, H, dtype):
 
 
 @pytest.mark.parametrize(
-    "kind,H,dtype", [("gru", 1024, "bfloat16"), ("lstm", 512, "float32"), ("gru", 100, "float32"), ("lstm", 192, "bfloat16")]
+    "kind,H,dtype,design",
+    [("gru", 1024, "bfloat16", "rows"), ("lstm", 512, "float32", "grid"), ("gru", 100, "float32", "rows"),
+     ("lstm", 192, "bfloat16", "rows")],
 )
-def test_row_design_where_no_cluster_slice_fits(kind, H, dtype):
-    assert cuda_rnn.launch_plan(kind, 4, 16, H, dtype).design == "rows"
+def test_row_design_where_no_cluster_slice_fits(kind, H, dtype, design):
+    """Where no cluster slice fits, the float32 LSTM takes the grid design (H a multiple of 64) and
+    every other shape the row design."""
+    assert cuda_rnn.launch_plan(kind, 4, 16, H, dtype).design == design
 
 
 @pytest.mark.parametrize("H", [64, 256, 512])
@@ -262,6 +301,58 @@ def test_pack_wh_holds_each_blocks_columns(kind, dtype, H):
         cols = [g * H + r * plan.units + u for g in range(G) for u in range(plan.units)]
         assert torch.equal(packed[r], wh[:, cols].t())
     assert torch.equal(cuda_rnn.unpack_wh(packed, plan), wh)
+
+
+# the grid plans at the learners' shapes, one with several batch tiles at a small width, H=1024
+GRID_PACK_SHAPES = [(24, 512), (2048, 512), (37, 64), (2048, 64), (16, 1024)]
+
+
+@pytest.mark.parametrize("B,H", GRID_PACK_SHAPES)
+def test_pack_wh_gives_each_grid_block_its_columns(B, H):
+    """The grid design reads slice r's rows of pack_wh: the 4U gate columns g*H + r*U + u of its
+    units, each contiguous along K; unpack_wh gives wh back."""
+    plan = cuda_rnn.grid_plan("lstm", B, H, "float32")
+    assert plan is not None and plan.design == "grid"
+    wh = _inputs("lstm", 1, 1, H, "float32", "cpu")[3]
+    packed = cuda_rnn.pack_wh(wh, plan)
+    assert packed.shape == (plan.cluster, 4 * plan.units, H) and packed.is_contiguous()
+    for r in range(plan.cluster):
+        cols = [g * H + r * plan.units + u for g in range(4) for u in range(plan.units)]
+        assert torch.equal(packed[r], wh[:, cols].t())
+    assert torch.equal(cuda_rnn.unpack_wh(packed, plan), wh)
+
+
+@pytest.mark.parametrize("B,H", GRID_PACK_SHAPES)
+def test_grid_threads_cover_each_block_once(B, H):
+    """The grid kernel's maps, as csrc/rnn_seq.cu writes them: thread tid = (ks * RT + rt) * NCT + ct
+    holds rows p0 + rt + i * RT (i < TM) of each pass and accumulator columns j = g * V + v (gate g,
+    unit ct * V + v), read from shared-memory column jh * 4 * NCT + ct * 4 + e (j = 4 * jh + e) of the
+    permuted wh slice. Every (pass row, gate column, K split) is one thread's, every permuted column
+    one (gate, unit)'s, and every K index one split's in each chunk."""
+    plan = cuda_rnn.grid_plan("lstm", B, H, "float32")
+    TM, TN, U = plan.tile_rows, plan.tile_cols, plan.units
+    V, N, KS = TN // 4, 4 * U, plan.ksplit
+    NCT, PR = U // V, plan.rows // plan.passes
+    RT = PR // TM
+    seen = np.zeros((KS, PR, N), dtype=np.int64)
+    slot = {}
+    for tid in range(plan.threads):
+        ct, rt, ks = tid % NCT, tid // NCT % RT, tid // (RT * NCT)
+        for i in range(TM):
+            for j in range(TN):
+                g, v = divmod(j, V)
+                seen[ks, rt + i * RT, g * U + ct * V + v] += 1
+                p = (j // 4) * 4 * NCT + ct * 4 + j % 4  # where the kernel reads column j's weights
+                assert slot.setdefault(p, (g, ct * V + v)) == (g, ct * V + v)
+    assert (seen == 1).all()
+    # the kernel's fill of the permuted slice: column p holds pack_wh's row g * U + u
+    for p in range(N):
+        jh, c, e = p // (4 * NCT), p % (4 * NCT) // 4, p % 4
+        j = jh * 4 + e
+        assert slot[p] == (j // V, c * V + j % V)
+    L = plan.kchunk // KS
+    ks_of_k = [(k % plan.kchunk) // L for k in range(H)]
+    assert np.bincount(ks_of_k, minlength=KS).tolist() == [H // KS] * KS
 
 
 def test_pack_wh_leaves_the_row_design_alone():

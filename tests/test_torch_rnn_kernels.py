@@ -128,7 +128,7 @@ def test_cpu_path_launches_no_kernel(kind):
     cuda_rnn.reset_launch_counts()
     _port_fns(kind)[1](*map(torch.tensor, _inputs(kind, 2, 3, 64)))
     counts = cuda_rnn.launch_counts()
-    assert {"gru_seq", "gru_seq_rows", "lstm_seq", "lstm_seq_rows"} <= set(counts)
+    assert {"gru_seq", "gru_seq_rows", "lstm_seq", "lstm_seq_rows", "lstm_seq_grid"} <= set(counts)
     assert all(n == 0 for n in counts.values())
 
 
