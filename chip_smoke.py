@@ -8,13 +8,14 @@ Phases, each printing one JSON line:
   parity    each kernel against its plain PyTorch version on the card, forward and
             gradient, float32 and bfloat16, at the main-path shape, the default width
             and odd shapes; every design of the launch plan (cluster, grid and rows) runs; then the
-            doom, dmlab, nethack, isaacgym and dp_host paths' shapes in float32, each asserting the design its
-            plan picks (LSTM-512 at (32, 32, 512), (32, 24, 512) and (16, 2048, 512): grid; dp_host's
-            GRU-256 at 37, 128, 131 and 255 segments: clusters of 8)
+            doom, dmlab, nethack, isaacgym, dp_host, tp and defaults paths' shapes in float32, each asserting the
+            design its plan picks (GRU-512 at (32, 64, 512), (16, 4, 512) and (32, 32, 512) and LSTM-512 at
+            (32, 32, 512), (32, 24, 512) and (16, 2048, 512): grid; dp_host's GRU-256 at 37, 128, 131 and 255
+            segments: clusters of 8; DMLab's LSTM-64 over a minibatch, (16, 1024, 64): rows)
   timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
-            nethack, isaacgym and dp_host paths' shapes, warm and with L2 flushed, beside the first design (rows) at the
-            same shapes, in turns in one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a
-            yardstick
+            nethack, isaacgym, dp_host, tp and defaults paths' shapes, warm and with L2 flushed, beside the first
+            design (rows) at the same shapes (and the cluster plan where the row design takes its place), in turns in
+            one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a yardstick
   main      sync PPO on grid_battle at full width (IMPALA conv, GRU-256, bf16,
             1024 envs, rollout 32) for 3 iterations through `run_rl`'s runner
   breakdown one more main-path iteration: rollout and learner times, then one under
@@ -24,6 +25,8 @@ Phases, each printing one JSON line:
   appo      the default regime at full width: the `main` configuration without --async_rl
             (so async, a behaviour snapshot one train call behind) and with V-trace, 3
             iterations; the policy lag, and env steps/s beside the sync run's
+  defaults  `train_synthetic` with --use_rnn=True and no model flag: the cfg's defaults (GRU-512 float32,
+            batch 1024, rollout 32, async), 64 envs, 2 iterations; `gru_seq_grid` once a minibatch at (32, 32, 512)
   dp        data parallelism (`parallel/`), in child processes that import nothing of JAX: (a) `main`
             in a world of 1 over NCCL, through the port's train.py with --jax_distributed=True under
             `python -m torch.distributed.run`, in turns with the same run without a group in the same
@@ -44,8 +47,9 @@ Phases, each printing one JSON line:
             minibatch on each rank at (32, 512, 256), the collectives (calls, bytes, host ms) of the rollout
             and the train call, and the device busy ms of a profiled iteration beside the one rank's; (b) the
             JAX package's multichip configuration (`__graft_entry__.py`: convnet_atari + Dense 512, GRU-512
-            float32) on a 2 x 2 mesh of four ranks against 4 x 1 for one iteration: the row design
-            (`gru_seq_rows`) on the gathered `wh` at TP_MULTICHIP_GRU, which `parity` and `timing` hold
+            float32) on a 2 x 2 mesh of four ranks against 4 x 1 for one iteration: the grid design
+            (`gru_seq_grid`, a cooperative launch of 128 blocks on each rank) on the gathered `wh` at
+            TP_MULTICHIP_GRU, which `parity` and `timing` hold
   ant       continuous control at full width: the physics ant, MLP 256-128-64, 4096 envs,
             rollout 16, batch 32768, 4 epochs, sync; env steps/s and the rollout/learner split
   towers    the other model family through the LSTM kernel: resnet_impala, separate actor
@@ -100,11 +104,12 @@ Phases, each printing one JSON line:
             through `examples/vizdoom/train_vizdoom.py`'s flags: GRU-512 float32, convnet_simple over
             72x128x3 + the measurements MLP, the tuple head, 400 envs, batch 2048, async with the
             quantized learner, 4 iterations, over the env-level stand-in of tests/standins/ (the card's
-            machine has neither gymnasium nor vizdoom); `gru_seq_rows` once a minibatch at (32, 64, 512)
+            machine has neither gymnasium nor vizdoom); `gru_seq_grid` once a minibatch at (32, 64, 512)
   dmlab     dmlab_30 at dmlab_params (convnet_impala ++ the instruction encoder, LSTM-256 float32), 128
             envs of the port's DmlabEnv with its level cache over the stand-in deepmind_lab of
             tests/standins/, batch 1024, async, 4 iterations, the DMLab-30 score tracker registered;
-            `lstm_seq` launches by site (core, instruction encoder in the rollout and the learner)
+            `lstm_seq` launches by site (core, instruction encoder in the rollout and the learner: the cluster
+            design, but the row design in the learner's instruction encoder)
   nethack   nethack_challenge through `examples/nethack/train_nethack.py`'s flags at their defaults (LSTM-512
             float32, batch 1024, rollout 32, async with the quantized learner; 12 workers x 2 envs, cut to one
             worker a core keeping the 24 envs) over the env-level stand-in of tests/standins/ (the card's
@@ -119,9 +124,10 @@ Phases, each printing one JSON line:
   sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
             the synthetic env on the card for 200,000 env steps
 Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two legs of `dp`), `tp` (both legs' tensor-parallel
-runs) and `dp_host` included, and per design: cluster, `*_seq`, grid, `lstm_seq_grid`, and rows,
-`*_seq_rows`; `lstm_seq_grid` also as a kernel of its own, by site: the NetHack and AllegroHandLSTM
-learners, beside the row design at the same shapes), the card's name and power limit, and the result line.
+runs) and `dp_host` included, and per design: cluster, `*_seq`, grid, `*_seq_grid`, and rows,
+`*_seq_rows`; `gru_seq_grid` and `lstm_seq_grid` also as kernels of their own, by site: the Doom learner, `tp`'s
+multichip leg and the defaults, the NetHack and AllegroHandLSTM learners, beside the row design at the same
+shapes), the card's name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
 
@@ -143,13 +149,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; 
 MAIN_GRU = (32, 512, 256, "bfloat16")  # T, segments per minibatch (16384 / 32), H, dtype
 MAIN_LSTM = (32, 128, 256, "float32")  # the lstm phase: 128 envs x 32 steps in one minibatch
 SELFPLAY_GRU = (32, 512, 512, "bfloat16")  # the selfplay phase: the default rnn_size, 512 segments a minibatch
-# (32, 512, 512): the default rnn_size; (4, 16, 1024): no cluster slice fits, the row design
+# (32, 512, 512): the default rnn_size; (4, 16, 1024): no cluster slice fits, the row design in bf16, the grid design in float32
 PARITY_SHAPES = [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64), (32, 512, 512), (4, 16, 1024)]
 # the doom and dmlab paths' shapes in the dtype each path runs, with the design its plan picks
-# (kind, T, B, H, dtype, design, cluster): GRU-512 float32 over 2048 / 32 segments (16 blocks of the
-# row design); the DMLab core's LSTM-256 over 1024 / 32; the instruction encoder's LSTM-64 over 16
-# tokens in a rollout slot (64 envs a split), in a minibatch of 1024 (32 clusters: three waves) and
-# in the learner's value of the last observation of all 128 envs
+# (kind, T, B, H, dtype, design, cluster): GRU-512 float32 over 2048 / 32 segments; the DMLab core's
+# LSTM-256 over 1024 / 32; the instruction encoder's LSTM-64 over 16 tokens in a rollout slot (64 envs
+# a split), in a minibatch of 1024 (its cluster plan, 32 clusters, would need three waves) and in the
+# learner's value of the last observation of all 128 envs
 DOOM_GRU = (32, 64, 512, "float32")
 DMLAB_CORE = (32, 32, 256, "float32")
 DMLAB_INSTR_ROLLOUT = (16, 64, 64, "float32")
@@ -167,16 +173,23 @@ ALLEGRO_LSTM = (16, 2048, 512, "float32")
 # filled last cluster (131); 8 rows (37) and 24 rows (255), each with a partly filled last cluster
 DP_HOST_GRUS = [(32, B, 256, "float32") for B in (128, 131, 37, 255)]
 # tp leg (b): the JAX package's multichip configuration, GRU-512 float32 on the gathered `wh` over one data
-# index's contiguous minibatch, 4 segments of 16 steps (the row design)
+# index's contiguous minibatch, 4 segments of 16 steps
 TP_MULTICHIP_GRU = (16, 4, 512, "float32")
-PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "rows", 1), *[("gru", *shape, "cluster", 8) for shape in DP_HOST_GRUS],
-                      ("gru", *TP_MULTICHIP_GRU, "rows", 1),
+# the cfg's defaults (--use_rnn=True --rnn_type=gru --rnn_size=512 --compute_dtype=float32 --batch_size=1024
+# --rollout=32): 1024 / 32 segments a minibatch (phase `defaults`)
+DEFAULTS_GRU = (32, 32, 512, "float32")
+# GRU-512 and LSTM-512 float32 take the grid design (128 blocks at these batches, 32 at AllegroHandLSTM's);
+# the DMLab instruction encoder's LSTM-64 over a minibatch the row design (its cluster plan needs three waves)
+PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "grid", 128), *[("gru", *shape, "cluster", 8) for shape in DP_HOST_GRUS],
+                      ("gru", *TP_MULTICHIP_GRU, "grid", 128), ("gru", *DEFAULTS_GRU, "grid", 128),
                       ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "cluster", 8),
-                      ("lstm", *DMLAB_INSTR_LEARNER, "cluster", 8), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
+                      ("lstm", *DMLAB_INSTR_LEARNER, "rows", 1), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
                       ("lstm", *NETHACK_LSTM_BATCH, "grid", 128), ("lstm", *NETHACK_LSTM, "grid", 128),
                       ("lstm", *ALLEGRO_LSTM, "grid", 32)]
-# the sites of `lstm_seq_grid` that the kernels line reports one by one
-GRID_SITES = {"nethack_learner": NETHACK_LSTM, "allegro_hand_lstm_learner": ALLEGRO_LSTM}
+# the sites of the grid design that the kernels line reports one by one: site -> (kind, shape, the path that runs it)
+GRID_SITES = {"doom_learner": ("gru", DOOM_GRU, "doom"), "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"),
+              "defaults": ("gru", DEFAULTS_GRU, "defaults"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
+              "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym")}
 # bf16: kernel and plain version round every gate op to bf16 alike, but sum h @ wh in
 # another order, so a product can land one bf16 ulp apart; that flip (2^-8 relative,
 # up to 2^-6 absolute at the LSTM cell's magnitudes) feeds forward through the recurrence.
@@ -189,12 +202,12 @@ REPLACES = {
     "gru_seq": "sample_factory_tpu/ops/pallas_gru.py:148",
     "lstm_seq": "sample_factory_tpu/ops/pallas_gru.py:271",
 }
-# the designs (cluster: `gru_seq`/`lstm_seq`; grid: `lstm_seq_grid`; rows: `gru_seq_rows`/`lstm_seq_rows`); the
-# kernels line reports the cluster designs at their main paths' shapes, the GRU's row design at the doom
-# path's (the first path that runs it), the grid design at the nethack path's and at each of its sites,
-# and the LSTM's row design, which no path runs since the grid design, at the nethack path's shape
-KERNEL_LINE_SHAPES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM), "lstm_seq_grid": ("lstm", NETHACK_LSTM),
-                      "gru_seq_rows": ("gru", DOOM_GRU), "lstm_seq_rows": ("lstm", NETHACK_LSTM)}
+# the designs (cluster: `gru_seq`/`lstm_seq`; grid: `gru_seq_grid`/`lstm_seq_grid`; rows: `gru_seq_rows`/`lstm_seq_rows`);
+# the kernels line reports the cluster designs at their main paths' shapes, the grid designs at the doom and
+# nethack paths' and at each of their sites, and the row designs, which no float32 H=512 path runs since the
+# grid designs, at the same shapes
+KERNEL_LINE_SHAPES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM), "gru_seq_grid": ("gru", DOOM_GRU),
+                      "lstm_seq_grid": ("lstm", NETHACK_LSTM), "gru_seq_rows": ("gru", DOOM_GRU), "lstm_seq_rows": ("lstm", NETHACK_LSTM)}
 
 
 def emit(record):
@@ -278,7 +291,7 @@ def phase_parity(torch, cuda_rnn):
         parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=True)
     # the error reported for each design: at the shape and dtype of the first path that runs it, and at
     # each site of the grid design
-    line_shapes = dict(KERNEL_LINE_SHAPES, **{f"lstm_seq_grid@{site}": ("lstm", shape) for site, shape in GRID_SITES.items()})
+    line_shapes = dict(KERNEL_LINE_SHAPES, **{f"{kind}_seq_grid@{site}": (kind, shape) for site, (kind, shape, _) in GRID_SITES.items()})
     for name, (kind, (T, B, H, dtype)) in line_shapes.items():
         kernel_fn, plain_fn = fns[kind]
         args = make_inputs(torch, kind, T, B, H, dtype, seed=1)
@@ -336,9 +349,10 @@ def phase_timing(torch, cuda_rnn, card):
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     rows_by_shape = {}
     with torch.no_grad():
-        # the main-path rows (and the selfplay, doom, dmlab, nethack and isaacgym paths' shapes): the
-        # planned design and the first design (rows) at the same shape, warm and L2-cold, the plain
-        # version and the bound
+        # the main-path rows (and the selfplay, doom, dmlab, nethack, isaacgym, tp and defaults paths' shapes):
+        # the planned design and the first design (rows) at the same shape, in turns, warm and L2-cold, the
+        # plain version and the bound; where the plan takes the row design over a cluster plan of several
+        # waves, that cluster plan too
         shapes = [("gru", MAIN_GRU), ("lstm", MAIN_LSTM), ("gru", SELFPLAY_GRU)] + [(k, (T, B, H, dt)) for k, T, B, H, dt, _, _ in PARITY_PATH_SHAPES]
         for kind, (T, B, H, dtype) in shapes:
             args = make_inputs(torch, kind, T, B, H, dtype, seed=2)
@@ -347,8 +361,11 @@ def phase_timing(torch, cuda_rnn, card):
             row = {"ms": time_ms(torch, lambda: launches[kind](*args)),
                    "rows_ms": time_ms(torch, lambda: launches[kind](*args, plan=rows)),
                    "plain_ms": time_ms(torch, lambda: plains[kind](*args)),
-                   "ms_l2_cold": time_ms(torch, lambda: launches[kind](*args), flush=flush),
-                   "rows_ms_l2_cold": time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush)}
+                   "rows_ms_l2_cold": time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush),
+                   "ms_l2_cold": time_ms(torch, lambda: launches[kind](*args), flush=flush)}
+            over = cuda_rnn.cluster_plan(kind, B, H, dtype)
+            if plan.design == "rows" and over is not None:
+                row.update(cluster_ms=time_ms(torch, lambda: launches[kind](*args, plan=over)), cluster_waves=cuda_rnn.cluster_waves(over))
             bound_ms, bound_by, nbytes, flops = bound(kind, T, B, H, dtype)
             row.update(bound_ms=bound_ms, bound_by=bound_by, design=dataclasses.asdict(plan))
             rows_by_shape[(kind, T, B, H, dtype)] = row
@@ -389,12 +406,12 @@ def phase_timing(torch, cuda_rnn, card):
         out[name] = {"ms": ms, "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                      "shape": list(shape[:3]), "dtype": shape[3]}
         if not name.endswith("_rows"):
-            out[name].update(design=row["design"], first_design_ms=row["rows_ms"])
-    for site, shape in GRID_SITES.items():
-        row = rows_by_shape[("lstm", *shape)]
-        out[f"lstm_seq_grid@{site}"] = {"shape": list(shape[:3]), "dtype": shape[3], "ms": row["ms"], "ms_l2_cold": row["ms_l2_cold"],
-                                        "rows_ms": row["rows_ms"], "rows_ms_l2_cold": row["rows_ms_l2_cold"],
-                                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+            out[name].update(ms_l2_cold=row["ms_l2_cold"], design=row["design"], first_design_ms=row["rows_ms"])
+    for site, (kind, shape, _) in GRID_SITES.items():
+        row = rows_by_shape[(kind, *shape)]
+        out[f"{kind}_seq_grid@{site}"] = {"shape": list(shape[:3]), "dtype": shape[3], "ms": row["ms"], "ms_l2_cold": row["ms_l2_cold"],
+                                          "rows_ms": row["rows_ms"], "rows_ms_l2_cold": row["rows_ms_l2_cold"],
+                                          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
     return out
 
 
@@ -521,7 +538,7 @@ def device_activities(torch, prof):
     for e in on_device:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
     rnn_us = sum(e.time_range.elapsed_us() for e in on_device
-                 if any(k in e.name for k in ("seq_cluster_kernel", "lstm_grid_kernel", "rows_kernel")))
+                 if any(k in e.name for k in ("seq_cluster_kernel", "grid_kernel", "rows_kernel")))
     return sum(by_name.values()), rnn_us, on_device, by_name
 
 
@@ -691,6 +708,36 @@ def phase_appo(torch, cuda_rnn, card, tmp, sync_runner, sync_rate):
           "rollout_versions": versions, "policy_lag_sgd_steps": lags, "env_steps_per_s_steady": rate,
           "env_steps_per_s_steady_sync_main": sync_rate, "regimes_in_turns": split,
           "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+    return counts
+
+
+DEFAULTS_ENVS, DEFAULTS_ITERS = 64, 2
+
+
+def phase_defaults(torch, cuda_rnn, card, tmp):
+    """`train_synthetic` on synthetic_vector_discrete with --use_rnn=True (it turns the core off) and no
+    other flag: the cfg's defaults (GRU-512 float32, batch 1024, rollout 32, the async regime) at
+    train_synthetic's 64 envs, 2 iterations; `gru_seq_grid` once a minibatch at DEFAULTS_GRU."""
+    argv = ["--env=synthetic_vector_discrete", "--use_rnn=True", "--save_every_sec=100000", "--save_best_every_sec=100000",
+            "--experiment_summaries_interval=100000", f"--train_for_env_steps={DEFAULTS_ITERS * DEFAULTS_ENVS * 32}",
+            "--experiment=defaults"]
+
+    def before_run(runner):
+        cfg = runner.cfg
+        check((cfg.rnn_type, cfg.rnn_size, cfg.compute_dtype, cfg.batch_size, cfg.rollout, cfg.num_envs, cfg.async_rl)
+              == ("gru", 512, "float32", 1024, 32, DEFAULTS_ENVS, True), "not the cfg's defaults")
+
+    with launch_shapes(cuda_rnn) as shapes:
+        runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp, before_run)
+    per_iter = [b - a for a, b in zip(times, times[1:])]
+    minibatches = DEFAULTS_ENVS * 32 // 1024
+    check(len(per_iter) == DEFAULTS_ITERS, f"expected {DEFAULTS_ITERS} iterations, ran {len(per_iter)}")
+    check(counts["gru_seq_grid"] == DEFAULTS_ITERS * minibatches and sum(counts.values()) == counts["gru_seq_grid"],
+          f"launches {counts}: expected {minibatches} gru_seq_grid an iteration and no other kernel")
+    check(set(shapes) == {("gru", *DEFAULTS_GRU[:3])}, f"launch shapes {set(shapes)}")
+    emit({"phase": "defaults", "env": "synthetic_vector_discrete", "envs": DEFAULTS_ENVS, "rollout": 32, "batch": 1024,
+          "model": "MLP 128-128, GRU-512 float32", "iterations": DEFAULTS_ITERS, "launches": counts, "iteration_s": per_iter,
+          "env_steps_per_s_all": runner.env_steps / sum(per_iter), "loss": stats["loss"], "card": card})
     return counts
 
 
@@ -1784,9 +1831,9 @@ def doom_run(torch, cuda_rnn, card, tmp):
                                          parse=parse_vizdoom_cfg)
     minibatches = runner._quantizer.num_minibatches
     check(len(record["iteration_ms"]) == DOOM_ITERS, f"{len(record['iteration_ms'])} iterations")
-    check(minibatches == DOOM_ENVS * 32 // 2048 and counts["gru_seq_rows"] == DOOM_ITERS * minibatches,
-          f"gru_seq_rows launches {counts['gru_seq_rows']}, expected {DOOM_ITERS} train steps x {minibatches} minibatches")
-    check(all(v == 0 for k, v in counts.items() if k != "gru_seq_rows"), f"other kernels launched on the doom path: {counts}")
+    check(minibatches == DOOM_ENVS * 32 // 2048 and counts["gru_seq_grid"] == DOOM_ITERS * minibatches,
+          f"gru_seq_grid launches {counts['gru_seq_grid']}, expected {DOOM_ITERS} train steps x {minibatches} minibatches")
+    check(all(v == 0 for k, v in counts.items() if k != "gru_seq_grid"), f"other kernels launched on the doom path: {counts}")
     check(set(shapes) == {("gru", *DOOM_GRU[:3])}, f"launch shapes {set(shapes)}")
     check(runner.episode_stats.avg_reward is not None, "no episode finished")
     check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
@@ -1864,8 +1911,11 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
     check(by_site["core"] == by_site["instruction_learner"] == DMLAB_ITERS * minibatches
           and by_site["instruction_learner_last_value"] == DMLAB_ITERS, f"learner launches by site {by_site}")
     check(by_site["instruction_rollout"] >= DMLAB_ITERS * cfg.rollout * cfg.worker_num_splits, f"rollout launches by site {by_site}")
-    check(sum(by_site.values()) == len(shapes) == counts["lstm_seq"] and all(v == 0 for k, v in counts.items() if k != "lstm_seq"),
-          f"launches {counts}, shapes {set(shapes)}")
+    # each site's launches go to the design its plan picks (the learner's instruction encoder: the row design)
+    expected = dict.fromkeys(counts, 0)
+    for site, (kind, T, B, H) in sites.items():
+        expected[cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, "float32"))] += by_site[site]
+    check(sum(by_site.values()) == len(shapes) and counts == expected, f"launches {counts} against {expected}, shapes {set(shapes)}")
     check(sum(episodes.values()) > 0 and not shm_segments(), f"episodes {episodes}, segments {shm_segments()}")
     cache = os.path.join(tmp, "dmlab_cache")
     emit({"phase": "dmlab", "env": "dmlab_30 (DmlabEnv over the stand-in engine)", "workers": workers, "envs": DMLAB_ENVS, "cut": cut,
@@ -2570,7 +2620,8 @@ def phase_tp(torch, cuda_rnn, card, tmp):
     the parameters after one sync train call of 2 shuffled minibatches within TP_TOL, `gru_seq` on the
     gathered `wh` once a minibatch on each rank, the collectives an iteration, and the device busy ms
     of a profiled iteration beside the one rank's. (b) the JAX package's multichip configuration on a
-    2 x 2 mesh of four gloo ranks against 4 x 1: the row design (`gru_seq_rows`) on the gathered GRU-512."""
+    2 x 2 mesh of four gloo ranks against 4 x 1: the grid design (`gru_seq_grid`) on the gathered GRU-512, a
+    cooperative launch of 128 blocks on each of the four ranks sharing the card."""
     script = os.path.abspath(__file__)
     env = dict(os.environ, PYTHONPATH=os.path.dirname(script) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("WORLD_SIZE", None)
@@ -2637,8 +2688,8 @@ def phase_tp(torch, cuda_rnn, card, tmp):
     check(diff_b <= 1e-5, f"2 x 2 against 4 x 1: max |param diff| {diff_b} > 1e-5")
     # two contiguous minibatches of 64 rows: the first is data index 0's rows, the second data index 1's, and a
     # rank launches the recurrence only on a minibatch it holds rows of
-    check(all(r["tp"]["launches"]["gru_seq_rows"] == 1 and r["tp"]["launches"]["gru_seq"] == 0 for r in ranks_b),
-          f"a 2 x 2 rank did not launch the GRU's row design on its minibatch: {[r['tp']['launches'] for r in ranks_b]}")
+    check(all(r["tp"]["launches"]["gru_seq_grid"] == 1 and sum(r["tp"]["launches"].values()) == 1 for r in ranks_b),
+          f"a 2 x 2 rank did not launch the GRU's grid design on its minibatch: {[r['tp']['launches'] for r in ranks_b]}")
     check(all(r["tp"]["launch_shapes"] == [["gru", *TP_MULTICHIP_GRU[:3]]] for r in ranks_b),
           f"2 x 2 launch shapes {[r['tp']['launch_shapes'] for r in ranks_b]}, not {TP_MULTICHIP_GRU[:3]}")
     check(all(r["tp"]["episodes"] == r["dp"]["episodes"] for r in ranks_b), "episode counts differ between the meshes")
@@ -2646,7 +2697,7 @@ def phase_tp(torch, cuda_rnn, card, tmp):
           "config": "__graft_entry__.py's dry run: convnet_atari + Dense 512, GRU-512 float32, 8 envs, rollout 16, batch 64, "
                     "--tp_min_layer_width=256, one iteration",
           "sharded": ranks_b[0]["tp"]["sharded"], "losses": losses, "max_abs_param_diff": diff_b, "tol": 1e-5,
-          "gru_seq_rows_by_rank": [r["tp"]["launches"]["gru_seq_rows"] for r in ranks_b],
+          "gru_seq_grid_by_rank": [r["tp"]["launches"]["gru_seq_grid"] for r in ranks_b],
           "seconds": time.perf_counter() - start_b, "card": card})
     counts = [r["launches"] for r in ranks] + [r["tp"]["launches"] for r in ranks_b]
     return {k: sum(c[k] for c in counts) for k in counts[0]}
@@ -2943,26 +2994,28 @@ def main() -> int:
     lib_path = cuda_rnn.build()
     cuda_rnn.load_library()
     log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
-    # the launch plan assumes the cluster counts that run at once (cuda_rnn.MAX_CLUSTERS)
+    # the launch plan assumes the cluster counts that run at once (cuda_rnn.MAX_CLUSTERS): its waves, and
+    # the row design in place of a cluster plan of several waves at a small width (the DMLab learner's encoder)
     at_once = {}
     cluster_shapes = [("gru_seq", "gru", MAIN_GRU), ("lstm_seq", "lstm", MAIN_LSTM), ("gru_seq_selfplay", "gru", SELFPLAY_GRU),
                       ("lstm_seq_dmlab_core", "lstm", DMLAB_CORE), ("lstm_seq_dmlab_instr_rollout", "lstm", DMLAB_INSTR_ROLLOUT),
                       ("lstm_seq_dmlab_instr_learner", "lstm", DMLAB_INSTR_LEARNER),
                       ("lstm_seq_dmlab_instr_last_value", "lstm", DMLAB_INSTR_BOOTSTRAP)]
     for name, kind, (T, B, H, dtype) in cluster_shapes:
-        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
-        check(plan.design == "cluster", f"{name}: {(T, B, H, dtype)} does not take the cluster design")
-        at_once[name] = {"shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster,
+        plan = cuda_rnn.cluster_plan(kind, B, H, dtype)
+        check(plan is not None, f"{name}: {(T, B, H, dtype)} has no cluster plan")
+        at_once[name] = {"shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster, "waves": cuda_rnn.cluster_waves(plan),
+                         "planned": cuda_rnn.launch_plan(kind, T, B, H, dtype).design,
                          "card_runs_at_once": cuda_rnn.max_active_clusters(kind, dtype, plan)}
         check(at_once[name]["card_runs_at_once"] >= 1, f"{name}: no cluster of {plan} fits the card")
     # the grid design's cooperative launches need every block resident at once (cuda_rnn.GRID_BLOCKS, one a SM)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     grid_at_once = {}
-    for site, (T, B, H, dtype) in GRID_SITES.items():
-        plan = cuda_rnn.launch_plan("lstm", T, B, H, dtype)
+    for site, (kind, (T, B, H, dtype), _) in GRID_SITES.items():
+        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
         check(plan.design == "grid", f"{site}: {(T, B, H, dtype)} does not take the grid design")
-        grid_at_once[site] = {"shape": [T, B, H], "dtype": dtype, "blocks": plan.grid, "threads": plan.threads, "smem": plan.smem,
-                              "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(plan), "sms": sms}
+        grid_at_once[site] = {"kernel": kind, "shape": [T, B, H], "dtype": dtype, "blocks": plan.grid, "threads": plan.threads,
+                              "smem": plan.smem, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(kind, plan), "sms": sms}
         check(plan.grid <= min(cuda_rnn.GRID_BLOCKS, grid_at_once[site]["blocks_per_sm"] * sms), f"{site}: {plan} is not resident at once")
     emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name, "shm_queue_library": queue_path.name,
           "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line],
@@ -2977,6 +3030,7 @@ def main() -> int:
         paths["lstm"] = phase_lstm(torch, cuda_rnn, card, tmp)
         paths["appo"] = phase_appo(torch, cuda_rnn, card, tmp, runner, sync_rate)
         del runner
+        paths["defaults"] = phase_defaults(torch, cuda_rnn, card, tmp)
         paths["dp"], paths["dp2"] = phase_dp(torch, cuda_rnn, card, tmp)
         paths["tp"] = phase_tp(torch, cuda_rnn, card, tmp)
         paths["ant"] = phase_ant(torch, cuda_rnn, card, tmp)
@@ -3001,14 +3055,13 @@ def main() -> int:
         check(all(v == 0 for v in cuda_rnn.launch_counts().values()), "an RNN kernel launched in the sampler phase")
 
     # launches: each path was driven with the counts at 0 just before it and read just after, and
-    # each kernel's are counted by design (cluster: `*_seq`; grid: `lstm_seq_grid`; rows: `*_seq_rows`);
-    # `lstm_seq` counts every design of the LSTM's port, `lstm_seq_grid` the grid design alone. The
-    # kernel's numbers are its cluster design's at the main-path shape, the row design's at its first
-    # path's shape, the grid design's at the nethack path's shape and at each of its sites
+    # each kernel's are counted by design (cluster: `*_seq`; grid: `*_seq_grid`; rows: `*_seq_rows`);
+    # `gru_seq` and `lstm_seq` count every design of their port, `*_seq_grid` the grid design alone. A
+    # kernel's numbers are its cluster design's at the main-path shape, the row design's and the grid
+    # design's at the doom (GRU) or nethack (LSTM) path's shape, and the grid design's at each of its sites
     def by_design(name, counts):
-        return {"cluster": counts[name], "rows": counts[f"{name}_rows"], **({"grid": counts[f"{name}_grid"]} if name == "lstm_seq" else {})}
+        return {"cluster": counts[name], "grid": counts[f"{name}_grid"], "rows": counts[f"{name}_rows"]}
 
-    grid_sites = {"nethack_learner": "nethack", "allegro_hand_lstm_learner": "isaacgym"}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": sum(sum(by_design(name, counts).values()) for counts in paths.values()),
@@ -3018,12 +3071,14 @@ def main() -> int:
          "row_design": {"max_abs_err": main_err[f"{name}_rows"], **timing[f"{name}_rows"], "library_ms": None}}
         for name in ("gru_seq", "lstm_seq")
     ] + [
-        {"name": "lstm_seq_grid", "route": "cuda", "source": SOURCE, "replaces": REPLACES["lstm_seq"],
-         "launches": sum(counts["lstm_seq_grid"] for counts in paths.values()),
-         "paths": {path: counts["lstm_seq_grid"] for path, counts in paths.items()},
-         "max_abs_err": main_err["lstm_seq_grid"], **timing["lstm_seq_grid"], "library_ms": None,
-         "sites": {site: {"launches": paths[path]["lstm_seq_grid"], "max_abs_err": main_err[f"lstm_seq_grid@{site}"],
-                          **timing[f"lstm_seq_grid@{site}"], "library_ms": None} for site, path in grid_sites.items()}}
+        {"name": f"{kind}_seq_grid", "route": "cuda", "source": SOURCE, "replaces": REPLACES[f"{kind}_seq"],
+         "launches": sum(counts[f"{kind}_seq_grid"] for counts in paths.values()),
+         "paths": {path: counts[f"{kind}_seq_grid"] for path, counts in paths.items()},
+         "max_abs_err": main_err[f"{kind}_seq_grid"], **timing[f"{kind}_seq_grid"], "library_ms": None,
+         "sites": {site: {"launches": paths[path][f"{kind}_seq_grid"], "max_abs_err": main_err[f"{kind}_seq_grid@{site}"],
+                          **timing[f"{kind}_seq_grid@{site}"], "library_ms": None}
+                   for site, (site_kind, _, path) in GRID_SITES.items() if site_kind == kind}}
+        for kind in ("gru", "lstm")
     ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

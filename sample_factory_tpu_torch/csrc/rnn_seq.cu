@@ -1,7 +1,7 @@
 // GRU and LSTM recurrences over one BPTT segment, written by hand for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of sample_factory_tpu/ops/pallas_gru.py:
-//   gru_seq_forward, gru_rows_forward                     <- _gru_kernel  (:78-109, pallas_call at :148)
+//   gru_seq_forward, gru_rows_forward, gru_grid_forward    <- _gru_kernel  (:78-109, pallas_call at :148)
 //   lstm_seq_forward, lstm_rows_forward, lstm_grid_forward <- _lstm_kernel (:226-253, pallas_call at :271)
 //
 // What is computed (the input projection of all T steps is done beforehand by one matmul):
@@ -39,29 +39,32 @@
 // The launch plan (ops/cuda_rnn.py:launch_plan) keeps every cluster in one wave: on the H100
 // at most 15 clusters of 8 (7 of 16) run at once with one block per SM.
 //
-// Design "grid" (lstm_grid_kernel, the f32 LSTM where no cluster slice fits, e.g. H=512: a
-// slice of 16 would need 128 x 516 x 4 = 264 KB). Also replaces _lstm_kernel. What bounds it:
-// at large B the f32 product on the CUDA cores, 2*B*H*4H operations a step at 67 TFLOP/s
-// (64 us at B=2048, H=512); at small B the chain of T dependent steps, each a grid barrier and
-// an L2 round trip of the new carry. The design:
+// Design "grid" (grid_kernel<Cells>, the f32 GRU and LSTM where no cluster slice fits, e.g. H=512:
+// an LSTM slice of 16 would need 128 x 516 x 4 = 264 KB, a GRU slice 238 KB). Also replaces
+// _gru_kernel and _lstm_kernel; one kernel, templated over the cell (LstmCells, GruCells). What
+// bounds it: at large B the f32 product on the CUDA cores, 2*B*H*G*H operations a step at 67
+// TFLOP/s (64 us at B=2048, H=512, G=4); at small B the chain of T dependent steps, each a grid
+// barrier and an L2 round trip of the new carry. The design:
 //   - one persistent cooperative launch for all T steps: Q batch tiles x S unit slices,
 //     Q*S <= 132 blocks, one a SM, all resident (cudaLaunchCooperativeKernel refuses a grid
 //     that does not fit); one grid barrier (cg::this_grid().sync()) a step;
-//   - block (q, r) owns BT batch rows and U = H/S hidden units with all four gates of each,
-//     the 4U columns of wh that pack_wh lays out for it; it copies them into shared memory
-//     once and keeps them for all T steps (weight-stationary: 32 KB at U=4, 128 KB at U=16);
+//   - block (q, r) owns BT batch rows and U = H/S hidden units with all G gates of each, the
+//     G*U columns of wh that pack_wh lays out for it; it copies them into shared memory once
+//     and keeps them for all T steps (weight-stationary: 32 KB at U=4, 128 KB at U=16; the
+//     GRU's columns padded with a zero fourth gate, so both cells share the tiles below);
 //   - only h crosses blocks: the new carry goes to a global double buffer [2][B][H] that the
 //     wrapper allocates, and every block reads its tile's h at the next step with cp.async.cg
 //     (L2 only, so no L1 line of an earlier step is read), in K chunks of up to 128, double
-//     buffered; the cell state stays with its owning thread (in hc_final's c half, which only
-//     that thread touches until the end);
+//     buffered; the LSTM's cell state stays with its owning thread (in hc_final's c half, which
+//     only that thread touches until the end), and so does the GRU's old h, which that thread
+//     wrote into the h buffer the step before; the GRU's bh sits in the thread's registers;
 //   - the product h[BT,H] @ wh_slice[H,4U] in f32 FMAs (no TF32: it would break the f32
 //     tolerance), a register tile of TM x TN a thread (TN/4 units x 4 gates, so the cells
 //     are applied from registers); at small B 4 x 4 tiles with the K range split 8 or 4 ways
 //     across threads (partial sums added through shared memory, a cell a thread), at large B
 //     8 x 8 tiles at 256 threads (a thread's 64 accumulators and operands fill its 255
 //     registers; larger tiles spill) in passes over the tile's rows;
-//   - a cell's x_proj, c and reset are loaded before they are needed: ahead of the product
+//   - a cell's x_proj, c (h) and reset are loaded before they are needed: ahead of the product
 //     where a thread owns one cell, a row ahead where it owns a tile's; step t+1's x_proj slice
 //     and resets are prefetched into L2 during step t (a prefetch, not a copy into shared
 //     memory: at B=2048 a block's slice is 128 KB a step).
@@ -71,7 +74,7 @@
 //
 // Design "rows" (gru_rows_kernel, lstm_rows_kernel: the first design, kept for the shapes
 // whose wh slice does not fit a block even at C = 16 and that the grid design does not take,
-// e.g. bf16 GRU at H=1024 or f32 GRU at H=512). One block owns 4 batch rows and runs all T
+// e.g. bf16 GRU at H=1024 or f32 at H=100). One block owns 4 batch rows and runs all T
 // steps; wh is re-read from L2 each step with CUDA-core FMAs. The wrapper's launch plan picks
 // the design from the shape.
 //
@@ -696,19 +699,27 @@ __device__ __forceinline__ void store_v(float* p, const float (&d)[V]) {
     }
 }
 
-// V neighbouring LSTM cells (batch row b, hidden units col .. col + V - 1) at step t. The cell
-// state lives in hc_final's c half, read and written by the cells' one owning thread. The inputs
-// are loaded apart from the math (`load`, then `step`), so that a thread issues them before it
-// waits on them: ahead of the product where a thread owns one cell, a row ahead where it owns a
-// register tile's cells.
+// V neighbouring cells (batch row b, hidden units col .. col + V - 1) at step t, of an LSTM
+// (LstmCells) or a GRU (GruCells): the cell policy of the grid kernel. G is the gates of x_proj
+// and wh, SW the state row's width in H (s0 and s_final are [B][SW*H]). The inputs are loaded apart
+// from the math (`load`, then `step`), so that a thread issues them before it waits on them: ahead
+// of the product where a thread owns one cell, a row ahead where it owns a register tile's cells.
+// `step` takes the gate sums a[g][v] = h @ wh (f32) and writes outs[t], the new carry into the next
+// h buffer (read by every block after the grid barrier) and at the last step the carry into s_final.
+
+// LSTM: the cell state lives in s_final's c half, read and written by the cells' one owning thread.
 template <int V>
-struct GridCells {
+struct LstmCells {
+    static constexpr int G = 4, SW = 2;
+    struct Bias {  // none: bi is folded into x_proj
+        __device__ __forceinline__ void load(const float*, int, int) {}
+    };
     float x[4][V];  // step t's x_proj of the four gates
     float c[V];     // the cell states entering step t
     float reset;    // resets[t][b]
 
-    __device__ __forceinline__ void load(const float* __restrict__ xs, const float* __restrict__ resets, const float* hc,
-                                         int t, int B, int H, int b, int col) {
+    __device__ __forceinline__ void load(const float* __restrict__ xs, const float* __restrict__ resets, const float*,
+                                         const float* hc, int t, int B, int H, int b, int col) {
         const float* xp = xs + ((size_t)t * B + b) * 4 * H + col;
 #pragma unroll
         for (int g = 0; g < 4; ++g) load_v<V>(x[g], xp + g * H);
@@ -716,11 +727,8 @@ struct GridCells {
         reset = resets[(size_t)t * B + b];
     }
 
-    // From the gate sums a[g][v] = h @ wh (f32): outs[t], the new carry into the next h buffer (read
-    // by every block after the grid barrier), the new cell states, and at the last step the carry
-    // into hc_final's h half.
-    __device__ __forceinline__ void step(const float (&a)[4][V], float* h_next, float* __restrict__ outs, float* hc, int t,
-                                         int B, int H, int b, int col, bool last) const {
+    __device__ __forceinline__ void step(const float (&a)[4][V], const Bias&, float* h_next, float* __restrict__ outs,
+                                         float* hc, int t, int B, int H, int b, int col, bool last) const {
         const bool keep = !(reset > 0.0f);
         float h[V], carry[V], cell[V];
 #pragma unroll
@@ -740,17 +748,66 @@ struct GridCells {
     }
 };
 
+// GRU: bh is added to the sums before the gates (held in registers for all T steps), and the old h
+// of `z * h` is the carry that this thread itself wrote into the h buffer at step t - 1 (after the
+// reset; h0 at step 0, written before the first grid barrier), read back from there.
+template <int V>
+struct GruCells {
+    static constexpr int G = 3, SW = 1;
+    struct Bias {
+        float b[3][V];
+        __device__ __forceinline__ void load(const float* __restrict__ bh, int H, int col) {
+#pragma unroll
+            for (int g = 0; g < 3; ++g) load_v<V>(b[g], bh + g * H + col);
+        }
+    };
+    float x[3][V];  // step t's x_proj of the three gates
+    float h[V];     // the carry entering step t
+    float reset;
+
+    __device__ __forceinline__ void load(const float* __restrict__ xs, const float* __restrict__ resets, const float* h_cur,
+                                         const float*, int t, int B, int H, int b, int col) {
+        const float* xp = xs + ((size_t)t * B + b) * 3 * H + col;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) load_v<V>(x[g], xp + g * H);
+        load_v<V>(h, h_cur + (size_t)b * H + col);
+        reset = resets[(size_t)t * B + b];
+    }
+
+    __device__ __forceinline__ void step(const float (&a)[3][V], const Bias& bias, float* h_next, float* __restrict__ outs,
+                                         float* s, int t, int B, int H, int b, int col, bool last) const {
+        const bool keep = !(reset > 0.0f);
+        float out[V], carry[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            const float hr = add<float>(a[0][v], bias.b[0][v]), hz = add<float>(a[1][v], bias.b[1][v]);
+            const float hn = add<float>(a[2][v], bias.b[2][v]);
+            const float rg = sigmoid_t<float>(add<float>(x[0][v], hr));
+            const float zg = sigmoid_t<float>(add<float>(x[1][v], hz));
+            const float n = tanh_t<float>(add<float>(x[2][v], mul<float>(rg, hn)));
+            out[v] = add<float>(mul<float>(sub<float>(1.0f, zg), n), mul<float>(zg, h[v]));
+            carry[v] = keep ? out[v] : 0.0f;
+        }
+        store_v<V>(outs + ((size_t)t * B + b) * H + col, out);
+        store_v<V>(h_next + (size_t)b * H + col, carry);
+        if (last) store_v<V>(s + (size_t)b * H + col, carry);
+    }
+};
+
 // A persistent cooperative grid of Q batch tiles x S unit slices (blockIdx = tile * S + slice).
 // A thread holds TM x TN accumulators: TM rows (p0 + rt + i * RT in the pass from tile row p0) x
-// V = TN/4 units (ct * V + v) x 4 gates. Where K is split (KS > 1: one pass, at most as many
-// cells as threads) thread tid owns cell tid: it loads the cell's inputs before the product and
-// applies it after the splits' sum.
-template <int TM, int TN>
+// V = TN/4 units (ct * V + v) x 4 gate columns. The GRU's three gates take the LSTM's tiles with a
+// fourth gate of zero columns in the shared-memory slice: a thread's FMAs run in parallel with its
+// neighbours', so the wasted quarter costs issue slots, not the latency that sets a step at small B.
+// Where K is split (KS > 1: one pass, at most as many cells as threads) thread tid owns cell tid:
+// it loads the cell's inputs before the product and applies it after the splits' sum.
+template <template <int> class Cells, int TM, int TN>
 __global__ void __launch_bounds__(grid_max_threads(TM, TN), 1)
-    lstm_grid_kernel(const float* __restrict__ x, const float* __restrict__ hc0, const float* __restrict__ resets,
-                     const float* __restrict__ wpk, float* hbuf, float* __restrict__ outs, float* hc_final, int steps,
-                     int B, int H, int U, int BT, int KS, int KC, int passes) {
-    constexpr int V = TN / 4;  // units a thread: V units x 4 gates = TN accumulator columns
+    grid_kernel(const float* __restrict__ x, const float* __restrict__ s0, const float* __restrict__ resets,
+                const float* __restrict__ wpk, const float* __restrict__ bh, float* hbuf, float* __restrict__ outs,
+                float* s_final, int steps, int B, int H, int U, int BT, int KS, int KC, int passes) {
+    constexpr int V = TN / 4;  // units a thread: V units x 4 gate columns = TN accumulator columns
+    constexpr int G = Cells<1>::G, SW = Cells<1>::SW;
     cg::grid_group grid = cg::this_grid();
     const int S = H / U, N = 4 * U, NCT = U / V, PR = BT / passes, RT = PR / TM, tiles = RT * NCT;
     const int r = static_cast<int>(blockIdx.x) % S, b0 = static_cast<int>(blockIdx.x) / S * BT;
@@ -766,31 +823,38 @@ __global__ void __launch_bounds__(grid_max_threads(TM, TN), 1)
     float* h_s = w_s + H * N;                     // [stages][PR][HS]: chunks of a pass's carry h, K contiguous
     float* red = h_s + stages * PR * HS;          // [KS][tiles][TM * TN]: partial sums of the K splits
 
-    // The wh slice, once: pack_wh's rows g*U + u (K contiguous) become columns, ordered so that a
-    // thread's TN columns are V float4 at p = jh * 4 * NCT + ct * 4 + e (j = 4 * jh + e = g * V + v),
-    // and a warp's loads of one k read neighbouring 16-byte words.
+    // The wh slice, once: pack_wh's rows g*U + u (K contiguous; G*U of them) become columns, ordered so
+    // that a thread's TN columns are V float4 at p = jh * 4 * NCT + ct * 4 + e (j = 4 * jh + e = g * V + v),
+    // and a warp's loads of one k read neighbouring 16-byte words; a GRU's fourth gate is zero.
     for (int i = tid; i < N * (H / 4); i += threads) {
         const int p = i % N, k = i / N * 4;
         const int jh = p / (4 * NCT), c = p % (4 * NCT) / 4, j = jh * 4 + (p & 3);
         const int g = j / V, u = c * V + j % V;
-        const float4 w = *reinterpret_cast<const float4*>(wpk + ((size_t)r * N + g * U + u) * H + k);
+        const float4 w = g < G ? *reinterpret_cast<const float4*>(wpk + ((size_t)r * G * U + g * U + u) * H + k)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         w_s[k * N + p] = w.x;
         w_s[(k + 1) * N + p] = w.y;
         w_s[(k + 2) * N + p] = w.z;
         w_s[(k + 3) * N + p] = w.w;
     }
     for (int i = tid; i < stages * PR * HS; i += threads) h_s[i] = 0.0f;  // rows past B stay zero
-    // h0 into the first h buffer, and the tile's h0 and c0 into hc_final, whose c half holds the cell state
+    // h0 into the first h buffer, and the tile's initial state into s_final (the LSTM's c half holds
+    // the cell state from here on)
     for (int i = tid; i < rows * U; i += threads) {
         const int b = b0 + i / U, col = r * U + i % U;
-        const float h = hc0[(size_t)b * 2 * H + col];
-        hbuf[(size_t)b * H + col] = h;
-        hc_final[(size_t)b * 2 * H + col] = h;
-        hc_final[(size_t)b * 2 * H + H + col] = hc0[(size_t)b * 2 * H + H + col];
+        hbuf[(size_t)b * H + col] = s0[(size_t)b * SW * H + col];
+#pragma unroll
+        for (int part = 0; part < SW; ++part) s_final[(size_t)b * SW * H + part * H + col] = s0[(size_t)b * SW * H + part * H + col];
     }
+    // the biases of this thread's cells, for all T steps: the one it owns where K is split, else its
+    // register tile's V units
+    typename Cells<1>::Bias own_bias;
+    typename Cells<V>::Bias tile_bias;
+    if (own_cell) own_bias.load(bh, H, cell_col);
+    if (KS == 1) tile_bias.load(bh, H, r * U + ct * V);
     // step t's x_proj slice (one line a row and gate: U floats) and resets into L2
     auto prefetch_step = [&](int t) {
-        for (int i = tid; i < rows * 4; i += threads) prefetch_l2(x + ((size_t)t * B + b0 + i / 4) * 4 * H + (i % 4) * H + r * U);
+        for (int i = tid; i < rows * G; i += threads) prefetch_l2(x + ((size_t)t * B + b0 + i / G) * G * H + (i % G) * H + r * U);
         for (int i = tid * 32; i < rows; i += threads * 32) prefetch_l2(resets + (size_t)t * B + b0 + i);
     };
     prefetch_step(0);
@@ -802,8 +866,8 @@ __global__ void __launch_bounds__(grid_max_threads(TM, TN), 1)
         float* h_next = hbuf + (size_t)((t + 1) & 1) * B * H;
         const bool last = t + 1 == steps;
         if (!last) prefetch_step(t + 1);
-        GridCells<1> mine;
-        if (own_cell) mine.load(x, resets, hc_final, t, B, H, b0 + cell_row, cell_col);
+        Cells<1> mine;
+        if (own_cell) mine.load(x, resets, h_cur, s_final, t, B, H, b0 + cell_row, cell_col);
         PHASE_MARK(c1);
 
         for (int pass = 0; pass < passes; ++pass) {
@@ -867,7 +931,7 @@ __global__ void __launch_bounds__(grid_max_threads(TM, TN), 1)
             PHASE_MARK(q1);
 
             if (KS > 1) {
-                // the splits' partial sums through shared memory; each cell adds its four gates'
+                // the splits' partial sums through shared memory; each cell adds its gates'
                 float* part = red + (size_t)tid * TM * TN;
 #pragma unroll
                 for (int i = 0; i < TM; ++i)
@@ -878,29 +942,29 @@ __global__ void __launch_bounds__(grid_max_threads(TM, TN), 1)
                 if (own_cell) {
                     const int u = tid % U;
                     const float* p = red + (size_t)(cell_row % RT * NCT + u / V) * TM * TN + cell_row / RT * TN + u % V;
-                    float a[4][1] = {{0.0f}, {0.0f}, {0.0f}, {0.0f}};
+                    float a[G][1] = {};
 #pragma unroll 4
                     for (int s = 0; s < KS; ++s)
 #pragma unroll
-                        for (int g = 0; g < 4; ++g) a[g][0] += p[(size_t)s * tiles * TM * TN + g * V];
-                    mine.step(a, h_next, outs, hc_final, t, B, H, b0 + cell_row, cell_col, last);
+                        for (int g = 0; g < G; ++g) a[g][0] += p[(size_t)s * tiles * TM * TN + g * V];
+                    mine.step(a, own_bias, h_next, outs, s_final, t, B, H, b0 + cell_row, cell_col, last);
                 }
             } else {
                 // row by row, the next row's inputs loaded before this row's cells are applied
                 const int col = r * U + ct * V;
-                GridCells<V> cells[2];
-                if (p0 + rt < rows) cells[0].load(x, resets, hc_final, t, B, H, b0 + p0 + rt, col);
+                Cells<V> cells[2];
+                if (p0 + rt < rows) cells[0].load(x, resets, h_cur, s_final, t, B, H, b0 + p0 + rt, col);
 #pragma unroll
                 for (int i = 0; i < TM; ++i) {
                     const int row = p0 + rt + i * RT;
-                    if (i + 1 < TM && row + RT < rows) cells[(i + 1) & 1].load(x, resets, hc_final, t, B, H, b0 + row + RT, col);
+                    if (i + 1 < TM && row + RT < rows) cells[(i + 1) & 1].load(x, resets, h_cur, s_final, t, B, H, b0 + row + RT, col);
                     if (row < rows) {
-                        float a[4][V];
+                        float a[G][V];
 #pragma unroll
-                        for (int g = 0; g < 4; ++g)
+                        for (int g = 0; g < G; ++g)
 #pragma unroll
                             for (int v = 0; v < V; ++v) a[g][v] = acc[i][g * V + v];
-                        cells[i & 1].step(a, h_next, outs, hc_final, t, B, H, b0 + row, col, last);
+                        cells[i & 1].step(a, tile_bias, h_next, outs, s_final, t, B, H, b0 + row, col, last);
                     }
                 }
             }
@@ -916,16 +980,16 @@ __global__ void __launch_bounds__(grid_max_threads(TM, TN), 1)
     }
 }
 
-template <int TM, int TN>
-int launch_grid(const void* x, const void* hc0, const void* resets, const void* wpk, void* hbuf, void* outs,
-                void* hc_final, int steps, int B, int H, int U, int BT, int KS, int KC, int passes, int threads, int smem,
+template <template <int> class Cells, int TM, int TN>
+int launch_grid(const void* x, const void* s0, const void* resets, const void* wpk, const void* bh, void* hbuf, void* outs,
+                void* s_final, int steps, int B, int H, int U, int BT, int KS, int KC, int passes, int threads, int smem,
                 cudaStream_t stream) {
     if (U < TN / 4 || U % (TN / 4) != 0 || H % U != 0 || passes < 1 || BT % (passes * TM) != 0 || KS < 1 || KC < 4 ||
         H % KC != 0 || KC % (4 * KS) != 0 || threads != grid_threads(U, BT, TM, TN, KS, passes) ||
         threads > grid_max_threads(TM, TN) || (KS > 1 && (passes > 1 || BT * U > threads)) ||
         (size_t)smem != grid_smem_bytes(H, U, BT, TM, TN, KS, KC, passes))
         return static_cast<int>(cudaErrorInvalidValue);
-    auto kernel = lstm_grid_kernel<TM, TN>;
+    auto kernel = grid_kernel<Cells, TM, TN>;
     const int grid = (B + BT - 1) / BT * (H / U);
 
     // The shared-memory limit and the check that the whole grid is resident at once, once per
@@ -954,16 +1018,31 @@ int launch_grid(const void* x, const void* hc0, const void* resets, const void* 
         }
     }
     const float* xf = static_cast<const float*>(x);
-    const float* hc0f = static_cast<const float*>(hc0);
+    const float* s0f = static_cast<const float*>(s0);
     const float* rf = static_cast<const float*>(resets);
     const float* wf = static_cast<const float*>(wpk);
+    const float* bf = static_cast<const float*>(bh);
     float* hb = static_cast<float*>(hbuf);
     float* of = static_cast<float*>(outs);
-    float* hcf = static_cast<float*>(hc_final);
-    void* args[] = {&xf, &hc0f, &rf, &wf, &hb, &of, &hcf, &steps, &B, &H, &U, &BT, &KS, &KC, &passes};
+    float* sf = static_cast<float*>(s_final);
+    void* args[] = {&xf, &s0f, &rf, &wf, &bf, &hb, &of, &sf, &steps, &B, &H, &U, &BT, &KS, &KC, &passes};
     err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(threads), args, smem, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <template <int> class Cells>
+int grid_forward(const void* x, const void* s0, const void* resets, const void* wpk, const void* bh, void* hbuf, void* outs,
+                 void* s_final, int steps, int B, int H, int units, int rows, int tile_rows, int tile_cols, int ksplit,
+                 int kchunk, int passes, int threads, int smem, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (tile_rows == 4 && tile_cols == 4)
+        return launch_grid<Cells, 4, 4>(x, s0, resets, wpk, bh, hbuf, outs, s_final, steps, B, H, units, rows, ksplit, kchunk,
+                                        passes, threads, smem, s);
+    if (tile_rows == 8 && tile_cols == 8)
+        return launch_grid<Cells, 8, 8>(x, s0, resets, wpk, bh, hbuf, outs, s_final, steps, B, H, units, rows, ksplit, kchunk,
+                                        passes, threads, smem, s);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1013,25 +1092,25 @@ int max_active_clusters(int gates, int is_bf16, int cluster, int smem) {
     return is_bf16 ? query(seq_cluster_kernel<__nv_bfloat16, 4>) : query(seq_cluster_kernel<float, 4>);
 }
 
-// Design "grid" (LSTM, f32): wpk is wh packed by ops/cuda_rnn.py:pack_wh as [H/units][4*units][H];
-// hbuf is a [2][B][H] f32 scratch buffer; a thread's register tile is tile_rows x tile_cols (4 x 4
-// or 8 x 8).
+// Design "grid" (f32): wpk is wh packed by ops/cuda_rnn.py:pack_wh as [H/units][G*units][H]; hbuf is
+// a [2][B][H] f32 scratch buffer; a thread's register tile is tile_rows x tile_cols (4 x 4 or 8 x 8).
+int gru_grid_forward(const void* x, const void* h0, const void* resets, const void* wpk, const void* bh, void* hbuf,
+                     void* outs, void* h_final, int steps, int B, int H, int units, int rows, int tile_rows, int tile_cols,
+                     int ksplit, int kchunk, int passes, int threads, int smem, void* stream) {
+    return grid_forward<GruCells>(x, h0, resets, wpk, bh, hbuf, outs, h_final, steps, B, H, units, rows, tile_rows,
+                                  tile_cols, ksplit, kchunk, passes, threads, smem, stream);
+}
+
 int lstm_grid_forward(const void* x, const void* hc0, const void* resets, const void* wpk, void* hbuf, void* outs,
                       void* hc_final, int steps, int B, int H, int units, int rows, int tile_rows, int tile_cols,
                       int ksplit, int kchunk, int passes, int threads, int smem, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (tile_rows == 4 && tile_cols == 4)
-        return launch_grid<4, 4>(x, hc0, resets, wpk, hbuf, outs, hc_final, steps, B, H, units, rows, ksplit, kchunk,
-                                 passes, threads, smem, s);
-    if (tile_rows == 8 && tile_cols == 8)
-        return launch_grid<8, 8>(x, hc0, resets, wpk, hbuf, outs, hc_final, steps, B, H, units, rows, ksplit, kchunk,
-                                 passes, threads, smem, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+    return grid_forward<LstmCells>(x, hc0, resets, wpk, nullptr, hbuf, outs, hc_final, steps, B, H, units, rows, tile_rows,
+                                   tile_cols, ksplit, kchunk, passes, threads, smem, stream);
 }
 
-// Blocks of a grid-design kernel with `threads` threads and `smem` bytes that one SM holds at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 if none).
-int grid_blocks_per_sm(int tile_rows, int tile_cols, int threads, int smem) {
+// Blocks of a grid-design kernel (of `gates` 3: the GRU's, 4: the LSTM's) with `threads` threads and
+// `smem` bytes that one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 if none).
+int grid_blocks_per_sm(int gates, int tile_rows, int tile_cols, int threads, int smem) {
     auto query = [&](auto kernel) {
         cudaFuncAttributes attrs;  // raise the limit only: launch_grid remembers the largest it set
         if (cudaFuncGetAttributes(&attrs, kernel) != cudaSuccess) return 0;
@@ -1039,8 +1118,8 @@ int grid_blocks_per_sm(int tile_rows, int tile_cols, int threads, int smem) {
         int n = 0;
         return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) == cudaSuccess ? n : 0;
     };
-    if (tile_rows == 4 && tile_cols == 4) return query(lstm_grid_kernel<4, 4>);
-    if (tile_rows == 8 && tile_cols == 8) return query(lstm_grid_kernel<8, 8>);
+    if (tile_rows == 4 && tile_cols == 4) return gates == 3 ? query(grid_kernel<GruCells, 4, 4>) : query(grid_kernel<LstmCells, 4, 4>);
+    if (tile_rows == 8 && tile_cols == 8) return gates == 3 ? query(grid_kernel<GruCells, 8, 8>) : query(grid_kernel<LstmCells, 8, 8>);
     return 0;
 }
 

@@ -21,18 +21,20 @@ shape alone (see the source note in `csrc/rnn_seq.cu`):
   steps and the new carry is exchanged through distributed shared memory, one
   cluster barrier per step; bf16 products on the tensor cores. The wrapper
   repacks `wh` into per-block slices (`pack_wh`, one gather per call);
-- "grid" (LSTM, float32, where no cluster slice fits: H=512 on the NetHack and
-  AllegroHandLSTM learners): one persistent cooperative launch of Q batch tiles
-  x S unit slices (`grid_plan`), each block keeping the 4U columns of its U
-  hidden units in shared memory for all T steps; only h crosses blocks,
-  through a global double buffer in L2, one grid barrier a step. f32 FMAs on
-  the CUDA cores (TF32 would break the f32 tolerance), which bound it at large
-  B (2*B*H*4H operations a step at 67 TFLOP/s); a step's barrier and L2 round
-  trip bound it at small B;
+- "grid" (float32 GRU and LSTM where no cluster slice fits: H=512 on the Doom,
+  NetHack and AllegroHandLSTM learners, `tp`'s multichip leg and the default
+  configuration): one persistent cooperative launch of Q batch tiles x S unit
+  slices (`grid_plan`), each block keeping the gate columns of its U hidden
+  units in shared memory for all T steps (the GRU's three gates padded to the
+  LSTM's four); only h crosses blocks, through a global double buffer in L2,
+  one grid barrier a step. f32 FMAs on the CUDA cores (TF32 would break the
+  f32 tolerance), which bound it at large B (2*B*H*G*H operations a step at 67
+  TFLOP/s); a step's barrier and L2 round trip bound it at small B;
 - "rows": the first design, for shapes whose slice does not fit a block even
   at 16 blocks per cluster, or whose width per block is no power of two, and
-  that the grid design does not take: one block per 4 batch rows, `wh`
-  re-read from L2.
+  that the grid design does not take (bf16 at H=1024, H=100), and for a small
+  width where the cluster plan would need more than one wave
+  (`ROWS_OVER_WAVES_MAX_H`): one block per 4 batch rows, `wh` re-read from L2.
 
 Gradients: each kernel sits in a `torch.autograd.Function` whose backward
 recomputes through the plain version under autograd. The JAX package has no
@@ -42,7 +44,7 @@ reference), so this is the same design. `resets` get no gradient.
 Dispatch: a CUDA tensor launches the planned kernel or raises; a CPU tensor
 runs the plain version. `launch_counts()` counts the launches of each kernel,
 per design ("gru_seq" is the cluster design, "gru_seq_rows" the row design,
-"lstm_seq_grid" the grid design).
+"gru_seq_grid" the grid design).
 """
 
 from __future__ import annotations
@@ -76,6 +78,10 @@ MAX_CLUSTERS = {8: 15, 16: 7}
 GRID_BLOCKS = 132
 GRID_WIDE_ROWS = 1024  # from this batch on, the grid design takes 8 x 8 register tiles and 16 units a block
 ROW_TILE = 4  # batch rows per block in the row design (kTile in csrc/rnn_seq.cu)
+# at this width and below, a cluster plan of more than one wave loses to the row design, whose
+# blocks (one per 4 rows) all run at once and re-read a small `wh` from L2: the DMLab instruction
+# encoder's LSTM-64 over a minibatch, (16, 1024, 64) f32, 32 clusters of 8 in three waves
+ROWS_OVER_WAVES_MAX_H = 64
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -191,8 +197,9 @@ def grid_threads(units: int, rows: int, tile_rows: int, tile_cols: int, ksplit: 
 
 def grid_smem(H: int, units: int, rows: int, tile_rows: int, tile_cols: int, ksplit: int, kchunk: int, passes: int = 1) -> int:
     """Shared memory of one grid-design block (`grid_smem_bytes` in csrc/rnn_seq.cu), all f32: the
-    wh slice [H][4U], a pass's h chunks [stages][rows / passes][kchunk + 4] (one stage when the chunk
-    is all of H, else two), and where K is split, every thread's partial sums [threads][tile_rows * tile_cols]."""
+    wh slice [H][4U] (the GRU's three gates and a fourth of zeros), a pass's h chunks
+    [stages][rows / passes][kchunk + 4] (one stage when the chunk is all of H, else two), and where K
+    is split, every thread's partial sums [threads][tile_rows * tile_cols]."""
     stages = 1 if kchunk == H else 2
     threads = grid_threads(units, rows, tile_rows, tile_cols, ksplit, passes)
     partials = threads * tile_rows * tile_cols if ksplit > 1 else 0
@@ -201,7 +208,8 @@ def grid_smem(H: int, units: int, rows: int, tile_rows: int, tile_cols: int, ksp
 
 @functools.lru_cache(maxsize=256)
 def grid_plan(kind: str, B: int, H: int, dtype):
-    """The grid design's plan for the float32 LSTM, or None where it takes none.
+    """The grid design's plan for the float32 GRU or LSTM, or None where it takes none. Both
+    kinds get the same plan: the kernel pads the GRU's three gates to four gate columns.
 
     Below GRID_WIDE_ROWS batch rows: 4 x 4 register tiles and the narrowest slices that fit in
     GRID_BLOCKS (U = 4 at H = 512: 128 slices of one batch tile share each step's product);
@@ -212,8 +220,9 @@ def grid_plan(kind: str, B: int, H: int, dtype):
     path applies one cell a thread), else the fewest passes over the rows that do; then the
     widest K chunk of at most 128 whose shared memory fits (two stages: the next chunk loads
     while this one is multiplied)."""
+    del kind  # the same plan for both
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    if kind != "lstm" or dtype != torch.float32 or H % 64:
+    if dtype != torch.float32 or H % 64:
         return None
     tm, tn = (8, 8) if B >= GRID_WIDE_ROWS else (4, 4)
     for units in ((16, 8) if tn == 8 else (4, 8, 16)):
@@ -237,16 +246,13 @@ def grid_plan(kind: str, B: int, H: int, dtype):
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(kind: str, T: int, B: int, H: int, dtype) -> Plan:
-    """The design and its launch configuration, from the shape and dtype alone.
-
-    Cluster design where a slice fits: 8 blocks per cluster, else 16 (a non-portable cluster
-    size on the H100); the hidden units of a block are a power of two, at least 8 (the
-    mma's n8, 16-byte copies, and index arithmetic by shifts). Rows per cluster: the fewest that let all clusters run in one wave
-    (MAX_CLUSTERS), in steps of the product's row granularity (16 for bf16's m16 tiles, 8
-    for f32), at most 64 / 32, lowered until the block's shared memory fits. Otherwise the
-    grid design where `grid_plan` gives one (the float32 LSTM), else the row design."""
-    del T  # every step is alike; the plan does not depend on the sequence length
+def cluster_plan(kind: str, B: int, H: int, dtype):
+    """The cluster design's plan, or None where no slice fits. 8 blocks per cluster, else 16 (a
+    non-portable cluster size on the H100); the hidden units of a block are a power of two, at least
+    8 (the mma's n8, 16-byte copies, and index arithmetic by shifts). Rows per cluster: the fewest
+    that let all clusters run in one wave (MAX_CLUSTERS), in steps of the product's row granularity
+    (16 for bf16's m16 tiles, 8 for f32), at most 64 / 32, lowered until the block's shared memory
+    fits; above 15 clusters of 64 / 32 rows the clusters run in waves."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     itemsize = 2 if dtype == torch.bfloat16 else 4
     step, cap = (16, 64) if itemsize == 2 else (8, 32)
@@ -259,6 +265,24 @@ def launch_plan(kind: str, T: int, B: int, H: int, dtype) -> Plan:
             smem = cluster_smem(kind, H, cluster, rows, itemsize)
             if smem <= SMEM_LIMIT:
                 return Plan("cluster", cluster, rows, H // cluster, smem, -(-B // rows) * cluster)
+    return None
+
+
+def cluster_waves(plan: Plan) -> int:
+    """Waves of a cluster plan: its clusters over those the card runs at once (MAX_CLUSTERS)."""
+    return -(-(plan.grid // plan.cluster) // MAX_CLUSTERS[plan.cluster])
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(kind: str, T: int, B: int, H: int, dtype) -> Plan:
+    """The design and its launch configuration, from the shape and dtype alone: the cluster design
+    where a slice fits (`cluster_plan`), except at H <= ROWS_OVER_WAVES_MAX_H where its clusters need
+    more than one wave, which take the row design; otherwise the grid design where `grid_plan` gives
+    one (float32, H a multiple of 64), else the row design."""
+    del T  # every step is alike; the plan does not depend on the sequence length
+    plan = cluster_plan(kind, B, H, dtype)
+    if plan is not None:
+        return row_plan(kind, B, H) if H <= ROWS_OVER_WAVES_MAX_H and cluster_waves(plan) > 1 else plan
     return grid_plan(kind, B, H, dtype) or row_plan(kind, B, H)
 
 
@@ -269,10 +293,10 @@ def max_active_clusters(kind: str, dtype, plan: Plan) -> int:
     return load_library().max_active_clusters(_gates(kind), int(dtype == torch.bfloat16), plan.cluster, plan.smem)
 
 
-def grid_blocks_per_sm(plan: Plan) -> int:
+def grid_blocks_per_sm(kind: str, plan: Plan) -> int:
     """Blocks of the grid plan's size that one SM of the card holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the plan counts on one (GRID_BLOCKS)."""
-    return load_library().grid_blocks_per_sm(plan.tile_rows, plan.tile_cols, plan.threads, plan.smem)
+    return load_library().grid_blocks_per_sm(_gates(kind), plan.tile_rows, plan.tile_cols, plan.threads, plan.smem)
 
 
 def pack_wh(wh: torch.Tensor, plan: Plan) -> torch.Tensor:
@@ -308,22 +332,23 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA RNN kernels cannot be built")
 
 
-def library_path(defines: Tuple[str, ...] = ()) -> Path:
-    """The built library for the current sources and flags (keyed by their hash)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS + list(defines)).encode()).hexdigest()[:16]
+def library_path(defines: Tuple[str, ...] = (), source: Path = SOURCE) -> Path:
+    """The built library for the sources and flags (keyed by their hash)."""
+    digest = hashlib.sha256(Path(source).read_bytes() + " ".join(NVCC_FLAGS + list(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"rnn_seq_{digest}.so"
 
 
-def build(defines: Tuple[str, ...] = ()) -> Path:
-    """Compile `csrc/rnn_seq.cu` into `_build/` unless this version is already there; `defines`
-    are extra -D flags (the phase clock of `ops/rnn_seq_phases.py`). The compiler's output
-    (ptxas register and shared-memory report) goes to a .log beside it."""
-    path = library_path(defines)
+def build(defines: Tuple[str, ...] = (), source: Path = SOURCE) -> Path:
+    """Compile `csrc/rnn_seq.cu` (or another version of it, `source`) into `_build/` unless this
+    version is already there; `defines` are extra -D flags (the phase clock of
+    `ops/rnn_seq_phases.py`). The compiler's output (ptxas register and shared-memory report) goes
+    to a .log beside it."""
+    path = library_path(defines, source)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -332,25 +357,30 @@ def build(defines: Tuple[str, ...] = ()) -> Path:
     return path
 
 
+def bind(path: Path, entries: Tuple[str, ...] = ()):
+    """Load a built library and declare its launch functions (`entries`: all of them by default;
+    an older version of the source may lack some)."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        "gru_seq_forward": [ptr] * 7 + [i32] * 7 + [ptr], "lstm_seq_forward": [ptr] * 6 + [i32] * 7 + [ptr],
+        "gru_rows_forward": [ptr] * 7 + [i32] * 4 + [ptr], "lstm_rows_forward": [ptr] * 6 + [i32] * 4 + [ptr],
+        "gru_grid_forward": [ptr] * 8 + [i32] * 12 + [ptr], "lstm_grid_forward": [ptr] * 7 + [i32] * 12 + [ptr],
+        "max_active_clusters": [i32] * 4, "grid_blocks_per_sm": [i32] * 5,
+    }
+    for name in entries or signatures:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = signatures[name], i32
+    return lib
+
+
 def load_library(defines: Tuple[str, ...] = ()):
     """Build if needed and load the kernels' shared library (once per process: the first
     call's `defines` hold for the process)."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build(defines)))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.gru_seq_forward.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
-            lib.lstm_seq_forward.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
-            lib.gru_rows_forward.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-            lib.lstm_rows_forward.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-            lib.lstm_grid_forward.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
-            lib.max_active_clusters.argtypes = [i32] * 4
-            lib.grid_blocks_per_sm.argtypes = [i32] * 4
-            for fn in (lib.gru_seq_forward, lib.lstm_seq_forward, lib.gru_rows_forward, lib.lstm_rows_forward,
-                       lib.lstm_grid_forward, lib.max_active_clusters, lib.grid_blocks_per_sm):
-                fn.restype = i32
-            _lib = lib
+            _lib = bind(build(defines))
     return _lib
 
 
@@ -395,8 +425,8 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
     if kind == "gru":
         _check("bh", bh, (G * H,), dt, dev)
     plan = plan or launch_plan(kind, T, B, H, dt)
-    if plan.design == "grid" and (kind, dt) != ("lstm", torch.float32):
-        raise ValueError(f"the grid design takes the float32 LSTM, not {kind} in {dt}")
+    if plan.design == "grid" and dt != torch.float32:
+        raise ValueError(f"the grid design takes float32, not {dt}")
     if plan.design == "cluster" and x_proj.data_ptr() % 16:
         x_proj = x_proj.clone()  # a view at an odd offset: the kernel copies x_proj in 16-byte pieces
     lib = load_library()
@@ -409,11 +439,11 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
     dims = [T, B, H, int(dt == torch.bfloat16)]
     if plan.design == "cluster":
         dims += [plan.cluster, plan.rows, plan.smem]
-    if plan.design == "grid":  # the carry's double buffer between the steps; the kernel allocates nothing
-        ptrs.insert(4, torch.empty((2, B, H), dtype=torch.float32, device=dev).data_ptr())
+    if plan.design == "grid":  # the carry's double buffer between the steps, before outs; the kernel allocates nothing
+        ptrs.insert(len(ptrs) - 2, torch.empty((2, B, H), dtype=torch.float32, device=dev).data_ptr())
         dims = [T, B, H, plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit, plan.kchunk, plan.passes,
                 plan.threads, plan.smem]
-    fn = getattr(lib, {"cluster": f"{kind}_seq_forward", "grid": "lstm_grid_forward", "rows": f"{kind}_rows_forward"}[plan.design])
+    fn = getattr(lib, {"cluster": f"{kind}_seq_forward", "grid": f"{kind}_grid_forward", "rows": f"{kind}_rows_forward"}[plan.design])
     with torch.cuda.device(dev):
         err = fn(*ptrs, *dims, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -424,7 +454,7 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
 
 def _launch_gru(x_proj, h0, resets, wh, bh, plan=None):
     """`plan` defaults to `launch_plan` of the shape; chip_smoke.py passes the row design's
-    plan to time the first design at the main-path shape."""
+    plan to time the first design beside the planned one."""
     return _launch("gru", x_proj, h0, resets, wh, bh, plan)
 
 
@@ -494,7 +524,7 @@ def lstm_seq(x_proj, hc0, resets, wh):
     return LSTMSeqFunction.apply(x_proj, hc0, resets, wh)
 
 
-_launches = {"gru_seq": 0, "gru_seq_rows": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0}
+_launches = {"gru_seq": 0, "gru_seq_rows": 0, "gru_seq_grid": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0}
 
 
 def reset_launch_counts() -> None:
@@ -504,5 +534,6 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset: "gru_seq"/"lstm_seq" for the cluster
-    design, "lstm_seq_grid" for the grid design, "gru_seq_rows"/"lstm_seq_rows" for the row design."""
+    design, "gru_seq_grid"/"lstm_seq_grid" for the grid design, "gru_seq_rows"/"lstm_seq_rows" for
+    the row design."""
     return dict(_launches)

@@ -7,8 +7,9 @@ the SM cycles (clock64) of each phase of each step. Cluster design: the product 
 the gate math (with the wait for the step's x_proj), the copy of the new carry to the
 other blocks plus the issue of the next step's prefetch, and the cluster barrier. Grid
 design: the h loads and the product, the K splits' sums and the cells, the issue of the
-next step's prefetch, and the grid barrier. Runs each kernel at the main-path shapes and
-at the NetHack and AllegroHandLSTM learners' and prints one JSON line per case: the mean
+next step's prefetch, and the grid barrier. Runs each kernel at the main-path shapes, at the
+NetHack, AllegroHandLSTM and Doom learners' and at the multichip configuration's gathered GRU,
+and prints one JSON line per case: the mean
 cycles per block and step of each phase, the kernel's time over back-to-back launches
 (CUDA events), the plan, and the clusters (blocks an SM) of that plan the card runs at
 once. The clock calls cost a few cycles a phase; the kernel times of `chip_smoke.py` come
@@ -33,6 +34,8 @@ CASES = [
     ("lstm", 32, 512, 256, "bfloat16"),
     ("lstm", 32, 24, 512, "float32"),  # the NetHack learner (grid design)
     ("lstm", 16, 2048, 512, "float32"),  # the AllegroHandLSTM learner (grid design)
+    ("gru", 32, 64, 512, "float32"),  # the Doom learner (grid design)
+    ("gru", 16, 4, 512, "float32"),  # the multichip configuration's gathered GRU (grid design)
 ]
 PHASES = {"cluster": ["product", "gates", "push_and_prefetch", "barrier"], "grid": ["product", "cells", "prefetch", "barrier"]}
 
@@ -88,7 +91,7 @@ def main() -> int:
         lib.rnn_seq_phases_read(ctypes.addressof(cycles))
         per_step = {name: cycles[i] / (plan.grid * T) for i, name in enumerate(PHASES[plan.design])}
         at_once = ({"clusters": plan.grid // plan.cluster, "max_active_clusters": cuda_rnn.max_active_clusters(kind, dtype, plan)}
-                   if plan.design == "cluster" else {"blocks": plan.grid, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(plan)})
+                   if plan.design == "cluster" else {"blocks": plan.grid, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(kind, plan)})
         print(json.dumps({
             "kernel": cuda_rnn._kernel_name(kind, plan), "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(plan),
             **at_once, "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),

@@ -82,14 +82,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# the ViZDoom and DMLab paths' shapes in the dtype each runs, and the design the plan picks: Doom's
-# GRU-512 over 2048 / 32 segments (the row design, 16 blocks); the DMLab core's LSTM-256 over 1024 / 32;
-# the instruction encoder's LSTM-64 over 16 tokens in a rollout slot of 64 envs, in a minibatch of 1024
-# (32 clusters of 8: three waves) and over the 128 envs' last observations; LSTM-512 float32 (the grid
-# design) in NetHack's learner over 768 / 32 segments (a train step takes one rollout of 24 envs) and the
-# 1024 / 32 its defaults name, and in AllegroHandLSTM's over 32768 / 16 (4 tiles of 512 rows)
-PATH_SHAPES = [("gru", 32, 64, 512, "float32", "rows"), ("lstm", 32, 32, 256, "float32", "cluster"),
-               ("lstm", 16, 64, 64, "float32", "cluster"), ("lstm", 16, 1024, 64, "float32", "cluster"),
+# the paths' shapes in the dtype each runs, and the design the plan picks: GRU-512 float32 (the grid
+# design) in Doom's learner over 2048 / 32 segments, on the multichip configuration's gathered `wh` over
+# 64 / 16 rows of one data index, and at the cfg's defaults over 1024 / 32; the DMLab core's LSTM-256 over
+# 1024 / 32; the instruction encoder's LSTM-64 over 16 tokens in a rollout slot of 64 envs, in a minibatch
+# of 1024 (the row design: its cluster plan, 32 clusters of 8, would need three waves) and over the 128
+# envs' last observations; LSTM-512 float32 (the grid design) in NetHack's learner over 768 / 32 segments
+# (a train step takes one rollout of 24 envs) and the 1024 / 32 its defaults name, and in AllegroHandLSTM's
+# over 32768 / 16 (4 tiles of 512 rows)
+PATH_SHAPES = [("gru", 32, 64, 512, "float32", "grid"), ("gru", 16, 4, 512, "float32", "grid"), ("gru", 32, 32, 512, "float32", "grid"),
+               ("lstm", 32, 32, 256, "float32", "cluster"),
+               ("lstm", 16, 64, 64, "float32", "cluster"), ("lstm", 16, 1024, 64, "float32", "rows"),
                ("lstm", 16, 128, 64, "float32", "cluster"), ("lstm", 32, 24, 512, "float32", "grid"),
                ("lstm", 32, 32, 512, "float32", "grid"), ("lstm", 16, 2048, 512, "float32", "grid")]
 
@@ -111,10 +114,10 @@ def test_kernel_matches_plain_on_card_at_the_path_shapes(cuda_device, kind, T, B
 
 @pytest.mark.parametrize("kind,T,B,H,dtype,design", PATH_SHAPES)
 def test_path_shapes_take_their_design(kind, T, B, H, dtype, design):
-    """H=512 in float32 fits no cluster slice: the GRU takes the row design, the LSTM the grid design
-    (one batch tile of 128 slices of 4 units at NetHack's segments, 4 tiles of 32 slices of 16 units
-    at AllegroHandLSTM's); H=64 takes the smallest slice the cluster design allows (8 units a block);
-    every cluster plan fits the card."""
+    """H=512 in float32 fits no cluster slice: the GRU and the LSTM take the grid design (one batch
+    tile of 128 slices of 4 units up to 64 segments, 4 tiles of 32 slices of 16 units at
+    AllegroHandLSTM's); H=64 takes the smallest slice the cluster design allows (8 units a block), or
+    the row design where that plan needs more than one wave; every cluster plan fits the card."""
     plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
     assert plan.design == design
     if design == "cluster":
@@ -126,6 +129,7 @@ def test_path_shapes_take_their_design(kind, T, B, H, dtype, design):
         assert plan.rows * tiles >= B > plan.rows * (tiles - 1)
     else:
         assert plan == cuda_rnn.row_plan(kind, B, H) and plan.rows == 4 and plan.grid == B // 4
+        assert H == 512 or cuda_rnn.cluster_waves(cuda_rnn.cluster_plan(kind, B, H, dtype)) > 1
 
 
 def _kernel_matches_plain(cuda_device, kind, dtype, T, B, H):
@@ -177,11 +181,11 @@ def test_plain_version_on_rows_reset_at_every_step(kind, dtype):
 @pytest.mark.parametrize(
     "kind,dtype,design",
     [(kind, dtype, design) for design in ("planned", "rows") for dtype in ("float32", "bfloat16") for kind in ("gru", "lstm")]
-    + [("lstm", "float32", "grid")],
+    + [("lstm", "float32", "grid"), ("gru", "float32", "grid")],
 )
 def test_kernel_on_rows_reset_at_every_step(cuda_device, kind, dtype, design):
     """Both kernels, every design, at the population paths' widths (the grid design at NetHack's
-    learner's, LSTM-512 float32 over 24 segments): rows whose resets are 1 for all T come out finite
+    learner's, 512 units in float32 over 24 segments): rows whose resets are 1 for all T come out finite
     (the loss multiplies them by 0, and 0 * nan is nan) and equal to the plain version; a second
     launch with another `wh` gives that matrix's result, not the first's."""
     T, B, H = 32, 512, 512 if (kind, dtype, design) == ("gru", "bfloat16", "planned") else 256
@@ -214,16 +218,27 @@ def test_main_path_clusters_run_in_one_wave(cuda_device, kind, T, B, H, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(32, 24, 512), (16, 2048, 512)])
-def test_grid_plans_are_resident_at_once(cuda_device, T, B, H):
-    """GRID_BLOCKS holds on this card (one block on each SM), and every block of the NetHack and
-    AllegroHandLSTM learners' grid launches is resident at once, as a cooperative launch needs
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the plan's threads and shared memory)."""
-    plan = cuda_rnn.launch_plan("lstm", T, B, H, "float32")
+@pytest.mark.parametrize("kind,T,B,H", [("lstm", 32, 24, 512), ("lstm", 16, 2048, 512), ("gru", 32, 64, 512), ("gru", 16, 4, 512),
+                                        ("gru", 32, 32, 512), ("gru", 16, 2048, 512)])
+def test_grid_plans_are_resident_at_once(cuda_device, kind, T, B, H):
+    """GRID_BLOCKS holds on this card (one block on each SM), and every block of the grid launches of
+    the NetHack, AllegroHandLSTM and Doom learners, the multichip configuration and the defaults is
+    resident at once, as a cooperative launch needs (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
+    the plan's threads and shared memory, for the kernel of that kind)."""
+    plan = cuda_rnn.launch_plan(kind, T, B, H, "float32")
     assert plan.design == "grid"
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert sms == cuda_rnn.GRID_BLOCKS and plan.grid <= cuda_rnn.GRID_BLOCKS
-    assert plan.grid <= cuda_rnn.grid_blocks_per_sm(plan) * sms
+    assert plan.grid <= cuda_rnn.grid_blocks_per_sm(kind, plan) * sms
+
+
+@pytest.mark.cuda
+def test_gru_grid_design_on_wide_tiles(cuda_device):
+    """The GRU's grid design where it takes 8 x 8 register tiles in passes (from GRID_WIDE_ROWS rows on):
+    4 batch tiles of 512 rows, as AllegroHandLSTM's LSTM takes them."""
+    plan = cuda_rnn.launch_plan("gru", 16, 2048, 512, "float32")
+    assert plan.design == "grid" and (plan.tile_rows, plan.tile_cols, plan.passes) == (8, 8, 2)
+    _kernel_matches_plain(cuda_device, "gru", "float32", 16, 2048, 512)
 
 
 # ------------------------------------------------------------------ launch plan (CPU)
@@ -244,8 +259,8 @@ def test_launch_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H):
         assert plan.smem == cuda_rnn.cluster_smem(kind, H, plan.cluster, plan.rows, 2 if dtype == "bfloat16" else 4)
         assert plan.units * plan.cluster == H and plan.units >= 8 and plan.units & (plan.units - 1) == 0
         assert plan.rows % (16 if dtype == "bfloat16" else 8) == 0
-    elif plan.design == "grid":  # the float32 LSTM where no cluster slice fits
-        assert (kind, dtype) == ("lstm", "float32") and plan == cuda_rnn.grid_plan(kind, B, H, dtype)
+    elif plan.design == "grid":  # float32 where no cluster slice fits
+        assert dtype == "float32" and plan == cuda_rnn.grid_plan(kind, B, H, dtype)
         assert plan.grid <= cuda_rnn.GRID_BLOCKS and plan.units * plan.cluster == H  # one block a SM, all resident
         assert plan.threads == cuda_rnn.grid_threads(plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit, plan.passes)
         assert 32 <= plan.threads <= cuda_rnn.grid_max_threads(plan.tile_rows, plan.tile_cols)
@@ -256,6 +271,8 @@ def test_launch_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H):
     else:
         assert plan == cuda_rnn.row_plan(kind, B, H)
         assert plan.smem <= 48 * 1024  # launched without raising the dynamic shared-memory limit
+        over = cuda_rnn.cluster_plan(kind, B, H, dtype)  # where a cluster slice fits, only over waves at a small width
+        assert over is None or (H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_waves(over) > 1)
     # the kernels' map from blockIdx to its tile: cluster = block // cluster size, rank = block % cluster size
     # (grid design: batch tile = block // unit slices, unit slice = block % unit slices)
     owner = np.zeros((B, H), dtype=np.int64)
@@ -279,11 +296,11 @@ def test_cluster_design_at_the_main_path_shapes(kind, T, B, H, dtype):
 @pytest.mark.parametrize(
     "kind,H,dtype,design",
     [("gru", 1024, "bfloat16", "rows"), ("lstm", 512, "float32", "grid"), ("gru", 100, "float32", "rows"),
-     ("lstm", 192, "bfloat16", "rows")],
+     ("lstm", 192, "bfloat16", "rows"), ("gru", 512, "float32", "grid")],
 )
 def test_row_design_where_no_cluster_slice_fits(kind, H, dtype, design):
-    """Where no cluster slice fits, the float32 LSTM takes the grid design (H a multiple of 64) and
-    every other shape the row design."""
+    """Where no cluster slice fits, the float32 GRU and LSTM take the grid design (H a multiple of 64)
+    and every other shape the row design."""
     assert cuda_rnn.launch_plan(kind, 4, 16, H, dtype).design == design
 
 
@@ -303,56 +320,99 @@ def test_pack_wh_holds_each_blocks_columns(kind, dtype, H):
     assert torch.equal(cuda_rnn.unpack_wh(packed, plan), wh)
 
 
-# the grid plans at the learners' shapes, one with several batch tiles at a small width, H=1024
+# the grid plans at the learners' shapes, one with several batch tiles at a small width, H=1024; for
+# both kinds (the LSTM's cases keep their ids), and the GRU's at the multichip configuration's 4 rows
 GRID_PACK_SHAPES = [(24, 512), (2048, 512), (37, 64), (2048, 64), (16, 1024)]
+GRID_KIND_SHAPES = ([pytest.param("lstm", B, H, id=f"{B}-{H}") for B, H in GRID_PACK_SHAPES]
+                    + [pytest.param("gru", B, H, id=f"gru-{B}-{H}") for B, H in GRID_PACK_SHAPES + [(4, 512)]])
 
 
-@pytest.mark.parametrize("B,H", GRID_PACK_SHAPES)
-def test_pack_wh_gives_each_grid_block_its_columns(B, H):
-    """The grid design reads slice r's rows of pack_wh: the 4U gate columns g*H + r*U + u of its
+@pytest.mark.parametrize("kind,B,H", GRID_KIND_SHAPES)
+def test_pack_wh_gives_each_grid_block_its_columns(kind, B, H):
+    """The grid design reads slice r's rows of pack_wh: the G*U gate columns g*H + r*U + u of its
     units, each contiguous along K; unpack_wh gives wh back."""
-    plan = cuda_rnn.grid_plan("lstm", B, H, "float32")
+    G = 3 if kind == "gru" else 4
+    plan = cuda_rnn.grid_plan(kind, B, H, "float32")
     assert plan is not None and plan.design == "grid"
-    wh = _inputs("lstm", 1, 1, H, "float32", "cpu")[3]
+    wh = _inputs(kind, 1, 1, H, "float32", "cpu")[3]
     packed = cuda_rnn.pack_wh(wh, plan)
-    assert packed.shape == (plan.cluster, 4 * plan.units, H) and packed.is_contiguous()
+    assert packed.shape == (plan.cluster, G * plan.units, H) and packed.is_contiguous()
     for r in range(plan.cluster):
-        cols = [g * H + r * plan.units + u for g in range(4) for u in range(plan.units)]
+        cols = [g * H + r * plan.units + u for g in range(G) for u in range(plan.units)]
         assert torch.equal(packed[r], wh[:, cols].t())
     assert torch.equal(cuda_rnn.unpack_wh(packed, plan), wh)
 
 
-@pytest.mark.parametrize("B,H", GRID_PACK_SHAPES)
-def test_grid_threads_cover_each_block_once(B, H):
+@pytest.mark.parametrize("kind,B,H", GRID_KIND_SHAPES)
+def test_grid_threads_cover_each_block_once(kind, B, H):
     """The grid kernel's maps, as csrc/rnn_seq.cu writes them: thread tid = (ks * RT + rt) * NCT + ct
-    holds rows p0 + rt + i * RT (i < TM) of each pass and accumulator columns j = g * V + v (gate g,
-    unit ct * V + v), read from shared-memory column jh * 4 * NCT + ct * 4 + e (j = 4 * jh + e) of the
-    permuted wh slice. Every (pass row, gate column, K split) is one thread's, every permuted column
-    one (gate, unit)'s, and every K index one split's in each chunk."""
-    plan = cuda_rnn.grid_plan("lstm", B, H, "float32")
+    holds rows p0 + rt + i * RT (i < TM) of each pass and accumulator columns j = g * V + v (gate g of
+    4, unit ct * V + v), read from shared-memory column jh * 4 * NCT + ct * 4 + e (j = 4 * jh + e) of the
+    permuted wh slice, which holds pack_wh's row g * U + u for g < G and zeros for the GRU's fourth gate.
+    Every (pass row, gate column, K split) is one thread's, every permuted column one (gate, unit)'s, and
+    every K index one split's in each chunk. Where K is split, the thread that owns cell tid (row tid // U,
+    unit tid % U) adds, for each of its G gates, the partial sums of that row's and unit's accumulator
+    from every split, each once."""
+    G = 3 if kind == "gru" else 4
+    plan = cuda_rnn.grid_plan(kind, B, H, "float32")
     TM, TN, U = plan.tile_rows, plan.tile_cols, plan.units
     V, N, KS = TN // 4, 4 * U, plan.ksplit
     NCT, PR = U // V, plan.rows // plan.passes
     RT = PR // TM
+    tiles = RT * NCT
     seen = np.zeros((KS, PR, N), dtype=np.int64)
-    slot = {}
+    slot, accumulator = {}, {}
     for tid in range(plan.threads):
         ct, rt, ks = tid % NCT, tid // NCT % RT, tid // (RT * NCT)
         for i in range(TM):
             for j in range(TN):
                 g, v = divmod(j, V)
                 seen[ks, rt + i * RT, g * U + ct * V + v] += 1
+                # the split's partial sum of this accumulator goes to red[tid * TM * TN + i * TN + j]
+                accumulator[tid * TM * TN + i * TN + j] = (ks, rt + i * RT, g, ct * V + v)
                 p = (j // 4) * 4 * NCT + ct * 4 + j % 4  # where the kernel reads column j's weights
                 assert slot.setdefault(p, (g, ct * V + v)) == (g, ct * V + v)
     assert (seen == 1).all()
-    # the kernel's fill of the permuted slice: column p holds pack_wh's row g * U + u
+    # the kernel's fill of the permuted slice: column p holds pack_wh's row g * U + u, or zeros (g >= G)
+    rows_read = []
     for p in range(N):
         jh, c, e = p // (4 * NCT), p % (4 * NCT) // 4, p % 4
         j = jh * 4 + e
-        assert slot[p] == (j // V, c * V + j % V)
+        g, u = j // V, c * V + j % V
+        assert slot[p] == (g, u)
+        if g < G:
+            rows_read.append(g * U + u)
+    assert sorted(rows_read) == list(range(G * U))
     L = plan.kchunk // KS
     ks_of_k = [(k % plan.kchunk) // L for k in range(H)]
     assert np.bincount(ks_of_k, minlength=KS).tolist() == [H // KS] * KS
+    if KS > 1:  # the split path: a cell a thread, its partial sums read back from shared memory
+        assert plan.passes == 1 and plan.rows * U <= plan.threads
+        for tid in range(plan.rows * U):
+            row, u = divmod(tid, U)
+            base = (row % RT * NCT + u // V) * TM * TN + row // RT * TN + u % V
+            for g in range(G):
+                reads = [accumulator[s * tiles * TM * TN + base + g * V] for s in range(KS)]
+                assert reads == [(s, row, g, u) for s in range(KS)]
+
+
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_design_where_the_cluster_plan_needs_waves_at_a_small_width(kind, dtype):
+    """At H <= ROWS_OVER_WAVES_MAX_H a cluster plan of more than one wave gives way to the row design
+    (the DMLab instruction encoder's (16, 1024, 64) float32 minibatch among them); a cluster plan of one
+    wave there, and one of several waves at a wider H, stays."""
+    for B in (64, 128, 512, 1024, 2048, 4096):
+        for H in (64, 128, 256):
+            over, plan = cuda_rnn.cluster_plan(kind, B, H, dtype), cuda_rnn.launch_plan(kind, 16, B, H, dtype)
+            assert over is not None
+            if H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_waves(over) > 1:
+                assert plan == cuda_rnn.row_plan(kind, B, H)
+            else:
+                assert plan == over
+    assert cuda_rnn.launch_plan("lstm", 16, 1024, 64, "float32").design == "rows"
+    assert cuda_rnn.cluster_waves(cuda_rnn.cluster_plan("lstm", 1024, 64, "float32")) == 3
+    assert cuda_rnn.launch_plan("lstm", 16, 128, 64, "float32").design == "cluster"
 
 
 def test_pack_wh_leaves_the_row_design_alone():

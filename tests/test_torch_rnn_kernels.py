@@ -26,6 +26,9 @@ from sample_factory_tpu_torch.ops import cuda_rnn
 torch.set_num_threads(1)
 
 SHAPES = [(5, 16, 128), (32, 16, 256), (7, 24, 128), (1, 8, 128)]
+# and the GRU at H=512 in float32, the width of its grid design's sites on the card (Doom's learner,
+# the multichip configuration, the default flags), at a depth that keeps the interpreted kernel quick
+GRU_512 = (8, 16, 512)
 # bf16: both sides round every gate op to bf16, but XLA on the CPU may keep some
 # intermediates in f32 ("excess precision"), so single values can differ by a
 # couple of bf16 ulps at magnitude ~1-2 (one ulp = 2^-7 .. 2^-6), and a flip
@@ -53,8 +56,7 @@ def _port_fns(kind):
     return (cuda_rnn.gru_seq_reference, cuda_rnn.gru_seq) if kind == "gru" else (cuda_rnn.lstm_seq_reference, cuda_rnn.lstm_seq)
 
 
-@pytest.mark.parametrize("kind", ["gru", "lstm"])
-@pytest.mark.parametrize("T,B,H", SHAPES)
+@pytest.mark.parametrize("T,B,H,kind", [(*shape, kind) for shape in SHAPES for kind in ("gru", "lstm")] + [(*GRU_512, "gru")])
 def test_plain_matches_jax_reference_and_pallas(kind, T, B, H):
     args = _inputs(kind, T, B, H)
     jax_ref, jax_kernel = _jax_fns(kind)
@@ -128,7 +130,7 @@ def test_cpu_path_launches_no_kernel(kind):
     cuda_rnn.reset_launch_counts()
     _port_fns(kind)[1](*map(torch.tensor, _inputs(kind, 2, 3, 64)))
     counts = cuda_rnn.launch_counts()
-    assert {"gru_seq", "gru_seq_rows", "lstm_seq", "lstm_seq_rows", "lstm_seq_grid"} <= set(counts)
+    assert {"gru_seq", "gru_seq_rows", "gru_seq_grid", "lstm_seq", "lstm_seq_rows", "lstm_seq_grid"} <= set(counts)
     assert all(n == 0 for n in counts.values())
 
 
