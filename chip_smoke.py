@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  build     compile the hand-written kernels (csrc/rnn_seq.cu, sm_90a) from the checkout
+  build     compile the hand-written kernels (csrc/rnn_seq.cu, sm_90a) from the checkout; read the card's spec
+            (cuda_rnn.card_spec: SMs, clusters of 8 and 16 at once, a block's shared memory), hold the cluster
+            and grid plans to it, and on a card of the H100 SXM's 132 SMs every path's plan to cuda_rnn.H100_SXM's
   parity    each kernel against its plain PyTorch version on the card, forward and
             gradient, float32 and bfloat16, at the main-path shape, the default width
             and odd shapes; every design of the launch plan (cluster, grid and rows) runs; then the
@@ -16,6 +18,9 @@ Phases, each printing one JSON line:
             nethack, isaacgym, dp_host, tp and defaults paths' shapes, warm and with L2 flushed, beside the first
             design (rows) at the same shapes (and the cluster plan where the row design takes its place), in turns in
             one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a yardstick
+  plans     the plans made for smaller cards (SMALLER_CARDS: 114 SMs with clusters {8: 13, 16: 0}, 66 SMs with
+            {8: 7, 16: 3}) at the grid and cluster sites, launched on this card against the plain version and
+            timed warm in turns with this card's own plan
   main      sync PPO on grid_battle at full width (IMPALA conv, GRU-256, bf16,
             1024 envs, rollout 32) for 3 iterations through `run_rl`'s runner
   breakdown one more main-path iteration: rollout and learner times, then one under
@@ -190,6 +195,17 @@ PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "grid", 128), *[("gru", *shape, "cluste
 GRID_SITES = {"doom_learner": ("gru", DOOM_GRU, "doom"), "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"),
               "defaults": ("gru", DEFAULTS_GRU, "defaults"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
               "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym")}
+# the cluster design's sites that the build phase checks against the clusters the card runs at once:
+# name -> (kind, shape); DMLab's learner encoder takes the row design over a cluster plan of several waves
+CLUSTER_SITES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM), "gru_seq_selfplay": ("gru", SELFPLAY_GRU),
+                 "lstm_seq_dmlab_core": ("lstm", DMLAB_CORE), "lstm_seq_dmlab_instr_rollout": ("lstm", DMLAB_INSTR_ROLLOUT),
+                 "lstm_seq_dmlab_instr_learner": ("lstm", DMLAB_INSTR_LEARNER),
+                 "lstm_seq_dmlab_instr_last_value": ("lstm", DMLAB_INSTR_BOOTSTRAP)}
+# phase `plans`: the smaller cards whose plans run here, (SMs, clusters of 8, clusters of 16 at once): the H100
+# PCIe's SM count in a GPC layout where no cluster of 16 fits, and half the H100 SXM's SMs
+SMALLER_CARDS = [(114, 13, 0), (66, 7, 3)]
+# the card's spec (cuda_rnn.card_spec of cuda:0), read by main() before any plan is made
+SPEC = None
 # bf16: kernel and plain version round every gate op to bf16 alike, but sum h @ wh in
 # another order, so a product can land one bf16 ulp apart; that flip (2^-8 relative,
 # up to 2^-6 absolute at the LSTM cell's magnitudes) feeds forward through the recurrence.
@@ -283,10 +299,12 @@ def phase_parity(torch, cuda_rnn):
     for kind, (kernel_fn, plain_fn) in fns.items():
         for dtype in ("float32", "bfloat16"):
             for T, B, H in PARITY_SHAPES:
-                parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, cuda_rnn.launch_plan(kind, T, B, H, dtype))
+                parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC))
     for kind, T, B, H, dtype, design, cluster in PARITY_PATH_SHAPES:
-        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
-        check(plan.design == design and plan.cluster == cluster, f"{kind} {(T, B, H, dtype)} takes {plan}, not the {design} design")
+        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC)
+        # the slices or clusters named are the H100 SXM's; another card's plan is held to its spec in `build`
+        check(plan.design == design and (plan.cluster == cluster or SPEC != cuda_rnn.H100_SXM),
+              f"{kind} {(T, B, H, dtype)} takes {plan}, not the {design} design")
         kernel_fn, plain_fn = fns[kind]
         parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=True)
     # the error reported for each design: at the shape and dtype of the first path that runs it, and at
@@ -296,7 +314,7 @@ def phase_parity(torch, cuda_rnn):
         kernel_fn, plain_fn = fns[kind]
         args = make_inputs(torch, kind, T, B, H, dtype, seed=1)
         launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
-        plan = cuda_rnn.row_plan(kind, B, H) if name.endswith("_rows") else cuda_rnn.launch_plan(kind, T, B, H, dtype)
+        plan = cuda_rnn.row_plan(kind, B, H) if name.endswith("_rows") else cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC)
         check(cuda_rnn._kernel_name(kind, plan) == name.split("@")[0], f"{name} at {(T, B, H, dtype)} takes {plan}")
         with torch.no_grad():
             out, state = launch(*args, plan=plan)
@@ -343,6 +361,31 @@ def bound(kind, T, B, H, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+def phase_plans(torch, cuda_rnn, card):
+    """The plans made for the SMALLER_CARDS at the grid sites (PARITY_PATH_SHAPES) and the cluster sites
+    (CLUSTER_SITES), launched on this card: each against the plain version at the parity phase's forward
+    tolerance, and timed warm in turns with this card's own plan (`rnn_seq_turns.against_spec`)."""
+    from sample_factory_tpu_torch.ops.rnn_seq_turns import ROUNDS, REPS, against_spec
+
+    start = time.perf_counter()
+    sites = [(kind, T, B, H, dtype) for kind, T, B, H, dtype, design, _ in PARITY_PATH_SHAPES if design == "grid"]
+    sites += [(kind, *shape) for kind, shape in CLUSTER_SITES.values()]
+    for sms, clusters_of_8, clusters_of_16 in SMALLER_CARDS:
+        spec = cuda_rnn.CardSpec(sms, clusters_of_8, clusters_of_16, SPEC.smem_limit)
+        for r in against_spec(spec, sites):
+            T, dtype = r["shape"][0], r["dtype"]
+            emit({"phase": "plans", "kernel": r["kernel"], "shape": r["shape"], "dtype": dtype, "spec": r["spec"],
+                  "design": r["design"], "blocks": r["blocks"], "threads": r["threads"], "smem": r["smem"], "plan": r["plan"],
+                  "max_abs_err": r["max_abs_err"], "tol": fwd_tol(dtype, T), "ms": r["ms"], "own_ms": r["own_ms"],
+                  "own_plan": r["own_plan"], "same_plan": r["same_plan"], "ms_over_own": r["ms"] / r["own_ms"],
+                  "stat": f"median of {ROUNDS} x {REPS} CUDA-event times of one warm launch, the two plans in turns", "card": card})
+            where = f"{r['kernel']} {r['shape']} {dtype} at {sms} SMs"
+            check(r["max_abs_err"] <= fwd_tol(dtype, T), f"{where}: error {r['max_abs_err']} against the plain version")
+            check(r["design"] != "grid" or r["blocks"] <= sms, f"{where}: {r['blocks']} blocks")
+            check(r["design"] != "cluster" or spec.clusters_at_once(r["plan"]["cluster"]) >= 1, f"{where}: {r['plan']}")
+    emit({"phase": "plans", "seconds": time.perf_counter() - start, "card": card})
+
+
 def phase_timing(torch, cuda_rnn, card):
     launches = {"gru": cuda_rnn._launch_gru, "lstm": cuda_rnn._launch_lstm}
     plains = {"gru": cuda_rnn.gru_seq_reference, "lstm": cuda_rnn.lstm_seq_reference}
@@ -356,16 +399,16 @@ def phase_timing(torch, cuda_rnn, card):
         shapes = [("gru", MAIN_GRU), ("lstm", MAIN_LSTM), ("gru", SELFPLAY_GRU)] + [(k, (T, B, H, dt)) for k, T, B, H, dt, _, _ in PARITY_PATH_SHAPES]
         for kind, (T, B, H, dtype) in shapes:
             args = make_inputs(torch, kind, T, B, H, dtype, seed=2)
-            plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+            plan = cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC)
             rows = cuda_rnn.row_plan(kind, B, H)
             row = {"ms": time_ms(torch, lambda: launches[kind](*args)),
                    "rows_ms": time_ms(torch, lambda: launches[kind](*args, plan=rows)),
                    "plain_ms": time_ms(torch, lambda: plains[kind](*args)),
                    "rows_ms_l2_cold": time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush),
                    "ms_l2_cold": time_ms(torch, lambda: launches[kind](*args), flush=flush)}
-            over = cuda_rnn.cluster_plan(kind, B, H, dtype)
+            over = cuda_rnn.cluster_plan(kind, B, H, dtype, SPEC)
             if plan.design == "rows" and over is not None:
-                row.update(cluster_ms=time_ms(torch, lambda: launches[kind](*args, plan=over)), cluster_waves=cuda_rnn.cluster_waves(over))
+                row.update(cluster_ms=time_ms(torch, lambda: launches[kind](*args, plan=over)), cluster_waves=cuda_rnn.cluster_waves(over, SPEC))
             bound_ms, bound_by, nbytes, flops = bound(kind, T, B, H, dtype)
             row.update(bound_ms=bound_ms, bound_by=bound_by, design=dataclasses.asdict(plan))
             rows_by_shape[(kind, T, B, H, dtype)] = row
@@ -379,7 +422,7 @@ def phase_timing(torch, cuda_rnn, card):
                 args = make_inputs(torch, kind, T, B, H, dtype, seed=3)
                 rows = cuda_rnn.row_plan(kind, B, H)
                 row = {"phase": "timing", "kernel": f"{kind}_seq", "shape": [T, B, H], "dtype": dtype,
-                       "design": dataclasses.asdict(cuda_rnn.launch_plan(kind, T, B, H, dtype))}
+                       "design": dataclasses.asdict(cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC))}
                 for label, flush_with in (("warm", None), ("l2_cold", flush)):
                     row[f"ms_{label}"] = time_ms(torch, lambda: launches[kind](*args), flush=flush_with)
                     row[f"rows_ms_{label}"] = time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush_with)
@@ -859,7 +902,7 @@ def phase_population(torch, cuda_rnn, card, tmp):
     check(len(per_iter) == iters, f"expected {iters} iterations, ran {len(per_iter)}")
     check(counts["gru_seq"] == P * iters, f"GRU kernel launches {counts['gru_seq']}, expected {P * iters} (1 a policy and iteration)")
     check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched: {counts}")
-    plan = cuda_rnn.launch_plan("gru", *MAIN_GRU)
+    plan = cuda_rnn.launch_plan("gru", *MAIN_GRU, SPEC)
     check(plan.design == "cluster", "the population's (32, 512, 256) bf16 launches do not take the cluster design")
 
     # PBT: policy 1 was updated; its files, its shaping where the rollout reads it, its hparams where the learner does
@@ -1038,7 +1081,7 @@ def phase_selfplay(torch, cuda_rnn, card, tmp):
     # parameter by about lr whatever its gradient's size, so a gradient near 0 can move it by 2 lr apart
     tol = 1e-3
     emit({"phase": "selfplay", "check": "one float32 train call of policy 0, card vs CPU copy", "envs": small, "slots": small_slots,
-          "rnn_size": runner.cfg.rnn_size, "launches": f32_counts, "plan": dataclasses.asdict(cuda_rnn.launch_plan("gru", 32, 16, 512, "float32")),
+          "rnn_size": runner.cfg.rnn_size, "launches": f32_counts, "plan": dataclasses.asdict(cuda_rnn.launch_plan("gru", 32, 16, 512, "float32", SPEC)),
           "params_max_abs_err": param_err, "model_outputs_max_abs_err": err, "tol": tol, "card": card})
     check(all(bool(torch.isfinite(t).all()) for t in on_card), "non-finite model outputs")
     check(param_err <= tol and err <= tol, f"card vs CPU after one train call: parameters {param_err}, outputs {err} > {tol}")
@@ -1351,7 +1394,7 @@ HOST_GRU = (32, 256, 256, "bfloat16")  # the host_rnn phase: 8192 / 32 segments 
 
 def phase_host_rnn(torch, cuda_rnn, card, tmp):
     iters, minibatches = 3, 8
-    plan = cuda_rnn.launch_plan("gru", *HOST_GRU)
+    plan = cuda_rnn.launch_plan("gru", *HOST_GRU, SPEC)
     check(plan.design == "cluster" and plan.cluster == 8, f"(32, 256, 256) bf16 takes {plan}")
     argv = HOST_PIXEL + ["--use_rnn=True", "--rnn_size=256", "--recurrence=32", "--compute_dtype=bfloat16"]
     runner, counts, stats, per_iter, seen = host_run(torch, cuda_rnn, tmp, argv, iters, "host_pixel_gru")
@@ -1914,7 +1957,7 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
     # each site's launches go to the design its plan picks (the learner's instruction encoder: the row design)
     expected = dict.fromkeys(counts, 0)
     for site, (kind, T, B, H) in sites.items():
-        expected[cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, "float32"))] += by_site[site]
+        expected[cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, "float32", SPEC))] += by_site[site]
     check(sum(by_site.values()) == len(shapes) and counts == expected, f"launches {counts} against {expected}, shapes {set(shapes)}")
     check(sum(episodes.values()) > 0 and not shm_segments(), f"episodes {episodes}, segments {shm_segments()}")
     cache = os.path.join(tmp, "dmlab_cache")
@@ -2989,40 +3032,48 @@ def main() -> int:
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "card": card})
 
+    global SPEC
     start = time.perf_counter()
     queue_path = shm_queue.build()  # g++; raises where it fails, so that the pipe transport cannot hide it
     lib_path = cuda_rnn.build()
     cuda_rnn.load_library()
     log = lib_path.with_suffix(".log").read_text() if lib_path.with_suffix(".log").exists() else ""
-    # the launch plan assumes the cluster counts that run at once (cuda_rnn.MAX_CLUSTERS): its waves, and
-    # the row design in place of a cluster plan of several waves at a small width (the DMLab learner's encoder)
+    SPEC = cuda_rnn.card_spec(0)
+    # on the H100 SXM's SM count every path keeps the plan it had when the planner read module constants
+    # (cuda_rnn.H100_SXM); the paths: the parity phase's, the cluster sites, the host and population GRUs
+    path_shapes = ([(kind, (T, B, H, dtype)) for kind, T, B, H, dtype, _, _ in PARITY_PATH_SHAPES] + list(CLUSTER_SITES.values())
+                   + [("gru", HOST_GRU), ("gru", (32, 16, 512, "float32"))])
+    if SPEC.sms == cuda_rnn.H100_SXM.sms:
+        for kind, (T, B, H, dtype) in path_shapes:
+            plan, sxm = cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC), cuda_rnn.launch_plan(kind, T, B, H, dtype, cuda_rnn.H100_SXM)
+            check(plan == sxm, f"{kind} {(T, B, H, dtype)}: {plan} on this card ({SPEC}), {sxm} on the H100 SXM")
+    # the launch plan counts on the clusters that the card runs at once (SPEC): its waves, and the row
+    # design in place of a cluster plan of several waves at a small width (the DMLab learner's encoder)
     at_once = {}
-    cluster_shapes = [("gru_seq", "gru", MAIN_GRU), ("lstm_seq", "lstm", MAIN_LSTM), ("gru_seq_selfplay", "gru", SELFPLAY_GRU),
-                      ("lstm_seq_dmlab_core", "lstm", DMLAB_CORE), ("lstm_seq_dmlab_instr_rollout", "lstm", DMLAB_INSTR_ROLLOUT),
-                      ("lstm_seq_dmlab_instr_learner", "lstm", DMLAB_INSTR_LEARNER),
-                      ("lstm_seq_dmlab_instr_last_value", "lstm", DMLAB_INSTR_BOOTSTRAP)]
-    for name, kind, (T, B, H, dtype) in cluster_shapes:
-        plan = cuda_rnn.cluster_plan(kind, B, H, dtype)
+    for name, (kind, (T, B, H, dtype)) in CLUSTER_SITES.items():
+        plan = cuda_rnn.cluster_plan(kind, B, H, dtype, SPEC)
         check(plan is not None, f"{name}: {(T, B, H, dtype)} has no cluster plan")
-        at_once[name] = {"shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster, "waves": cuda_rnn.cluster_waves(plan),
-                         "planned": cuda_rnn.launch_plan(kind, T, B, H, dtype).design,
+        at_once[name] = {"shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster, "waves": cuda_rnn.cluster_waves(plan, SPEC),
+                         "planned": cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC).design,
                          "card_runs_at_once": cuda_rnn.max_active_clusters(kind, dtype, plan)}
-        check(at_once[name]["card_runs_at_once"] >= 1, f"{name}: no cluster of {plan} fits the card")
-    # the grid design's cooperative launches need every block resident at once (cuda_rnn.GRID_BLOCKS, one a SM)
+        check(at_once[name]["card_runs_at_once"] >= max(1, SPEC.clusters_at_once(plan.cluster)), f"{name}: no cluster of {plan} fits the card")
+    # the grid design's cooperative launches need every block resident at once (one a SM: SPEC.sms at most)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     grid_at_once = {}
     for site, (kind, (T, B, H, dtype), _) in GRID_SITES.items():
-        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC)
         check(plan.design == "grid", f"{site}: {(T, B, H, dtype)} does not take the grid design")
         grid_at_once[site] = {"kernel": kind, "shape": [T, B, H], "dtype": dtype, "blocks": plan.grid, "threads": plan.threads,
                               "smem": plan.smem, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(kind, plan), "sms": sms}
-        check(plan.grid <= min(cuda_rnn.GRID_BLOCKS, grid_at_once[site]["blocks_per_sm"] * sms), f"{site}: {plan} is not resident at once")
+        check(plan.grid <= SPEC.sms and plan.grid <= grid_at_once[site]["blocks_per_sm"] * sms, f"{site}: {plan} is not resident at once")
     emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name, "shm_queue_library": queue_path.name,
+          "card_spec": dataclasses.asdict(SPEC), "paths_keep_the_h100_sxm_plans": SPEC.sms == cuda_rnn.H100_SXM.sms,
           "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line],
           "clusters_at_main_shapes": at_once, "grid_at_path_shapes": grid_at_once})
 
     main_err = phase_parity(torch, cuda_rnn)
     timing = phase_timing(torch, cuda_rnn, card)
+    phase_plans(torch, cuda_rnn, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = {}
         runner, paths["main"], sync_rate = phase_main(torch, cuda_rnn, card, tmp)

@@ -36,8 +36,9 @@
 //     x_proj slice and resets, and waits at one cluster barrier (release/acquire). The
 //     double buffer makes one barrier per step enough: a buffer is rewritten only after
 //     every block has passed the barrier that ends the step which read it.
-// The launch plan (ops/cuda_rnn.py:launch_plan) keeps every cluster in one wave: on the H100
-// at most 15 clusters of 8 (7 of 16) run at once with one block per SM.
+// The launch plan (ops/cuda_rnn.py:launch_plan) keeps every cluster in one wave, from the counts
+// the card reports (cuda_rnn.card_spec): the H100 SXM runs at most 15 clusters of 8 (7 of 16) at
+// once with one block per SM; a size of which the card runs none is never planned.
 //
 // Design "grid" (grid_kernel<Cells>, the f32 GRU and LSTM where no cluster slice fits, e.g. H=512:
 // an LSTM slice of 16 would need 128 x 516 x 4 = 264 KB, a GRU slice 238 KB). Also replaces
@@ -46,7 +47,7 @@
 // TFLOP/s (64 us at B=2048, H=512, G=4); at small B the chain of T dependent steps, each a grid
 // barrier and an L2 round trip of the new carry. The design:
 //   - one persistent cooperative launch for all T steps: Q batch tiles x S unit slices,
-//     Q*S <= 132 blocks, one a SM, all resident (cudaLaunchCooperativeKernel refuses a grid
+//     Q*S <= the card's SMs (132 on the H100 SXM), one a SM, all resident (cudaLaunchCooperativeKernel refuses a grid
 //     that does not fit); one grid barrier (cg::this_grid().sync()) a step;
 //   - block (q, r) owns BT batch rows and U = H/S hidden units with all G gates of each, the
 //     G*U columns of wh that pack_wh lays out for it; it copies them into shared memory once
@@ -87,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
 #include <mutex>
 #include <set>
 #include <utility>
@@ -475,25 +477,29 @@ int launch_cluster(const void* x, const void* s0, const void* resets, const void
     cfg.numAttrs = 1;
 
     // The function attributes and the check that a cluster fits on the card, once per
-    // configuration and process (they cost tens of microseconds of host time).
+    // configuration, device and process (they cost tens of microseconds of host time; an
+    // attribute holds for the device that was current when it was set).
     static std::mutex lock;
-    static int smem_set = 0;
-    static std::set<std::pair<int, int>> checked;  // (C, smem)
+    static std::map<int, int> smem_set;                          // device -> the limit set there
+    static std::set<std::pair<int, std::pair<int, int>>> checked;  // (device, (C, smem))
     cudaError_t err = cudaSuccess;
     {
         std::lock_guard<std::mutex> guard(lock);
-        if (smem > smem_set) {
+        int dev = 0;
+        err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (smem > smem_set[dev]) {
             err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
             if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
             if (err != cudaSuccess) return static_cast<int>(err);
-            smem_set = smem;
+            smem_set[dev] = smem;
         }
-        if (!checked.count({C, smem})) {
+        if (!checked.count({dev, {C, smem}})) {
             int clusters = 0;
             err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
             if (err != cudaSuccess) return static_cast<int>(err);
-            if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-            checked.insert({C, smem});
+            if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);  // refused: no cluster of C fits
+            checked.insert({dev, {C, smem}});
         }
     }
     err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const float*>(s0),
@@ -995,19 +1001,19 @@ int launch_grid(const void* x, const void* s0, const void* resets, const void* w
     // The shared-memory limit and the check that the whole grid is resident at once, once per
     // configuration, device and process; a cooperative launch that does not fit is refused.
     static std::mutex lock;
-    static int smem_set = 0;
+    static std::map<int, int> smem_set;                                // device -> the limit set there
     static std::set<std::pair<int, std::pair<int, int>>> checked;  // (device, (threads, smem))
     cudaError_t err = cudaSuccess;
     {
         std::lock_guard<std::mutex> guard(lock);
-        if (smem > smem_set) {
-            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-            if (err != cudaSuccess) return static_cast<int>(err);
-            smem_set = smem;
-        }
         int dev = 0;
         err = cudaGetDevice(&dev);
         if (err != cudaSuccess) return static_cast<int>(err);
+        if (smem > smem_set[dev]) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err != cudaSuccess) return static_cast<int>(err);
+            smem_set[dev] = smem;
+        }
         if (!checked.count({dev, {threads, smem}})) {
             int per_sm = 0, sms = 0;
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
@@ -1069,10 +1075,13 @@ int lstm_seq_forward(const void* x, const void* hc0, const void* resets, const v
                                               rows, smem, s);
 }
 
-// Clusters of `cluster` blocks with `smem` bytes each that the card runs at once (0 if none).
+// Clusters of `cluster` blocks with `smem` bytes each that the current card runs at once (0 if none);
+// at smem = the opt-in limit, one block an SM (ops/cuda_rnn.py:card_spec).
 int max_active_clusters(int gates, int is_bf16, int cluster, int smem) {
     auto query = [&](auto kernel) {
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        cudaFuncAttributes attrs;  // raise the limit only: launch_cluster remembers the largest it set
+        if (cudaFuncGetAttributes(&attrs, kernel) != cudaSuccess) return 0;
+        if (attrs.maxDynamicSharedSizeBytes < smem) cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         cudaLaunchAttribute attr[1];
         attr[0].id = cudaLaunchAttributeClusterDimension;

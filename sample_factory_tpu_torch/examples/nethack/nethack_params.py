@@ -3,7 +3,8 @@
 Counterpart of `sf_examples_tpu/nethack/nethack_params.py` (reference
 `sf_examples/nethack/nethack_params.py`: env kwargs, model selection flags, and the
 dungeons&data-matched RL hyperparameters), value for value. The defaults put an LSTM of the
-cfg's `rnn_size` (512) in float32 on the learner: the row design of the LSTM kernel on the card.
+cfg's `rnn_size` (512) in float32 on the learner: the grid design of the LSTM kernel
+(`lstm_seq_grid`) on the card.
 """
 
 from sample_factory_tpu_torch.utils.utils import str2bool

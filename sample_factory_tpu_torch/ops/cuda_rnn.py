@@ -13,8 +13,9 @@ Kernels (CUDA C++, `csrc/rnn_seq.cu`, built for sm_90a at first use):
 
 Bound on the H100: HBM bytes (x_proj in, outs out: ~43 MB at T=32, B=512,
 H=256 in bf16, against ~6.4 GFLOP of products); in practice the chain of T
-dependent steps sets the time. `launch_plan` picks one of two designs from the
-shape alone (see the source note in `csrc/rnn_seq.cu`):
+dependent steps sets the time. `launch_plan` picks one of three designs from the
+shape and the card's spec (`card_spec`: its SMs, the clusters it runs at once, a
+block's shared memory; see the source note in `csrc/rnn_seq.cu`):
 
 - "cluster": the gate columns of `wh` are split across the blocks of a
   thread-block cluster, each block keeps its slice in shared memory for all T
@@ -24,7 +25,7 @@ shape alone (see the source note in `csrc/rnn_seq.cu`):
 - "grid" (float32 GRU and LSTM where no cluster slice fits: H=512 on the Doom,
   NetHack and AllegroHandLSTM learners, `tp`'s multichip leg and the default
   configuration): one persistent cooperative launch of Q batch tiles x S unit
-  slices (`grid_plan`), each block keeping the gate columns of its U hidden
+  slices (`grid_plan`, at most one block an SM), each block keeping the gate columns of its U hidden
   units in shared memory for all T steps (the GRU's three gates padded to the
   LSTM's four); only h crosses blocks, through a global double buffer in L2,
   one grid barrier a step. f32 FMAs on the CUDA cores (TF32 would break the
@@ -69,13 +70,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 # the row design's shared memory, 3 * 4 rows * H * 4 bytes (LSTM), reaches 48 KB, the most a
 # launch takes without raising the dynamic shared-memory limit, at H = 1024
 MAX_HIDDEN = 1024
-SMEM_LIMIT = 232_448  # shared memory one block may use on the H100 (227 KB)
-# clusters of 8 and of 16 blocks that run at once on the H100 SXM with one block per SM
-# (cudaOccupancyMaxActiveClusters): a cluster lives in one GPC, so 15 x 8 = 120 SMs, not 132
-MAX_CLUSTERS = {8: 15, 16: 7}
-# blocks of a grid-design launch: one on each of the H100 SXM's 132 SMs (a block of the plan takes up
-# to 512 threads and most of an SM's shared memory; cudaLaunchCooperativeKernel needs every block resident)
-GRID_BLOCKS = 132
 GRID_WIDE_ROWS = 1024  # from this batch on, the grid design takes 8 x 8 register tiles and 16 units a block
 ROW_TILE = 4  # batch rows per block in the row design (kTile in csrc/rnn_seq.cu)
 # at this width and below, a cluster plan of more than one wave loses to the row design, whose
@@ -206,96 +200,150 @@ def grid_smem(H: int, units: int, rows: int, tile_rows: int, tile_cols: int, ksp
     return 4 * (H * 4 * units + stages * (rows // passes) * (kchunk + 4) + partials)
 
 
-@functools.lru_cache(maxsize=256)
-def grid_plan(kind: str, B: int, H: int, dtype):
-    """The grid design's plan for the float32 GRU or LSTM, or None where it takes none. Both
-    kinds get the same plan: the kernel pads the GRU's three gates to four gate columns.
+@dataclass(frozen=True)
+class CardSpec:
+    """What the launch plan reads of a card: its SMs, the clusters of 8 and of 16 blocks that it runs
+    at once with one block an SM (cudaOccupancyMaxActiveClusters; a cluster lives in one GPC, so
+    these depend on the card's GPC layout, not only on its SM count), and the shared memory one block
+    may take (the opt-in limit)."""
 
-    Below GRID_WIDE_ROWS batch rows: 4 x 4 register tiles and the narrowest slices that fit in
-    GRID_BLOCKS (U = 4 at H = 512: 128 slices of one batch tile share each step's product);
-    from there on 8 x 8 tiles and 16 units a slice (32 slices x 4 batch tiles at H = 512: each
-    block reads its tile's h from L2, so wider slices mean fewer reads). Rows per tile: the fewest
-    that fill GRID_BLOCKS, in steps of the tile height. Then the most K splits (8 at most) that
-    stay within `grid_max_threads` and give each cell a thread of its own (the kernel's split
-    path applies one cell a thread), else the fewest passes over the rows that do; then the
-    widest K chunk of at most 128 whose shared memory fits (two stages: the next chunk loads
-    while this one is multiplied)."""
+    sms: int
+    clusters_of_8: int
+    clusters_of_16: int
+    smem_limit: int
+
+    def clusters_at_once(self, size: int) -> int:
+        return {8: self.clusters_of_8, 16: self.clusters_of_16}[size]
+
+
+# the H100 SXM's values, which card_spec reads there: 15 x 8 = 120 of its 132 SMs in clusters of 8,
+# and 227 KB a block; what a caller gets that names no card (tests, CPU callers)
+H100_SXM = CardSpec(sms=132, clusters_of_8=15, clusters_of_16=7, smem_limit=232_448)
+
+
+def card_spec(device) -> CardSpec:
+    """The spec of the CUDA card `device` (a torch.device, an index, or "cuda"), read once per
+    device index and process."""
+    device = torch.device("cuda", device) if isinstance(device, int) else torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"card_spec needs a CUDA device, got {device}")
+    return _card_spec(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _card_spec(index: int) -> CardSpec:
+    props = torch.cuda.get_device_properties(index)
+    smem = props.shared_memory_per_block_optin
+    lib = load_library()
+    with torch.cuda.device(index):  # a block of the opt-in limit holds its SM alone: one block an SM
+        clusters = {size: lib.max_active_clusters(4, 0, size, smem) for size in (8, 16)}
+    return CardSpec(props.multi_processor_count, clusters[8], clusters[16], smem)
+
+
+# K splits and passes a grid-design block may take, in the order tried
+GRID_SPLITS = ((8, 1), (4, 1), (1, 1), (1, 2), (1, 4))
+
+
+@functools.lru_cache(maxsize=256)
+def grid_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM):
+    """The grid design's plan for the float32 GRU or LSTM on a card of `spec`, or None where it takes
+    none. Both kinds get the same plan: the kernel pads the GRU's three gates to four gate columns.
+
+    Below GRID_WIDE_ROWS batch rows 4 x 4 register tiles and slices of 4, 8 or 16 units (in that
+    order: at H = 512 on the H100 SXM, 128 slices of 4 units in one batch tile share each step's
+    product); from there on 8 x 8 tiles and slices of 16, then 8 units (wider slices mean fewer reads
+    of h from L2). One block an SM, so slices x batch tiles <= spec.sms. Each slice width whose slices
+    fit, and each K split and pass count of GRID_SPLITS, gives a candidate: the fewest rows per tile,
+    a multiple of passes x tile height, that fill the SMs with tiles; it fits where its threads stay
+    within `grid_max_threads`, where K is split each cell has a thread of its own (the kernel's split
+    path applies one cell a thread), and the widest K chunk of at most 128 gives a block's shared
+    memory within spec.smem_limit (two stages: the next chunk loads while this one is multiplied).
+    The plan is the candidate with the most blocks; among equals, one whose rows needed no rounding up
+    to the pass count, then the first in order (so the plans of the fewest rows in steps of the tile
+    height, which this search made before it stepped by passes, keep their place)."""
     del kind  # the same plan for both
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     if dtype != torch.float32 or H % 64:
         return None
     tm, tn = (8, 8) if B >= GRID_WIDE_ROWS else (4, 4)
+    best, best_key = None, None
     for units in ((16, 8) if tn == 8 else (4, 8, 16)):
         slices = H // units
-        if slices > GRID_BLOCKS:
+        if slices > spec.sms:
             continue
-        tiles = min(GRID_BLOCKS // slices, -(-B // tm))
-        rows = -(-B // (tiles * tm)) * tm
-        tiles = -(-B // rows)
-        for ksplit, passes in ((8, 1), (4, 1), (1, 1), (1, 2), (1, 4)):
+        most = min(spec.sms // slices, -(-B // tm))  # batch tiles that the SMs hold
+        fewest = -(-B // (most * tm)) * tm
+        for ksplit, passes in GRID_SPLITS:
+            step = passes * tm
+            rows = -(-B // (most * step)) * step
             threads = grid_threads(units, rows, tm, tn, ksplit, passes)
-            if rows % (passes * tm) or threads > grid_max_threads(tm, tn) or (ksplit > 1 and rows * units > threads):
+            if threads > grid_max_threads(tm, tn) or (ksplit > 1 and rows * units > threads):
                 continue
             for kchunk in (128, 64, 32, 16):
                 if H % kchunk or kchunk % (4 * ksplit):
                     continue
                 smem = grid_smem(H, units, rows, tm, tn, ksplit, kchunk, passes)
-                if smem <= SMEM_LIMIT:
-                    return Plan("grid", slices, rows, units, smem, tiles * slices, tm, tn, ksplit, kchunk, passes, threads)
-    return None
+                if smem <= spec.smem_limit:
+                    tiles = -(-B // rows)
+                    key = (tiles * slices, rows == fewest)
+                    if best is None or key > best_key:
+                        best, best_key = Plan("grid", slices, rows, units, smem, tiles * slices, tm, tn, ksplit, kchunk, passes, threads), key
+                    break
+    return best
 
 
 @functools.lru_cache(maxsize=256)
-def cluster_plan(kind: str, B: int, H: int, dtype):
-    """The cluster design's plan, or None where no slice fits. 8 blocks per cluster, else 16 (a
-    non-portable cluster size on the H100); the hidden units of a block are a power of two, at least
-    8 (the mma's n8, 16-byte copies, and index arithmetic by shifts). Rows per cluster: the fewest
-    that let all clusters run in one wave (MAX_CLUSTERS), in steps of the product's row granularity
-    (16 for bf16's m16 tiles, 8 for f32), at most 64 / 32, lowered until the block's shared memory
-    fits; above 15 clusters of 64 / 32 rows the clusters run in waves."""
+def cluster_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM):
+    """The cluster design's plan on a card of `spec`, or None where no slice fits. 8 blocks per cluster,
+    else 16 (a non-portable cluster size on the H100), never a size of which the card runs no cluster
+    at once; the hidden units of a block are a power of two, at least 8 (the mma's n8, 16-byte copies,
+    and index arithmetic by shifts). Rows per cluster: the fewest that let all clusters run in one wave
+    (spec.clusters_at_once), in steps of the product's row granularity (16 for bf16's m16 tiles, 8 for
+    f32), at most 64 / 32, lowered until the block's shared memory fits; above that many clusters of
+    64 / 32 rows the clusters run in waves."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     itemsize = 2 if dtype == torch.bfloat16 else 4
     step, cap = (16, 64) if itemsize == 2 else (8, 32)
     for cluster in (8, 16):
         units = H // cluster
-        if H % cluster or units < 8 or units & (units - 1):
+        if H % cluster or units < 8 or units & (units - 1) or spec.clusters_at_once(cluster) < 1:
             continue
-        want = -(-B // MAX_CLUSTERS[cluster])
+        want = -(-B // spec.clusters_at_once(cluster))
         for rows in range(min(cap, max(step, -(-want // step) * step)), 0, -step):
             smem = cluster_smem(kind, H, cluster, rows, itemsize)
-            if smem <= SMEM_LIMIT:
+            if smem <= spec.smem_limit:
                 return Plan("cluster", cluster, rows, H // cluster, smem, -(-B // rows) * cluster)
     return None
 
 
-def cluster_waves(plan: Plan) -> int:
-    """Waves of a cluster plan: its clusters over those the card runs at once (MAX_CLUSTERS)."""
-    return -(-(plan.grid // plan.cluster) // MAX_CLUSTERS[plan.cluster])
+def cluster_waves(plan: Plan, spec: CardSpec = H100_SXM) -> int:
+    """Waves of a cluster plan: its clusters over those the card of `spec` runs at once."""
+    return -(-(plan.grid // plan.cluster) // spec.clusters_at_once(plan.cluster))
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(kind: str, T: int, B: int, H: int, dtype) -> Plan:
-    """The design and its launch configuration, from the shape and dtype alone: the cluster design
-    where a slice fits (`cluster_plan`), except at H <= ROWS_OVER_WAVES_MAX_H where its clusters need
-    more than one wave, which take the row design; otherwise the grid design where `grid_plan` gives
-    one (float32, H a multiple of 64), else the row design."""
+def launch_plan(kind: str, T: int, B: int, H: int, dtype, spec: CardSpec = H100_SXM) -> Plan:
+    """The design and its launch configuration, from the shape, the dtype and the card's spec: the
+    cluster design where a slice fits (`cluster_plan`), except at H <= ROWS_OVER_WAVES_MAX_H where its
+    clusters need more than one wave, which take the row design; otherwise the grid design where
+    `grid_plan` gives one (float32, H a multiple of 64), else the row design."""
     del T  # every step is alike; the plan does not depend on the sequence length
-    plan = cluster_plan(kind, B, H, dtype)
+    plan = cluster_plan(kind, B, H, dtype, spec)
     if plan is not None:
-        return row_plan(kind, B, H) if H <= ROWS_OVER_WAVES_MAX_H and cluster_waves(plan) > 1 else plan
-    return grid_plan(kind, B, H, dtype) or row_plan(kind, B, H)
+        return row_plan(kind, B, H) if H <= ROWS_OVER_WAVES_MAX_H and cluster_waves(plan, spec) > 1 else plan
+    return grid_plan(kind, B, H, dtype, spec) or row_plan(kind, B, H)
 
 
 def max_active_clusters(kind: str, dtype, plan: Plan) -> int:
     """Clusters of the plan's size and shared memory that the card runs at once
-    (cudaOccupancyMaxActiveClusters); the card's counterpart of MAX_CLUSTERS."""
+    (cudaOccupancyMaxActiveClusters); what CardSpec.clusters_at_once holds at one block an SM."""
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     return load_library().max_active_clusters(_gates(kind), int(dtype == torch.bfloat16), plan.cluster, plan.smem)
 
 
 def grid_blocks_per_sm(kind: str, plan: Plan) -> int:
     """Blocks of the grid plan's size that one SM of the card holds at once
-    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the plan counts on one (GRID_BLOCKS)."""
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the plan counts on one (spec.sms blocks at most)."""
     return load_library().grid_blocks_per_sm(_gates(kind), plan.tile_rows, plan.tile_cols, plan.threads, plan.smem)
 
 
@@ -415,7 +463,8 @@ def _kernel_name(kind: str, plan: Plan) -> str:
 
 
 def _launch(kind, x_proj, state0, resets, wh, bh, plan):
-    """Checks, allocates the outputs and launches the planned kernel on the current stream."""
+    """Checks, allocates the outputs and launches the kernel on the current stream: `plan`, or the
+    plan for the spec of the card that x_proj lies on. A launch the card refuses raises."""
     T, B, H = _check_common(x_proj, _gates(kind))
     G, dev, dt = _gates(kind), x_proj.device, x_proj.dtype
     _check("x_proj", x_proj, (T, B, G * H), dt, dev)
@@ -424,7 +473,8 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
     _check("wh", wh, (H, G * H), dt, dev)
     if kind == "gru":
         _check("bh", bh, (G * H,), dt, dev)
-    plan = plan or launch_plan(kind, T, B, H, dt)
+    spec = card_spec(dev)
+    plan = plan or launch_plan(kind, T, B, H, dt, spec)
     if plan.design == "grid" and dt != torch.float32:
         raise ValueError(f"the grid design takes float32, not {dt}")
     if plan.design == "cluster" and x_proj.data_ptr() % 16:
@@ -447,14 +497,14 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
     with torch.cuda.device(dev):
         err = fn(*ptrs, *dims, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} (plan {plan})")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} (plan {plan}, on a card of {spec.sms} SMs: {spec})")
     _launches[_kernel_name(kind, plan)] += 1
     return outs, state
 
 
 def _launch_gru(x_proj, h0, resets, wh, bh, plan=None):
-    """`plan` defaults to `launch_plan` of the shape; chip_smoke.py passes the row design's
-    plan to time the first design beside the planned one."""
+    """`plan` defaults to `launch_plan` of the shape on this card; chip_smoke.py passes the row
+    design's plan to time the first design beside the planned one, and another card's plan."""
     return _launch("gru", x_proj, h0, resets, wh, bh, plan)
 
 

@@ -3,7 +3,7 @@
     python -m sample_factory_tpu_torch.ops.rnn_seq_phases
 
 Builds `csrc/rnn_seq.cu` with -DRNN_SEQ_PHASES, which makes thread 0 of every block add
-the SM cycles (clock64) of each phase of each step. Cluster design: the product h @ wh,
+the SM cycles (clock64) of each phase of each step, at the plans for this card's spec. Cluster design: the product h @ wh,
 the gate math (with the wait for the step's x_proj), the copy of the new carry to the
 other blocks plus the issue of the next step's prefetch, and the cluster barrier. Grid
 design: the h loads and the product, the K splits' sums and the cells, the issue of the
@@ -78,8 +78,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    spec = cuda_rnn.card_spec(torch.device("cuda"))
     for kind, T, B, H, dtype in CASES:
-        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
+        plan = cuda_rnn.launch_plan(kind, T, B, H, dtype, spec)
         launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
         args = _inputs(kind, T, B, H, dtype)
         with torch.no_grad():
@@ -94,7 +95,7 @@ def main() -> int:
                    if plan.design == "cluster" else {"blocks": plan.grid, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(kind, plan)})
         print(json.dumps({
             "kernel": cuda_rnn._kernel_name(kind, plan), "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(plan),
-            **at_once, "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
+            **at_once, "card_spec": dataclasses.asdict(spec), "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
             "card": card,
         }), flush=True)
     return 0

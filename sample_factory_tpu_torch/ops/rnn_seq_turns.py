@@ -1,6 +1,7 @@
 """Two routes of the RNN recurrences timed in turns in one process, on the card.
 
     python -m sample_factory_tpu_torch.ops.rnn_seq_turns [--against OTHER_RNN_SEQ_CU]
+    python -m sample_factory_tpu_torch.ops.rnn_seq_turns --sms N
 
 Prints one JSON line per shape. A route's time is the median of CUDA-event timings of one launch,
 each after a spin of the card (so that the interval is device time, not the host's launch work),
@@ -14,7 +15,12 @@ taken in rounds that alternate the two routes (a, b, b, a, ...):
   the LSTM fills the fourth gate column that the GRU pads with zeros;
 - "build" (with --against, a copy of `csrc/rnn_seq.cu` from another commit, built beside this one):
   the float32 LSTM's grid sites (NetHack's (32, 24, 512) and (32, 32, 512), AllegroHandLSTM's
-  (16, 2048, 512)), this build against the other through the same launch code.
+  (16, 2048, 512)), this build against the other through the same launch code;
+- "sms" (with --sms alone): the paths' sites (`SPEC_SITES`: the grid sites and the cluster sites), the plan
+  `cuda_rnn.launch_plan` makes for a card of N SMs (`scaled_spec`: this card's clusters of 8 and 16 scaled
+  by N over its SMs, rounded down, and its shared memory) against the plan for this card's own spec
+  (`cuda_rnn.card_spec`), each held against the plain version. Both run on this card: it tells what a
+  smaller card's plan costs where every SM of this one is there to run it.
 
 Needs a CUDA card.
 """
@@ -22,6 +28,7 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -37,6 +44,12 @@ WAVES_SHAPES = [(kind, 16, B, H, dtype) for kind in ("gru", "lstm") for dtype in
                 for H in (64, 128) for B in (512, 1024, 2048, 4096)]
 GRU_GRID_SITES = [(32, 64, 512), (16, 4, 512), (32, 32, 512)]
 LSTM_GRID_SITES = [(32, 24, 512), (32, 32, 512), (16, 2048, 512)]
+# the paths' sites: the grid sites, then the cluster sites (main, lstm, selfplay, the DMLab core and the
+# instruction encoder in a rollout slot, a minibatch and the last-value pass), (kind, T, B, H, dtype)
+SPEC_SITES = ([("gru", *shape, "float32") for shape in GRU_GRID_SITES] + [("lstm", *shape, "float32") for shape in LSTM_GRID_SITES]
+              + [("gru", 32, 512, 256, "bfloat16"), ("lstm", 32, 128, 256, "float32"), ("gru", 32, 512, 512, "bfloat16"),
+                 ("lstm", 32, 32, 256, "float32"), ("lstm", 16, 64, 64, "float32"), ("lstm", 16, 1024, 64, "float32"),
+                 ("lstm", 16, 128, 64, "float32")])
 
 
 def _launch_ms(fn) -> float:
@@ -67,9 +80,36 @@ def _launcher(kind, T, B, H, dtype, plan=None):
     return lambda: launch(*args, plan=plan)
 
 
+def scaled_spec(own: cuda_rnn.CardSpec, sms: int) -> cuda_rnn.CardSpec:
+    """A card of `sms` SMs with `own`'s clusters scaled by sms / own.sms (rounded down) and its shared memory."""
+    return cuda_rnn.CardSpec(sms, own.clusters_of_8 * sms // own.sms, own.clusters_of_16 * sms // own.sms, own.smem_limit)
+
+
+def against_spec(spec, sites=SPEC_SITES):
+    """For each site (kind, T, B, H, dtype): the plan for `spec` and the plan for this card's own spec, both
+    launched on this card in turns, and the largest difference of the first's outputs (outs and the final
+    state) from the plain version's. Yields one dict a site."""
+    own = cuda_rnn.card_spec(torch.device("cuda"))
+    reference = {"gru": cuda_rnn.gru_seq_reference, "lstm": cuda_rnn.lstm_seq_reference}
+    for kind, T, B, H, dtype in sites:
+        plan, own_plan = cuda_rnn.launch_plan(kind, T, B, H, dtype, spec), cuda_rnn.launch_plan(kind, T, B, H, dtype, own)
+        args = _inputs(kind, T, B, H, dtype)
+        launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
+        with torch.no_grad():
+            out, state = launch(*args, plan=plan)
+            ref_out, ref_state = reference[kind](*args)
+            err = max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max()))
+            ms, own_ms = in_turns(lambda: launch(*args, plan=plan), lambda: launch(*args, plan=own_plan))
+        yield {"kernel": cuda_rnn._kernel_name(kind, plan), "shape": [T, B, H], "dtype": dtype, "sms": spec.sms,
+               "spec": dataclasses.asdict(spec), "design": plan.design, "blocks": plan.grid, "threads": plan.threads,
+               "smem": plan.smem, "plan": dataclasses.asdict(plan), "max_abs_err": err, "ms": ms,
+               "own_sms": own.sms, "own_plan": dataclasses.asdict(own_plan), "own_ms": own_ms, "same_plan": plan == own_plan}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", help="another version of csrc/rnn_seq.cu: time the LSTM's grid sites with both builds")
+    parser.add_argument("--sms", type=int, help="time the plans for a card of this many SMs against this card's own, alone")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("rnn_seq_turns needs a CUDA card")
@@ -77,17 +117,22 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     this = cuda_rnn.load_library()
     stat = f"median of {ROUNDS} x {REPS} CUDA-event times of one launch, routes in turns"
+    if opts.sms:
+        for record in against_spec(scaled_spec(cuda_rnn.card_spec(torch.device("cuda")), opts.sms)):
+            print(json.dumps({"turns": "sms", **record, "stat": stat, "card": card}), flush=True)
+        return 0
+    own = cuda_rnn.card_spec(torch.device("cuda"))
     with torch.no_grad():
         for kind, T, B, H, dtype in WAVES_SHAPES:
-            plan = cuda_rnn.cluster_plan(kind, B, H, dtype)
-            if plan is None or cuda_rnn.cluster_waves(plan) < 2:
+            plan = cuda_rnn.cluster_plan(kind, B, H, dtype, own)
+            if plan is None or cuda_rnn.cluster_waves(plan, own) < 2:
                 continue
             cluster_ms, rows_ms = in_turns(_launcher(kind, T, B, H, dtype, plan), _launcher(kind, T, B, H, dtype, cuda_rnn.row_plan(kind, B, H)))
             print(json.dumps({"turns": "waves", "kernel": kind, "shape": [T, B, H], "dtype": dtype, "clusters": plan.grid // plan.cluster,
-                              "waves": cuda_rnn.cluster_waves(plan), "cluster_ms": cluster_ms, "rows_ms": rows_ms,
-                              "planned": cuda_rnn.launch_plan(kind, T, B, H, dtype).design, "stat": stat, "card": card}), flush=True)
+                              "waves": cuda_rnn.cluster_waves(plan, own), "cluster_ms": cluster_ms, "rows_ms": rows_ms,
+                              "planned": cuda_rnn.launch_plan(kind, T, B, H, dtype, own).design, "stat": stat, "card": card}), flush=True)
         for T, B, H in GRU_GRID_SITES:
-            plan = cuda_rnn.launch_plan("gru", T, B, H, "float32")
+            plan = cuda_rnn.launch_plan("gru", T, B, H, "float32", own)
             gru_ms, lstm_ms = in_turns(_launcher("gru", T, B, H, "float32", plan), _launcher("lstm", T, B, H, "float32", plan))
             print(json.dumps({"turns": "gates", "shape": [T, B, H], "dtype": "float32", "plan": plan.__dict__, "gru_grid_ms": gru_ms,
                               "lstm_grid_ms": lstm_ms, "stat": stat, "card": card}), flush=True)

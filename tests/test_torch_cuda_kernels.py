@@ -8,9 +8,12 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
 tests skip; the others check, on the CPU, that the CUDA path never falls back.
 """
 
+import contextlib
+import dataclasses
 import math
 import os
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -108,7 +111,7 @@ def test_kernel_matches_plain_on_card(cuda_device, kind, dtype, T, B, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,T,B,H,dtype,design", PATH_SHAPES)
 def test_kernel_matches_plain_on_card_at_the_path_shapes(cuda_device, kind, T, B, H, dtype, design):
-    assert cuda_rnn.launch_plan(kind, T, B, H, dtype).design == design
+    assert cuda_rnn.launch_plan(kind, T, B, H, dtype, cuda_rnn.card_spec(cuda_device)).design == design
     _kernel_matches_plain(cuda_device, kind, dtype, T, B, H)
 
 
@@ -123,7 +126,7 @@ def test_path_shapes_take_their_design(kind, T, B, H, dtype, design):
     if design == "cluster":
         assert plan.cluster == 8 and plan.units == H // 8 and plan.rows * (plan.grid // plan.cluster) >= B
     elif design == "grid":
-        assert plan == cuda_rnn.grid_plan(kind, B, H, dtype) and plan.grid <= cuda_rnn.GRID_BLOCKS
+        assert plan == cuda_rnn.grid_plan(kind, B, H, dtype) and plan.grid <= cuda_rnn.H100_SXM.sms
         tiles, units = (4, 16) if B >= cuda_rnn.GRID_WIDE_ROWS else (1, 4)
         assert plan.units == units and plan.cluster == H // units and plan.grid == tiles * plan.cluster
         assert plan.rows * tiles >= B > plan.rows * (tiles - 1)
@@ -138,7 +141,7 @@ def _kernel_matches_plain(cuda_device, kind, dtype, T, B, H):
     cuda_rnn.reset_launch_counts()
     out, state = kernel_fn(*args)
     torch.cuda.synchronize()
-    name = cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, dtype))
+    name = cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, dtype, cuda_rnn.card_spec(cuda_device)))
     assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, name: 1}
     ref_out, ref_state = plain_fn(*args)
     tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
@@ -193,8 +196,9 @@ def test_kernel_on_rows_reset_at_every_step(cuda_device, kind, dtype, design):
         B, H = 24, 512
     args = _masked_inputs(kind, T, B, H, dtype, cuda_device)
     launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
-    plan = {"rows": cuda_rnn.row_plan(kind, B, H), "grid": cuda_rnn.grid_plan(kind, B, H, dtype)}.get(
-        design, cuda_rnn.launch_plan(kind, T, B, H, dtype))
+    spec = cuda_rnn.card_spec(cuda_device)
+    plan = {"rows": cuda_rnn.row_plan(kind, B, H), "grid": cuda_rnn.grid_plan(kind, B, H, dtype, spec)}.get(
+        design, cuda_rnn.launch_plan(kind, T, B, H, dtype, spec))
     plain_fn = _fns(kind)[1]
     tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
     other_wh = torch.flip(args[3], dims=(0,)).contiguous()
@@ -212,32 +216,41 @@ def test_kernel_on_rows_reset_at_every_step(cuda_device, kind, dtype, design):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,T,B,H,dtype", [("gru", 32, 512, 256, "bfloat16"), ("lstm", 32, 128, 256, "float32")])
 def test_main_path_clusters_run_in_one_wave(cuda_device, kind, T, B, H, dtype):
-    """MAX_CLUSTERS holds on this card: every cluster of a main-path launch runs at once."""
-    plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
-    assert plan.grid // plan.cluster <= cuda_rnn.max_active_clusters(kind, dtype, plan)
+    """The card's spec holds on this card: every cluster of a main-path launch runs at once, and the
+    clusters the spec counts at one block an SM run at the plan's shared memory too."""
+    spec = cuda_rnn.card_spec(cuda_device)
+    plan = cuda_rnn.launch_plan(kind, T, B, H, dtype, spec)
+    assert plan.grid // plan.cluster <= spec.clusters_at_once(plan.cluster) <= cuda_rnn.max_active_clusters(kind, dtype, plan)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,T,B,H", [("lstm", 32, 24, 512), ("lstm", 16, 2048, 512), ("gru", 32, 64, 512), ("gru", 16, 4, 512),
                                         ("gru", 32, 32, 512), ("gru", 16, 2048, 512)])
 def test_grid_plans_are_resident_at_once(cuda_device, kind, T, B, H):
-    """GRID_BLOCKS holds on this card (one block on each SM), and every block of the grid launches of
-    the NetHack, AllegroHandLSTM and Doom learners, the multichip configuration and the defaults is
-    resident at once, as a cooperative launch needs (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
-    the plan's threads and shared memory, for the kernel of that kind)."""
-    plan = cuda_rnn.launch_plan(kind, T, B, H, "float32")
+    """The plan made for this card's spec keeps one block on each SM at most, and every block of the
+    grid launches of the NetHack, AllegroHandLSTM and Doom learners, the multichip configuration and
+    the defaults is resident at once, as a cooperative launch needs
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the plan's threads and shared memory, for the
+    kernel of that kind, times the card's own SM count)."""
+    spec = cuda_rnn.card_spec(cuda_device)
+    plan = cuda_rnn.launch_plan(kind, T, B, H, "float32", spec)
     assert plan.design == "grid"
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    assert sms == cuda_rnn.GRID_BLOCKS and plan.grid <= cuda_rnn.GRID_BLOCKS
+    assert sms == spec.sms and plan.grid <= spec.sms
     assert plan.grid <= cuda_rnn.grid_blocks_per_sm(kind, plan) * sms
 
 
 @pytest.mark.cuda
 def test_gru_grid_design_on_wide_tiles(cuda_device):
     """The GRU's grid design where it takes 8 x 8 register tiles in passes (from GRID_WIDE_ROWS rows on):
-    4 batch tiles of 512 rows, as AllegroHandLSTM's LSTM takes them."""
-    plan = cuda_rnn.launch_plan("gru", 16, 2048, 512, "float32")
-    assert plan.design == "grid" and (plan.tile_rows, plan.tile_cols, plan.passes) == (8, 8, 2)
+    the plan AllegroHandLSTM's LSTM takes on this card (4 batch tiles of 512 rows in 2 passes on the
+    H100 SXM)."""
+    spec = cuda_rnn.card_spec(cuda_device)
+    plan = cuda_rnn.launch_plan("gru", 16, 2048, 512, "float32", spec)
+    assert plan.design == "grid" and plan == cuda_rnn.launch_plan("lstm", 16, 2048, 512, "float32", spec)
+    assert (plan.tile_rows, plan.tile_cols) == (8, 8) and plan.passes >= 2
+    if spec == cuda_rnn.H100_SXM:
+        assert plan.passes == 2
     _kernel_matches_plain(cuda_device, "gru", "float32", 16, 2048, 512)
 
 
@@ -247,21 +260,29 @@ PLAN_B = [3, 8, 24, 128, 512, 4096]
 PLAN_H = [64, 128, 256, 512, 1024]
 
 
-@pytest.mark.parametrize("H", PLAN_H)
-@pytest.mark.parametrize("B", PLAN_B)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["gru", "lstm"])
-def test_launch_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H):
-    plan = cuda_rnn.launch_plan(kind, 32, B, H, dtype)
-    assert plan.smem <= 232_448  # a block's shared memory on the H100
+# the cards the planner is held to: the H100 SXM (the case ids of the shapes alone), the H100 PCIe's 114
+# SMs in a GPC layout that runs no cluster of 16 and in one that runs 6, and a card of half the SXM's SMs
+SMALL_SPECS = {"114-13-0": cuda_rnn.CardSpec(114, 13, 0, 232_448), "114-13-6": cuda_rnn.CardSpec(114, 13, 6, 232_448),
+               "66-7-3": cuda_rnn.CardSpec(66, 7, 3, 232_448)}
+PLAN_CASES = [pytest.param(kind, dtype, B, H, spec, id=f"{kind}-{dtype}-{B}-{H}" + (f"-{name}" if name else ""))
+              for name, spec in {"": cuda_rnn.H100_SXM, **SMALL_SPECS}.items()
+              for kind in ("gru", "lstm") for dtype in ("float32", "bfloat16") for B in PLAN_B for H in PLAN_H]
+
+
+@pytest.mark.parametrize("kind,dtype,B,H,spec", PLAN_CASES)
+def test_launch_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H, spec):
+    plan = cuda_rnn.launch_plan(kind, 32, B, H, dtype, spec)
+    assert plan.smem <= spec.smem_limit  # a block's shared memory on the card
     if plan.design == "cluster":
         assert plan.cluster in (8, 16)  # 16 is launched with the non-portable cluster size allowed
+        assert spec.clusters_at_once(plan.cluster) >= 1  # never a size of which the card runs none
+        assert plan == cuda_rnn.cluster_plan(kind, B, H, dtype, spec)
         assert plan.smem == cuda_rnn.cluster_smem(kind, H, plan.cluster, plan.rows, 2 if dtype == "bfloat16" else 4)
         assert plan.units * plan.cluster == H and plan.units >= 8 and plan.units & (plan.units - 1) == 0
         assert plan.rows % (16 if dtype == "bfloat16" else 8) == 0
     elif plan.design == "grid":  # float32 where no cluster slice fits
-        assert dtype == "float32" and plan == cuda_rnn.grid_plan(kind, B, H, dtype)
-        assert plan.grid <= cuda_rnn.GRID_BLOCKS and plan.units * plan.cluster == H  # one block a SM, all resident
+        assert dtype == "float32" and plan == cuda_rnn.grid_plan(kind, B, H, dtype, spec)
+        assert plan.grid <= spec.sms and plan.units * plan.cluster == H  # one block a SM, all resident
         assert plan.threads == cuda_rnn.grid_threads(plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit, plan.passes)
         assert 32 <= plan.threads <= cuda_rnn.grid_max_threads(plan.tile_rows, plan.tile_cols)
         assert plan.smem == cuda_rnn.grid_smem(H, plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit,
@@ -271,8 +292,8 @@ def test_launch_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H):
     else:
         assert plan == cuda_rnn.row_plan(kind, B, H)
         assert plan.smem <= 48 * 1024  # launched without raising the dynamic shared-memory limit
-        over = cuda_rnn.cluster_plan(kind, B, H, dtype)  # where a cluster slice fits, only over waves at a small width
-        assert over is None or (H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_waves(over) > 1)
+        over = cuda_rnn.cluster_plan(kind, B, H, dtype, spec)  # where a cluster slice fits, only over waves at a small width
+        assert over is None or (H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_waves(over, spec) > 1)
     # the kernels' map from blockIdx to its tile: cluster = block // cluster size, rank = block % cluster size
     # (grid design: batch tile = block // unit slices, unit slice = block % unit slices)
     owner = np.zeros((B, H), dtype=np.int64)
@@ -353,8 +374,11 @@ def test_grid_threads_cover_each_block_once(kind, B, H):
     every K index one split's in each chunk. Where K is split, the thread that owns cell tid (row tid // U,
     unit tid % U) adds, for each of its G gates, the partial sums of that row's and unit's accumulator
     from every split, each once."""
+    _check_grid_threads(kind, cuda_rnn.grid_plan(kind, B, H, "float32"), H)
+
+
+def _check_grid_threads(kind, plan, H):
     G = 3 if kind == "gru" else 4
-    plan = cuda_rnn.grid_plan(kind, B, H, "float32")
     TM, TN, U = plan.tile_rows, plan.tile_cols, plan.units
     V, N, KS = TN // 4, 4 * U, plan.ksplit
     NCT, PR = U // V, plan.rows // plan.passes
@@ -419,3 +443,349 @@ def test_pack_wh_leaves_the_row_design_alone():
     plan = cuda_rnn.launch_plan("gru", 4, 16, 1024, "bfloat16")
     wh = torch.zeros(1024, 3 * 1024, dtype=torch.bfloat16)
     assert cuda_rnn.pack_wh(wh, plan) is wh
+
+
+# ------------------------------------------------------------------ the card's spec (CPU)
+
+# the plans that ops/cuda_rnn.py made before it read the card (module constants: 132 SMs, 15 clusters of 8 and 7
+# of 16 at once, 232,448 B a block), at every shape of PLAN_B x PLAN_H: (design, cluster, rows, units, smem,
+# grid[, tile_rows, tile_cols, ksplit, kchunk, passes, threads])
+PARENT_PLANS = {
+    ("gru", "float32", 3, 64): ('cluster', 8, 8, 8, 14112, 8),
+    ("gru", "float32", 3, 128): ('cluster', 8, 8, 16, 40192, 8),
+    ("gru", "float32", 3, 256): ('cluster', 8, 8, 32, 129216, 8),
+    ("gru", "float32", 3, 512): ('grid', 128, 4, 4, 39040, 128, 4, 4, 8, 128, 1, 32),
+    ("gru", "float32", 3, 1024): ('grid', 128, 4, 8, 139392, 128, 4, 4, 8, 128, 1, 64),
+    ("gru", "float32", 8, 64): ('cluster', 8, 8, 8, 14112, 8),
+    ("gru", "float32", 8, 128): ('cluster', 8, 8, 16, 40192, 8),
+    ("gru", "float32", 8, 256): ('cluster', 8, 8, 32, 129216, 8),
+    ("gru", "float32", 8, 512): ('grid', 128, 8, 4, 45312, 128, 4, 4, 8, 128, 1, 64),
+    ("gru", "float32", 8, 1024): ('grid', 128, 8, 8, 147712, 128, 4, 4, 8, 128, 1, 128),
+    ("gru", "float32", 24, 64): ('cluster', 8, 8, 8, 14112, 24),
+    ("gru", "float32", 24, 128): ('cluster', 8, 8, 16, 40192, 24),
+    ("gru", "float32", 24, 256): ('cluster', 8, 8, 32, 129216, 24),
+    ("gru", "float32", 24, 512): ('grid', 128, 24, 4, 70400, 128, 4, 4, 8, 128, 1, 192),
+    ("gru", "float32", 24, 1024): ('grid', 128, 24, 8, 180992, 128, 4, 4, 8, 128, 1, 384),
+    ("gru", "float32", 128, 64): ('cluster', 8, 16, 8, 21600, 64),
+    ("gru", "float32", 128, 128): ('cluster', 8, 16, 16, 54848, 64),
+    ("gru", "float32", 128, 256): ('cluster', 8, 16, 32, 158208, 64),
+    ("gru", "float32", 128, 512): ('grid', 128, 128, 4, 200704, 128, 4, 4, 4, 128, 1, 512),
+    ("gru", "float32", 128, 1024): ('grid', 128, 128, 8, 200704, 128, 4, 4, 1, 64, 1, 256),
+    ("gru", "float32", 512, 64): ('rows', 1, 4, 64, 2048, 128),
+    ("gru", "float32", 512, 128): ('cluster', 8, 32, 16, 84160, 128),
+    ("gru", "float32", 512, 256): ('cluster', 8, 32, 32, 216192, 128),
+    ("gru", "float32", 512, 512): ('grid', 128, 512, 4, 180224, 128, 4, 4, 1, 32, 1, 512),
+    ("gru", "float32", 512, 1024): ('grid', 128, 512, 8, 204800, 128, 4, 4, 1, 32, 2, 512),
+    ("gru", "float32", 4096, 64): ('rows', 1, 4, 64, 2048, 1024),
+    ("gru", "float32", 4096, 128): ('cluster', 8, 32, 16, 84160, 1024),
+    ("gru", "float32", 4096, 256): ('cluster', 8, 32, 32, 216192, 1024),
+    ("gru", "float32", 4096, 512): ('grid', 32, 1024, 16, 204800, 128, 8, 8, 1, 32, 4, 256),
+    ("gru", "float32", 4096, 1024): ('rows', 1, 4, 1024, 32768, 1024),
+    ("gru", "bfloat16", 3, 64): ('cluster', 8, 16, 8, 11360, 8),
+    ("gru", "bfloat16", 3, 128): ('cluster', 8, 16, 16, 28224, 8),
+    ("gru", "bfloat16", 3, 256): ('cluster', 8, 16, 32, 80384, 8),
+    ("gru", "bfloat16", 3, 512): ('cluster', 16, 16, 32, 145920, 16),
+    ("gru", "bfloat16", 3, 1024): ('rows', 1, 4, 1024, 32768, 1),
+    ("gru", "bfloat16", 8, 64): ('cluster', 8, 16, 8, 11360, 8),
+    ("gru", "bfloat16", 8, 128): ('cluster', 8, 16, 16, 28224, 8),
+    ("gru", "bfloat16", 8, 256): ('cluster', 8, 16, 32, 80384, 8),
+    ("gru", "bfloat16", 8, 512): ('cluster', 16, 16, 32, 145920, 16),
+    ("gru", "bfloat16", 8, 1024): ('rows', 1, 4, 1024, 32768, 2),
+    ("gru", "bfloat16", 24, 64): ('cluster', 8, 16, 8, 11360, 16),
+    ("gru", "bfloat16", 24, 128): ('cluster', 8, 16, 16, 28224, 16),
+    ("gru", "bfloat16", 24, 256): ('cluster', 8, 16, 32, 80384, 16),
+    ("gru", "bfloat16", 24, 512): ('cluster', 16, 16, 32, 145920, 32),
+    ("gru", "bfloat16", 24, 1024): ('rows', 1, 4, 1024, 32768, 6),
+    ("gru", "bfloat16", 128, 64): ('cluster', 8, 16, 8, 11360, 64),
+    ("gru", "bfloat16", 128, 128): ('cluster', 8, 16, 16, 28224, 64),
+    ("gru", "bfloat16", 128, 256): ('cluster', 8, 16, 32, 80384, 64),
+    ("gru", "bfloat16", 128, 512): ('cluster', 16, 32, 32, 191616, 64),
+    ("gru", "bfloat16", 128, 1024): ('rows', 1, 4, 1024, 32768, 32),
+    ("gru", "bfloat16", 512, 64): ('cluster', 8, 48, 8, 26976, 88),
+    ("gru", "bfloat16", 512, 128): ('cluster', 8, 48, 16, 58176, 88),
+    ("gru", "bfloat16", 512, 256): ('cluster', 8, 48, 32, 139008, 88),
+    ("gru", "bfloat16", 512, 512): ('cluster', 16, 32, 32, 191616, 256),
+    ("gru", "bfloat16", 512, 1024): ('rows', 1, 4, 1024, 32768, 128),
+    ("gru", "bfloat16", 4096, 64): ('rows', 1, 4, 64, 2048, 1024),
+    ("gru", "bfloat16", 4096, 128): ('cluster', 8, 64, 16, 73152, 512),
+    ("gru", "bfloat16", 4096, 256): ('cluster', 8, 64, 32, 168320, 512),
+    ("gru", "bfloat16", 4096, 512): ('cluster', 16, 32, 32, 191616, 2048),
+    ("gru", "bfloat16", 4096, 1024): ('rows', 1, 4, 1024, 32768, 1024),
+    ("lstm", "float32", 3, 64): ('cluster', 8, 8, 8, 17472, 8),
+    ("lstm", "float32", 3, 128): ('cluster', 8, 8, 16, 51008, 8),
+    ("lstm", "float32", 3, 256): ('cluster', 8, 8, 32, 167232, 8),
+    ("lstm", "float32", 3, 512): ('grid', 128, 4, 4, 39040, 128, 4, 4, 8, 128, 1, 32),
+    ("lstm", "float32", 3, 1024): ('grid', 128, 4, 8, 139392, 128, 4, 4, 8, 128, 1, 64),
+    ("lstm", "float32", 8, 64): ('cluster', 8, 8, 8, 17472, 8),
+    ("lstm", "float32", 8, 128): ('cluster', 8, 8, 16, 51008, 8),
+    ("lstm", "float32", 8, 256): ('cluster', 8, 8, 32, 167232, 8),
+    ("lstm", "float32", 8, 512): ('grid', 128, 8, 4, 45312, 128, 4, 4, 8, 128, 1, 64),
+    ("lstm", "float32", 8, 1024): ('grid', 128, 8, 8, 147712, 128, 4, 4, 8, 128, 1, 128),
+    ("lstm", "float32", 24, 64): ('cluster', 8, 8, 8, 17472, 24),
+    ("lstm", "float32", 24, 128): ('cluster', 8, 8, 16, 51008, 24),
+    ("lstm", "float32", 24, 256): ('cluster', 8, 8, 32, 167232, 24),
+    ("lstm", "float32", 24, 512): ('grid', 128, 24, 4, 70400, 128, 4, 4, 8, 128, 1, 192),
+    ("lstm", "float32", 24, 1024): ('grid', 128, 24, 8, 180992, 128, 4, 4, 8, 128, 1, 384),
+    ("lstm", "float32", 128, 64): ('cluster', 8, 16, 8, 26240, 64),
+    ("lstm", "float32", 128, 128): ('cluster', 8, 16, 16, 68224, 64),
+    ("lstm", "float32", 128, 256): ('cluster', 8, 16, 32, 201344, 64),
+    ("lstm", "float32", 128, 512): ('grid', 128, 128, 4, 200704, 128, 4, 4, 4, 128, 1, 512),
+    ("lstm", "float32", 128, 1024): ('grid', 128, 128, 8, 200704, 128, 4, 4, 1, 64, 1, 256),
+    ("lstm", "float32", 512, 64): ('rows', 1, 4, 64, 3072, 128),
+    ("lstm", "float32", 512, 128): ('cluster', 8, 32, 16, 102656, 128),
+    ("lstm", "float32", 512, 256): ('cluster', 8, 16, 32, 201344, 256),
+    ("lstm", "float32", 512, 512): ('grid', 128, 512, 4, 180224, 128, 4, 4, 1, 32, 1, 512),
+    ("lstm", "float32", 512, 1024): ('grid', 128, 512, 8, 204800, 128, 4, 4, 1, 32, 2, 512),
+    ("lstm", "float32", 4096, 64): ('rows', 1, 4, 64, 3072, 1024),
+    ("lstm", "float32", 4096, 128): ('cluster', 8, 32, 16, 102656, 1024),
+    ("lstm", "float32", 4096, 256): ('cluster', 8, 16, 32, 201344, 2048),
+    ("lstm", "float32", 4096, 512): ('grid', 32, 1024, 16, 204800, 128, 8, 8, 1, 32, 4, 256),
+    ("lstm", "float32", 4096, 1024): ('rows', 1, 4, 1024, 49152, 1024),
+    ("lstm", "bfloat16", 3, 64): ('cluster', 8, 16, 8, 13952, 8),
+    ("lstm", "bfloat16", 3, 128): ('cluster', 8, 16, 16, 35456, 8),
+    ("lstm", "bfloat16", 3, 256): ('cluster', 8, 16, 32, 103040, 8),
+    ("lstm", "bfloat16", 3, 512): ('cluster', 16, 16, 32, 184960, 16),
+    ("lstm", "bfloat16", 3, 1024): ('rows', 1, 4, 1024, 49152, 1),
+    ("lstm", "bfloat16", 8, 64): ('cluster', 8, 16, 8, 13952, 8),
+    ("lstm", "bfloat16", 8, 128): ('cluster', 8, 16, 16, 35456, 8),
+    ("lstm", "bfloat16", 8, 256): ('cluster', 8, 16, 32, 103040, 8),
+    ("lstm", "bfloat16", 8, 512): ('cluster', 16, 16, 32, 184960, 16),
+    ("lstm", "bfloat16", 8, 1024): ('rows', 1, 4, 1024, 49152, 2),
+    ("lstm", "bfloat16", 24, 64): ('cluster', 8, 16, 8, 13952, 16),
+    ("lstm", "bfloat16", 24, 128): ('cluster', 8, 16, 16, 35456, 16),
+    ("lstm", "bfloat16", 24, 256): ('cluster', 8, 16, 32, 103040, 16),
+    ("lstm", "bfloat16", 24, 512): ('cluster', 16, 16, 32, 184960, 32),
+    ("lstm", "bfloat16", 24, 1024): ('rows', 1, 4, 1024, 49152, 6),
+    ("lstm", "bfloat16", 128, 64): ('cluster', 8, 16, 8, 13952, 64),
+    ("lstm", "bfloat16", 128, 128): ('cluster', 8, 16, 16, 35456, 64),
+    ("lstm", "bfloat16", 128, 256): ('cluster', 8, 16, 32, 103040, 64),
+    ("lstm", "bfloat16", 128, 512): ('cluster', 16, 16, 32, 184960, 128),
+    ("lstm", "bfloat16", 128, 1024): ('rows', 1, 4, 1024, 49152, 32),
+    ("lstm", "bfloat16", 512, 64): ('cluster', 8, 48, 8, 32640, 88),
+    ("lstm", "bfloat16", 512, 128): ('cluster', 8, 48, 16, 71552, 88),
+    ("lstm", "bfloat16", 512, 256): ('cluster', 8, 48, 32, 173952, 88),
+    ("lstm", "bfloat16", 512, 512): ('cluster', 16, 16, 32, 184960, 512),
+    ("lstm", "bfloat16", 512, 1024): ('rows', 1, 4, 1024, 49152, 128),
+    ("lstm", "bfloat16", 4096, 64): ('rows', 1, 4, 64, 3072, 1024),
+    ("lstm", "bfloat16", 4096, 128): ('cluster', 8, 64, 16, 89600, 512),
+    ("lstm", "bfloat16", 4096, 256): ('cluster', 8, 64, 32, 209408, 512),
+    ("lstm", "bfloat16", 4096, 512): ('cluster', 16, 16, 32, 184960, 4096),
+    ("lstm", "bfloat16", 4096, 1024): ('rows', 1, 4, 1024, 49152, 1024),
+}
+
+
+@pytest.mark.parametrize("kind,dtype,B,H", list(PARENT_PLANS))
+def test_h100_sxm_plans_are_the_plans_made_before_the_card_was_read(kind, dtype, B, H):
+    """At H100_SXM (and with no spec named) every shape of the grid gets the plan it had when the planner read
+    module constants: reading the card changes nothing on the H100 SXM."""
+    plan = cuda_rnn.launch_plan(kind, 32, B, H, dtype, cuda_rnn.H100_SXM)
+    assert plan == cuda_rnn.Plan(*PARENT_PLANS[kind, dtype, B, H])
+    assert cuda_rnn.launch_plan(kind, 32, B, H, dtype) == plan
+
+
+# the paths' sites (PERF.md's kernel table) and the plans they had before the card was read, which H100_SXM keeps:
+# the float32 H=512 grid sites (Doom, tp (b), the defaults; NetHack's at 24 and 32 segments, AllegroHandLSTM's),
+# the cluster sites (main, lstm, selfplay, DMLab's core and encoder, dp_host's GRU-256 row counts, host_rnn)
+# and DMLab's learner encoder on the row design; the waves of each cluster plan
+SITE_PLANS = [
+    (("gru", 32, 64, 512, "float32"), ("grid", 128, 64, 4, 133120, 128, 4, 4, 8, 128, 1, 512), None),
+    (("gru", 16, 4, 512, "float32"), ("grid", 128, 4, 4, 39040, 128, 4, 4, 8, 128, 1, 32), None),
+    (("gru", 32, 32, 512, "float32"), ("grid", 128, 32, 4, 82944, 128, 4, 4, 8, 128, 1, 256), None),
+    (("lstm", 32, 24, 512, "float32"), ("grid", 128, 24, 4, 70400, 128, 4, 4, 8, 128, 1, 192), None),
+    (("lstm", 32, 32, 512, "float32"), ("grid", 128, 32, 4, 82944, 128, 4, 4, 8, 128, 1, 256), None),
+    (("lstm", 16, 2048, 512, "float32"), ("grid", 32, 512, 16, 204800, 128, 8, 8, 1, 32, 2, 256), None),
+    (("gru", 32, 512, 256, "bfloat16"), ("cluster", 8, 48, 32, 139008, 88), 1),
+    (("lstm", 32, 128, 256, "float32"), ("cluster", 8, 16, 32, 201344, 64), 1),
+    (("gru", 32, 512, 512, "bfloat16"), ("cluster", 16, 32, 32, 191616, 256), 3),
+    (("lstm", 32, 32, 256, "float32"), ("cluster", 8, 8, 32, 167232, 32), 1),
+    (("lstm", 16, 64, 64, "float32"), ("cluster", 8, 8, 8, 17472, 64), 1),
+    (("lstm", 16, 1024, 64, "float32"), ("rows", 1, 4, 64, 3072, 256), None),
+    (("lstm", 16, 128, 64, "float32"), ("cluster", 8, 16, 8, 26240, 64), 1),
+    (("gru", 32, 128, 256, "float32"), ("cluster", 8, 16, 32, 158208, 64), 1),
+    (("gru", 32, 131, 256, "float32"), ("cluster", 8, 16, 32, 158208, 72), 1),
+    (("gru", 32, 37, 256, "float32"), ("cluster", 8, 8, 32, 129216, 40), 1),
+    (("gru", 32, 255, 256, "float32"), ("cluster", 8, 24, 32, 187200, 88), 1),
+    (("gru", 32, 256, 256, "bfloat16"), ("cluster", 8, 32, 32, 109696, 64), 1),
+]
+SITE_IDS = ["-".join(map(str, shape)) for shape, _, _ in SITE_PLANS]
+GRID_SITE_SHAPES = [shape for shape, plan, _ in SITE_PLANS if plan[0] == "grid"]
+
+
+@pytest.mark.parametrize("shape,fields,waves", SITE_PLANS, ids=SITE_IDS)
+def test_h100_sxm_keeps_each_sites_plan(shape, fields, waves):
+    plan = cuda_rnn.launch_plan(*shape, cuda_rnn.H100_SXM)
+    assert plan == cuda_rnn.Plan(*fields)
+    if waves is not None:
+        assert cuda_rnn.cluster_waves(plan, cuda_rnn.H100_SXM) == waves
+
+
+# the grid sites' blocks on the smaller cards: 114 SMs take 3 batch tiles of 32 slices of 16 units (96 blocks)
+# where there are rows enough (128 slices of 4 no longer fit), 2 slices' worth of 32 at 4 rows (64 slices of 8);
+# 66 SMs take 64 blocks everywhere
+SMALL_GRID_BLOCKS = {"114-13-0": [96, 64, 96, 96, 96, 96], "66-7-3": [64, 64, 64, 64, 64, 64]}
+
+
+@pytest.mark.parametrize("name", list(SMALL_GRID_BLOCKS))
+@pytest.mark.parametrize("i", range(len(GRID_SITE_SHAPES)), ids=[SITE_IDS[i] for i in range(len(GRID_SITE_SHAPES))])
+def test_smaller_cards_fill_their_sms_at_the_grid_sites(i, name):
+    """A card of fewer SMs gets a grid plan of at most one block an SM at every grid site, with as many
+    blocks as the search finds (never fewer than half the SMs here), whose threads cover each block once."""
+    spec, shape = SMALL_SPECS[name], GRID_SITE_SHAPES[i]
+    plan = cuda_rnn.launch_plan(*shape, spec)
+    assert plan.design == "grid" and plan.grid == SMALL_GRID_BLOCKS[name][i] <= spec.sms
+    _check_grid_threads(shape[0], plan, shape[3])
+
+
+def test_allegro_site_fills_a_114_sm_card():
+    """AllegroHandLSTM's (16, 2048, 512) on 114 SMs: rows stepped by passes x tile height find 3 tiles of
+    704 rows x 32 slices of 16 units in 4 passes (96 blocks), where rows stepped by the tile height alone
+    (688) fit no pass count and the search fell back to 64 blocks of 8 units."""
+    plan = cuda_rnn.grid_plan("lstm", 2048, 512, "float32", SMALL_SPECS["114-13-0"])
+    assert plan == cuda_rnn.Plan("grid", 32, 704, 16, 226816, 96, 8, 8, 1, 64, 4, 176)
+
+
+@pytest.mark.parametrize("name", list(SMALL_SPECS))
+def test_cluster_plans_never_use_a_size_the_card_runs_none_of(name):
+    """The selfplay path's (32, 512, 512) bf16 takes clusters of 16 where the card runs some (in waves over
+    them), and the row design where it runs none; the other cluster sites keep clusters of 8 on every spec, in
+    one wave unless a cluster can take no more rows (64 in bf16, 32 in float32, or what its shared memory holds)."""
+    spec = SMALL_SPECS[name]
+    plan = cuda_rnn.launch_plan("gru", 32, 512, 512, "bfloat16", spec)
+    if spec.clusters_of_16 == 0:
+        assert cuda_rnn.cluster_plan("gru", 512, 512, "bfloat16", spec) is None and plan == cuda_rnn.row_plan("gru", 512, 512)
+    else:
+        assert plan.design == "cluster" and plan.cluster == 16
+        assert cuda_rnn.cluster_waves(plan, spec) == -(-(plan.grid // 16) // spec.clusters_of_16)
+    for shape, fields, waves in SITE_PLANS:
+        if waves == 1 and shape[3] > cuda_rnn.ROWS_OVER_WAVES_MAX_H:
+            plan = cuda_rnn.launch_plan(*shape, spec)
+            assert plan.design == "cluster" and plan.cluster == 8
+            kind, _, _, H, dtype = shape
+            step, cap, itemsize = (16, 64, 2) if dtype == "bfloat16" else (8, 32, 4)
+            assert cuda_rnn.cluster_waves(plan, spec) == 1 or plan.rows == cap or \
+                cuda_rnn.cluster_smem(kind, H, 8, plan.rows + step, itemsize) > spec.smem_limit
+
+
+def _fake_cuda(monkeypatch, calls):
+    """No card here: torch.cuda's device context and stream, and the library's entries, stand in."""
+    monkeypatch.setattr(torch.cuda, "device", lambda _: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda _=None: types.SimpleNamespace(cuda_stream=0))
+
+    def entry(name):
+        def fn(*args):
+            calls.append((name, args))
+            return 0
+        fn.__name__ = name
+        return fn
+
+    lib = types.SimpleNamespace(**{name: entry(name) for name in ("gru_grid_forward", "lstm_grid_forward", "gru_seq_forward",
+                                                                  "lstm_seq_forward", "gru_rows_forward", "lstm_rows_forward")})
+    lib.max_active_clusters = lambda gates, is_bf16, size, smem: {8: 13, 16: 0}[size]
+    monkeypatch.setattr(cuda_rnn, "load_library", lambda defines=(): lib)
+
+
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_launch_plans_with_the_spec_of_the_tensors_device(monkeypatch, kind):
+    """`_launch` asks card_spec for the device x_proj lies on and launches the plan for that spec: the grid
+    design's dims at (32, 64, 512) are the 114-SM plan's, not the H100 SXM's."""
+    calls, asked = [], []
+    _fake_cuda(monkeypatch, calls)
+    spec = SMALL_SPECS["114-13-0"]
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: asked.append(device) or spec)
+    args = _inputs(kind, 2, 64, 512, "float32", "cpu")
+    before = cuda_rnn.launch_counts()
+    launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
+    out, state = launch(*args)
+    plan = cuda_rnn.launch_plan(kind, 2, 64, 512, "float32", spec)
+    assert asked == [args[0].device] and plan != cuda_rnn.launch_plan(kind, 2, 64, 512, "float32")
+    (name, call), = calls
+    assert name == f"{kind}_grid_forward" and out.shape == (2, 64, 512) and state.shape == args[1].shape
+    assert list(call[-13:-1]) == [2, 64, 512, plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit, plan.kchunk,
+                                  plan.passes, plan.threads, plan.smem]
+    assert cuda_rnn.launch_counts()[f"{kind}_seq_grid"] == before[f"{kind}_seq_grid"] + 1
+    cuda_rnn._launches[f"{kind}_seq_grid"] -= 1
+
+
+def test_a_refused_launch_names_the_plan_and_the_sms(monkeypatch):
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    lib = cuda_rnn.load_library()
+    lib.gru_grid_forward = lambda *args: 720  # cudaErrorCooperativeLaunchTooLarge
+    lib.gru_grid_forward.__name__ = "gru_grid_forward"
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: SMALL_SPECS["66-7-3"])
+    with pytest.raises(RuntimeError, match=r"CUDA error 720 \(plan Plan\(design='grid'.*on a card of 66 SMs"):
+        cuda_rnn._launch_gru(*_inputs("gru", 2, 64, 512, "float32", "cpu"))
+
+
+def test_card_spec_reads_each_device_once(monkeypatch):
+    """card_spec reads the SMs and the opt-in shared memory from the device's properties and the clusters of 8
+    and 16 from cudaOccupancyMaxActiveClusters at that limit (one block an SM), once per device index."""
+    calls, props = [], []
+    _fake_cuda(monkeypatch, calls)
+
+    def properties(index):
+        props.append(index)
+        return types.SimpleNamespace(multi_processor_count=114, shared_memory_per_block_optin=232_448)
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", properties)
+    cuda_rnn._card_spec.cache_clear()
+    try:
+        spec = cuda_rnn.card_spec(torch.device("cuda", 3))
+        assert spec == cuda_rnn.CardSpec(114, 13, 0, 232_448) and spec.clusters_at_once(8) == 13
+        assert cuda_rnn.card_spec(3) is spec and cuda_rnn.card_spec("cuda:3") is spec and props == [3]
+    finally:
+        cuda_rnn._card_spec.cache_clear()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        cuda_rnn.card_spec(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("name", ["114-13-0", "66-7-3"])
+@pytest.mark.parametrize("i", range(len(GRID_SITE_SHAPES)), ids=[SITE_IDS[i] for i in range(len(GRID_SITE_SHAPES))])
+def test_pack_wh_gives_each_grid_block_of_a_smaller_card_its_columns(i, name):
+    kind, _, B, H, _ = GRID_SITE_SHAPES[i]
+    plan = cuda_rnn.grid_plan(kind, B, H, "float32", SMALL_SPECS[name])
+    G = 3 if kind == "gru" else 4
+    wh = _inputs(kind, 1, 1, H, "float32", "cpu")[3]
+    packed = cuda_rnn.pack_wh(wh, plan)
+    assert packed.shape == (plan.cluster, G * plan.units, H)
+    assert torch.equal(packed[1], wh[:, [g * H + plan.units + u for g in range(G) for u in range(plan.units)]].t())
+    assert torch.equal(cuda_rnn.unpack_wh(packed, plan), wh)
+
+
+# ------------------------------------------------------------------ the card's spec (card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["114-13-0", "66-7-3"])
+@pytest.mark.parametrize("i", range(len(GRID_SITE_SHAPES)), ids=[SITE_IDS[i] for i in range(len(GRID_SITE_SHAPES))])
+def test_smaller_cards_grid_plans_match_plain_on_card(cuda_device, i, name):
+    """The plans made for 114 and 66 SMs at every grid site, launched on this card, against the plain
+    version at the forward tolerance of the other card tests, twice in a row (the second launch reuses the
+    configuration checked by the first)."""
+    kind, T, B, H, dtype = GRID_SITE_SHAPES[i]
+    plan = cuda_rnn.launch_plan(kind, T, B, H, dtype, SMALL_SPECS[name])
+    assert plan.design == "grid" and plan.grid <= torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    args = _inputs(kind, T, B, H, dtype, cuda_device, seed=5)
+    launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
+    tol = 1e-4 * max(1, T // 4)
+    with torch.no_grad():
+        ref_out, ref_state = _fns(kind)[1](*args)
+        for _ in range(2):
+            out, state = launch(*args, plan=plan)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, ref_out, atol=tol, rtol=0)
+            torch.testing.assert_close(state, ref_state, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_a_plan_the_card_cannot_hold_at_once_is_refused(cuda_device):
+    """A grid plan made for a card of twice this card's SMs, at a shared memory that holds one block an SM,
+    is refused before launch (cudaErrorCooperativeLaunchTooLarge), not run and not replaced."""
+    spec = cuda_rnn.card_spec(cuda_device)
+    plan = cuda_rnn.grid_plan("lstm", 2048, 512, "float32", dataclasses.replace(spec, sms=2 * spec.sms))
+    assert plan.grid > spec.sms and cuda_rnn.grid_blocks_per_sm("lstm", plan) == 1
+    args = _inputs("lstm", 2, 2048, 512, "float32", cuda_device)
+    before = cuda_rnn.launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error 720"):
+        cuda_rnn._launch_lstm(*args, plan=plan)
+    assert cuda_rnn.launch_counts() == before

@@ -800,7 +800,7 @@ def test_launch_plan_takes_every_row_count_a_rank_can_hold():
 
     for b in range(1, 257):
         plan = cuda_rnn.launch_plan("gru", 32, b, 256, torch.float32)
-        assert plan.design == "cluster" and plan.grid // plan.cluster <= cuda_rnn.MAX_CLUSTERS[plan.cluster], b
+        assert plan.design == "cluster" and plan.grid // plan.cluster <= cuda_rnn.H100_SXM.clusters_at_once(plan.cluster), b
         assert plan.grid // plan.cluster * plan.rows >= b, b
 
 
