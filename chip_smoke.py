@@ -126,6 +126,9 @@ Phases, each printing one JSON line:
             Ant (MLP 256-128-64, 4096 sim agents) for 4 iterations, AllegroHandLSTM (sim states, LSTM-512
             float32, 16384 sim agents) for 2, `lstm_seq_grid` 8 an epoch at (16, 2048, 512); the host's
             time converting the sim's tensors a step
+  bench     `bench_gpu.py --smoke` (the port's benchmark, every scenario at a cut depth) in a child process: exit 0,
+            every row in order with a value, the card's name and power limit, no error row, no mfu_violation,
+            flops_xcheck_ratio in [0.9, 1.5], the headline (ant_physics_sync_ppo, with the suite) last
   sampler   `examples/sampler/use_simplified_sampling_api.generate_trajectories` on its fallback (no ALE):
             the synthetic env on the card for 200,000 env steps
 Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two legs of `dp`), `tp` (both legs' tensor-parallel
@@ -148,6 +151,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from sample_factory_tpu_torch.utils.device_profile import card_line, device_activities, profiled_device_time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside the tensor cores
@@ -233,14 +238,6 @@ def emit(record):
 def check(cond, message):
     if not cond:
         raise RuntimeError(message)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def fwd_tol(dtype, T):
@@ -572,34 +569,10 @@ def phase_main(torch, cuda_rnn, card, tmp):
     return runner, counts, steady_rate
 
 
-def device_activities(torch, prof):
-    """(device busy us, RNN kernels' us, the device activities, their us by name) of a finished
-    torch.profiler run that recorded the device's activities alone (kernels, copies, sets): one
-    stream, so their times add up."""
-    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = {}
-    for e in on_device:
-        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
-    rnn_us = sum(e.time_range.elapsed_us() for e in on_device
-                 if any(k in e.name for k in ("seq_cluster_kernel", "grid_kernel", "rows_kernel")))
-    return sum(by_name.values()), rnn_us, on_device, by_name
-
-
-def profiled_device_time(torch, fn):
-    """Run fn under torch.profiler, recording CUDA activity only: (wall us, device busy us,
-    RNN kernels' us, the device activities, their us by name)."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - w0) * 1e6
-    return (wall_us, *device_activities(torch, prof))
-
-
 def device_share(torch, fn, unprofiled_s):
     """The device's busy time in one call of fn under the profiler, against an unprofiled
     iteration of `unprofiled_s` seconds: the profiler slows the host, not the device."""
-    _, device_us, rnn_us, on_device, _ = profiled_device_time(torch, fn)
+    _, device_us, rnn_us, on_device, _ = profiled_device_time(fn)
     return {"device_busy_ms": device_us / 1e3, "device_activities": len(on_device), "rnn_kernel_ms": rnn_us / 1e3,
             "rnn_kernel_share_of_device": rnn_us / device_us, "device_idle_share_unprofiled": 1.0 - device_us / (unprofiled_s * 1e6)}
 
@@ -618,7 +591,7 @@ def phase_breakdown(torch, runner, card):
     t2 = time.perf_counter()
     runner.sampler_state = ss
 
-    wall_us, device_us, rnn_us, on_device, by_name = profiled_device_time(torch, runner.train_iteration_sync)
+    wall_us, device_us, rnn_us, on_device, by_name = profiled_device_time(runner.train_iteration_sync)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "breakdown", "rollout_ms": (t1 - t0) * 1e3, "train_ms": (t2 - t1) * 1e3,
           "profiled_iteration_ms": wall_us / 1e3, "device_busy_ms": device_us / 1e3,
@@ -1657,7 +1630,7 @@ def phase_atari(torch, cuda_rnn, card, tmp):
         if prof is not None:
             stop = time.perf_counter()
             prof.stop()
-            device_us, _, on_device, by_name = device_activities(torch, prof)
+            device_us, _, on_device, by_name = device_activities(prof)
             profile.update(wall_ms=window["ms"][-1], device_us=device_us, activities=len(on_device), stop_s=time.perf_counter() - stop,
                            top={k: v / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]})
 
@@ -1804,7 +1777,7 @@ def instrument_host_iterations(torch, runner, iters, record):
         record["learner_flush_ms"].append(learner["flush"] * 1e3)
         if prof is not None:
             prof.stop()
-            device_us, rnn_us, on_device, by_name = device_activities(torch, prof)
+            device_us, rnn_us, on_device, by_name = device_activities(prof)
             unprofiled_ms = record["iteration_ms"][-2]
             record["profile"] = {"profiled_iteration_ms": record["iteration_ms"][-1], "device_busy_ms": device_us / 1e3,
                                  "device_activities": len(on_device), "rnn_kernel_ms": rnn_us / 1e3,
@@ -2075,7 +2048,7 @@ def instrument_sync_iterations(torch, runner, iters, record):
         out = clocked("iteration_ms", iteration)()
         if prof is not None:
             prof.stop()
-            device_us, rnn_us, on_device, _ = device_activities(torch, prof)
+            device_us, rnn_us, on_device, _ = device_activities(prof)
             record["profile"] = {"device_busy_ms": device_us / 1e3, "device_activities": len(on_device), "rnn_kernel_ms": rnn_us / 1e3,
                                  "device_idle_share_vs_unprofiled_iteration": 1.0 - device_us / (record["iteration_ms"][-2] * 1e3)}
         return out
@@ -2306,7 +2279,7 @@ def dp_rate_run(torch, cuda_rnn, mode, train_dir, experiment, profile):
     try:
         runner, counts, stats, times = train(torch, cuda_rnn, argv + (["--jax_distributed=True"] if mode == "nccl" else []), train_dir)
         calls_in_run = len(calls)
-        profiled = profiled_device_time(torch, one_iteration) if profile else None
+        profiled = profiled_device_time(one_iteration) if profile else None
     finally:
         dist.all_reduce = all_reduce
     per_iter = [b - a for a, b in zip(times, times[1:])]
@@ -2582,7 +2555,7 @@ def tp_gloo_rank(torch, cuda_rnn, train_dir, traj_path):
     def iteration():
         runner._train_iteration()
 
-    wall_us, device_us, rnn_us, on_device, _ = profiled_device_time(torch, iteration)
+    wall_us, device_us, rnn_us, on_device, _ = profiled_device_time(iteration)
     return {"rank": mesh.rank, "model_index": mesh.model_index, "probe": probe, "launches": counts, "params": params_path,
             "launch_shapes": sorted(set(shapes)),
             "rollout_actions_equal_share": float((own["actions"] == whole["actions"]).float().mean()),
@@ -2686,7 +2659,7 @@ def phase_tp(torch, cuda_rnn, card, tmp):
     one_stats = {k: float(one_stats[k]) for k in DP_STATS}
     want = {k: v.detach().cpu().clone() for k, v in ts.model.state_dict().items()}  # before the profiled iteration trains on
     ranks = collect_ranks(procs, out_paths)
-    wall_us, device_us, rnn_us, _, _ = profiled_device_time(torch, one._train_iteration)
+    wall_us, device_us, rnn_us, _, _ = profiled_device_time(one._train_iteration)
     got = [torch.load(r["params"]) for r in ranks]
     diff = max(float((g["params"][k] - v).abs().max()) for g in got for k, v in want.items())
     replicas_diff = {k: float((got[0]["local"][k] - got[1]["local"][k]).abs().max()) for k in want if k not in TP_MAIN_SHARDED}
@@ -2892,7 +2865,7 @@ def dp_host_rate_run(torch, cuda_rnn, mode, train_dir, experiment, profile):
            "all_reduce_calls_an_iteration": marks.at_end[2] - marks.at_end[1], "all_reduce_calls_run": len(calls),
            "host_ms_in_iteration_3": {k: 1e3 * (marks.host_s_at_end[2][k] - marks.host_s_at_end[1][k]) for k in host_s}}
     if marks.prof is not None:
-        device_us, _, on_device, _ = device_activities(torch, marks.prof)
+        device_us, _, on_device, _ = device_activities(marks.prof)
         nccl = [e for e in on_device if "nccl" in e.name.lower()]
         out["profiled_iteration"] = {"device_busy_ms": device_us / 1e3, "wall_ms": marks.wall_s * 1e3, "nccl_kernels": len(nccl),
                                      "nccl_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
@@ -3010,6 +2983,33 @@ def phase_dp_host(torch, cuda_rnn, card, tmp):
     return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
+BENCH_METRICS = ["mlp_synthetic_sync_ppo_framework_ceiling", "host_pixel_pipeline_appo", "host_pipeline_slab_producer_rate",
+                 "host_pipeline_device_put_split", "host_pipeline_inference_only", "multihost_scaling_proxy_2proc",
+                 "host_pixel_pipeline_appo_gpu", "grid_battle_pixel_rnn_ppo", "ant_physics_sync_ppo"]
+
+
+def phase_bench(torch, card):
+    """`bench_gpu.py --smoke` in a child process: every row with a value naming the card, none an error, no
+    impossible MFU, the two flop counters in agreement, and the headline with the suite last."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(here, "bench_gpu.py"), "--smoke"], cwd=here, capture_output=True,
+                         text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    check(out.returncode == 0, f"bench_gpu.py --smoke exited {out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-4000:]}")
+    rows = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    check([r["metric"] for r in rows] == BENCH_METRICS, f"bench rows {[r['metric'] for r in rows]}")
+    name = torch.cuda.get_device_name(0)
+    for r in rows:
+        check("error" not in r and r.get("value") is not None and r.get("device") == name and r.get("power_limit_w"),
+              f"bench row {r}")
+        check(not r.get("mfu_violation") and r.get("mfu", 0.0) < 1.0, f"{r['metric']}: impossible MFU {r.get('mfu')}")
+        check(0.9 <= r.get("flops_xcheck_ratio", 1.0) <= 1.5, f"{r['metric']}: flop counters disagree, {r.get('flops_xcheck_ratio')}")
+    check(rows[-1]["suite"][:-1] == rows[:-1] and rows[-1]["suite"][-1]["metric"] == rows[-1]["metric"], "the headline's suite")
+    emit({"phase": "bench", "seconds": seconds,
+          "rows": [{k: v for k, v in r.items() if k not in ("suite", "note")} for r in rows], "card": card})
+
+
 def main() -> int:
     # the isaacgym phase's stand-in refuses a process that has imported torch, as NVIDIA's isaacgym
     # does: it is imported first, as a user's script imports it
@@ -3101,6 +3101,7 @@ def main() -> int:
         paths["dmlab"] = phase_dmlab(torch, cuda_rnn, card, tmp)
         paths["nethack"] = phase_nethack(torch, cuda_rnn, card, tmp)
         paths["isaacgym"] = phase_isaacgym(torch, cuda_rnn, card, tmp)
+        phase_bench(torch, card)
         cuda_rnn.reset_launch_counts()
         phase_sampler(torch, card, tmp)
         check(all(v == 0 for v in cuda_rnn.launch_counts().values()), "an RNN kernel launched in the sampler phase")

@@ -455,6 +455,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 }
 
+// A runtime call that fails also leaves its error as the thread's last error, which the next
+// launch's cudaGetLastError() would report as its own: a launcher that returns a failed call's
+// code takes the error back first.
+static int failed(cudaError_t err) {
+    (void)cudaGetLastError();
+    return static_cast<int>(err);
+}
+
 template <typename T, int G>
 int launch_cluster(const void* x, const void* s0, const void* resets, const void* wpk, const void* bh, void* outs,
                    void* s_final, int steps, int B, int H, int C, int BT, int smem, cudaStream_t stream) {
@@ -487,17 +495,17 @@ int launch_cluster(const void* x, const void* s0, const void* resets, const void
         std::lock_guard<std::mutex> guard(lock);
         int dev = 0;
         err = cudaGetDevice(&dev);
-        if (err != cudaSuccess) return static_cast<int>(err);
+        if (err != cudaSuccess) return failed(err);
         if (smem > smem_set[dev]) {
             err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
             if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-            if (err != cudaSuccess) return static_cast<int>(err);
+            if (err != cudaSuccess) return failed(err);
             smem_set[dev] = smem;
         }
         if (!checked.count({dev, {C, smem}})) {
             int clusters = 0;
             err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-            if (err != cudaSuccess) return static_cast<int>(err);
+            if (err != cudaSuccess) return failed(err);
             if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);  // refused: no cluster of C fits
             checked.insert({dev, {C, smem}});
         }
@@ -505,7 +513,7 @@ int launch_cluster(const void* x, const void* s0, const void* resets, const void
     err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), static_cast<const float*>(s0),
                              static_cast<const float*>(resets), static_cast<const T*>(wpk), static_cast<const T*>(bh),
                              static_cast<float*>(outs), static_cast<float*>(s_final), steps, B, H, BT);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return failed(err);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1008,17 +1016,17 @@ int launch_grid(const void* x, const void* s0, const void* resets, const void* w
         std::lock_guard<std::mutex> guard(lock);
         int dev = 0;
         err = cudaGetDevice(&dev);
-        if (err != cudaSuccess) return static_cast<int>(err);
+        if (err != cudaSuccess) return failed(err);
         if (smem > smem_set[dev]) {
             err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-            if (err != cudaSuccess) return static_cast<int>(err);
+            if (err != cudaSuccess) return failed(err);
             smem_set[dev] = smem;
         }
         if (!checked.count({dev, {threads, smem}})) {
             int per_sm = 0, sms = 0;
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
             if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-            if (err != cudaSuccess) return static_cast<int>(err);
+            if (err != cudaSuccess) return failed(err);
             if (per_sm * sms < grid) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
             checked.insert({dev, {threads, smem}});
         }
@@ -1033,7 +1041,7 @@ int launch_grid(const void* x, const void* s0, const void* resets, const void* w
     float* sf = static_cast<float*>(s_final);
     void* args[] = {&xf, &s0f, &rf, &wf, &bf, &hb, &of, &sf, &steps, &B, &H, &U, &BT, &KS, &KC, &passes};
     err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(threads), args, smem, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return failed(err);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -789,3 +789,48 @@ def test_a_plan_the_card_cannot_hold_at_once_is_refused(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error 720"):
         cuda_rnn._launch_lstm(*args, plan=plan)
     assert cuda_rnn.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_a_refused_launch_leaves_no_error_for_the_next_launch(cuda_device):
+    """Once the card's own plan at (16,2048,512) has run, the plan of twice the SMs shares its threads and
+    shared memory, so the residency check is behind it and the cooperative launch itself refuses. The
+    error that call records must not come back from the cudaGetLastError() of the next launch, here of
+    a cluster plan whose configuration was checked before the refusal."""
+    spec = cuda_rnn.card_spec(cuda_device)
+    lstm = _inputs("lstm", 2, 2048, 512, "float32", cuda_device)
+    gru = _inputs("gru", 32, 512, 256, "bfloat16", cuda_device)
+    with torch.no_grad():
+        cuda_rnn._launch_lstm(*lstm)
+        cuda_rnn._launch_gru(*gru)
+        torch.cuda.synchronize()
+        refused = cuda_rnn.grid_plan("lstm", 2048, 512, "float32", dataclasses.replace(spec, sms=2 * spec.sms))
+        own = cuda_rnn.launch_plan("lstm", 2, 2048, 512, "float32", spec)
+        assert (refused.threads, refused.smem) == (own.threads, own.smem) and refused.grid > spec.sms
+        with pytest.raises(RuntimeError, match="CUDA error 720"):
+            cuda_rnn._launch_lstm(*lstm, plan=refused)
+        cuda_rnn.reset_launch_counts()
+        out, _ = cuda_rnn._launch_gru(*gru)
+        torch.cuda.synchronize()
+    assert cuda_rnn.launch_counts()["gru_seq"] == 1 and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_bench_grid_battle_runs_gru_seq_on_the_card(cuda_device):
+    """bench_gpu.py's grid-battle scenario at its smoke depth: the row names the card and its power
+    limit, its MFU is possible, and the learner launched `gru_seq` (cluster design) twice an iteration
+    (2 minibatches of 16384 samples), no other RNN kernel."""
+    import bench_gpu
+
+    device = torch.device("cuda", 0)
+    b = bench_gpu.Bench(device, bench_gpu.SMOKE, bench_gpu.read_card(device))
+    suite = []
+    assert bench_gpu._try_scenario(suite, "grid_battle_pixel_rnn_ppo", bench_gpu.s_grid_battle, b), suite
+    row = suite[0]
+    assert row["device"] == torch.cuda.get_device_name(0) and row["power_limit_w"] > 0
+    assert ("mfu" in row) == (bench_gpu._device_peak_bf16(row["device"]) is not None)
+    assert row.get("mfu", 0.0) < 1 and "mfu_violation" not in row
+    launches, iterations = row["rnn_kernel_launches"], row["iterations_counted"]
+    assert iterations == b.depth.window + b.depth.profiled
+    assert launches == {**dict.fromkeys(launches, 0), "gru_seq": 2 * iterations}
+    assert 0 < row["device_busy_ms_per_iteration"] and 0 <= row["device_idle_share_profiled"] < 1

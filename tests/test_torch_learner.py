@@ -409,6 +409,7 @@ IMPORT_EVERY_MODULE = (
     "        'sample_factory_tpu_torch.examples.dmlab.enjoy_dmlab'} <= set(names)\n"
     "for name in names: importlib.import_module(name)\n"
     "import chip_smoke\n"
+    "import bench_gpu\n"
 )
 REPORT_FOREIGN = (
     "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'sample_factory_tpu', 'sf_examples_tpu'))\n"
@@ -451,6 +452,7 @@ def test_port_imports_no_jax():
         "    register_fn=pixel.register_custom_components) == 0\n"
         "from sample_factory_tpu_torch import bridge\n"
         "assert bridge.unpack_msgpack(bytes([0x81, 0xa1, 0x61, 0x01])) == {'a': 1}\n"
+        "assert bench_gpu.main([]) == 2\n"  # no card here: the benchmark refuses to run
     ) + REPORT_FOREIGN
     assert "FOREIGN []" in _fresh_interpreter(code)
 
