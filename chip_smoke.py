@@ -13,11 +13,18 @@ Phases, each printing one JSON line:
             doom, dmlab, nethack, isaacgym, dp_host, tp and defaults paths' shapes in float32, each asserting the
             design its plan picks (GRU-512 at (32, 64, 512), (16, 4, 512) and (32, 32, 512) and LSTM-512 at
             (32, 32, 512), (32, 24, 512) and (16, 2048, 512): grid; dp_host's GRU-256 at 37, 128, 131 and 255
-            segments: clusters of 8; DMLab's LSTM-64 over a minibatch, (16, 1024, 64): rows)
+            segments: clusters of 8; DMLab's LSTM-64 over a minibatch, (16, 1024, 64): rows); the gradient goes
+            through the backward kernel; then the backward kernels (`gru_seq_bwd`, `lstm_seq_bwd`) against
+            their plain recurrence (the same prologue, epilogue and inputs) and against the remat (the plain
+            forward rerun under autograd, the CPU's backward) at the parity shapes in both dtypes, at every learner site
+            (BWD_SITES), on rows reset at every step and on gates saturated below -88
   timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
             nethack, isaacgym, dp_host, tp and defaults paths' shapes, warm and with L2 flushed, beside the first
             design (rows) at the same shapes (and the cluster plan where the row design takes its place), in turns in
             one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a yardstick
+  bwd       at every learner site: the backward kernel alone (warm and L2-cold), the whole backward (prologue,
+            kernel, epilogue), the plain recurrence and the remat, in turns, in CUDA-event and host-clock ms and
+            the device's busy ms; the kernel's bound, bytes and operations
   plans     the plans made for smaller cards (SMALLER_CARDS: 114 SMs with clusters {8: 13, 16: 0}, 66 SMs with
             {8: 7, 16: 3}) at the grid and cluster sites, launched on this card against the plain version and
             timed warm in turns with this card's own plan
@@ -81,7 +88,8 @@ Phases, each printing one JSON line:
             rollouts, a behaviour snapshot), 6 iterations; per-slot host times; then the same
             configuration with --async_rl=False in turns with it
   host_rnn  the same with GRU-256 over BPTT segments of 32 in bf16, 3 iterations: the learner's
-            `gru_seq` launches at (32, 256, 256), none in the rollout's step mode
+            `gru_seq` launches at (32, 256, 256), none in the rollout's step mode; then the learner's train
+            call on the last trajectory in turns with the backward kernel and with the remat (`learner_turns`)
   dp_host   the host runners under a process group, in child processes that import nothing of JAX: (a) two
             gloo ranks on cuda:0 (LOCAL_RANK=0 in both), each with its own sampler over 1 worker x 256
             `bench_host_pixel` envs, `host_rnn` in float32 with the quantized learner (2 shuffled minibatches
@@ -109,7 +117,8 @@ Phases, each printing one JSON line:
             through `examples/vizdoom/train_vizdoom.py`'s flags: GRU-512 float32, convnet_simple over
             72x128x3 + the measurements MLP, the tuple head, 400 envs, batch 2048, async with the
             quantized learner, 4 iterations, over the env-level stand-in of tests/standins/ (the card's
-            machine has neither gymnasium nor vizdoom); `gru_seq_grid` once a minibatch at (32, 64, 512)
+            machine has neither gymnasium nor vizdoom); `gru_seq_grid` once a minibatch at (32, 64, 512); then
+            the learner's train call in turns with the backward kernel and with the remat, as `host_rnn`
   dmlab     dmlab_30 at dmlab_params (convnet_impala ++ the instruction encoder, LSTM-256 float32), 128
             envs of the port's DmlabEnv with its level cache over the stand-in deepmind_lab of
             tests/standins/, batch 1024, async, 4 iterations, the DMLab-30 score tracker registered;
@@ -135,7 +144,9 @@ Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two 
 runs) and `dp_host` included, and per design: cluster, `*_seq`, grid, `*_seq_grid`, and rows,
 `*_seq_rows`; `gru_seq_grid` and `lstm_seq_grid` also as kernels of their own, by site: the Doom learner, `tp`'s
 multichip leg and the defaults, the NetHack and AllegroHandLSTM learners, beside the row design at the same
-shapes), the card's name and power limit, and the result line.
+shapes; `gru_seq_bwd` and `lstm_seq_bwd` by path and at every learner site); every recurrent path's launches hold one
+backward launch for each learner forward launch (rollouts run under no_grad and launch none); the card's name and
+power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
 
@@ -159,6 +170,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; 
 MAIN_GRU = (32, 512, 256, "bfloat16")  # T, segments per minibatch (16384 / 32), H, dtype
 MAIN_LSTM = (32, 128, 256, "float32")  # the lstm phase: 128 envs x 32 steps in one minibatch
 SELFPLAY_GRU = (32, 512, 512, "bfloat16")  # the selfplay phase: the default rnn_size, 512 segments a minibatch
+HOST_GRU = (32, 256, 256, "bfloat16")  # the host_rnn phase: 8192 / 32 segments a minibatch
 # (32, 512, 512): the default rnn_size; (4, 16, 1024): no cluster slice fits, the row design in bf16, the grid design in float32
 PARITY_SHAPES = [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64), (32, 512, 512), (4, 16, 1024)]
 # the doom and dmlab paths' shapes in the dtype each path runs, with the design its plan picks
@@ -196,6 +208,14 @@ PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "grid", 128), *[("gru", *shape, "cluste
                       ("lstm", *DMLAB_INSTR_LEARNER, "rows", 1), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
                       ("lstm", *NETHACK_LSTM_BATCH, "grid", 128), ("lstm", *NETHACK_LSTM, "grid", 128),
                       ("lstm", *ALLEGRO_LSTM, "grid", 32)]
+# the learner sites of the backward kernels (every forward launch that needs a gradient is a learner's):
+# site -> (kind, shape, the path that runs it); phases `parity` and `bwd` hold and time the backward at each
+BWD_SITES = {"main": ("gru", MAIN_GRU, "main"), "selfplay": ("gru", SELFPLAY_GRU, "selfplay"), "host_rnn": ("gru", HOST_GRU, "host_rnn"),
+             "doom_learner": ("gru", DOOM_GRU, "doom"), "defaults": ("gru", DEFAULTS_GRU, "defaults"),
+             "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"), **{f"dp_host_{s[1]}": ("gru", s, "dp_host") for s in DP_HOST_GRUS},
+             "lstm": ("lstm", MAIN_LSTM, "lstm"), "dmlab_core": ("lstm", DMLAB_CORE, "dmlab"),
+             "dmlab_instruction_learner": ("lstm", DMLAB_INSTR_LEARNER, "dmlab"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
+             "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym")}
 # the sites of the grid design that the kernels line reports one by one: site -> (kind, shape, the path that runs it)
 GRID_SITES = {"doom_learner": ("gru", DOOM_GRU, "doom"), "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"),
               "defaults": ("gru", DEFAULTS_GRU, "defaults"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
@@ -215,6 +235,17 @@ SPEC = None
 # another order, so a product can land one bf16 ulp apart; that flip (2^-8 relative,
 # up to 2^-6 absolute at the LSTM cell's magnitudes) feeds forward through the recurrence.
 BF16_TOL = 0.0625
+# gradients through the kernels (the forward, then the backward kernel) against autograd through the plain
+# forward, relative to the largest gradient: in float32 they differ through the forward outputs that seed the
+# backward and the order of the products' sums (3.1e-6 at most measured on an H100, at (16, 2048, 512));
+# bf16 as the forward, 4 x BF16_TOL (0.018 at most measured)
+GRAD_F32_TOL = 1e-4
+# the backward kernel against its plain recurrence on the same inputs (the saved tensors, the prologue's
+# projections, the cotangents), relative to the largest gradient: float32 differs in the order of the
+# products' sums alone (8.5e-7 at most measured on an H100); bf16 also in the one-ulp flips that order
+# causes where an output is rounded to bf16 (4.0e-3 at most measured)
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+BWD_REPS = 5  # the whole backward and the remat launch from the host step by step: few repetitions
 REPS = 25
 SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's 1980 MHz
 L2_FLUSH_BYTES = 100 * 2**20  # written between reps of a cold timing: twice the H100's 50 MB L2
@@ -222,6 +253,9 @@ SOURCE = "sample_factory_tpu_torch/csrc/rnn_seq.cu"
 REPLACES = {
     "gru_seq": "sample_factory_tpu/ops/pallas_gru.py:148",
     "lstm_seq": "sample_factory_tpu/ops/pallas_gru.py:271",
+    # the backward kernels replace the custom_vjp's backward rules, jax.vjp of the scan (no pallas_call)
+    "gru_seq_bwd": "sample_factory_tpu/ops/pallas_gru.py:189",
+    "lstm_seq_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
 }
 # the designs (cluster: `gru_seq`/`lstm_seq`; grid: `gru_seq_grid`/`lstm_seq_grid`; rows: `gru_seq_rows`/`lstm_seq_rows`);
 # the kernels line reports the cluster designs at their main paths' shapes, the grid designs at the doom and
@@ -264,26 +298,46 @@ def rel_err(a, b):
     return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
 
 
+def forward_launches(counts):
+    """The forward kernels' launches, every design (the backward kernels', `*_seq_bwd`, left out)."""
+    return sum(v for k, v in counts.items() if not k.endswith("_bwd"))
+
+
+def others(counts, *names):
+    """The launches of every kernel but `names` and their backward kernels."""
+    keep = set(names) | {f"{name.split('_seq')[0]}_seq_bwd" for name in names}
+    return {k: v for k, v in counts.items() if k not in keep}
+
+
+def check_backward_launches(counts, where):
+    """One backward launch for each forward launch: `counts` are those of the launches that needed a gradient
+    (rollouts, value passes and model checks run under no_grad, outside them)."""
+    for kind in ("gru", "lstm"):
+        want = sum(v for k, v in counts.items() if k.startswith(f"{kind}_seq") and not k.endswith("_bwd"))
+        check(counts[f"{kind}_seq_bwd"] == want, f"{where}: {counts[f'{kind}_seq_bwd']} {kind}_seq_bwd launches, expected {want}: {counts}")
+
+
 def parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=False):
-    """The planned kernel once against its plain version, forward and gradient."""
+    """The planned kernel once against its plain version, forward and gradient (the gradient through the
+    backward kernel, launched once, against autograd through the plain version)."""
     args = make_inputs(torch, kind, T, B, H, dtype, seed=T + B + H)
     args = [a.requires_grad_(i != 2) for i, a in enumerate(args)]
-    name = cuda_rnn._kernel_name(kind, plan)
-    before = cuda_rnn.launch_counts()[name]
+    name, bwd = cuda_rnn._kernel_name(kind, plan), f"{kind}_seq_bwd"
+    before = cuda_rnn.launch_counts()
     out, state = kernel_fn(*args)
     torch.cuda.synchronize()
-    check(cuda_rnn.launch_counts()[name] == before + 1, f"{kind} {(T, B, H)}: {name} was not launched")
+    check(cuda_rnn.launch_counts()[name] == before[name] + 1, f"{kind} {(T, B, H)}: {name} was not launched")
     ref_out, ref_state = plain_fn(*args)
     wrt = [a for i, a in enumerate(args) if i != 2]
     grads = torch.autograd.grad((out**2).sum() + state.sum(), wrt)
+    torch.cuda.synchronize()
+    check(cuda_rnn.launch_counts()[bwd] == before[bwd] + 1, f"{kind} {(T, B, H)}: {bwd} was not launched")
     ref_grads = torch.autograd.grad((ref_out**2).sum() + ref_state.sum(), wrt)
     torch.cuda.synchronize()
     fwd = max(float((out - ref_out).detach().abs().max()), float((state - ref_state).detach().abs().max()))
     grad = max(rel_err(g, r) for g, r in zip(grads, ref_grads))
     tol = fwd_tol(dtype, T)
-    # gradients: the backward reruns the plain version, so they differ only
-    # through the forward outputs that seed it; scaled by the largest gradient
-    grad_tol = 1e-3 if dtype == "float32" else 4 * BF16_TOL
+    grad_tol = GRAD_F32_TOL if dtype == "float32" else 4 * BF16_TOL
     emit({"phase": "parity", "kernel": name, "design": dataclasses.asdict(plan), "dtype": dtype, "shape": [T, B, H],
           "path_shape": path_shape, "fwd_max_abs_err": fwd, "fwd_tol": tol, "grad_rel_err": grad, "grad_tol": grad_tol})
     check(fwd <= tol, f"{kind} {dtype} {(T, B, H)}: forward error {fwd} > {tol}")
@@ -319,7 +373,230 @@ def phase_parity(torch, cuda_rnn):
             ref_out, ref_state = plain_fn(*args)
         main_err[name] = max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max()))
         check(main_err[name] <= fwd_tol(dtype, T), f"{name} at {(T, B, H, dtype)} disagrees with its plain version")
+    # the backward kernels: at the parity shapes in both dtypes, at every learner site, on rows reset at every
+    # step and on gates saturated below -88; each site's error goes to the kernels line
+    for kind in ("gru", "lstm"):
+        for dtype in ("float32", "bfloat16"):
+            for T, B, H in PARITY_SHAPES:
+                bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype)
+        for variant in ("resets_every_step", "saturated"):
+            bwd_parity_case(torch, cuda_rnn, kind, 8, 64, 256, "float32", variant)
+    for site, (kind, (T, B, H, dtype), _) in BWD_SITES.items():
+        main_err[f"{kind}_seq_bwd@{site}"] = bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype, site=site)
+    main_err["gru_seq_bwd"], main_err["lstm_seq_bwd"] = main_err["gru_seq_bwd@main"], main_err["lstm_seq_bwd@lstm"]  # (abs, rel)
     return main_err
+
+
+def backward_pieces(cuda_rnn, kind):
+    """(the kernel forward, the backward from the saved tensors, the plain recurrence, the plain forward, the
+    backward kernel's launch) of one kind."""
+    if kind == "gru":
+        return cuda_rnn.gru_seq, cuda_rnn.gru_seq_backward, cuda_rnn.gru_seq_bwd_reference, cuda_rnn.gru_seq_reference, cuda_rnn._launch_gru_bwd
+    return cuda_rnn.lstm_seq, cuda_rnn.lstm_seq_backward, cuda_rnn.lstm_seq_bwd_reference, cuda_rnn.lstm_seq_reference, cuda_rnn._launch_lstm_bwd
+
+
+def backward_inputs(torch, cuda_rnn, kind, T, B, H, dtype, variant=None, seed=0):
+    """The inputs, the kernel forward's outputs (no_grad), cotangents of both outputs, and the recurrence's own
+    inputs as the prologue makes them. `variant`: "resets_every_step", or "saturated" (the sigmoid gates'
+    pre-activations of the first quarter of the rows at -200)."""
+    import numpy as np
+
+    forward = backward_pieces(cuda_rnn, kind)[0]
+    args = make_inputs(torch, kind, T, B, H, dtype, seed=seed)
+    if variant == "resets_every_step":
+        args[2].fill_(1.0)
+    if variant == "saturated":
+        for g in ([0, 1] if kind == "gru" else [0, 1, 3]):
+            args[0][:, : B // 4, g * H:(g + 1) * H] = -200.0
+    with torch.no_grad():
+        out, state = forward(*args)
+    rng = np.random.default_rng(seed + 1)
+    d_out = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32), device=out.device)
+    d_state = torch.tensor(rng.normal(size=tuple(state.shape)).astype(np.float32), device=out.device)
+    h_prev = cuda_rnn._carries_in(args[1], args[2], out)
+    h_in = h_prev.to(args[0].dtype)
+    if kind == "gru":
+        recurrence = (d_out, d_state, args[2], args[0], h_in @ args[3] + args[4], h_prev, args[3])
+    else:
+        recurrence = (d_out, d_state, args[2], args[0] + h_in @ args[3], args[1], args[3])
+    return args, out, d_out, d_state, recurrence
+
+
+def remat_grads(cuda_rnn, kind, args, d_out, d_state):
+    """The remat: the plain forward rerun under autograd (`_recompute_grads`, the CPU's backward), the gradients of every
+    input but resets."""
+    reference = backward_pieces(cuda_rnn, kind)[3]
+    grads = cuda_rnn._recompute_grads(reference, args, [i != 2 for i in range(len(args))], (d_out, d_state))
+    return [g for g in grads if g is not None]
+
+
+def bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype, variant=None, site=None):
+    """The backward with its kernel once against the same prologue and epilogue around the plain recurrence (the
+    same saved tensors and cotangents: BWD_TOL), and against the remat (GRAD_F32_TOL, 4 x BF16_TOL in bf16)."""
+    _, backward, plain, _, _ = backward_pieces(cuda_rnn, kind)
+    args, out, d_out, d_state, _ = backward_inputs(torch, cuda_rnn, kind, T, B, H, dtype, variant, seed=T + B + H + 1)
+    name = f"{kind}_seq_bwd"
+    with torch.no_grad():
+        before = cuda_rnn.launch_counts()[name]
+        got = backward(*args, out, d_out, d_state)
+        torch.cuda.synchronize()
+        check(cuda_rnn.launch_counts()[name] == before + 1, f"{kind} {(T, B, H)}: {name} was not launched")
+        want = backward(*args, out, d_out, d_state, recurrence=plain)
+    remat = remat_grads(cuda_rnn, kind, args, d_out, d_state)
+    torch.cuda.synchronize()
+    err = max(rel_err(g, w) for g, w in zip(got, want))
+    abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    err_remat = max(rel_err(g, w) for g, w in zip(got, remat))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    tol, tol_remat = BWD_TOL[dtype], GRAD_F32_TOL if dtype == "float32" else 4 * BF16_TOL
+    rows = cuda_rnn.bwd_rows(kind, B, H, dtype, SPEC)
+    emit({"phase": "parity", "kernel": name, "shape": [T, B, H], "dtype": dtype, "variant": variant, "site": site,
+          "rows_a_block": rows, "blocks": -(-B // rows), "smem": cuda_rnn.bwd_smem(kind, H, rows, 2 if dtype == "bfloat16" else 4),
+          "grad_rel_err_plain": err, "grad_max_abs_err_plain": abs_err, "tol_plain": tol, "grad_rel_err_remat": err_remat, "tol_remat": tol_remat, "finite": finite})
+    where = f"{name} {(T, B, H, dtype, variant)}"
+    check(finite, f"{where}: non-finite gradients")
+    check(err <= tol, f"{where}: against the plain recurrence {err} > {tol}")
+    check(err_remat <= tol_remat, f"{where}: against the remat {err_remat} > {tol_remat}")
+    if variant == "saturated":
+        zero = all(bool((got[0][:, : B // 4, g * H:(g + 1) * H] == 0).all()) for g in ([0, 1] if kind == "gru" else [0, 1, 3]))
+        check(zero, f"{where}: a gate below -88 has a gradient")
+    return abs_err, err
+
+
+def bwd_bound(kind, T, B, H, dtype):
+    """Least time for the backward kernel's function on an H100: each input (d_outs, the final state's cotangent,
+    resets, x_proj or proj, the GRU's h_proj and h_prev or the LSTM's hc0, wh) read once and each output
+    (d_x_proj, the GRU's d_hn, the first state's cotangent) written once at 3.35 TB/s, against the
+    2*T*B*G*H*H operations of the d_h_proj @ wh^T product at the dtype's peak, as `bound` reckons the forward."""
+    G = 3 if kind == "gru" else 4
+    item = 2 if dtype == "bfloat16" else 4
+    state = H if kind == "gru" else 2 * H
+    wide = T * B * G * H * item  # x_proj, the GRU's h_proj, d_x_proj
+    nbytes = T * B * H * 4 + B * state * 4 + T * B * 4 + H * G * H * item + B * state * 4
+    nbytes += 3 * wide + T * B * H * (item + 4) if kind == "gru" else 2 * wide + B * state * 4
+    flops = 2 * T * B * G * H * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def host_ms(torch, fn, reps):
+    """Median host-clock ms of fn over `reps` calls after one warm-up, each between two synchronizes."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_bwd(torch, cuda_rnn, card):
+    """At each learner site (BWD_SITES): the backward kernel alone (CUDA events, warm and L2-cold), the whole new
+    backward (prologue, kernel, epilogue) and the remat (the plain forward rerun under autograd), in turns (new, remat, remat, new),
+    in CUDA-event ms and host-clock ms, and each under the profiler (the device's busy ms); the kernel's
+    bound, bytes and operations. Returns the kernels line's numbers by site."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    start, out = time.perf_counter(), {}
+    for site, (kind, (T, B, H, dtype), path) in BWD_SITES.items():
+        _, backward, plain, _, launch = backward_pieces(cuda_rnn, kind)
+        args, outs, d_out, d_state, recurrence = backward_inputs(torch, cuda_rnn, kind, T, B, H, dtype, seed=5)
+        ways = {"new": lambda: backward(*args, outs, d_out, d_state), "remat": lambda: remat_grads(cuda_rnn, kind, args, d_out, d_state)}
+        with torch.no_grad():
+            kernel_ms = time_ms(torch, lambda: launch(*recurrence))
+            kernel_ms_l2_cold = time_ms(torch, lambda: launch(*recurrence), flush=flush)
+            plain_ms = time_ms(torch, lambda: plain(*recurrence), reps=BWD_REPS)
+        turns = {w: {"device_ms": [], "host_ms": []} for w in ways}
+        for w in ("new", "remat", "remat", "new"):
+            turns[w]["device_ms"].append(time_ms(torch, ways[w], reps=BWD_REPS))
+            turns[w]["host_ms"].append(host_ms(torch, ways[w], BWD_REPS))
+        # the second of two profiled calls: a first one has recorded no device activity
+        busy = {w: [profiled_device_time(fn) for _ in range(2)][-1][1] / 1e3 for w, fn in ways.items()}
+        bound_ms, bound_by, nbytes, flops = bwd_bound(kind, T, B, H, dtype)
+        row = {"kernel_ms": kernel_ms, "kernel_ms_l2_cold": kernel_ms_l2_cold, "plain_recurrence_ms": plain_ms,
+               "whole_ms": statistics.median(turns["new"]["device_ms"]), "whole_host_ms": statistics.median(turns["new"]["host_ms"]),
+               "remat_ms": statistics.median(turns["remat"]["device_ms"]), "remat_host_ms": statistics.median(turns["remat"]["host_ms"]),
+               "whole_device_busy_ms": busy["new"], "remat_device_busy_ms": busy["remat"], "bound_ms": bound_ms, "bound_by": bound_by}
+        rows = cuda_rnn.bwd_rows(kind, B, H, dtype, SPEC)
+        emit({"phase": "bwd", "kernel": f"{kind}_seq_bwd", "site": site, "path": path, "shape": [T, B, H], "dtype": dtype,
+              "rows_a_block": rows, "blocks": -(-B // rows), **row, "turns": turns, "bytes": nbytes, "flops": flops,
+              "kernel_share_of_bound": bound_ms / kernel_ms, "whole_over_remat_host": row["whole_host_ms"] / row["remat_host_ms"],
+              "reps": {"kernel": REPS, "whole_and_remat": BWD_REPS},
+              "stat": "medians; *_ms: CUDA events (the stream's time, host gaps included), kernel_ms after a ~0.5 ms spin, l2_cold: "
+                      "100 MB written before each; *_host_ms: host clock between synchronizes; *_device_busy_ms: torch.profiler, the second of two calls; "
+                      "whole and remat in turns (new, remat, remat, new)", "card": card})
+        out[site] = {"shape": [T, B, H], "dtype": dtype, "ms": kernel_ms, "ms_l2_cold": kernel_ms_l2_cold, "whole_backward_ms": row["whole_ms"],
+                     "whole_backward_host_ms": row["whole_host_ms"], "plain_ms": plain_ms, "remat_ms": row["remat_ms"],
+                     "remat_host_ms": row["remat_host_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    del flush
+    emit({"phase": "bwd", "seconds": time.perf_counter() - start, "card": card})
+    return out
+
+
+@contextlib.contextmanager
+def remat_backward(cuda_rnn):
+    """The remat for the block: the plain forward rerun under autograd in place of the prologue, the
+    backward kernel and the epilogue (swapped in here for the learner's turns; the package has no switch)."""
+    gru, lstm = cuda_rnn.gru_seq_backward, cuda_rnn.lstm_seq_backward
+
+    def gru_remat(x_proj, h0, resets, wh, bh, outs, d_outs, d_h_final):
+        return remat_grads(cuda_rnn, "gru", (x_proj, h0, resets, wh, bh), d_outs, d_h_final)
+
+    def lstm_remat(x_proj, hc0, resets, wh, outs, d_outs, d_hc_final):
+        return remat_grads(cuda_rnn, "lstm", (x_proj, hc0, resets, wh), d_outs, d_hc_final)
+
+    cuda_rnn.gru_seq_backward, cuda_rnn.lstm_seq_backward = gru_remat, lstm_remat
+    try:
+        yield
+    finally:
+        cuda_rnn.gru_seq_backward, cuda_rnn.lstm_seq_backward = gru, lstm
+
+
+def capture_train_steps(runner, captured):
+    """Keep the arguments of the quantized learner's last enqueued train step (for `learner_turns`)."""
+    q = runner._quantizer
+    enqueue = q.enqueue
+
+    def keeping(ts, traj, generator=None):
+        captured["args"] = (ts, traj, generator)
+        return enqueue(ts, traj, generator)
+
+    q.enqueue = keeping
+
+
+def learner_turns(torch, cuda_rnn, runner, captured, path, card):
+    """The learner's train call (the quantized learner's enqueue and flush) on the run's last trajectory, in turns:
+    the backward kernel, the remat, the remat, the backward kernel (host clock, synced; launches of each), then
+    one call of each under the profiler (the device's busy ms). A reading, not a claim."""
+    q, (ts, traj, generator) = runner._quantizer, captured["args"]
+
+    def call():
+        q.enqueue(ts, traj, generator)
+        q.flush()
+
+    ms, launches, busy = {"kernel": [], "remat": []}, {}, {}
+    for way in ("kernel", "remat", "remat", "kernel"):
+        with remat_backward(cuda_rnn) if way == "remat" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            cuda_rnn.reset_launch_counts()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            ms[way].append((time.perf_counter() - t0) * 1e3)
+            launches[way] = cuda_rnn.launch_counts()
+    for way in ("kernel", "remat"):
+        with remat_backward(cuda_rnn) if way == "remat" else contextlib.nullcontext():
+            _, device_us, rnn_us, _, _ = profiled_device_time(call)
+        busy[way] = {"device_busy_ms": device_us / 1e3, "rnn_kernel_ms": rnn_us / 1e3}
+    bwd = [k for k in launches["kernel"] if k.endswith("_bwd")]
+    check(sum(launches["kernel"][k] for k in bwd) == forward_launches(launches["kernel"]) > 0 and not any(launches["remat"][k] for k in bwd),
+          f"{path} learner turns: launches {launches}")
+    emit({"phase": "learner_turns", "path": path, "minibatches": q.num_minibatches, "train_call_ms": ms, "launches": launches,
+          "profiled": busy, "kernel_over_remat_host": statistics.median(ms["kernel"]) / statistics.median(ms["remat"]),
+          "stat": "host clock between synchronizes, in turns (kernel, remat, remat, kernel); one call of each under torch.profiler",
+          "card": card})
 
 
 def time_ms(torch, fn, reps=REPS, flush=None):
@@ -559,6 +836,7 @@ def phase_main(torch, cuda_rnn, card, tmp):
     check(len(per_iter) == iters, f"expected {iters} iterations, ran {len(per_iter)}")
     check(counts["gru_seq"] == 2 * iters, f"GRU kernel launches {counts['gru_seq']}, expected {2 * iters}")
     check(counts["lstm_seq"] == 0, "LSTM kernel launched on the GRU path")
+    check_backward_launches(counts, "main")
     steady = per_iter[1:]
     steady_rate = envs * 32 * len(steady) / sum(steady)
     emit({"phase": "main", "env": "grid_battle", "envs": envs, "rollout": 32, "iterations": iters,
@@ -607,6 +885,7 @@ def phase_lstm(torch, cuda_rnn, card, tmp):
                      f"--train_for_env_steps={envs * 32}", "--experiment=grid_battle_lstm"]
     runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp)
     check(counts["lstm_seq"] >= 1 and counts["gru_seq"] == 0, f"LSTM path launches {counts}")
+    check_backward_launches(counts, "lstm")
 
     # the trained model on the card against the same model on the CPU (plain versions)
     import copy
@@ -699,7 +978,8 @@ def phase_appo(torch, cuda_rnn, card, tmp, sync_runner, sync_rate):
     per_iter = [b - a for a, b in zip(times, times[1:])]
     check(len(per_iter) == iters, f"expected {iters} iterations, ran {len(per_iter)}")
     check(counts["gru_seq"] == 2 * iters, f"GRU kernel launches {counts['gru_seq']}, expected {2 * iters}")
-    check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched on the GRU path: {counts}")
+    check(not any(others(counts, "gru_seq").values()), f"other kernels launched on the GRU path: {counts}")
+    check_backward_launches(counts, "appo")
     live = list(runner.train_state.model.parameters())
     snapshot = list(runner.behavior_model.parameters())
     check(all(a.data_ptr() != b.data_ptr() for a, b in zip(live, snapshot)), "the snapshot shares storage with the trained model")
@@ -748,8 +1028,9 @@ def phase_defaults(torch, cuda_rnn, card, tmp):
     per_iter = [b - a for a, b in zip(times, times[1:])]
     minibatches = DEFAULTS_ENVS * 32 // 1024
     check(len(per_iter) == DEFAULTS_ITERS, f"expected {DEFAULTS_ITERS} iterations, ran {len(per_iter)}")
-    check(counts["gru_seq_grid"] == DEFAULTS_ITERS * minibatches and sum(counts.values()) == counts["gru_seq_grid"],
-          f"launches {counts}: expected {minibatches} gru_seq_grid an iteration and no other kernel")
+    check(counts["gru_seq_grid"] == DEFAULTS_ITERS * minibatches and forward_launches(counts) == counts["gru_seq_grid"],
+          f"launches {counts}: expected {minibatches} gru_seq_grid an iteration and no other forward kernel")
+    check_backward_launches(counts, "defaults")
     check(set(shapes) == {("gru", *DEFAULTS_GRU[:3])}, f"launch shapes {set(shapes)}")
     emit({"phase": "defaults", "env": "synthetic_vector_discrete", "envs": DEFAULTS_ENVS, "rollout": 32, "batch": 1024,
           "model": "MLP 128-128, GRU-512 float32", "iterations": DEFAULTS_ITERS, "launches": counts, "iteration_s": per_iter,
@@ -801,7 +1082,8 @@ def phase_towers(torch, cuda_rnn, card, tmp):
     runner, counts, stats, times = train(torch, cuda_rnn, argv, tmp)
     per_minibatch = 2 * layers  # 2 towers x 2 layers, one launch each per minibatch
     check(counts["lstm_seq"] == per_minibatch * minibatches, f"LSTM kernel launches {counts}, expected {per_minibatch * minibatches}")
-    check(all(v == 0 for k, v in counts.items() if k != "lstm_seq"), f"other kernels launched on the LSTM path: {counts}")
+    check(not any(others(counts, "lstm_seq").values()), f"other kernels launched on the LSTM path: {counts}")
+    check_backward_launches(counts, "towers")
     group = runner.train_state.optimizer.param_groups[0]
     check(group["lookahead"] and group["step"] == minibatches, f"LAMB with lookahead took {group['step']} steps")
 
@@ -821,10 +1103,10 @@ def phase_towers(torch, cuda_rnn, card, tmp):
         return logits, values, final
 
     with torch.no_grad():
-        before = sum(cuda_rnn.launch_counts().values())
+        before = forward_launches(cuda_rnn.launch_counts())
         on_card = forward(model, "cuda")
         torch.cuda.synchronize()
-        check(sum(cuda_rnn.launch_counts().values()) == before + per_minibatch, "model check did not run the LSTM kernels")
+        check(forward_launches(cuda_rnn.launch_counts()) == before + per_minibatch, "model check did not run the LSTM kernels")
         on_cpu = forward(cpu_model, "cpu")
     err = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card, on_cpu))
     tol = 1e-3  # float32 with TF32 off; convolution and matmul sums run in other orders on the two devices
@@ -874,7 +1156,8 @@ def phase_population(torch, cuda_rnn, card, tmp):
     check(type(runner).__name__ == "MultiPolicyRunner" and not runner.mixed and runner.envs_per_policy == envs // P, "not the unmixed population runner")
     check(len(per_iter) == iters, f"expected {iters} iterations, ran {len(per_iter)}")
     check(counts["gru_seq"] == P * iters, f"GRU kernel launches {counts['gru_seq']}, expected {P * iters} (1 a policy and iteration)")
-    check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched: {counts}")
+    check(not any(others(counts, "gru_seq").values()), f"other kernels launched: {counts}")
+    check_backward_launches(counts, "population")
     plan = cuda_rnn.launch_plan("gru", *MAIN_GRU, SPEC)
     check(plan.design == "cluster", "the population's (32, 512, 256) bf16 launches do not take the cluster design")
 
@@ -974,7 +1257,8 @@ def phase_selfplay(torch, cuda_rnn, card, tmp):
     check(len(per_iter) == iters == len(seen), f"expected {iters} iterations, ran {len(per_iter)}")
     # each policy trains on all 1024 slots x 32 steps: 2 minibatches of 512 segments, so 4 launches an iteration
     check(counts["gru_seq"] == 2 * P * iters, f"GRU kernel launches {counts['gru_seq']}, expected {2 * P * iters}")
-    check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched: {counts}")
+    check(not any(others(counts, "gru_seq").values()), f"other kernels launched: {counts}")
+    check_backward_launches(counts, "selfplay")
     check(all(bool(it["policy_id_is_slot_mod_P"]) and it["shape"] == (32, slots) for it in seen), "policy_id is not slot % 2 everywhere")
     check([it["versions"] for it in seen] == [[2 * k] * P for k in range(iters)], f"rollout versions {[it['versions'] for it in seen]}")
     check(all(s["valids_fraction"] == 0.5 for s in stats), f"valids fractions {[s['valids_fraction'] for s in stats]}")
@@ -1013,7 +1297,8 @@ def phase_selfplay(torch, cuda_rnn, card, tmp):
     argv = SELFPLAY + ["--compute_dtype=float32", "--batch_size=512", f"--num_envs={small}",
                        f"--train_for_env_steps={small_slots * 32}", "--experiment=grid_duel_selfplay_f32"]
     runner, f32_counts, _, _ = train(torch, cuda_rnn, argv, tmp)
-    check(sum(f32_counts.values()) == 2 * P, f"float32 self-play launches {f32_counts}")
+    check(forward_launches(f32_counts) == 2 * P, f"float32 self-play launches {f32_counts}")
+    check_backward_launches(f32_counts, "selfplay float32")
     ts = runner.train_state[0]
     cpu_model = copy.deepcopy(ts.model).cpu()
     cpu_ts = init_train_state(runner.cfg, runner.env_info, cpu_model, "cpu")
@@ -1024,10 +1309,12 @@ def phase_selfplay(torch, cuda_rnn, card, tmp):
     runner.sampler_state, traj, _ = runner._rollout_fn([t.model for t in states], [t.obs_rms for t in states], runner.sampler_state,
                                                        runner._slot_policies, [t.train_step for t in states])
     cpu_traj = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v.cpu()) for k, v in traj.items()}
-    before = sum(cuda_rnn.launch_counts().values())
+    before = cuda_rnn.launch_counts()
     runner._train_fn(ts, traj, runner.train_generators[0], pid=0)
     torch.cuda.synchronize()
-    check(sum(cuda_rnn.launch_counts().values()) == before + 2, "the float32 train call did not launch the kernel twice")
+    after = cuda_rnn.launch_counts()
+    check(forward_launches(after) == forward_launches(before) + 2 and after["gru_seq_bwd"] == before["gru_seq_bwd"] + 2,
+          f"the float32 train call did not launch the kernel and its backward twice: {before} -> {after}")
     runner._train_fn(cpu_ts, cpu_traj, torch.Generator().manual_seed(0), pid=0)
     check(cpu_ts.train_step == ts.train_step, "the two train calls took different numbers of steps")
     param_err = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in zip(ts.model.parameters(), cpu_model.parameters()))
@@ -1204,8 +1491,9 @@ def reset_slot_timers(sampler):
     sampler.slots_timed = 0
 
 
-def host_run(torch, cuda_rnn, tmp, argv, iters, experiment):
-    """One run of the host path through make_rl_runner -> init -> run with no --device flag."""
+def host_run(torch, cuda_rnn, tmp, argv, iters, experiment, captured=None):
+    """One run of the host path through make_rl_runner -> init -> run with no --device flag; with `captured`, the
+    learner's last train step is kept there (`capture_train_steps`)."""
     from sample_factory_tpu_torch.envs.batched_host_env import register_bench_pixel
     from sample_factory_tpu_torch.runner.runner import AlgoObserver
 
@@ -1232,6 +1520,8 @@ def host_run(torch, cuda_rnn, tmp, argv, iters, experiment):
         initial.extend(p.detach().clone() for p in runner.train_state.model.parameters())
         workers.extend(runner.sampler.workers)
         record_host_rollouts(runner, seen)
+        if captured is not None:
+            capture_train_steps(runner, captured)
 
     full = argv + [f"--train_for_env_steps={iters * HOST_ENVS * 32}", f"--experiment={experiment}"]
     runner, counts, stats, times = train(torch, cuda_rnn, full, tmp, before_run, observers=[SteadyTimers()],
@@ -1362,7 +1652,6 @@ def phase_host(torch, cuda_rnn, card, tmp):
     return counts
 
 
-HOST_GRU = (32, 256, 256, "bfloat16")  # the host_rnn phase: 8192 / 32 segments a minibatch
 
 
 def phase_host_rnn(torch, cuda_rnn, card, tmp):
@@ -1370,10 +1659,12 @@ def phase_host_rnn(torch, cuda_rnn, card, tmp):
     plan = cuda_rnn.launch_plan("gru", *HOST_GRU, SPEC)
     check(plan.design == "cluster" and plan.cluster == 8, f"(32, 256, 256) bf16 takes {plan}")
     argv = HOST_PIXEL + ["--use_rnn=True", "--rnn_size=256", "--recurrence=32", "--compute_dtype=bfloat16"]
-    runner, counts, stats, per_iter, seen = host_run(torch, cuda_rnn, tmp, argv, iters, "host_pixel_gru")
+    captured = {}
+    runner, counts, stats, per_iter, seen = host_run(torch, cuda_rnn, tmp, argv, iters, "host_pixel_gru", captured)
     # every queued train step ran (two inside rollouts, the last at the final flush): 8 launches each, in the learner only
     check(counts["gru_seq"] == minibatches * iters, f"GRU kernel launches {counts['gru_seq']}, expected {minibatches * iters}")
-    check(all(v == 0 for k, v in counts.items() if k != "gru_seq"), f"other kernels launched on the host GRU path: {counts}")
+    check(not any(others(counts, "gru_seq").values()), f"other kernels launched on the host GRU path: {counts}")
+    check_backward_launches(counts, "host_rnn")
     check(tuple(runner.sampler.rnn_states[0].shape) == (1024, 256), "the sampler's rnn state is not [1024, 256]")
     args = make_inputs(torch, "gru", *HOST_GRU, seed=4)
     with torch.no_grad():
@@ -1391,6 +1682,7 @@ def phase_host_rnn(torch, cuda_rnn, card, tmp):
           "kernel_shape": list(HOST_GRU[:3]), "dtype": HOST_GRU[3], "design": dataclasses.asdict(plan), "kernel_ms": kernel_ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "reps": REPS,
           "timing": runner.timing.flat_str(), "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+    learner_turns(torch, cuda_rnn, runner, captured, "host_rnn", card)
     return counts
 
 
@@ -1838,7 +2130,9 @@ def doom_run(torch, cuda_rnn, card, tmp):
         check(runner.env_info.obs_space == standin.DoomBattleStandIn().observation_space
               and isinstance(runner.env_info.action_space, TupleSpec), f"spaces {runner.env_info.obs_space}")
         instrument_host_iterations(torch, runner, DOOM_ITERS, record)
+        capture_train_steps(runner, captured)
 
+    captured = {}
     argv = QUIET_HOST + ["--env=doom_battle", "--env_frameskip=4", "--use_rnn=True", "--reward_scale=0.5", f"--num_workers={workers}",
                          f"--num_envs_per_worker={DOOM_ENVS // workers}", "--batch_size=2048", "--wide_aspect_ratio=False",
                          f"--train_for_env_steps={DOOM_ITERS * DOOM_ENVS * 32 * 4}", "--experiment=doom"]  # env steps count frames
@@ -1849,7 +2143,8 @@ def doom_run(torch, cuda_rnn, card, tmp):
     check(len(record["iteration_ms"]) == DOOM_ITERS, f"{len(record['iteration_ms'])} iterations")
     check(minibatches == DOOM_ENVS * 32 // 2048 and counts["gru_seq_grid"] == DOOM_ITERS * minibatches,
           f"gru_seq_grid launches {counts['gru_seq_grid']}, expected {DOOM_ITERS} train steps x {minibatches} minibatches")
-    check(all(v == 0 for k, v in counts.items() if k != "gru_seq_grid"), f"other kernels launched on the doom path: {counts}")
+    check(not any(others(counts, "gru_seq_grid").values()), f"other kernels launched on the doom path: {counts}")
+    check_backward_launches(counts, "doom")
     check(set(shapes) == {("gru", *DOOM_GRU[:3])}, f"launch shapes {set(shapes)}")
     check(runner.episode_stats.avg_reward is not None, "no episode finished")
     check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
@@ -1858,6 +2153,7 @@ def doom_run(torch, cuda_rnn, card, tmp):
           "measurements MLP, GRU-512 float32", "launches": counts, "launch_shapes": sorted(set(shapes)), "minibatches_per_train_step": minibatches,
           **host_example_line(runner, DOOM_ITERS, record, DOOM_ENVS), "avg_episode_reward": runner.episode_stats.avg_reward,
           "loss": stats["loss"], "grad_norm": stats["grad_norm"], "card": card})
+    learner_turns(torch, cuda_rnn, runner, captured, "doom", card)
     return counts
 
 
@@ -1931,6 +2227,9 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
     expected = dict.fromkeys(counts, 0)
     for site, (kind, T, B, H) in sites.items():
         expected[cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, "float32", SPEC))] += by_site[site]
+    # the backward once for each learner minibatch's forward (the core and the instruction encoder); the rollout
+    # and the value of the last observation run under no_grad
+    expected["lstm_seq_bwd"] = by_site["core"] + by_site["instruction_learner"]
     check(sum(by_site.values()) == len(shapes) and counts == expected, f"launches {counts} against {expected}, shapes {set(shapes)}")
     check(sum(episodes.values()) > 0 and not shm_segments(), f"episodes {episodes}, segments {shm_segments()}")
     cache = os.path.join(tmp, "dmlab_cache")
@@ -2002,8 +2301,9 @@ def nethack_run(torch, cuda_rnn, card, tmp):
                                              parse=parse_nethack_args)
         minibatches = runner._quantizer.num_minibatches
         check(len(record["iteration_ms"]) == iters and minibatches == 1, f"{len(record['iteration_ms'])} iterations, {minibatches} minibatches")
-        check(counts["lstm_seq_grid"] == iters and all(v == 0 for k, v in counts.items() if k != "lstm_seq_grid"),
+        check(counts["lstm_seq_grid"] == iters and not any(others(counts, "lstm_seq_grid").values()),
               f"launches {counts}: expected one lstm_seq_grid a train step and no other kernel")
+        check_backward_launches(counts, f"nethack {model}")
         check(set(shapes) == {("lstm", *NETHACK_LSTM[:3])}, f"launch shapes {set(shapes)}")
         check(extras["episodes"] > 0 and extras["keys"] == NETHACK_EXTRA_STATS, f"episode extra stats {extras}")
         check(not shm_segments(), f"shared-memory segments left behind: {shm_segments()}")
@@ -2123,8 +2423,9 @@ def isaacgym_run(torch, cuda_rnn, card, tmp):
             epochs = record["epochs"]
             check(len(record["iteration_ms"]) == iters and len(epochs) == iters, f"{len(record['iteration_ms'])} iterations")
             if lstm:
-                check(counts["lstm_seq_grid"] == 8 * sum(epochs) and all(v == 0 for k, v in counts.items() if k != "lstm_seq_grid"),
+                check(counts["lstm_seq_grid"] == 8 * sum(epochs) and not any(others(counts, "lstm_seq_grid").values()),
                       f"launches {counts}: expected 8 lstm_seq_grid an epoch ({epochs})")
+                check_backward_launches(counts, "isaacgym")
                 check(set(shapes) == {("lstm", *ALLEGRO_LSTM[:3])}, f"launch shapes {set(shapes)}")
             else:
                 check(all(v == 0 for v in counts.values()), f"an RNN kernel launched on the feed-forward path: {counts}")
@@ -2357,6 +2658,7 @@ def phase_dp(torch, cuda_rnn, card, tmp):
     check([r["mode"] for r in runs] == list(DP_TURNS), f"runs {[r['mode'] for r in runs]}")
     for r in runs:
         check(r["gru_seq_per_iteration"] == 2, f"{r['mode']}: {r['gru_seq_per_iteration']} GRU launches an iteration, expected 2")
+        check_backward_launches(r["launches"], f"dp {r['mode']}")
     profiled = runs[-1]["profiled_iteration"]
     runs = [(r["mode"], r) for r in runs]
     rate = {mode: [r["env_steps_per_s_steady"] for m, r in runs if m == mode] for mode in ("nccl", "nogroup")}
@@ -2412,6 +2714,8 @@ def phase_dp(torch, cuda_rnn, card, tmp):
     check(identical, "the two ranks' replicas differ after the train call")
     check(diff <= DP_TOL, f"two ranks against one rank: max |param diff| {diff} > {DP_TOL}")
     check(all(r["launches"]["gru_seq"] == 2 for r in ranks), f"a rank did not launch the GRU kernel once a minibatch: {[r['launches'] for r in ranks]}")
+    for r in ranks:
+        check_backward_launches(r["launches"], f"dp rank {r['rank']}")
     check(ranks[0]["train_step"] == ranks[1]["train_step"] == ts.train_step == 2, "train steps differ")
     emit({"phase": "dp", "leg": "gloo_two_ranks_on_cuda0", "config": "main in float32, 1 sync GAE iteration, 2 shuffled minibatches of 16384",
           "max_abs_param_diff": diff, "tol": DP_TOL, "replicas_identical": identical,
@@ -2677,6 +2981,8 @@ def phase_tp(torch, cuda_rnn, card, tmp):
     check(all(r["moments_halved"] for r in ranks), "an Adam moment of a sharded leaf is not its shard's shape")
     check(all(r["launches"]["gru_seq"] == 2 and r["launches"]["gru_seq_rows"] == 0 for r in ranks),
           f"a rank did not launch the GRU kernel (cluster design) once a minibatch: {[r['launches'] for r in ranks]}")
+    for k, r in enumerate(ranks):
+        check_backward_launches(r["launches"], f"tp (a) rank {k}")
     check(all(r["launch_shapes"] == [["gru", 32, 512, 256]] for r in ranks), f"launch shapes {[r['launch_shapes'] for r in ranks]}")
     check(all(r["train_step"] == 2 for r in ranks), "train steps differ")
     emit({"phase": "tp", "leg": "main_float32_1x2_gloo_on_cuda0",
@@ -2704,8 +3010,10 @@ def phase_tp(torch, cuda_rnn, card, tmp):
     check(diff_b <= 1e-5, f"2 x 2 against 4 x 1: max |param diff| {diff_b} > 1e-5")
     # two contiguous minibatches of 64 rows: the first is data index 0's rows, the second data index 1's, and a
     # rank launches the recurrence only on a minibatch it holds rows of
-    check(all(r["tp"]["launches"]["gru_seq_grid"] == 1 and sum(r["tp"]["launches"].values()) == 1 for r in ranks_b),
+    check(all(r["tp"]["launches"]["gru_seq_grid"] == 1 and forward_launches(r["tp"]["launches"]) == 1 for r in ranks_b),
           f"a 2 x 2 rank did not launch the GRU's grid design on its minibatch: {[r['tp']['launches'] for r in ranks_b]}")
+    for k, r in enumerate(ranks_b):
+        check_backward_launches(r["tp"]["launches"], f"tp (b) rank {k}")
     check(all(r["tp"]["launch_shapes"] == [["gru", *TP_MULTICHIP_GRU[:3]]] for r in ranks_b),
           f"2 x 2 launch shapes {[r['tp']['launch_shapes'] for r in ranks_b]}, not {TP_MULTICHIP_GRU[:3]}")
     check(all(r["tp"]["episodes"] == r["dp"]["episodes"] for r in ranks_b), "episode counts differ between the meshes")
@@ -2949,8 +3257,10 @@ def phase_dp_host(torch, cuda_rnn, card, tmp):
     check(max(stats_err.values()) <= DP_STATS_TOL, f"two ranks' first train step against one rank's: {stats_err} > {DP_STATS_TOL}")
     check(diff <= DP_TOL, f"two ranks against one rank after the first train step: max |param diff| {diff} > {DP_TOL}")
     check(identical, "the two ranks' replicas differ after the run")
-    check(all(r["launches"]["gru_seq"] == DP_HOST_GRU_PER_RANK and sum(r["launches"].values()) == DP_HOST_GRU_PER_RANK for r in ranks),
+    check(all(r["launches"]["gru_seq"] == DP_HOST_GRU_PER_RANK and forward_launches(r["launches"]) == DP_HOST_GRU_PER_RANK for r in ranks),
           f"a rank did not launch gru_seq once a minibatch ({DP_HOST_GRU_PER_RANK}): {[r['launches'] for r in ranks]}")
+    for k, r in enumerate(ranks):
+        check_backward_launches(r["launches"], f"dp_host rank {k}")
     check(ranks[0]["saves"] == [steps] and ranks[1]["saves"] == [] and all(r["checkpoints"] == [f"checkpoint_{2 * 4:012d}_{steps}.pth"] for r in ranks),
           f"saves {[r['saves'] for r in ranks]}, checkpoints {[r['checkpoints'] for r in ranks]}: rank 0 alone writes one")
     check(all(r["env_steps"] == steps and r["train_step"] == 2 * 4 for r in ranks), "env steps or train steps differ")
@@ -3073,6 +3383,7 @@ def main() -> int:
 
     main_err = phase_parity(torch, cuda_rnn)
     timing = phase_timing(torch, cuda_rnn, card)
+    bwd_timing = phase_bwd(torch, cuda_rnn, card)
     phase_plans(torch, cuda_rnn, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         paths = {}
@@ -3130,6 +3441,19 @@ def main() -> int:
          "sites": {site: {"launches": paths[path][f"{kind}_seq_grid"], "max_abs_err": main_err[f"{kind}_seq_grid@{site}"],
                           **timing[f"{kind}_seq_grid@{site}"], "library_ms": None}
                    for site, (site_kind, _, path) in GRID_SITES.items() if site_kind == kind}}
+        for kind in ("gru", "lstm")
+    ] + [
+        # the backward kernels: their numbers at the first learner site of their kind (`main`, `lstm`), then at
+        # every learner site; ms is the kernel's, whole_backward_ms the prologue, kernel and epilogue's, plain_ms
+        # the plain recurrence's, remat_ms the remat's (the plain forward rerun under autograd)
+        {"name": f"{kind}_seq_bwd", "route": "cuda", "source": SOURCE, "replaces": REPLACES[f"{kind}_seq_bwd"],
+         "launches": sum(counts[f"{kind}_seq_bwd"] for counts in paths.values()),
+         "paths": {path: counts[f"{kind}_seq_bwd"] for path, counts in paths.items()},
+         "max_abs_err": main_err[f"{kind}_seq_bwd"][0], "grad_rel_err": main_err[f"{kind}_seq_bwd"][1],
+         **bwd_timing["main" if kind == "gru" else "lstm"], "library_ms": None,
+         "sites": {site: {"launches": paths[path][f"{kind}_seq_bwd"], "max_abs_err": main_err[f"{kind}_seq_bwd@{site}"][0],
+                          "grad_rel_err": main_err[f"{kind}_seq_bwd@{site}"][1], **bwd_timing[site], "library_ms": None}
+                   for site, (site_kind, _, path) in BWD_SITES.items() if site_kind == kind}}
         for kind in ("gru", "lstm")
     ]})
     print(card, flush=True)

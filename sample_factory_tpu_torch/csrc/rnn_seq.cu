@@ -3,6 +3,9 @@
 // Replaces the Pallas TPU kernels of sample_factory_tpu/ops/pallas_gru.py:
 //   gru_seq_forward, gru_rows_forward, gru_grid_forward    <- _gru_kernel  (:78-109, pallas_call at :148)
 //   lstm_seq_forward, lstm_rows_forward, lstm_grid_forward <- _lstm_kernel (:226-253, pallas_call at :271)
+// and the backward rules of their custom_vjps:
+//   gru_seq_backward  <- _bwd      (:189-195, jax.vjp of the scan)
+//   lstm_seq_backward <- _lstm_bwd (:311-315)
 //
 // What is computed (the input projection of all T steps is done beforehand by one matmul):
 //   GRU : h_proj = T(h @ wh, f32 accumulation) + bh; r = s(xr + hr); z = s(xz + hz);
@@ -79,6 +82,32 @@
 // steps; wh is re-read from L2 each step with CUDA-core FMAs. The wrapper's launch plan picks
 // the design from the shape.
 //
+// Backward (seq_bwd_kernel<T, G, R>; C entries gru_seq_backward, lstm_seq_backward; counted as gru_seq_bwd and
+// lstm_seq_bwd). Replaces the backward rules of the custom_vjps of sample_factory_tpu/ops/pallas_gru.py, `_bwd`
+// (:189-195) and `_lstm_bwd` (:311-315): jax.vjp of the lax.scan reference, no pallas_call, which XLA compiles into
+// one reverse-time loop on the device. ops/cuda_rnn.py runs a prologue before it (the carry entering each step,
+// from h0, the forward's saved outputs and the resets, and its projection: one product over T*B rows) and an
+// epilogue after it (d_wh = h_prev^T @ d_h_proj over T*B rows). The kernel runs the recurrence in
+// reverse time, t = T-1 .. 0, with g the cotangent of step t's new state (d_outs[t], plus the carried one where
+// resets[t] is 0):
+//   GRU : dn = g(1-z), da_n = dn(1-n^2), da_r = da_n*hn*r(1-r), da_z = g(h-n)*z(1-z); d_x_proj = [da_r, da_z, da_n],
+//         d_h_proj = [da_r, da_z, d_hn], d_hn = da_n*r; dh_prev = g*z + d_h_proj @ wh^T. Only d_hn [T,B,H] is
+//         written beside d_x_proj: the epilogue reads d_h_proj's r and z columns from d_x_proj
+//   LSTM: dc_tot = dc + dh*o*(1-tanh^2 c'); the gates' cotangents as the forward's chain rule gives them;
+//         dc_prev = dc_tot*f; dh_prev = d_x_proj @ wh^T (the cell state entering each step is recomputed first,
+//         forward in time, each op rounded to T as the forward rounds it, into a scratch buffer)
+// The gates are recomputed from the staged pre-activations in T; a sigmoid whose argument lies below -88 gets
+// gradient 0 (the plain version's clamp). Gradient math and the product are f32 FMAs on the CUDA cores (TF32
+// would break the f32 tolerance). Design: the row design mirrored. A block owns R batch rows (R = 1, 2, 4 or 8:
+// the largest power of two at most B / SMs, so that there are at least as many blocks as SMs where B allows,
+// lowered until its shared memory fits; ops/cuda_rnn.py:bwd_rows) and all H units, so no block waits on another:
+// no cooperative launch, no cluster. It keeps its rows' carried cotangents dh (and dc) and the step's gate
+// cotangents [R][G*H] in shared memory (dynamic, above 48 KB at R=8, H=512), and stages the next step's inputs
+// there with cp.async while the product runs. The product reads wh^T [G*H][H] (packed by the wrapper once a call)
+// from L2, thread k owning unit k of every row. What bounds it: each block reads all of wh^T every step (G*H*H
+// elements: 3 MB at the f32 GRU-512), so the L2 reads and the latency of the loads, not HBM and not the
+// 2*T*B*G*H*H operations; a design for the card (unit slices across blocks, as the grid design) is later work.
+//
 // Plain C interface for ctypes. Pointers are device pointers, the stream is a cudaStream_t.
 // Nothing is allocated here; each function returns a CUDA error code: the configuration
 // check's, or cudaGetLastError() after its launch.
@@ -91,6 +120,7 @@
 #include <map>
 #include <mutex>
 #include <set>
+#include <type_traits>
 #include <utility>
 
 namespace cg = cooperative_groups;
@@ -1059,6 +1089,255 @@ int grid_forward(const void* x, const void* s0, const void* resets, const void* 
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ------------------------------------------------------------------ backward (BPTT): the row design, mirrored
+
+constexpr int kBwdThreads = 256;  // most threads of a backward block (block_threads(H))
+
+__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Dynamic shared memory of one backward block of R rows; ops/cuda_rnn.py:bwd_smem is the same formula.
+// f32: dh [R][H], dc [R][H] (LSTM), the step's gate cotangents dg [R][G*H]; the stage of the next step's
+// inputs: x_proj (GRU) or proj (LSTM) [R][G*H] in T, h_proj [R][G*H] in T (GRU), h_prev (GRU) or c
+// (LSTM) [R][H] f32, d_outs [R][H] f32, resets [R] f32. Each part starts on 16 bytes.
+inline size_t bwd_smem_bytes(int G, int H, int R, int elem) {
+    const size_t RH = static_cast<size_t>(R) * H, RGH = RH * G;
+    const size_t parts = G == 4 ? 2 : 1;
+    return parts * align16(4 * RH) + align16(4 * RGH) + (G == 3 ? 2 : 1) * align16(elem * RGH) + 2 * align16(4 * RH) +
+           align16(4 * static_cast<size_t>(R));
+}
+
+template <typename T>
+struct BwdArgs {
+    const float* d_outs;   // [steps][B][H]
+    const float* d_final;  // the final state's cotangent [B][SW*H]
+    const float* resets;   // [steps][B]
+    const T* a;            // GRU: x_proj, LSTM: proj = x_proj + h_prev @ wh, [steps][B][G*H]
+    const T* hp;           // GRU: h_proj = h_prev @ wh + bh [steps][B][G*H]; LSTM: unused
+    const float* s;        // GRU: h_prev, the carry entering each step [steps][B][H]; LSTM: hc0 [B][2H]
+    const T* wt;           // wh transposed, [G*H][H]
+    float* cbuf;           // LSTM: the cell state entering each step [steps][B][H] (scratch); GRU: unused
+    T* da;                 // d_x_proj [steps][B][G*H]
+    T* dhn;                // GRU: d_hn = da_n * r [steps][B][H]; LSTM: unused (d_x_proj is the product's gradient)
+    float* d_state0;       // d_h0 [B][H] or d_hc0 [B][2H]
+    int steps, B, H;
+};
+
+// The gate s = 1 / (1 + e), e = exp(-max(x, -88)), each op rounded to T as the plain version's `_sigmoid`
+// rounds it, and its derivative e * s * s; 0 below -88, as the clamp's backward gives it (fault C6: e * s * s
+// there would be inf * 0).
+struct Sig {
+    float s, ds;
+};
+template <typename T>
+__device__ __forceinline__ Sig sig_bwd(float x) {
+    const float e = Num<T>::round(expf(-(x < -88.0f ? -88.0f : x)));
+    const float s = Num<T>::round(__fdiv_rn(1.0f, add<T>(1.0f, e)));
+    return {s, x < -88.0f ? 0.0f : e * s * s};
+}
+
+// nbytes from global src into shared dst (16-byte aligned), asynchronously where the source allows it:
+// cp.async of 16 bytes, else of 4; a bf16 range at an odd element offset is copied by plain loads.
+// The condition is the same for every thread of the block.
+__device__ __forceinline__ void stage_copy(void* dst, const void* src, int nbytes) {
+    char* d = static_cast<char*>(dst);
+    const char* s = static_cast<const char*>(src);
+    const int tid = threadIdx.x, nt = blockDim.x;
+    const uintptr_t how = reinterpret_cast<uintptr_t>(s) | static_cast<uintptr_t>(nbytes);
+    if ((how & 15) == 0) {
+        for (int i = tid * 16; i < nbytes; i += nt * 16) cp_async16(d + i, s + i);
+    } else if ((how & 3) == 0) {
+        for (int i = tid * 4; i < nbytes; i += nt * 4) cp_async4(d + i, s + i);
+    } else {
+        for (int i = tid * 2; i < nbytes; i += nt * 2) *reinterpret_cast<uint16_t*>(d + i) = *reinterpret_cast<const uint16_t*>(s + i);
+    }
+}
+
+// One block owns R batch rows [b0, b0 + R) and all H units, and runs every step in reverse (G = 3: the GRU,
+// 4: the LSTM). Per step t: wait for step t's staged inputs; each (row, unit) cell takes the cotangent of
+// its new state (d_outs[t], plus the carried one unless resets[t] > 0), recomputes its gates from the
+// staged pre-activations in T, writes d_x_proj[t] (and the GRU's d_hn[t]) and its gate cotangents into dg;
+// barrier; the copies of step t-1's inputs start; then dh = dg @ wh^T (+ g * z for the GRU), thread k
+// owning unit k of every row, reading the k-th column of wh^T, neighbouring threads on neighbouring
+// addresses, from L2. The LSTM first recomputes the cell state entering each step, forward in time, into
+// cbuf: the forward saves h (its outputs), not c.
+template <typename T, int G, int R>
+__global__ void __launch_bounds__(kBwdThreads) seq_bwd_kernel(const BwdArgs<T> p) {
+    constexpr bool kLstm = G == 4;
+    constexpr int SW = kLstm ? 2 : 1;
+    const int H = p.H, GH = G * H, B = p.B, RH = R * H;
+    const int b0 = static_cast<int>(blockIdx.x) * R, live = min(R, B - b0);
+    const int tid = threadIdx.x, nt = blockDim.x;
+
+    extern __shared__ __align__(16) unsigned char bwd_smem[];
+    unsigned char* cur = bwd_smem;
+    auto take = [&](size_t bytes) {
+        unsigned char* at = cur;
+        cur += align16(bytes);
+        return at;
+    };
+    float* dh = reinterpret_cast<float*>(take(4 * (size_t)RH));
+    float* dc = kLstm ? reinterpret_cast<float*>(take(4 * (size_t)RH)) : nullptr;
+    float* dg = reinterpret_cast<float*>(take(4 * (size_t)R * GH));
+    T* sa = reinterpret_cast<T*>(take(sizeof(T) * (size_t)R * GH));
+    T* shp = kLstm ? nullptr : reinterpret_cast<T*>(take(sizeof(T) * (size_t)R * GH));
+    float* sv = reinterpret_cast<float*>(take(4 * (size_t)RH));  // h_prev (GRU) or c (LSTM) of the step
+    float* sd = reinterpret_cast<float*>(take(4 * (size_t)RH));  // d_outs of the step
+    float* sr = reinterpret_cast<float*>(take(4 * (size_t)R));   // resets of the step
+
+    // rows past B stay zero in dh, dc and dg, so the product over all R rows stays finite
+    for (int i = tid; i < RH; i += nt) {
+        const int r = i / H, j = i - r * H;
+        const bool in = r < live;
+        dh[i] = in ? p.d_final[(size_t)(b0 + r) * SW * H + j] : 0.0f;
+        if constexpr (kLstm) dc[i] = in ? p.d_final[(size_t)(b0 + r) * 2 * H + H + j] : 0.0f;
+    }
+    for (int i = tid; i < R * GH; i += nt) dg[i] = 0.0f;
+
+    if constexpr (kLstm) {
+        // the cell state entering step t, as the forward computed it (sv holds it, each cell its own thread's)
+        for (int i = tid; i < live * H; i += nt) {
+            const int r = i / H, j = i - r * H;
+            sv[i] = Num<T>::round(p.s[(size_t)(b0 + r) * 2 * H + H + j]);
+        }
+        for (int t = 0; t < p.steps; ++t) {
+            for (int i = tid; i < live * H; i += nt) {
+                const int r = i / H, j = i - r * H;
+                const size_t row = (size_t)t * B + b0 + r;
+                const float c = sv[i];
+                p.cbuf[row * H + j] = c;
+                const T* pr = p.a + row * GH + j;
+                const float pi = Num<T>::load(pr), pf = Num<T>::load(pr + H), pg = Num<T>::load(pr + 2 * H);
+                const float new_c = add<T>(mul<T>(sig_bwd<T>(add<T>(pf, 1.0f)).s, c), mul<T>(sig_bwd<T>(pi).s, tanh_t<T>(pg)));
+                sv[i] = p.resets[row] > 0.0f ? 0.0f : new_c;
+            }
+        }
+        __syncthreads();  // cbuf, written by this block's threads, is read by the stage copies below
+    }
+
+    auto stage = [&](int t) {
+        const size_t row = (size_t)t * B + b0;
+        stage_copy(sa, p.a + row * GH, static_cast<int>(sizeof(T)) * live * GH);
+        if constexpr (!kLstm) stage_copy(shp, p.hp + row * GH, static_cast<int>(sizeof(T)) * live * GH);
+        stage_copy(sv, (kLstm ? p.cbuf : p.s) + row * H, 4 * live * H);
+        stage_copy(sd, p.d_outs + row * H, 4 * live * H);
+        stage_copy(sr, p.resets + row, 4 * live);
+        cp_async_commit();
+    };
+    stage(p.steps - 1);
+
+    for (int t = p.steps - 1; t >= 0; --t) {
+        cp_async_wait<0>();
+        __syncthreads();  // step t's inputs have landed; dh of the product of step t + 1 is written
+        for (int i = tid; i < live * H; i += nt) {
+            const int r = i / H, j = i - r * H;
+            const size_t o = ((size_t)t * B + b0 + r) * GH + j;
+            const T* a = sa + r * GH + j;
+            float* g_out = dg + r * GH + j;
+            const bool keep = !(sr[r] > 0.0f);
+            if constexpr (kLstm) {
+                const float pi = Num<T>::load(a), pf = Num<T>::load(a + H), pg = Num<T>::load(a + 2 * H), po = Num<T>::load(a + 3 * H);
+                const float fa = add<T>(pf, 1.0f);
+                const Sig si = sig_bwd<T>(pi), sf = sig_bwd<T>(fa), so = sig_bwd<T>(po);
+                const float tg = tanh_t<T>(pg), c = sv[i];
+                const float tc = tanh_t<T>(add<T>(mul<T>(sf.s, c), mul<T>(si.s, tg)));
+                const float gh = sd[i] + (keep ? dh[i] : 0.0f), gc = keep ? dc[i] : 0.0f;
+                const float dct = gc + gh * so.s * (1.0f - tc * tc);
+                const float dai = dct * tg * si.ds, daf = dct * c * sf.ds, dag = dct * si.s * (1.0f - tg * tg), dao = gh * tc * so.ds;
+                dc[i] = dct * sf.s;
+                p.da[o] = Num<T>::to(dai), p.da[o + H] = Num<T>::to(daf), p.da[o + 2 * H] = Num<T>::to(dag), p.da[o + 3 * H] = Num<T>::to(dao);
+                g_out[0] = dai, g_out[H] = daf, g_out[2 * H] = dag, g_out[3 * H] = dao;
+            } else {
+                const T* hp = shp + r * GH + j;
+                const float hn = Num<T>::load(hp + 2 * H);
+                const Sig rg = sig_bwd<T>(add<T>(Num<T>::load(a), Num<T>::load(hp)));
+                const Sig zg = sig_bwd<T>(add<T>(Num<T>::load(a + H), Num<T>::load(hp + H)));
+                const float n = tanh_t<T>(add<T>(Num<T>::load(a + 2 * H), mul<T>(rg.s, hn)));
+                const float h = Num<T>::round(sv[i]);
+                const float g = sd[i] + (keep ? dh[i] : 0.0f);
+                const float dan = g * (1.0f - zg.s) * (1.0f - n * n);
+                const float dar = dan * hn * rg.ds, daz = g * (h - n) * zg.ds, dhn = dan * rg.s;
+                dh[i] = g * zg.s;  // the direct term of dh_prev; the product adds d_h_proj @ wh^T
+                p.da[o] = Num<T>::to(dar), p.da[o + H] = Num<T>::to(daz), p.da[o + 2 * H] = Num<T>::to(dan);
+                p.dhn[((size_t)t * B + b0 + r) * H + j] = Num<T>::to(dhn);
+                g_out[0] = dar, g_out[H] = daz, g_out[2 * H] = dhn;
+            }
+        }
+        __syncthreads();  // dg is whole; the stage is free
+        if (t > 0) stage(t - 1);
+        for (int k = tid; k < H; k += nt) {
+            float acc[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+            const T* w = p.wt + k;
+#pragma unroll 4
+            for (int c = 0; c < GH; ++c) {
+                const float wv = Num<T>::load(w + (size_t)c * H);
+#pragma unroll
+                for (int r = 0; r < R; ++r) acc[r] = fmaf(dg[r * GH + c], wv, acc[r]);
+            }
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                if (r < live) dh[r * H + k] = kLstm ? acc[r] : dh[r * H + k] + acc[r];
+        }
+    }
+    __syncthreads();
+    for (int i = tid; i < live * H; i += nt) {
+        const int r = i / H, j = i - r * H;
+        p.d_state0[(size_t)(b0 + r) * SW * H + j] = dh[i];
+        if constexpr (kLstm) p.d_state0[(size_t)(b0 + r) * 2 * H + H + j] = dc[i];
+    }
+}
+
+template <typename T, int G, int R>
+int launch_bwd(const BwdArgs<T>& p, int smem, cudaStream_t stream) {
+    auto kernel = seq_bwd_kernel<T, G, R>;
+    // the shared-memory limit above 48 KB, once per device and process (as launch_cluster sets it)
+    static std::mutex lock;
+    static std::map<int, int> smem_set;  // device -> the limit set there
+    {
+        std::lock_guard<std::mutex> guard(lock);
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return failed(err);
+        if (smem > 48 * 1024 && smem > smem_set[dev]) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err != cudaSuccess) return failed(err);
+            smem_set[dev] = smem;
+        }
+    }
+    kernel<<<(p.B + R - 1) / R, block_threads(p.H), smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int G>
+int seq_backward(const BwdArgs<T>& p, int rows, int smem, cudaStream_t stream) {
+    if (p.steps < 1 || p.B < 1 || p.H < 1 || p.H > 1024 || rows < 1 || (size_t)smem != bwd_smem_bytes(G, p.H, rows, sizeof(T)))
+        return static_cast<int>(cudaErrorInvalidValue);
+    switch (rows) {
+        case 1: return launch_bwd<T, G, 1>(p, smem, stream);
+        case 2: return launch_bwd<T, G, 2>(p, smem, stream);
+        case 4: return launch_bwd<T, G, 4>(p, smem, stream);
+        case 8: return launch_bwd<T, G, 8>(p, smem, stream);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+template <int G>
+int seq_backward_typed(const void* d_outs, const void* d_final, const void* resets, const void* a, const void* hp, const void* s,
+                       const void* wt, void* cbuf, void* da, void* dhn, void* d_state0, int steps, int B, int H, int is_bf16,
+                       int rows, int smem, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto args = [&](auto* typed) {
+        using T = std::remove_const_t<std::remove_pointer_t<decltype(typed)>>;
+        return BwdArgs<T>{static_cast<const float*>(d_outs), static_cast<const float*>(d_final), static_cast<const float*>(resets),
+                          static_cast<const T*>(a), static_cast<const T*>(hp), static_cast<const float*>(s),
+                          static_cast<const T*>(wt), static_cast<float*>(cbuf), static_cast<T*>(da), static_cast<T*>(dhn),
+                          static_cast<float*>(d_state0), steps, B, H};
+    };
+    if (is_bf16) return seq_backward<__nv_bfloat16, G>(args(static_cast<__nv_bfloat16*>(nullptr)), rows, smem, st);
+    return seq_backward<float, G>(args(static_cast<float*>(nullptr)), rows, smem, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1186,6 +1465,24 @@ int lstm_rows_forward(const void* x, const void* hc0, const void* resets, const 
             static_cast<const float*>(wh), static_cast<float*>(outs), static_cast<float*>(hc_final), steps, B, H);
     }
     return static_cast<int>(cudaGetLastError());
+}
+
+// Backward (BPTT) of the GRU, reverse time: wt is wh^T [3H][H], packed by ops/cuda_rnn.py once a call; rows is
+// the batch rows of a block (1, 2, 4 or 8: ops/cuda_rnn.py:bwd_rows), smem bwd_smem_bytes(3, H, rows, elem).
+int gru_seq_backward(const void* d_outs, const void* d_h_final, const void* resets, const void* x, const void* h_proj,
+                     const void* h_prev, const void* wt, void* d_x, void* d_hn, void* d_h0, int steps, int B, int H,
+                     int is_bf16, int rows, int smem, void* stream) {
+    return seq_backward_typed<3>(d_outs, d_h_final, resets, x, h_proj, h_prev, wt, nullptr, d_x, d_hn, d_h0, steps, B, H,
+                                 is_bf16, rows, smem, stream);
+}
+
+// Backward of the LSTM: proj = x_proj + h_prev @ wh; cbuf a [steps][B][H] f32 scratch buffer for the cell state
+// the kernel recomputes; d_proj is d_x_proj, and also the cotangent of h_prev @ wh.
+int lstm_seq_backward(const void* d_outs, const void* d_hc_final, const void* resets, const void* proj, const void* hc0,
+                      const void* wt, void* cbuf, void* d_proj, void* d_hc0, int steps, int B, int H, int is_bf16, int rows,
+                      int smem, void* stream) {
+    return seq_backward_typed<4>(d_outs, d_hc_final, resets, proj, nullptr, hc0, wt, cbuf, d_proj, nullptr, d_hc0, steps, B,
+                                 H, is_bf16, rows, smem, stream);
 }
 
 }  // extern "C"

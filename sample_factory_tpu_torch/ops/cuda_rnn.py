@@ -37,15 +37,23 @@ block's shared memory; see the source note in `csrc/rnn_seq.cu`):
   width where the cluster plan would need more than one wave
   (`ROWS_OVER_WAVES_MAX_H`): one block per 4 batch rows, `wh` re-read from L2.
 
-Gradients: each kernel sits in a `torch.autograd.Function` whose backward
-recomputes through the plain version under autograd. The JAX package has no
-backward kernel either (`_bwd`, `_lstm_bwd`: remat through the scan
-reference), so this is the same design. `resets` get no gradient.
+Gradients: each kernel sits in a `torch.autograd.Function`. The forward also
+saves its outputs, from which the backward knows the carry entering every step
+(h0, then the step before's output, zero after a reset). On a CUDA tensor the
+backward is a prologue in plain PyTorch (the carries and their projection, one
+product over T*B rows), one hand-written reverse-time kernel (`gru_seq_bwd`,
+`lstm_seq_bwd`: `csrc/rnn_seq.cu:seq_bwd_kernel`, the row design mirrored; it
+replaces `_bwd` and `_lstm_bwd` of `pallas_gru.py` (:189-195, :311-315), which
+take `jax.vjp` of the scan and which XLA compiles into one reverse loop) and an
+epilogue (d_wh, products over T*B rows). On a CPU tensor it reruns the plain
+version under autograd (`_recompute_grads`), the direct counterpart of `_bwd`.
+`gru_seq_bwd_reference` and `lstm_seq_bwd_reference` are the recurrence's plain
+versions. `resets` get no gradient.
 
 Dispatch: a CUDA tensor launches the planned kernel or raises; a CPU tensor
 runs the plain version. `launch_counts()` counts the launches of each kernel,
 per design ("gru_seq" is the cluster design, "gru_seq_rows" the row design,
-"gru_seq_grid" the grid design).
+"gru_seq_grid" the grid design, "gru_seq_bwd" the backward).
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ ROW_TILE = 4  # batch rows per block in the row design (kTile in csrc/rnn_seq.cu
 # blocks (one per 4 rows) all run at once and re-read a small `wh` from L2: the DMLab instruction
 # encoder's LSTM-64 over a minibatch, (16, 1024, 64) f32, 32 clusters of 8 in three waves
 ROWS_OVER_WAVES_MAX_H = 64
+BWD_MAX_ROWS = 8  # most batch rows a backward block owns (the kernel is built for 1, 2, 4 and 8)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -88,8 +97,8 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-x)) with each op in x's dtype: the kernels' form (and the Pallas
     kernels', `pallas_gru.py:70-75`); torch.sigmoid rounds differently in bf16. x is held
     at -88 and above, where exp(-x) is finite: below, the gate is 0 to within 7e-39 and its
-    gradient 0, where exp's overflow would make it 0 * inf = NaN (the backward reruns this
-    version, on the card too)."""
+    gradient 0, where exp's overflow would make it 0 * inf = NaN (the CPU's backward reruns this
+    version; the backward kernel and `_sigmoid_bwd` give the same 0)."""
     one = torch.ones((), dtype=x.dtype, device=x.device)
     return one / (one + torch.exp(-x.clamp(min=-88.0)))
 
@@ -133,6 +142,75 @@ def lstm_seq_reference(x_proj, hc0, resets, wh) -> Tuple[torch.Tensor, torch.Ten
         outs.append(new_h.float())
         hc = torch.where(resets[t, :, None] > 0, torch.zeros_like(new_hc), new_hc)
     return torch.stack(outs), hc
+
+
+def _sigmoid_bwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gate as `_sigmoid` computes it (in x's dtype) and its derivative in f32, e * s * s with
+    e = exp(-x): 0 below -88, as the clamp's backward gives it."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    e = torch.exp(-x.clamp(min=-88.0))
+    s = one / (one + e)
+    return s, torch.where(x < -88.0, 0.0, e.float() * s.float() * s.float())
+
+
+def gru_seq_bwd_reference(d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The GRU backward's recurrence, plain (the kernel `gru_seq_bwd`'s signature): a reverse loop over T in
+    f32 arithmetic, the gates recomputed in x_proj's dtype as the forward rounds them.
+    (d_outs [T,B,H] f32, d_h_final [B,H] f32, resets [T,B] f32, x_proj [T,B,3H], h_proj [T,B,3H] = the carry
+    entering each step @ wh + bh, h_prev [T,B,H] f32 = that carry, wh [H,3H])
+    -> (d_x_proj [T,B,3H], d_hn [T,B,H] = da_n * r, both in x_proj's dtype; d_h0 [B,H] f32). The cotangent of
+    h_proj is [da_r, da_z, d_hn]: its r and z columns are d_x_proj's."""
+    dtype = x_proj.dtype
+    wt = wh.float().t()
+    dh = d_h_final.float()
+    d_x, d_hn = [], []
+    for t in reversed(range(x_proj.shape[0])):
+        xr, xz, xn = x_proj[t].chunk(3, dim=-1)
+        hr, hz, hn = h_proj[t].chunk(3, dim=-1)
+        r, dr = _sigmoid_bwd(xr + hr)
+        z, dz = _sigmoid_bwd(xz + hz)
+        n = torch.tanh(xn + r * hn).float()
+        r, z, hn, h = r.float(), z.float(), hn.float(), h_prev[t].to(dtype).float()
+        g = d_outs[t] + torch.where(resets[t, :, None] > 0, 0.0, dh)  # the carry's cotangent stops at a reset
+        dan = g * (1.0 - z) * (1.0 - n * n)
+        dar, daz = dan * hn * dr, g * (h - n) * dz
+        d_x.append(torch.cat([dar, daz, dan], dim=-1))
+        d_hn.append(dan * r)
+        dh = g * z + torch.cat([dar, daz, d_hn[-1]], dim=-1) @ wt
+    return torch.stack(d_x[::-1]).to(dtype), torch.stack(d_hn[::-1]).to(dtype), dh
+
+
+def lstm_seq_bwd_reference(d_outs, d_hc_final, resets, proj, hc0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The LSTM backward's recurrence, plain (the kernel `lstm_seq_bwd`'s signature): the cell state entering
+    each step forward in time, in proj's dtype as the forward computes it (the forward saves h, not c), then
+    a reverse loop over T in f32 arithmetic.
+    (d_outs [T,B,H] f32, d_hc_final [B,2H] f32, resets [T,B] f32, proj [T,B,4H] = x_proj + the carry's h @ wh,
+    hc0 [B,2H] f32, wh [H,4H]) -> (d_x_proj [T,B,4H] in proj's dtype, also the product's gradient; d_hc0 [B,2H] f32)."""
+    dtype = proj.dtype
+    H = hc0.shape[-1] // 2
+    one = torch.ones((), dtype=dtype, device=proj.device)
+    c, cells = hc0[:, H:].to(dtype), []
+    for t in range(proj.shape[0]):
+        cells.append(c)
+        i, f, g, _ = proj[t].chunk(4, dim=-1)
+        new_c = _sigmoid(f + one) * c + _sigmoid(i) * torch.tanh(g)
+        c = torch.where(resets[t, :, None] > 0, torch.zeros_like(new_c), new_c)
+    wt = wh.float().t()
+    dh, dc = d_hc_final[:, :H].float(), d_hc_final[:, H:].float()
+    d_x = []
+    for t in reversed(range(proj.shape[0])):
+        i, f, g, o = proj[t].chunk(4, dim=-1)
+        (si, dsi), (sf, dsf), (so, dso) = _sigmoid_bwd(i), _sigmoid_bwd(f + one), _sigmoid_bwd(o)
+        tg = torch.tanh(g)
+        tc = torch.tanh(sf * cells[t] + si * tg).float()
+        si, sf, so, tg, c = si.float(), sf.float(), so.float(), tg.float(), cells[t].float()
+        reset = resets[t, :, None] > 0
+        gh, gc = d_outs[t] + torch.where(reset, 0.0, dh), torch.where(reset, 0.0, dc)
+        dct = gc + gh * so * (1.0 - tc * tc)
+        d_x.append(torch.cat([dct * tg * dsi, dct * c * dsf, dct * si * (1.0 - tg * tg), gh * tc * dso], dim=-1))
+        dc = dct * sf
+        dh = d_x[-1] @ wt
+    return torch.stack(d_x[::-1]).to(dtype), torch.cat([dh, dc], dim=-1)
 
 
 # ------------------------------------------------------------------ launch plan
@@ -347,6 +425,38 @@ def grid_blocks_per_sm(kind: str, plan: Plan) -> int:
     return load_library().grid_blocks_per_sm(_gates(kind), plan.tile_rows, plan.tile_cols, plan.threads, plan.smem)
 
 
+def bwd_smem(kind: str, H: int, rows: int, itemsize: int) -> int:
+    """Shared memory of one backward block (`bwd_smem_bytes` in csrc/rnn_seq.cu), each part on 16 bytes: the
+    carried cotangents dh (and the LSTM's dc) [rows][H] f32, the step's gate cotangents [rows][G*H] f32, and
+    the stage of the next step's inputs: x_proj (GRU) or proj (LSTM) and the GRU's h_proj [rows][G*H] in the
+    input type, h_prev (GRU) or c (LSTM) and d_outs [rows][H] f32, resets [rows] f32."""
+    G = _gates(kind)
+    RH = rows * H
+
+    def a16(n):
+        return -(-n // 16) * 16
+
+    carried = (1 if kind == "gru" else 2) * a16(4 * RH)
+    staged = (2 if kind == "gru" else 1) * a16(itemsize * RH * G) + 2 * a16(4 * RH) + a16(4 * rows)
+    return carried + a16(4 * RH * G) + staged
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_rows(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM) -> int:
+    """Batch rows a block of the backward kernel owns (the row design, mirrored; ceil(B / rows) blocks): the
+    largest power of two at most B / spec.sms and BWD_MAX_ROWS, so that there are at least as many blocks as
+    SMs where B allows (1 where B < spec.sms), halved while a block's shared memory exceeds spec.smem_limit.
+    More rows share each read of wh^T; fewer give more blocks."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    rows = 1
+    while rows * 2 <= min(BWD_MAX_ROWS, B // spec.sms):
+        rows *= 2
+    while rows > 1 and bwd_smem(kind, H, rows, itemsize) > spec.smem_limit:
+        rows //= 2
+    return rows
+
+
 def pack_wh(wh: torch.Tensor, plan: Plan) -> torch.Tensor:
     """wh [H, G*H] -> [cluster, G*U, H]: block r's gate columns g*H + r*U + u (u < U) as rows
     g*U + u, each contiguous along K, which is the layout of the mma's B operand (in the grid
@@ -414,6 +524,7 @@ def bind(path: Path, entries: Tuple[str, ...] = ()):
         "gru_seq_forward": [ptr] * 7 + [i32] * 7 + [ptr], "lstm_seq_forward": [ptr] * 6 + [i32] * 7 + [ptr],
         "gru_rows_forward": [ptr] * 7 + [i32] * 4 + [ptr], "lstm_rows_forward": [ptr] * 6 + [i32] * 4 + [ptr],
         "gru_grid_forward": [ptr] * 8 + [i32] * 12 + [ptr], "lstm_grid_forward": [ptr] * 7 + [i32] * 12 + [ptr],
+        "gru_seq_backward": [ptr] * 10 + [i32] * 6 + [ptr], "lstm_seq_backward": [ptr] * 9 + [i32] * 6 + [ptr],
         "max_active_clusters": [i32] * 4, "grid_blocks_per_sm": [i32] * 5,
     }
     for name in entries or signatures:
@@ -517,6 +628,52 @@ def row_plan(kind: str, B: int, H: int) -> Plan:
     return Plan("rows", 1, ROW_TILE, H, (2 if kind == "gru" else 3) * ROW_TILE * H * 4, -(-B // ROW_TILE))
 
 
+def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None):
+    """Checks, allocates the outputs (and the LSTM's cell-state scratch) and launches the backward kernel on the
+    current stream, `rows` batch rows a block (bwd_rows of the card by default). A refused launch raises."""
+    G = _gates(kind)
+    T, B, H = _check_common(a, G)
+    dev, dt = a.device, a.dtype
+    _check("d_outs", d_outs, (T, B, H), torch.float32, dev)
+    _check("d_h_final" if kind == "gru" else "d_hc_final", d_final, (B, H if kind == "gru" else 2 * H), torch.float32, dev)
+    _check("resets", resets, (T, B), torch.float32, dev)
+    if kind == "gru":
+        _check("h_proj", h_proj, (T, B, G * H), dt, dev)
+        _check("h_prev", s, (T, B, H), torch.float32, dev)
+    else:
+        _check("hc0", s, (B, 2 * H), torch.float32, dev)
+    _check("wh", wh, (H, G * H), dt, dev)
+    spec = card_spec(dev)
+    rows = rows or bwd_rows(kind, B, H, dt, spec)
+    smem = bwd_smem(kind, H, rows, a.element_size())
+    wt = wh.t().contiguous()  # [G*H, H]: thread k reads column k, neighbouring threads neighbouring addresses
+    d_a, d_state0 = torch.empty_like(a), torch.empty_like(d_final)
+    if kind == "gru":
+        outputs = (d_a, torch.empty((T, B, H), dtype=dt, device=dev), d_state0)
+        ptrs = [d_outs, d_final, resets, a, h_proj, s, wt, *outputs]
+    else:
+        outputs = (d_a, d_state0)
+        ptrs = [d_outs, d_final, resets, a, s, wt, torch.empty((T, B, H), dtype=torch.float32, device=dev), *outputs]
+    fn = getattr(load_library(), f"{kind}_seq_backward")
+    with torch.cuda.device(dev):
+        err = fn(*[p.data_ptr() for p in ptrs], T, B, H, int(dt == torch.bfloat16), rows, smem, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} (T={T}, B={B}, H={H}, {dt}: {rows} rows a block, "
+                           f"{-(-B // rows)} blocks, {smem} bytes of shared memory, on a card of {spec.sms} SMs: {spec})")
+    _launches[f"{kind}_seq_bwd"] += 1
+    return outputs
+
+
+def _launch_gru_bwd(d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows=None):
+    """The kernel `gru_seq_bwd`, with gru_seq_bwd_reference's signature; `rows` as `_launch_bwd`."""
+    return _launch_bwd("gru", d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows)
+
+
+def _launch_lstm_bwd(d_outs, d_hc_final, resets, proj, hc0, wh, rows=None):
+    """The kernel `lstm_seq_bwd`, with lstm_seq_bwd_reference's signature."""
+    return _launch_bwd("lstm", d_outs, d_hc_final, resets, proj, None, hc0, wh, rows)
+
+
 def _forward(launch, reference, args):
     device = args[0].device
     if device.type == "cuda":
@@ -527,7 +684,8 @@ def _forward(launch, reference, args):
 
 
 def _recompute_grads(reference, args, needs, grad_outputs):
-    """Backward by rematerialization: rerun the plain version under autograd."""
+    """Backward by rematerialization: rerun the plain version under autograd (the CPU's backward, as JAX's
+    `_bwd` and `_lstm_bwd` differentiate the scan)."""
     with torch.enable_grad():
         inputs = [a.detach().requires_grad_(n) for a, n in zip(args, needs)]
         outputs = reference(*inputs)
@@ -536,32 +694,72 @@ def _recompute_grads(reference, args, needs, grad_outputs):
         return tuple(next(grads) if n else None for n in needs)
 
 
+def _carries_in(state0, resets, outs):
+    """The h entering each step, [T,B,H] f32, from what the forward saved: state0's h at step 0, then the
+    step before's output, 0 where that step reset (outs are taken before the reset)."""
+    H = outs.shape[-1]
+    return torch.cat([state0[None, :, :H], torch.where(resets[:-1, :, None] > 0, 0.0, outs[:-1])])
+
+
+def gru_seq_backward(x_proj, h0, resets, wh, bh, outs, d_outs, d_h_final, recurrence=_launch_gru_bwd):
+    """gru_seq's backward from its forward's inputs and `outs`: the prologue (the carries entering each step
+    and their projection h_prev @ wh + bh, one product over T*B rows), the reverse-time recurrence
+    (`recurrence`: the kernel `gru_seq_bwd`; the tests and chip_smoke.py pass gru_seq_bwd_reference) and the
+    epilogue (d_wh = h_prev^T @ [da_r, da_z, d_hn] over T*B rows, the r and z columns read from d_x_proj, and
+    d_bh their sum). -> (d_x_proj in x_proj's dtype, d_h0 f32, d_wh, d_bh in theirs); resets get none."""
+    H = wh.shape[0]
+    h_prev = _carries_in(h0, resets, outs)
+    h_in = h_prev.to(x_proj.dtype)
+    d_x, d_hn, d_h0 = recurrence(d_outs.float().contiguous(), d_h_final.float().contiguous(), resets, x_proj, h_in @ wh + bh, h_prev, wh)
+    rz, h_t = d_x[..., : 2 * H].flatten(0, 1), h_in.flatten(0, 1).t()
+    d_wh = torch.cat([h_t @ rz, h_t @ d_hn.flatten(0, 1)], dim=1)
+    d_bh = torch.cat([rz.sum(0), d_hn.sum((0, 1))])
+    return d_x, d_h0, d_wh.to(wh.dtype), d_bh.to(bh.dtype)
+
+
+def lstm_seq_backward(x_proj, hc0, resets, wh, outs, d_outs, d_hc_final, recurrence=_launch_lstm_bwd):
+    """lstm_seq's backward, as gru_seq_backward: the prologue proj = x_proj + h_prev @ wh, the recurrence
+    (the kernel `lstm_seq_bwd`, or lstm_seq_bwd_reference; it recomputes the cell state) and
+    d_wh = h_prev^T @ d_x_proj. -> (d_x_proj, d_hc0 f32, d_wh)."""
+    h_in = _carries_in(hc0, resets, outs).to(x_proj.dtype)
+    d_x, d_hc0 = recurrence(d_outs.float().contiguous(), d_hc_final.float().contiguous(), resets, x_proj + h_in @ wh, hc0, wh)
+    return d_x, d_hc0, (h_in.flatten(0, 1).t() @ d_x.flatten(0, 1)).to(wh.dtype)
+
+
 class GRUSeqFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_proj, h0, resets, wh, bh):
-        ctx.save_for_backward(x_proj, h0, resets, wh, bh)
-        return _forward(_launch_gru, gru_seq_reference, (x_proj, h0, resets, wh, bh))
+        outs, h_final = _forward(_launch_gru, gru_seq_reference, (x_proj, h0, resets, wh, bh))
+        ctx.save_for_backward(x_proj, h0, resets, wh, bh, outs)
+        return outs, h_final
 
     @staticmethod
     def backward(ctx, d_outs, d_h_final):
-        args = ctx.saved_tensors
+        *args, outs = ctx.saved_tensors
         needs = list(ctx.needs_input_grad)
         needs[2] = False  # resets get no gradient
-        return _recompute_grads(gru_seq_reference, args, needs, (d_outs, d_h_final))
+        if args[0].device.type != "cuda":
+            return _recompute_grads(gru_seq_reference, args, needs, (d_outs, d_h_final))
+        d_x, d_h0, d_wh, d_bh = gru_seq_backward(*args, outs, d_outs, d_h_final)  # autograd drops what no input needs
+        return d_x, d_h0, None, d_wh, d_bh
 
 
 class LSTMSeqFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_proj, hc0, resets, wh):
-        ctx.save_for_backward(x_proj, hc0, resets, wh)
-        return _forward(_launch_lstm, lstm_seq_reference, (x_proj, hc0, resets, wh))
+        outs, hc_final = _forward(_launch_lstm, lstm_seq_reference, (x_proj, hc0, resets, wh))
+        ctx.save_for_backward(x_proj, hc0, resets, wh, outs)
+        return outs, hc_final
 
     @staticmethod
     def backward(ctx, d_outs, d_hc_final):
-        args = ctx.saved_tensors
+        *args, outs = ctx.saved_tensors
         needs = list(ctx.needs_input_grad)
         needs[2] = False
-        return _recompute_grads(lstm_seq_reference, args, needs, (d_outs, d_hc_final))
+        if args[0].device.type != "cuda":
+            return _recompute_grads(lstm_seq_reference, args, needs, (d_outs, d_hc_final))
+        d_x, d_hc0, d_wh = lstm_seq_backward(*args, outs, d_outs, d_hc_final)
+        return d_x, d_hc0, None, d_wh
 
 
 def gru_seq(x_proj, h0, resets, wh, bh):
@@ -574,7 +772,8 @@ def lstm_seq(x_proj, hc0, resets, wh):
     return LSTMSeqFunction.apply(x_proj, hc0, resets, wh)
 
 
-_launches = {"gru_seq": 0, "gru_seq_rows": 0, "gru_seq_grid": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0}
+_launches = {"gru_seq": 0, "gru_seq_rows": 0, "gru_seq_grid": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0,
+             "gru_seq_bwd": 0, "lstm_seq_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -585,5 +784,5 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset: "gru_seq"/"lstm_seq" for the cluster
     design, "gru_seq_grid"/"lstm_seq_grid" for the grid design, "gru_seq_rows"/"lstm_seq_rows" for
-    the row design."""
+    the row design (the forward's designs), "gru_seq_bwd"/"lstm_seq_bwd" for the backward kernel."""
     return dict(_launches)

@@ -679,7 +679,8 @@ def _fake_cuda(monkeypatch, calls):
         return fn
 
     lib = types.SimpleNamespace(**{name: entry(name) for name in ("gru_grid_forward", "lstm_grid_forward", "gru_seq_forward",
-                                                                  "lstm_seq_forward", "gru_rows_forward", "lstm_rows_forward")})
+                                                                  "lstm_seq_forward", "gru_rows_forward", "lstm_rows_forward",
+                                                                  "gru_seq_backward", "lstm_seq_backward")})
     lib.max_active_clusters = lambda gates, is_bf16, size, smem: {8: 13, 16: 0}[size]
     monkeypatch.setattr(cuda_rnn, "load_library", lambda defines=(): lib)
 
@@ -818,8 +819,8 @@ def test_a_refused_launch_leaves_no_error_for_the_next_launch(cuda_device):
 @pytest.mark.cuda
 def test_bench_grid_battle_runs_gru_seq_on_the_card(cuda_device):
     """bench_gpu.py's grid-battle scenario at its smoke depth: the row names the card and its power
-    limit, its MFU is possible, and the learner launched `gru_seq` (cluster design) twice an iteration
-    (2 minibatches of 16384 samples), no other RNN kernel."""
+    limit, its MFU is possible, and the learner launched `gru_seq` (cluster design) and its backward
+    `gru_seq_bwd` twice an iteration (2 minibatches of 16384 samples), no other RNN kernel."""
     import bench_gpu
 
     device = torch.device("cuda", 0)
@@ -832,5 +833,154 @@ def test_bench_grid_battle_runs_gru_seq_on_the_card(cuda_device):
     assert row.get("mfu", 0.0) < 1 and "mfu_violation" not in row
     launches, iterations = row["rnn_kernel_launches"], row["iterations_counted"]
     assert iterations == b.depth.window + b.depth.profiled
-    assert launches == {**dict.fromkeys(launches, 0), "gru_seq": 2 * iterations}
+    assert launches == {**dict.fromkeys(launches, 0), "gru_seq": 2 * iterations, "gru_seq_bwd": 2 * iterations}
     assert 0 < row["device_busy_ms_per_iteration"] and 0 <= row["device_idle_share_profiled"] < 1
+
+
+# ------------------------------------------------------------------ the backward kernels (gru_seq_bwd, lstm_seq_bwd)
+
+# the backward kernel against its plain version on the same inputs (the saved tensors, the prologue's
+# projections and the cotangents), relative to the largest gradient: float32 differs only in the order of the
+# products' sums; bf16 in that order and in the one-ulp flips it causes where an output is rounded to bf16
+BWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _backward_pieces(kind):
+    if kind == "gru":
+        return cuda_rnn.gru_seq_backward, cuda_rnn.gru_seq_bwd_reference, cuda_rnn._launch_gru_bwd
+    return cuda_rnn.lstm_seq_backward, cuda_rnn.lstm_seq_bwd_reference, cuda_rnn._launch_lstm_bwd
+
+
+def _cotangents(out, state, seed=1):
+    rng = np.random.default_rng(seed)
+    return (torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32), device=out.device),
+            torch.tensor(rng.normal(size=tuple(state.shape)).astype(np.float32), device=out.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+@pytest.mark.parametrize("T,B,H", CARD_SHAPES + [(3, 5, 100), (2, 3, 1)])
+def test_backward_kernel_matches_plain_on_card(cuda_device, kind, dtype, T, B, H):
+    """The backward with the kernel as its recurrence against the same prologue and epilogue around the plain
+    recurrence, from the kernel forward's outputs: one launch of the backward kernel, no other."""
+    backward, plain, _ = _backward_pieces(kind)
+    args = _inputs(kind, T, B, H, dtype, cuda_device, seed=9)
+    with torch.no_grad():
+        out, state = _fns(kind)[0](*args)
+        d_out, d_state = _cotangents(out, state)
+        cuda_rnn.reset_launch_counts()
+        got = backward(*args, out, d_out, d_state)
+        torch.cuda.synchronize()
+        assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, f"{kind}_seq_bwd": 1}
+        want = backward(*args, out, d_out, d_state, recurrence=plain)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        assert float((g.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max())) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_backward_kernel_on_resets_and_saturated_gates(cuda_device, kind):
+    """Rows reset at every step, and sigmoid gates whose pre-activations lie below -88: finite gradients, the
+    saturated gates' exactly 0, equal to the plain recurrence's."""
+    backward, plain, _ = _backward_pieces(kind)
+    T, B, H = 8, 64, 256
+    args = _masked_inputs(kind, T, B, H, "float32", cuda_device)
+    sigmoid_gates = [0, 1] if kind == "gru" else [0, 1, 3]  # r, z / i, f, o
+    for g in sigmoid_gates:
+        args[0][:, :8, g * H:(g + 1) * H] = -200.0
+    with torch.no_grad():
+        out, state = _fns(kind)[0](*args)
+        got = backward(*args, out, *_cotangents(out, state))
+        want = backward(*args, out, *_cotangents(out, state), recurrence=plain)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for g in sigmoid_gates:
+        assert bool((got[0][:, :8, g * H:(g + 1) * H] == 0).all()), f"gate {g} below -88 has a gradient"
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) <= BWD_TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_an_impossible_backward_launch_raises(cuda_device):
+    """8 rows a block at H=1024 in float32 need 384 KB of shared memory, above the card's limit, and no kernel is
+    built for 3 rows: both launches are refused and raise, naming the rows and the card's SMs; nothing is counted."""
+    T, B, H = 2, 16, 1024
+    args = _inputs("lstm", T, B, H, "float32", cuda_device)
+    d_out, d_state = torch.zeros(T, B, H, device=cuda_device), torch.zeros(B, 2 * H, device=cuda_device)
+    before = cuda_rnn.launch_counts()
+    for rows in (8, 3):
+        with pytest.raises(RuntimeError, match=rf"lstm_seq_backward launch failed: CUDA error \d+ .*{rows} rows a block.*SMs"):
+            cuda_rnn._launch_lstm_bwd(d_out, d_state, args[2], args[0], args[1], args[3], rows=rows)
+    assert cuda_rnn.launch_counts() == before
+    with torch.no_grad():  # and the next launch runs
+        cuda_rnn._launch_lstm_bwd(d_out, d_state, args[2], args[0], args[1], args[3])
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_grid_battle_train_call_launches_the_backward_once_a_forward(cuda_device, tmp_path):
+    """One sync train call of grid battle (convnet_impala, GRU-256, bf16; 64 envs x 32 steps in 2 minibatches of
+    1024): `gru_seq_bwd` launches as often as `gru_seq`, once a minibatch; the rollout launches neither."""
+    from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
+    from sample_factory_tpu_torch.train import make_rl_runner
+
+    register_synthetic_components()
+    argv = ["--env=grid_battle", "--use_rnn=True", "--rnn_type=gru", "--rnn_size=256", "--compute_dtype=bfloat16", "--rollout=32",
+            "--recurrence=32", "--num_epochs=1", "--async_rl=False", "--encoder_conv_architecture=convnet_impala", "--num_envs=64",
+            "--batch_size=1024", "--num_workers=1", f"--train_dir={tmp_path}", "--device=gpu", "--seed=0", "--experiment=bwd"]
+    _, runner = make_rl_runner(parse_custom_args(argv))
+    runner.init()
+    ts = runner.train_state
+    cuda_rnn.reset_launch_counts()
+    runner.sampler_state, traj, _ = runner._rollout_fn(ts.model, ts.obs_rms, runner.sampler_state, ts.train_step, runner.policy_id)
+    torch.cuda.synchronize()
+    assert not any(cuda_rnn.launch_counts().values())
+    runner._train_fn(ts, traj, runner.train_generator)
+    torch.cuda.synchronize()
+    counts = cuda_rnn.launch_counts()
+    assert counts == {**dict.fromkeys(counts, 0), "gru_seq": 2, "gru_seq_bwd": 2}
+
+
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_backward_launch_passes_the_rows_and_shared_memory(monkeypatch, kind):
+    """`_launch_bwd` asks card_spec for the device, packs wh^T, and passes T, B, H, the dtype flag, the rows of
+    bwd_rows for that spec and their shared memory; it counts one launch."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    spec = SMALL_SPECS["66-7-3"]
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: spec)
+    T, B, H = 2, 300, 64
+    args = _inputs(kind, T, B, H, "float32", "cpu")
+    d_out, d_state = torch.zeros(T, B, H), torch.zeros(args[1].shape)
+    before = cuda_rnn.launch_counts()[f"{kind}_seq_bwd"]
+    if kind == "gru":
+        h_prev = torch.zeros(T, B, H)
+        outputs = cuda_rnn._launch_gru_bwd(d_out, d_state, args[2], args[0], args[0].clone(), h_prev, args[3])
+    else:
+        outputs = cuda_rnn._launch_lstm_bwd(d_out, d_state, args[2], args[0], args[1], args[3])
+    rows = cuda_rnn.bwd_rows(kind, B, H, "float32", spec)
+    assert rows == 4 and -(-B // rows) >= spec.sms  # 300 // 66 = 4 rows: 75 blocks
+    (name, call), = calls
+    assert name == f"{kind}_seq_backward" and len(call) == (17 if kind == "gru" else 16)
+    assert list(call[-7:-1]) == [T, B, H, 0, rows, cuda_rnn.bwd_smem(kind, H, rows, 4)]
+    d_hn = [(T, B, H)] if kind == "gru" else []  # the GRU's n column of d_h_proj; its r and z columns are d_x_proj's
+    assert [tuple(o.shape) for o in outputs] == [tuple(args[0].shape)] + d_hn + [tuple(args[1].shape)]
+    assert cuda_rnn.launch_counts()[f"{kind}_seq_bwd"] == before + 1
+    cuda_rnn._launches[f"{kind}_seq_bwd"] -= 1
+
+
+def test_a_refused_backward_launch_names_the_shape_rows_and_sms(monkeypatch):
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    lib = cuda_rnn.load_library()
+    lib.gru_seq_backward = lambda *args: 1  # cudaErrorInvalidValue
+    lib.gru_seq_backward.__name__ = "gru_seq_backward"
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: SMALL_SPECS["114-13-0"])
+    T, B, H = 2, 5, 32
+    args = _inputs("gru", T, B, H, "float32", "cpu")
+    before = cuda_rnn.launch_counts()
+    with pytest.raises(RuntimeError, match=r"gru_seq_backward launch failed: CUDA error 1 \(T=2, B=5, H=32, torch.float32: 1 rows a block"
+                                           r", 5 blocks, .* on a card of 114 SMs"):
+        cuda_rnn._launch_gru_bwd(torch.zeros(T, B, H), torch.zeros(B, H), args[2], args[0], args[0], torch.zeros(T, B, H), args[3])
+    assert cuda_rnn.launch_counts() == before
