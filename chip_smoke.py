@@ -14,17 +14,19 @@ Phases, each printing one JSON line:
             design its plan picks (GRU-512 at (32, 64, 512), (16, 4, 512) and (32, 32, 512) and LSTM-512 at
             (32, 32, 512), (32, 24, 512) and (16, 2048, 512): grid; dp_host's GRU-256 at 37, 128, 131 and 255
             segments: clusters of 8; DMLab's LSTM-64 over a minibatch, (16, 1024, 64): rows); the gradient goes
-            through the backward kernel; then the backward kernels (`gru_seq_bwd`, `lstm_seq_bwd`) against
-            their plain recurrence (the same prologue, epilogue and inputs) and against the remat (the plain
-            forward rerun under autograd, the CPU's backward) at the parity shapes in both dtypes, at every learner site
-            (BWD_SITES), on rows reset at every step and on gates saturated below -88
+            through the backward kernel; then the planned backward kernels (the grid design, `gru_seq_grid_bwd`,
+            `lstm_seq_grid_bwd`, where the forward takes the grid design; the row design, `gru_seq_bwd`,
+            `lstm_seq_bwd`, elsewhere) against their plain recurrence (the same prologue, epilogue and inputs) and
+            against the remat (the plain forward rerun under autograd, the CPU's backward) at the parity shapes in
+            both dtypes, at every learner site (BWD_SITES), on rows reset at every step and on gates saturated below -88
   timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
             nethack, isaacgym, dp_host, tp and defaults paths' shapes, warm and with L2 flushed, beside the first
             design (rows) at the same shapes (and the cluster plan where the row design takes its place), in turns in
             one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a yardstick
-  bwd       at every learner site: the backward kernel alone (warm and L2-cold), the whole backward (prologue,
-            kernel, epilogue), the plain recurrence and the remat, in turns, in CUDA-event and host-clock ms and
-            the device's busy ms; the kernel's bound, bytes and operations
+  bwd       at every learner site: the planned backward kernel alone (warm and L2-cold; at the five grid sites in
+            turns with the row design at the same shape), the whole backward (prologue, kernel, epilogue), the plain
+            recurrence and the remat, in turns, in CUDA-event and host-clock ms and the device's busy ms; the
+            kernel's bound, bytes and operations
   plans     the plans made for smaller cards (SMALLER_CARDS: 114 SMs with clusters {8: 13, 16: 0}, 66 SMs with
             {8: 7, 16: 3}) at the grid and cluster sites, launched on this card against the plain version and
             timed warm in turns with this card's own plan
@@ -144,9 +146,10 @@ Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two 
 runs) and `dp_host` included, and per design: cluster, `*_seq`, grid, `*_seq_grid`, and rows,
 `*_seq_rows`; `gru_seq_grid` and `lstm_seq_grid` also as kernels of their own, by site: the Doom learner, `tp`'s
 multichip leg and the defaults, the NetHack and AllegroHandLSTM learners, beside the row design at the same
-shapes; `gru_seq_bwd` and `lstm_seq_bwd` by path and at every learner site); every recurrent path's launches hold one
-backward launch for each learner forward launch (rollouts run under no_grad and launch none); the card's name and
-power limit, and the result line.
+shapes; the backward's designs, `gru_seq_bwd` and `lstm_seq_bwd` (rows) and `gru_seq_grid_bwd` and `lstm_seq_grid_bwd`
+(grid), by path and at every learner site each runs, the grid design beside the row design at the same shapes); every
+recurrent path's launches hold one backward launch for each learner forward launch (rollouts run under no_grad and
+launch none), of the grid design exactly for the grid forward's; the card's name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
 
@@ -216,6 +219,9 @@ BWD_SITES = {"main": ("gru", MAIN_GRU, "main"), "selfplay": ("gru", SELFPLAY_GRU
              "lstm": ("lstm", MAIN_LSTM, "lstm"), "dmlab_core": ("lstm", DMLAB_CORE, "dmlab"),
              "dmlab_instruction_learner": ("lstm", DMLAB_INSTR_LEARNER, "dmlab"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
              "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym")}
+# the backward kernel of each design (cuda_rnn.bwd_plan: the grid design exactly at GRID_SITES) -> the learner site whose
+# numbers the kernels line gives first, the first of its kind in BWD_SITES
+BWD_LINE_SITES = {"gru_seq_bwd": "main", "lstm_seq_bwd": "lstm", "gru_seq_grid_bwd": "doom_learner", "lstm_seq_grid_bwd": "nethack_learner"}
 # the sites of the grid design that the kernels line reports one by one: site -> (kind, shape, the path that runs it)
 GRID_SITES = {"doom_learner": ("gru", DOOM_GRU, "doom"), "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"),
               "defaults": ("gru", DEFAULTS_GRU, "defaults"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
@@ -256,6 +262,8 @@ REPLACES = {
     # the backward kernels replace the custom_vjp's backward rules, jax.vjp of the scan (no pallas_call)
     "gru_seq_bwd": "sample_factory_tpu/ops/pallas_gru.py:189",
     "lstm_seq_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
+    "gru_seq_grid_bwd": "sample_factory_tpu/ops/pallas_gru.py:189",
+    "lstm_seq_grid_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
 }
 # the designs (cluster: `gru_seq`/`lstm_seq`; grid: `gru_seq_grid`/`lstm_seq_grid`; rows: `gru_seq_rows`/`lstm_seq_rows`);
 # the kernels line reports the cluster designs at their main paths' shapes, the grid designs at the doom and
@@ -299,22 +307,31 @@ def rel_err(a, b):
 
 
 def forward_launches(counts):
-    """The forward kernels' launches, every design (the backward kernels', `*_seq_bwd`, left out)."""
+    """The forward kernels' launches, every design (the backward kernels', `*_bwd`, left out)."""
     return sum(v for k, v in counts.items() if not k.endswith("_bwd"))
 
 
+def backward_launches(counts):
+    """The backward kernels' launches, both designs (`*_seq_bwd`, `*_seq_grid_bwd`)."""
+    return sum(v for k, v in counts.items() if k.endswith("_bwd"))
+
+
 def others(counts, *names):
-    """The launches of every kernel but `names` and their backward kernels."""
-    keep = set(names) | {f"{name.split('_seq')[0]}_seq_bwd" for name in names}
+    """The launches of every kernel but `names` and the backward kernels of their kinds (both designs)."""
+    keep = set(names) | {f"{name.split('_seq')[0]}_seq{design}_bwd" for name in names for design in ("", "_grid")}
     return {k: v for k, v in counts.items() if k not in keep}
 
 
 def check_backward_launches(counts, where):
     """One backward launch for each forward launch: `counts` are those of the launches that needed a gradient
-    (rollouts, value passes and model checks run under no_grad, outside them)."""
+    (rollouts, value passes and model checks run under no_grad, outside them). The backward takes the grid design
+    exactly where the forward does (cuda_rnn.bwd_plan), so each grid forward pairs with a `*_seq_grid_bwd` and each
+    forward of another design with a `*_seq_bwd`."""
     for kind in ("gru", "lstm"):
-        want = sum(v for k, v in counts.items() if k.startswith(f"{kind}_seq") and not k.endswith("_bwd"))
-        check(counts[f"{kind}_seq_bwd"] == want, f"{where}: {counts[f'{kind}_seq_bwd']} {kind}_seq_bwd launches, expected {want}: {counts}")
+        grid = counts[f"{kind}_seq_grid"]
+        rest = sum(v for k, v in counts.items() if k.startswith(f"{kind}_seq") and not k.endswith("_bwd")) - grid
+        got = {"grid": counts[f"{kind}_seq_grid_bwd"], "rows": counts[f"{kind}_seq_bwd"]}
+        check(got == {"grid": grid, "rows": rest}, f"{where}: {kind} backward launches {got}, expected {{'grid': {grid}, 'rows': {rest}}}: {counts}")
 
 
 def parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=False):
@@ -322,7 +339,8 @@ def parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan
     backward kernel, launched once, against autograd through the plain version)."""
     args = make_inputs(torch, kind, T, B, H, dtype, seed=T + B + H)
     args = [a.requires_grad_(i != 2) for i, a in enumerate(args)]
-    name, bwd = cuda_rnn._kernel_name(kind, plan), f"{kind}_seq_bwd"
+    name = cuda_rnn._kernel_name(kind, plan)
+    bwd = cuda_rnn._bwd_kernel_name(kind, cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC))
     before = cuda_rnn.launch_counts()
     out, state = kernel_fn(*args)
     torch.cuda.synchronize()
@@ -382,8 +400,11 @@ def phase_parity(torch, cuda_rnn):
         for variant in ("resets_every_step", "saturated"):
             bwd_parity_case(torch, cuda_rnn, kind, 8, 64, 256, "float32", variant)
     for site, (kind, (T, B, H, dtype), _) in BWD_SITES.items():
-        main_err[f"{kind}_seq_bwd@{site}"] = bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype, site=site)
-    main_err["gru_seq_bwd"], main_err["lstm_seq_bwd"] = main_err["gru_seq_bwd@main"], main_err["lstm_seq_bwd@lstm"]  # (abs, rel)
+        name = cuda_rnn._bwd_kernel_name(kind, cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC))
+        main_err[f"{name}@{site}"] = bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype, site=site)
+    # (abs, rel) at the first learner site of each backward kernel
+    for name, site in BWD_LINE_SITES.items():
+        main_err[name] = main_err[f"{name}@{site}"]
     return main_err
 
 
@@ -435,7 +456,8 @@ def bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype, variant=None, site=No
     same saved tensors and cotangents: BWD_TOL), and against the remat (GRAD_F32_TOL, 4 x BF16_TOL in bf16)."""
     _, backward, plain, _, _ = backward_pieces(cuda_rnn, kind)
     args, out, d_out, d_state, _ = backward_inputs(torch, cuda_rnn, kind, T, B, H, dtype, variant, seed=T + B + H + 1)
-    name = f"{kind}_seq_bwd"
+    plan = cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC)
+    name = cuda_rnn._bwd_kernel_name(kind, plan)
     with torch.no_grad():
         before = cuda_rnn.launch_counts()[name]
         got = backward(*args, out, d_out, d_state)
@@ -449,10 +471,8 @@ def bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype, variant=None, site=No
     err_remat = max(rel_err(g, w) for g, w in zip(got, remat))
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     tol, tol_remat = BWD_TOL[dtype], GRAD_F32_TOL if dtype == "float32" else 4 * BF16_TOL
-    rows = cuda_rnn.bwd_rows(kind, B, H, dtype, SPEC)
     emit({"phase": "parity", "kernel": name, "shape": [T, B, H], "dtype": dtype, "variant": variant, "site": site,
-          "rows_a_block": rows, "blocks": -(-B // rows), "smem": cuda_rnn.bwd_smem(kind, H, rows, 2 if dtype == "bfloat16" else 4),
-          "grad_rel_err_plain": err, "grad_max_abs_err_plain": abs_err, "tol_plain": tol, "grad_rel_err_remat": err_remat, "tol_remat": tol_remat, "finite": finite})
+          "design": dataclasses.asdict(plan), "grad_rel_err_plain": err, "grad_max_abs_err_plain": abs_err, "tol_plain": tol, "grad_rel_err_remat": err_remat, "tol_remat": tol_remat, "finite": finite})
     where = f"{name} {(T, B, H, dtype, variant)}"
     check(finite, f"{where}: non-finite gradients")
     check(err <= tol, f"{where}: against the plain recurrence {err} > {tol}")
@@ -493,20 +513,29 @@ def host_ms(torch, fn, reps):
 
 
 def phase_bwd(torch, cuda_rnn, card):
-    """At each learner site (BWD_SITES): the backward kernel alone (CUDA events, warm and L2-cold), the whole new
-    backward (prologue, kernel, epilogue) and the remat (the plain forward rerun under autograd), in turns (new, remat, remat, new),
-    in CUDA-event ms and host-clock ms, and each under the profiler (the device's busy ms); the kernel's
-    bound, bytes and operations. Returns the kernels line's numbers by site."""
+    """At each learner site (BWD_SITES): the planned backward kernel alone (CUDA events, warm and L2-cold; at the grid
+    design's sites in turns with the row design at the same shape: grid, rows, rows, grid), the whole new backward
+    (prologue, kernel, epilogue) and the remat (the plain forward rerun under autograd), in turns (new, remat, remat,
+    new), in CUDA-event ms and host-clock ms, and each under the profiler (the device's busy ms); the kernel's bound,
+    bytes and operations. Returns the kernels line's numbers by site."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     start, out = time.perf_counter(), {}
     for site, (kind, (T, B, H, dtype), path) in BWD_SITES.items():
         _, backward, plain, _, launch = backward_pieces(cuda_rnn, kind)
         args, outs, d_out, d_state, recurrence = backward_inputs(torch, cuda_rnn, kind, T, B, H, dtype, seed=5)
         ways = {"new": lambda: backward(*args, outs, d_out, d_state), "remat": lambda: remat_grads(cuda_rnn, kind, args, d_out, d_state)}
+        plan = cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC)
+        rows = cuda_rnn.bwd_rows(kind, B, H, dtype, SPEC)
+        designs = {"planned": lambda: launch(*recurrence)}
+        if plan.design == "grid":
+            designs["rows"] = lambda: launch(*recurrence, rows=rows)
+        kernel = {d: {"warm": [], "l2_cold": []} for d in designs}
         with torch.no_grad():
-            kernel_ms = time_ms(torch, lambda: launch(*recurrence))
-            kernel_ms_l2_cold = time_ms(torch, lambda: launch(*recurrence), flush=flush)
+            for d in (("planned", "rows", "rows", "planned") if plan.design == "grid" else ("planned",)):
+                kernel[d]["warm"].append(time_ms(torch, designs[d]))
+                kernel[d]["l2_cold"].append(time_ms(torch, designs[d], flush=flush))
             plain_ms = time_ms(torch, lambda: plain(*recurrence), reps=BWD_REPS)
+        kernel_ms, kernel_ms_l2_cold = (statistics.median(kernel["planned"][k]) for k in ("warm", "l2_cold"))
         turns = {w: {"device_ms": [], "host_ms": []} for w in ways}
         for w in ("new", "remat", "remat", "new"):
             turns[w]["device_ms"].append(time_ms(torch, ways[w], reps=BWD_REPS))
@@ -518,18 +547,24 @@ def phase_bwd(torch, cuda_rnn, card):
                "whole_ms": statistics.median(turns["new"]["device_ms"]), "whole_host_ms": statistics.median(turns["new"]["host_ms"]),
                "remat_ms": statistics.median(turns["remat"]["device_ms"]), "remat_host_ms": statistics.median(turns["remat"]["host_ms"]),
                "whole_device_busy_ms": busy["new"], "remat_device_busy_ms": busy["remat"], "bound_ms": bound_ms, "bound_by": bound_by}
-        rows = cuda_rnn.bwd_rows(kind, B, H, dtype, SPEC)
-        emit({"phase": "bwd", "kernel": f"{kind}_seq_bwd", "site": site, "path": path, "shape": [T, B, H], "dtype": dtype,
-              "rows_a_block": rows, "blocks": -(-B // rows), **row, "turns": turns, "bytes": nbytes, "flops": flops,
-              "kernel_share_of_bound": bound_ms / kernel_ms, "whole_over_remat_host": row["whole_host_ms"] / row["remat_host_ms"],
+        if plan.design == "grid":
+            row.update(rows_kernel_ms=statistics.median(kernel["rows"]["warm"]), rows_kernel_ms_l2_cold=statistics.median(kernel["rows"]["l2_cold"]))
+        name = cuda_rnn._bwd_kernel_name(kind, plan)
+        emit({"phase": "bwd", "kernel": name, "site": site, "path": path, "shape": [T, B, H], "dtype": dtype,
+              "design": dataclasses.asdict(plan), "row_design_rows_a_block": rows, **row, "kernel_turns": kernel, "turns": turns,
+              "bytes": nbytes, "flops": flops, "kernel_share_of_bound": bound_ms / kernel_ms,
+              "whole_over_remat_host": row["whole_host_ms"] / row["remat_host_ms"],
+              "whole_over_remat_busy": row["whole_device_busy_ms"] / row["remat_device_busy_ms"],
               "reps": {"kernel": REPS, "whole_and_remat": BWD_REPS},
               "stat": "medians; *_ms: CUDA events (the stream's time, host gaps included), kernel_ms after a ~0.5 ms spin, l2_cold: "
-                      "100 MB written before each; *_host_ms: host clock between synchronizes; *_device_busy_ms: torch.profiler, the second of two calls; "
-                      "whole and remat in turns (new, remat, remat, new)", "card": card})
+                      "100 MB written before each; kernel_turns: the planned design and, at a grid site, the row design in turns "
+                      "(grid, rows, rows, grid); *_host_ms: host clock between synchronizes; *_device_busy_ms: torch.profiler, the "
+                      "second of two calls; whole and remat in turns (new, remat, remat, new)", "card": card})
         out[site] = {"shape": [T, B, H], "dtype": dtype, "ms": kernel_ms, "ms_l2_cold": kernel_ms_l2_cold, "whole_backward_ms": row["whole_ms"],
-                     "whole_backward_host_ms": row["whole_host_ms"], "plain_ms": plain_ms, "remat_ms": row["remat_ms"],
-                     "remat_host_ms": row["remat_host_ms"],
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+                     "whole_backward_host_ms": row["whole_host_ms"], "whole_backward_device_busy_ms": row["whole_device_busy_ms"],
+                     "plain_ms": plain_ms, "remat_ms": row["remat_ms"], "remat_host_ms": row["remat_host_ms"],
+                     "remat_device_busy_ms": row["remat_device_busy_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+                     **({"rows_ms": row["rows_kernel_ms"], "rows_ms_l2_cold": row["rows_kernel_ms_l2_cold"]} if plan.design == "grid" else {})}
     del flush
     emit({"phase": "bwd", "seconds": time.perf_counter() - start, "card": card})
     return out
@@ -1313,7 +1348,7 @@ def phase_selfplay(torch, cuda_rnn, card, tmp):
     runner._train_fn(ts, traj, runner.train_generators[0], pid=0)
     torch.cuda.synchronize()
     after = cuda_rnn.launch_counts()
-    check(forward_launches(after) == forward_launches(before) + 2 and after["gru_seq_bwd"] == before["gru_seq_bwd"] + 2,
+    check(forward_launches(after) == forward_launches(before) + 2 and backward_launches(after) == backward_launches(before) + 2,
           f"the float32 train call did not launch the kernel and its backward twice: {before} -> {after}")
     runner._train_fn(cpu_ts, cpu_traj, torch.Generator().manual_seed(0), pid=0)
     check(cpu_ts.train_step == ts.train_step, "the two train calls took different numbers of steps")
@@ -3376,6 +3411,12 @@ def main() -> int:
         grid_at_once[site] = {"kernel": kind, "shape": [T, B, H], "dtype": dtype, "blocks": plan.grid, "threads": plan.threads,
                               "smem": plan.smem, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(kind, plan), "sms": sms}
         check(plan.grid <= SPEC.sms and plan.grid <= grid_at_once[site]["blocks_per_sm"] * sms, f"{site}: {plan} is not resident at once")
+        # the backward takes the grid design at the same sites, all resident too
+        bwd = cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC)
+        check(bwd.design == "grid", f"{site}: {(T, B, H, dtype)}'s backward does not take the grid design: {bwd}")
+        grid_at_once[site]["backward"] = {"blocks": bwd.grid, "threads": bwd.threads, "smem": bwd.smem,
+                                          "blocks_per_sm": cuda_rnn.grid_bwd_blocks_per_sm(kind, bwd)}
+        check(bwd.grid <= SPEC.sms and bwd.grid <= grid_at_once[site]["backward"]["blocks_per_sm"] * sms, f"{site}: {bwd} is not resident at once")
     emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name, "shm_queue_library": queue_path.name,
           "card_spec": dataclasses.asdict(SPEC), "paths_keep_the_h100_sxm_plans": SPEC.sms == cuda_rnn.H100_SXM.sms,
           "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line],
@@ -3443,18 +3484,19 @@ def main() -> int:
                    for site, (site_kind, _, path) in GRID_SITES.items() if site_kind == kind}}
         for kind in ("gru", "lstm")
     ] + [
-        # the backward kernels: their numbers at the first learner site of their kind (`main`, `lstm`), then at
-        # every learner site; ms is the kernel's, whole_backward_ms the prologue, kernel and epilogue's, plain_ms
-        # the plain recurrence's, remat_ms the remat's (the plain forward rerun under autograd)
-        {"name": f"{kind}_seq_bwd", "route": "cuda", "source": SOURCE, "replaces": REPLACES[f"{kind}_seq_bwd"],
-         "launches": sum(counts[f"{kind}_seq_bwd"] for counts in paths.values()),
-         "paths": {path: counts[f"{kind}_seq_bwd"] for path, counts in paths.items()},
-         "max_abs_err": main_err[f"{kind}_seq_bwd"][0], "grad_rel_err": main_err[f"{kind}_seq_bwd"][1],
-         **bwd_timing["main" if kind == "gru" else "lstm"], "library_ms": None,
-         "sites": {site: {"launches": paths[path][f"{kind}_seq_bwd"], "max_abs_err": main_err[f"{kind}_seq_bwd@{site}"][0],
-                          "grad_rel_err": main_err[f"{kind}_seq_bwd@{site}"][1], **bwd_timing[site], "library_ms": None}
-                   for site, (site_kind, _, path) in BWD_SITES.items() if site_kind == kind}}
-        for kind in ("gru", "lstm")
+        # the backward kernels, each design (the row design, `*_seq_bwd`, at the bf16 and H <= 256 sites; the grid design,
+        # `*_seq_grid_bwd`, at the float32 H=512 ones): their numbers at the first learner site of their kind and design
+        # (BWD_LINE_SITES), then at each learner site it runs; ms is the kernel's, whole_backward_ms the prologue, kernel
+        # and epilogue's, plain_ms the plain recurrence's, remat_ms the remat's (the plain forward rerun under autograd);
+        # at a grid site rows_ms is the row design's kernel at the same shape, timed in turns
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+         "launches": sum(counts[name] for counts in paths.values()),
+         "paths": {path: counts[name] for path, counts in paths.items()},
+         "max_abs_err": main_err[name][0], "grad_rel_err": main_err[name][1], **bwd_timing[first], "library_ms": None,
+         "sites": {site: {"launches": paths[path][name], "max_abs_err": main_err[f"{name}@{site}"][0],
+                          "grad_rel_err": main_err[f"{name}@{site}"][1], **bwd_timing[site], "library_ms": None}
+                   for site, (kind, _, path) in BWD_SITES.items() if f"{name}@{site}" in main_err}}
+        for name, first in BWD_LINE_SITES.items()
     ]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

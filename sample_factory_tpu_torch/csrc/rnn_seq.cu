@@ -4,8 +4,8 @@
 //   gru_seq_forward, gru_rows_forward, gru_grid_forward    <- _gru_kernel  (:78-109, pallas_call at :148)
 //   lstm_seq_forward, lstm_rows_forward, lstm_grid_forward <- _lstm_kernel (:226-253, pallas_call at :271)
 // and the backward rules of their custom_vjps:
-//   gru_seq_backward  <- _bwd      (:189-195, jax.vjp of the scan)
-//   lstm_seq_backward <- _lstm_bwd (:311-315)
+//   gru_seq_backward, gru_seq_grid_backward   <- _bwd      (:189-195, jax.vjp of the scan)
+//   lstm_seq_backward, lstm_seq_grid_backward <- _lstm_bwd (:311-315)
 //
 // What is computed (the input projection of all T steps is done beforehand by one matmul):
 //   GRU : h_proj = T(h @ wh, f32 accumulation) + bh; r = s(xr + hr); z = s(xz + hz);
@@ -106,7 +106,23 @@
 // there with cp.async while the product runs. The product reads wh^T [G*H][H] (packed by the wrapper once a call)
 // from L2, thread k owning unit k of every row. What bounds it: each block reads all of wh^T every step (G*H*H
 // elements: 3 MB at the f32 GRU-512), so the L2 reads and the latency of the loads, not HBM and not the
-// 2*T*B*G*H*H operations; a design for the card (unit slices across blocks, as the grid design) is later work.
+// 2*T*B*G*H*H operations.
+//
+// Backward, design "grid" (seq_bwd_grid_kernel<Cells>; C entries gru_seq_grid_backward, lstm_seq_grid_backward; counted
+// as gru_seq_grid_bwd and lstm_seq_grid_bwd): float32, planned exactly where the forward takes its grid design (H=512 on
+// the Doom, NetHack and AllegroHandLSTM learners, `tp`'s multichip leg and the defaults). The forward's skeleton run
+// backwards: one persistent cooperative launch of Q batch tiles x S unit slices, at most one block an SM; block (q, r)
+// owns the U units r*U .. r*U+U-1 of its tile's rows and keeps wh's rows of those units, [G*H][U] f32 (32 KB at U=4,
+// 128 KB at U=16 for the LSTM-512), in shared memory for all T steps, where the row design re-reads all of wh^T from L2
+// every step. Everything but the product dh_prev = dg @ wh^T is local to a unit (the carried cotangents, the gates,
+// d_x_proj, the LSTM's recomputed cell state), so only the gate cotangents dg cross blocks, and they need no buffer of
+// their own: dg[t] is d_x_proj[t] (LSTM) or d_x_proj[t][:, :2H] ++ d_hn[t] (GRU), which the cells write anyway, a new t
+// each step. A step: the cells write dg[t]; one grid barrier; each block reads its tile's rows of dg[t] from L2
+// (cp.async.cg, never L1) in K chunks, double buffered, and multiplies them by its slice in f32 FMAs: 4 x 4
+// accumulators a thread, K split up to 32 ways at small B (partial sums through shared memory).
+// What bounds it: at large B the product's FMAs and its shared-memory reads, and the L2 reads of dg (S*B*G*H*4 bytes
+// a step: the plan takes the widest slices, U=16, that keep the blocks many); at small B the chain of T steps, each a
+// barrier and an L2 round trip.
 //
 // Plain C interface for ctypes. Pointers are device pointers, the stream is a cudaStream_t.
 // Nothing is allocated here; each function returns a CUDA error code: the configuration
@@ -126,7 +142,9 @@
 namespace cg = cooperative_groups;
 
 // Phase clock of the cluster kernel, built only with -DRNN_SEQ_PHASES (ops/rnn_seq_phases.py):
-// thread 0 of every block adds the SM cycles of each phase of each step.
+// thread 0 of every block adds the SM cycles of each phase of each step. Two more measurement builds of that tool, whose
+// results are wrong by design: -DRNN_SEQ_BWD_ABLATE_LOADS leaves out the grid backward's loads of dg, and
+// -DRNN_SEQ_BWD_ABLATE_PRODUCT its product, so that each one's time shows apart.
 #ifdef RNN_SEQ_PHASES
 __device__ unsigned long long rnn_seq_phase_cycles[4];  // product, gates, push + prefetch, barrier
 #define PHASE_MARK(name) const long long name = clock64()
@@ -1114,11 +1132,11 @@ struct BwdArgs {
     const T* a;            // GRU: x_proj, LSTM: proj = x_proj + h_prev @ wh, [steps][B][G*H]
     const T* hp;           // GRU: h_proj = h_prev @ wh + bh [steps][B][G*H]; LSTM: unused
     const float* s;        // GRU: h_prev, the carry entering each step [steps][B][H]; LSTM: hc0 [B][2H]
-    const T* wt;           // wh transposed, [G*H][H]
+    const T* wt;           // wh transposed, [G*H][H] (the row design); wh as given, [H][G*H] (the grid design)
     float* cbuf;           // LSTM: the cell state entering each step [steps][B][H] (scratch); GRU: unused
     T* da;                 // d_x_proj [steps][B][G*H]
     T* dhn;                // GRU: d_hn = da_n * r [steps][B][H]; LSTM: unused (d_x_proj is the product's gradient)
-    float* d_state0;       // d_h0 [B][H] or d_hc0 [B][2H]
+    float* d_state0;       // d_h0 [B][H] or d_hc0 [B][2H] (the grid design also carries its cells' cotangents there)
     int steps, B, H;
 };
 
@@ -1338,6 +1356,414 @@ int seq_backward_typed(const void* d_outs, const void* d_final, const void* rese
     return seq_backward<float, G>(args(static_cast<float*>(nullptr)), rows, smem, st);
 }
 
+// ------------------------------------------------------------------ backward (BPTT): the grid design (float32)
+
+constexpr int kBwdGridThreads = 512;  // most threads of a grid backward block (4 x 4 accumulators a thread)
+
+// Threads of a grid backward block: KS splits of K x the 4 x 4 register tiles of one pass (BT / passes / 4 rows x
+// U / 4 units).
+__host__ __device__ constexpr int bwd_grid_threads(int U, int BT, int KS, int passes) { return KS * (BT / passes / 4) * (U / 4); }
+
+// Dynamic shared memory of one grid backward block; ops/cuda_rnn.py:bwd_grid_smem is the same formula: the rows of wh
+// of the block's units, transposed, [G*H][U]; a pass's chunks of the gate cotangents [2][BT/passes][KC+4] (the next
+// chunk loads while this one is multiplied; a row's pad of 4 floats puts the float4 reads of 8 neighbouring rows on 8
+// bank groups); where K is split, every thread's partial sums [threads][16].
+inline size_t bwd_grid_smem_bytes(int G, int H, int U, int BT, int KS, int KC, int passes) {
+    const size_t partials = KS > 1 ? static_cast<size_t>(bwd_grid_threads(U, BT, KS, passes)) * 16 : 0;
+    return 4 * (static_cast<size_t>(G) * H * U + 2 * static_cast<size_t>(BT / passes) * (KC + 4) + partials);
+}
+
+// V neighbouring cells (batch row b, hidden units col .. col + V - 1) of the backward at step t, of an LSTM
+// (LstmBwdCells) or a GRU (GruBwdCells): the cell policy of the grid backward kernel. `load` reads step t's inputs of
+// the cells (t = -1: only the direct term, for the final state's cotangent); `step` takes the product
+// prod[v] = (d_h_proj[t + 1] @ wh^T)[b][col + v] and writes d_x_proj[t] (and the GRU's d_hn[t]), which the other
+// blocks read after the grid barrier, and the cells' carried cotangents. Those live in d_state0, read and written
+// by the cells' one owning thread: its h half holds the direct term of dh (the GRU's g * z; 0 for the LSTM), its c
+// half the LSTM's dc; both start as the final state's cotangent, and the h half ends as direct + product.
+
+template <int V>
+struct LstmBwdCells {
+    static constexpr int G = 4, SW = 2;
+    float a[4][V];  // proj[t], the four gates' pre-activations
+    float c[V];     // the cell state entering step t (cbuf)
+    float d[V];     // d_outs[t]
+    float dh0[V];   // the direct term of the carried dh
+    float dc[V];    // the carried dc
+    float reset;
+
+    __device__ __forceinline__ void load(const BwdArgs<float>& p, int t, int b, int col) {
+        const int H = p.H;
+        load_v<V>(dh0, p.d_state0 + (size_t)b * 2 * H + col);
+        if (t < 0) return;
+        const size_t row = (size_t)t * p.B + b;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) load_v<V>(a[g], p.a + row * 4 * H + g * H + col);
+        load_v<V>(c, p.cbuf + row * H + col);
+        load_v<V>(d, p.d_outs + row * H + col);
+        load_v<V>(dc, p.d_state0 + (size_t)b * 2 * H + H + col);
+        reset = p.resets[row];
+    }
+
+    __device__ __forceinline__ void step(const float (&prod)[V], const BwdArgs<float>& p, int t, int b, int col) const {
+        const int H = p.H;
+        float* state = p.d_state0 + (size_t)b * 2 * H + col;
+        float dh[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) dh[v] = dh0[v] + prod[v];
+        if (t < 0) {
+            store_v<V>(state, dh);
+            return;
+        }
+        const bool keep = !(reset > 0.0f);
+        float out[4][V], dc_prev[V], zero[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            const Sig si = sig_bwd<float>(a[0][v]), sf = sig_bwd<float>(add<float>(a[1][v], 1.0f)), so = sig_bwd<float>(a[3][v]);
+            const float tg = tanh_t<float>(a[2][v]);
+            const float tc = tanh_t<float>(add<float>(mul<float>(sf.s, c[v]), mul<float>(si.s, tg)));
+            const float gh = d[v] + (keep ? dh[v] : 0.0f), gc = keep ? dc[v] : 0.0f;
+            const float dct = gc + gh * so.s * (1.0f - tc * tc);
+            out[0][v] = dct * tg * si.ds, out[1][v] = dct * c[v] * sf.ds, out[2][v] = dct * si.s * (1.0f - tg * tg);
+            out[3][v] = gh * tc * so.ds;
+            dc_prev[v] = dct * sf.s;
+            zero[v] = 0.0f;
+        }
+        float* da = p.da + ((size_t)t * p.B + b) * 4 * H + col;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) store_v<V>(da + g * H, out[g]);
+        store_v<V>(state, zero);
+        store_v<V>(state + H, dc_prev);
+    }
+
+    // step t's lines of this row's slice [col, col + U) into L2
+    __device__ __forceinline__ static void prefetch(const BwdArgs<float>& p, int t, int b, int col) {
+        const int H = p.H;
+        const size_t row = (size_t)t * p.B + b;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) prefetch_l2(p.a + row * 4 * H + g * H + col);
+        prefetch_l2(p.cbuf + row * H + col);
+        prefetch_l2(p.d_outs + row * H + col);
+    }
+};
+
+template <int V>
+struct GruBwdCells {
+    static constexpr int G = 3, SW = 1;
+    float x[3][V];   // x_proj[t]
+    float hp[3][V];  // h_proj[t] = h_prev @ wh + bh
+    float h[V];      // h_prev[t], the carry entering step t
+    float d[V];      // d_outs[t]
+    float dh0[V];    // the direct term of the carried dh: g * z of step t + 1
+    float reset;
+
+    __device__ __forceinline__ void load(const BwdArgs<float>& p, int t, int b, int col) {
+        const int H = p.H;
+        load_v<V>(dh0, p.d_state0 + (size_t)b * H + col);
+        if (t < 0) return;
+        const size_t row = (size_t)t * p.B + b;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+            load_v<V>(x[g], p.a + row * 3 * H + g * H + col);
+            load_v<V>(hp[g], p.hp + row * 3 * H + g * H + col);
+        }
+        load_v<V>(h, p.s + row * H + col);
+        load_v<V>(d, p.d_outs + row * H + col);
+        reset = p.resets[row];
+    }
+
+    __device__ __forceinline__ void step(const float (&prod)[V], const BwdArgs<float>& p, int t, int b, int col) const {
+        const int H = p.H;
+        float* state = p.d_state0 + (size_t)b * H + col;
+        float dh[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) dh[v] = dh0[v] + prod[v];
+        if (t < 0) {
+            store_v<V>(state, dh);
+            return;
+        }
+        const bool keep = !(reset > 0.0f);
+        float out[3][V], dhn[V], direct[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+            const float hn = hp[2][v];
+            const Sig rg = sig_bwd<float>(add<float>(x[0][v], hp[0][v])), zg = sig_bwd<float>(add<float>(x[1][v], hp[1][v]));
+            const float n = tanh_t<float>(add<float>(x[2][v], mul<float>(rg.s, hn)));
+            const float g = d[v] + (keep ? dh[v] : 0.0f);
+            const float dan = g * (1.0f - zg.s) * (1.0f - n * n);
+            out[0][v] = dan * hn * rg.ds, out[1][v] = g * (h[v] - n) * zg.ds, out[2][v] = dan;
+            dhn[v] = dan * rg.s;
+            direct[v] = g * zg.s;
+        }
+        const size_t row = (size_t)t * p.B + b;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) store_v<V>(p.da + row * 3 * H + g * H + col, out[g]);
+        store_v<V>(p.dhn + row * H + col, dhn);
+        store_v<V>(state, direct);
+    }
+
+    __device__ __forceinline__ static void prefetch(const BwdArgs<float>& p, int t, int b, int col) {
+        const int H = p.H;
+        const size_t row = (size_t)t * p.B + b;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+            prefetch_l2(p.a + row * 3 * H + g * H + col);
+            prefetch_l2(p.hp + row * 3 * H + g * H + col);
+        }
+        prefetch_l2(p.s + row * H + col);
+        prefetch_l2(p.d_outs + row * H + col);
+    }
+};
+
+// A persistent cooperative grid of Q batch tiles x S unit slices (blockIdx = tile * S + slice), as grid_kernel, for the
+// backward in reverse time. Block (q, r) owns the U hidden units r*U .. r*U+U-1 of its tile's BT rows and holds wh's
+// rows of those units (the columns of wh^T that produce their dh) in shared memory for all T steps. Per step t, from
+// T-1 down to 0: dh of step t is the product of step t+1's gate cotangents dg[t+1] (all G*H columns of the tile's rows,
+// written by every block) with the slice, plus the direct term; the cells of step t write d_x_proj[t] (and d_hn[t]),
+// which are dg[t]; one grid barrier; after step 0 the last product gives the first state's cotangent. dg is not
+// copied anywhere: LSTM dg[t] = d_x_proj[t]; GRU dg[t] = d_x_proj[t][:, :2H] ++ d_hn[t]. A thread holds 4 x 4
+// accumulators: rows p0 + rt + i * RT (i < 4) of the pass from tile row p0, units ct*4 .. ct*4+3. Where K is split
+// (KS > 1: one pass, a cell a thread) thread tid owns cell tid, loads its inputs before the product and applies it
+// after the splits' sum; otherwise each thread applies the cells of its register tile.
+template <template <int> class Cells>
+__global__ void __launch_bounds__(kBwdGridThreads, 1)
+    seq_bwd_grid_kernel(const BwdArgs<float> p, int U, int BT, int KS, int KC, int passes) {
+    constexpr int TM = 4, TN = 4;
+    constexpr int G = Cells<1>::G, SW = Cells<1>::SW;
+    cg::grid_group grid = cg::this_grid();
+    const int H = p.H, B = p.B, GH = G * H, S = H / U, NCT = U / TN, PR = BT / passes, RT = PR / TM, tiles = RT * NCT;
+    const int r = static_cast<int>(blockIdx.x) % S, b0 = static_cast<int>(blockIdx.x) / S * BT;
+    const int tid = threadIdx.x, threads = blockDim.x;
+    const int ct = tid % NCT, rt = tid / NCT % RT, ks = tid / tiles;  // tid = (ks * RT + rt) * NCT + ct
+    const int rows = min(BT, B - b0);                                   // live rows of this tile
+    const int HS = KC + 4, L = KC / KS, chunks = GH / KC;
+    const bool own_cell = KS > 1 && tid < rows * U;
+    const int cell_row = tid / U, cell_col = r * U + tid % U;
+
+    extern __shared__ __align__(16) unsigned char smem[];
+    float* w_s = reinterpret_cast<float*>(smem);  // [G*H][U]: wh[r*U + u][c] at c * U + u
+    float* g_s = w_s + (size_t)GH * U;            // [2][PR][HS]: chunks of a pass's dg rows, K contiguous
+    float* red = g_s + 2 * PR * HS;               // [KS][tiles][16]: partial sums of the K splits
+
+    // the slice, once: wh's rows r*U .. r*U+U-1 (G*H contiguous columns each), transposed
+    for (int i = tid; i < U * (GH / 4); i += threads) {
+        const int u = i / (GH / 4), c = i % (GH / 4) * 4;
+        const float4 w = *reinterpret_cast<const float4*>(p.wt + (size_t)(r * U + u) * GH + c);
+        w_s[c * U + u] = w.x;
+        w_s[(c + 1) * U + u] = w.y;
+        w_s[(c + 2) * U + u] = w.z;
+        w_s[(c + 3) * U + u] = w.w;
+    }
+    for (int i = tid; i < 2 * PR * HS; i += threads) g_s[i] = 0.0f;  // rows past B stay zero in the product
+    // the cells' carried cotangents start as the final state's
+    for (int i = tid; i < rows * U; i += threads) {
+        const size_t o = (size_t)(b0 + i / U) * SW * H + r * U + i % U;
+#pragma unroll
+        for (int part = 0; part < SW; ++part) p.d_state0[o + part * H] = p.d_final[o + part * H];
+    }
+    if constexpr (G == 4) {
+        // the cell state entering each step, recomputed forward in time for this block's cells into cbuf; a thread
+        // takes NC cells at a time, so that their loads of a step are in flight together
+        constexpr int NC = 8;
+        for (int i0 = tid; i0 < rows * U; i0 += NC * threads) {
+            float c[NC];
+#pragma unroll
+            for (int k = 0; k < NC; ++k) {
+                const int i = i0 + k * threads;
+                c[k] = i < rows * U ? p.s[(size_t)(b0 + i / U) * 2 * H + H + r * U + i % U] : 0.0f;
+            }
+            for (int t = 0; t < p.steps; ++t) {
+                float pi[NC], pf[NC], pg[NC], reset[NC];
+#pragma unroll
+                for (int k = 0; k < NC; ++k) {
+                    const int i = i0 + k * threads;
+                    if (i >= rows * U) continue;
+                    const size_t row = (size_t)t * B + b0 + i / U;
+                    const float* pr = p.a + row * GH + r * U + i % U;
+                    pi[k] = pr[0], pf[k] = pr[H], pg[k] = pr[2 * H], reset[k] = p.resets[row];
+                }
+#pragma unroll
+                for (int k = 0; k < NC; ++k) {
+                    const int i = i0 + k * threads;
+                    if (i >= rows * U) continue;
+                    p.cbuf[((size_t)t * B + b0 + i / U) * H + r * U + i % U] = c[k];
+                    const float new_c = add<float>(mul<float>(sig_bwd<float>(add<float>(pf[k], 1.0f)).s, c[k]),
+                                                   mul<float>(sig_bwd<float>(pi[k]).s, tanh_t<float>(pg[k])));
+                    c[k] = reset[k] > 0.0f ? 0.0f : new_c;
+                }
+            }
+        }
+    }
+    __syncthreads();  // d_state0 and cbuf, written by this block's threads, are read by the cells' owners
+    // no grid barrier yet: the cells of step T-1 read nothing that another block writes
+
+    // step t's inputs of this tile's cells into L2
+    auto prefetch_step = [&](int t) {
+        for (int i = tid; i < rows; i += threads) Cells<1>::prefetch(p, t, b0 + i, r * U);
+        for (int i = tid * 32; i < rows; i += threads * 32) prefetch_l2(p.resets + (size_t)t * B + b0 + i);
+    };
+    prefetch_step(p.steps - 1);
+
+    for (int t = p.steps - 1; t >= -1; --t) {
+        PHASE_MARK(c0);
+        const bool product = t + 1 < p.steps;  // dg[t + 1] exists: every step but the last one's cells
+        if (t > 0) prefetch_step(t - 1);
+        Cells<1> mine;
+        if (own_cell) mine.load(p, t, b0 + cell_row, cell_col);
+        PHASE_MARK(c1);
+        // the source of dg[t + 1][b][k .. k + 3]: d_x_proj's row, or the GRU's d_hn past its r and z columns
+        auto dg = [&](int b, int k) -> const float* {
+            const size_t row = (size_t)(t + 1) * B + b;
+            if (G == 3 && k >= 2 * H) return p.dhn + row * H + (k - 2 * H);
+            return p.da + row * GH + k;
+        };
+
+        for (int pass = 0; pass < passes; ++pass) {
+            const int p0 = pass * PR, prows = min(PR, rows - p0);
+            if (prows <= 0) break;
+            PHASE_MARK(q0);
+            float acc[TM][TN];
+#pragma unroll
+            for (int i = 0; i < TM; ++i)
+#pragma unroll
+                for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+            if (product) {
+                // chunk c of the pass's dg rows: prows x KC, 16-byte copies through L2 only (cp.async.cg): the other
+                // blocks wrote them before the barrier, and an L1 line of an earlier step must not be read
+                auto load_chunk = [&](int c) {
+                    float* dst = g_s + (c & 1) * PR * HS;
+                    const int pieces = KC / 4;
+                    for (int i = tid; i < prows * pieces; i += threads) {
+                        const int row = i / pieces, k = i % pieces * 4;
+#ifndef RNN_SEQ_BWD_ABLATE_LOADS
+                        cp_async16(dst + row * HS + k, dg(b0 + p0 + row, c * KC + k));
+#endif
+                    }
+                    cp_async_commit();
+                };
+                // two stages: chunk c + 1 loads while chunk c is multiplied
+                load_chunk(0);
+                for (int c = 0; c < chunks; ++c) {
+                    if (c + 1 < chunks) {
+                        load_chunk(c + 1);
+                        cp_async_wait<1>();
+                    } else {
+                        cp_async_wait<0>();
+                    }
+                    __syncthreads();
+                    // this thread's split of the chunk: K from c * KC + ks * L, L long
+                    const float* gs = g_s + (c & 1) * PR * HS + ks * L;
+                    const float* ws = w_s + (size_t)(c * KC + ks * L) * U + ct * 4;
+#ifdef RNN_SEQ_BWD_ABLATE_PRODUCT
+                    if (L < 0)
+#endif
+                    for (int kk = 0; kk < L; kk += 4) {
+                        float4 a[TM], w[4];
+#pragma unroll
+                        for (int i = 0; i < TM; ++i) a[i] = *reinterpret_cast<const float4*>(gs + (rt + i * RT) * HS + kk);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) w[e] = *reinterpret_cast<const float4*>(ws + (kk + e) * U);
+#pragma unroll
+                        for (int e = 0; e < 4; ++e)
+#pragma unroll
+                            for (int i = 0; i < TM; ++i) {
+                                const float gv = e == 0 ? a[i].x : e == 1 ? a[i].y : e == 2 ? a[i].z : a[i].w;
+                                acc[i][0] = fmaf(gv, w[e].x, acc[i][0]);
+                                acc[i][1] = fmaf(gv, w[e].y, acc[i][1]);
+                                acc[i][2] = fmaf(gv, w[e].z, acc[i][2]);
+                                acc[i][3] = fmaf(gv, w[e].w, acc[i][3]);
+                            }
+                    }
+                    __syncthreads();  // the stage is free for chunk c + 2 (or the next pass)
+                }
+            }
+            PHASE_MARK(q1);
+
+            if (KS > 1) {
+                // the splits' partial sums through shared memory; each cell adds its own
+                float prod[1] = {0.0f};
+                if (product) {
+                    float* part = red + (size_t)tid * TM * TN;
+#pragma unroll
+                    for (int i = 0; i < TM; ++i)
+                        *reinterpret_cast<float4*>(part + i * TN) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+                    __syncthreads();
+                    if (own_cell) {
+                        const int u = tid % U;
+                        const float* q = red + (size_t)(cell_row % RT * NCT + u / TN) * TM * TN + cell_row / RT * TN + u % TN;
+#pragma unroll 4
+                        for (int s = 0; s < KS; ++s) prod[0] += q[(size_t)s * tiles * TM * TN];
+                    }
+                    __syncthreads();  // red is free for the next step
+                }
+                if (own_cell) mine.step(prod, p, t, b0 + cell_row, cell_col);
+            } else {
+                // row by row, the next row's inputs loaded before this row's cells are applied
+                const int col = r * U + ct * TN;
+                Cells<TN> cells[2];
+                if (p0 + rt < rows) cells[0].load(p, t, b0 + p0 + rt, col);
+#pragma unroll
+                for (int i = 0; i < TM; ++i) {
+                    const int row = p0 + rt + i * RT;
+                    if (i + 1 < TM && row + RT < rows) cells[(i + 1) & 1].load(p, t, b0 + row + RT, col);
+                    if (row < rows) cells[i & 1].step(acc[i], p, t, b0 + row, col);
+                }
+            }
+            PHASE_MARK(q2);
+            PHASE_ADD(0, q0, q1);  // the dg loads and the product
+            PHASE_ADD(1, q1, q2);  // the splits' sums and the cells
+        }
+        PHASE_MARK(c3);
+        if (t >= 0) grid.sync();  // dg[t] is in L2 for every block
+        PHASE_MARK(c4);
+        PHASE_ADD(2, c0, c1);  // the next step's prefetch and the split path's input loads
+        PHASE_ADD(3, c3, c4);  // the grid barrier
+    }
+}
+
+template <template <int> class Cells>
+int launch_bwd_grid(const BwdArgs<float>& p, int U, int BT, int KS, int KC, int passes, int threads, int smem, void* stream) {
+    constexpr int G = Cells<1>::G;
+    if (p.steps < 1 || p.B < 1 || p.H < 4 || U < 4 || U % 4 != 0 || p.H % U != 0 || passes < 1 || BT % (passes * 4) != 0 ||
+        KS < 1 || KC < 4 || p.H % KC != 0 || KC % (4 * KS) != 0 || threads != bwd_grid_threads(U, BT, KS, passes) ||
+        threads < 1 || threads > kBwdGridThreads || (KS > 1 && (passes > 1 || BT * U > threads)) ||
+        (size_t)smem != bwd_grid_smem_bytes(G, p.H, U, BT, KS, KC, passes))
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = seq_bwd_grid_kernel<Cells>;
+    const int grid = (p.B + BT - 1) / BT * (p.H / U);
+
+    // The shared-memory limit and the check that the whole grid is resident at once, once per configuration,
+    // device and process, as launch_grid has them; a cooperative launch that does not fit is refused.
+    static std::mutex lock;
+    static std::map<int, int> smem_set;                            // device -> the limit set there
+    static std::set<std::pair<int, std::pair<int, int>>> checked;  // (device, (threads, smem))
+    cudaError_t err = cudaSuccess;
+    {
+        std::lock_guard<std::mutex> guard(lock);
+        int dev = 0;
+        err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return failed(err);
+        if (smem > smem_set[dev]) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err != cudaSuccess) return failed(err);
+            smem_set[dev] = smem;
+        }
+        if (!checked.count({dev, {threads, smem}})) {
+            int per_sm = 0, sms = 0;
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+            if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+            if (err != cudaSuccess) return failed(err);
+            if (per_sm * sms < grid) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+            checked.insert({dev, {threads, smem}});
+        }
+    }
+    BwdArgs<float> args_p = p;
+    void* args[] = {&args_p, &U, &BT, &KS, &KC, &passes};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(threads), args, smem,
+                                      static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return failed(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1483,6 +1909,46 @@ int lstm_seq_backward(const void* d_outs, const void* d_hc_final, const void* re
                       int smem, void* stream) {
     return seq_backward_typed<4>(d_outs, d_hc_final, resets, proj, nullptr, hc0, wt, cbuf, d_proj, nullptr, d_hc0, steps, B,
                                  H, is_bf16, rows, smem, stream);
+}
+
+// Backward, design "grid" (float32): wh as given, [H][G*H]; the plan (ops/cuda_rnn.py:bwd_grid_plan) gives `units` a
+// slice, `rows` a batch tile, the K splits, the K chunk, the passes, the threads and smem =
+// bwd_grid_smem_bytes(G, H, units, rows, ksplit, kchunk, passes). d_h0 / d_hc0 also carry the cells' cotangents
+// between the steps.
+int gru_seq_grid_backward(const void* d_outs, const void* d_h_final, const void* resets, const void* x, const void* h_proj,
+                          const void* h_prev, const void* wh, void* d_x, void* d_hn, void* d_h0, int steps, int B, int H, int units,
+                          int rows, int ksplit, int kchunk, int passes, int threads, int smem, void* stream) {
+    const BwdArgs<float> p{static_cast<const float*>(d_outs), static_cast<const float*>(d_h_final), static_cast<const float*>(resets),
+                           static_cast<const float*>(x), static_cast<const float*>(h_proj), static_cast<const float*>(h_prev),
+                           static_cast<const float*>(wh), nullptr, static_cast<float*>(d_x), static_cast<float*>(d_hn),
+                           static_cast<float*>(d_h0), steps, B, H};
+    return launch_bwd_grid<GruBwdCells>(p, units, rows, ksplit, kchunk, passes, threads, smem, stream);
+}
+
+int lstm_seq_grid_backward(const void* d_outs, const void* d_hc_final, const void* resets, const void* proj, const void* hc0,
+                           const void* wh, void* cbuf, void* d_proj, void* d_hc0, int steps, int B, int H, int units, int rows,
+                           int ksplit, int kchunk, int passes, int threads, int smem, void* stream) {
+    const BwdArgs<float> p{static_cast<const float*>(d_outs), static_cast<const float*>(d_hc_final), static_cast<const float*>(resets),
+                           static_cast<const float*>(proj), nullptr, static_cast<const float*>(hc0), static_cast<const float*>(wh),
+                           static_cast<float*>(cbuf), static_cast<float*>(d_proj), nullptr, static_cast<float*>(d_hc0), steps, B, H};
+    return launch_bwd_grid<LstmBwdCells>(p, units, rows, ksplit, kchunk, passes, threads, smem, stream);
+}
+
+// Blocks of the grid backward kernel (of `gates` 3: the GRU's, 4: the LSTM's) with `threads` threads and `smem` bytes
+// that one SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor; 0 if none).
+int grid_bwd_blocks_per_sm(int gates, int threads, int smem) {
+    auto query = [&](auto kernel) {
+        cudaFuncAttributes attrs;  // raise the limit only: launch_bwd_grid remembers the largest it set
+        int n = 0;
+        if (cudaFuncGetAttributes(&attrs, kernel) != cudaSuccess ||
+            (attrs.maxDynamicSharedSizeBytes < smem && cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess) ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem) != cudaSuccess) {
+            (void)cudaGetLastError();  // none fits; no error is left for the next launch
+            return 0;
+        }
+        return n;
+    };
+    return gates == 3 ? query(seq_bwd_grid_kernel<GruBwdCells>) : query(seq_bwd_grid_kernel<LstmBwdCells>);
 }
 
 }  // extern "C"

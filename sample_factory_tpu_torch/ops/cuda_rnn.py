@@ -41,19 +41,34 @@ Gradients: each kernel sits in a `torch.autograd.Function`. The forward also
 saves its outputs, from which the backward knows the carry entering every step
 (h0, then the step before's output, zero after a reset). On a CUDA tensor the
 backward is a prologue in plain PyTorch (the carries and their projection, one
-product over T*B rows), one hand-written reverse-time kernel (`gru_seq_bwd`,
-`lstm_seq_bwd`: `csrc/rnn_seq.cu:seq_bwd_kernel`, the row design mirrored; it
-replaces `_bwd` and `_lstm_bwd` of `pallas_gru.py` (:189-195, :311-315), which
-take `jax.vjp` of the scan and which XLA compiles into one reverse loop) and an
-epilogue (d_wh, products over T*B rows). On a CPU tensor it reruns the plain
-version under autograd (`_recompute_grads`), the direct counterpart of `_bwd`.
+product over T*B rows), one hand-written reverse-time kernel (it replaces `_bwd`
+and `_lstm_bwd` of `pallas_gru.py` (:189-195, :311-315), which take `jax.vjp` of
+the scan and which XLA compiles into one reverse loop) and an epilogue (d_wh,
+products over T*B rows). `bwd_plan` picks its design from the shape, the dtype
+and the card's spec:
+
+- "grid" (`gru_seq_grid_bwd`, `lstm_seq_grid_bwd`: `csrc/rnn_seq.cu:seq_bwd_grid_kernel`),
+  exactly where the forward takes its grid design (float32, H a multiple of 64,
+  no cluster slice: the five float32 H=512 learner sites): a persistent
+  cooperative launch of batch tiles x unit slices (`bwd_grid_plan`), each block
+  keeping wh's rows of its units in shared memory for all T steps; the gate
+  cotangents, which the kernel writes as d_x_proj (and the GRU's d_hn) anyway,
+  cross blocks through L2 under one grid barrier a step;
+- "rows" (`gru_seq_bwd`, `lstm_seq_bwd`: `seq_bwd_kernel`, the row design
+  mirrored) everywhere else (bf16, float32 at H <= 256): a block owns `bwd_rows`
+  batch rows and all H units and re-reads wh^T from L2 every step.
+
+There is no fallback between them: the plan decides before the launch, and a
+refused launch raises. On a CPU tensor the backward reruns the plain version
+under autograd (`_recompute_grads`), the direct counterpart of `_bwd`.
 `gru_seq_bwd_reference` and `lstm_seq_bwd_reference` are the recurrence's plain
-versions. `resets` get no gradient.
+versions, of both designs. `resets` get no gradient.
 
 Dispatch: a CUDA tensor launches the planned kernel or raises; a CPU tensor
 runs the plain version. `launch_counts()` counts the launches of each kernel,
 per design ("gru_seq" is the cluster design, "gru_seq_rows" the row design,
-"gru_seq_grid" the grid design, "gru_seq_bwd" the backward).
+"gru_seq_grid" the grid design; "gru_seq_bwd" and "gru_seq_grid_bwd" the
+backward's row and grid designs).
 """
 
 from __future__ import annotations
@@ -84,7 +99,8 @@ ROW_TILE = 4  # batch rows per block in the row design (kTile in csrc/rnn_seq.cu
 # blocks (one per 4 rows) all run at once and re-read a small `wh` from L2: the DMLab instruction
 # encoder's LSTM-64 over a minibatch, (16, 1024, 64) f32, 32 clusters of 8 in three waves
 ROWS_OVER_WAVES_MAX_H = 64
-BWD_MAX_ROWS = 8  # most batch rows a backward block owns (the kernel is built for 1, 2, 4 and 8)
+BWD_MAX_ROWS = 8  # most batch rows a backward block owns in the row design (the kernel is built for 1, 2, 4 and 8)
+BWD_GRID_MAX_THREADS = 512  # most threads of a grid backward block (kBwdGridThreads in csrc/rnn_seq.cu)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -457,6 +473,87 @@ def bwd_rows(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM) -> int
     return rows
 
 
+def bwd_grid_threads(units: int, rows: int, ksplit: int, passes: int = 1) -> int:
+    """Threads of a grid backward block: `ksplit` x the 4 x 4 register tiles of one pass (`bwd_grid_threads` in
+    csrc/rnn_seq.cu)."""
+    return ksplit * (rows // passes // 4) * (units // 4)
+
+
+def bwd_grid_smem(kind: str, H: int, units: int, rows: int, ksplit: int, kchunk: int, passes: int = 1) -> int:
+    """Shared memory of one grid backward block (`bwd_grid_smem_bytes` in csrc/rnn_seq.cu), all f32: the rows of wh of
+    the block's units, transposed, [G*H][units]; a pass's chunks of the gate cotangents [2][rows / passes][kchunk + 4];
+    and where K is split, every thread's partial sums [threads][16]."""
+    partials = bwd_grid_threads(units, rows, ksplit, passes) * 16 if ksplit > 1 else 0
+    return 4 * (_gates(kind) * H * units + 2 * (rows // passes) * (kchunk + 4) + partials)
+
+
+# K splits and passes a grid backward block may take, in the order tried: a K split needs a cell a thread (16 splits
+# at least with 4 x 4 tiles), the rest applies the register tiles' cells, in passes over the rows
+BWD_GRID_SPLITS = ((32, 1), (16, 1), (1, 1), (1, 2), (1, 4), (1, 8))
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_grid_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM):
+    """The grid design's plan for the float32 backward on a card of `spec` (a Plan of design "grid"; `cluster` is the
+    unit slices), or None: it is planned exactly where the forward's `launch_plan` takes its grid design.
+
+    A thread holds 4 x 4 accumulators. Slices of 16, 8, then 4 units (at most spec.sms slices): wider slices read dg
+    from L2 fewer times, S*B*G*H*4 bytes a step. For each, as `grid_plan` does, the batch tiles that the SMs hold (one
+    block an SM), and for each K split and pass count of BWD_GRID_SPLITS the fewest rows a tile, a multiple of passes x 4,
+    that fill them; it fits where its threads stay within BWD_GRID_MAX_THREADS, where K is split each cell has a thread
+    of its own, and the widest K chunk of at most 512 (a divisor of H, so that a GRU chunk lies in d_x_proj's r and z
+    columns or in d_hn alone) gives a block's shared memory within spec.smem_limit. The plan has the most blocks; among
+    equals the widest slices, then the first in order."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if launch_plan(kind, 1, B, H, dtype, spec).design != "grid":
+        return None
+    best, best_key = None, None
+    for units in (16, 8, 4):
+        slices = H // units
+        if H % units or slices > spec.sms:
+            continue
+        most = min(spec.sms // slices, -(-B // 4))  # batch tiles that the SMs hold
+        for ksplit, passes in BWD_GRID_SPLITS:
+            step = passes * 4
+            rows = -(-B // (most * step)) * step
+            threads = bwd_grid_threads(units, rows, ksplit, passes)
+            if threads > BWD_GRID_MAX_THREADS or (ksplit > 1 and rows * units > threads):
+                continue
+            for kchunk in (512, 256, 128, 64, 32, 16):
+                if H % kchunk or kchunk % (4 * ksplit):
+                    continue
+                smem = bwd_grid_smem(kind, H, units, rows, ksplit, kchunk, passes)
+                if smem <= spec.smem_limit:
+                    tiles = -(-B // rows)
+                    key = (tiles * slices, units)
+                    if best is None or key > best_key:
+                        best, best_key = Plan("grid", slices, rows, units, smem, tiles * slices, 4, 4, ksplit, kchunk, passes, threads), key
+                    break
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM) -> Plan:
+    """The backward's design and launch configuration: the grid design where `bwd_grid_plan` gives one (float32, where
+    the forward takes its grid design), else the row design, `bwd_rows` rows a block (`cluster` 1, `units` H)."""
+    plan = bwd_grid_plan(kind, B, H, dtype, spec)
+    if plan is not None:
+        return plan
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return bwd_row_plan(kind, B, H, bwd_rows(kind, B, H, dtype, spec), 2 if dtype == torch.bfloat16 else 4)
+
+
+def bwd_row_plan(kind: str, B: int, H: int, rows: int, itemsize: int) -> Plan:
+    """The backward's row design at `rows` batch rows a block."""
+    return Plan("rows", 1, rows, H, bwd_smem(kind, H, rows, itemsize), -(-B // rows))
+
+
+def grid_bwd_blocks_per_sm(kind: str, plan: Plan) -> int:
+    """Blocks of the grid backward plan's size that one SM of the card holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the plan counts on one (spec.sms blocks at most)."""
+    return load_library().grid_bwd_blocks_per_sm(_gates(kind), plan.threads, plan.smem)
+
+
 def pack_wh(wh: torch.Tensor, plan: Plan) -> torch.Tensor:
     """wh [H, G*H] -> [cluster, G*U, H]: block r's gate columns g*H + r*U + u (u < U) as rows
     g*U + u, each contiguous along K, which is the layout of the mma's B operand (in the grid
@@ -525,7 +622,8 @@ def bind(path: Path, entries: Tuple[str, ...] = ()):
         "gru_rows_forward": [ptr] * 7 + [i32] * 4 + [ptr], "lstm_rows_forward": [ptr] * 6 + [i32] * 4 + [ptr],
         "gru_grid_forward": [ptr] * 8 + [i32] * 12 + [ptr], "lstm_grid_forward": [ptr] * 7 + [i32] * 12 + [ptr],
         "gru_seq_backward": [ptr] * 10 + [i32] * 6 + [ptr], "lstm_seq_backward": [ptr] * 9 + [i32] * 6 + [ptr],
-        "max_active_clusters": [i32] * 4, "grid_blocks_per_sm": [i32] * 5,
+        "gru_seq_grid_backward": [ptr] * 10 + [i32] * 10 + [ptr], "lstm_seq_grid_backward": [ptr] * 9 + [i32] * 10 + [ptr],
+        "max_active_clusters": [i32] * 4, "grid_blocks_per_sm": [i32] * 5, "grid_bwd_blocks_per_sm": [i32] * 3,
     }
     for name in entries or signatures:
         fn = getattr(lib, name)
@@ -628,9 +726,14 @@ def row_plan(kind: str, B: int, H: int) -> Plan:
     return Plan("rows", 1, ROW_TILE, H, (2 if kind == "gru" else 3) * ROW_TILE * H * 4, -(-B // ROW_TILE))
 
 
-def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None):
+def _bwd_kernel_name(kind: str, plan: Plan) -> str:
+    return {"grid": f"{kind}_seq_grid_bwd", "rows": f"{kind}_seq_bwd"}[plan.design]
+
+
+def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan=None):
     """Checks, allocates the outputs (and the LSTM's cell-state scratch) and launches the backward kernel on the
-    current stream, `rows` batch rows a block (bwd_rows of the card by default). A refused launch raises."""
+    current stream: `plan`, or the row design at `rows` batch rows a block, or by default `bwd_plan` for the spec of
+    the card that `a` lies on (the grid design where the forward takes its grid design). A refused launch raises."""
     G = _gates(kind)
     T, B, H = _check_common(a, G)
     dev, dt = a.device, a.dtype
@@ -644,34 +747,50 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None):
         _check("hc0", s, (B, 2 * H), torch.float32, dev)
     _check("wh", wh, (H, G * H), dt, dev)
     spec = card_spec(dev)
-    rows = rows or bwd_rows(kind, B, H, dt, spec)
-    smem = bwd_smem(kind, H, rows, a.element_size())
-    wt = wh.t().contiguous()  # [G*H, H]: thread k reads column k, neighbouring threads neighbouring addresses
+    if rows is not None:
+        plan = bwd_row_plan(kind, B, H, rows, a.element_size())
+    plan = plan or bwd_plan(kind, B, H, dt, spec)
+    grid = plan.design == "grid"
+    if grid and dt != torch.float32:
+        raise ValueError(f"the grid backward takes float32, not {dt}")
+    # [G*H, H] for the row design: thread k reads column k, neighbouring threads neighbouring addresses; the grid
+    # design reads the rows of wh of its units as they are
+    w = wh if grid else wh.t().contiguous()
     d_a, d_state0 = torch.empty_like(a), torch.empty_like(d_final)
     if kind == "gru":
         outputs = (d_a, torch.empty((T, B, H), dtype=dt, device=dev), d_state0)
-        ptrs = [d_outs, d_final, resets, a, h_proj, s, wt, *outputs]
+        ptrs = [d_outs, d_final, resets, a, h_proj, s, w, *outputs]
     else:
         outputs = (d_a, d_state0)
-        ptrs = [d_outs, d_final, resets, a, s, wt, torch.empty((T, B, H), dtype=torch.float32, device=dev), *outputs]
-    fn = getattr(load_library(), f"{kind}_seq_backward")
+        ptrs = [d_outs, d_final, resets, a, s, w, torch.empty((T, B, H), dtype=torch.float32, device=dev), *outputs]
+    if grid:  # the grid design reads its inputs in 16-byte pieces: a view at an odd offset is copied
+        ptrs = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ptrs]
+        name = f"{kind}_seq_grid_backward"
+        dims = [T, B, H, plan.units, plan.rows, plan.ksplit, plan.kchunk, plan.passes, plan.threads, plan.smem]
+    else:
+        name = f"{kind}_seq_backward"
+        dims = [T, B, H, int(dt == torch.bfloat16), plan.rows, plan.smem]
+    fn = getattr(load_library(), name)
     with torch.cuda.device(dev):
-        err = fn(*[p.data_ptr() for p in ptrs], T, B, H, int(dt == torch.bfloat16), rows, smem, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*[p.data_ptr() for p in ptrs], *dims, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} (T={T}, B={B}, H={H}, {dt}: {rows} rows a block, "
-                           f"{-(-B // rows)} blocks, {smem} bytes of shared memory, on a card of {spec.sms} SMs: {spec})")
-    _launches[f"{kind}_seq_bwd"] += 1
+        laid = (f"plan {plan}: {plan.grid // plan.cluster} batch tiles x {plan.cluster} slices of {plan.units} units, {plan.threads} "
+                f"threads" if grid else f"{plan.rows} rows a block, {plan.grid} blocks")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} (T={T}, B={B}, H={H}, {dt}: {laid}, {plan.smem} bytes of "
+                           f"shared memory, on a card of {spec.sms} SMs: {spec})")
+    _launches[_bwd_kernel_name(kind, plan)] += 1
     return outputs
 
 
-def _launch_gru_bwd(d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows=None):
-    """The kernel `gru_seq_bwd`, with gru_seq_bwd_reference's signature; `rows` as `_launch_bwd`."""
-    return _launch_bwd("gru", d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows)
+def _launch_gru_bwd(d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows=None, plan=None):
+    """The planned backward kernel (`gru_seq_grid_bwd` or `gru_seq_bwd`), with gru_seq_bwd_reference's signature;
+    `rows` and `plan` as `_launch_bwd`."""
+    return _launch_bwd("gru", d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows, plan)
 
 
-def _launch_lstm_bwd(d_outs, d_hc_final, resets, proj, hc0, wh, rows=None):
-    """The kernel `lstm_seq_bwd`, with lstm_seq_bwd_reference's signature."""
-    return _launch_bwd("lstm", d_outs, d_hc_final, resets, proj, None, hc0, wh, rows)
+def _launch_lstm_bwd(d_outs, d_hc_final, resets, proj, hc0, wh, rows=None, plan=None):
+    """The planned backward kernel (`lstm_seq_grid_bwd` or `lstm_seq_bwd`), with lstm_seq_bwd_reference's signature."""
+    return _launch_bwd("lstm", d_outs, d_hc_final, resets, proj, None, hc0, wh, rows, plan)
 
 
 def _forward(launch, reference, args):
@@ -773,7 +892,7 @@ def lstm_seq(x_proj, hc0, resets, wh):
 
 
 _launches = {"gru_seq": 0, "gru_seq_rows": 0, "gru_seq_grid": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0,
-             "gru_seq_bwd": 0, "lstm_seq_bwd": 0}
+             "gru_seq_bwd": 0, "lstm_seq_bwd": 0, "gru_seq_grid_bwd": 0, "lstm_seq_grid_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -784,5 +903,6 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset: "gru_seq"/"lstm_seq" for the cluster
     design, "gru_seq_grid"/"lstm_seq_grid" for the grid design, "gru_seq_rows"/"lstm_seq_rows" for
-    the row design (the forward's designs), "gru_seq_bwd"/"lstm_seq_bwd" for the backward kernel."""
+    the row design (the forward's designs), "gru_seq_bwd"/"lstm_seq_bwd" for the backward's row design and
+    "gru_seq_grid_bwd"/"lstm_seq_grid_bwd" for its grid design."""
     return dict(_launches)

@@ -6,18 +6,21 @@ Builds `csrc/rnn_seq.cu` with -DRNN_SEQ_PHASES, which makes thread 0 of every bl
 the SM cycles (clock64) of each phase of each step, at the plans for this card's spec. Cluster design: the product h @ wh,
 the gate math (with the wait for the step's x_proj), the copy of the new carry to the
 other blocks plus the issue of the next step's prefetch, and the cluster barrier. Grid
-design: the h loads and the product, the K splits' sums and the cells, the issue of the
-next step's prefetch, and the grid barrier. Runs each kernel at the main-path shapes, at the
+design, forward and backward (`bwd_plan`'s grid design at the float32 H=512 learner sites): the h (dg) loads and
+the product, the K splits' sums and the cells, the issue of the next step's prefetch, and the grid barrier. Runs each
+kernel at the main-path shapes, at the
 NetHack, AllegroHandLSTM and Doom learners' and at the multichip configuration's gathered GRU,
 and prints one JSON line per case: the mean
 cycles per block and step of each phase, the kernel's time over back-to-back launches
 (CUDA events), the plan, and the clusters (blocks an SM) of that plan the card runs at
 once. The clock calls cost a few cycles a phase; the kernel times of `chip_smoke.py` come
-from the plain build. Needs a CUDA card.
+from the plain build. The grid backward is also timed built without its dg loads, without its
+product and without both (BWD_ABLATIONS), in turns with the plain build. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -38,6 +41,14 @@ CASES = [
     ("gru", 16, 4, 512, "float32"),  # the multichip configuration's gathered GRU (grid design)
 ]
 PHASES = {"cluster": ["product", "gates", "push_and_prefetch", "barrier"], "grid": ["product", "cells", "prefetch", "barrier"]}
+# the grid design of the backward at the float32 H=512 learner sites: (kind, T, B, H); its phases are the grid forward's
+# (the dg loads and the product, the splits' sums and the cells, the next step's prefetch and input loads, the barrier)
+BWD_CASES = [("gru", 32, 64, 512), ("gru", 32, 32, 512), ("gru", 16, 4, 512), ("lstm", 32, 24, 512), ("lstm", 16, 2048, 512)]
+# the grid backward built without its dg loads, without its product, and without both (wrong results, times only),
+# timed in turns with the plain build: how much of a step each takes, and whether the two overlap
+BWD_ABLATIONS = {"plain": (), "no_loads": ("-DRNN_SEQ_BWD_ABLATE_LOADS",), "no_product": ("-DRNN_SEQ_BWD_ABLATE_PRODUCT",),
+                 "neither": ("-DRNN_SEQ_BWD_ABLATE_LOADS", "-DRNN_SEQ_BWD_ABLATE_PRODUCT")}
+BWD_ENTRIES = ("gru_seq_grid_backward", "lstm_seq_grid_backward")
 
 
 def _inputs(kind, T, B, H, dtype):
@@ -49,6 +60,31 @@ def _inputs(kind, T, B, H, dtype):
     wh = (torch.randn(H, G * H, generator=g, device="cuda") / H**0.5).to(dt)
     bh = (torch.randn(G * H, generator=g, device="cuda") * 0.1).to(dt)
     return [x, s0, resets, wh] + ([bh] if kind == "gru" else [])
+
+
+@contextlib.contextmanager
+def _library(lib):
+    """`cuda_rnn`'s launches go to `lib` (another build of the source) inside the block."""
+    load = cuda_rnn.load_library
+    cuda_rnn.load_library = lambda defines=(): lib
+    try:
+        yield
+    finally:
+        cuda_rnn.load_library = load
+
+
+def _bwd_inputs(kind, T, B, H):
+    """The backward recurrence's inputs (the saved tensors and projections a prologue makes), float32, from random data."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, s0, resets, wh, *bh = _inputs(kind, T, B, H, "float32")
+    d_out = torch.randn(T, B, H, generator=g, device="cuda")
+    d_state = torch.randn(*s0.shape, generator=g, device="cuda")
+    with torch.no_grad():
+        outs, _ = (cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm)(x, s0, resets, wh, *bh)
+        h_prev = cuda_rnn._carries_in(s0, resets, outs)
+    if kind == "gru":
+        return d_out, d_state, resets, x, h_prev @ wh + bh[0], h_prev, wh
+    return d_out, d_state, resets, x + h_prev @ wh, s0, wh
 
 
 def _batched_ms(fn, launches=20, batches=5):
@@ -97,6 +133,29 @@ def main() -> int:
             "kernel": cuda_rnn._kernel_name(kind, plan), "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(plan),
             **at_once, "card_spec": dataclasses.asdict(spec), "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
             "card": card,
+        }), flush=True)
+    ablations = {name: cuda_rnn.bind(cuda_rnn.build(defines), BWD_ENTRIES) for name, defines in BWD_ABLATIONS.items()}
+    for kind, T, B, H in BWD_CASES:
+        plan = cuda_rnn.bwd_plan(kind, B, H, "float32", spec)
+        rec = _bwd_inputs(kind, T, B, H)
+        launch = cuda_rnn._launch_gru_bwd if kind == "gru" else cuda_rnn._launch_lstm_bwd
+        with torch.no_grad():
+            ms = _batched_ms(lambda: launch(*rec), launches=5)
+            lib.rnn_seq_phases_reset()
+            launch(*rec)
+            torch.cuda.synchronize()
+        cycles = (ctypes.c_ulonglong * 4)()
+        lib.rnn_seq_phases_read(ctypes.addressof(cycles))
+        per_step = {name: cycles[i] / (plan.grid * T) for i, name in enumerate(PHASES["grid"])}
+        ablated = {}  # the plain build and the ablation builds in turns
+        for turn in (*ablations, *reversed(ablations)):
+            with _library(ablations[turn]), torch.no_grad():
+                ablated.setdefault(turn, []).append(_batched_ms(lambda: launch(*rec), launches=5))
+        print(json.dumps({
+            "kernel": f"{kind}_seq_grid_bwd", "shape": [T, B, H], "dtype": "float32", "plan": dataclasses.asdict(plan),
+            "blocks": plan.grid, "blocks_per_sm": cuda_rnn.grid_bwd_blocks_per_sm(kind, plan), "card_spec": dataclasses.asdict(spec),
+            "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
+            "ablation_ms": {name: sorted(v)[len(v) // 2] for name, v in ablated.items()}, "card": card,
         }), flush=True)
     return 0
 

@@ -680,7 +680,8 @@ def _fake_cuda(monkeypatch, calls):
 
     lib = types.SimpleNamespace(**{name: entry(name) for name in ("gru_grid_forward", "lstm_grid_forward", "gru_seq_forward",
                                                                   "lstm_seq_forward", "gru_rows_forward", "lstm_rows_forward",
-                                                                  "gru_seq_backward", "lstm_seq_backward")})
+                                                                  "gru_seq_backward", "lstm_seq_backward", "gru_seq_grid_backward",
+                                                                  "lstm_seq_grid_backward")})
     lib.max_active_clusters = lambda gates, is_bf16, size, smem: {8: 13, 16: 0}[size]
     monkeypatch.setattr(cuda_rnn, "load_library", lambda defines=(): lib)
 
@@ -863,16 +864,18 @@ def _cotangents(out, state, seed=1):
 @pytest.mark.parametrize("T,B,H", CARD_SHAPES + [(3, 5, 100), (2, 3, 1)])
 def test_backward_kernel_matches_plain_on_card(cuda_device, kind, dtype, T, B, H):
     """The backward with the kernel as its recurrence against the same prologue and epilogue around the plain
-    recurrence, from the kernel forward's outputs: one launch of the backward kernel, no other."""
+    recurrence, from the kernel forward's outputs: one launch of the planned backward kernel (the grid design's in
+    float32 where the forward takes the grid design, else the row design's), no other."""
     backward, plain, _ = _backward_pieces(kind)
     args = _inputs(kind, T, B, H, dtype, cuda_device, seed=9)
+    planned = cuda_rnn._bwd_kernel_name(kind, cuda_rnn.bwd_plan(kind, B, H, dtype, cuda_rnn.card_spec(cuda_device)))
     with torch.no_grad():
         out, state = _fns(kind)[0](*args)
         d_out, d_state = _cotangents(out, state)
         cuda_rnn.reset_launch_counts()
         got = backward(*args, out, d_out, d_state)
         torch.cuda.synchronize()
-        assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, f"{kind}_seq_bwd": 1}
+        assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, planned: 1}
         want = backward(*args, out, d_out, d_state, recurrence=plain)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
@@ -984,3 +987,257 @@ def test_a_refused_backward_launch_names_the_shape_rows_and_sms(monkeypatch):
                                            r", 5 blocks, .* on a card of 114 SMs"):
         cuda_rnn._launch_gru_bwd(torch.zeros(T, B, H), torch.zeros(B, H), args[2], args[0], args[0], torch.zeros(T, B, H), args[3])
     assert cuda_rnn.launch_counts() == before
+
+
+# ------------------------------------------------------------------ the backward's grid design (gru_seq_grid_bwd, lstm_seq_grid_bwd)
+
+# the five float32 H=512 learner sites (Doom, `tp` (b), the defaults, NetHack, AllegroHandLSTM) and the sites that keep
+# the row design: bf16 (`main`, `selfplay`, `host_rnn`) and float32 at H <= 256 (`lstm`, DMLab's core and instruction
+# encoder, `dp_host`)
+BWD_GRID_SITES = [("gru", 32, 64, 512), ("gru", 16, 4, 512), ("gru", 32, 32, 512), ("lstm", 32, 24, 512), ("lstm", 16, 2048, 512)]
+BWD_ROW_SITES = [("gru", 32, 512, 256, "bfloat16"), ("gru", 32, 512, 512, "bfloat16"), ("gru", 32, 256, 256, "bfloat16"),
+                 ("lstm", 32, 128, 256, "float32"), ("lstm", 32, 32, 256, "float32"), ("lstm", 16, 1024, 64, "float32"),
+                 *[("gru", 32, B, 256, "float32") for B in (128, 131, 37, 255)]]
+# the grid backward's plan at each grid site on each card the planner is held to (Plan's fields): 4 x 4 accumulators a
+# thread; at small B K split 16 or 32 ways (a cell a thread), slices of 16 units where they fill the SMs, 8 or 4 where the
+# rows are too few; AllegroHandLSTM's 512 rows in chunks of 16 columns (688 and 1024 in 2 passes on the smaller cards)
+BWD_GRID_PLANS = {
+    "": [("grid", 32, 16, 16, 197120, 128, 4, 4, 32, 512, 1, 512), ("grid", 128, 4, 4, 43136, 128, 4, 4, 32, 512, 1, 32),
+         ("grid", 32, 8, 16, 147712, 128, 4, 4, 32, 512, 1, 256), ("grid", 64, 12, 8, 127360, 128, 4, 4, 32, 512, 1, 192),
+         ("grid", 32, 512, 16, 212992, 128, 4, 4, 1, 16, 1, 512)],
+    "114-13-0": [("grid", 32, 24, 16, 221952, 96, 4, 4, 16, 512, 1, 384), ("grid", 64, 4, 8, 69760, 64, 4, 4, 32, 512, 1, 64),
+                 ("grid", 32, 12, 16, 172416, 96, 4, 4, 32, 512, 1, 384), ("grid", 32, 8, 16, 180480, 96, 4, 4, 32, 512, 1, 256),
+                 ("grid", 32, 688, 16, 230144, 96, 4, 4, 1, 32, 2, 344)],
+    "66-7-3": [("grid", 32, 32, 16, 197632, 64, 4, 4, 16, 256, 1, 512), ("grid", 64, 4, 8, 69760, 64, 4, 4, 32, 512, 1, 64),
+               ("grid", 32, 16, 16, 197120, 64, 4, 4, 32, 512, 1, 512), ("grid", 32, 12, 16, 205184, 64, 4, 4, 32, 512, 1, 384),
+               ("grid", 32, 1024, 16, 212992, 64, 4, 4, 1, 16, 2, 512)],
+}
+BWD_SITE_IDS = ["-".join(map(str, site)) for site in BWD_GRID_SITES]
+
+
+@pytest.mark.parametrize("kind,dtype,B,H,spec", PLAN_CASES)
+def test_backward_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H, spec):
+    """The backward takes the grid design exactly where the forward does; a grid plan keeps one block an SM at most,
+    fits the card's shared memory, gives each (row, unit) pair to exactly one block, and its threads are the register
+    tiles of a pass times the K splits, a cell a thread where K is split; elsewhere the row design at bwd_rows."""
+    plan = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
+    assert (plan.design == "grid") == (cuda_rnn.launch_plan(kind, 32, B, H, dtype, spec).design == "grid")
+    assert plan.smem <= spec.smem_limit
+    if plan.design == "rows":
+        rows = cuda_rnn.bwd_rows(kind, B, H, dtype, spec)
+        assert plan == cuda_rnn.Plan("rows", 1, rows, H, cuda_rnn.bwd_smem(kind, H, rows, 2 if dtype == "bfloat16" else 4), -(-B // rows))
+        return
+    assert dtype == "float32" and plan == cuda_rnn.bwd_grid_plan(kind, B, H, dtype, spec)
+    assert plan.grid <= spec.sms and plan.units * plan.cluster == H and (plan.tile_rows, plan.tile_cols) == (4, 4)
+    assert plan.threads == cuda_rnn.bwd_grid_threads(plan.units, plan.rows, plan.ksplit, plan.passes)
+    assert 1 <= plan.threads <= cuda_rnn.BWD_GRID_MAX_THREADS
+    assert plan.smem == cuda_rnn.bwd_grid_smem(kind, H, plan.units, plan.rows, plan.ksplit, plan.kchunk, plan.passes)
+    assert plan.rows % (plan.passes * 4) == 0 and H % plan.kchunk == 0 and plan.kchunk % (4 * plan.ksplit) == 0
+    assert plan.ksplit == 1 or (plan.passes == 1 and plan.rows * plan.units <= plan.threads)  # a cell a thread
+    owner = np.zeros((B, H), dtype=np.int64)
+    for block in range(plan.grid):
+        tile, rank = divmod(block, plan.cluster)
+        owner[tile * plan.rows:(tile + 1) * plan.rows, rank * plan.units:(rank + 1) * plan.units] += 1
+    assert (owner == 1).all(), "every (row, unit) pair belongs to exactly one block"
+
+
+@pytest.mark.parametrize("kind,T,B,H", BWD_GRID_SITES, ids=BWD_SITE_IDS)
+def test_grid_backward_is_planned_at_the_float32_h512_learner_sites(kind, T, B, H):
+    """The five float32 H=512 learner sites take the grid backward, as their forwards take the grid design; the same
+    shapes in bf16 keep the row design."""
+    assert cuda_rnn.launch_plan(kind, T, B, H, "float32").design == "grid"
+    assert cuda_rnn.bwd_plan(kind, B, H, "float32").design == "grid"
+    assert cuda_rnn.bwd_plan(kind, B, H, "bfloat16").design == "rows"
+
+
+@pytest.mark.parametrize("kind,T,B,H,dtype", BWD_ROW_SITES, ids=["-".join(map(str, site)) for site in BWD_ROW_SITES])
+def test_backward_keeps_the_row_design_at_the_bf16_and_narrow_sites(kind, T, B, H, dtype):
+    assert cuda_rnn.bwd_grid_plan(kind, B, H, dtype) is None
+    plan = cuda_rnn.bwd_plan(kind, B, H, dtype)
+    assert plan.design == "rows" and plan.rows == cuda_rnn.bwd_rows(kind, B, H, dtype)
+
+
+@pytest.mark.parametrize("name", list(BWD_GRID_PLANS))
+@pytest.mark.parametrize("i", range(len(BWD_GRID_SITES)), ids=BWD_SITE_IDS)
+def test_grid_backward_plans_of_each_card_are_pinned(i, name):
+    kind, _, B, H = BWD_GRID_SITES[i]
+    spec = SMALL_SPECS.get(name, cuda_rnn.H100_SXM)
+    assert cuda_rnn.bwd_plan(kind, B, H, "float32", spec) == cuda_rnn.Plan(*BWD_GRID_PLANS[name][i])
+
+
+def _bwd_args(kind, T, B, H):
+    """CPU stand-ins of the backward kernel's inputs: (d_outs, d_final, resets, x_proj or proj, h_proj, h_prev or hc0, wh)."""
+    args = _inputs(kind, T, B, H, "float32", "cpu")
+    d_out, d_state = torch.zeros(T, B, H), torch.zeros(args[1].shape)
+    if kind == "gru":
+        return d_out, d_state, args[2], args[0], args[0].clone(), torch.zeros(T, B, H), args[3]
+    return d_out, d_state, args[2], args[0], None, args[1], args[3]
+
+
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_backward_launch_passes_the_grid_plan(monkeypatch, kind):
+    """At a grid site `_launch_bwd` launches `*_seq_grid_backward` with the grid plan of the tensor's card (here 114 SMs):
+    wh as it is, T, B, H, the units, rows, K splits, K chunk, passes, threads and shared memory; it counts one
+    `*_seq_grid_bwd` and no `*_seq_bwd`."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    spec = SMALL_SPECS["114-13-0"]
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: spec)
+    T, B, H = 2, 64, 512
+    d_out, d_state, resets, a, h_proj, s, wh = _bwd_args(kind, T, B, H)
+    before = cuda_rnn.launch_counts()
+    outputs = cuda_rnn._launch_bwd(kind, d_out, d_state, resets, a, h_proj, s, wh)
+    plan = cuda_rnn.bwd_plan(kind, B, H, "float32", spec)
+    assert plan.design == "grid" and plan != cuda_rnn.bwd_plan(kind, B, H, "float32")
+    (name, call), = calls
+    assert name == f"{kind}_seq_grid_backward" and len(call) == (21 if kind == "gru" else 20)
+    assert call[6 if kind == "gru" else 5] == wh.data_ptr()  # wh as given: the blocks read its rows
+    assert list(call[-11:-1]) == [T, B, H, plan.units, plan.rows, plan.ksplit, plan.kchunk, plan.passes, plan.threads, plan.smem]
+    d_hn = [(T, B, H)] if kind == "gru" else []
+    assert [tuple(o.shape) for o in outputs] == [tuple(a.shape)] + d_hn + [tuple(d_state.shape)]
+    after = cuda_rnn.launch_counts()
+    assert after[f"{kind}_seq_grid_bwd"] == before[f"{kind}_seq_grid_bwd"] + 1 and after[f"{kind}_seq_bwd"] == before[f"{kind}_seq_bwd"]
+    cuda_rnn._launches[f"{kind}_seq_grid_bwd"] -= 1
+
+
+def test_grid_backward_copies_an_input_at_an_odd_offset(monkeypatch):
+    """The grid design reads its inputs in 16-byte pieces: x_proj as a view one float into a buffer reaches the kernel as
+    a copy on 16 bytes, with the same values; the aligned inputs pass as they are."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: cuda_rnn.H100_SXM)
+    T, B, H = 2, 64, 512
+    d_out, d_state, resets, a, h_proj, s, wh = _bwd_args("gru", T, B, H)
+    odd = torch.empty(a.numel() + 1)[1:].view_as(a).copy_(a)
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    cuda_rnn._launch_bwd("gru", d_out, d_state, resets, odd, h_proj, s, wh)
+    (_, call), = calls
+    assert call[3] % 16 == 0 and call[3] != odd.data_ptr() and call[:3] == (d_out.data_ptr(), d_state.data_ptr(), resets.data_ptr())
+    cuda_rnn._launches["gru_seq_grid_bwd"] -= 1
+
+
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_rows_force_the_row_design_at_a_grid_site(monkeypatch, kind):
+    """`rows=` launches the row design whatever the shape (phase `bwd` times it beside the grid design): wh^T, the rows
+    and their shared memory to `*_seq_backward`, counted as `*_seq_bwd`."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: cuda_rnn.H100_SXM)
+    T, B, H = 2, 64, 512
+    d_out, d_state, resets, a, h_proj, s, wh = _bwd_args(kind, T, B, H)
+    before = cuda_rnn.launch_counts()[f"{kind}_seq_bwd"]
+    cuda_rnn._launch_bwd(kind, d_out, d_state, resets, a, h_proj, s, wh, rows=1)
+    (name, call), = calls
+    assert name == f"{kind}_seq_backward" and list(call[-7:-1]) == [T, B, H, 0, 1, cuda_rnn.bwd_smem(kind, H, 1, 4)]
+    assert cuda_rnn.launch_counts()[f"{kind}_seq_bwd"] == before + 1
+    cuda_rnn._launches[f"{kind}_seq_bwd"] -= 1
+
+
+def test_a_refused_grid_backward_launch_names_the_plan_and_the_sms(monkeypatch):
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    lib = cuda_rnn.load_library()
+    lib.lstm_seq_grid_backward = lambda *args: 720  # cudaErrorCooperativeLaunchTooLarge
+    lib.lstm_seq_grid_backward.__name__ = "lstm_seq_grid_backward"
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: SMALL_SPECS["66-7-3"])
+    before = cuda_rnn.launch_counts()
+    with pytest.raises(RuntimeError, match=r"lstm_seq_grid_backward launch failed: CUDA error 720 \(T=2, B=24, H=512, torch.float32: "
+                                           r"plan Plan\(design='grid'.*: 2 batch tiles x 32 slices of 16 units, 384 threads, 205184 bytes"
+                                           r" of shared memory, on a card of 66 SMs"):
+        cuda_rnn._launch_bwd("lstm", *_bwd_args("lstm", 2, 24, 512))
+    assert cuda_rnn.launch_counts() == before
+
+
+def test_the_grid_backward_refuses_bf16(monkeypatch):
+    _fake_cuda(monkeypatch, [])
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: cuda_rnn.H100_SXM)
+    d_out, d_state, resets, a, h_proj, s, wh = _bwd_args("gru", 2, 64, 512)
+    plan = cuda_rnn.bwd_grid_plan("gru", 64, 512, "float32")
+    with pytest.raises(ValueError, match="the grid backward takes float32"):
+        cuda_rnn._launch_bwd("gru", d_out, d_state, resets, a.bfloat16(), h_proj.bfloat16(), s, wh.bfloat16(), plan=plan)
+
+
+# the grid backward on the card: the float32 CARD_SHAPES it takes, the five sites, and ragged last batch tiles: 37 rows in
+# tiles of 12 (K split), 130 in tiles of 36 and 1100 in tiles of 276 (no K split)
+BWD_GRID_CARD_SHAPES = ([(kind, T, B, H) for kind in ("gru", "lstm") for T, B, H in CARD_SHAPES
+                         if cuda_rnn.launch_plan(kind, T, B, H, "float32").design == "grid"]
+                        + BWD_GRID_SITES + [("gru", 7, 37, 512), ("lstm", 3, 130, 512), ("lstm", 2, 1100, 512)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T,B,H", BWD_GRID_CARD_SHAPES, ids=["-".join(map(str, s)) for s in BWD_GRID_CARD_SHAPES])
+def test_grid_backward_matches_plain_on_card(cuda_device, kind, T, B, H):
+    """The grid backward kernel against its plain recurrence on the same inputs, within BWD_TOL (float32: the order of the
+    product's sums alone); one `*_seq_grid_bwd` launch, no other."""
+    _, plain, launch = _backward_pieces(kind)
+    plan = cuda_rnn.bwd_plan(kind, B, H, "float32", cuda_rnn.card_spec(cuda_device))
+    assert plan.design == "grid"
+    args = _inputs(kind, T, B, H, "float32", cuda_device, seed=13)
+    with torch.no_grad():
+        out, state = _fns(kind)[0](*args)
+        d_out, d_state = _cotangents(out, state)
+        h_prev = cuda_rnn._carries_in(args[1], args[2], out)
+        rec = ((d_out, d_state, args[2], args[0], h_prev @ args[3] + args[4], h_prev, args[3]) if kind == "gru"
+               else (d_out, d_state, args[2], args[0] + h_prev @ args[3], args[1], args[3]))
+        cuda_rnn.reset_launch_counts()
+        got = launch(*rec)
+        torch.cuda.synchronize()
+        assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, f"{kind}_seq_grid_bwd": 1}
+        want = plain(*rec)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) <= BWD_TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_grid_backward_on_resets_and_saturated_gates(cuda_device, kind):
+    """The grid design at Doom's and NetHack's width: rows reset at every step and sigmoid gates below -88 give finite
+    gradients, the saturated gates' exactly 0, equal to the plain recurrence's."""
+    backward, plain, _ = _backward_pieces(kind)
+    T, B, H = 8, 64, 512
+    args = _masked_inputs(kind, T, B, H, "float32", cuda_device)
+    assert cuda_rnn.bwd_plan(kind, B, H, "float32", cuda_rnn.card_spec(cuda_device)).design == "grid"
+    sigmoid_gates = [0, 1] if kind == "gru" else [0, 1, 3]
+    for g in sigmoid_gates:
+        args[0][:, :8, g * H:(g + 1) * H] = -200.0
+    with torch.no_grad():
+        out, state = _fns(kind)[0](*args)
+        cuda_rnn.reset_launch_counts()
+        got = backward(*args, out, *_cotangents(out, state))
+        assert cuda_rnn.launch_counts()[f"{kind}_seq_grid_bwd"] == 1
+        want = backward(*args, out, *_cotangents(out, state), recurrence=plain)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for g in sigmoid_gates:
+        assert bool((got[0][:, :8, g * H:(g + 1) * H] == 0).all()), f"gate {g} below -88 has a gradient"
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) / max(1.0, float(w.abs().max())) <= BWD_TOL["float32"]
+
+
+@pytest.mark.cuda
+def test_a_grid_backward_plan_the_card_cannot_hold_at_once_is_refused(cuda_device):
+    """AllegroHandLSTM's grid backward planned for twice this card's SMs, at the shared memory of one block an SM, is refused
+    before launch (cudaErrorCooperativeLaunchTooLarge), counts nothing, and the next launch runs (P6)."""
+    spec = cuda_rnn.card_spec(cuda_device)
+    plan = cuda_rnn.bwd_grid_plan("lstm", 2048, 512, "float32", dataclasses.replace(spec, sms=2 * spec.sms))
+    assert plan.grid > spec.sms and cuda_rnn.grid_bwd_blocks_per_sm("lstm", plan) == 1
+    T, B, H = 2, 2048, 512
+    args = _inputs("lstm", T, B, H, "float32", cuda_device)
+    d_out, d_state = torch.zeros(T, B, H, device=cuda_device), torch.zeros(B, 2 * H, device=cuda_device)
+    before = cuda_rnn.launch_counts()
+    with pytest.raises(RuntimeError, match=r"lstm_seq_grid_backward launch failed: CUDA error 720 .*SMs"):
+        cuda_rnn._launch_lstm_bwd(d_out, d_state, args[2], args[0], args[1], args[3], plan=plan)
+    assert cuda_rnn.launch_counts() == before
+    with torch.no_grad():
+        got = cuda_rnn._launch_lstm_bwd(d_out, d_state, args[2], args[0], args[1], args[3])
+        torch.cuda.synchronize()
+    assert cuda_rnn.launch_counts()["lstm_seq_grid_bwd"] == before["lstm_seq_grid_bwd"] + 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T,B,H", BWD_GRID_SITES, ids=BWD_SITE_IDS)
+def test_grid_backward_plans_are_resident_at_once(cuda_device, kind, T, B, H):
+    spec = cuda_rnn.card_spec(cuda_device)
+    plan = cuda_rnn.bwd_plan(kind, B, H, "float32", spec)
+    assert plan.grid <= spec.sms and plan.grid <= cuda_rnn.grid_bwd_blocks_per_sm(kind, plan) * spec.sms
