@@ -434,10 +434,10 @@ def bench_grid_battle(b: Bench):
     launches = fields["rnn_kernel_launches"]
     fields["gru_seq_launches_per_iteration"] = launches["gru_seq"] / fields["iterations_counted"]
     if b.device.type == "cuda":
-        want = {name: fields["iterations_counted"] * minibatches if name in ("gru_seq", "gru_seq_bwd") else 0 for name in launches}
+        want = {name: fields["iterations_counted"] * minibatches if name in ("gru_seq", "gru_seq_cluster_bwd") else 0 for name in launches}
         if launches != want:
             raise RuntimeError(f"RNN kernel launches {launches}, expected {want}: gru_seq (cluster design) and its backward "
-                               "gru_seq_bwd once a minibatch")
+                               "gru_seq_cluster_bwd once a minibatch")
     return fps, cfg.num_envs, fields
 
 
@@ -991,7 +991,7 @@ def s_grid_battle(b: Bench) -> dict:
         "vs_baseline": round(fps / VIZDOOM_XEON_FPS, 3),
         **fields,
         "note": f"{n} on-device 24x24x3 pixel envs, IMPALA conv + GRU-256, bf16, on {b.card}: the BPTT recurrence in the "
-        "hand-written gru_seq kernel (cluster design) and its backward gru_seq_bwd (rnn_kernel_launches), device busy and idle share from "
+        "hand-written gru_seq kernel (cluster design) and its backward gru_seq_cluster_bwd (rnn_kernel_launches), device busy and idle share from "
         f"torch.profiler over {b.depth.profiled} iterations; vs ViZDoom battle 137,131 FPS (36-core Xeon + GPUs)",
     }
 

@@ -15,21 +15,24 @@ Phases, each printing one JSON line:
             (32, 32, 512), (32, 24, 512) and (16, 2048, 512): grid; dp_host's GRU-256 at 37, 128, 131 and 255
             segments: clusters of 8; DMLab's LSTM-64 over a minibatch, (16, 1024, 64): rows); the gradient goes
             through the backward kernel; then the planned backward kernels (the grid design, `gru_seq_grid_bwd`,
-            `lstm_seq_grid_bwd`, where the forward takes the grid design; the row design, `gru_seq_bwd`,
-            `lstm_seq_bwd`, elsewhere) against their plain recurrence (the same prologue, epilogue and inputs) and
-            against the remat (the plain forward rerun under autograd, the CPU's backward) at the parity shapes in
-            both dtypes, at every learner site (BWD_SITES), on rows reset at every step and on gates saturated below -88
+            `lstm_seq_grid_bwd`, where the forward takes the grid design; the cluster design, `gru_seq_cluster_bwd`,
+            `lstm_seq_cluster_bwd`, where it takes the cluster design; the row design, `gru_seq_bwd`,
+            `lstm_seq_bwd`, elsewhere: DMLab's instruction encoder over a minibatch, bf16 at H=1024) against their
+            plain recurrence (the same prologue, epilogue and inputs) and against the remat (the plain forward rerun
+            under autograd, the CPU's backward) at the parity shapes in both dtypes, at every learner site
+            (BWD_SITES), on rows reset at every step and on gates saturated below -88, in both dtypes
   timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
             nethack, isaacgym, dp_host, tp and defaults paths' shapes, warm and with L2 flushed, beside the first
             design (rows) at the same shapes (and the cluster plan where the row design takes its place), in turns in
             one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a yardstick
-  bwd       at every learner site: the planned backward kernel alone (warm and L2-cold; at the five grid sites in
-            turns with the row design at the same shape), the whole backward (prologue, kernel, epilogue), the plain
-            recurrence and the remat, in turns, in CUDA-event and host-clock ms and the device's busy ms; the
-            kernel's bound, bytes and operations
+  bwd       at every learner site: the planned backward kernel alone (warm and L2-cold; at the grid and cluster
+            sites in turns with the row design at the same shape, and where the other count of receive buffers takes
+            other rows, `selfplay`, with that plan too), the whole backward (prologue, kernel,
+            epilogue) and the remat in turns at the first site of each kernel, in CUDA-event and host-clock ms and the
+            device's busy ms; the plain recurrence; the kernel's bound, bytes and operations
   plans     the plans made for smaller cards (SMALLER_CARDS: 114 SMs with clusters {8: 13, 16: 0}, 66 SMs with
             {8: 7, 16: 3}) at the grid and cluster sites, launched on this card against the plain version and
-            timed warm in turns with this card's own plan
+            timed warm in turns with this card's own plan; the same for the backward's cluster plans at its sites
   main      sync PPO on grid_battle at full width (IMPALA conv, GRU-256, bf16,
             1024 envs, rollout 32) for 3 iterations through `run_rl`'s runner
   breakdown one more main-path iteration: rollout and learner times, then one under
@@ -91,7 +94,8 @@ Phases, each printing one JSON line:
             configuration with --async_rl=False in turns with it
   host_rnn  the same with GRU-256 over BPTT segments of 32 in bf16, 3 iterations: the learner's
             `gru_seq` launches at (32, 256, 256), none in the rollout's step mode; then the learner's train
-            call on the last trajectory in turns with the backward kernel and with the remat (`learner_turns`)
+            call on the last trajectory in turns with the planned backward kernel (`gru_seq_cluster_bwd`), the row
+            design's (`gru_seq_bwd`) and the remat (`learner_turns`)
   dp_host   the host runners under a process group, in child processes that import nothing of JAX: (a) two
             gloo ranks on cuda:0 (LOCAL_RANK=0 in both), each with its own sampler over 1 worker x 256
             `bench_host_pixel` envs, `host_rnn` in float32 with the quantized learner (2 shuffled minibatches
@@ -146,10 +150,11 @@ Then a `kernels` line (each kernel's launches per path, `dp` and `dp2` (the two 
 runs) and `dp_host` included, and per design: cluster, `*_seq`, grid, `*_seq_grid`, and rows,
 `*_seq_rows`; `gru_seq_grid` and `lstm_seq_grid` also as kernels of their own, by site: the Doom learner, `tp`'s
 multichip leg and the defaults, the NetHack and AllegroHandLSTM learners, beside the row design at the same
-shapes; the backward's designs, `gru_seq_bwd` and `lstm_seq_bwd` (rows) and `gru_seq_grid_bwd` and `lstm_seq_grid_bwd`
-(grid), by path and at every learner site each runs, the grid design beside the row design at the same shapes); every
-recurrent path's launches hold one backward launch for each learner forward launch (rollouts run under no_grad and
-launch none), of the grid design exactly for the grid forward's; the card's name and power limit, and the result line.
+shapes; the backward's designs, `gru_seq_bwd` and `lstm_seq_bwd` (rows), `gru_seq_grid_bwd` and `lstm_seq_grid_bwd`
+(grid) and `gru_seq_cluster_bwd` and `lstm_seq_cluster_bwd` (cluster), by path and at every learner site each runs, the
+grid and cluster designs beside the row design at the same shapes); every recurrent path's launches hold one backward
+launch for each learner forward launch (rollouts run under no_grad and launch none), of the forward's design; the card's
+name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
 """
 
@@ -211,17 +216,22 @@ PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "grid", 128), *[("gru", *shape, "cluste
                       ("lstm", *DMLAB_INSTR_LEARNER, "rows", 1), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
                       ("lstm", *NETHACK_LSTM_BATCH, "grid", 128), ("lstm", *NETHACK_LSTM, "grid", 128),
                       ("lstm", *ALLEGRO_LSTM, "grid", 32)]
+# GRU-1024 bf16 over 16 segments of 16 steps (--rnn_size=1024): no cluster slice fits, so the forward and the backward keep
+# the row design; no path runs it
+GRU_1024 = (16, 16, 1024, "bfloat16")
 # the learner sites of the backward kernels (every forward launch that needs a gradient is a learner's):
-# site -> (kind, shape, the path that runs it); phases `parity` and `bwd` hold and time the backward at each
+# site -> (kind, shape, the path that runs it, or None); phases `parity` and `bwd` hold and time the backward at each
 BWD_SITES = {"main": ("gru", MAIN_GRU, "main"), "selfplay": ("gru", SELFPLAY_GRU, "selfplay"), "host_rnn": ("gru", HOST_GRU, "host_rnn"),
              "doom_learner": ("gru", DOOM_GRU, "doom"), "defaults": ("gru", DEFAULTS_GRU, "defaults"),
              "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"), **{f"dp_host_{s[1]}": ("gru", s, "dp_host") for s in DP_HOST_GRUS},
              "lstm": ("lstm", MAIN_LSTM, "lstm"), "dmlab_core": ("lstm", DMLAB_CORE, "dmlab"),
              "dmlab_instruction_learner": ("lstm", DMLAB_INSTR_LEARNER, "dmlab"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
-             "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym")}
-# the backward kernel of each design (cuda_rnn.bwd_plan: the grid design exactly at GRID_SITES) -> the learner site whose
-# numbers the kernels line gives first, the first of its kind in BWD_SITES
-BWD_LINE_SITES = {"gru_seq_bwd": "main", "lstm_seq_bwd": "lstm", "gru_seq_grid_bwd": "doom_learner", "lstm_seq_grid_bwd": "nethack_learner"}
+             "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym"), "gru_1024": ("gru", GRU_1024, None)}
+# the backward kernel of each design (cuda_rnn.bwd_plan: the grid design exactly at GRID_SITES, the cluster design where the
+# forward takes it, the row design elsewhere) -> the learner site whose numbers the kernels line gives first, the first of
+# its kind and design in BWD_SITES
+BWD_LINE_SITES = {"gru_seq_cluster_bwd": "main", "lstm_seq_cluster_bwd": "lstm", "gru_seq_grid_bwd": "doom_learner",
+                  "lstm_seq_grid_bwd": "nethack_learner", "gru_seq_bwd": "gru_1024", "lstm_seq_bwd": "dmlab_instruction_learner"}
 # the sites of the grid design that the kernels line reports one by one: site -> (kind, shape, the path that runs it)
 GRID_SITES = {"doom_learner": ("gru", DOOM_GRU, "doom"), "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"),
               "defaults": ("gru", DEFAULTS_GRU, "defaults"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
@@ -264,6 +274,8 @@ REPLACES = {
     "lstm_seq_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
     "gru_seq_grid_bwd": "sample_factory_tpu/ops/pallas_gru.py:189",
     "lstm_seq_grid_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
+    "gru_seq_cluster_bwd": "sample_factory_tpu/ops/pallas_gru.py:189",
+    "lstm_seq_cluster_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
 }
 # the designs (cluster: `gru_seq`/`lstm_seq`; grid: `gru_seq_grid`/`lstm_seq_grid`; rows: `gru_seq_rows`/`lstm_seq_rows`);
 # the kernels line reports the cluster designs at their main paths' shapes, the grid designs at the doom and
@@ -312,26 +324,25 @@ def forward_launches(counts):
 
 
 def backward_launches(counts):
-    """The backward kernels' launches, both designs (`*_seq_bwd`, `*_seq_grid_bwd`)."""
+    """The backward kernels' launches, every design (`*_seq_bwd`, `*_seq_grid_bwd`, `*_seq_cluster_bwd`)."""
     return sum(v for k, v in counts.items() if k.endswith("_bwd"))
 
 
 def others(counts, *names):
-    """The launches of every kernel but `names` and the backward kernels of their kinds (both designs)."""
-    keep = set(names) | {f"{name.split('_seq')[0]}_seq{design}_bwd" for name in names for design in ("", "_grid")}
+    """The launches of every kernel but `names` and the backward kernels of their kinds (every design)."""
+    keep = set(names) | {f"{name.split('_seq')[0]}_seq{design}_bwd" for name in names for design in ("", "_grid", "_cluster")}
     return {k: v for k, v in counts.items() if k not in keep}
 
 
 def check_backward_launches(counts, where):
     """One backward launch for each forward launch: `counts` are those of the launches that needed a gradient
-    (rollouts, value passes and model checks run under no_grad, outside them). The backward takes the grid design
-    exactly where the forward does (cuda_rnn.bwd_plan), so each grid forward pairs with a `*_seq_grid_bwd` and each
-    forward of another design with a `*_seq_bwd`."""
+    (rollouts, value passes and model checks run under no_grad, outside them). The backward takes the grid and the
+    cluster designs exactly where the forward does (cuda_rnn.bwd_plan), so each grid forward pairs with a
+    `*_seq_grid_bwd`, each cluster forward with a `*_seq_cluster_bwd` and each row forward with a `*_seq_bwd`."""
     for kind in ("gru", "lstm"):
-        grid = counts[f"{kind}_seq_grid"]
-        rest = sum(v for k, v in counts.items() if k.startswith(f"{kind}_seq") and not k.endswith("_bwd")) - grid
-        got = {"grid": counts[f"{kind}_seq_grid_bwd"], "rows": counts[f"{kind}_seq_bwd"]}
-        check(got == {"grid": grid, "rows": rest}, f"{where}: {kind} backward launches {got}, expected {{'grid': {grid}, 'rows': {rest}}}: {counts}")
+        want = {"grid": counts[f"{kind}_seq_grid"], "cluster": counts[f"{kind}_seq"], "rows": counts[f"{kind}_seq_rows"]}
+        got = {"grid": counts[f"{kind}_seq_grid_bwd"], "cluster": counts[f"{kind}_seq_cluster_bwd"], "rows": counts[f"{kind}_seq_bwd"]}
+        check(got == want, f"{where}: {kind} backward launches {got}, expected {want}: {counts}")
 
 
 def parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=False):
@@ -398,7 +409,8 @@ def phase_parity(torch, cuda_rnn):
             for T, B, H in PARITY_SHAPES:
                 bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype)
         for variant in ("resets_every_step", "saturated"):
-            bwd_parity_case(torch, cuda_rnn, kind, 8, 64, 256, "float32", variant)
+            for dtype in ("float32", "bfloat16"):
+                bwd_parity_case(torch, cuda_rnn, kind, 8, 64, 256, dtype, variant)
     for site, (kind, (T, B, H, dtype), _) in BWD_SITES.items():
         name = cuda_rnn._bwd_kernel_name(kind, cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC))
         main_err[f"{name}@{site}"] = bwd_parity_case(torch, cuda_rnn, kind, T, B, H, dtype, site=site)
@@ -513,11 +525,13 @@ def host_ms(torch, fn, reps):
 
 
 def phase_bwd(torch, cuda_rnn, card):
-    """At each learner site (BWD_SITES): the planned backward kernel alone (CUDA events, warm and L2-cold; at the grid
-    design's sites in turns with the row design at the same shape: grid, rows, rows, grid), the whole new backward
-    (prologue, kernel, epilogue) and the remat (the plain forward rerun under autograd), in turns (new, remat, remat,
-    new), in CUDA-event ms and host-clock ms, and each under the profiler (the device's busy ms); the kernel's bound,
-    bytes and operations. Returns the kernels line's numbers by site."""
+    """At each learner site (BWD_SITES): the planned backward kernel alone (CUDA events, warm and L2-cold; at the grid and
+    cluster designs' sites in turns with the row design at the same shape: planned, rows, rows, planned; where the other
+    count of receive buffers takes other rows, that plan too: planned, rows, other, other, rows, planned), the plain
+    recurrence, the kernel's bound, bytes and operations; at the first site of each kernel (BWD_LINE_SITES) also the whole
+    new backward (prologue, kernel, epilogue) and the remat (the plain forward rerun under autograd), in turns (new, remat,
+    remat, new), in CUDA-event ms and host-clock ms, and each under the profiler (the device's busy ms). Returns the
+    kernels line's numbers by site."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     start, out = time.perf_counter(), {}
     for site, (kind, (T, B, H, dtype), path) in BWD_SITES.items():
@@ -527,44 +541,56 @@ def phase_bwd(torch, cuda_rnn, card):
         plan = cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC)
         rows = cuda_rnn.bwd_rows(kind, B, H, dtype, SPEC)
         designs = {"planned": lambda: launch(*recurrence)}
-        if plan.design == "grid":
+        if plan.design != "rows":
             designs["rows"] = lambda: launch(*recurrence, rows=rows)
+        # the other receive-buffer count, where it takes other rows (`selfplay`: two buffers at 16 rows against the plan's one at 32)
+        other = cuda_rnn.bwd_cluster_plan(kind, B, H, dtype, SPEC, buffers=3 - plan.buffers) if plan.design == "cluster" else None
+        if other is not None and other.rows != plan.rows:
+            designs["other_buffers"] = lambda: launch(*recurrence, plan=other)
         kernel = {d: {"warm": [], "l2_cold": []} for d in designs}
         with torch.no_grad():
-            for d in (("planned", "rows", "rows", "planned") if plan.design == "grid" else ("planned",)):
+            for d in [*designs, *reversed(designs)] if len(designs) > 1 else ["planned"]:
                 kernel[d]["warm"].append(time_ms(torch, designs[d]))
                 kernel[d]["l2_cold"].append(time_ms(torch, designs[d], flush=flush))
             plain_ms = time_ms(torch, lambda: plain(*recurrence), reps=BWD_REPS)
         kernel_ms, kernel_ms_l2_cold = (statistics.median(kernel["planned"][k]) for k in ("warm", "l2_cold"))
-        turns = {w: {"device_ms": [], "host_ms": []} for w in ways}
-        for w in ("new", "remat", "remat", "new"):
-            turns[w]["device_ms"].append(time_ms(torch, ways[w], reps=BWD_REPS))
-            turns[w]["host_ms"].append(host_ms(torch, ways[w], BWD_REPS))
-        # the second of two profiled calls: a first one has recorded no device activity
-        busy = {w: [profiled_device_time(fn) for _ in range(2)][-1][1] / 1e3 for w, fn in ways.items()}
         bound_ms, bound_by, nbytes, flops = bwd_bound(kind, T, B, H, dtype)
-        row = {"kernel_ms": kernel_ms, "kernel_ms_l2_cold": kernel_ms_l2_cold, "plain_recurrence_ms": plain_ms,
-               "whole_ms": statistics.median(turns["new"]["device_ms"]), "whole_host_ms": statistics.median(turns["new"]["host_ms"]),
-               "remat_ms": statistics.median(turns["remat"]["device_ms"]), "remat_host_ms": statistics.median(turns["remat"]["host_ms"]),
-               "whole_device_busy_ms": busy["new"], "remat_device_busy_ms": busy["remat"], "bound_ms": bound_ms, "bound_by": bound_by}
-        if plan.design == "grid":
-            row.update(rows_kernel_ms=statistics.median(kernel["rows"]["warm"]), rows_kernel_ms_l2_cold=statistics.median(kernel["rows"]["l2_cold"]))
+        row = {"kernel_ms": kernel_ms, "kernel_ms_l2_cold": kernel_ms_l2_cold, "plain_recurrence_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        turns, whole = {w: {"device_ms": [], "host_ms": []} for w in ways}, site in BWD_LINE_SITES.values()
+        if whole:
+            for w in ("new", "remat", "remat", "new"):
+                turns[w]["device_ms"].append(time_ms(torch, ways[w], reps=BWD_REPS))
+                turns[w]["host_ms"].append(host_ms(torch, ways[w], BWD_REPS))
+            # the second of two profiled calls: a first one has recorded no device activity
+            busy = {w: [profiled_device_time(fn) for _ in range(2)][-1][1] / 1e3 for w, fn in ways.items()}
+            row.update(whole_ms=statistics.median(turns["new"]["device_ms"]), whole_host_ms=statistics.median(turns["new"]["host_ms"]),
+                       remat_ms=statistics.median(turns["remat"]["device_ms"]), remat_host_ms=statistics.median(turns["remat"]["host_ms"]),
+                       whole_device_busy_ms=busy["new"], remat_device_busy_ms=busy["remat"],
+                       whole_over_remat_host=statistics.median(turns["new"]["host_ms"]) / statistics.median(turns["remat"]["host_ms"]),
+                       whole_over_remat_busy=busy["new"] / busy["remat"])
+        for d in set(designs) - {"planned"}:
+            row.update({f"{d}_kernel_ms": statistics.median(kernel[d]["warm"]), f"{d}_kernel_ms_l2_cold": statistics.median(kernel[d]["l2_cold"])})
+        if "other_buffers" in designs:
+            row["other_buffers_design"] = dataclasses.asdict(other)
         name = cuda_rnn._bwd_kernel_name(kind, plan)
         emit({"phase": "bwd", "kernel": name, "site": site, "path": path, "shape": [T, B, H], "dtype": dtype,
               "design": dataclasses.asdict(plan), "row_design_rows_a_block": rows, **row, "kernel_turns": kernel, "turns": turns,
               "bytes": nbytes, "flops": flops, "kernel_share_of_bound": bound_ms / kernel_ms,
-              "whole_over_remat_host": row["whole_host_ms"] / row["remat_host_ms"],
-              "whole_over_remat_busy": row["whole_device_busy_ms"] / row["remat_device_busy_ms"],
               "reps": {"kernel": REPS, "whole_and_remat": BWD_REPS},
               "stat": "medians; *_ms: CUDA events (the stream's time, host gaps included), kernel_ms after a ~0.5 ms spin, l2_cold: "
-                      "100 MB written before each; kernel_turns: the planned design and, at a grid site, the row design in turns "
-                      "(grid, rows, rows, grid); *_host_ms: host clock between synchronizes; *_device_busy_ms: torch.profiler, the "
+                      "100 MB written before each; kernel_turns: the planned design and, at a grid or cluster site, the row design in "
+                      "turns (planned, rows, [other_buffers, other_buffers,] rows, planned); *_host_ms: host clock between synchronizes; "
+                      "*_device_busy_ms: torch.profiler, the "
                       "second of two calls; whole and remat in turns (new, remat, remat, new)", "card": card})
-        out[site] = {"shape": [T, B, H], "dtype": dtype, "ms": kernel_ms, "ms_l2_cold": kernel_ms_l2_cold, "whole_backward_ms": row["whole_ms"],
-                     "whole_backward_host_ms": row["whole_host_ms"], "whole_backward_device_busy_ms": row["whole_device_busy_ms"],
-                     "plain_ms": plain_ms, "remat_ms": row["remat_ms"], "remat_host_ms": row["remat_host_ms"],
-                     "remat_device_busy_ms": row["remat_device_busy_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                     **({"rows_ms": row["rows_kernel_ms"], "rows_ms_l2_cold": row["rows_kernel_ms_l2_cold"]} if plan.design == "grid" else {})}
+        out[site] = {"shape": [T, B, H], "dtype": dtype, "ms": kernel_ms, "ms_l2_cold": kernel_ms_l2_cold, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     **({"whole_backward_ms": row["whole_ms"], "whole_backward_host_ms": row["whole_host_ms"],
+                         "whole_backward_device_busy_ms": row["whole_device_busy_ms"], "remat_ms": row["remat_ms"],
+                         "remat_host_ms": row["remat_host_ms"], "remat_device_busy_ms": row["remat_device_busy_ms"]} if whole else {}),
+                     **({"rows_ms": row["rows_kernel_ms"], "rows_ms_l2_cold": row["rows_kernel_ms_l2_cold"]} if plan.design != "rows" else {}),
+                     **({"other_buffers": {"buffers": other.buffers, "rows": other.rows, "ms": row["other_buffers_kernel_ms"]}}
+                        if "other_buffers" in designs else {})}
     del flush
     emit({"phase": "bwd", "seconds": time.perf_counter() - start, "card": card})
     return out
@@ -589,6 +615,23 @@ def remat_backward(cuda_rnn):
         cuda_rnn.gru_seq_backward, cuda_rnn.lstm_seq_backward = gru, lstm
 
 
+@contextlib.contextmanager
+def row_backward(cuda_rnn):
+    """The backward's row design for the block, wherever the plan would take the grid or cluster design (swapped in
+    here for the learner's turns; the package has no switch)."""
+    planned = cuda_rnn.bwd_plan
+
+    def rows(kind, B, H, dtype, spec=cuda_rnn.H100_SXM):
+        itemsize = 2 if str(dtype).endswith("bfloat16") else 4  # a torch dtype or its name
+        return cuda_rnn.bwd_row_plan(kind, B, H, cuda_rnn.bwd_rows(kind, B, H, dtype, spec), itemsize)
+
+    cuda_rnn.bwd_plan = rows
+    try:
+        yield
+    finally:
+        cuda_rnn.bwd_plan = planned
+
+
 def capture_train_steps(runner, captured):
     """Keep the arguments of the quantized learner's last enqueued train step (for `learner_turns`)."""
     q = runner._quantizer
@@ -602,18 +645,19 @@ def capture_train_steps(runner, captured):
 
 
 def learner_turns(torch, cuda_rnn, runner, captured, path, card):
-    """The learner's train call (the quantized learner's enqueue and flush) on the run's last trajectory, in turns:
-    the backward kernel, the remat, the remat, the backward kernel (host clock, synced; launches of each), then
-    one call of each under the profiler (the device's busy ms). A reading, not a claim."""
+    """The learner's train call (the quantized learner's enqueue and flush) on the run's last trajectory, in turns: the
+    planned backward kernel, the row design's, the remat, the remat, the row design's, the planned kernel (host clock,
+    synced; launches of each), then one call of each under the profiler (the device's busy ms). A reading, not a claim."""
     q, (ts, traj, generator) = runner._quantizer, captured["args"]
 
     def call():
         q.enqueue(ts, traj, generator)
         q.flush()
 
-    ms, launches, busy = {"kernel": [], "remat": []}, {}, {}
-    for way in ("kernel", "remat", "remat", "kernel"):
-        with remat_backward(cuda_rnn) if way == "remat" else contextlib.nullcontext():
+    ways = {"kernel": contextlib.nullcontext, "rows": lambda: row_backward(cuda_rnn), "remat": lambda: remat_backward(cuda_rnn)}
+    ms, launches, busy = {way: [] for way in ways}, {}, {}
+    for way in list(ways) + list(reversed(ways)):
+        with ways[way]():
             torch.cuda.synchronize()
             cuda_rnn.reset_launch_counts()
             t0 = time.perf_counter()
@@ -621,16 +665,20 @@ def learner_turns(torch, cuda_rnn, runner, captured, path, card):
             torch.cuda.synchronize()
             ms[way].append((time.perf_counter() - t0) * 1e3)
             launches[way] = cuda_rnn.launch_counts()
-    for way in ("kernel", "remat"):
-        with remat_backward(cuda_rnn) if way == "remat" else contextlib.nullcontext():
+    for way in ways:
+        with ways[way]():
             _, device_us, rnn_us, _, _ = profiled_device_time(call)
         busy[way] = {"device_busy_ms": device_us / 1e3, "rnn_kernel_ms": rnn_us / 1e3}
     bwd = [k for k in launches["kernel"] if k.endswith("_bwd")]
+    rows = [k for k in bwd if k.endswith("_seq_bwd")]
     check(sum(launches["kernel"][k] for k in bwd) == forward_launches(launches["kernel"]) > 0 and not any(launches["remat"][k] for k in bwd),
           f"{path} learner turns: launches {launches}")
+    check(sum(launches["rows"][k] for k in rows) == sum(launches["rows"][k] for k in bwd) == forward_launches(launches["rows"]),
+          f"{path} learner turns: the row design's launches {launches['rows']}")
+    median = {way: statistics.median(v) for way, v in ms.items()}
     emit({"phase": "learner_turns", "path": path, "minibatches": q.num_minibatches, "train_call_ms": ms, "launches": launches,
-          "profiled": busy, "kernel_over_remat_host": statistics.median(ms["kernel"]) / statistics.median(ms["remat"]),
-          "stat": "host clock between synchronizes, in turns (kernel, remat, remat, kernel); one call of each under torch.profiler",
+          "profiled": busy, "kernel_over_remat_host": median["kernel"] / median["remat"], "kernel_over_rows_host": median["kernel"] / median["rows"],
+          "stat": "host clock between synchronizes, in turns (kernel, rows, remat, remat, rows, kernel); one call of each under torch.profiler",
           "card": card})
 
 
@@ -673,8 +721,9 @@ def bound(kind, T, B, H, dtype):
 def phase_plans(torch, cuda_rnn, card):
     """The plans made for the SMALLER_CARDS at the grid sites (PARITY_PATH_SHAPES) and the cluster sites
     (CLUSTER_SITES), launched on this card: each against the plain version at the parity phase's forward
-    tolerance, and timed warm in turns with this card's own plan (`rnn_seq_turns.against_spec`)."""
-    from sample_factory_tpu_torch.ops.rnn_seq_turns import ROUNDS, REPS, against_spec
+    tolerance, and timed warm in turns with this card's own plan (`rnn_seq_turns.against_spec`); then the backward's
+    cluster plans at its sites (BWD_SITES) against the plain recurrence at BWD_TOL, timed in turns with this card's."""
+    from sample_factory_tpu_torch.ops.rnn_seq_turns import ROUNDS, REPS as TURN_REPS, against_spec
 
     start = time.perf_counter()
     sites = [(kind, T, B, H, dtype) for kind, T, B, H, dtype, design, _ in PARITY_PATH_SHAPES if design == "grid"]
@@ -687,11 +736,33 @@ def phase_plans(torch, cuda_rnn, card):
                   "design": r["design"], "blocks": r["blocks"], "threads": r["threads"], "smem": r["smem"], "plan": r["plan"],
                   "max_abs_err": r["max_abs_err"], "tol": fwd_tol(dtype, T), "ms": r["ms"], "own_ms": r["own_ms"],
                   "own_plan": r["own_plan"], "same_plan": r["same_plan"], "ms_over_own": r["ms"] / r["own_ms"],
-                  "stat": f"median of {ROUNDS} x {REPS} CUDA-event times of one warm launch, the two plans in turns", "card": card})
+                  "stat": f"median of {ROUNDS} x {TURN_REPS} CUDA-event times of one warm launch, the two plans in turns", "card": card})
             where = f"{r['kernel']} {r['shape']} {dtype} at {sms} SMs"
             check(r["max_abs_err"] <= fwd_tol(dtype, T), f"{where}: error {r['max_abs_err']} against the plain version")
             check(r["design"] != "grid" or r["blocks"] <= sms, f"{where}: {r['blocks']} blocks")
             check(r["design"] != "cluster" or spec.clusters_at_once(r["plan"]["cluster"]) >= 1, f"{where}: {r['plan']}")
+        # the backward's cluster plans at its sites: against the plain recurrence, and timed warm in turns with this card's
+        # own plan (the card's, then the smaller card's: own, other, other, own)
+        for site, (kind, (T, B, H, dtype), _) in BWD_SITES.items():
+            plan, own = cuda_rnn.bwd_plan(kind, B, H, dtype, spec), cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC)
+            if plan.design != "cluster":
+                continue
+            _, _, plain, _, launch = backward_pieces(cuda_rnn, kind)
+            rec = backward_inputs(torch, cuda_rnn, kind, T, B, H, dtype, seed=6)[4]
+            with torch.no_grad():
+                got = launch(*rec, plan=plan)
+                torch.cuda.synchronize()
+                err = max(rel_err(g, w) for g, w in zip(got, plain(*rec)))
+                ms = {"other": [], "own": []}
+                for way in ("own", "other", "other", "own"):
+                    ms[way].append(time_ms(torch, lambda: launch(*rec, plan=plan if way == "other" else own)))
+            other_ms, own_ms = statistics.median(ms["other"]), statistics.median(ms["own"])
+            emit({"phase": "plans", "kernel": cuda_rnn._bwd_kernel_name(kind, plan), "site": site, "shape": [T, B, H], "dtype": dtype,
+                  "spec": dataclasses.asdict(spec), "plan": dataclasses.asdict(plan), "grad_rel_err_plain": err, "tol": BWD_TOL[dtype],
+                  "ms": other_ms, "own_ms": own_ms, "own_plan": dataclasses.asdict(own), "same_plan": plan == own,
+                  "ms_over_own": other_ms / own_ms, "stat": f"median of 2 x {REPS} CUDA-event times of one warm launch, in turns", "card": card})
+            check(err <= BWD_TOL[dtype], f"{site} backward at {sms} SMs: error {err} against the plain recurrence")
+            check(spec.clusters_at_once(plan.cluster) >= 1, f"{site} backward at {sms} SMs: {plan}")
     emit({"phase": "plans", "seconds": time.perf_counter() - start, "card": card})
 
 
@@ -2264,7 +2335,9 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
         expected[cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, "float32", SPEC))] += by_site[site]
     # the backward once for each learner minibatch's forward (the core and the instruction encoder); the rollout
     # and the value of the last observation run under no_grad
-    expected["lstm_seq_bwd"] = by_site["core"] + by_site["instruction_learner"]
+    for site in ("core", "instruction_learner"):
+        kind, _, B, H = sites[site]
+        expected[cuda_rnn._bwd_kernel_name(kind, cuda_rnn.bwd_plan(kind, B, H, "float32", SPEC))] += by_site[site]
     check(sum(by_site.values()) == len(shapes) and counts == expected, f"launches {counts} against {expected}, shapes {set(shapes)}")
     check(sum(episodes.values()) > 0 and not shm_segments(), f"episodes {episodes}, segments {shm_segments()}")
     cache = os.path.join(tmp, "dmlab_cache")
@@ -3417,10 +3490,21 @@ def main() -> int:
         grid_at_once[site]["backward"] = {"blocks": bwd.grid, "threads": bwd.threads, "smem": bwd.smem,
                                           "blocks_per_sm": cuda_rnn.grid_bwd_blocks_per_sm(kind, bwd)}
         check(bwd.grid <= SPEC.sms and bwd.grid <= grid_at_once[site]["backward"]["blocks_per_sm"] * sms, f"{site}: {bwd} is not resident at once")
+    # the backward takes the forward's design at every learner site; a cluster backward plan's clusters run on the card, as
+    # many at once as the spec counts for its size
+    bwd_clusters = {}
+    for site, (kind, (T, B, H, dtype), _) in BWD_SITES.items():
+        bwd, fwd = cuda_rnn.bwd_plan(kind, B, H, dtype, SPEC), cuda_rnn.launch_plan(kind, T, B, H, dtype, SPEC)
+        check(bwd.design == fwd.design, f"{site}: the backward takes {bwd}, the forward {fwd}")
+        if bwd.design == "cluster":
+            bwd_clusters[site] = {"kind": kind, "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(bwd),
+                                  "clusters": bwd.grid // bwd.cluster, "waves": cuda_rnn.cluster_waves(bwd, SPEC),
+                                  "card_runs_at_once": cuda_rnn.max_active_bwd_clusters(kind, dtype, bwd)}
+            check(bwd_clusters[site]["card_runs_at_once"] >= max(1, SPEC.clusters_at_once(bwd.cluster)), f"{site}: no cluster of {bwd} fits")
     emit({"phase": "build", "seconds": time.perf_counter() - start, "library": lib_path.name, "shm_queue_library": queue_path.name,
           "card_spec": dataclasses.asdict(SPEC), "paths_keep_the_h100_sxm_plans": SPEC.sms == cuda_rnn.H100_SXM.sms,
           "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line],
-          "clusters_at_main_shapes": at_once, "grid_at_path_shapes": grid_at_once})
+          "clusters_at_main_shapes": at_once, "grid_at_path_shapes": grid_at_once, "backward_clusters_at_sites": bwd_clusters})
 
     main_err = phase_parity(torch, cuda_rnn)
     timing = phase_timing(torch, cuda_rnn, card)
@@ -3484,16 +3568,18 @@ def main() -> int:
                    for site, (site_kind, _, path) in GRID_SITES.items() if site_kind == kind}}
         for kind in ("gru", "lstm")
     ] + [
-        # the backward kernels, each design (the row design, `*_seq_bwd`, at the bf16 and H <= 256 sites; the grid design,
-        # `*_seq_grid_bwd`, at the float32 H=512 ones): their numbers at the first learner site of their kind and design
-        # (BWD_LINE_SITES), then at each learner site it runs; ms is the kernel's, whole_backward_ms the prologue, kernel
-        # and epilogue's, plain_ms the plain recurrence's, remat_ms the remat's (the plain forward rerun under autograd);
-        # at a grid site rows_ms is the row design's kernel at the same shape, timed in turns
+        # the backward kernels, each design (the cluster design, `*_seq_cluster_bwd`, at the bf16 and H <= 256 sites; the
+        # grid design, `*_seq_grid_bwd`, at the float32 H=512 ones; the row design, `*_seq_bwd`, where the forward takes the
+        # row design: DMLab's instruction encoder over a minibatch, and GRU-1024 in bf16, which no path runs): their
+        # numbers at the first learner site of their kind and design (BWD_LINE_SITES), then at each learner site it runs;
+        # ms is the kernel's, whole_backward_ms the prologue, kernel and epilogue's, plain_ms the plain recurrence's,
+        # remat_ms the remat's (the plain forward rerun under autograd); at a grid or cluster site rows_ms is the row
+        # design's kernel at the same shape, timed in turns
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": sum(counts[name] for counts in paths.values()),
          "paths": {path: counts[name] for path, counts in paths.items()},
          "max_abs_err": main_err[name][0], "grad_rel_err": main_err[name][1], **bwd_timing[first], "library_ms": None,
-         "sites": {site: {"launches": paths[path][name], "max_abs_err": main_err[f"{name}@{site}"][0],
+         "sites": {site: {"launches": paths[path][name] if path else 0, "max_abs_err": main_err[f"{name}@{site}"][0],
                           "grad_rel_err": main_err[f"{name}@{site}"][1], **bwd_timing[site], "library_ms": None}
                    for site, (kind, _, path) in BWD_SITES.items() if f"{name}@{site}" in main_err}}
         for name, first in BWD_LINE_SITES.items()

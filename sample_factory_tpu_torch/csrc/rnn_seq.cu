@@ -4,8 +4,8 @@
 //   gru_seq_forward, gru_rows_forward, gru_grid_forward    <- _gru_kernel  (:78-109, pallas_call at :148)
 //   lstm_seq_forward, lstm_rows_forward, lstm_grid_forward <- _lstm_kernel (:226-253, pallas_call at :271)
 // and the backward rules of their custom_vjps:
-//   gru_seq_backward, gru_seq_grid_backward   <- _bwd      (:189-195, jax.vjp of the scan)
-//   lstm_seq_backward, lstm_seq_grid_backward <- _lstm_bwd (:311-315)
+//   gru_seq_backward, gru_seq_grid_backward, gru_seq_cluster_backward    <- _bwd      (:189-195, jax.vjp of the scan)
+//   lstm_seq_backward, lstm_seq_grid_backward, lstm_seq_cluster_backward <- _lstm_bwd (:311-315)
 //
 // What is computed (the input projection of all T steps is done beforehand by one matmul):
 //   GRU : h_proj = T(h @ wh, f32 accumulation) + bh; r = s(xr + hr); z = s(xz + hz);
@@ -124,6 +124,20 @@
 // a step: the plan takes the widest slices, U=16, that keep the blocks many); at small B the chain of T steps, each a
 // barrier and an L2 round trip.
 //
+// Backward, design "cluster" (seq_bwd_cluster_kernel<T, G>; C entries gru_seq_cluster_backward, lstm_seq_cluster_backward;
+// counted as gru_seq_cluster_bwd and lstm_seq_cluster_bwd): planned exactly where the forward takes its cluster design (bf16,
+// and float32 at H <= 256), with the forward's cluster and unit slice. The forward's cluster design mirrored: block r keeps
+// the forward's slice of wh (pack_wh's rows of its units' G*U gate columns) in shared memory for all T steps, where the row
+// design re-reads all of wh^T from L2 every step. Everything but the product dh_prev = dg @ wh^T is local to a unit, and a
+// block holds the gate cotangents dg of its own units only, so each block computes the partial product of its G*U columns
+// of dg with its slice, [BT][H] over K = G*U, and sends each peer the [BT][U] columns of that peer's units through
+// distributed shared memory into its receive slot r; after one cluster barrier a step each block sums its C slots in block
+// order (the result does not depend on arrival) and adds the direct term (the GRU's g*z). Exchanging dg itself would move G
+// times the data. The product: bf16 on the tensor cores (mma.sync.m16n8k16; dg, f32 as the row design keeps it, split into a
+// bf16 high part and remainder, two mmas into one f32 sum, so it keeps f32 to about 2^-16 against an exact bf16 wh; B read
+// from the forward's [K][H] layout by ldmatrix.trans), f32 in FMAs on the CUDA cores (no TF32). What bounds it: the chain of
+// T steps, each the cells, the product, its remote stores and a cluster barrier; not HBM.
+//
 // Plain C interface for ctypes. Pointers are device pointers, the stream is a cudaStream_t.
 // Nothing is allocated here; each function returns a CUDA error code: the configuration
 // check's, or cudaGetLastError() after its launch.
@@ -146,7 +160,8 @@ namespace cg = cooperative_groups;
 // results are wrong by design: -DRNN_SEQ_BWD_ABLATE_LOADS leaves out the grid backward's loads of dg, and
 // -DRNN_SEQ_BWD_ABLATE_PRODUCT its product, so that each one's time shows apart.
 #ifdef RNN_SEQ_PHASES
-__device__ unsigned long long rnn_seq_phase_cycles[4];  // product, gates, push + prefetch, barrier
+// product, gates, push + prefetch, barrier; the fifth: the cluster backward's remote stores, inside its product phase
+__device__ unsigned long long rnn_seq_phase_cycles[5];
 #define PHASE_MARK(name) const long long name = clock64()
 #define PHASE_ADD(i, from, to) \
     if (threadIdx.x == 0) atomicAdd(&rnn_seq_phase_cycles[i], static_cast<unsigned long long>((to) - (from)))
@@ -1764,6 +1779,413 @@ int launch_bwd_grid(const BwdArgs<float>& p, int U, int BT, int KS, int KC, int 
     return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------------ backward (BPTT): the cluster design
+
+// K of a cluster backward block's product: its G*U gate columns, rounded up to the mma's k16 in bf16 (the extra rows of the
+// wh slice and columns of dg are zero).
+__host__ __device__ constexpr int bwd_cluster_k(int GU, int elem) { return elem == 2 ? (GU + 15) / 16 * 16 : GU; }
+
+// Dynamic shared memory of one cluster backward block; ops/cuda_rnn.py:bwd_cluster_smem is the same formula. Each part
+// starts on 16 bytes: the block's rows of pack_wh [K][H + pad] in T; the gate cotangents of its units, dg [BT][K] (bf16: a
+// high and a low part, rows of K + 8; f32: rows of K); the receive slots of the partial products [buffers][C][BT][U] f32; the
+// stage of a step's inputs (x_proj or proj, and the GRU's h_proj, [BT][G*U] in T; h_prev or c, and d_outs, [BT][U] f32;
+// resets [BT] f32); the carried cotangents [BT][U] f32 (the direct term of dh, and the LSTM's dc).
+inline size_t bwd_cluster_smem_bytes(int G, int H, int C, int BT, int elem, int buffers) {
+    const size_t U = H / C, GU = G * U, K = bwd_cluster_k(static_cast<int>(GU), elem), HS = H + 16 / elem, R = BT;
+    const size_t dg = elem == 2 ? 2 * align16(2 * R * (K + 8)) : align16(4 * R * K);
+    return align16(elem * K * HS) + dg + align16(4 * static_cast<size_t>(buffers) * R * H) + (G == 3 ? 2 : 1) * align16(elem * R * GU) +
+           2 * align16(4 * R * U) + align16(4 * R) + (G == 4 ? 2 : 1) * align16(4 * R * U);
+}
+
+// The cycles of thread 0 in a span, added to `var`, in the phase-clock build only.
+#ifdef RNN_SEQ_PHASES
+#define PHASE_SPAN(var, from, to) var += (to) - (from)
+#else
+#define PHASE_SPAN(var, from, to)
+#endif
+
+// ldmatrix.trans: four 8x8 bf16 matrices transposed; lane l gives the row address of matrix l / 8
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+// 16-byte copies of a block's units of step rows: dst[row][g * U + e] <- src[(row0 + row) * G * H + g * H + r * U + e] for
+// rows < live (U = 1 << lu, at least 16 bytes of E). G is a constant, so that the index math is shifts and a multiply.
+template <typename E, int G>
+__device__ __forceinline__ void stage_units(E* dst, const E* src, size_t row0, int live, int H, int r, int lu) {
+    constexpr int PER = 16 / sizeof(E);
+    const int lpg = lu - (sizeof(E) == 2 ? 3 : 2), U = 1 << lu;  // lpg: log2 of the copies of a run of U
+    for (int i = threadIdx.x; i < (live * G) << lpg; i += kThreads) {
+        const int rg = i >> lpg, c = i & ((1 << lpg) - 1), row = rg / G, g = rg - row * G;
+        cp_async16(dst + rg * U + c * PER, src + (row0 + row) * G * H + g * H + r * U + c * PER);
+    }
+}
+
+// The partial product P[BT][H] = dg[BT][K] @ w[K][H] of one block on the tensor cores, dg in two bf16 parts (high and low,
+// two mmas into one f32 sum: wh is exact in bf16, so the product keeps dg's f32 to about 2^-16). A warp item is one m16 row
+// tile x NJ n8 column tiles: A from dg by ldmatrix, B from the [K][H] slice by ldmatrix.trans. The sums go from the
+// accumulators straight into the slot `slot` (this block's, at the same offset in every block) of the block that owns each
+// column (column n: block n / U, unit n % U): lanes q and q ^ 1 trade halves so that each stores 4 neighbouring columns of
+// one row, a 16-byte store through distributed shared memory. `push`: thread 0's cycles in those stores (phase build).
+template <int NJ>
+__device__ __forceinline__ void bwd_mma_push(cg::cluster_group& cluster, const __nv_bfloat16* dgh, const __nv_bfloat16* dgl,
+                                             const __nv_bfloat16* w, float* slot, int BT, int H, int K, int DS, int HS, int U,
+                                             int lu, long long& push) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const bool odd = q & 1;
+    const int groups = H / (8 * NJ);
+    for (int item = threadIdx.x >> 5; item < BT / 16 * groups; item += kThreads / 32) {
+        const int m0 = item / groups * 16, n0 = item % groups * 8 * NJ;
+        const int a_at = (m0 + (lane & 7) + (lane >> 3 & 1) * 8) * DS + (lane >> 4) * 8;
+        const __nv_bfloat16* pb = w + ((lane & 7) + (lane >> 3 & 1) * 8) * HS + n0 + (lane >> 4) * 8;
+        float d[NJ][4] = {}, e[NJ][4] = {};  // the high and the low part's sums: two independent chains of mmas
+        for (int k = 0; k < K; k += 16) {
+            uint32_t ah[4], al[4], b[NJ][2];
+            ldsm(ah, dgh + a_at + k);
+            ldsm(al, dgl + a_at + k);
+#pragma unroll
+            for (int j = 0; j < NJ; j += 2) {  // two n8 tiles per x4: rows k .. k + 15 of columns n0 + 8j .. n0 + 8j + 15
+                uint32_t r[4];
+                ldsm_t(r, pb + k * HS + j * 8);
+                b[j][0] = r[0], b[j][1] = r[1], b[j + 1][0] = r[2], b[j + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                mma_bf16(d[j], ah, b[j][0], b[j][1]);
+                mma_bf16(e[j], al, b[j][0], b[j][1]);
+            }
+        }
+        PHASE_MARK(s0);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) d[j][v] += e[j][v];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            // lane (g, q) holds rows m0 + g and m0 + g + 8 of columns 2q, 2q + 1: the even lane keeps row g, the odd row g + 8
+            const float x0 = odd ? d[j][0] : d[j][2], x1 = odd ? d[j][1] : d[j][3];
+            const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1), y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+            const float4 v = odd ? make_float4(y0, y1, d[j][2], d[j][3]) : make_float4(d[j][0], d[j][1], y0, y1);
+            const int row = m0 + g + (odd ? 8 : 0), col = n0 + j * 8 + 2 * (q & 2);
+            float* dst = slot + row * U + (col & (U - 1));
+            *reinterpret_cast<float4*>(cluster.map_shared_rank(dst, col >> lu)) = v;
+        }
+        PHASE_MARK(s1);
+        PHASE_SPAN(push, s0, s1);
+    }
+}
+
+// The same partial product in f32 FMAs on the CUDA cores (TF32 would break the f32 tolerance): a thread takes RB rows and 4
+// neighbouring columns, reads a float4 of the [K][H] slice per k and dg as broadcast float4s, and stores its RB float4 sums
+// into the owning block's slot. RB = 8 reads the slice half as often as RB = 4; it is taken where 8 warps stay busy (with 4,
+// one a scheduler, nothing hides the loads' latency).
+template <int RB>
+__device__ __forceinline__ void bwd_fma_push(cg::cluster_group& cluster, const float* dg, const float* w, float* slot, int BT, int H,
+                                             int K, int HS, int U, int lu, long long& push) {
+    const int cols = H / 4;
+    for (int it = threadIdx.x; it < cols * (BT / RB); it += kThreads) {
+        const int c = it % cols * 4, r0 = it / cols * RB;
+        float s[RB][4] = {};
+        const float* gk = dg + r0 * K;
+        for (int k = 0; k < K; k += 4) {
+            float4 wv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) wv[e] = *reinterpret_cast<const float4*>(w + (k + e) * HS + c);
+#pragma unroll
+            for (int i = 0; i < RB; ++i) {
+                const float4 a = *reinterpret_cast<const float4*>(gk + i * K + k);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float av = e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
+                    s[i][0] = fmaf(av, wv[e].x, s[i][0]);
+                    s[i][1] = fmaf(av, wv[e].y, s[i][1]);
+                    s[i][2] = fmaf(av, wv[e].z, s[i][2]);
+                    s[i][3] = fmaf(av, wv[e].w, s[i][3]);
+                }
+            }
+        }
+        PHASE_MARK(s0);
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+            float* dst = slot + (r0 + i) * U + (c & (U - 1));
+            *reinterpret_cast<float4*>(cluster.map_shared_rank(dst, c >> lu)) = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+        }
+        PHASE_MARK(s1);
+        PHASE_SPAN(push, s0, s1);
+    }
+}
+
+// The forward's cluster design mirrored, in reverse time (G = 3: the GRU, 4: the LSTM). A cluster of C blocks owns BT batch
+// rows; block r owns the U = H / C units r*U .. r*U+U-1 and keeps pack_wh's rows of them (the forward's slice: its G*U gate
+// columns of wh, each a row of H) in shared memory for all T steps. Per step t, T-1 down to 0:
+//   - the cells of its units take their new state's cotangent g = d_outs[t] + dh (dh: the C receive slots of step t+1 summed
+//     in block order 0..C-1, plus the direct term; the final state's cotangent at t = T-1; 0 after a reset), recompute their
+//     gates from the staged pre-activations in T as seq_bwd_kernel does (each op rounded to T, the -88 clamp), write
+//     d_x_proj[t] (and the GRU's d_hn[t]), and keep their gate cotangents dg [BT][G*U] in f32 (bf16: a high and a low part);
+//   - the copies of step t-1's inputs start;
+//   - the partial product P = dg @ slice [BT][H] (K = G*U): each block's columns go into its receive slot r;
+//   - one cluster barrier (release / acquire). The slots are double buffered (buffers = 2: a slot is rewritten only after
+//     every block has passed the barrier that ends the step which read it); with one buffer a second barrier, before the
+//     product, keeps a slot until every block has read it.
+// After step 0 the slots give the first state's cotangent. The LSTM first recomputes the cell state entering each step,
+// forward in time, for its units into cbuf (the forward saves h, not c). Rows past B stay zero in dg, so every sum is finite.
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads, 1) seq_bwd_cluster_kernel(const BwdArgs<T> p, int BT, int buffers) {
+    constexpr bool kLstm = G == 4, kBf16 = sizeof(T) == 2;
+    constexpr int SW = kLstm ? 2 : 1;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int C = static_cast<int>(cluster.dim_blocks().x), r = static_cast<int>(cluster.block_rank());
+    const int H = p.H, B = p.B, GH = G * H, U = H / C, lu = __ffs(U) - 1, GU = G * U;
+    const int K = bwd_cluster_k(GU, sizeof(T)), HS = H + row_pad<T>(), DS = kBf16 ? K + 8 : K;
+    const int b0 = static_cast<int>(blockIdx.x) / C * BT, live = min(BT, B - b0);
+    const int tid = threadIdx.x;
+
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned char* cur = smem;
+    auto take = [&](size_t bytes) {
+        unsigned char* at = cur;
+        cur += align16(bytes);
+        return at;
+    };
+    T* w_s = reinterpret_cast<T*>(take(sizeof(T) * (size_t)K * HS));  // [K][HS]: pack_wh's block r, then zero rows
+    __nv_bfloat16* dgh = kBf16 ? reinterpret_cast<__nv_bfloat16*>(take(2 * (size_t)BT * DS)) : nullptr;  // [BT][DS]
+    __nv_bfloat16* dgl = kBf16 ? reinterpret_cast<__nv_bfloat16*>(take(2 * (size_t)BT * DS)) : nullptr;
+    float* dgf = kBf16 ? nullptr : reinterpret_cast<float*>(take(4 * (size_t)BT * DS));  // [BT][K]
+    float* recv = reinterpret_cast<float*>(take(4 * (size_t)buffers * BT * H));  // [buffers][C][BT][U]
+    T* sa = reinterpret_cast<T*>(take(sizeof(T) * (size_t)BT * GU));                   // x_proj or proj [BT][G*U]
+    T* shp = kLstm ? nullptr : reinterpret_cast<T*>(take(sizeof(T) * (size_t)BT * GU));  // the GRU's h_proj
+    float* sv = reinterpret_cast<float*>(take(4 * (size_t)BT * U));  // h_prev (GRU) or c (LSTM) of the step
+    float* sd = reinterpret_cast<float*>(take(4 * (size_t)BT * U));  // d_outs of the step
+    float* sr = reinterpret_cast<float*>(take(4 * (size_t)BT));      // resets of the step
+    float* dhd = reinterpret_cast<float*>(take(4 * (size_t)BT * U));  // the direct term of dh: the GRU's g * z, else 0
+    float* dcs = kLstm ? reinterpret_cast<float*>(take(4 * (size_t)BT * U)) : nullptr;  // the LSTM's carried dc
+
+    // the slice, once: pack_wh's rows r*G*U .. r*G*U+G*U-1 (H contiguous each); rows G*U .. K-1 zero
+    const T* w_src = p.wt + (size_t)r * GU * H;
+    const int w_chunks = H * static_cast<int>(sizeof(T)) / 16;
+    for (int i = tid; i < GU * w_chunks; i += kThreads) {
+        const int n = i / w_chunks, c = i % w_chunks;
+        cp_async16(reinterpret_cast<uint4*>(w_s + n * HS) + c, reinterpret_cast<const uint4*>(w_src + (size_t)n * H) + c);
+    }
+    for (int i = tid; i < (K - GU) * HS; i += kThreads) w_s[GU * HS + i] = Num<T>::to(0.0f);
+    for (int i = tid; i < BT * DS; i += kThreads) {
+        if constexpr (kBf16) {
+            dgh[i] = __float2bfloat16_rn(0.0f), dgl[i] = __float2bfloat16_rn(0.0f);
+        } else {
+            dgf[i] = 0.0f;
+        }
+    }
+    // the carried cotangents start as the final state's
+    for (int i = tid; i < live * U; i += kThreads) {
+        const size_t o = (size_t)(b0 + (i >> lu)) * SW * H + r * U + (i & (U - 1));
+        dhd[i] = p.d_final[o];
+        if constexpr (kLstm) dcs[i] = p.d_final[o + H];
+    }
+    if constexpr (kLstm) {
+        // the cell state entering each step, as the forward computed it, into cbuf; a cell's inputs of TS steps are loaded
+        // before they are used, so that they are in flight together
+        constexpr int TS = 8;
+        for (int i = tid; i < live * U; i += kThreads) {
+            const int b = b0 + (i >> lu), j = r * U + (i & (U - 1));
+            float c = Num<T>::round(p.s[(size_t)b * 2 * H + H + j]);
+            for (int t0 = 0; t0 < p.steps; t0 += TS) {
+                float pi[TS], pf[TS], pg[TS], reset[TS];
+#pragma unroll
+                for (int k = 0; k < TS; ++k) {
+                    if (t0 + k >= p.steps) break;
+                    const size_t row = (size_t)(t0 + k) * B + b;
+                    const T* pr = p.a + row * GH + j;
+                    pi[k] = Num<T>::load(pr), pf[k] = Num<T>::load(pr + H), pg[k] = Num<T>::load(pr + 2 * H), reset[k] = p.resets[row];
+                }
+#pragma unroll
+                for (int k = 0; k < TS; ++k) {
+                    if (t0 + k >= p.steps) break;
+                    p.cbuf[((size_t)(t0 + k) * B + b) * H + j] = c;
+                    const float new_c = add<T>(mul<T>(sig_bwd<T>(add<T>(pf[k], 1.0f)).s, c), mul<T>(sig_bwd<T>(pi[k]).s, tanh_t<T>(pg[k])));
+                    c = reset[k] > 0.0f ? 0.0f : new_c;
+                }
+            }
+        }
+        __syncthreads();  // cbuf, written by this block's threads, is read by the stage copies below
+    }
+
+    auto stage = [&](int t) {
+        const size_t row0 = (size_t)t * B + b0;
+        stage_units<T, G>(sa, p.a, row0, live, H, r, lu);
+        if constexpr (!kLstm) stage_units<T, 3>(shp, p.hp, row0, live, H, r, lu);
+        stage_units<float, 1>(sv, kLstm ? p.cbuf : p.s, row0, live, H, r, lu);
+        stage_units<float, 1>(sd, p.d_outs, row0, live, H, r, lu);
+        for (int i = tid; i < live; i += kThreads) cp_async4(sr + i, p.resets + row0 + i);
+        cp_async_commit();
+    };
+    stage(p.steps - 1);
+    cluster.sync();  // every block of the cluster has started: its slots may be written
+
+    const bool wide = !kBf16 && (H / 4) * (BT / 8) >= 256;  // f32: 8 rows a thread where that keeps 8 warps busy, else 4
+    const bool nj4 = kBf16 && (BT / 16) * (H / 32) % 16 == 0;  // bf16: 4 n8 tiles a warp item where the items share the warps evenly
+    long long push = 0;
+    (void)push;
+    for (int t = p.steps - 1; t >= 0; --t) {
+        PHASE_MARK(c0);
+        const int rb = buffers == 2 ? (t + 1) & 1 : 0, wb = buffers == 2 ? t & 1 : 0;  // the slots read and written at step t
+        cp_async_wait<0>();
+        __syncthreads();  // step t's inputs (and, before step T-1, the slice) have landed
+        for (int i = tid; i < live * U; i += kThreads) {
+            const int row = i >> lu, u = i & (U - 1);
+            float dh = dhd[i];
+            if (t + 1 < p.steps) {
+                float sum = 0.0f;
+                const float* in = recv + (size_t)rb * C * BT * U + row * U + u;
+                for (int s = 0; s < C; ++s) sum += in[(size_t)s * BT * U];
+                dh = sum + dh;
+            }
+            const size_t o = ((size_t)t * B + b0 + row) * GH + r * U + u;
+            const T* a = sa + row * GU + u;
+            const bool keep = !(sr[row] > 0.0f);
+            float out[G];
+            if constexpr (kLstm) {
+                const float pi = Num<T>::load(a), pf = Num<T>::load(a + U), pg = Num<T>::load(a + 2 * U), po = Num<T>::load(a + 3 * U);
+                const float fa = add<T>(pf, 1.0f);
+                const Sig si = sig_bwd<T>(pi), sf = sig_bwd<T>(fa), so = sig_bwd<T>(po);
+                const float tg = tanh_t<T>(pg), c = sv[i];
+                const float tc = tanh_t<T>(add<T>(mul<T>(sf.s, c), mul<T>(si.s, tg)));
+                const float gh = sd[i] + (keep ? dh : 0.0f), gc = keep ? dcs[i] : 0.0f;
+                const float dct = gc + gh * so.s * (1.0f - tc * tc);
+                out[0] = dct * tg * si.ds, out[1] = dct * c * sf.ds, out[2] = dct * si.s * (1.0f - tg * tg), out[3] = gh * tc * so.ds;
+                dcs[i] = dct * sf.s;
+                dhd[i] = 0.0f;
+#pragma unroll
+                for (int g = 0; g < 4; ++g) p.da[o + g * H] = Num<T>::to(out[g]);
+            } else {
+                const T* hp = shp + row * GU + u;
+                const float hn = Num<T>::load(hp + 2 * U);
+                const Sig rg = sig_bwd<T>(add<T>(Num<T>::load(a), Num<T>::load(hp)));
+                const Sig zg = sig_bwd<T>(add<T>(Num<T>::load(a + U), Num<T>::load(hp + U)));
+                const float n = tanh_t<T>(add<T>(Num<T>::load(a + 2 * U), mul<T>(rg.s, hn)));
+                const float h = Num<T>::round(sv[i]);
+                const float g = sd[i] + (keep ? dh : 0.0f);
+                const float dan = g * (1.0f - zg.s) * (1.0f - n * n);
+                const float dar = dan * hn * rg.ds, daz = g * (h - n) * zg.ds, dhn = dan * rg.s;
+                dhd[i] = g * zg.s;  // the direct term of dh_prev; the slots add d_h_proj @ wh^T
+                p.da[o] = Num<T>::to(dar), p.da[o + H] = Num<T>::to(daz), p.da[o + 2 * H] = Num<T>::to(dan);
+                p.dhn[((size_t)t * B + b0 + row) * H + r * U + u] = Num<T>::to(dhn);
+                out[0] = dar, out[1] = daz, out[2] = dhn;  // d_h_proj: the product's gate cotangents
+            }
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+                const int at = row * DS + g * U + u;
+                if constexpr (kBf16) {
+                    const __nv_bfloat16 hi = __float2bfloat16_rn(out[g]);
+                    dgh[at] = hi, dgl[at] = __float2bfloat16_rn(out[g] - __bfloat162float(hi));
+                } else {
+                    dgf[at] = out[g];
+                }
+            }
+        }
+        __syncthreads();  // dg is whole; the stage is free
+        PHASE_MARK(c1);
+        if (t > 0) stage(t - 1);
+        if (buffers == 1) cluster.sync();  // every block has read its slots before any is rewritten
+        PHASE_MARK(c2);
+        float* slot = recv + ((size_t)wb * C + r) * BT * U;
+        if constexpr (kBf16) {
+            if (nj4) bwd_mma_push<4>(cluster, dgh, dgl, reinterpret_cast<const __nv_bfloat16*>(w_s), slot, BT, H, K, DS, HS, U, lu, push);
+            else bwd_mma_push<2>(cluster, dgh, dgl, reinterpret_cast<const __nv_bfloat16*>(w_s), slot, BT, H, K, DS, HS, U, lu, push);
+        } else {
+            if (wide) bwd_fma_push<8>(cluster, dgf, reinterpret_cast<const float*>(w_s), slot, BT, H, K, HS, U, lu, push);
+            else bwd_fma_push<4>(cluster, dgf, reinterpret_cast<const float*>(w_s), slot, BT, H, K, HS, U, lu, push);
+        }
+        PHASE_MARK(c3);
+        cluster.sync();  // barrier.cluster arrive.release / wait.acquire: every block's slot r is written
+        PHASE_MARK(c4);
+        PHASE_ADD(0, c2, c3);  // the product with its pushes (their cycles also counted apart, below)
+        PHASE_ADD(1, c0, c1);  // the wait for the step's inputs and the cells
+        PHASE_ADD(3, c3, c4);  // the barrier (and, with one buffer, the one before the product: phase 2 holds it)
+        PHASE_ADD(2, c1, c2);  // the next step's copies issued (and the second barrier with one buffer)
+    }
+#ifdef RNN_SEQ_PHASES
+    if (threadIdx.x == 0) atomicAdd(&rnn_seq_phase_cycles[4], static_cast<unsigned long long>(push));
+#endif
+    // the last barrier above is every block's last access to a peer's shared memory
+    for (int i = tid; i < live * U; i += kThreads) {
+        const int row = i >> lu, u = i & (U - 1);
+        float sum = 0.0f;
+        for (int s = 0; s < C; ++s) sum += recv[(size_t)s * BT * U + row * U + u];  // step 0 wrote buffer 0
+        const size_t o = (size_t)(b0 + row) * SW * H + r * U + u;
+        p.d_state0[o] = sum + dhd[i];
+        if constexpr (kLstm) p.d_state0[o + H] = dcs[i];
+    }
+}
+
+template <typename T, int G>
+int launch_bwd_cluster(const BwdArgs<T>& p, int C, int BT, int buffers, int smem, cudaStream_t stream) {
+    const int m = sizeof(T) == 2 ? 16 : 8;  // row granularity: the mma's m16, or 8 rows (the f32 product's row groups)
+    const int U = C >= 1 ? p.H / C : 0;
+    if (p.steps < 1 || p.B < 1 || C < 1 || C > 16 || p.H % C != 0 || p.H % 64 != 0 || U < 8 || (U & (U - 1)) != 0 || BT < m ||
+        BT % m != 0 || buffers < 1 || buffers > 2 || (size_t)smem != bwd_cluster_smem_bytes(G, p.H, C, BT, sizeof(T), buffers))
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = seq_bwd_cluster_kernel<T, G>;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(((p.B + BT - 1) / BT) * C);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+
+    // the function attributes and the check that a cluster fits on the card, once per configuration, device and process,
+    // as launch_cluster has them
+    static std::mutex lock;
+    static std::map<int, int> smem_set;                            // device -> the limit set there
+    static std::set<std::pair<int, std::pair<int, int>>> checked;  // (device, (C, smem))
+    cudaError_t err = cudaSuccess;
+    {
+        std::lock_guard<std::mutex> guard(lock);
+        int dev = 0;
+        err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return failed(err);
+        if (smem > smem_set[dev]) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+            if (err != cudaSuccess) return failed(err);
+            smem_set[dev] = smem;
+        }
+        if (!checked.count({dev, {C, smem}})) {
+            int clusters = 0;
+            err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+            if (err != cudaSuccess) return failed(err);
+            if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);  // refused: no cluster of C fits
+            checked.insert({dev, {C, smem}});
+        }
+    }
+    err = cudaLaunchKernelEx(&cfg, kernel, p, BT, buffers);
+    if (err != cudaSuccess) return failed(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int cluster_backward_typed(const void* d_outs, const void* d_final, const void* resets, const void* a, const void* hp, const void* s,
+                           const void* wpk, void* cbuf, void* da, void* dhn, void* d_state0, int steps, int B, int H, int is_bf16,
+                           int cluster, int rows, int buffers, int smem, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto args = [&](auto* typed) {
+        using T = std::remove_const_t<std::remove_pointer_t<decltype(typed)>>;
+        return BwdArgs<T>{static_cast<const float*>(d_outs), static_cast<const float*>(d_final), static_cast<const float*>(resets),
+                          static_cast<const T*>(a), static_cast<const T*>(hp), static_cast<const float*>(s),
+                          static_cast<const T*>(wpk), static_cast<float*>(cbuf), static_cast<T*>(da), static_cast<T*>(dhn),
+                          static_cast<float*>(d_state0), steps, B, H};
+    };
+    if (is_bf16) return launch_bwd_cluster<__nv_bfloat16, G>(args(static_cast<__nv_bfloat16*>(nullptr)), cluster, rows, buffers, smem, st);
+    return launch_bwd_cluster<float, G>(args(static_cast<float*>(nullptr)), cluster, rows, buffers, smem, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1850,7 +2272,7 @@ int rnn_seq_phases_read(void* out) {
     return static_cast<int>(cudaMemcpyFromSymbol(out, rnn_seq_phase_cycles, sizeof(rnn_seq_phase_cycles)));
 }
 int rnn_seq_phases_reset() {
-    const unsigned long long zero[4] = {};
+    const unsigned long long zero[5] = {};
     return static_cast<int>(cudaMemcpyToSymbol(rnn_seq_phase_cycles, zero, sizeof(zero)));
 }
 #endif
@@ -1949,6 +2371,54 @@ int grid_bwd_blocks_per_sm(int gates, int threads, int smem) {
         return n;
     };
     return gates == 3 ? query(seq_bwd_grid_kernel<GruBwdCells>) : query(seq_bwd_grid_kernel<LstmBwdCells>);
+}
+
+// Backward, design "cluster": wpk is wh packed by ops/cuda_rnn.py:pack_wh as [cluster][3*U][H], the forward's slices; the plan
+// (ops/cuda_rnn.py:bwd_cluster_plan) gives the blocks a cluster, the batch rows a cluster, the receive buffers (1 or 2) and
+// smem = bwd_cluster_smem_bytes(3, H, cluster, rows, elem, buffers). The GRU's d_hn as gru_seq_backward's.
+int gru_seq_cluster_backward(const void* d_outs, const void* d_h_final, const void* resets, const void* x, const void* h_proj,
+                             const void* h_prev, const void* wpk, void* d_x, void* d_hn, void* d_h0, int steps, int B, int H,
+                             int is_bf16, int cluster, int rows, int buffers, int smem, void* stream) {
+    return cluster_backward_typed<3>(d_outs, d_h_final, resets, x, h_proj, h_prev, wpk, nullptr, d_x, d_hn, d_h0, steps, B, H,
+                                     is_bf16, cluster, rows, buffers, smem, stream);
+}
+
+// Backward of the LSTM, design "cluster": proj and cbuf as lstm_seq_backward's, wpk as gru_seq_cluster_backward's.
+int lstm_seq_cluster_backward(const void* d_outs, const void* d_hc_final, const void* resets, const void* proj, const void* hc0,
+                              const void* wpk, void* cbuf, void* d_proj, void* d_hc0, int steps, int B, int H, int is_bf16,
+                              int cluster, int rows, int buffers, int smem, void* stream) {
+    return cluster_backward_typed<4>(d_outs, d_hc_final, resets, proj, nullptr, hc0, wpk, cbuf, d_proj, nullptr, d_hc0, steps, B, H,
+                                     is_bf16, cluster, rows, buffers, smem, stream);
+}
+
+// Clusters of the cluster backward kernel (of `gates` 3: the GRU's, 4: the LSTM's) of `cluster` blocks with `smem` bytes
+// each that the current card runs at once (cudaOccupancyMaxActiveClusters; 0 if none).
+int bwd_max_active_clusters(int gates, int is_bf16, int cluster, int smem) {
+    auto query = [&](auto kernel) {
+        cudaFuncAttributes attrs;  // raise the limit only: launch_bwd_cluster remembers the largest it set
+        cudaLaunchAttribute attr[1];
+        attr[0].id = cudaLaunchAttributeClusterDimension;
+        attr[0].val.clusterDim.x = cluster;
+        attr[0].val.clusterDim.y = 1;
+        attr[0].val.clusterDim.z = 1;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(cluster * 64);
+        cfg.blockDim = dim3(kThreads);
+        cfg.dynamicSmemBytes = smem;
+        cfg.attrs = attr;
+        cfg.numAttrs = 1;
+        int n = 0;
+        if (cudaFuncGetAttributes(&attrs, kernel) != cudaSuccess ||
+            (attrs.maxDynamicSharedSizeBytes < smem && cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess) ||
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess ||
+            cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+            (void)cudaGetLastError();  // none fits; no error is left for the next launch
+            return 0;
+        }
+        return n;
+    };
+    if (gates == 3) return is_bf16 ? query(seq_bwd_cluster_kernel<__nv_bfloat16, 3>) : query(seq_bwd_cluster_kernel<float, 3>);
+    return is_bf16 ? query(seq_bwd_cluster_kernel<__nv_bfloat16, 4>) : query(seq_bwd_cluster_kernel<float, 4>);
 }
 
 }  // extern "C"

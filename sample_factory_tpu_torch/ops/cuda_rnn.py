@@ -54,9 +54,18 @@ and the card's spec:
   keeping wh's rows of its units in shared memory for all T steps; the gate
   cotangents, which the kernel writes as d_x_proj (and the GRU's d_hn) anyway,
   cross blocks through L2 under one grid barrier a step;
+- "cluster" (`gru_seq_cluster_bwd`, `lstm_seq_cluster_bwd`:
+  `seq_bwd_cluster_kernel`, the forward's cluster design mirrored), exactly where
+  the forward takes its cluster design (bf16, float32 at H <= 256), with the
+  forward's cluster and unit slice (`bwd_cluster_plan`): each block keeps the
+  forward's slice of wh in shared memory for all T steps, multiplies its units'
+  gate cotangents by it and sends each peer the columns of that peer's units
+  through distributed shared memory, one cluster barrier a step; bf16 on the
+  tensor cores (the f32 gate cotangents in two bf16 parts), f32 on the CUDA cores;
 - "rows" (`gru_seq_bwd`, `lstm_seq_bwd`: `seq_bwd_kernel`, the row design
-  mirrored) everywhere else (bf16, float32 at H <= 256): a block owns `bwd_rows`
-  batch rows and all H units and re-reads wh^T from L2 every step.
+  mirrored) everywhere else (bf16 at H=1024, H=100, and a small width where the
+  forward's cluster plan needs several waves): a block owns `bwd_rows` batch
+  rows and all H units and re-reads wh^T from L2 every step.
 
 There is no fallback between them: the plan decides before the launch, and a
 refused launch raises. On a CPU tensor the backward reruns the plain version
@@ -67,8 +76,8 @@ versions, of both designs. `resets` get no gradient.
 Dispatch: a CUDA tensor launches the planned kernel or raises; a CPU tensor
 runs the plain version. `launch_counts()` counts the launches of each kernel,
 per design ("gru_seq" is the cluster design, "gru_seq_rows" the row design,
-"gru_seq_grid" the grid design; "gru_seq_bwd" and "gru_seq_grid_bwd" the
-backward's row and grid designs).
+"gru_seq_grid" the grid design; "gru_seq_bwd", "gru_seq_grid_bwd" and
+"gru_seq_cluster_bwd" the backward's row, grid and cluster designs).
 """
 
 from __future__ import annotations
@@ -254,6 +263,7 @@ class Plan:
     kchunk: int = 0  # grid design: K columns of h in shared memory at a time (H: all of them)
     passes: int = 1  # grid design: passes of the block's threads over its rows
     threads: int = 0  # grid design: threads per block
+    buffers: int = 0  # the backward's cluster design: receive buffers of the partial products (2: one cluster barrier a step)
 
 
 def _gates(kind: str) -> int:
@@ -441,6 +451,10 @@ def grid_blocks_per_sm(kind: str, plan: Plan) -> int:
     return load_library().grid_blocks_per_sm(_gates(kind), plan.tile_rows, plan.tile_cols, plan.threads, plan.smem)
 
 
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 def bwd_smem(kind: str, H: int, rows: int, itemsize: int) -> int:
     """Shared memory of one backward block (`bwd_smem_bytes` in csrc/rnn_seq.cu), each part on 16 bytes: the
     carried cotangents dh (and the LSTM's dc) [rows][H] f32, the step's gate cotangents [rows][G*H] f32, and
@@ -448,13 +462,9 @@ def bwd_smem(kind: str, H: int, rows: int, itemsize: int) -> int:
     input type, h_prev (GRU) or c (LSTM) and d_outs [rows][H] f32, resets [rows] f32."""
     G = _gates(kind)
     RH = rows * H
-
-    def a16(n):
-        return -(-n // 16) * 16
-
-    carried = (1 if kind == "gru" else 2) * a16(4 * RH)
-    staged = (2 if kind == "gru" else 1) * a16(itemsize * RH * G) + 2 * a16(4 * RH) + a16(4 * rows)
-    return carried + a16(4 * RH * G) + staged
+    carried = (1 if kind == "gru" else 2) * _a16(4 * RH)
+    staged = (2 if kind == "gru" else 1) * _a16(itemsize * RH * G) + 2 * _a16(4 * RH) + _a16(4 * rows)
+    return carried + _a16(4 * RH * G) + staged
 
 
 @functools.lru_cache(maxsize=256)
@@ -532,11 +542,63 @@ def bwd_grid_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM):
     return best
 
 
+def bwd_cluster_k(kind: str, units: int, itemsize: int) -> int:
+    """K of a cluster backward block's product: its G*U gate columns, rounded up to the mma's k16 in bf16
+    (`bwd_cluster_k` in csrc/rnn_seq.cu)."""
+    GU = _gates(kind) * units
+    return -(-GU // 16) * 16 if itemsize == 2 else GU
+
+
+def bwd_cluster_smem(kind: str, H: int, cluster: int, rows: int, itemsize: int, buffers: int = 2) -> int:
+    """Shared memory of one cluster backward block (`bwd_cluster_smem_bytes` in csrc/rnn_seq.cu), each part on 16 bytes:
+    the block's rows of pack_wh [K][H + pad] in the input type (K = bwd_cluster_k); its units' gate cotangents [rows][K]
+    (bf16: a high and a low part, rows of K + 8; f32: rows of K); the receive slots [buffers][cluster][rows][U] f32; the
+    stage of a step's inputs (x_proj or proj, and the GRU's h_proj, [rows][G*U] in the input type; h_prev or c, and d_outs,
+    [rows][U] f32; resets [rows] f32); the carried cotangents [rows][U] f32 (the direct term of dh, and the LSTM's dc)."""
+    G, U = _gates(kind), H // cluster
+    K, HS = bwd_cluster_k(kind, U, itemsize), H + 16 // itemsize
+    dg = 2 * _a16(2 * rows * (K + 8)) if itemsize == 2 else _a16(4 * rows * K)
+    staged = (2 if kind == "gru" else 1) * _a16(itemsize * rows * G * U) + 2 * _a16(4 * rows * U) + _a16(4 * rows)
+    return _a16(itemsize * K * HS) + dg + _a16(4 * buffers * rows * H) + staged + (2 if kind == "lstm" else 1) * _a16(4 * rows * U)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_cluster_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM, buffers: int = 0):
+    """The cluster design's plan for the backward on a card of `spec` (a Plan of design "cluster"), or None: it is planned
+    exactly where the forward's `launch_plan` takes its cluster design, with the forward's cluster and unit slice (so never a
+    cluster size the card runs none of). Rows per cluster as `cluster_plan` takes them: the fewest that let all clusters
+    run in one wave, in steps of 16 (bf16's m16) or 8 (f32), at most 64 / 32, lowered until the block's shared memory fits
+    spec.smem_limit. Two receive buffers (one cluster barrier a step), or one (a second barrier a step) where the two
+    buffers' slots would leave a cluster fewer rows than one buffer's: `selfplay`'s (32, 512, 512) bf16 on 32 rows in 16
+    clusters (3 waves) rather than 16 rows in 32 (5 waves), at least as fast in chip_smoke.py's turns (phase `bwd`), where
+    at equal rows two buffers are the faster. `buffers` forces a count."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    fwd = launch_plan(kind, 1, B, H, dtype, spec)
+    if fwd.design != "cluster":
+        return None
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    step, cap = (16, 64) if itemsize == 2 else (8, 32)
+    want = -(-B // spec.clusters_at_once(fwd.cluster))
+
+    def rows_that_fit(buffers):
+        for rows in range(min(cap, max(step, -(-want // step) * step)), 0, -step):
+            smem = bwd_cluster_smem(kind, H, fwd.cluster, rows, itemsize, buffers)
+            if smem <= spec.smem_limit:
+                return Plan("cluster", fwd.cluster, rows, fwd.units, smem, -(-B // rows) * fwd.cluster, buffers=buffers)
+        return None
+
+    if buffers:
+        return rows_that_fit(buffers)
+    two, one = rows_that_fit(2), rows_that_fit(1)
+    return one if one is not None and (two is None or one.rows > two.rows) else two
+
+
 @functools.lru_cache(maxsize=256)
 def bwd_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM) -> Plan:
     """The backward's design and launch configuration: the grid design where `bwd_grid_plan` gives one (float32, where
-    the forward takes its grid design), else the row design, `bwd_rows` rows a block (`cluster` 1, `units` H)."""
-    plan = bwd_grid_plan(kind, B, H, dtype, spec)
+    the forward takes its grid design), the cluster design where `bwd_cluster_plan` gives one (where the forward takes its
+    cluster design), else the row design, `bwd_rows` rows a block (`cluster` 1, `units` H)."""
+    plan = bwd_grid_plan(kind, B, H, dtype, spec) or bwd_cluster_plan(kind, B, H, dtype, spec)
     if plan is not None:
         return plan
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
@@ -548,6 +610,13 @@ def bwd_row_plan(kind: str, B: int, H: int, rows: int, itemsize: int) -> Plan:
     return Plan("rows", 1, rows, H, bwd_smem(kind, H, rows, itemsize), -(-B // rows))
 
 
+def max_active_bwd_clusters(kind: str, dtype, plan: Plan) -> int:
+    """Clusters of the cluster backward plan's size and shared memory that the card runs at once
+    (cudaOccupancyMaxActiveClusters for the backward kernel); 0 where none fits."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return load_library().bwd_max_active_clusters(_gates(kind), int(dtype == torch.bfloat16), plan.cluster, plan.smem)
+
+
 def grid_bwd_blocks_per_sm(kind: str, plan: Plan) -> int:
     """Blocks of the grid backward plan's size that one SM of the card holds at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the plan counts on one (spec.sms blocks at most)."""
@@ -557,7 +626,8 @@ def grid_bwd_blocks_per_sm(kind: str, plan: Plan) -> int:
 def pack_wh(wh: torch.Tensor, plan: Plan) -> torch.Tensor:
     """wh [H, G*H] -> [cluster, G*U, H]: block r's gate columns g*H + r*U + u (u < U) as rows
     g*U + u, each contiguous along K, which is the layout of the mma's B operand (in the grid
-    design, slice r's columns). The row design reads wh as it is."""
+    design, slice r's columns; the cluster backward reads block r's rows as its [K][H] operand, by
+    ldmatrix.trans in bf16). The row design reads wh as it is."""
     if plan.design == "rows":
         return wh
     H = wh.shape[0]
@@ -623,7 +693,9 @@ def bind(path: Path, entries: Tuple[str, ...] = ()):
         "gru_grid_forward": [ptr] * 8 + [i32] * 12 + [ptr], "lstm_grid_forward": [ptr] * 7 + [i32] * 12 + [ptr],
         "gru_seq_backward": [ptr] * 10 + [i32] * 6 + [ptr], "lstm_seq_backward": [ptr] * 9 + [i32] * 6 + [ptr],
         "gru_seq_grid_backward": [ptr] * 10 + [i32] * 10 + [ptr], "lstm_seq_grid_backward": [ptr] * 9 + [i32] * 10 + [ptr],
+        "gru_seq_cluster_backward": [ptr] * 10 + [i32] * 8 + [ptr], "lstm_seq_cluster_backward": [ptr] * 9 + [i32] * 8 + [ptr],
         "max_active_clusters": [i32] * 4, "grid_blocks_per_sm": [i32] * 5, "grid_bwd_blocks_per_sm": [i32] * 3,
+        "bwd_max_active_clusters": [i32] * 4,
     }
     for name in entries or signatures:
         fn = getattr(lib, name)
@@ -727,13 +799,14 @@ def row_plan(kind: str, B: int, H: int) -> Plan:
 
 
 def _bwd_kernel_name(kind: str, plan: Plan) -> str:
-    return {"grid": f"{kind}_seq_grid_bwd", "rows": f"{kind}_seq_bwd"}[plan.design]
+    return {"grid": f"{kind}_seq_grid_bwd", "cluster": f"{kind}_seq_cluster_bwd", "rows": f"{kind}_seq_bwd"}[plan.design]
 
 
 def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan=None):
     """Checks, allocates the outputs (and the LSTM's cell-state scratch) and launches the backward kernel on the
     current stream: `plan`, or the row design at `rows` batch rows a block, or by default `bwd_plan` for the spec of
-    the card that `a` lies on (the grid design where the forward takes its grid design). A refused launch raises."""
+    the card that `a` lies on (the grid or the cluster design where the forward takes it). A refused launch raises;
+    nothing falls back to another design."""
     G = _gates(kind)
     T, B, H = _check_common(a, G)
     dev, dt = a.device, a.dtype
@@ -750,12 +823,12 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan
     if rows is not None:
         plan = bwd_row_plan(kind, B, H, rows, a.element_size())
     plan = plan or bwd_plan(kind, B, H, dt, spec)
-    grid = plan.design == "grid"
-    if grid and dt != torch.float32:
+    design = plan.design
+    if design == "grid" and dt != torch.float32:
         raise ValueError(f"the grid backward takes float32, not {dt}")
     # [G*H, H] for the row design: thread k reads column k, neighbouring threads neighbouring addresses; the grid
-    # design reads the rows of wh of its units as they are
-    w = wh if grid else wh.t().contiguous()
+    # design reads the rows of wh of its units as they are; the cluster design the forward's slices (pack_wh)
+    w = {"rows": lambda: wh.t().contiguous(), "grid": lambda: wh, "cluster": lambda: pack_wh(wh, plan)}[design]()
     d_a, d_state0 = torch.empty_like(a), torch.empty_like(d_final)
     if kind == "gru":
         outputs = (d_a, torch.empty((T, B, H), dtype=dt, device=dev), d_state0)
@@ -763,10 +836,14 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan
     else:
         outputs = (d_a, d_state0)
         ptrs = [d_outs, d_final, resets, a, s, w, torch.empty((T, B, H), dtype=torch.float32, device=dev), *outputs]
-    if grid:  # the grid design reads its inputs in 16-byte pieces: a view at an odd offset is copied
+    if design != "rows":  # the grid and cluster designs read their inputs in 16-byte pieces: a view at an odd offset is copied
         ptrs = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ptrs]
+    if design == "grid":
         name = f"{kind}_seq_grid_backward"
         dims = [T, B, H, plan.units, plan.rows, plan.ksplit, plan.kchunk, plan.passes, plan.threads, plan.smem]
+    elif design == "cluster":
+        name = f"{kind}_seq_cluster_backward"
+        dims = [T, B, H, int(dt == torch.bfloat16), plan.cluster, plan.rows, plan.buffers, plan.smem]
     else:
         name = f"{kind}_seq_backward"
         dims = [T, B, H, int(dt == torch.bfloat16), plan.rows, plan.smem]
@@ -774,8 +851,11 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan
     with torch.cuda.device(dev):
         err = fn(*[p.data_ptr() for p in ptrs], *dims, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        laid = (f"plan {plan}: {plan.grid // plan.cluster} batch tiles x {plan.cluster} slices of {plan.units} units, {plan.threads} "
-                f"threads" if grid else f"{plan.rows} rows a block, {plan.grid} blocks")
+        laid = {"grid": f"plan {plan}: {plan.grid // plan.cluster} batch tiles x {plan.cluster} slices of {plan.units} units, "
+                        f"{plan.threads} threads",
+                "cluster": f"plan {plan}: {plan.grid // plan.cluster} clusters of {plan.cluster} blocks, {plan.rows} rows and "
+                           f"{plan.units} units a block, {plan.buffers} receive buffers",
+                "rows": f"{plan.rows} rows a block, {plan.grid} blocks"}[design]
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} (T={T}, B={B}, H={H}, {dt}: {laid}, {plan.smem} bytes of "
                            f"shared memory, on a card of {spec.sms} SMs: {spec})")
     _launches[_bwd_kernel_name(kind, plan)] += 1
@@ -783,13 +863,14 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan
 
 
 def _launch_gru_bwd(d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows=None, plan=None):
-    """The planned backward kernel (`gru_seq_grid_bwd` or `gru_seq_bwd`), with gru_seq_bwd_reference's signature;
-    `rows` and `plan` as `_launch_bwd`."""
+    """The planned backward kernel (`gru_seq_grid_bwd`, `gru_seq_cluster_bwd` or `gru_seq_bwd`), with
+    gru_seq_bwd_reference's signature; `rows` and `plan` as `_launch_bwd`."""
     return _launch_bwd("gru", d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows, plan)
 
 
 def _launch_lstm_bwd(d_outs, d_hc_final, resets, proj, hc0, wh, rows=None, plan=None):
-    """The planned backward kernel (`lstm_seq_grid_bwd` or `lstm_seq_bwd`), with lstm_seq_bwd_reference's signature."""
+    """The planned backward kernel (`lstm_seq_grid_bwd`, `lstm_seq_cluster_bwd` or `lstm_seq_bwd`), with
+    lstm_seq_bwd_reference's signature."""
     return _launch_bwd("lstm", d_outs, d_hc_final, resets, proj, None, hc0, wh, rows, plan)
 
 
@@ -892,7 +973,8 @@ def lstm_seq(x_proj, hc0, resets, wh):
 
 
 _launches = {"gru_seq": 0, "gru_seq_rows": 0, "gru_seq_grid": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0,
-             "gru_seq_bwd": 0, "lstm_seq_bwd": 0, "gru_seq_grid_bwd": 0, "lstm_seq_grid_bwd": 0}
+             "gru_seq_bwd": 0, "lstm_seq_bwd": 0, "gru_seq_grid_bwd": 0, "lstm_seq_grid_bwd": 0, "gru_seq_cluster_bwd": 0,
+             "lstm_seq_cluster_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -903,6 +985,7 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     """Launches of each kernel since the last reset: "gru_seq"/"lstm_seq" for the cluster
     design, "gru_seq_grid"/"lstm_seq_grid" for the grid design, "gru_seq_rows"/"lstm_seq_rows" for
-    the row design (the forward's designs), "gru_seq_bwd"/"lstm_seq_bwd" for the backward's row design and
-    "gru_seq_grid_bwd"/"lstm_seq_grid_bwd" for its grid design."""
+    the row design (the forward's designs), "gru_seq_bwd"/"lstm_seq_bwd" for the backward's row design,
+    "gru_seq_grid_bwd"/"lstm_seq_grid_bwd" for its grid design and "gru_seq_cluster_bwd"/"lstm_seq_cluster_bwd" for
+    its cluster design."""
     return dict(_launches)

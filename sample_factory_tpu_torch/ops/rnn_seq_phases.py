@@ -15,7 +15,11 @@ cycles per block and step of each phase, the kernel's time over back-to-back lau
 (CUDA events), the plan, and the clusters (blocks an SM) of that plan the card runs at
 once. The clock calls cost a few cycles a phase; the kernel times of `chip_smoke.py` come
 from the plain build. The grid backward is also timed built without its dg loads, without its
-product and without both (BWD_ABLATIONS), in turns with the plain build. Needs a CUDA card.
+product and without both (BWD_ABLATIONS), in turns with the plain build. The cluster backward
+(`bwd_plan`'s cluster design, at the `main`, `selfplay` and `lstm` learners, BWD_CLUSTER_CASES): the
+product with its pushes into the peers' receive slots, the wait for the step's inputs and the cells,
+the issue of the next step's copies, and the cluster barrier, and apart, thread 0's cycles in its
+remote stores (inside the product phase). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ CASES = [
     ("gru", 32, 64, 512, "float32"),  # the Doom learner (grid design)
     ("gru", 16, 4, 512, "float32"),  # the multichip configuration's gathered GRU (grid design)
 ]
-PHASES = {"cluster": ["product", "gates", "push_and_prefetch", "barrier"], "grid": ["product", "cells", "prefetch", "barrier"]}
+PHASES = {"cluster": ["product", "gates", "push_and_prefetch", "barrier"], "grid": ["product", "cells", "prefetch", "barrier"],
+          "cluster_bwd": ["product_and_push", "cells", "prefetch", "barrier"]}
+# the cluster backward at the learners of `main` (GRU-256 bf16), `selfplay` (GRU-512 bf16, clusters of 16) and `lstm`
+# (LSTM-256 float32): (kind, T, B, H, dtype)
+BWD_CLUSTER_CASES = [("gru", 32, 512, 256, "bfloat16"), ("gru", 32, 512, 512, "bfloat16"), ("lstm", 32, 128, 256, "float32")]
 # the grid design of the backward at the float32 H=512 learner sites: (kind, T, B, H); its phases are the grid forward's
 # (the dg loads and the product, the splits' sums and the cells, the next step's prefetch and input loads, the barrier)
 BWD_CASES = [("gru", 32, 64, 512), ("gru", 32, 32, 512), ("gru", 16, 4, 512), ("lstm", 32, 24, 512), ("lstm", 16, 2048, 512)]
@@ -73,18 +81,19 @@ def _library(lib):
         cuda_rnn.load_library = load
 
 
-def _bwd_inputs(kind, T, B, H):
-    """The backward recurrence's inputs (the saved tensors and projections a prologue makes), float32, from random data."""
+def _bwd_inputs(kind, T, B, H, dtype="float32"):
+    """The backward recurrence's inputs (the saved tensors and projections a prologue makes), from random data."""
     g = torch.Generator(device="cuda").manual_seed(1)
-    x, s0, resets, wh, *bh = _inputs(kind, T, B, H, "float32")
+    x, s0, resets, wh, *bh = _inputs(kind, T, B, H, dtype)
     d_out = torch.randn(T, B, H, generator=g, device="cuda")
     d_state = torch.randn(*s0.shape, generator=g, device="cuda")
     with torch.no_grad():
         outs, _ = (cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm)(x, s0, resets, wh, *bh)
         h_prev = cuda_rnn._carries_in(s0, resets, outs)
+        h_in = h_prev.to(x.dtype)
     if kind == "gru":
-        return d_out, d_state, resets, x, h_prev @ wh + bh[0], h_prev, wh
-    return d_out, d_state, resets, x + h_prev @ wh, s0, wh
+        return d_out, d_state, resets, x, h_in @ wh + bh[0], h_prev, wh
+    return d_out, d_state, resets, x + h_in @ wh, s0, wh
 
 
 def _batched_ms(fn, launches=20, batches=5):
@@ -124,7 +133,7 @@ def main() -> int:
             lib.rnn_seq_phases_reset()
             launch(*args)
             torch.cuda.synchronize()
-        cycles = (ctypes.c_ulonglong * 4)()
+        cycles = (ctypes.c_ulonglong * 5)()
         lib.rnn_seq_phases_read(ctypes.addressof(cycles))
         per_step = {name: cycles[i] / (plan.grid * T) for i, name in enumerate(PHASES[plan.design])}
         at_once = ({"clusters": plan.grid // plan.cluster, "max_active_clusters": cuda_rnn.max_active_clusters(kind, dtype, plan)}
@@ -144,7 +153,7 @@ def main() -> int:
             lib.rnn_seq_phases_reset()
             launch(*rec)
             torch.cuda.synchronize()
-        cycles = (ctypes.c_ulonglong * 4)()
+        cycles = (ctypes.c_ulonglong * 5)()
         lib.rnn_seq_phases_read(ctypes.addressof(cycles))
         per_step = {name: cycles[i] / (plan.grid * T) for i, name in enumerate(PHASES["grid"])}
         ablated = {}  # the plain build and the ablation builds in turns
@@ -156,6 +165,24 @@ def main() -> int:
             "blocks": plan.grid, "blocks_per_sm": cuda_rnn.grid_bwd_blocks_per_sm(kind, plan), "card_spec": dataclasses.asdict(spec),
             "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
             "ablation_ms": {name: sorted(v)[len(v) // 2] for name, v in ablated.items()}, "card": card,
+        }), flush=True)
+    for kind, T, B, H, dtype in BWD_CLUSTER_CASES:
+        plan = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
+        rec = _bwd_inputs(kind, T, B, H, dtype)
+        launch = cuda_rnn._launch_gru_bwd if kind == "gru" else cuda_rnn._launch_lstm_bwd
+        with torch.no_grad():
+            ms = _batched_ms(lambda: launch(*rec), launches=10)
+            lib.rnn_seq_phases_reset()
+            launch(*rec)
+            torch.cuda.synchronize()
+        cycles = (ctypes.c_ulonglong * 5)()
+        lib.rnn_seq_phases_read(ctypes.addressof(cycles))
+        per_step = {name: cycles[i] / (plan.grid * T) for i, name in enumerate(PHASES["cluster_bwd"])}
+        print(json.dumps({
+            "kernel": cuda_rnn._bwd_kernel_name(kind, plan), "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(plan),
+            "clusters": plan.grid // plan.cluster, "max_active_clusters": cuda_rnn.max_active_bwd_clusters(kind, dtype, plan),
+            "card_spec": dataclasses.asdict(spec), "ms_back_to_back": ms, "cycles_per_step": per_step,
+            "cycles_per_step_total": sum(per_step.values()), "push_cycles_per_step_thread0": cycles[4] / (plan.grid * T), "card": card,
         }), flush=True)
     return 0
 

@@ -12,7 +12,9 @@ import contextlib
 import dataclasses
 import math
 import os
+import re
 import shutil
+import subprocess
 import types
 
 import numpy as np
@@ -681,7 +683,8 @@ def _fake_cuda(monkeypatch, calls):
     lib = types.SimpleNamespace(**{name: entry(name) for name in ("gru_grid_forward", "lstm_grid_forward", "gru_seq_forward",
                                                                   "lstm_seq_forward", "gru_rows_forward", "lstm_rows_forward",
                                                                   "gru_seq_backward", "lstm_seq_backward", "gru_seq_grid_backward",
-                                                                  "lstm_seq_grid_backward")})
+                                                                  "lstm_seq_grid_backward", "gru_seq_cluster_backward",
+                                                                  "lstm_seq_cluster_backward")})
     lib.max_active_clusters = lambda gates, is_bf16, size, smem: {8: 13, 16: 0}[size]
     monkeypatch.setattr(cuda_rnn, "load_library", lambda defines=(): lib)
 
@@ -821,7 +824,7 @@ def test_a_refused_launch_leaves_no_error_for_the_next_launch(cuda_device):
 def test_bench_grid_battle_runs_gru_seq_on_the_card(cuda_device):
     """bench_gpu.py's grid-battle scenario at its smoke depth: the row names the card and its power
     limit, its MFU is possible, and the learner launched `gru_seq` (cluster design) and its backward
-    `gru_seq_bwd` twice an iteration (2 minibatches of 16384 samples), no other RNN kernel."""
+    `gru_seq_cluster_bwd` twice an iteration (2 minibatches of 16384 samples), no other RNN kernel."""
     import bench_gpu
 
     device = torch.device("cuda", 0)
@@ -834,7 +837,7 @@ def test_bench_grid_battle_runs_gru_seq_on_the_card(cuda_device):
     assert row.get("mfu", 0.0) < 1 and "mfu_violation" not in row
     launches, iterations = row["rnn_kernel_launches"], row["iterations_counted"]
     assert iterations == b.depth.window + b.depth.profiled
-    assert launches == {**dict.fromkeys(launches, 0), "gru_seq": 2 * iterations, "gru_seq_bwd": 2 * iterations}
+    assert launches == {**dict.fromkeys(launches, 0), "gru_seq": 2 * iterations, "gru_seq_cluster_bwd": 2 * iterations}
     assert 0 < row["device_busy_ms_per_iteration"] and 0 <= row["device_idle_share_profiled"] < 1
 
 
@@ -924,7 +927,8 @@ def test_an_impossible_backward_launch_raises(cuda_device):
 @pytest.mark.cuda
 def test_grid_battle_train_call_launches_the_backward_once_a_forward(cuda_device, tmp_path):
     """One sync train call of grid battle (convnet_impala, GRU-256, bf16; 64 envs x 32 steps in 2 minibatches of
-    1024): `gru_seq_bwd` launches as often as `gru_seq`, once a minibatch; the rollout launches neither."""
+    1024): `gru_seq_cluster_bwd` launches as often as `gru_seq`, once a minibatch, and no `gru_seq_bwd`; the rollout
+    launches neither."""
     from sample_factory_tpu_torch.examples.train_synthetic import parse_custom_args, register_synthetic_components
     from sample_factory_tpu_torch.train import make_rl_runner
 
@@ -942,7 +946,7 @@ def test_grid_battle_train_call_launches_the_backward_once_a_forward(cuda_device
     runner._train_fn(ts, traj, runner.train_generator)
     torch.cuda.synchronize()
     counts = cuda_rnn.launch_counts()
-    assert counts == {**dict.fromkeys(counts, 0), "gru_seq": 2, "gru_seq_bwd": 2}
+    assert counts == {**dict.fromkeys(counts, 0), "gru_seq": 2, "gru_seq_cluster_bwd": 2}
 
 
 @pytest.mark.parametrize("kind", ["gru", "lstm"])
@@ -991,13 +995,14 @@ def test_a_refused_backward_launch_names_the_shape_rows_and_sms(monkeypatch):
 
 # ------------------------------------------------------------------ the backward's grid design (gru_seq_grid_bwd, lstm_seq_grid_bwd)
 
-# the five float32 H=512 learner sites (Doom, `tp` (b), the defaults, NetHack, AllegroHandLSTM) and the sites that keep
-# the row design: bf16 (`main`, `selfplay`, `host_rnn`) and float32 at H <= 256 (`lstm`, DMLab's core and instruction
-# encoder, `dp_host`)
+# the five float32 H=512 learner sites (Doom, `tp` (b), the defaults, NetHack, AllegroHandLSTM) and the shapes that keep
+# the row design, where no cluster slice fits or the forward's cluster plan needs waves at a small width: DMLab's
+# instruction encoder over a minibatch, bf16 at H=1024, H=100, and GRU-64 over 1024 and 2048 segments
 BWD_GRID_SITES = [("gru", 32, 64, 512), ("gru", 16, 4, 512), ("gru", 32, 32, 512), ("lstm", 32, 24, 512), ("lstm", 16, 2048, 512)]
-BWD_ROW_SITES = [("gru", 32, 512, 256, "bfloat16"), ("gru", 32, 512, 512, "bfloat16"), ("gru", 32, 256, 256, "bfloat16"),
-                 ("lstm", 32, 128, 256, "float32"), ("lstm", 32, 32, 256, "float32"), ("lstm", 16, 1024, 64, "float32"),
-                 *[("gru", 32, B, 256, "float32") for B in (128, 131, 37, 255)]]
+BWD_ROW_SITES = [("lstm", 16, 1024, 64, "float32"), ("lstm", 16, 2048, 64, "bfloat16"), ("gru", 16, 1024, 64, "float32"),
+                 ("gru", 16, 2048, 64, "bfloat16"), ("gru", 4, 16, 1024, "bfloat16"), ("lstm", 4, 16, 1024, "bfloat16"),
+                 ("gru", 32, 512, 1024, "bfloat16"), ("gru", 3, 5, 100, "float32"), ("lstm", 3, 5, 100, "bfloat16"),
+                 ("gru", 32, 512, 100, "bfloat16")]
 # the grid backward's plan at each grid site on each card the planner is held to (Plan's fields): 4 x 4 accumulators a
 # thread; at small B K split 16 or 32 ways (a cell a thread), slices of 16 units where they fill the SMs, 8 or 4 where the
 # rows are too few; AllegroHandLSTM's 512 rows in chunks of 16 columns (688 and 1024 in 2 passes on the smaller cards)
@@ -1017,12 +1022,19 @@ BWD_SITE_IDS = ["-".join(map(str, site)) for site in BWD_GRID_SITES]
 
 @pytest.mark.parametrize("kind,dtype,B,H,spec", PLAN_CASES)
 def test_backward_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H, spec):
-    """The backward takes the grid design exactly where the forward does; a grid plan keeps one block an SM at most,
-    fits the card's shared memory, gives each (row, unit) pair to exactly one block, and its threads are the register
-    tiles of a pass times the K splits, a cell a thread where K is split; elsewhere the row design at bwd_rows."""
+    """The backward takes the grid and the cluster designs exactly where the forward does; a grid plan keeps one block
+    an SM at most, fits the card's shared memory, gives each (row, unit) pair to exactly one block, and its threads are
+    the register tiles of a pass times the K splits, a cell a thread where K is split; a cluster plan takes the forward's
+    cluster and unit slice (never a size the card runs none of), rows in steps of the product's granularity, and fits;
+    elsewhere the row design at bwd_rows."""
     plan = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
-    assert (plan.design == "grid") == (cuda_rnn.launch_plan(kind, 32, B, H, dtype, spec).design == "grid")
+    forward = cuda_rnn.launch_plan(kind, 32, B, H, dtype, spec)
+    assert (plan.design == "grid") == (forward.design == "grid")
+    assert (plan.design == "cluster") == (forward.design == "cluster")
     assert plan.smem <= spec.smem_limit
+    if plan.design == "cluster":
+        _check_cluster_backward_plan(kind, dtype, B, H, spec, plan)
+        return
     if plan.design == "rows":
         rows = cuda_rnn.bwd_rows(kind, B, H, dtype, spec)
         assert plan == cuda_rnn.Plan("rows", 1, rows, H, cuda_rnn.bwd_smem(kind, H, rows, 2 if dtype == "bfloat16" else 4), -(-B // rows))
@@ -1044,17 +1056,21 @@ def test_backward_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H, sp
 @pytest.mark.parametrize("kind,T,B,H", BWD_GRID_SITES, ids=BWD_SITE_IDS)
 def test_grid_backward_is_planned_at_the_float32_h512_learner_sites(kind, T, B, H):
     """The five float32 H=512 learner sites take the grid backward, as their forwards take the grid design; the same
-    shapes in bf16 keep the row design."""
+    shapes in bf16 take the cluster backward, as their forwards take the cluster design (clusters of 16)."""
     assert cuda_rnn.launch_plan(kind, T, B, H, "float32").design == "grid"
     assert cuda_rnn.bwd_plan(kind, B, H, "float32").design == "grid"
-    assert cuda_rnn.bwd_plan(kind, B, H, "bfloat16").design == "rows"
+    assert cuda_rnn.launch_plan(kind, T, B, H, "bfloat16").design == "cluster"
+    assert cuda_rnn.bwd_plan(kind, B, H, "bfloat16") == cuda_rnn.bwd_cluster_plan(kind, B, H, "bfloat16")
 
 
 @pytest.mark.parametrize("kind,T,B,H,dtype", BWD_ROW_SITES, ids=["-".join(map(str, site)) for site in BWD_ROW_SITES])
 def test_backward_keeps_the_row_design_at_the_bf16_and_narrow_sites(kind, T, B, H, dtype):
-    assert cuda_rnn.bwd_grid_plan(kind, B, H, dtype) is None
+    """Where the forward takes the row design, so does the backward, with the rows of bwd_rows as before."""
+    assert cuda_rnn.launch_plan(kind, T, B, H, dtype).design == "rows"
+    assert cuda_rnn.bwd_grid_plan(kind, B, H, dtype) is None and cuda_rnn.bwd_cluster_plan(kind, B, H, dtype) is None
     plan = cuda_rnn.bwd_plan(kind, B, H, dtype)
     assert plan.design == "rows" and plan.rows == cuda_rnn.bwd_rows(kind, B, H, dtype)
+    assert plan == cuda_rnn.bwd_row_plan(kind, B, H, plan.rows, 2 if dtype == "bfloat16" else 4)
 
 
 @pytest.mark.parametrize("name", list(BWD_GRID_PLANS))
@@ -1241,3 +1257,431 @@ def test_grid_backward_plans_are_resident_at_once(cuda_device, kind, T, B, H):
     spec = cuda_rnn.card_spec(cuda_device)
     plan = cuda_rnn.bwd_plan(kind, B, H, "float32", spec)
     assert plan.grid <= spec.sms and plan.grid <= cuda_rnn.grid_bwd_blocks_per_sm(kind, plan) * spec.sms
+
+
+# ------------------------------------------------------------------ the backward's cluster design (gru_seq_cluster_bwd, lstm_seq_cluster_bwd)
+
+# the learner sites whose forward takes the cluster design: `main`, `appo`, `population`, `dp` (a) at (32, 512, 256) bf16;
+# `selfplay` (32, 512, 512) bf16 (clusters of 16); `host_rnn` (32, 256, 256) bf16; `dp_host` (32, B, 256) float32 at 128,
+# 131, 37 and 255 segments; `dp2` and `tp` (a) at (32, 512, 256) float32; `lstm` and `towers` (32, 128, 256) float32;
+# DMLab's core (32, 32, 256) float32
+BWD_CLUSTER_SITES = [("gru", 32, 512, 256, "bfloat16"), ("gru", 32, 512, 512, "bfloat16"), ("gru", 32, 256, 256, "bfloat16"),
+                     *[("gru", 32, B, 256, "float32") for B in (128, 131, 37, 255)], ("gru", 32, 512, 256, "float32"),
+                     ("lstm", 32, 128, 256, "float32"), ("lstm", 32, 32, 256, "float32")]
+BWD_CLUSTER_IDS = ["-".join(map(str, site)) for site in BWD_CLUSTER_SITES]
+# their backward plans on each card the planner is held to (Plan's fields and the receive buffers): the forward's cluster and
+# unit slice, the fewest rows that keep one wave where the forward's does, two receive buffers, or one where that leaves a
+# cluster more rows (selfplay: 32 rather than 16; `main` on 66 SMs: 64 rather than 48); the selfplay site takes the row
+# design where the card runs no cluster of 16 (as its forward does)
+BWD_CLUSTER_PLANS = {
+    "": [("cluster", 8, 48, 32, 206016, 88), ("cluster", 16, 32, 32, 203392, 256, 1), ("cluster", 8, 32, 32, 154240, 64),
+         ("cluster", 8, 16, 32, 157248, 64), ("cluster", 8, 16, 32, 157248, 72), ("cluster", 8, 8, 32, 128544, 40),
+         ("cluster", 8, 24, 32, 185952, 88), ("cluster", 8, 32, 32, 214656, 128), ("cluster", 8, 16, 32, 190528, 64),
+         ("cluster", 8, 8, 32, 161824, 32)],
+    "114-13-0": [("cluster", 8, 48, 32, 206016, 88), None, ("cluster", 8, 32, 32, 154240, 64),
+                 ("cluster", 8, 16, 32, 157248, 64), ("cluster", 8, 16, 32, 157248, 72), ("cluster", 8, 8, 32, 128544, 40),
+                 ("cluster", 8, 24, 32, 185952, 88), ("cluster", 8, 32, 32, 214656, 128), ("cluster", 8, 16, 32, 190528, 64),
+                 ("cluster", 8, 8, 32, 161824, 32)],
+    "66-7-3": [("cluster", 8, 64, 32, 192256, 64, 1), ("cluster", 16, 32, 32, 203392, 256, 1), ("cluster", 8, 48, 32, 206016, 48),
+               ("cluster", 8, 24, 32, 185952, 48), ("cluster", 8, 24, 32, 185952, 48), ("cluster", 8, 8, 32, 128544, 40),
+               ("cluster", 8, 32, 32, 214656, 64), ("cluster", 8, 32, 32, 214656, 128), ("cluster", 8, 24, 32, 219232, 48),
+               ("cluster", 8, 8, 32, 161824, 32)],
+}
+
+
+def _cluster_plan_fields(fields):
+    if fields is None:
+        return None
+    *plan, buffers = fields if len(fields) == 7 else (*fields, 2)
+    return cuda_rnn.Plan(*plan, buffers=buffers)
+
+
+def _check_cluster_backward_plan(kind, dtype, B, H, spec, plan):
+    """A cluster backward plan: the forward's cluster and unit slice (a size the card runs), rows in steps of the
+    product's granularity, the fewest that keep one wave unless the cap or the block's shared memory holds them lower,
+    two receive buffers unless one leaves more rows, its shared memory within the card's limit by the kernel's formula, and
+    each (row, unit) pair in one block."""
+    forward = cuda_rnn.launch_plan(kind, 32, B, H, dtype, spec)
+    itemsize, step, cap = (2, 16, 64) if dtype == "bfloat16" else (4, 8, 32)
+    assert plan == cuda_rnn.bwd_cluster_plan(kind, B, H, dtype, spec) and plan.design == "cluster"
+    assert (plan.cluster, plan.units) == (forward.cluster, forward.units) and spec.clusters_at_once(plan.cluster) >= 1
+    two, one = (cuda_rnn.bwd_cluster_plan(kind, B, H, dtype, spec, buffers=n) for n in (2, 1))
+    assert plan == (one if two is None or one.rows > two.rows else two)
+    assert plan.smem == cuda_rnn.bwd_cluster_smem(kind, H, plan.cluster, plan.rows, itemsize, plan.buffers)
+    assert plan.smem <= spec.smem_limit and plan.rows % step == 0 and plan.grid == -(-B // plan.rows) * plan.cluster
+    one_wave = plan.grid // plan.cluster <= spec.clusters_at_once(plan.cluster)
+    assert one_wave or plan.rows == cap or \
+        cuda_rnn.bwd_cluster_smem(kind, H, plan.cluster, plan.rows + step, itemsize, plan.buffers) > spec.smem_limit
+    assert not one_wave or plan.rows == step or -(-B // (plan.rows - step)) > spec.clusters_at_once(plan.cluster)  # no fewer do
+    owner = np.zeros((B, H), dtype=np.int64)
+    for block in range(plan.grid):
+        tile, rank = divmod(block, plan.cluster)
+        owner[tile * plan.rows:(tile + 1) * plan.rows, rank * plan.units:(rank + 1) * plan.units] += 1
+    assert (owner == 1).all(), "every (row, unit) pair belongs to exactly one block"
+
+
+@pytest.mark.parametrize("name", list(BWD_CLUSTER_PLANS))
+@pytest.mark.parametrize("i", range(len(BWD_CLUSTER_SITES)), ids=BWD_CLUSTER_IDS)
+def test_cluster_backward_takes_the_forwards_cluster_and_units(i, name):
+    """At every cluster site, on the H100 SXM and on the smaller cards, the backward takes the cluster design with the
+    forward's cluster and unit slice, pinned; where the card runs no cluster of 16 (selfplay's forward takes the row
+    design there) it keeps the row design."""
+    kind, T, B, H, dtype = BWD_CLUSTER_SITES[i]
+    spec = SMALL_SPECS.get(name, cuda_rnn.H100_SXM)
+    want = _cluster_plan_fields(BWD_CLUSTER_PLANS[name][i])
+    plan = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
+    if want is None:
+        assert cuda_rnn.launch_plan(kind, T, B, H, dtype, spec).design == "rows" and plan.design == "rows"
+        assert cuda_rnn.bwd_cluster_plan(kind, B, H, dtype, spec) is None
+        return
+    assert plan == want
+    _check_cluster_backward_plan(kind, dtype, B, H, spec, plan)
+
+
+def _bwd_cluster_cxx():
+    """A host program of the kernel's shared-memory formula, csrc/rnn_seq.cu's own text, for g++."""
+    source = cuda_rnn.SOURCE.read_text()
+    parts = [re.search(r"__host__ __device__ constexpr size_t align16\(size_t n\) \{[^}]*\}", source).group(0),
+             re.search(r"__host__ __device__ constexpr int bwd_cluster_k\(int GU, int elem\) \{[^}]*\}", source).group(0),
+             re.search(r"inline size_t bwd_cluster_smem_bytes\(.*?\n\}", source, re.S).group(0)]
+    program = ("#include <cstddef>\n#include <cstdio>\n#include <cstdlib>\n#define __host__\n#define __device__\n" + "\n".join(parts)
+               + "\nint main(int argc, char** argv) { for (int i = 1; i + 5 < argc; i += 6) std::printf(\"%zu\\n\", "
+                 "bwd_cluster_smem_bytes(atoi(argv[i]), atoi(argv[i + 1]), atoi(argv[i + 2]), atoi(argv[i + 3]), atoi(argv[i + 4]), "
+                 "atoi(argv[i + 5]))); return 0; }\n")
+    return program
+
+
+def test_bwd_cluster_smem_is_the_kernels_formula(tmp_path):
+    """bwd_cluster_smem in Python equals bwd_cluster_smem_bytes, the C++ launcher's check, at every width, cluster, row
+    count, dtype, kind and buffer count the planner can reach (the C++ function compiled for the host from the source)."""
+    if not shutil.which("g++"):
+        pytest.skip("needs g++ to compile the kernel source's formula for the host")
+    (tmp_path / "smem.cpp").write_text(_bwd_cluster_cxx())
+    subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(tmp_path / "smem"), str(tmp_path / "smem.cpp")], check=True)
+    cases = [(G, H, C, rows, elem, buffers) for G in (3, 4) for H in (64, 128, 256, 512, 1024) for C in (8, 16) if H // C >= 8
+             for elem in (2, 4) for rows in range(16 if elem == 2 else 8, 65, 16 if elem == 2 else 8) for buffers in (1, 2)]
+    out = subprocess.run([str(tmp_path / "smem"), *[str(v) for case in cases for v in case]], capture_output=True, text=True,
+                         check=True).stdout.split()
+    assert len(out) == len(cases)
+    for (G, H, C, rows, elem, buffers), got in zip(cases, out):
+        assert int(got) == cuda_rnn.bwd_cluster_smem({3: "gru", 4: "lstm"}[G], H, C, rows, elem, buffers), (G, H, C, rows, elem, buffers)
+
+
+# the kernel's fragment maps, emulated in float64 on one cluster's rows: ldmatrix gives lane t of matrix m the elements
+# (row t // 4, columns 2 (t % 4), +1), ldmatrix.trans (row 2 (t % 4), +1, column t // 4); mma.m16n8k16's A fragment a[0..3]
+# is rows g, g + 8 of columns 2q.., then of 2q + 8.., its B fragment (k 2q.., n g), (k 2q + 8.., n g), its sums (row g,
+# columns 2q, 2q + 1), (row g + 8, the same): lane t = 4g + q
+_LANES = np.arange(32)
+_G, _Q = _LANES // 4, _LANES % 4
+
+
+def _ldmatrix(mem, flat, stride, trans):
+    rows, cols = np.divmod(np.asarray(flat), stride)
+    m = mem[rows[:, None], cols[:, None] + np.arange(8)].reshape(4, 8, 8)  # [matrix][row][column]
+    e = np.arange(2)
+    if trans:
+        return m[:, 2 * _Q[:, None] + e, _G[:, None]].transpose(1, 0, 2)
+    return m[:, _G[:, None], 2 * _Q[:, None] + e].transpose(1, 0, 2)
+
+
+def _mma(a, b0, b1):
+    A, Bm = np.zeros((16, 16)), np.zeros((16, 8))
+    for e in range(2):
+        A[_G, 2 * _Q + e], A[_G + 8, 2 * _Q + e] = a[:, 0, e], a[:, 1, e]
+        A[_G, 2 * _Q + 8 + e], A[_G + 8, 2 * _Q + 8 + e] = a[:, 2, e], a[:, 3, e]
+        Bm[2 * _Q + e, _G], Bm[2 * _Q + 8 + e, _G] = b0[:, e], b1[:, e]
+    return A @ Bm
+
+
+def _emulate_mma_push(dgh, dgl, w, slots, r, BT, H, K, U):
+    """bwd_mma_push of block r (csrc/rnn_seq.cu): dgh, dgl [BT][K + 8], w [K][H + 8] as the kernel lays them out in shared
+    memory; slots [C][C][BT][U] (receiving block, sending block) of NaN, each element written once."""
+    DS, HS, lu = K + 8, H + 8, U.bit_length() - 1
+    nj = 4 if (BT // 16) * (H // 32) % 16 == 0 else 2
+    groups, odd = H // (8 * nj), (_Q & 1).astype(bool)
+    for item in range(BT // 16 * groups):
+        m0, n0 = item // groups * 16, item % groups * 8 * nj
+        a_at = (m0 + (_LANES & 7) + (_LANES >> 3 & 1) * 8) * DS + (_LANES >> 4) * 8
+        pb = ((_LANES & 7) + (_LANES >> 3 & 1) * 8) * HS + n0 + (_LANES >> 4) * 8
+        acc = np.zeros((nj, 16, 8))
+        for k in range(0, K, 16):
+            ah, al = _ldmatrix(dgh, a_at + k, DS, False), _ldmatrix(dgl, a_at + k, DS, False)
+            b = {}
+            for j in range(0, nj, 2):
+                regs = _ldmatrix(w, pb + k * HS + j * 8, HS, True)
+                b[j], b[j + 1] = (regs[:, 0], regs[:, 1]), (regs[:, 2], regs[:, 3])
+            for j in range(nj):
+                acc[j] += _mma(ah, *b[j]) + _mma(al, *b[j])
+        for j in range(nj):
+            d = np.stack([acc[j][_G, 2 * _Q], acc[j][_G, 2 * _Q + 1], acc[j][_G + 8, 2 * _Q], acc[j][_G + 8, 2 * _Q + 1]], axis=1)
+            x0, x1 = np.where(odd, d[:, 0], d[:, 2]), np.where(odd, d[:, 1], d[:, 3])
+            y0, y1 = x0[_LANES ^ 1], x1[_LANES ^ 1]
+            v = np.where(odd[:, None], np.stack([y0, y1, d[:, 2], d[:, 3]], 1), np.stack([d[:, 0], d[:, 1], y0, y1], 1))
+            row, col = m0 + _G + np.where(odd, 8, 0), n0 + j * 8 + 2 * (_Q & 2)
+            for t in range(32):
+                peer, u = col[t] >> lu, col[t] & (U - 1)
+                assert np.isnan(slots[peer, r, row[t], u:u + 4]).all(), "a slot element written twice"
+                slots[peer, r, row[t], u:u + 4] = v[t]
+
+
+def _emulate_fma_push(dg, w, slots, r, BT, H, K, U):
+    """bwd_fma_push of block r: dg [BT][K], w [K][H + 4]; RB rows x 4 columns a thread, as the kernel picks RB."""
+    lu, cols = U.bit_length() - 1, H // 4
+    rb = 8 if cols * (BT // 8) >= 256 else 4
+    for it in range(cols * (BT // rb)):
+        c, r0 = it % cols * 4, it // cols * rb
+        s = dg[r0:r0 + rb, :K] @ w[:K, c:c + 4]
+        for i in range(rb):
+            peer, u = c >> lu, c & (U - 1)
+            assert np.isnan(slots[peer, r, r0 + i, u:u + 4]).all(), "a slot element written twice"
+            slots[peer, r, r0 + i, u:u + 4] = s[i]
+
+
+# the cluster sites' (cluster, units, rows) and the small widths the cluster design also takes (a K that the mma's k16
+# does not divide at the GRU-64's 8 units: 24 gate columns, padded to 32)
+BWD_EMULATED = BWD_CLUSTER_SITES + [("gru", 7, 24, 128, "bfloat16"), ("lstm", 7, 24, 128, "bfloat16"), ("gru", 5, 3, 64, "bfloat16"),
+                                    ("lstm", 5, 3, 64, "float32"), ("lstm", 32, 512, 256, "bfloat16")]
+
+
+@pytest.mark.parametrize("kind,T,B,H,dtype", BWD_EMULATED, ids=["-".join(map(str, s)) for s in BWD_EMULATED])
+def test_cluster_backward_product_emulated_in_float64(kind, T, B, H, dtype):
+    """The cluster backward's product as the kernel computes it, lane by lane in float64 on one cluster's rows: block r's
+    rows of pack_wh (zero rows up to K) against its units' gate cotangents (bf16: a high and a low part), each column sent
+    into its owner's slot r, each slot element written once; the slots summed in block order equal dg @ wh^T (bf16: to the
+    2^-16 of the two-part split; float32: to rounding)."""
+    plan = cuda_rnn.bwd_plan(kind, B, H, dtype)
+    assert plan.design == "cluster"
+    C, U, BT, G = plan.cluster, plan.units, plan.rows, 3 if kind == "gru" else 4
+    itemsize = 2 if dtype == "bfloat16" else 4
+    K = cuda_rnn.bwd_cluster_k(kind, U, itemsize)
+    rng = np.random.default_rng(B + H)
+    wh = torch.tensor(rng.normal(size=(H, G * H)) / math.sqrt(H), dtype=torch.float32).to(getattr(torch, dtype))
+    dg = rng.normal(size=(BT, G * H)).astype(np.float32)
+    packed = cuda_rnn.pack_wh(wh, plan).double().numpy()
+    slots = np.full((C, C, BT, U), np.nan)
+    for r in range(C):
+        cols = [g * H + r * U + u for g in range(G) for u in range(U)]
+        w = np.zeros((K, H + 16 // itemsize))
+        w[:G * U, :H] = packed[r]
+        if dtype == "bfloat16":
+            hi = torch.tensor(dg[:, cols]).bfloat16()
+            lo = (torch.tensor(dg[:, cols]) - hi.float()).bfloat16()
+            dgh, dgl = np.zeros((BT, K + 8)), np.zeros((BT, K + 8))
+            dgh[:, :G * U], dgl[:, :G * U] = hi.double().numpy(), lo.double().numpy()
+            _emulate_mma_push(dgh, dgl, w, slots, r, BT, H, K, U)
+        else:
+            dgr = np.zeros((BT, K))
+            dgr[:, :G * U] = dg[:, cols]
+            _emulate_fma_push(dgr, w, slots, r, BT, H, K, U)
+    assert not np.isnan(slots).any(), "every slot element is written"
+    got = np.concatenate([sum(slots[q, r] for r in range(C)) for q in range(C)], axis=1)  # block q's units, in block order
+    want = dg.astype(np.float64) @ wh.double().numpy().T
+    tol = 1e-4 if dtype == "bfloat16" else 1e-12
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def _cluster_bwd_args(kind, T, B, H, dtype="float32"):
+    d_out, d_state, resets, a, h_proj, s, wh = _bwd_args(kind, T, B, H)
+    dt = getattr(torch, dtype)
+    return d_out, d_state, resets, a.to(dt), None if h_proj is None else h_proj.to(dt), s, wh.to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_backward_launch_passes_the_cluster_plan(monkeypatch, kind, dtype):
+    """At a cluster site `_launch_bwd` launches `*_seq_cluster_backward` with the cluster plan of the tensor's card (here 66
+    SMs): T, B, H, the dtype flag, the cluster, rows, receive buffers and shared memory (bwd_cluster_smem's bytes, which the
+    launcher checks against its own formula); it counts one `*_seq_cluster_bwd` and no other backward."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    spec = SMALL_SPECS["66-7-3"]
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: spec)
+    T, B, H = 2, 128, 256
+    args = _cluster_bwd_args(kind, T, B, H, dtype)
+    before = cuda_rnn.launch_counts()
+    outputs = cuda_rnn._launch_bwd(kind, *args)
+    plan = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
+    assert plan.design == "cluster" and plan != cuda_rnn.bwd_plan(kind, B, H, dtype)
+    (name, call), = calls
+    assert name == f"{kind}_seq_cluster_backward" and len(call) == (19 if kind == "gru" else 18)
+    itemsize = 2 if dtype == "bfloat16" else 4
+    assert list(call[-9:-1]) == [T, B, H, int(dtype == "bfloat16"), plan.cluster, plan.rows, plan.buffers, plan.smem]
+    assert plan.smem == cuda_rnn.bwd_cluster_smem(kind, H, plan.cluster, plan.rows, itemsize, plan.buffers)
+    d_hn = [(T, B, H)] if kind == "gru" else []
+    assert [tuple(o.shape) for o in outputs] == [tuple(args[3].shape)] + d_hn + [tuple(args[1].shape)]
+    assert outputs[0].dtype == args[3].dtype
+    after = cuda_rnn.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), f"{kind}_seq_cluster_bwd": 1}
+    cuda_rnn._launches[f"{kind}_seq_cluster_bwd"] -= 1
+
+
+def test_cluster_backward_copies_an_input_at_an_odd_offset(monkeypatch):
+    """The cluster design copies its inputs in 16-byte pieces: x_proj as a view one element into a buffer reaches the kernel
+    as a copy on 16 bytes; the aligned inputs pass as they are."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: cuda_rnn.H100_SXM)
+    d_out, d_state, resets, a, h_proj, s, wh = _cluster_bwd_args("gru", 2, 64, 256, "bfloat16")
+    odd = torch.empty(a.numel() + 1, dtype=a.dtype)[1:].view_as(a).copy_(a)
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    cuda_rnn._launch_bwd("gru", d_out, d_state, resets, odd, h_proj, s, wh)
+    (name, call), = calls
+    assert name == "gru_seq_cluster_backward" and call[3] % 16 == 0 and call[3] != odd.data_ptr()
+    assert call[:3] == (d_out.data_ptr(), d_state.data_ptr(), resets.data_ptr()) and call[4] == h_proj.data_ptr()
+    cuda_rnn._launches["gru_seq_cluster_bwd"] -= 1
+
+
+def test_a_refused_cluster_backward_launch_names_the_plan_and_the_sms(monkeypatch):
+    """A cluster backward launch that the card refuses (cudaErrorInvalidConfiguration: no cluster of the plan fits) raises,
+    naming the shape, the plan, its clusters and rows, its shared memory and the card's SMs; nothing is counted and no other
+    design runs."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    lib = cuda_rnn.load_library()
+    lib.lstm_seq_cluster_backward = lambda *args: 9  # cudaErrorInvalidConfiguration
+    lib.lstm_seq_cluster_backward.__name__ = "lstm_seq_cluster_backward"
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: SMALL_SPECS["114-13-0"])
+    before = cuda_rnn.launch_counts()
+    with pytest.raises(RuntimeError, match=r"lstm_seq_cluster_backward launch failed: CUDA error 9 \(T=2, B=128, H=256, torch.float32: "
+                                           r"plan Plan\(design='cluster'.*: 8 clusters of 8 blocks, 16 rows and 32 units a block, 2 "
+                                           r"receive buffers, 190528 bytes of shared memory, on a card of 114 SMs"):
+        cuda_rnn._launch_bwd("lstm", *_cluster_bwd_args("lstm", 2, 128, 256))
+    assert cuda_rnn.launch_counts() == before and calls == []
+
+
+# the cluster backward on the card: every cluster site, the small widths of CARD_SHAPES in both dtypes (the GRU-64's K padded
+# to the mma's k16), and ragged last clusters (dp_host's 37, 131 and 255 segments are among the sites)
+BWD_CLUSTER_CARD_SHAPES = BWD_CLUSTER_SITES + [(kind, T, B, H, dtype) for kind in ("gru", "lstm") for dtype in ("float32", "bfloat16")
+                                               for T, B, H in [(7, 24, 128), (1, 8, 128), (5, 3, 64), (3, 45, 256)]]
+
+
+def _recurrence_inputs(kind, T, B, H, dtype, device, seed=13, masked=False):
+    """The kernel forward's outputs and the backward recurrence's inputs as the prologue makes them."""
+    args = (_masked_inputs if masked else _inputs)(kind, T, B, H, dtype, device, seed=seed)
+    with torch.no_grad():
+        out, state = _fns(kind)[0](*args)
+        d_out, d_state = _cotangents(out, state)
+        h_prev = cuda_rnn._carries_in(args[1], args[2], out)
+        h_in = h_prev.to(args[0].dtype)
+    if kind == "gru":
+        return args, (d_out, d_state, args[2], args[0], h_in @ args[3] + args[4], h_prev, args[3])
+    return args, (d_out, d_state, args[2], args[0] + h_in @ args[3], args[1], args[3])
+
+
+def _bwd_rel_err(got, want):
+    return max(float((g.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max())) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T,B,H,dtype", BWD_CLUSTER_CARD_SHAPES, ids=["-".join(map(str, s)) for s in BWD_CLUSTER_CARD_SHAPES])
+def test_cluster_backward_matches_plain_on_card(cuda_device, kind, T, B, H, dtype):
+    """The cluster backward kernel against its plain recurrence on the same inputs, within BWD_TOL; one
+    `*_seq_cluster_bwd` launch, no other."""
+    _, plain, launch = _backward_pieces(kind)
+    assert cuda_rnn.bwd_plan(kind, B, H, dtype, cuda_rnn.card_spec(cuda_device)).design == "cluster"
+    _, rec = _recurrence_inputs(kind, T, B, H, dtype, cuda_device)
+    with torch.no_grad():
+        cuda_rnn.reset_launch_counts()
+        got = launch(*rec)
+        torch.cuda.synchronize()
+        assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, f"{kind}_seq_cluster_bwd": 1}
+        want = plain(*rec)
+    assert all(g.dtype == w.dtype and bool(torch.isfinite(g).all()) for g, w in zip(got, want))
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T,B,H,dtype", [("gru", 32, 512, 512, "bfloat16"), ("gru", 32, 512, 256, "bfloat16"),
+                                             ("lstm", 32, 128, 256, "float32"), ("gru", 32, 37, 256, "float32")])
+def test_cluster_backward_with_the_other_receive_buffer_count_matches_plain_on_card(cuda_device, kind, T, B, H, dtype):
+    """The plan at the receive-buffer count the site's plan does not take (one buffer: a second cluster barrier a step,
+    before the product; two: the slots alternate), at the rows it allows, against the plain recurrence."""
+    _, plain, launch = _backward_pieces(kind)
+    spec = cuda_rnn.card_spec(cuda_device)
+    planned = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
+    plan = cuda_rnn.bwd_cluster_plan(kind, B, H, dtype, spec, buffers=3 - planned.buffers)
+    assert plan.buffers != planned.buffers
+    _, rec = _recurrence_inputs(kind, T, B, H, dtype, cuda_device, seed=14)
+    with torch.no_grad():
+        got = launch(*rec, plan=plan)
+        torch.cuda.synchronize()
+        want = plain(*rec)
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["gru", "lstm"])
+def test_cluster_backward_on_resets_and_saturated_gates(cuda_device, kind, dtype):
+    """The cluster design at the main width: every second row reset at every step, and sigmoid gates whose pre-activations
+    lie below -88: finite gradients, the saturated gates' exactly 0, equal to the plain recurrence's."""
+    backward, plain, _ = _backward_pieces(kind)
+    T, B, H = 8, 64, 256
+    args = _masked_inputs(kind, T, B, H, dtype, cuda_device)
+    assert cuda_rnn.bwd_plan(kind, B, H, dtype, cuda_rnn.card_spec(cuda_device)).design == "cluster"
+    sigmoid_gates = [0, 1] if kind == "gru" else [0, 1, 3]
+    for g in sigmoid_gates:
+        args[0][:, :8, g * H:(g + 1) * H] = -200.0
+    with torch.no_grad():
+        out, state = _fns(kind)[0](*args)
+        cuda_rnn.reset_launch_counts()
+        got = backward(*args, out, *_cotangents(out, state))
+        assert cuda_rnn.launch_counts()[f"{kind}_seq_cluster_bwd"] == 1
+        want = backward(*args, out, *_cotangents(out, state), recurrence=plain)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for g in sigmoid_gates:
+        assert bool((got[0][:, :8, g * H:(g + 1) * H] == 0).all()), f"gate {g} below -88 has a gradient"
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_a_cluster_backward_plan_the_card_cannot_hold_is_refused(cuda_device):
+    """The selfplay site's cluster backward at 64 rows a cluster needs more shared memory than a block may take: the launch
+    is refused and raises, naming the plan and the card's SMs; nothing is counted, and the next launch runs (P6)."""
+    spec = cuda_rnn.card_spec(cuda_device)
+    kind, T, B, H, dtype = "gru", 4, 512, 512, "bfloat16"
+    good = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
+    smem = cuda_rnn.bwd_cluster_smem(kind, H, 16, 64, 2, good.buffers)
+    assert smem > spec.smem_limit
+    refused = dataclasses.replace(good, rows=64, smem=smem, grid=B // 64 * 16)
+    _, rec = _recurrence_inputs(kind, T, B, H, dtype, cuda_device)
+    before = cuda_rnn.launch_counts()
+    with pytest.raises(RuntimeError, match=r"gru_seq_cluster_backward launch failed: CUDA error \d+ .*64 rows.*SMs"):
+        cuda_rnn._launch_gru_bwd(*rec, plan=refused)
+    assert cuda_rnn.launch_counts() == before
+    with torch.no_grad():
+        got = cuda_rnn._launch_gru_bwd(*rec)
+        torch.cuda.synchronize()
+        want = cuda_rnn.gru_seq_bwd_reference(*rec)
+    assert cuda_rnn.launch_counts()["gru_seq_cluster_bwd"] == before["gru_seq_cluster_bwd"] + 1
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SMALL_SPECS))
+@pytest.mark.parametrize("i", range(len(BWD_CLUSTER_SITES)), ids=BWD_CLUSTER_IDS)
+def test_smaller_cards_cluster_backward_plans_match_plain_on_card(cuda_device, i, name):
+    """The backward plans made for 114 and 66 SMs at every cluster site, launched on this card, against the plain
+    recurrence."""
+    kind, T, B, H, dtype = BWD_CLUSTER_SITES[i]
+    plan = cuda_rnn.bwd_plan(kind, B, H, dtype, SMALL_SPECS[name])
+    if plan.design != "cluster":
+        pytest.skip(f"the {name} card's backward at {BWD_CLUSTER_SITES[i]} is the row design, held by the backward tests")
+    _, plain, launch = _backward_pieces(kind)
+    _, rec = _recurrence_inputs(kind, T, B, H, dtype, cuda_device, seed=15)
+    with torch.no_grad():
+        got = launch(*rec, plan=plan)
+        torch.cuda.synchronize()
+        want = plain(*rec)
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T,B,H,dtype", BWD_CLUSTER_SITES, ids=BWD_CLUSTER_IDS)
+def test_cluster_backward_plans_run_on_the_card(cuda_device, kind, T, B, H, dtype):
+    """Every cluster site's backward plan has clusters that the card runs (cudaOccupancyMaxActiveClusters at the plan's
+    shared memory), and as many at once as the forward's spec counts at one block an SM."""
+    spec = cuda_rnn.card_spec(cuda_device)
+    plan = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
+    assert plan.design == "cluster"
+    assert cuda_rnn.max_active_bwd_clusters(kind, dtype, plan) >= max(1, spec.clusters_at_once(plan.cluster))
