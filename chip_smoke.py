@@ -13,23 +13,33 @@ Phases, each printing one JSON line:
             doom, dmlab, nethack, isaacgym, dp_host, tp and defaults paths' shapes in float32, each asserting the
             design its plan picks (GRU-512 at (32, 64, 512), (16, 4, 512) and (32, 32, 512) and LSTM-512 at
             (32, 32, 512), (32, 24, 512) and (16, 2048, 512): grid; dp_host's GRU-256 at 37, 128, 131 and 255
-            segments: clusters of 8; DMLab's LSTM-64 over a minibatch, (16, 1024, 64): rows); the gradient goes
+            segments: clusters of 8; DMLab's LSTM-64 at (16, 64, 64), (16, 1024, 64) and (16, 128, 64): resident); the gradient goes
             through the backward kernel; then the planned backward kernels (the grid design, `gru_seq_grid_bwd`,
             `lstm_seq_grid_bwd`, where the forward takes the grid design; the cluster design, `gru_seq_cluster_bwd`,
-            `lstm_seq_cluster_bwd`, where it takes the cluster design; the row design, `gru_seq_bwd`,
-            `lstm_seq_bwd`, elsewhere: DMLab's instruction encoder over a minibatch, bf16 at H=1024) against their
+            `lstm_seq_cluster_bwd`, where it takes the cluster design; the resident design, `lstm_seq_resident_bwd`,
+            where it takes the resident design: DMLab's instruction encoder over a minibatch; the row design, `gru_seq_bwd`,
+            `lstm_seq_bwd`, elsewhere: bf16 at H=1024) against their
             plain recurrence (the same prologue, epilogue and inputs) and against the remat (the plain forward rerun
             under autograd, the CPU's backward) at the parity shapes in both dtypes, at every learner site
-            (BWD_SITES), on rows reset at every step and on gates saturated below -88, in both dtypes
+            (BWD_SITES), on rows reset at every step and on gates saturated below -88, in both dtypes; both resident
+            kernels (`lstm_seq_resident`, `lstm_seq_resident_bwd`) against their plain versions at DMLab's
+            instruction-encoder sites and (16, 2048, 64) (RESIDENT_SITES) and at odd shapes (RESIDENT_ODD_SHAPES), in both
+            dtypes, on rows reset at every step, gates below -88 and x_proj at an odd offset; S1: the grid design at 8 x 8
+            tiles on an x_proj one float into its buffer (S1_SHAPE)
   timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
             nethack, isaacgym, dp_host, tp and defaults paths' shapes, warm and with L2 flushed, beside the first
             design (rows) at the same shapes (and the cluster plan where the row design takes its place), in turns in
-            one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a yardstick
+            one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a yardstick; at
+            RESIDENT_SITES the resident design in turns with the row design and the cluster plan where there is one, warm
+            and L2-cold, and at DMLab's float32 sites cuDNN's torch.nn.LSTM(20, 64) on the same embedding (the forget
+            offset in bias_ih; its outputs held against the plain version) in turns with the Linear that makes x_proj
+            plus the planned kernel, forward and backward (`library_ms`; the port never calls it)
   bwd       at every learner site: the planned backward kernel alone (warm and L2-cold; at the grid and cluster
             sites in turns with the row design at the same shape, and where the other count of receive buffers takes
             other rows, `selfplay`, with that plan too), the whole backward (prologue, kernel,
             epilogue) and the remat in turns at the first site of each kernel, in CUDA-event and host-clock ms and the
-            device's busy ms; the plain recurrence; the kernel's bound, bytes and operations
+            device's busy ms; the plain recurrence; the kernel's bound, bytes and operations; the resident backward at
+            the RESIDENT_SITES no learner runs, in turns with the row design
   plans     the plans made for smaller cards (SMALLER_CARDS: 114 SMs with clusters {8: 13, 16: 0}, 66 SMs with
             {8: 7, 16: 3}) at the grid and cluster sites, launched on this card against the plain version and
             timed warm in turns with this card's own plan; the same for the backward's cluster plans at its sites
@@ -128,8 +138,9 @@ Phases, each printing one JSON line:
   dmlab     dmlab_30 at dmlab_params (convnet_impala ++ the instruction encoder, LSTM-256 float32), 128
             envs of the port's DmlabEnv with its level cache over the stand-in deepmind_lab of
             tests/standins/, batch 1024, async, 4 iterations, the DMLab-30 score tracker registered;
-            `lstm_seq` launches by site (core, instruction encoder in the rollout and the learner: the cluster
-            design, but the row design in the learner's instruction encoder)
+            LSTM launches by site (the core: the cluster design, `lstm_seq`; the instruction encoder in the rollout, the
+            learner and the learner's last-value pass: the resident design, `lstm_seq_resident`, with
+            `lstm_seq_resident_bwd` once for each of the learner's forwards; no `lstm_seq_rows`, no `lstm_seq_bwd`)
   nethack   nethack_challenge through `examples/nethack/train_nethack.py`'s flags at their defaults (LSTM-512
             float32, batch 1024, rollout 32, async with the quantized learner; 12 workers x 2 envs, cut to one
             worker a core keeping the 24 envs) over the env-level stand-in of tests/standins/ (the card's
@@ -152,7 +163,8 @@ runs) and `dp_host` included, and per design: cluster, `*_seq`, grid, `*_seq_gri
 multichip leg and the defaults, the NetHack and AllegroHandLSTM learners, beside the row design at the same
 shapes; the backward's designs, `gru_seq_bwd` and `lstm_seq_bwd` (rows), `gru_seq_grid_bwd` and `lstm_seq_grid_bwd`
 (grid) and `gru_seq_cluster_bwd` and `lstm_seq_cluster_bwd` (cluster), by path and at every learner site each runs, the
-grid and cluster designs beside the row design at the same shapes); every recurrent path's launches hold one backward
+grid and cluster designs beside the row design at the same shapes); `lstm_seq_resident` and `lstm_seq_resident_bwd`, by
+path and by site (RESIDENT_SITES), beside the row design, the cluster plan and cuDNN; every recurrent path's launches hold one backward
 launch for each learner forward launch (rollouts run under no_grad and launch none), of the forward's design; the card's
 name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
@@ -185,12 +197,21 @@ PARITY_SHAPES = [(32, 512, 256), (7, 24, 128), (1, 8, 128), (5, 3, 64), (32, 512
 # (kind, T, B, H, dtype, design, cluster): GRU-512 float32 over 2048 / 32 segments; the DMLab core's
 # LSTM-256 over 1024 / 32; the instruction encoder's LSTM-64 over 16 tokens in a rollout slot (64 envs
 # a split), in a minibatch of 1024 (its cluster plan, 32 clusters, would need three waves) and in the
-# learner's value of the last observation of all 128 envs
+# learner's value of the last observation of all 128 envs: the resident design at all three
 DOOM_GRU = (32, 64, 512, "float32")
 DMLAB_CORE = (32, 32, 256, "float32")
 DMLAB_INSTR_ROLLOUT = (16, 64, 64, "float32")
 DMLAB_INSTR_LEARNER = (16, 1024, 64, "float32")
 DMLAB_INSTR_BOOTSTRAP = (16, 128, 64, "float32")
+# the resident design (the LSTM at H <= 64, over a cluster plan of several waves or of one): DMLab's instruction-encoder sites, which all take it, and the learner's batch at twice the rows in bf16;
+# phases parity, timing and bwd hold and time both kernels there
+RESIDENT_SITES = {"dmlab_instruction_rollout": DMLAB_INSTR_ROLLOUT, "dmlab_instruction_last_value": DMLAB_INSTR_BOOTSTRAP,
+                  "dmlab_instruction_learner": DMLAB_INSTR_LEARNER, "bf16_2048": (16, 2048, 64, "bfloat16")}
+# odd shapes of the resident design: B not a multiple of a block's rows, B=1, T=1
+RESIDENT_ODD_SHAPES = [(5, 1001, 64), (3, 1, 64), (1, 1024, 64)]
+DMLAB_INSTRUCTION_EMBED = 20  # the instruction encoder's embedding width: its LSTM is torch.nn.LSTM(20, 64) for cuDNN
+# S1 (ROADMAP C): a float32 x_proj one float into its buffer at a shape the grid design takes with 8 x 8 register tiles
+S1_SHAPE = (2, 1024, 512)
 # the NetHack and IsaacGym paths: LSTM-512 float32 takes the grid design (no cluster slice fits). NetHack's
 # defaults name batch 1024 (32 segments of 32); a train step takes one rollout of the 24 envs, 768 samples
 # (the quantized learner clips the batch to the rollout), so its learner launches at 24 segments.
@@ -209,16 +230,17 @@ TP_MULTICHIP_GRU = (16, 4, 512, "float32")
 # --rollout=32): 1024 / 32 segments a minibatch (phase `defaults`)
 DEFAULTS_GRU = (32, 32, 512, "float32")
 # GRU-512 and LSTM-512 float32 take the grid design (128 blocks at these batches, 32 at AllegroHandLSTM's);
-# the DMLab instruction encoder's LSTM-64 over a minibatch the row design (its cluster plan needs three waves)
+# the DMLab instruction encoder's LSTM-64 the resident design (over a minibatch its cluster plan needs three waves)
 PARITY_PATH_SHAPES = [("gru", *DOOM_GRU, "grid", 128), *[("gru", *shape, "cluster", 8) for shape in DP_HOST_GRUS],
                       ("gru", *TP_MULTICHIP_GRU, "grid", 128), ("gru", *DEFAULTS_GRU, "grid", 128),
-                      ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "cluster", 8),
-                      ("lstm", *DMLAB_INSTR_LEARNER, "rows", 1), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "cluster", 8),
+                      ("lstm", *DMLAB_CORE, "cluster", 8), ("lstm", *DMLAB_INSTR_ROLLOUT, "resident", 1),
+                      ("lstm", *DMLAB_INSTR_LEARNER, "resident", 1), ("lstm", *DMLAB_INSTR_BOOTSTRAP, "resident", 1),
                       ("lstm", *NETHACK_LSTM_BATCH, "grid", 128), ("lstm", *NETHACK_LSTM, "grid", 128),
                       ("lstm", *ALLEGRO_LSTM, "grid", 32)]
-# GRU-1024 bf16 over 16 segments of 16 steps (--rnn_size=1024): no cluster slice fits, so the forward and the backward keep
-# the row design; no path runs it
+# GRU-1024 and LSTM-1024 bf16 over 16 segments of 16 steps (--rnn_size=1024): no cluster slice fits, so the forward and the
+# backward keep the row design; no path runs them
 GRU_1024 = (16, 16, 1024, "bfloat16")
+LSTM_1024 = (16, 16, 1024, "bfloat16")
 # the learner sites of the backward kernels (every forward launch that needs a gradient is a learner's):
 # site -> (kind, shape, the path that runs it, or None); phases `parity` and `bwd` hold and time the backward at each
 BWD_SITES = {"main": ("gru", MAIN_GRU, "main"), "selfplay": ("gru", SELFPLAY_GRU, "selfplay"), "host_rnn": ("gru", HOST_GRU, "host_rnn"),
@@ -226,18 +248,20 @@ BWD_SITES = {"main": ("gru", MAIN_GRU, "main"), "selfplay": ("gru", SELFPLAY_GRU
              "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"), **{f"dp_host_{s[1]}": ("gru", s, "dp_host") for s in DP_HOST_GRUS},
              "lstm": ("lstm", MAIN_LSTM, "lstm"), "dmlab_core": ("lstm", DMLAB_CORE, "dmlab"),
              "dmlab_instruction_learner": ("lstm", DMLAB_INSTR_LEARNER, "dmlab"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
-             "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym"), "gru_1024": ("gru", GRU_1024, None)}
+             "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym"), "gru_1024": ("gru", GRU_1024, None),
+             "lstm_1024": ("lstm", LSTM_1024, None)}
 # the backward kernel of each design (cuda_rnn.bwd_plan: the grid design exactly at GRID_SITES, the cluster design where the
 # forward takes it, the row design elsewhere) -> the learner site whose numbers the kernels line gives first, the first of
 # its kind and design in BWD_SITES
 BWD_LINE_SITES = {"gru_seq_cluster_bwd": "main", "lstm_seq_cluster_bwd": "lstm", "gru_seq_grid_bwd": "doom_learner",
-                  "lstm_seq_grid_bwd": "nethack_learner", "gru_seq_bwd": "gru_1024", "lstm_seq_bwd": "dmlab_instruction_learner"}
+                  "lstm_seq_grid_bwd": "nethack_learner", "gru_seq_bwd": "gru_1024", "lstm_seq_bwd": "lstm_1024",
+                  "lstm_seq_resident_bwd": "dmlab_instruction_learner"}
 # the sites of the grid design that the kernels line reports one by one: site -> (kind, shape, the path that runs it)
 GRID_SITES = {"doom_learner": ("gru", DOOM_GRU, "doom"), "tp_multichip": ("gru", TP_MULTICHIP_GRU, "tp"),
               "defaults": ("gru", DEFAULTS_GRU, "defaults"), "nethack_learner": ("lstm", NETHACK_LSTM, "nethack"),
               "allegro_hand_lstm_learner": ("lstm", ALLEGRO_LSTM, "isaacgym")}
 # the cluster design's sites that the build phase checks against the clusters the card runs at once:
-# name -> (kind, shape); DMLab's learner encoder takes the row design over a cluster plan of several waves
+# name -> (kind, shape); DMLab's instruction encoder takes the resident design over these cluster plans
 CLUSTER_SITES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM), "gru_seq_selfplay": ("gru", SELFPLAY_GRU),
                  "lstm_seq_dmlab_core": ("lstm", DMLAB_CORE), "lstm_seq_dmlab_instr_rollout": ("lstm", DMLAB_INSTR_ROLLOUT),
                  "lstm_seq_dmlab_instr_learner": ("lstm", DMLAB_INSTR_LEARNER),
@@ -247,6 +271,9 @@ CLUSTER_SITES = {"gru_seq": ("gru", MAIN_GRU), "lstm_seq": ("lstm", MAIN_LSTM), 
 SMALLER_CARDS = [(114, 13, 0), (66, 7, 3)]
 # the card's spec (cuda_rnn.card_spec of cuda:0), read by main() before any plan is made
 SPEC = None
+# each path's forward launches by site where a phase counts them (`dmlab`: the instruction encoder's sites): path -> site ->
+# {"kernel": the planned kernel, "launches": its launches there}
+SITE_LAUNCHES = {}
 # bf16: kernel and plain version round every gate op to bf16 alike, but sum h @ wh in
 # another order, so a product can land one bf16 ulp apart; that flip (2^-8 relative,
 # up to 2^-6 absolute at the LSTM cell's magnitudes) feeds forward through the recurrence.
@@ -276,6 +303,8 @@ REPLACES = {
     "lstm_seq_grid_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
     "gru_seq_cluster_bwd": "sample_factory_tpu/ops/pallas_gru.py:189",
     "lstm_seq_cluster_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
+    "lstm_seq_resident": "sample_factory_tpu/ops/pallas_gru.py:271",
+    "lstm_seq_resident_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
 }
 # the designs (cluster: `gru_seq`/`lstm_seq`; grid: `gru_seq_grid`/`lstm_seq_grid`; rows: `gru_seq_rows`/`lstm_seq_rows`);
 # the kernels line reports the cluster designs at their main paths' shapes, the grid designs at the doom and
@@ -324,24 +353,27 @@ def forward_launches(counts):
 
 
 def backward_launches(counts):
-    """The backward kernels' launches, every design (`*_seq_bwd`, `*_seq_grid_bwd`, `*_seq_cluster_bwd`)."""
+    """The backward kernels' launches, every design (`*_seq_bwd`, `*_seq_grid_bwd`, `*_seq_cluster_bwd`, `*_seq_resident_bwd`)."""
     return sum(v for k, v in counts.items() if k.endswith("_bwd"))
 
 
 def others(counts, *names):
     """The launches of every kernel but `names` and the backward kernels of their kinds (every design)."""
-    keep = set(names) | {f"{name.split('_seq')[0]}_seq{design}_bwd" for name in names for design in ("", "_grid", "_cluster")}
+    keep = set(names) | {f"{name.split('_seq')[0]}_seq{design}_bwd" for name in names for design in ("", "_grid", "_cluster", "_resident")}
     return {k: v for k, v in counts.items() if k not in keep}
 
 
 def check_backward_launches(counts, where):
     """One backward launch for each forward launch: `counts` are those of the launches that needed a gradient
-    (rollouts, value passes and model checks run under no_grad, outside them). The backward takes the grid and the
-    cluster designs exactly where the forward does (cuda_rnn.bwd_plan), so each grid forward pairs with a
-    `*_seq_grid_bwd`, each cluster forward with a `*_seq_cluster_bwd` and each row forward with a `*_seq_bwd`."""
+    (rollouts, value passes and model checks run under no_grad, outside them). The backward takes the grid, the
+    cluster and the resident designs exactly where the forward does (cuda_rnn.bwd_plan), so each grid forward pairs with a
+    `*_seq_grid_bwd`, each cluster forward with a `*_seq_cluster_bwd`, each resident forward with a `*_seq_resident_bwd` and
+    each row forward with a `*_seq_bwd`."""
     for kind in ("gru", "lstm"):
-        want = {"grid": counts[f"{kind}_seq_grid"], "cluster": counts[f"{kind}_seq"], "rows": counts[f"{kind}_seq_rows"]}
-        got = {"grid": counts[f"{kind}_seq_grid_bwd"], "cluster": counts[f"{kind}_seq_cluster_bwd"], "rows": counts[f"{kind}_seq_bwd"]}
+        want = {"grid": counts[f"{kind}_seq_grid"], "cluster": counts[f"{kind}_seq"], "rows": counts[f"{kind}_seq_rows"],
+                "resident": counts.get(f"{kind}_seq_resident", 0)}
+        got = {"grid": counts[f"{kind}_seq_grid_bwd"], "cluster": counts[f"{kind}_seq_cluster_bwd"], "rows": counts[f"{kind}_seq_bwd"],
+               "resident": counts.get(f"{kind}_seq_resident_bwd", 0)}
         check(got == want, f"{where}: {kind} backward launches {got}, expected {want}: {counts}")
 
 
@@ -387,6 +419,16 @@ def phase_parity(torch, cuda_rnn):
               f"{kind} {(T, B, H, dtype)} takes {plan}, not the {design} design")
         kernel_fn, plain_fn = fns[kind]
         parity_case(torch, cuda_rnn, kind, kernel_fn, plain_fn, T, B, H, dtype, plan, path_shape=True)
+    # the resident design, both kernels on their own plans: at its sites and odd shapes in both dtypes, then rows reset at
+    # every step, gates below -88 and x_proj at an odd offset at the learner's shape; S1 on the grid design
+    resident = {(T, B, H, dtype): resident_parity_case(torch, cuda_rnn, T, B, H, dtype)
+                for T, B, H in [shape[:3] for shape in RESIDENT_SITES.values()] + RESIDENT_ODD_SHAPES for dtype in ("float32", "bfloat16")}
+    for site, shape in RESIDENT_SITES.items():
+        main_err[f"lstm_seq_resident@{site}"], main_err[f"lstm_seq_resident_bwd@{site}"] = resident[shape]
+    for variant in ("resets_every_step", "saturated", "odd_offset"):
+        for dtype in ("float32", "bfloat16"):
+            resident_parity_case(torch, cuda_rnn, *DMLAB_INSTR_LEARNER[:3], dtype, variant)
+    s1_parity_case(torch, cuda_rnn)
     # the error reported for each design: at the shape and dtype of the first path that runs it, and at
     # each site of the grid design
     line_shapes = dict(KERNEL_LINE_SHAPES, **{f"{kind}_seq_grid@{site}": (kind, shape) for site, (kind, shape, _) in GRID_SITES.items()})
@@ -417,7 +459,88 @@ def phase_parity(torch, cuda_rnn):
     # (abs, rel) at the first learner site of each backward kernel
     for name, site in BWD_LINE_SITES.items():
         main_err[name] = main_err[f"{name}@{site}"]
+    main_err["lstm_seq_resident"] = main_err["lstm_seq_resident@dmlab_instruction_learner"]
     return main_err
+
+
+def odd_view(torch, t):
+    """t's values in a contiguous view one element into a buffer of its own: an address that is no multiple of 16."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view_as(t).copy_(t)
+    check(view.data_ptr() % 16 != 0 and view.is_contiguous(), "the view is not at an odd offset")
+    return view
+
+
+def resident_parity_case(torch, cuda_rnn, T, B, H, dtype, variant=None):
+    """Both resident kernels once on their own plans at this shape (whatever the launch plan takes there) against the plain
+    versions on the same inputs: the forward within fwd_tol, the backward kernel (on the prologue's proj of the kernel
+    forward's outputs) within BWD_TOL of the largest gradient. `variant`: "resets_every_step"; "saturated" (the sigmoid
+    gates' pre-activations of the first quarter of the rows at -200: their gradient must be 0); "odd_offset" (x_proj and
+    proj as views one element into their buffers). Returns (forward error, (backward abs, rel))."""
+    import numpy as np
+
+    fwd = cuda_rnn.resident_plan("lstm", B, H, dtype, SPEC)
+    bwd = cuda_rnn.resident_plan("lstm", B, H, dtype, SPEC, backward=True)
+    args = make_inputs(torch, "lstm", T, B, H, dtype, seed=T + B + H + 3)
+    quarter = max(1, B // 4)
+    if variant == "resets_every_step":
+        args[2].fill_(1.0)
+    if variant == "saturated":
+        for g in (0, 1, 3):
+            args[0][:, :quarter, g * H:(g + 1) * H] = -200.0
+    odd = variant == "odd_offset"
+    with torch.no_grad():
+        before = cuda_rnn.launch_counts()
+        out, state = cuda_rnn._launch_lstm(odd_view(torch, args[0]) if odd else args[0], *args[1:], plan=fwd)
+        rng = np.random.default_rng(B + 7)
+        d_out = torch.tensor(rng.normal(size=tuple(out.shape)).astype(np.float32), device="cuda")
+        d_state = torch.tensor(rng.normal(size=tuple(state.shape)).astype(np.float32), device="cuda")
+        proj = args[0] + cuda_rnn._carries_in(args[1], args[2], out).to(args[0].dtype) @ args[3]
+        got = cuda_rnn._launch_lstm_bwd(d_out, d_state, args[2], odd_view(torch, proj) if odd else proj, args[1], args[3], plan=bwd)
+        torch.cuda.synchronize()
+        after = cuda_rnn.launch_counts()
+        check({k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "lstm_seq_resident": 1, "lstm_seq_resident_bwd": 1},
+              f"resident {(T, B, H, dtype, variant)}: launches {after} after {before}")
+        ref_out, ref_state = cuda_rnn.lstm_seq_reference(*args)
+        want = cuda_rnn.lstm_seq_bwd_reference(d_out, d_state, args[2], proj, args[1], args[3])
+        torch.cuda.synchronize()
+    fwd_err = max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max()))
+    bwd_err = max(rel_err(g, w) for g, w in zip(got, want))
+    bwd_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, state, *got))
+    tol = fwd_tol(dtype, T)
+    emit({"phase": "parity", "kernel": "lstm_seq_resident", "backward_kernel": "lstm_seq_resident_bwd", "shape": [T, B, H],
+          "dtype": dtype, "variant": variant, "design": dataclasses.asdict(fwd), "backward_design": dataclasses.asdict(bwd),
+          "fwd_max_abs_err": fwd_err, "fwd_tol": tol, "grad_rel_err_plain": bwd_err, "grad_max_abs_err_plain": bwd_abs,
+          "tol_plain": BWD_TOL[dtype], "finite": finite})
+    where = f"resident {(T, B, H, dtype, variant)}"
+    check(finite, f"{where}: non-finite outputs or gradients")
+    check(fwd_err <= tol, f"{where}: forward error {fwd_err} > {tol}")
+    check(bwd_err <= BWD_TOL[dtype], f"{where}: backward against the plain recurrence {bwd_err} > {BWD_TOL[dtype]}")
+    if variant == "saturated":
+        check(all(bool((got[0][:, :quarter, g * H:(g + 1) * H] == 0).all()) for g in (0, 1, 3)), f"{where}: a gate below -88 has a gradient")
+    if variant == "resets_every_step":
+        check(bool((state == 0).all()), f"{where}: a carry survived a reset")
+    return fwd_err, (bwd_abs, bwd_err)
+
+
+def s1_parity_case(torch, cuda_rnn):
+    """S1 (ROADMAP C): `lstm_seq` on a contiguous float32 x_proj one float into its buffer at S1_SHAPE, where the grid design
+    reads x_proj with 8 x 8 register tiles (float2 loads): the wrapper hands the kernel an aligned copy, and the result is the
+    plain version's."""
+    T, B, H = S1_SHAPE
+    plan = cuda_rnn.launch_plan("lstm", T, B, H, "float32", SPEC)
+    check(plan.design == "grid" and (plan.tile_rows, plan.tile_cols) == (8, 8), f"S1: {S1_SHAPE} takes {plan}")
+    args = make_inputs(torch, "lstm", T, B, H, "float32", seed=21)
+    with torch.no_grad():
+        before = cuda_rnn.launch_counts()["lstm_seq_grid"]
+        out, state = cuda_rnn.lstm_seq(odd_view(torch, args[0]), *args[1:])
+        torch.cuda.synchronize()
+        check(cuda_rnn.launch_counts()["lstm_seq_grid"] == before + 1, "S1: lstm_seq_grid was not launched")
+        ref_out, ref_state = cuda_rnn.lstm_seq_reference(*args)
+    err = max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max()))
+    emit({"phase": "parity", "kernel": "lstm_seq_grid", "case": "S1: x_proj one float into its buffer", "shape": [T, B, H],
+          "dtype": "float32", "design": dataclasses.asdict(plan), "fwd_max_abs_err": err, "fwd_tol": fwd_tol("float32", T)})
+    check(err <= fwd_tol("float32", T), f"S1: error {err} against the plain version")
 
 
 def backward_pieces(cuda_rnn, kind):
@@ -591,6 +714,32 @@ def phase_bwd(torch, cuda_rnn, card):
                      **({"rows_ms": row["rows_kernel_ms"], "rows_ms_l2_cold": row["rows_kernel_ms_l2_cold"]} if plan.design != "rows" else {}),
                      **({"other_buffers": {"buffers": other.buffers, "rows": other.rows, "ms": row["other_buffers_kernel_ms"]}}
                         if "other_buffers" in designs else {})}
+    # the resident backward at the resident sites no learner runs (the rollout's and the last value's shapes run under no_grad;
+    # bf16 at 2048 rows), in turns with the row design (resident, rows, rows, resident), warm and L2-cold
+    with torch.no_grad():
+        for site, (T, B, H, dtype) in RESIDENT_SITES.items():
+            if site in BWD_SITES:
+                continue
+            rec = backward_inputs(torch, cuda_rnn, "lstm", T, B, H, dtype, seed=5)[4]
+            itemsize = 2 if dtype == "bfloat16" else 4
+            plans = {"resident": cuda_rnn.resident_plan("lstm", B, H, dtype, SPEC, backward=True),
+                     "rows": cuda_rnn.bwd_row_plan("lstm", B, H, cuda_rnn.bwd_rows("lstm", B, H, dtype, SPEC), itemsize)}
+            turns = {d: {"warm": [], "l2_cold": []} for d in plans}
+            for d in ("resident", "rows", "rows", "resident"):
+                turns[d]["warm"].append(time_ms(torch, lambda: cuda_rnn._launch_lstm_bwd(*rec, plan=plans[d])))
+                turns[d]["l2_cold"].append(time_ms(torch, lambda: cuda_rnn._launch_lstm_bwd(*rec, plan=plans[d]), flush=flush))
+            bound_ms, bound_by, nbytes, flops = bwd_bound("lstm", T, B, H, dtype)
+            row = {"shape": [T, B, H], "dtype": dtype, "ms": statistics.median(turns["resident"]["warm"]),
+                   "ms_l2_cold": statistics.median(turns["resident"]["l2_cold"]), "rows_ms": statistics.median(turns["rows"]["warm"]),
+                   "rows_ms_l2_cold": statistics.median(turns["rows"]["l2_cold"]),
+                   "plain_ms": time_ms(torch, lambda: cuda_rnn.lstm_seq_bwd_reference(*rec), reps=BWD_REPS), "bound_ms": bound_ms,
+                   "bound_by": bound_by}
+            emit({"phase": "bwd", "kernel": "lstm_seq_resident_bwd", "site": site, "path": None, **row,
+                  "design": dataclasses.asdict(plans["resident"]), "kernel_turns": turns, "bytes": nbytes, "flops": flops,
+                  "kernel_share_of_bound": bound_ms / row["ms"], "reps": REPS,
+                  "stat": "medians of CUDA-event times; turns: resident, rows, rows, resident; l2_cold: 100 MB written before each",
+                  "card": card})
+            out[f"resident@{site}"] = row
     del flush
     emit({"phase": "bwd", "seconds": time.perf_counter() - start, "card": card})
     return out
@@ -682,11 +831,12 @@ def learner_turns(torch, cuda_rnn, runner, captured, path, card):
           "card": card})
 
 
-def time_ms(torch, fn, reps=REPS, flush=None):
+def time_ms(torch, fn, reps=REPS, flush=None, spin=SPIN_CYCLES):
     """Median of `reps` CUDA-event timings of fn after 3 warm-up calls; with `flush` (a tensor
     of L2_FLUSH_BYTES), the L2 cache is overwritten before each timed call. Before the start
-    event the card spins for ~0.5 ms, so that the host has enqueued fn's kernels by the time
-    the event is reached: the interval is the device's time, not the host's launch cost."""
+    event the card spins for `spin` cycles (~0.5 ms by default), so that the host has enqueued fn's
+    kernels by the time the event is reached: the interval is the device's time, not the host's
+    launch cost."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -694,7 +844,7 @@ def time_ms(torch, fn, reps=REPS, flush=None):
     for _ in range(reps):
         if flush is not None:
             flush.fill_(1.0)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -787,7 +937,7 @@ def phase_timing(torch, cuda_rnn, card):
                    "rows_ms_l2_cold": time_ms(torch, lambda: launches[kind](*args, plan=rows), flush=flush),
                    "ms_l2_cold": time_ms(torch, lambda: launches[kind](*args), flush=flush)}
             over = cuda_rnn.cluster_plan(kind, B, H, dtype, SPEC)
-            if plan.design == "rows" and over is not None:
+            if plan.design in ("rows", "resident") and over is not None:
                 row.update(cluster_ms=time_ms(torch, lambda: launches[kind](*args, plan=over)), cluster_waves=cuda_rnn.cluster_waves(over, SPEC))
             bound_ms, bound_by, nbytes, flops = bound(kind, T, B, H, dtype)
             row.update(bound_ms=bound_ms, bound_by=bound_by, design=dataclasses.asdict(plan))
@@ -819,6 +969,7 @@ def phase_timing(torch, cuda_rnn, card):
               "no resets", "shape": [T, B, H], "dtype": "bfloat16",
               "ms_warm": time_ms(torch, lambda: gru(x, h0)), "ms_l2_cold": time_ms(torch, lambda: gru(x, h0), flush=flush),
               "reps": REPS, "card": card})
+        resident = resident_timing(torch, cuda_rnn, flush, card)
     del flush
     # for the kernels line: each design at the shape of the first path that runs it (the cluster and
     # grid designs' rows carry the row design's time there as `first_design_ms`)
@@ -835,6 +986,108 @@ def phase_timing(torch, cuda_rnn, card):
         out[f"{kind}_seq_grid@{site}"] = {"shape": list(shape[:3]), "dtype": shape[3], "ms": row["ms"], "ms_l2_cold": row["ms_l2_cold"],
                                           "rows_ms": row["rows_ms"], "rows_ms_l2_cold": row["rows_ms_l2_cold"],
                                           "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
+    out.update(resident)
+    return out
+
+
+def cudnn_lstm(torch, cuda_rnn, T, B, H, seed=8):
+    """DMLab's instruction encoder as one library call: cuDNN's torch.nn.LSTM(DMLAB_INSTRUCTION_EMBED, H) (TF32 off) on an
+    embedding [T, B, 20] from a zero state, its weights the port's (wi, bi, wh; the forget gate's +1 folded into bias_ih),
+    against the port's route on the same inputs: the Linear that makes x_proj, then the planned kernel. Returns both routes'
+    callables, {"port": (forward, backward), "cudnn": (forward, backward)} (a backward: of the outputs and the final state
+    into the embedding and every weight), and the largest differences of cuDNN's outputs and gradients from the plain
+    version's."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    E, G = DMLAB_INSTRUCTION_EMBED, 4 * H
+    emb = torch.tensor(rng.normal(size=(T, B, E)).astype(np.float32), device="cuda", requires_grad=True)
+    wi = torch.tensor((rng.normal(size=(E, G)) / math.sqrt(E)).astype(np.float32), device="cuda", requires_grad=True)
+    bi = torch.tensor((rng.normal(size=(G,)) * 0.1).astype(np.float32), device="cuda", requires_grad=True)
+    wh = torch.tensor((rng.normal(size=(H, G)) / math.sqrt(H)).astype(np.float32), device="cuda", requires_grad=True)
+    hc0, resets = torch.zeros(B, 2 * H, device="cuda"), torch.zeros(T, B, device="cuda")
+    lstm = torch.nn.LSTM(E, H).cuda()
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wi.t())
+        lstm.weight_hh_l0.copy_(wh.t())
+        lstm.bias_ih_l0.copy_(bi + torch.cat([torch.zeros(H), torch.ones(H), torch.zeros(2 * H)]).cuda())
+        lstm.bias_hh_l0.zero_()
+    lstm.flatten_parameters()
+    d_out = torch.tensor(rng.normal(size=(T, B, H)).astype(np.float32), device="cuda")
+    d_state = torch.tensor(rng.normal(size=(B, 2 * H)).astype(np.float32), device="cuda")
+
+    def port():
+        return cuda_rnn.lstm_seq(emb @ wi + bi, hc0, resets, wh)
+
+    def library():
+        out, (h, c) = lstm(emb)
+        return out, torch.cat([h[0], c[0]], dim=-1)
+
+    graphs = {"port": port(), "cudnn": library()}
+
+    def backward(way, weights):
+        out, state = graphs[way]
+        return torch.autograd.grad((out, state), [emb, *weights], (d_out, d_state), retain_graph=True)
+
+    ref_out, ref_state = cuda_rnn.lstm_seq_reference(emb @ wi + bi, hc0, resets, wh)
+    ref_grads = torch.autograd.grad((ref_out, ref_state), [emb, wi, bi, wh], (d_out, d_state))
+    out, state = graphs["cudnn"]
+    g_emb, g_ih, g_hh, g_bih, _ = backward("cudnn", list(lstm.parameters()))
+    err = {"fwd_max_abs_err": max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max())),
+           "grad_rel_err": max(rel_err(g, r) for g, r in zip((g_emb, g_ih.t(), g_bih, g_hh.t()), ref_grads))}
+    ways = {"port": (port, lambda: backward("port", [wi, bi, wh])), "cudnn": (library, lambda: backward("cudnn", list(lstm.parameters())))}
+    return ways, err
+
+
+def resident_timing(torch, cuda_rnn, flush, card):
+    """At RESIDENT_SITES: the resident design in turns with the row design and the cluster plan where there is one (resident,
+    rows, cluster, cluster, rows, resident), each warm and L2-cold, the plain version and the bound; at the float32 sites
+    cuDNN's LSTM (`cudnn_lstm`) in turns with the port's route (port, cudnn, cudnn, port), forward and backward, warm.
+    Returns the kernels line's numbers: `lstm_seq_resident@<site>` and `lstm_seq_resident` (the learner's)."""
+    out = {}
+    with torch.no_grad():
+        for site, (T, B, H, dtype) in RESIDENT_SITES.items():
+            args = make_inputs(torch, "lstm", T, B, H, dtype, seed=4)
+            plans = {"resident": cuda_rnn.resident_plan("lstm", B, H, dtype, SPEC), "rows": cuda_rnn.row_plan("lstm", B, H)}
+            over = cuda_rnn.cluster_plan("lstm", B, H, dtype, SPEC)
+            if over is not None:
+                plans["cluster"] = over
+            turns = {d: {"warm": [], "l2_cold": []} for d in plans}
+            for d in [*plans, *reversed(plans)]:
+                turns[d]["warm"].append(time_ms(torch, lambda: cuda_rnn._launch_lstm(*args, plan=plans[d])))
+                turns[d]["l2_cold"].append(time_ms(torch, lambda: cuda_rnn._launch_lstm(*args, plan=plans[d]), flush=flush))
+            med = {d: {k: statistics.median(v) for k, v in t.items()} for d, t in turns.items()}
+            bound_ms, bound_by, nbytes, flops = bound("lstm", T, B, H, dtype)
+            row = {"shape": [T, B, H], "dtype": dtype, "ms": med["resident"]["warm"], "ms_l2_cold": med["resident"]["l2_cold"],
+                   "rows_ms": med["rows"]["warm"], "rows_ms_l2_cold": med["rows"]["l2_cold"],
+                   "plain_ms": time_ms(torch, lambda: cuda_rnn.lstm_seq_reference(*args), reps=BWD_REPS), "bound_ms": bound_ms,
+                   "bound_by": bound_by, "planned": cuda_rnn.launch_plan("lstm", T, B, H, dtype, SPEC).design, "library_ms": None}
+            if over is not None:
+                row.update(cluster_ms=med["cluster"]["warm"], cluster_ms_l2_cold=med["cluster"]["l2_cold"],
+                           cluster_waves=cuda_rnn.cluster_waves(over, SPEC))
+            library = {}
+            if dtype == "float32":
+                with torch.enable_grad():
+                    ways, err = cudnn_lstm(torch, cuda_rnn, T, B, H)
+                    ms = {f"{w}_{p}": [] for w in ways for p in ("fwd", "bwd")}
+                    for w in ("port", "cudnn", "cudnn", "port"):  # a longer spin: autograd's host work is behind it
+                        ms[f"{w}_fwd"].append(time_ms(torch, ways[w][0], spin=10 * SPIN_CYCLES))
+                        ms[f"{w}_bwd"].append(time_ms(torch, ways[w][1], reps=BWD_REPS, spin=10 * SPIN_CYCLES))
+                library = {"cudnn_fwd_ms": statistics.median(ms["cudnn_fwd"]), "port_fwd_ms": statistics.median(ms["port_fwd"]),
+                           "cudnn_bwd_ms": statistics.median(ms["cudnn_bwd"]), "port_bwd_ms": statistics.median(ms["port_bwd"]), **err}
+                row["library_ms"] = library["cudnn_fwd_ms"]
+                check(err["fwd_max_abs_err"] <= fwd_tol(dtype, T) and err["grad_rel_err"] <= GRAD_F32_TOL,
+                      f"cuDNN's LSTM at {site} disagrees with the plain version: {err}")
+            emit({"phase": "timing", "kernel": "lstm_seq_resident", "site": site, **row, "design": dataclasses.asdict(plans["resident"]),
+                  "turns": turns, "cudnn": library, "bytes": nbytes, "flops": flops, "kernel_share_of_bound": bound_ms / row["ms"],
+                  "reps": REPS, "stat": "medians of CUDA-event times; turns: resident, rows[, cluster, cluster], rows, resident; "
+                                        "l2_cold: 100 MB written before each; cudnn: torch.nn.LSTM(20, 64) with TF32 off against "
+                                        "the port's Linear + lstm_seq (port, cudnn, cudnn, port), forward and backward, each "
+                                        "route's backward of its outputs and final state into the embedding and every weight, "
+                                        "after a ~5 ms spin",
+                  "card": card})
+            out[f"lstm_seq_resident@{site}"] = {**row, "cudnn": library}
+    out["lstm_seq_resident"] = out["lstm_seq_resident@dmlab_instruction_learner"]
     return out
 
 
@@ -2329,7 +2582,7 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
     check(by_site["core"] == by_site["instruction_learner"] == DMLAB_ITERS * minibatches
           and by_site["instruction_learner_last_value"] == DMLAB_ITERS, f"learner launches by site {by_site}")
     check(by_site["instruction_rollout"] >= DMLAB_ITERS * cfg.rollout * cfg.worker_num_splits, f"rollout launches by site {by_site}")
-    # each site's launches go to the design its plan picks (the learner's instruction encoder: the row design)
+    # each site's launches go to the design its plan picks (the instruction encoder: the resident design)
     expected = dict.fromkeys(counts, 0)
     for site, (kind, T, B, H) in sites.items():
         expected[cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, "float32", SPEC))] += by_site[site]
@@ -2339,6 +2592,15 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
         kind, _, B, H = sites[site]
         expected[cuda_rnn._bwd_kernel_name(kind, cuda_rnn.bwd_plan(kind, B, H, "float32", SPEC))] += by_site[site]
     check(sum(by_site.values()) == len(shapes) and counts == expected, f"launches {counts} against {expected}, shapes {set(shapes)}")
+    # the instruction encoder on the resident design: the learner's forward once a minibatch, its backward once for each of
+    # those forwards; the row design on no path
+    on_sxm = SPEC == cuda_rnn.H100_SXM  # every instruction-encoder site on the resident design there
+    check(counts["lstm_seq_resident"] >= by_site["instruction_learner"] and counts["lstm_seq_resident_bwd"] == by_site["instruction_learner"]
+          and (not on_sxm or counts["lstm_seq_resident"] == sum(by_site.values()) - by_site["core"]),
+          f"the instruction encoder's launches {counts}")
+    check(counts["lstm_seq_rows"] == counts["lstm_seq_bwd"] == 0, f"the row design ran: {counts}")
+    SITE_LAUNCHES["dmlab"] = {site: {"kernel": cuda_rnn._kernel_name("lstm", cuda_rnn.launch_plan("lstm", T, B, H, "float32", SPEC)),
+                                     "launches": by_site[site]} for site, (_, T, B, H) in sites.items()}
     check(sum(episodes.values()) > 0 and not shm_segments(), f"episodes {episodes}, segments {shm_segments()}")
     cache = os.path.join(tmp, "dmlab_cache")
     emit({"phase": "dmlab", "env": "dmlab_30 (DmlabEnv over the stand-in engine)", "workers": workers, "envs": DMLAB_ENVS, "cut": cut,
@@ -3548,9 +3810,20 @@ def main() -> int:
     # kernel's numbers are its cluster design's at the main-path shape, the row design's and the grid
     # design's at the doom (GRU) or nethack (LSTM) path's shape, and the grid design's at each of its sites
     def by_design(name, counts):
-        return {"cluster": counts[name], "grid": counts[f"{name}_grid"], "rows": counts[f"{name}_rows"]}
+        return {"cluster": counts[name], "grid": counts[f"{name}_grid"], "rows": counts[f"{name}_rows"],
+                "resident": counts.get(f"{name}_resident", 0)}
 
-    emit({"kernels": [
+    # the resident design's sites: launches where a path runs the kernel there (the instruction encoder's, `dmlab`)
+    dmlab_sites = {"dmlab_instruction_rollout": "instruction_rollout", "dmlab_instruction_last_value": "instruction_learner_last_value",
+                   "dmlab_instruction_learner": "instruction_learner"}
+
+    def resident_launches(site, backward=False):
+        launched = SITE_LAUNCHES.get("dmlab", {}).get(dmlab_sites.get(site), {"kernel": None, "launches": 0})
+        if launched["kernel"] != "lstm_seq_resident":
+            return 0
+        return launched["launches"] if not backward or site == "dmlab_instruction_learner" else 0
+
+    kernels = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
          "launches": sum(sum(by_design(name, counts).values()) for counts in paths.values()),
          "launches_by_design": {d: sum(by_design(name, counts)[d] for counts in paths.values()) for d in by_design(name, paths["main"])},
@@ -3570,7 +3843,8 @@ def main() -> int:
     ] + [
         # the backward kernels, each design (the cluster design, `*_seq_cluster_bwd`, at the bf16 and H <= 256 sites; the
         # grid design, `*_seq_grid_bwd`, at the float32 H=512 ones; the row design, `*_seq_bwd`, where the forward takes the
-        # row design: DMLab's instruction encoder over a minibatch, and GRU-1024 in bf16, which no path runs): their
+        # row design: GRU-1024 and LSTM-1024 in bf16, which no path runs; the resident design, `lstm_seq_resident_bwd`, at DMLab's
+        # instruction encoder over a minibatch): their
         # numbers at the first learner site of their kind and design (BWD_LINE_SITES), then at each learner site it runs;
         # ms is the kernel's, whole_backward_ms the prologue, kernel and epilogue's, plain_ms the plain recurrence's,
         # remat_ms the remat's (the plain forward rerun under autograd); at a grid or cluster site rows_ms is the row
@@ -3583,7 +3857,29 @@ def main() -> int:
                           "grad_rel_err": main_err[f"{name}@{site}"][1], **bwd_timing[site], "library_ms": None}
                    for site, (kind, _, path) in BWD_SITES.items() if f"{name}@{site}" in main_err}}
         for name, first in BWD_LINE_SITES.items()
-    ]})
+    ] + [
+        # the resident design (the LSTM at H <= 64 where a cluster plan needs several waves): its numbers at DMLab's learner
+        # instruction encoder, then at each RESIDENT_SITE (launches where a path runs it there), beside the row design in
+        # turns, the cluster plan where there is one, and cuDNN's LSTM (library_ms: forward; cudnn: both routes, in turns)
+        {"name": "lstm_seq_resident", "route": "cuda", "source": SOURCE, "replaces": REPLACES["lstm_seq_resident"],
+         "launches": sum(counts["lstm_seq_resident"] for counts in paths.values()),
+         "paths": {path: counts["lstm_seq_resident"] for path, counts in paths.items()},
+         "max_abs_err": main_err["lstm_seq_resident"], **timing["lstm_seq_resident"],
+         "sites": {site: {"launches": resident_launches(site), "max_abs_err": main_err[f"lstm_seq_resident@{site}"],
+                          **timing[f"lstm_seq_resident@{site}"]} for site in RESIDENT_SITES}},
+    ]
+    # the resident backward: cuDNN's backward as its library call where the site is float32, and the resident sites no learner
+    # runs (timed in phase `bwd` beside the row design)
+    resident_bwd = next(k for k in kernels if k["name"] == "lstm_seq_resident_bwd")
+    resident_bwd["library_ms"] = timing["lstm_seq_resident"]["cudnn"]["cudnn_bwd_ms"]
+    resident_bwd["cudnn"] = timing["lstm_seq_resident"]["cudnn"]
+    resident_bwd["sites"]["dmlab_instruction_learner"]["library_ms"] = resident_bwd["library_ms"]
+    resident_bwd["sites"].update({
+        site: {"launches": resident_launches(site, backward=True), "max_abs_err": main_err[f"lstm_seq_resident_bwd@{site}"][0],
+               "grad_rel_err": main_err[f"lstm_seq_resident_bwd@{site}"][1], **bwd_timing[f"resident@{site}"],
+               "library_ms": timing[f"lstm_seq_resident@{site}"]["cudnn"].get("cudnn_bwd_ms")}
+        for site in RESIDENT_SITES if site not in BWD_SITES})
+    emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

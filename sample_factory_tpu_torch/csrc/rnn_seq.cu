@@ -1,11 +1,12 @@
 // GRU and LSTM recurrences over one BPTT segment, written by hand for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of sample_factory_tpu/ops/pallas_gru.py:
-//   gru_seq_forward, gru_rows_forward, gru_grid_forward    <- _gru_kernel  (:78-109, pallas_call at :148)
-//   lstm_seq_forward, lstm_rows_forward, lstm_grid_forward <- _lstm_kernel (:226-253, pallas_call at :271)
+//   gru_seq_forward, gru_rows_forward, gru_grid_forward                           <- _gru_kernel  (:78-109, pallas_call at :148)
+//   lstm_seq_forward, lstm_rows_forward, lstm_grid_forward, lstm_resident_forward <- _lstm_kernel (:226-253, pallas_call at :271)
 // and the backward rules of their custom_vjps:
 //   gru_seq_backward, gru_seq_grid_backward, gru_seq_cluster_backward    <- _bwd      (:189-195, jax.vjp of the scan)
-//   lstm_seq_backward, lstm_seq_grid_backward, lstm_seq_cluster_backward <- _lstm_bwd (:311-315)
+//   lstm_seq_backward, lstm_seq_grid_backward, lstm_seq_cluster_backward,
+//   lstm_seq_resident_backward                                           <- _lstm_bwd (:311-315)
 //
 // What is computed (the input projection of all T steps is done beforehand by one matmul):
 //   GRU : h_proj = T(h @ wh, f32 accumulation) + bh; r = s(xr + hr); z = s(xz + hz);
@@ -78,9 +79,13 @@
 //
 // Design "rows" (gru_rows_kernel, lstm_rows_kernel: the first design, kept for the shapes
 // whose wh slice does not fit a block even at C = 16 and that the grid design does not take,
-// e.g. bf16 GRU at H=1024 or f32 at H=100). One block owns 4 batch rows and runs all T
-// steps; wh is re-read from L2 each step with CUDA-core FMAs. The wrapper's launch plan picks
-// the design from the shape.
+// e.g. bf16 GRU at H=1024 or f32 at H=100, and the GRU at H <= 64 where a cluster plan needs
+// several waves). One block owns 4 batch rows and runs all T steps; wh is re-read from L2 each
+// step with CUDA-core FMAs. The wrapper's launch plan picks the design from the shape.
+//
+// Design "resident" (lstm_resident_kernel and lstm_resident_bwd_kernel, the LSTM at H <= 64, in place
+// of the cluster and row designs: all of wh in one block's shared memory for all T steps; its note is
+// at the kernels, near the end of this file).
 //
 // Backward (seq_bwd_kernel<T, G, R>; C entries gru_seq_backward, lstm_seq_backward; counted as gru_seq_bwd and
 // lstm_seq_bwd). Replaces the backward rules of the custom_vjps of sample_factory_tpu/ops/pallas_gru.py, `_bwd`
@@ -2186,6 +2191,404 @@ int cluster_backward_typed(const void* d_outs, const void* d_final, const void* 
     return launch_bwd_cluster<float, G>(args(static_cast<float*>(nullptr)), cluster, rows, buffers, smem, st);
 }
 
+// ------------------------------------------------------------------ design "resident" (the LSTM where all of wh fits a block)
+
+constexpr int kResidentThreads = 512;     // most threads of a resident block (its row groups x H)
+constexpr int kResidentMinThreads = 128;  // the 4 warps a block gets where its rows allow
+constexpr int kResidentAhead = 4;         // steps of the backward's cell-state pass whose loads are issued together
+
+// Rows of wh (k) a forward product loads one chunk ahead, by rows a thread: enough FMAs between a load and its use to cover
+// the shared-memory latency, within the registers of RT rows (a chunk of wh is KB float4s, of h KB x RT floats, both double
+// buffered). H must be a multiple of the largest, 8.
+template <int RT>
+__host__ __device__ constexpr int resident_kb() { return RT >= 4 ? 2 : RT == 2 ? 4 : 8; }
+
+// Rows a thread of a resident block of R rows at width H owns: 4 or 2 (dividing R) where that still leaves the block
+// kResidentMinThreads threads, else 1. ops/cuda_rnn.py:resident_rows_a_thread is the same rule.
+__host__ __device__ constexpr int resident_rows_a_thread(int R, int H) {
+    return R % 4 == 0 && R / 4 * H >= kResidentMinThreads ? 4 : R % 2 == 0 && R / 2 * H >= kResidentMinThreads ? 2 : 1;
+}
+
+// Dynamic shared memory of one resident forward block; ops/cuda_rnn.py:resident_smem is the same formula: wh packed as
+// [H][H][4] f32 (row k, unit j, gate g) and the carry h [2][R][H] f32, each on 16 bytes.
+inline size_t resident_smem_bytes(int H, int R) {
+    return align16(4 * 4 * static_cast<size_t>(H) * H) + align16(4 * 2 * static_cast<size_t>(R) * H);
+}
+
+// Dynamic shared memory of one resident backward block; ops/cuda_rnn.py:resident_bwd_smem is the same formula: wh
+// [H][4H + 4] f32 (each row padded by 16 bytes) and the gate cotangents dg [2][R][4H] f32, each on 16 bytes.
+inline size_t resident_bwd_smem_bytes(int H, int R) {
+    const size_t GH = 4 * static_cast<size_t>(H);
+    return align16(4 * H * (GH + 4)) + 2 * align16(4 * R * GH);
+}
+
+// Design "resident": lstm_resident_forward <- _lstm_kernel (sample_factory_tpu/ops/pallas_gru.py:226-253, pallas_call at :271),
+// and lstm_seq_resident_backward <- _lstm_bwd (:311-315), counted as lstm_seq_resident and lstm_seq_resident_bwd. Planned for
+// the LSTM at H <= 64 (DMLab's instruction encoder): over a learner minibatch, (16, 1024, 64) f32, in place of the row design,
+// which re-read all of wh from L2 every step in every block (64 KB at H=64, 268 MB a launch at that shape), and in a rollout
+// slot and the last-value pass in place of a cluster plan of one wave. At H=64 all of wh, 64 KB in f32, fits one block's shared memory; batch rows are
+// independent, so a block that owns R rows and all H units needs no other block: no cluster, no grid barrier.
+//   - the block copies wh into shared memory once (cp.async, 16 bytes a copy) and keeps it for all T steps: the L2 reads
+//     of wh fall to one copy a block (8.4 MB a launch at (16, 1024, 64), R = 8);
+//   - a thread owns one unit j and RT consecutive rows (resident_rows_a_thread), so each (row, unit) cell's four gate sums
+//     are in one thread and the cell update needs no exchange; a block of R rows has R / RT row groups of H threads, at
+//     least 4 warps where R allows;
+//   - forward: wh packed by the wrapper as [H][H][4] (pack_wh), so a thread's four gate weights of row k are one 16-byte
+//     read, 32 neighbouring units a warp: no bank conflict; h read as a float4 broadcast (a warp's units share their
+//     rows). f32 FMAs on the CUDA cores, each gate's sum over k in order (TF32 would break the f32 tolerance), rounded as
+//     the plain version rounds it (Num<T>); the carry h double buffered in shared memory, the cell state in the owning
+//     thread's registers; one block barrier a step;
+//   - backward: wh kept as [H][4H + 4] (each row padded by 16 bytes, so that thread k's float4 reads along row k fall in
+//     distinct banks for 8 neighbouring k); dh_prev[r][k] = dg[r][:] @ wh[k][:] reads dg as a float4 broadcast, in four
+//     partial sums a row (columns 4q + e, e < 4) added at the end, so that no chain of 4H dependent FMAs sets a step; the
+//     carried cotangents dh and dc in the owning thread's registers (the thread of unit j computes both the cell and dh's
+//     column j); dg double buffered; one block barrier a step. The cell state entering each step is recomputed first,
+//     forward in time, into cbuf, with kResidentAhead steps' loads issued before their math (the row design's pass
+//     chained one dependent load a step); the -88 clamp (sig_bwd) and the reset rule as the row design's; d_x_proj and
+//     d_hc0 written as seq_bwd_kernel writes them;
+//   - the products are software pipelined: the next chunk of k's reads of wh and h (the backward's: the next 4 columns of
+//     wh and dg) are issued before the current chunk's FMAs (resident_kb: 8, 4 or 2 rows of wh by the thread's rows, as its
+//     registers allow), so that the shared-memory latency does not set each k;
+//   - a step's inputs (x_proj and the reset; the backward's proj, c, d_outs and reset) are each thread's own cells', loaded
+//     from global memory into registers ahead, while the step before runs its product and cells (the backward's: its
+//     product): copying them through shared memory (cp.async, stage_copy) cost 430-760 cycles a step to issue
+//     (rnn_seq_phases), and the cells' reads back from it;
+//   - a thread's cells are computed for all its rows without a branch (rows past B on zero inputs, their stores
+//     predicated), so that the RT cells' chains of exp, division and tanh overlap.
+// What bounds it: the chain of T steps, each a product (shared-memory reads: a wavefront a k for each of a warp's four gate
+// columns, R/RT row groups each reading all of wh, against 2*R*H*4H FMAs a step) and the cells' transcendental chains; not
+// HBM. bf16 x_proj takes wh in f32 (the wrapper converts it once a call; exact).
+template <typename T, int RT>
+__global__ void __launch_bounds__(kResidentThreads) lstm_resident_kernel(const T* __restrict__ x, const float* __restrict__ hc0,
+                                                                         const float* __restrict__ resets, const float* __restrict__ wpk,
+                                                                         float* __restrict__ outs, float* __restrict__ hc_final,
+                                                                         int steps, int B, int H, int R) {
+    const int GH = 4 * H, tid = threadIdx.x, nt = blockDim.x;
+    const int j = tid % H, r0 = tid / H * RT;  // this thread's unit and its first row
+    const int b0 = static_cast<int>(blockIdx.x) * R, live = min(R, B - b0);
+
+    extern __shared__ __align__(16) unsigned char resident_smem[];
+    float* ws = reinterpret_cast<float*>(resident_smem);  // [H][H][4]: row k, unit j, gate g
+    float* hs = reinterpret_cast<float*>(resident_smem + align16(4 * (size_t)GH * H));  // [2][R][H]
+
+    stage_copy(ws, wpk, 4 * GH * H);
+    cp_async_commit();
+    // a step's inputs of this thread's cells, zero past B
+    auto load = [&](int t, float (&xv)[RT][4], float (&rv)[RT]) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            const bool in = t < steps && r0 + i < live;
+            const size_t row = (size_t)t * B + b0 + r0 + i;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) xv[i][g] = in ? Num<T>::load(x + row * GH + g * H + j) : 0.0f;
+            rv[i] = in ? resets[row] : 0.0f;
+        }
+    };
+    float xv[RT][4], rv[RT];
+    load(0, xv, rv);
+    // the carry is only ever used as a T operand, so it is kept rounded to T; rows past B stay zero
+    for (int i = tid; i < 2 * R * H; i += nt) {
+        const int r = i / H % R, k = i % H;
+        hs[i] = i < R * H && r < live ? Num<T>::round(hc0[(size_t)(b0 + r) * 2 * H + k]) : 0.0f;
+    }
+    float c[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) c[i] = r0 + i < live ? Num<T>::round(hc0[(size_t)(b0 + r0 + i) * 2 * H + H + j]) : 0.0f;
+    cp_async_wait<0>();
+    __syncthreads();
+
+    for (int t = 0; t < steps; ++t) {
+        const int s = t & 1;
+        PHASE_MARK(c0);
+        float xn[RT][4], rn[RT];
+        load(t + 1, xn, rn);  // in flight while this step runs
+        PHASE_MARK(c1);
+        // the product, k in order for each gate's sum; chunk k0 + KB's reads issued before chunk k0's FMAs
+        constexpr int KB = resident_kb<RT>();
+        float acc[RT][4];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+        const float* hr = hs + (size_t)s * R * H + r0 * H;
+        const float* w = ws + 4 * j;
+        float4 wc[KB];
+        float hc[RT][KB];
+        auto chunk = [&](int k0, float4 (&wd)[KB], float (&hd)[RT][KB]) {
+#pragma unroll
+            for (int e = 0; e < KB; ++e) {
+                wd[e] = *reinterpret_cast<const float4*>(w + (size_t)(k0 + e) * GH);
+#pragma unroll
+                for (int i = 0; i < RT; ++i) hd[i][e] = hr[i * H + k0 + e];  // a broadcast
+            }
+        };
+        chunk(0, wc, hc);
+        for (int k0 = 0; k0 < H; k0 += KB) {
+            float4 wnext[KB];
+            float hnext[RT][KB];
+            chunk(k0 + KB < H ? k0 + KB : k0, wnext, hnext);
+#pragma unroll
+            for (int e = 0; e < KB; ++e) {
+#pragma unroll
+                for (int i = 0; i < RT; ++i) {
+                    acc[i][0] = fmaf(hc[i][e], wc[e].x, acc[i][0]);
+                    acc[i][1] = fmaf(hc[i][e], wc[e].y, acc[i][1]);
+                    acc[i][2] = fmaf(hc[i][e], wc[e].z, acc[i][2]);
+                    acc[i][3] = fmaf(hc[i][e], wc[e].w, acc[i][3]);
+                }
+            }
+#pragma unroll
+            for (int e = 0; e < KB; ++e) {
+                wc[e] = wnext[e];
+#pragma unroll
+                for (int i = 0; i < RT; ++i) hc[i][e] = hnext[i][e];
+            }
+        }
+        PHASE_MARK(c2);
+        float* hn = hs + (size_t)(s ^ 1) * R * H;
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            const float pi = add<T>(xv[i][0], Num<T>::round(acc[i][0])), pf = add<T>(xv[i][1], Num<T>::round(acc[i][1]));
+            const float pg = add<T>(xv[i][2], Num<T>::round(acc[i][2])), po = add<T>(xv[i][3], Num<T>::round(acc[i][3]));
+            const float new_c = add<T>(mul<T>(sigmoid_t<T>(add<T>(pf, 1.0f)), c[i]), mul<T>(sigmoid_t<T>(pi), tanh_t<T>(pg)));
+            const float new_h = mul<T>(sigmoid_t<T>(po), tanh_t<T>(new_c));
+            const bool reset = rv[i] > 0.0f;
+            const int r = r0 + i;
+            if (r < live) {
+                outs[((size_t)t * B + b0 + r) * H + j] = new_h;
+                hn[r * H + j] = reset ? 0.0f : new_h;
+            }
+            c[i] = reset ? 0.0f : new_c;
+        }
+        PHASE_MARK(c3);
+        __syncthreads();  // the new carry is whole
+        PHASE_MARK(c4);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            rv[i] = rn[i];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) xv[i][g] = xn[i][g];
+        }
+        PHASE_ADD(0, c1, c2);  // the product
+        PHASE_ADD(1, c2, c3);  // the cells
+        PHASE_ADD(2, c0, c1);  // the next step's loads issued
+        PHASE_ADD(3, c3, c4);  // the barrier
+    }
+
+    const float* hl = hs + (size_t)(steps & 1) * R * H;
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        const int r = r0 + i;
+        if (r < live) {
+            hc_final[(size_t)(b0 + r) * 2 * H + j] = hl[r * H + j];
+            hc_final[(size_t)(b0 + r) * 2 * H + H + j] = c[i];
+        }
+    }
+}
+
+template <typename T, int RT>
+__global__ void __launch_bounds__(kResidentThreads) lstm_resident_bwd_kernel(const BwdArgs<T> p, const float* __restrict__ wh, int R) {
+    const int H = p.H, GH = 4 * H, WS = GH + 4, B = p.B, steps = p.steps, tid = threadIdx.x, nt = blockDim.x;
+    const int j = tid % H, r0 = tid / H * RT;  // this thread's unit (of the cells and of dh) and its first row
+    const int b0 = static_cast<int>(blockIdx.x) * R, live = min(R, B - b0);
+
+    extern __shared__ __align__(16) unsigned char resident_smem[];
+    float* ws = reinterpret_cast<float*>(resident_smem);  // [H][4H + 4]
+    float* dg0 = reinterpret_cast<float*>(resident_smem + align16(4 * (size_t)H * WS));  // [2][R][4H]
+    const int sdg = static_cast<int>(align16(4 * (size_t)R * GH) / 4);
+
+    // wh into its padded rows, 16 bytes a copy (the wrapper passes wh on 16 bytes)
+    for (int i = tid; i < H * (GH / 4); i += nt) {
+        const int k = i / (GH / 4), q = i - k * (GH / 4);
+        cp_async16(ws + (size_t)k * WS + 4 * q, wh + (size_t)k * GH + 4 * q);
+    }
+    cp_async_commit();
+    for (int i = tid; i < 2 * sdg; i += nt) dg0[i] = 0.0f;  // rows past B stay zero in both buffers
+
+    // the cell state entering each step, as the forward computed it, into cbuf (each cell its own thread's, which reads it
+    // back below)
+    float c[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) c[i] = r0 + i < live ? Num<T>::round(p.s[(size_t)(b0 + r0 + i) * 2 * H + H + j]) : 0.0f;
+    for (int t0 = 0; t0 < steps; t0 += kResidentAhead) {
+        float pi[kResidentAhead][RT], pf[kResidentAhead][RT], pg[kResidentAhead][RT], rst[kResidentAhead][RT];
+#pragma unroll
+        for (int u = 0; u < kResidentAhead; ++u) {
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+                const bool in = t0 + u < steps && r0 + i < live;
+                const size_t row = (size_t)(t0 + u) * B + b0 + r0 + i;
+                const T* pr = p.a + row * GH + j;
+                pi[u][i] = in ? Num<T>::load(pr) : 0.0f, pf[u][i] = in ? Num<T>::load(pr + H) : 0.0f;
+                pg[u][i] = in ? Num<T>::load(pr + 2 * H) : 0.0f, rst[u][i] = in ? p.resets[row] : 0.0f;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kResidentAhead; ++u) {
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+                if (t0 + u < steps && r0 + i < live) p.cbuf[((size_t)(t0 + u) * B + b0 + r0 + i) * H + j] = c[i];
+                const float new_c = add<T>(mul<T>(sig_bwd<T>(add<T>(pf[u][i], 1.0f)).s, c[i]),
+                                           mul<T>(sig_bwd<T>(pi[u][i]).s, tanh_t<T>(pg[u][i])));
+                c[i] = rst[u][i] > 0.0f ? 0.0f : new_c;
+            }
+        }
+    }
+
+    // a step's inputs of this thread's cells (proj's four gates, c, d_outs, the reset), zero past B; cbuf is this thread's own
+    auto load = [&](int t, float (&av)[RT][4], float (&cv)[RT], float (&dv)[RT], float (&rv)[RT]) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            const bool in = t >= 0 && r0 + i < live;
+            const size_t row = (size_t)t * B + b0 + r0 + i;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) av[i][g] = in ? Num<T>::load(p.a + row * GH + g * H + j) : 0.0f;
+            cv[i] = in ? p.cbuf[row * H + j] : 0.0f;
+            dv[i] = in ? p.d_outs[row * H + j] : 0.0f;
+            rv[i] = in ? p.resets[row] : 0.0f;
+        }
+    };
+    float av[RT][4], cv[RT], dv[RT], rv[RT];
+    load(steps - 1, av, cv, dv, rv);
+    float dh[RT], dc[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        const bool in = r0 + i < live;
+        dh[i] = in ? p.d_final[(size_t)(b0 + r0 + i) * 2 * H + j] : 0.0f;
+        dc[i] = in ? p.d_final[(size_t)(b0 + r0 + i) * 2 * H + H + j] : 0.0f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // wh has landed; dg is zero
+
+    for (int t = steps - 1; t >= 0; --t) {
+        const int s = t & 1;
+        PHASE_MARK(c1);
+        float* g_out = dg0 + s * sdg;
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            const float fa = add<T>(av[i][1], 1.0f);
+            const Sig si = sig_bwd<T>(av[i][0]), sf = sig_bwd<T>(fa), so = sig_bwd<T>(av[i][3]);
+            const float tg = tanh_t<T>(av[i][2]);
+            const float tc = tanh_t<T>(add<T>(mul<T>(sf.s, cv[i]), mul<T>(si.s, tg)));
+            const bool keep = !(rv[i] > 0.0f);
+            const float gh = dv[i] + (keep ? dh[i] : 0.0f), gc = keep ? dc[i] : 0.0f;
+            const float dct = gc + gh * so.s * (1.0f - tc * tc);
+            const float dai = dct * tg * si.ds, daf = dct * cv[i] * sf.ds, dag = dct * si.s * (1.0f - tg * tg), dao = gh * tc * so.ds;
+            dc[i] = dct * sf.s;
+            const int r = r0 + i;
+            if (r < live) {
+                const size_t o = ((size_t)t * B + b0 + r) * GH + j;
+                p.da[o] = Num<T>::to(dai), p.da[o + H] = Num<T>::to(daf), p.da[o + 2 * H] = Num<T>::to(dag), p.da[o + 3 * H] = Num<T>::to(dao);
+                float* go = g_out + r * GH + j;
+                go[0] = dai, go[H] = daf, go[2 * H] = dag, go[3 * H] = dao;
+            }
+        }
+        PHASE_MARK(c2);
+        __syncthreads();  // dg of step t is whole
+        PHASE_MARK(c0);
+        float an[RT][4], cn[RT], dn[RT], rn[RT];
+        load(t - 1, an, cn, dn, rn);  // in flight while the product runs
+        PHASE_MARK(c3);
+        // the product: four partial sums a row; columns q + 4's reads issued before columns q's FMAs
+        float acc[RT][4];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+        const float* w = ws + (size_t)j * WS;
+        const float* d = g_out + r0 * GH;
+        float4 wc = *reinterpret_cast<const float4*>(w), gc[RT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) gc[i] = *reinterpret_cast<const float4*>(d + i * GH);  // a broadcast
+#pragma unroll 2
+        for (int q = 0; q < GH; q += 4) {
+            const int qn = q + 4 < GH ? q + 4 : q;
+            const float4 wn = *reinterpret_cast<const float4*>(w + qn);
+            float4 gn[RT];
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+                gn[i] = *reinterpret_cast<const float4*>(d + i * GH + qn);
+                acc[i][0] = fmaf(gc[i].x, wc.x, acc[i][0]);
+                acc[i][1] = fmaf(gc[i].y, wc.y, acc[i][1]);
+                acc[i][2] = fmaf(gc[i].z, wc.z, acc[i][2]);
+                acc[i][3] = fmaf(gc[i].w, wc.w, acc[i][3]);
+            }
+            wc = wn;
+#pragma unroll
+            for (int i = 0; i < RT; ++i) gc[i] = gn[i];
+        }
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            dh[i] = (acc[i][0] + acc[i][1]) + (acc[i][2] + acc[i][3]);
+            cv[i] = cn[i], dv[i] = dn[i], rv[i] = rn[i];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) av[i][g] = an[i][g];
+        }
+        PHASE_MARK(c4);
+        PHASE_ADD(0, c3, c4);  // the product
+        PHASE_ADD(1, c1, c2);  // the cells
+        PHASE_ADD(2, c0, c3);  // the next step's loads issued
+        PHASE_ADD(3, c2, c0);  // the barrier
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        const int r = r0 + i;
+        if (r < live) {
+            p.d_state0[(size_t)(b0 + r) * 2 * H + j] = dh[i];
+            p.d_state0[(size_t)(b0 + r) * 2 * H + H + j] = dc[i];
+        }
+    }
+}
+
+// Launch a resident kernel of R rows a block: (R / RT) * H threads, ceil(B / R) blocks; the shared-memory limit above 48 KB
+// raised once per kernel, device and process (as launch_bwd raises it).
+template <typename K, typename... Args>
+int launch_resident(K kernel, int B, int H, int R, int RT, int smem, cudaStream_t stream, Args... args) {
+    static std::mutex lock;
+    static std::map<std::pair<const void*, int>, int> smem_set;  // (kernel, device) -> the limit set there
+    {
+        std::lock_guard<std::mutex> guard(lock);
+        int dev = 0;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return failed(err);
+        int& set = smem_set[{reinterpret_cast<const void*>(kernel), dev}];
+        if (smem > 48 * 1024 && smem > set) {
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (err != cudaSuccess) return failed(err);
+            set = smem;
+        }
+    }
+    kernel<<<(B + R - 1) / R, R / RT * H, smem, stream>>>(args...);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The checks both resident launchers make: H a multiple of 8 (the forward product's chunks of k, float4 reads of dg and of
+// wh's rows), at most kResidentThreads threads, and the plan's shared memory equal to the kernel's formula.
+inline bool resident_shape_ok(int steps, int B, int H, int R, size_t smem, size_t want) {
+    return steps >= 1 && B >= 1 && H >= 8 && H % 8 == 0 && R >= 1 && R / resident_rows_a_thread(R, H) * H <= kResidentThreads &&
+           smem == want;
+}
+
+template <typename T>
+int resident_forward(const void* x, const void* hc0, const void* resets, const void* wpk, void* outs, void* hc_final, int steps, int B,
+                     int H, int R, int smem, cudaStream_t stream) {
+    if (!resident_shape_ok(steps, B, H, R, smem, resident_smem_bytes(H, R))) return static_cast<int>(cudaErrorInvalidValue);
+    const T* xt = static_cast<const T*>(x);
+    const float *s0 = static_cast<const float*>(hc0), *rs = static_cast<const float*>(resets), *w = static_cast<const float*>(wpk);
+    float *o = static_cast<float*>(outs), *sf = static_cast<float*>(hc_final);
+    switch (resident_rows_a_thread(R, H)) {
+        case 4: return launch_resident(lstm_resident_kernel<T, 4>, B, H, R, 4, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
+        case 2: return launch_resident(lstm_resident_kernel<T, 2>, B, H, R, 2, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
+        default: return launch_resident(lstm_resident_kernel<T, 1>, B, H, R, 1, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
+    }
+}
+
+template <typename T>
+int resident_backward(const BwdArgs<T>& p, const float* wh, int R, int smem, cudaStream_t stream) {
+    if (!resident_shape_ok(p.steps, p.B, p.H, R, smem, resident_bwd_smem_bytes(p.H, R))) return static_cast<int>(cudaErrorInvalidValue);
+    switch (resident_rows_a_thread(R, p.H)) {
+        case 4: return launch_resident(lstm_resident_bwd_kernel<T, 4>, p.B, p.H, R, 4, smem, stream, p, wh, R);
+        case 2: return launch_resident(lstm_resident_bwd_kernel<T, 2>, p.B, p.H, R, 2, smem, stream, p, wh, R);
+        default: return launch_resident(lstm_resident_bwd_kernel<T, 1>, p.B, p.H, R, 1, smem, stream, p, wh, R);
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -2419,6 +2822,32 @@ int bwd_max_active_clusters(int gates, int is_bf16, int cluster, int smem) {
     };
     if (gates == 3) return is_bf16 ? query(seq_bwd_cluster_kernel<__nv_bfloat16, 3>) : query(seq_bwd_cluster_kernel<float, 3>);
     return is_bf16 ? query(seq_bwd_cluster_kernel<__nv_bfloat16, 4>) : query(seq_bwd_cluster_kernel<float, 4>);
+}
+
+// Design "resident" (the LSTM): wpk is wh packed by ops/cuda_rnn.py:pack_wh as [H][H][4] f32 (a bf16 wh converted, exactly),
+// on 16 bytes; rows the batch rows of a block (ops/cuda_rnn.py:resident_plan), smem resident_smem_bytes(H, rows).
+int lstm_resident_forward(const void* x, const void* hc0, const void* resets, const void* wpk, void* outs, void* hc_final, int steps,
+                          int B, int H, int is_bf16, int rows, int smem, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return is_bf16 ? resident_forward<__nv_bfloat16>(x, hc0, resets, wpk, outs, hc_final, steps, B, H, rows, smem, s)
+                   : resident_forward<float>(x, hc0, resets, wpk, outs, hc_final, steps, B, H, rows, smem, s);
+}
+
+// Backward of the LSTM, design "resident": lstm_seq_backward's arguments, with wh [H][4H] in f32 on 16 bytes in place of wh^T,
+// and smem resident_bwd_smem_bytes(H, rows).
+int lstm_seq_resident_backward(const void* d_outs, const void* d_hc_final, const void* resets, const void* proj, const void* hc0,
+                               const void* wh, void* cbuf, void* d_proj, void* d_hc0, int steps, int B, int H, int is_bf16, int rows,
+                               int smem, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto args = [&](auto* typed) {
+        using T = std::remove_const_t<std::remove_pointer_t<decltype(typed)>>;
+        return BwdArgs<T>{static_cast<const float*>(d_outs), static_cast<const float*>(d_hc_final), static_cast<const float*>(resets),
+                          static_cast<const T*>(proj), nullptr, static_cast<const float*>(hc0), nullptr, static_cast<float*>(cbuf),
+                          static_cast<T*>(d_proj), nullptr, static_cast<float*>(d_hc0), steps, B, H};
+    };
+    const float* w = static_cast<const float*>(wh);
+    if (is_bf16) return resident_backward<__nv_bfloat16>(args(static_cast<__nv_bfloat16*>(nullptr)), w, rows, smem, st);
+    return resident_backward<float>(args(static_cast<float*>(nullptr)), w, rows, smem, st);
 }
 
 }  // extern "C"

@@ -31,11 +31,18 @@ block's shared memory; see the source note in `csrc/rnn_seq.cu`):
   one grid barrier a step. f32 FMAs on the CUDA cores (TF32 would break the
   f32 tolerance), which bound it at large B (2*B*H*G*H operations a step at 67
   TFLOP/s); a step's barrier and L2 round trip bound it at small B;
+- "resident" (the LSTM at a small width, `ROWS_OVER_WAVES_MAX_H`, wherever a
+  cluster slice fits and `resident_plan` gives a plan: DMLab's instruction
+  encoder in a rollout slot, (16, 64, 64) f32, over the last observations,
+  (16, 128, 64), and over a learner minibatch, (16, 1024, 64)): all
+  of `wh` (64 KB in f32 at H=64) in one block's shared memory for all T steps; a
+  block owns `resident_plan`'s rows and all H units, so no block waits on
+  another; one block barrier a step;
 - "rows": the first design, for shapes whose slice does not fit a block even
   at 16 blocks per cluster, or whose width per block is no power of two, and
-  that the grid design does not take (bf16 at H=1024, H=100), and for a small
-  width where the cluster plan would need more than one wave
-  (`ROWS_OVER_WAVES_MAX_H`): one block per 4 batch rows, `wh` re-read from L2.
+  that the grid design does not take (bf16 at H=1024, H=100), and for the GRU at
+  a small width where the cluster plan would need more than one wave: one block
+  per 4 batch rows, `wh` re-read from L2.
 
 Gradients: each kernel sits in a `torch.autograd.Function`. The forward also
 saves its outputs, from which the backward knows the carry entering every step
@@ -62,10 +69,13 @@ and the card's spec:
   gate cotangents by it and sends each peer the columns of that peer's units
   through distributed shared memory, one cluster barrier a step; bf16 on the
   tensor cores (the f32 gate cotangents in two bf16 parts), f32 on the CUDA cores;
+- "resident" (`lstm_seq_resident_bwd`: `lstm_resident_bwd_kernel`), exactly
+  where the forward takes its resident design: the forward's blocks, with wh kept
+  in shared memory for all T steps, its rows padded by 16 bytes;
 - "rows" (`gru_seq_bwd`, `lstm_seq_bwd`: `seq_bwd_kernel`, the row design
-  mirrored) everywhere else (bf16 at H=1024, H=100, and a small width where the
-  forward's cluster plan needs several waves): a block owns `bwd_rows` batch
-  rows and all H units and re-reads wh^T from L2 every step.
+  mirrored) everywhere else (bf16 at H=1024, H=100, and the GRU at a small width
+  where the forward's cluster plan needs several waves): a block owns `bwd_rows`
+  batch rows and all H units and re-reads wh^T from L2 every step.
 
 There is no fallback between them: the plan decides before the launch, and a
 refused launch raises. On a CPU tensor the backward reruns the plain version
@@ -77,7 +87,8 @@ Dispatch: a CUDA tensor launches the planned kernel or raises; a CPU tensor
 runs the plain version. `launch_counts()` counts the launches of each kernel,
 per design ("gru_seq" is the cluster design, "gru_seq_rows" the row design,
 "gru_seq_grid" the grid design; "gru_seq_bwd", "gru_seq_grid_bwd" and
-"gru_seq_cluster_bwd" the backward's row, grid and cluster designs).
+"gru_seq_cluster_bwd" the backward's row, grid and cluster designs;
+"lstm_seq_resident" and "lstm_seq_resident_bwd" the LSTM's resident design).
 """
 
 from __future__ import annotations
@@ -104,10 +115,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 MAX_HIDDEN = 1024
 GRID_WIDE_ROWS = 1024  # from this batch on, the grid design takes 8 x 8 register tiles and 16 units a block
 ROW_TILE = 4  # batch rows per block in the row design (kTile in csrc/rnn_seq.cu)
-# at this width and below, a cluster plan of more than one wave loses to the row design, whose
-# blocks (one per 4 rows) all run at once and re-read a small `wh` from L2: the DMLab instruction
-# encoder's LSTM-64 over a minibatch, (16, 1024, 64) f32, 32 clusters of 8 in three waves
+# at this width and below the LSTM takes the resident design, and the GRU the row design where its cluster plan needs more
+# than one wave (the DMLab instruction encoder's LSTM-64 over a minibatch, (16, 1024, 64) f32: 32 clusters of 8 in three
+# waves; launch_plan has the measurements)
 ROWS_OVER_WAVES_MAX_H = 64
+RESIDENT_MAX_THREADS = 512  # most threads of a resident block (kResidentThreads in csrc/rnn_seq.cu)
+RESIDENT_MIN_THREADS = 128  # the 4 warps a resident block gets where its rows allow (kResidentMinThreads)
 BWD_MAX_ROWS = 8  # most batch rows a backward block owns in the row design (the kernel is built for 1, 2, 4 and 8)
 BWD_GRID_MAX_THREADS = 512  # most threads of a grid backward block (kBwdGridThreads in csrc/rnn_seq.cu)
 
@@ -249,20 +262,21 @@ class Plan:
     unit slices of `units` units (block = tile * cluster + slice), `threads` threads each with
     `tile_rows` x `tile_cols` accumulators, K split `ksplit` ways and streamed in chunks of `kchunk`,
     the block's rows covered in `passes` passes.
-    A "rows" launch has one block per `rows` batch rows, each owning all `units` = H units."""
+    A "rows" launch has one block per `rows` batch rows, each owning all `units` = H units; so does a "resident" launch,
+    whose `threads` threads each own one unit of `tile_rows` of the block's rows."""
 
-    design: str  # "cluster", "grid" or "rows"
+    design: str  # "cluster", "grid", "resident" or "rows"
     cluster: int  # blocks per cluster; unit slices in the grid design (1 in the row design)
     rows: int  # batch rows per cluster (per block in the grid and row designs)
     units: int  # hidden units per block
     smem: int  # dynamic shared memory per block, bytes
     grid: int  # blocks
-    tile_rows: int = 0  # grid design: a thread's register tile, batch rows ...
+    tile_rows: int = 0  # grid design: a thread's register tile, batch rows ... (resident design: a thread's rows)
     tile_cols: int = 0  # ... x gate columns (tile_cols / 4 units, 4 gates each)
     ksplit: int = 1  # grid design: threads that share one register tile's K range
     kchunk: int = 0  # grid design: K columns of h in shared memory at a time (H: all of them)
     passes: int = 1  # grid design: passes of the block's threads over its rows
-    threads: int = 0  # grid design: threads per block
+    threads: int = 0  # grid and resident designs: threads per block
     buffers: int = 0  # the backward's cluster design: receive buffers of the partial products (2: one cluster barrier a step)
 
 
@@ -425,16 +439,78 @@ def cluster_waves(plan: Plan, spec: CardSpec = H100_SXM) -> int:
     return -(-(plan.grid // plan.cluster) // spec.clusters_at_once(plan.cluster))
 
 
+def resident_rows_a_thread(rows: int, H: int) -> int:
+    """Rows a thread of a resident block of `rows` rows owns (`resident_rows_a_thread` in csrc/rnn_seq.cu): 4 or 2 (dividing
+    rows) where that still leaves the block RESIDENT_MIN_THREADS threads (rows / that x H), else 1. More rows a thread share
+    each read of wh from shared memory; 4 warps at least keep the SM's four schedulers busy."""
+    for rt in (4, 2):
+        if rows % rt == 0 and rows // rt * H >= RESIDENT_MIN_THREADS:
+            return rt
+    return 1
+
+
+def resident_smem(H: int, rows: int) -> int:
+    """Shared memory of one resident forward block (`resident_smem_bytes` in csrc/rnn_seq.cu), each part on 16 bytes: wh
+    packed as [H][H][4] f32 and the carry h [2][rows][H] f32 (a step's inputs go through registers)."""
+    return _a16(4 * 4 * H * H) + _a16(4 * 2 * rows * H)
+
+
+def resident_bwd_smem(H: int, rows: int) -> int:
+    """Shared memory of one resident backward block (`resident_bwd_smem_bytes` in csrc/rnn_seq.cu), each part on 16 bytes:
+    wh [H][4H + 4] f32 (each row padded by 16 bytes) and the gate cotangents dg [2][rows][4H] f32."""
+    GH = 4 * H
+    return _a16(4 * H * (GH + 4)) + 2 * _a16(4 * rows * GH)
+
+
+@functools.lru_cache(maxsize=256)
+def resident_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM, backward: bool = False):
+    """The resident design's plan on a card of `spec` (the forward's, or with `backward` the backward's), or None where it
+    takes none: the GRU (it has no resident kernel), H not a multiple of 8, or a block of one row beyond the card's shared
+    memory or RESIDENT_MAX_THREADS. Rows a block: the fewest powers of two that put the blocks on the SMs in one wave
+    (ceil(B / rows) <= spec.sms) where B allows, halved while the block's threads exceed RESIDENT_MAX_THREADS or its shared
+    memory (`resident_smem`, `resident_bwd_smem`: all of wh and the carry or the gate cotangents) spec.smem_limit. At DMLab's
+    learner (16, 1024, 64) f32 on the H100 SXM: 8 rows, 128 blocks of 128 threads (4 rows a thread). The dtype changes
+    nothing: wh is in f32 in shared memory, and a step's inputs go through registers."""
+    del dtype
+    if kind != "lstm" or H % 8:
+        return None
+    smem_of = resident_bwd_smem if backward else resident_smem
+    rows = 1
+    while -(-B // rows) > spec.sms:
+        rows *= 2
+    while rows > 1 and (rows // resident_rows_a_thread(rows, H) * H > RESIDENT_MAX_THREADS or smem_of(H, rows) > spec.smem_limit):
+        rows //= 2
+    if H > RESIDENT_MAX_THREADS or smem_of(H, rows) > spec.smem_limit:
+        return None
+    rt = resident_rows_a_thread(rows, H)
+    return Plan("resident", 1, rows, H, smem_of(H, rows), -(-B // rows), tile_rows=rt, threads=rows // rt * H)
+
+
 @functools.lru_cache(maxsize=256)
 def launch_plan(kind: str, T: int, B: int, H: int, dtype, spec: CardSpec = H100_SXM) -> Plan:
     """The design and its launch configuration, from the shape, the dtype and the card's spec: the
-    cluster design where a slice fits (`cluster_plan`), except at H <= ROWS_OVER_WAVES_MAX_H where its
-    clusters need more than one wave, which take the row design; otherwise the grid design where
-    `grid_plan` gives one (float32, H a multiple of 64), else the row design."""
+    cluster design where a slice fits (`cluster_plan`), except at H <= ROWS_OVER_WAVES_MAX_H, where the
+    LSTM takes the resident design wherever `resident_plan` gives one, and the GRU the row design where
+    its clusters need more than one wave; otherwise the grid design where `grid_plan` gives one
+    (float32, H a multiple of 64), else the row design.
+
+    The resident design in place of a cluster plan of one wave: it beat the cluster plan in turns by
+    more than either's spread at DMLab's rollout slot (16, 64, 64) f32, 0.02787 ms against 0.05667 (each
+    route's rounds spread by 0.00005 ms), and its last-value pass (16, 128, 64), 0.02787 against 0.05709
+    (0.00003 and 0.00016), on an NVIDIA H100 80GB HBM3 at 700 W (`rnn_seq_turns --resident`; PERF.md
+    section 6). Up to spec.sms rows a resident block holds one row whatever B is, and below 64 rows the
+    same held in turns (shapes no path runs): (16, 8, 64) 0.02762 against 0.05605 (spreads 0.00003 and
+    0.00006), (16, 24, 64) 0.02765 against 0.05603 (0.00002 and 0.00008)."""
     del T  # every step is alike; the plan does not depend on the sequence length
     plan = cluster_plan(kind, B, H, dtype, spec)
+    if plan is not None and H <= ROWS_OVER_WAVES_MAX_H:
+        resident = resident_plan(kind, B, H, dtype, spec)
+        if resident is not None:
+            return resident
+        if cluster_waves(plan, spec) > 1:
+            return row_plan(kind, B, H)
     if plan is not None:
-        return row_plan(kind, B, H) if H <= ROWS_OVER_WAVES_MAX_H and cluster_waves(plan, spec) > 1 else plan
+        return plan
     return grid_plan(kind, B, H, dtype, spec) or row_plan(kind, B, H)
 
 
@@ -597,10 +673,13 @@ def bwd_cluster_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM
 def bwd_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM) -> Plan:
     """The backward's design and launch configuration: the grid design where `bwd_grid_plan` gives one (float32, where
     the forward takes its grid design), the cluster design where `bwd_cluster_plan` gives one (where the forward takes its
-    cluster design), else the row design, `bwd_rows` rows a block (`cluster` 1, `units` H)."""
+    cluster design), the resident design where the forward takes its resident design (`resident_plan` of the backward's
+    shared memory), else the row design, `bwd_rows` rows a block (`cluster` 1, `units` H)."""
     plan = bwd_grid_plan(kind, B, H, dtype, spec) or bwd_cluster_plan(kind, B, H, dtype, spec)
     if plan is not None:
         return plan
+    if launch_plan(kind, 1, B, H, dtype, spec).design == "resident":
+        return resident_plan(kind, B, H, dtype, spec, backward=True)
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
     return bwd_row_plan(kind, B, H, bwd_rows(kind, B, H, dtype, spec), 2 if dtype == torch.bfloat16 else 4)
 
@@ -627,7 +706,11 @@ def pack_wh(wh: torch.Tensor, plan: Plan) -> torch.Tensor:
     """wh [H, G*H] -> [cluster, G*U, H]: block r's gate columns g*H + r*U + u (u < U) as rows
     g*U + u, each contiguous along K, which is the layout of the mma's B operand (in the grid
     design, slice r's columns; the cluster backward reads block r's rows as its [K][H] operand, by
-    ldmatrix.trans in bf16). The row design reads wh as it is."""
+    ldmatrix.trans in bf16). The row design reads wh as it is; the resident forward reads it in float32 as [H][H][4] (row k,
+    unit j, gate g: a thread's four gate weights of a row in one 16-byte read)."""
+    if plan.design == "resident":
+        H = wh.shape[0]
+        return wh.float().reshape(H, 4, H).transpose(1, 2).contiguous()
     if plan.design == "rows":
         return wh
     H = wh.shape[0]
@@ -636,7 +719,9 @@ def pack_wh(wh: torch.Tensor, plan: Plan) -> torch.Tensor:
 
 
 def unpack_wh(packed: torch.Tensor, plan: Plan) -> torch.Tensor:
-    """The inverse of `pack_wh`."""
+    """The inverse of `pack_wh` (the resident design's: in float32)."""
+    if plan.design == "resident":
+        return packed.transpose(1, 2).reshape(packed.shape[0], -1).contiguous()
     if plan.design == "rows":
         return packed
     H = packed.shape[-1]
@@ -696,6 +781,7 @@ def bind(path: Path, entries: Tuple[str, ...] = ()):
         "gru_seq_cluster_backward": [ptr] * 10 + [i32] * 8 + [ptr], "lstm_seq_cluster_backward": [ptr] * 9 + [i32] * 8 + [ptr],
         "max_active_clusters": [i32] * 4, "grid_blocks_per_sm": [i32] * 5, "grid_bwd_blocks_per_sm": [i32] * 3,
         "bwd_max_active_clusters": [i32] * 4,
+        "lstm_resident_forward": [ptr] * 6 + [i32] * 6 + [ptr], "lstm_seq_resident_backward": [ptr] * 9 + [i32] * 6 + [ptr],
     }
     for name in entries or signatures:
         fn = getattr(lib, name)
@@ -740,7 +826,7 @@ def _check_common(x_proj: torch.Tensor, gates: int) -> Tuple[int, int, int]:
 
 
 def _kernel_name(kind: str, plan: Plan) -> str:
-    return {"cluster": f"{kind}_seq", "grid": f"{kind}_seq_grid", "rows": f"{kind}_seq_rows"}[plan.design]
+    return {"cluster": f"{kind}_seq", "grid": f"{kind}_seq_grid", "rows": f"{kind}_seq_rows", "resident": f"{kind}_seq_resident"}[plan.design]
 
 
 def _launch(kind, x_proj, state0, resets, wh, bh, plan):
@@ -758,8 +844,13 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
     plan = plan or launch_plan(kind, T, B, H, dt, spec)
     if plan.design == "grid" and dt != torch.float32:
         raise ValueError(f"the grid design takes float32, not {dt}")
-    if plan.design == "cluster" and x_proj.data_ptr() % 16:
-        x_proj = x_proj.clone()  # a view at an odd offset: the kernel copies x_proj in 16-byte pieces
+    if plan.design == "resident" and kind != "lstm":
+        raise ValueError("the resident design takes the LSTM")
+    if plan.design != "rows" and x_proj.data_ptr() % 16:
+        # a view at an odd offset: the cluster design copies x_proj in 16-byte pieces and the grid design reads it in pieces
+        # of up to 16 bytes (load_v). The resident kernel reads it by element and needs no alignment: its copy is kept only
+        # so that every design but the row design gets x_proj on 16 bytes (no path passes such a view: x_proj is a Linear's)
+        x_proj = x_proj.clone()
     lib = load_library()
     outs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
     state = torch.empty_like(state0)
@@ -774,7 +865,10 @@ def _launch(kind, x_proj, state0, resets, wh, bh, plan):
         ptrs.insert(len(ptrs) - 2, torch.empty((2, B, H), dtype=torch.float32, device=dev).data_ptr())
         dims = [T, B, H, plan.units, plan.rows, plan.tile_rows, plan.tile_cols, plan.ksplit, plan.kchunk, plan.passes,
                 plan.threads, plan.smem]
-    fn = getattr(lib, {"cluster": f"{kind}_seq_forward", "grid": f"{kind}_grid_forward", "rows": f"{kind}_rows_forward"}[plan.design])
+    if plan.design == "resident":
+        dims += [plan.rows, plan.smem]
+    fn = getattr(lib, {"cluster": f"{kind}_seq_forward", "grid": f"{kind}_grid_forward", "rows": f"{kind}_rows_forward",
+                       "resident": f"{kind}_resident_forward"}[plan.design])
     with torch.cuda.device(dev):
         err = fn(*ptrs, *dims, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -799,7 +893,8 @@ def row_plan(kind: str, B: int, H: int) -> Plan:
 
 
 def _bwd_kernel_name(kind: str, plan: Plan) -> str:
-    return {"grid": f"{kind}_seq_grid_bwd", "cluster": f"{kind}_seq_cluster_bwd", "rows": f"{kind}_seq_bwd"}[plan.design]
+    return {"grid": f"{kind}_seq_grid_bwd", "cluster": f"{kind}_seq_cluster_bwd", "rows": f"{kind}_seq_bwd",
+            "resident": f"{kind}_seq_resident_bwd"}[plan.design]
 
 
 def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan=None):
@@ -826,9 +921,13 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan
     design = plan.design
     if design == "grid" and dt != torch.float32:
         raise ValueError(f"the grid backward takes float32, not {dt}")
+    if design == "resident" and kind != "lstm":
+        raise ValueError("the resident backward takes the LSTM")
     # [G*H, H] for the row design: thread k reads column k, neighbouring threads neighbouring addresses; the grid
-    # design reads the rows of wh of its units as they are; the cluster design the forward's slices (pack_wh)
-    w = {"rows": lambda: wh.t().contiguous(), "grid": lambda: wh, "cluster": lambda: pack_wh(wh, plan)}[design]()
+    # design reads the rows of wh of its units as they are; the cluster design the forward's slices (pack_wh); the
+    # resident design all of wh as it is, in float32
+    w = {"rows": lambda: wh.t().contiguous(), "grid": lambda: wh, "cluster": lambda: pack_wh(wh, plan),
+         "resident": lambda: wh.float()}[design]()
     d_a, d_state0 = torch.empty_like(a), torch.empty_like(d_final)
     if kind == "gru":
         outputs = (d_a, torch.empty((T, B, H), dtype=dt, device=dev), d_state0)
@@ -836,7 +935,9 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan
     else:
         outputs = (d_a, d_state0)
         ptrs = [d_outs, d_final, resets, a, s, w, torch.empty((T, B, H), dtype=torch.float32, device=dev), *outputs]
-    if design != "rows":  # the grid and cluster designs read their inputs in 16-byte pieces: a view at an odd offset is copied
+    # the grid and cluster designs read their inputs in 16-byte pieces, the resident design wh alone (its other inputs by
+    # element, copied as the forward copies x_proj): a view at an odd offset is copied
+    if design != "rows":
         ptrs = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ptrs]
     if design == "grid":
         name = f"{kind}_seq_grid_backward"
@@ -844,6 +945,9 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan
     elif design == "cluster":
         name = f"{kind}_seq_cluster_backward"
         dims = [T, B, H, int(dt == torch.bfloat16), plan.cluster, plan.rows, plan.buffers, plan.smem]
+    elif design == "resident":
+        name = f"{kind}_seq_resident_backward"
+        dims = [T, B, H, int(dt == torch.bfloat16), plan.rows, plan.smem]
     else:
         name = f"{kind}_seq_backward"
         dims = [T, B, H, int(dt == torch.bfloat16), plan.rows, plan.smem]
@@ -855,6 +959,7 @@ def _launch_bwd(kind, d_outs, d_final, resets, a, h_proj, s, wh, rows=None, plan
                         f"{plan.threads} threads",
                 "cluster": f"plan {plan}: {plan.grid // plan.cluster} clusters of {plan.cluster} blocks, {plan.rows} rows and "
                            f"{plan.units} units a block, {plan.buffers} receive buffers",
+                "resident": f"plan {plan}: {plan.rows} rows a block ({plan.tile_rows} a thread), {plan.grid} blocks of {plan.threads} threads",
                 "rows": f"{plan.rows} rows a block, {plan.grid} blocks"}[design]
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} (T={T}, B={B}, H={H}, {dt}: {laid}, {plan.smem} bytes of "
                            f"shared memory, on a card of {spec.sms} SMs: {spec})")
@@ -869,8 +974,8 @@ def _launch_gru_bwd(d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh, rows=
 
 
 def _launch_lstm_bwd(d_outs, d_hc_final, resets, proj, hc0, wh, rows=None, plan=None):
-    """The planned backward kernel (`lstm_seq_grid_bwd`, `lstm_seq_cluster_bwd` or `lstm_seq_bwd`), with
-    lstm_seq_bwd_reference's signature."""
+    """The planned backward kernel (`lstm_seq_grid_bwd`, `lstm_seq_cluster_bwd`, `lstm_seq_resident_bwd` or `lstm_seq_bwd`),
+    with lstm_seq_bwd_reference's signature."""
     return _launch_bwd("lstm", d_outs, d_hc_final, resets, proj, None, hc0, wh, rows, plan)
 
 
@@ -974,7 +1079,7 @@ def lstm_seq(x_proj, hc0, resets, wh):
 
 _launches = {"gru_seq": 0, "gru_seq_rows": 0, "gru_seq_grid": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0,
              "gru_seq_bwd": 0, "lstm_seq_bwd": 0, "gru_seq_grid_bwd": 0, "lstm_seq_grid_bwd": 0, "gru_seq_cluster_bwd": 0,
-             "lstm_seq_cluster_bwd": 0}
+             "lstm_seq_cluster_bwd": 0, "lstm_seq_resident": 0, "lstm_seq_resident_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -987,5 +1092,5 @@ def launch_counts() -> dict:
     design, "gru_seq_grid"/"lstm_seq_grid" for the grid design, "gru_seq_rows"/"lstm_seq_rows" for
     the row design (the forward's designs), "gru_seq_bwd"/"lstm_seq_bwd" for the backward's row design,
     "gru_seq_grid_bwd"/"lstm_seq_grid_bwd" for its grid design and "gru_seq_cluster_bwd"/"lstm_seq_cluster_bwd" for
-    its cluster design."""
+    its cluster design, "lstm_seq_resident"/"lstm_seq_resident_bwd" for the LSTM's resident design, forward and backward."""
     return dict(_launches)

@@ -1,6 +1,6 @@
 """Where a step of the cluster-design and grid-design RNN kernels spends its time, on the card.
 
-    python -m sample_factory_tpu_torch.ops.rnn_seq_phases
+    python -m sample_factory_tpu_torch.ops.rnn_seq_phases [--resident]
 
 Builds `csrc/rnn_seq.cu` with -DRNN_SEQ_PHASES, which makes thread 0 of every block add
 the SM cycles (clock64) of each phase of each step, at the plans for this card's spec. Cluster design: the product h @ wh,
@@ -19,11 +19,14 @@ product and without both (BWD_ABLATIONS), in turns with the plain build. The clu
 (`bwd_plan`'s cluster design, at the `main`, `selfplay` and `lstm` learners, BWD_CLUSTER_CASES): the
 product with its pushes into the peers' receive slots, the wait for the step's inputs and the cells,
 the issue of the next step's copies, and the cluster barrier, and apart, thread 0's cycles in its
-remote stores (inside the product phase). Needs a CUDA card.
+remote stores (inside the product phase). The resident design, forward and backward on its own plans (RESIDENT_CASES:
+DMLab's instruction encoder in a rollout slot and over a learner minibatch; with --resident, these cases alone): the
+product, the cells, the loads of the next step's inputs (into registers), and the block barrier. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import dataclasses
@@ -45,7 +48,10 @@ CASES = [
     ("gru", 16, 4, 512, "float32"),  # the multichip configuration's gathered GRU (grid design)
 ]
 PHASES = {"cluster": ["product", "gates", "push_and_prefetch", "barrier"], "grid": ["product", "cells", "prefetch", "barrier"],
-          "cluster_bwd": ["product_and_push", "cells", "prefetch", "barrier"]}
+          "cluster_bwd": ["product_and_push", "cells", "prefetch", "barrier"], "resident": ["product", "cells", "loads", "barrier"]}
+# the resident design, forward and backward, on its own plan: DMLab's instruction encoder in a rollout slot and over a
+# learner minibatch, and at twice the minibatch's rows in bf16
+RESIDENT_CASES = [("lstm", 16, 64, 64, "float32"), ("lstm", 16, 1024, 64, "float32"), ("lstm", 16, 2048, 64, "bfloat16")]
 # the cluster backward at the learners of `main` (GRU-256 bf16), `selfplay` (GRU-512 bf16, clusters of 16) and `lstm`
 # (LSTM-256 float32): (kind, T, B, H, dtype)
 BWD_CLUSTER_CASES = [("gru", 32, 512, 256, "bfloat16"), ("gru", 32, 512, 512, "bfloat16"), ("lstm", 32, 128, 256, "float32")]
@@ -114,6 +120,9 @@ def _batched_ms(fn, launches=20, batches=5):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--resident", action="store_true", help="the resident design's cases alone")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("rnn_seq_phases needs a CUDA card")
     lib = cuda_rnn.load_library(("-DRNN_SEQ_PHASES",))
@@ -124,7 +133,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     spec = cuda_rnn.card_spec(torch.device("cuda"))
-    for kind, T, B, H, dtype in CASES:
+    for kind, T, B, H, dtype in [] if opts.resident else CASES:
         plan = cuda_rnn.launch_plan(kind, T, B, H, dtype, spec)
         launch = cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm
         args = _inputs(kind, T, B, H, dtype)
@@ -136,15 +145,19 @@ def main() -> int:
         cycles = (ctypes.c_ulonglong * 5)()
         lib.rnn_seq_phases_read(ctypes.addressof(cycles))
         per_step = {name: cycles[i] / (plan.grid * T) for i, name in enumerate(PHASES[plan.design])}
-        at_once = ({"clusters": plan.grid // plan.cluster, "max_active_clusters": cuda_rnn.max_active_clusters(kind, dtype, plan)}
-                   if plan.design == "cluster" else {"blocks": plan.grid, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(kind, plan)})
+        if plan.design == "cluster":
+            at_once = {"clusters": plan.grid // plan.cluster, "max_active_clusters": cuda_rnn.max_active_clusters(kind, dtype, plan)}
+        elif plan.design == "grid":
+            at_once = {"blocks": plan.grid, "blocks_per_sm": cuda_rnn.grid_blocks_per_sm(kind, plan)}
+        else:
+            at_once = {"blocks": plan.grid, "threads": plan.threads}
         print(json.dumps({
             "kernel": cuda_rnn._kernel_name(kind, plan), "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(plan),
             **at_once, "card_spec": dataclasses.asdict(spec), "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
             "card": card,
         }), flush=True)
-    ablations = {name: cuda_rnn.bind(cuda_rnn.build(defines), BWD_ENTRIES) for name, defines in BWD_ABLATIONS.items()}
-    for kind, T, B, H in BWD_CASES:
+    ablations = {} if opts.resident else {name: cuda_rnn.bind(cuda_rnn.build(defines), BWD_ENTRIES) for name, defines in BWD_ABLATIONS.items()}
+    for kind, T, B, H in [] if opts.resident else BWD_CASES:
         plan = cuda_rnn.bwd_plan(kind, B, H, "float32", spec)
         rec = _bwd_inputs(kind, T, B, H)
         launch = cuda_rnn._launch_gru_bwd if kind == "gru" else cuda_rnn._launch_lstm_bwd
@@ -166,7 +179,7 @@ def main() -> int:
             "ms_back_to_back": ms, "cycles_per_step": per_step, "cycles_per_step_total": sum(per_step.values()),
             "ablation_ms": {name: sorted(v)[len(v) // 2] for name, v in ablated.items()}, "card": card,
         }), flush=True)
-    for kind, T, B, H, dtype in BWD_CLUSTER_CASES:
+    for kind, T, B, H, dtype in [] if opts.resident else BWD_CLUSTER_CASES:
         plan = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
         rec = _bwd_inputs(kind, T, B, H, dtype)
         launch = cuda_rnn._launch_gru_bwd if kind == "gru" else cuda_rnn._launch_lstm_bwd
@@ -184,6 +197,28 @@ def main() -> int:
             "card_spec": dataclasses.asdict(spec), "ms_back_to_back": ms, "cycles_per_step": per_step,
             "cycles_per_step_total": sum(per_step.values()), "push_cycles_per_step_thread0": cycles[4] / (plan.grid * T), "card": card,
         }), flush=True)
+    for kind, T, B, H, dtype in RESIDENT_CASES:
+        args = _inputs(kind, T, B, H, dtype)
+        rec = _bwd_inputs(kind, T, B, H, dtype)
+        for name, plan, launch in (("lstm_seq_resident", cuda_rnn.resident_plan(kind, B, H, dtype, spec), cuda_rnn._launch_lstm),
+                                   ("lstm_seq_resident_bwd", cuda_rnn.resident_plan(kind, B, H, dtype, spec, backward=True),
+                                    cuda_rnn._launch_lstm_bwd)):
+            inputs = args if name == "lstm_seq_resident" else rec
+            with torch.no_grad():
+                ms = _batched_ms(lambda: launch(*inputs, plan=plan), launches=10)
+                lib.rnn_seq_phases_reset()
+                launch(*inputs, plan=plan)
+                torch.cuda.synchronize()
+            cycles = (ctypes.c_ulonglong * 5)()
+            lib.rnn_seq_phases_read(ctypes.addressof(cycles))
+            per_step = {phase: cycles[i] / (plan.grid * T) for i, phase in enumerate(PHASES["resident"])}
+            print(json.dumps({
+                "kernel": name, "shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(plan), "blocks": plan.grid,
+                "threads": plan.threads, "card_spec": dataclasses.asdict(spec), "ms_back_to_back": ms, "cycles_per_step": per_step,
+                "cycles_per_step_total": sum(per_step.values()),
+                "stat": "cycles of thread 0 of each block, its mean over blocks and steps (the backward's cell-state pass before "
+                        "its loop, and the load of wh, are in no phase)", "card": card,
+            }), flush=True)
     return 0
 
 

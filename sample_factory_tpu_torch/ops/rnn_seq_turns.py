@@ -2,6 +2,7 @@
 
     python -m sample_factory_tpu_torch.ops.rnn_seq_turns [--against OTHER_RNN_SEQ_CU]
     python -m sample_factory_tpu_torch.ops.rnn_seq_turns --sms N
+    python -m sample_factory_tpu_torch.ops.rnn_seq_turns --resident
 
 Prints one JSON line per shape. A route's time is the median of CUDA-event timings of one launch,
 each after a spin of the card (so that the interval is device time, not the host's launch work),
@@ -16,6 +17,11 @@ taken in rounds that alternate the two routes (a, b, b, a, ...):
 - "build" (with --against, a copy of `csrc/rnn_seq.cu` from another commit, built beside this one):
   the float32 LSTM's grid sites (NetHack's (32, 24, 512) and (32, 32, 512), AllegroHandLSTM's
   (16, 2048, 512)), this build against the other through the same launch code;
+- "resident" (with --resident alone): the LSTM at DMLab's instruction-encoder sites (`RESIDENT_SITES`: a rollout slot's
+  (16, 64, 64), the last-value pass's (16, 128, 64), a learner minibatch's (16, 1024, 64), all float32, and (16, 2048, 64)
+  in bf16) and below 64 rows ((16, 8, 64), (16, 24, 64) float32, which no path runs), the resident design (`cuda_rnn.resident_plan`) against the row design, forward and backward (the backward's
+  recurrence kernel alone, on the inputs its prologue makes), and the forward against the cluster plan where there is
+  one, each held against the plain version: the evidence for where `cuda_rnn.launch_plan` takes the resident design;
 - "sms" (with --sms alone): the paths' sites (`SPEC_SITES`: the grid sites and the cluster sites), the plan
   `cuda_rnn.launch_plan` makes for a card of N SMs (`scaled_spec`: this card's clusters of 8 and 16 scaled
   by N over its SMs, rounded down, and its shared memory) against the plan for this card's own spec
@@ -50,6 +56,8 @@ SPEC_SITES = ([("gru", *shape, "float32") for shape in GRU_GRID_SITES] + [("lstm
               + [("gru", 32, 512, 256, "bfloat16"), ("lstm", 32, 128, 256, "float32"), ("gru", 32, 512, 512, "bfloat16"),
                  ("lstm", 32, 32, 256, "float32"), ("lstm", 16, 64, 64, "float32"), ("lstm", 16, 1024, 64, "float32"),
                  ("lstm", 16, 128, 64, "float32")])
+RESIDENT_SITES = [(16, 64, 64, "float32"), (16, 128, 64, "float32"), (16, 1024, 64, "float32"), (16, 2048, 64, "bfloat16"),
+                  (16, 8, 64, "float32"), (16, 24, 64, "float32")]
 
 
 def _launch_ms(fn) -> float:
@@ -63,15 +71,19 @@ def _launch_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def in_turns(a, b):
+def in_turns(a, b, spread=False):
     """Medians of a's and b's launch times over ROUNDS rounds of REPS launches each, in the order
-    a, b, b, a, ... after a warm-up launch of each."""
+    a, b, b, a, ... after a warm-up launch of each; with `spread`, also each route's spread: the largest
+    less the smallest of its rounds' medians."""
     a(), b()
-    times = ([], [])
+    rounds = ([], [])
     for i in range(ROUNDS):
         for k in ((0, 1) if i % 2 == 0 else (1, 0)):
-            times[k].extend(_launch_ms((a, b)[k]) for _ in range(REPS))
-    return statistics.median(times[0]), statistics.median(times[1])
+            rounds[k].append([_launch_ms((a, b)[k]) for _ in range(REPS)])
+    medians = tuple(statistics.median([t for r in route for t in r]) for route in rounds)
+    if not spread:
+        return medians
+    return medians + tuple(max(map(statistics.median, route)) - min(map(statistics.median, route)) for route in rounds)
 
 
 def _launcher(kind, T, B, H, dtype, plan=None):
@@ -106,10 +118,49 @@ def against_spec(spec, sites=SPEC_SITES):
                "own_sms": own.sms, "own_plan": dataclasses.asdict(own_plan), "own_ms": own_ms, "same_plan": plan == own_plan}
 
 
+def resident_turns(spec, sites=RESIDENT_SITES):
+    """For each LSTM site (T, B, H, dtype): the resident plan in turns with the row design, forward and backward, and with
+    the cluster plan where one exists, the forward, warm (the forward's turns with each route's spread over its rounds); the largest difference of each resident output from the plain version's (the
+    forward's outs and final state; the backward's d_x_proj and d_hc0, relative to the largest gradient). One dict a site."""
+    from sample_factory_tpu_torch.ops.rnn_seq_phases import _bwd_inputs
+
+    for T, B, H, dtype in sites:
+        fwd = cuda_rnn.resident_plan("lstm", B, H, dtype, spec)
+        bwd = cuda_rnn.resident_plan("lstm", B, H, dtype, spec, backward=True)
+        cluster = cuda_rnn.cluster_plan("lstm", B, H, dtype, spec)
+        args = _inputs("lstm", T, B, H, dtype)
+        rec = _bwd_inputs("lstm", T, B, H, dtype)
+        itemsize = 2 if dtype == "bfloat16" else 4
+        others = {"rows": (cuda_rnn.row_plan("lstm", B, H),
+                           cuda_rnn.bwd_row_plan("lstm", B, H, cuda_rnn.bwd_rows("lstm", B, H, dtype, spec), itemsize))}
+        if cluster is not None:
+            others["cluster"] = (cluster, None)
+        with torch.no_grad():
+            out, state = cuda_rnn._launch_lstm(*args, plan=fwd)
+            ref_out, ref_state = cuda_rnn.lstm_seq_reference(*args)
+            got, want = cuda_rnn._launch_lstm_bwd(*rec, plan=bwd), cuda_rnn.lstm_seq_bwd_reference(*rec)
+            torch.cuda.synchronize()
+            record = {"shape": [T, B, H], "dtype": dtype, "plan": dataclasses.asdict(fwd), "bwd_plan": dataclasses.asdict(bwd),
+                      "max_abs_err": max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max())),
+                      "bwd_rel_err": max(float((g.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max()))
+                                         for g, w in zip(got, want))}
+            for name, (other_fwd, other_bwd) in others.items():
+                (record[f"ms_against_{name}"], record[f"{name}_ms"], record[f"spread_against_{name}"],
+                 record[f"{name}_spread"]) = in_turns(lambda: cuda_rnn._launch_lstm(*args, plan=fwd),
+                                                      lambda: cuda_rnn._launch_lstm(*args, plan=other_fwd), spread=True)
+                if other_bwd is not None:
+                    record[f"bwd_ms_against_{name}"], record[f"{name}_bwd_ms"] = in_turns(
+                        lambda: cuda_rnn._launch_lstm_bwd(*rec, plan=bwd), lambda: cuda_rnn._launch_lstm_bwd(*rec, plan=other_bwd))
+            if cluster is not None:  # the forward alone: the sites of one wave run under no_grad (a rollout, the last value)
+                record["cluster_plan"], record["cluster_waves"] = dataclasses.asdict(cluster), cuda_rnn.cluster_waves(cluster, spec)
+        yield record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", help="another version of csrc/rnn_seq.cu: time the LSTM's grid sites with both builds")
     parser.add_argument("--sms", type=int, help="time the plans for a card of this many SMs against this card's own, alone")
+    parser.add_argument("--resident", action="store_true", help="time the LSTM's resident design at DMLab's sites, alone")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("rnn_seq_turns needs a CUDA card")
@@ -117,6 +168,10 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     this = cuda_rnn.load_library()
     stat = f"median of {ROUNDS} x {REPS} CUDA-event times of one launch, routes in turns"
+    if opts.resident:
+        for record in resident_turns(cuda_rnn.card_spec(torch.device("cuda"))):
+            print(json.dumps({"turns": "resident", **record, "stat": stat, "card": card}), flush=True)
+        return 0
     if opts.sms:
         for record in against_spec(scaled_spec(cuda_rnn.card_spec(torch.device("cuda")), opts.sms)):
             print(json.dumps({"turns": "sms", **record, "stat": stat, "card": card}), flush=True)

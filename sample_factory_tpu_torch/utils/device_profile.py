@@ -10,7 +10,8 @@ from __future__ import annotations
 import subprocess
 import time
 
-RNN_KERNELS = ("seq_cluster_kernel", "grid_kernel", "rows_kernel", "seq_bwd_kernel", "seq_bwd_grid_kernel", "seq_bwd_cluster_kernel")  # the symbols of csrc/rnn_seq.cu's kernels
+RNN_KERNELS = ("seq_cluster_kernel", "grid_kernel", "rows_kernel", "seq_bwd_kernel", "seq_bwd_grid_kernel", "seq_bwd_cluster_kernel",
+               "resident_kernel", "resident_bwd_kernel")  # the symbols of csrc/rnn_seq.cu's kernels
 
 
 def card_line() -> str:

@@ -91,14 +91,15 @@ def cuda_device():
 # design) in Doom's learner over 2048 / 32 segments, on the multichip configuration's gathered `wh` over
 # 64 / 16 rows of one data index, and at the cfg's defaults over 1024 / 32; the DMLab core's LSTM-256 over
 # 1024 / 32; the instruction encoder's LSTM-64 over 16 tokens in a rollout slot of 64 envs, in a minibatch
-# of 1024 (the row design: its cluster plan, 32 clusters of 8, would need three waves) and over the 128
-# envs' last observations; LSTM-512 float32 (the grid design) in NetHack's learner over 768 / 32 segments
+# of 1024 and over the 128 envs' last observations (the resident design: its cluster plan, 32 clusters of 8 at 1024, would
+# need three waves; at 64 and 128 one wave, slower in turns)
+# LSTM-512 float32 (the grid design) in NetHack's learner over 768 / 32 segments
 # (a train step takes one rollout of 24 envs) and the 1024 / 32 its defaults name, and in AllegroHandLSTM's
 # over 32768 / 16 (4 tiles of 512 rows)
 PATH_SHAPES = [("gru", 32, 64, 512, "float32", "grid"), ("gru", 16, 4, 512, "float32", "grid"), ("gru", 32, 32, 512, "float32", "grid"),
                ("lstm", 32, 32, 256, "float32", "cluster"),
-               ("lstm", 16, 64, 64, "float32", "cluster"), ("lstm", 16, 1024, 64, "float32", "rows"),
-               ("lstm", 16, 128, 64, "float32", "cluster"), ("lstm", 32, 24, 512, "float32", "grid"),
+               ("lstm", 16, 64, 64, "float32", "resident"), ("lstm", 16, 1024, 64, "float32", "resident"),
+               ("lstm", 16, 128, 64, "float32", "resident"), ("lstm", 32, 24, 512, "float32", "grid"),
                ("lstm", 32, 32, 512, "float32", "grid"), ("lstm", 16, 2048, 512, "float32", "grid")]
 
 
@@ -121,8 +122,8 @@ def test_kernel_matches_plain_on_card_at_the_path_shapes(cuda_device, kind, T, B
 def test_path_shapes_take_their_design(kind, T, B, H, dtype, design):
     """H=512 in float32 fits no cluster slice: the GRU and the LSTM take the grid design (one batch
     tile of 128 slices of 4 units up to 64 segments, 4 tiles of 32 slices of 16 units at
-    AllegroHandLSTM's); H=64 takes the smallest slice the cluster design allows (8 units a block), or
-    the row design where that plan needs more than one wave; every cluster plan fits the card."""
+    AllegroHandLSTM's); the DMLab core's LSTM-256 takes clusters of 8; the LSTM-64 takes the resident design
+    (over cluster plans of one wave and of three); every cluster plan fits the card."""
     plan = cuda_rnn.launch_plan(kind, T, B, H, dtype)
     assert plan.design == design
     if design == "cluster":
@@ -132,6 +133,9 @@ def test_path_shapes_take_their_design(kind, T, B, H, dtype, design):
         tiles, units = (4, 16) if B >= cuda_rnn.GRID_WIDE_ROWS else (1, 4)
         assert plan.units == units and plan.cluster == H // units and plan.grid == tiles * plan.cluster
         assert plan.rows * tiles >= B > plan.rows * (tiles - 1)
+    elif design == "resident":
+        assert plan == cuda_rnn.resident_plan(kind, B, H, dtype) and plan.grid <= cuda_rnn.H100_SXM.sms and plan.rows * plan.grid >= B
+        assert H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_plan(kind, B, H, dtype) is not None
     else:
         assert plan == cuda_rnn.row_plan(kind, B, H) and plan.rows == 4 and plan.grid == B // 4
         assert H == 512 or cuda_rnn.cluster_waves(cuda_rnn.cluster_plan(kind, B, H, dtype)) > 1
@@ -291,11 +295,15 @@ def test_launch_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H, spec
                                                plan.kchunk, plan.passes)
         assert plan.rows % (plan.passes * plan.tile_rows) == 0 and H % plan.kchunk == 0 and plan.kchunk % (4 * plan.ksplit) == 0
         assert plan.ksplit == 1 or (plan.passes == 1 and plan.rows * plan.units <= plan.threads)  # a cell a thread
+    elif plan.design == "resident":  # the LSTM at a small width, over a cluster plan of one wave or of several
+        assert kind == "lstm" and plan == cuda_rnn.resident_plan(kind, B, H, dtype, spec)
+        assert H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_plan(kind, B, H, dtype, spec) is not None
+        _check_resident_plan(plan, B, H, dtype, spec, cuda_rnn.resident_smem)
     else:
         assert plan == cuda_rnn.row_plan(kind, B, H)
         assert plan.smem <= 48 * 1024  # launched without raising the dynamic shared-memory limit
-        over = cuda_rnn.cluster_plan(kind, B, H, dtype, spec)  # where a cluster slice fits, only over waves at a small width
-        assert over is None or (H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_waves(over, spec) > 1)
+        over = cuda_rnn.cluster_plan(kind, B, H, dtype, spec)  # where a cluster slice fits, only over waves at a small width (the GRU)
+        assert over is None or (kind == "gru" and H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_waves(over, spec) > 1)
     # the kernels' map from blockIdx to its tile: cluster = block // cluster size, rank = block % cluster size
     # (grid design: batch tile = block // unit slices, unit slice = block % unit slices)
     owner = np.zeros((B, H), dtype=np.int64)
@@ -332,7 +340,7 @@ def test_row_design_where_no_cluster_slice_fits(kind, H, dtype, design):
 @pytest.mark.parametrize("kind", ["gru", "lstm"])
 def test_pack_wh_holds_each_blocks_columns(kind, dtype, H):
     G = 3 if kind == "gru" else 4
-    plan = cuda_rnn.launch_plan(kind, 8, 64, H, "bfloat16")  # a cluster plan at every H here
+    plan = cuda_rnn.cluster_plan(kind, 64, H, "bfloat16")  # a cluster plan at every H here (the LSTM-64 launches the resident design)
     assert plan.design == "cluster"
     wh = _inputs(kind, 1, 1, H, dtype, "cpu")[3]
     packed = cuda_rnn.pack_wh(wh, plan)
@@ -425,20 +433,26 @@ def _check_grid_threads(kind, plan, H):
 @pytest.mark.parametrize("kind", ["gru", "lstm"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_row_design_where_the_cluster_plan_needs_waves_at_a_small_width(kind, dtype):
-    """At H <= ROWS_OVER_WAVES_MAX_H a cluster plan of more than one wave gives way to the row design
-    (the DMLab instruction encoder's (16, 1024, 64) float32 minibatch among them); a cluster plan of one
-    wave there, and one of several waves at a wider H, stays."""
-    for B in (64, 128, 512, 1024, 2048, 4096):
+    """At H <= ROWS_OVER_WAVES_MAX_H a cluster plan of more than one wave gives way to the row design for the GRU and
+    to the resident design for the LSTM (the DMLab instruction encoder's (16, 1024, 64) float32 minibatch among them); the
+    LSTM's takes the resident design over a cluster plan of one wave too, at any B (DMLab's rollout slot and last-value
+    pass among them); the GRU's cluster plan of one wave there, and one of several waves at a wider H, stays."""
+    for B in (8, 24, 64, 128, 512, 1024, 2048, 4096):
         for H in (64, 128, 256):
             over, plan = cuda_rnn.cluster_plan(kind, B, H, dtype), cuda_rnn.launch_plan(kind, 16, B, H, dtype)
             assert over is not None
-            if H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H and cuda_rnn.cluster_waves(over) > 1:
+            small = H <= cuda_rnn.ROWS_OVER_WAVES_MAX_H
+            if small and kind == "lstm":
+                assert plan == cuda_rnn.resident_plan(kind, B, H, dtype)
+            elif small and cuda_rnn.cluster_waves(over) > 1:
                 assert plan == cuda_rnn.row_plan(kind, B, H)
             else:
                 assert plan == over
-    assert cuda_rnn.launch_plan("lstm", 16, 1024, 64, "float32").design == "rows"
+    assert cuda_rnn.launch_plan("lstm", 16, 1024, 64, "float32").design == "resident"
+    assert cuda_rnn.launch_plan("gru", 16, 1024, 64, "float32").design == "rows"
     assert cuda_rnn.cluster_waves(cuda_rnn.cluster_plan("lstm", 1024, 64, "float32")) == 3
-    assert cuda_rnn.launch_plan("lstm", 16, 128, 64, "float32").design == "cluster"
+    assert cuda_rnn.launch_plan("lstm", 16, 128, 64, "float32").design == "resident"
+    assert cuda_rnn.launch_plan("lstm", 16, 24, 64, "float32").design == "resident"
 
 
 def test_pack_wh_leaves_the_row_design_alone():
@@ -451,7 +465,8 @@ def test_pack_wh_leaves_the_row_design_alone():
 
 # the plans that ops/cuda_rnn.py made before it read the card (module constants: 132 SMs, 15 clusters of 8 and 7
 # of 16 at once, 232,448 B a block), at every shape of PLAN_B x PLAN_H: (design, cluster, rows, units, smem,
-# grid[, tile_rows, tile_cols, ksplit, kchunk, passes, threads])
+# grid[, tile_rows, tile_cols, ksplit, kchunk, passes, threads]); the LSTM-64's row plans over cluster plans of
+# several waves, and its cluster plans of one wave, became resident plans when the resident design came
 PARENT_PLANS = {
     ("gru", "float32", 3, 64): ('cluster', 8, 8, 8, 14112, 8),
     ("gru", "float32", 3, 128): ('cluster', 8, 8, 16, 40192, 8),
@@ -513,62 +528,62 @@ PARENT_PLANS = {
     ("gru", "bfloat16", 4096, 256): ('cluster', 8, 64, 32, 168320, 512),
     ("gru", "bfloat16", 4096, 512): ('cluster', 16, 32, 32, 191616, 2048),
     ("gru", "bfloat16", 4096, 1024): ('rows', 1, 4, 1024, 32768, 1024),
-    ("lstm", "float32", 3, 64): ('cluster', 8, 8, 8, 17472, 8),
+    ("lstm", "float32", 3, 64): ('resident', 1, 1, 64, 66048, 3, 1, 0, 1, 0, 1, 64),
     ("lstm", "float32", 3, 128): ('cluster', 8, 8, 16, 51008, 8),
     ("lstm", "float32", 3, 256): ('cluster', 8, 8, 32, 167232, 8),
     ("lstm", "float32", 3, 512): ('grid', 128, 4, 4, 39040, 128, 4, 4, 8, 128, 1, 32),
     ("lstm", "float32", 3, 1024): ('grid', 128, 4, 8, 139392, 128, 4, 4, 8, 128, 1, 64),
-    ("lstm", "float32", 8, 64): ('cluster', 8, 8, 8, 17472, 8),
+    ("lstm", "float32", 8, 64): ('resident', 1, 1, 64, 66048, 8, 1, 0, 1, 0, 1, 64),
     ("lstm", "float32", 8, 128): ('cluster', 8, 8, 16, 51008, 8),
     ("lstm", "float32", 8, 256): ('cluster', 8, 8, 32, 167232, 8),
     ("lstm", "float32", 8, 512): ('grid', 128, 8, 4, 45312, 128, 4, 4, 8, 128, 1, 64),
     ("lstm", "float32", 8, 1024): ('grid', 128, 8, 8, 147712, 128, 4, 4, 8, 128, 1, 128),
-    ("lstm", "float32", 24, 64): ('cluster', 8, 8, 8, 17472, 24),
+    ("lstm", "float32", 24, 64): ('resident', 1, 1, 64, 66048, 24, 1, 0, 1, 0, 1, 64),
     ("lstm", "float32", 24, 128): ('cluster', 8, 8, 16, 51008, 24),
     ("lstm", "float32", 24, 256): ('cluster', 8, 8, 32, 167232, 24),
     ("lstm", "float32", 24, 512): ('grid', 128, 24, 4, 70400, 128, 4, 4, 8, 128, 1, 192),
     ("lstm", "float32", 24, 1024): ('grid', 128, 24, 8, 180992, 128, 4, 4, 8, 128, 1, 384),
-    ("lstm", "float32", 128, 64): ('cluster', 8, 16, 8, 26240, 64),
+    ("lstm", "float32", 128, 64): ('resident', 1, 1, 64, 66048, 128, 1, 0, 1, 0, 1, 64),
     ("lstm", "float32", 128, 128): ('cluster', 8, 16, 16, 68224, 64),
     ("lstm", "float32", 128, 256): ('cluster', 8, 16, 32, 201344, 64),
     ("lstm", "float32", 128, 512): ('grid', 128, 128, 4, 200704, 128, 4, 4, 4, 128, 1, 512),
     ("lstm", "float32", 128, 1024): ('grid', 128, 128, 8, 200704, 128, 4, 4, 1, 64, 1, 256),
-    ("lstm", "float32", 512, 64): ('rows', 1, 4, 64, 3072, 128),
+    ("lstm", "float32", 512, 64): ('resident', 1, 4, 64, 67584, 128, 2, 0, 1, 0, 1, 128),
     ("lstm", "float32", 512, 128): ('cluster', 8, 32, 16, 102656, 128),
     ("lstm", "float32", 512, 256): ('cluster', 8, 16, 32, 201344, 256),
     ("lstm", "float32", 512, 512): ('grid', 128, 512, 4, 180224, 128, 4, 4, 1, 32, 1, 512),
     ("lstm", "float32", 512, 1024): ('grid', 128, 512, 8, 204800, 128, 4, 4, 1, 32, 2, 512),
-    ("lstm", "float32", 4096, 64): ('rows', 1, 4, 64, 3072, 1024),
+    ("lstm", "float32", 4096, 64): ('resident', 1, 32, 64, 81920, 128, 4, 0, 1, 0, 1, 512),
     ("lstm", "float32", 4096, 128): ('cluster', 8, 32, 16, 102656, 1024),
     ("lstm", "float32", 4096, 256): ('cluster', 8, 16, 32, 201344, 2048),
     ("lstm", "float32", 4096, 512): ('grid', 32, 1024, 16, 204800, 128, 8, 8, 1, 32, 4, 256),
     ("lstm", "float32", 4096, 1024): ('rows', 1, 4, 1024, 49152, 1024),
-    ("lstm", "bfloat16", 3, 64): ('cluster', 8, 16, 8, 13952, 8),
+    ("lstm", "bfloat16", 3, 64): ('resident', 1, 1, 64, 66048, 3, 1, 0, 1, 0, 1, 64),
     ("lstm", "bfloat16", 3, 128): ('cluster', 8, 16, 16, 35456, 8),
     ("lstm", "bfloat16", 3, 256): ('cluster', 8, 16, 32, 103040, 8),
     ("lstm", "bfloat16", 3, 512): ('cluster', 16, 16, 32, 184960, 16),
     ("lstm", "bfloat16", 3, 1024): ('rows', 1, 4, 1024, 49152, 1),
-    ("lstm", "bfloat16", 8, 64): ('cluster', 8, 16, 8, 13952, 8),
+    ("lstm", "bfloat16", 8, 64): ('resident', 1, 1, 64, 66048, 8, 1, 0, 1, 0, 1, 64),
     ("lstm", "bfloat16", 8, 128): ('cluster', 8, 16, 16, 35456, 8),
     ("lstm", "bfloat16", 8, 256): ('cluster', 8, 16, 32, 103040, 8),
     ("lstm", "bfloat16", 8, 512): ('cluster', 16, 16, 32, 184960, 16),
     ("lstm", "bfloat16", 8, 1024): ('rows', 1, 4, 1024, 49152, 2),
-    ("lstm", "bfloat16", 24, 64): ('cluster', 8, 16, 8, 13952, 16),
+    ("lstm", "bfloat16", 24, 64): ('resident', 1, 1, 64, 66048, 24, 1, 0, 1, 0, 1, 64),
     ("lstm", "bfloat16", 24, 128): ('cluster', 8, 16, 16, 35456, 16),
     ("lstm", "bfloat16", 24, 256): ('cluster', 8, 16, 32, 103040, 16),
     ("lstm", "bfloat16", 24, 512): ('cluster', 16, 16, 32, 184960, 32),
     ("lstm", "bfloat16", 24, 1024): ('rows', 1, 4, 1024, 49152, 6),
-    ("lstm", "bfloat16", 128, 64): ('cluster', 8, 16, 8, 13952, 64),
+    ("lstm", "bfloat16", 128, 64): ('resident', 1, 1, 64, 66048, 128, 1, 0, 1, 0, 1, 64),
     ("lstm", "bfloat16", 128, 128): ('cluster', 8, 16, 16, 35456, 64),
     ("lstm", "bfloat16", 128, 256): ('cluster', 8, 16, 32, 103040, 64),
     ("lstm", "bfloat16", 128, 512): ('cluster', 16, 16, 32, 184960, 128),
     ("lstm", "bfloat16", 128, 1024): ('rows', 1, 4, 1024, 49152, 32),
-    ("lstm", "bfloat16", 512, 64): ('cluster', 8, 48, 8, 32640, 88),
+    ("lstm", "bfloat16", 512, 64): ('resident', 1, 4, 64, 67584, 128, 2, 0, 1, 0, 1, 128),
     ("lstm", "bfloat16", 512, 128): ('cluster', 8, 48, 16, 71552, 88),
     ("lstm", "bfloat16", 512, 256): ('cluster', 8, 48, 32, 173952, 88),
     ("lstm", "bfloat16", 512, 512): ('cluster', 16, 16, 32, 184960, 512),
     ("lstm", "bfloat16", 512, 1024): ('rows', 1, 4, 1024, 49152, 128),
-    ("lstm", "bfloat16", 4096, 64): ('rows', 1, 4, 64, 3072, 1024),
+    ("lstm", "bfloat16", 4096, 64): ('resident', 1, 32, 64, 81920, 128, 4, 0, 1, 0, 1, 512),
     ("lstm", "bfloat16", 4096, 128): ('cluster', 8, 64, 16, 89600, 512),
     ("lstm", "bfloat16", 4096, 256): ('cluster', 8, 64, 32, 209408, 512),
     ("lstm", "bfloat16", 4096, 512): ('cluster', 16, 16, 32, 184960, 4096),
@@ -587,8 +602,9 @@ def test_h100_sxm_plans_are_the_plans_made_before_the_card_was_read(kind, dtype,
 
 # the paths' sites (PERF.md's kernel table) and the plans they had before the card was read, which H100_SXM keeps:
 # the float32 H=512 grid sites (Doom, tp (b), the defaults; NetHack's at 24 and 32 segments, AllegroHandLSTM's),
-# the cluster sites (main, lstm, selfplay, DMLab's core and encoder, dp_host's GRU-256 row counts, host_rnn)
-# and DMLab's learner encoder on the row design; the waves of each cluster plan
+# the cluster sites (main, lstm, selfplay, DMLab's core, dp_host's GRU-256 row counts, host_rnn) and DMLab's instruction
+# encoder on the resident design (the cluster design in a rollout slot and the last-value pass, the row design over a
+# minibatch, before it came); the waves of each cluster plan
 SITE_PLANS = [
     (("gru", 32, 64, 512, "float32"), ("grid", 128, 64, 4, 133120, 128, 4, 4, 8, 128, 1, 512), None),
     (("gru", 16, 4, 512, "float32"), ("grid", 128, 4, 4, 39040, 128, 4, 4, 8, 128, 1, 32), None),
@@ -600,9 +616,9 @@ SITE_PLANS = [
     (("lstm", 32, 128, 256, "float32"), ("cluster", 8, 16, 32, 201344, 64), 1),
     (("gru", 32, 512, 512, "bfloat16"), ("cluster", 16, 32, 32, 191616, 256), 3),
     (("lstm", 32, 32, 256, "float32"), ("cluster", 8, 8, 32, 167232, 32), 1),
-    (("lstm", 16, 64, 64, "float32"), ("cluster", 8, 8, 8, 17472, 64), 1),
-    (("lstm", 16, 1024, 64, "float32"), ("rows", 1, 4, 64, 3072, 256), None),
-    (("lstm", 16, 128, 64, "float32"), ("cluster", 8, 16, 8, 26240, 64), 1),
+    (("lstm", 16, 64, 64, "float32"), ("resident", 1, 1, 64, 66048, 64, 1, 0, 1, 0, 1, 64), None),
+    (("lstm", 16, 1024, 64, "float32"), ("resident", 1, 8, 64, 69632, 128, 4, 0, 1, 0, 1, 128), None),
+    (("lstm", 16, 128, 64, "float32"), ("resident", 1, 1, 64, 66048, 128, 1, 0, 1, 0, 1, 64), None),
     (("gru", 32, 128, 256, "float32"), ("cluster", 8, 16, 32, 158208, 64), 1),
     (("gru", 32, 131, 256, "float32"), ("cluster", 8, 16, 32, 158208, 72), 1),
     (("gru", 32, 37, 256, "float32"), ("cluster", 8, 8, 32, 129216, 40), 1),
@@ -668,6 +684,23 @@ def test_cluster_plans_never_use_a_size_the_card_runs_none_of(name):
                 cuda_rnn.cluster_smem(kind, H, 8, plan.rows + step, itemsize) > spec.smem_limit
 
 
+def _check_resident_plan(plan, B, H, dtype, spec, smem_of):
+    """A resident plan (`smem_of`: the forward's or the backward's formula): one block of `rows` rows and all H units, rows a
+    power of two, the fewest that keep the blocks in one wave (ceil(B / rows) <= spec.sms) unless the block's threads or
+    shared memory hold them lower; resident_rows_a_thread rows a thread, 4 warps at least where the rows allow; shared
+    memory by the kernel's formula within the card's limit; the dtype changes none of it."""
+    R, rt = plan.rows, plan.tile_rows
+    assert plan.design == "resident" and (plan.cluster, plan.units) == (1, H) and R & (R - 1) == 0 and plan.grid == -(-B // R)
+    assert rt == cuda_rnn.resident_rows_a_thread(R, H) and R % rt == 0 and plan.threads == R // rt * H <= cuda_rnn.RESIDENT_MAX_THREADS
+    assert plan.threads >= min(cuda_rnn.RESIDENT_MIN_THREADS, R * H)
+    assert plan.smem == smem_of(H, R) <= spec.smem_limit
+    assert plan == cuda_rnn.resident_plan("lstm", B, H, "bfloat16" if dtype == "float32" else "float32", spec, smem_of == cuda_rnn.resident_bwd_smem)
+    more = 2 * R
+    assert plan.grid <= spec.sms or more // cuda_rnn.resident_rows_a_thread(more, H) * H > cuda_rnn.RESIDENT_MAX_THREADS or \
+        smem_of(H, more) > spec.smem_limit
+    assert R == 1 or -(-B // (R // 2)) > spec.sms  # fewer rows would need a second wave
+
+
 def _fake_cuda(monkeypatch, calls):
     """No card here: torch.cuda's device context and stream, and the library's entries, stand in."""
     monkeypatch.setattr(torch.cuda, "device", lambda _: contextlib.nullcontext())
@@ -684,7 +717,8 @@ def _fake_cuda(monkeypatch, calls):
                                                                   "lstm_seq_forward", "gru_rows_forward", "lstm_rows_forward",
                                                                   "gru_seq_backward", "lstm_seq_backward", "gru_seq_grid_backward",
                                                                   "lstm_seq_grid_backward", "gru_seq_cluster_backward",
-                                                                  "lstm_seq_cluster_backward")})
+                                                                  "lstm_seq_cluster_backward", "lstm_resident_forward",
+                                                                  "lstm_seq_resident_backward")})
     lib.max_active_clusters = lambda gates, is_bf16, size, smem: {8: 13, 16: 0}[size]
     monkeypatch.setattr(cuda_rnn, "load_library", lambda defines=(): lib)
 
@@ -952,12 +986,13 @@ def test_grid_battle_train_call_launches_the_backward_once_a_forward(cuda_device
 @pytest.mark.parametrize("kind", ["gru", "lstm"])
 def test_backward_launch_passes_the_rows_and_shared_memory(monkeypatch, kind):
     """`_launch_bwd` asks card_spec for the device, packs wh^T, and passes T, B, H, the dtype flag, the rows of
-    bwd_rows for that spec and their shared memory; it counts one launch."""
+    bwd_rows for that spec and their shared memory; it counts one launch. (At H=100 both kinds take the row design; at
+    H=64 the LSTM takes the resident design since it came.)"""
     calls = []
     _fake_cuda(monkeypatch, calls)
     spec = SMALL_SPECS["66-7-3"]
     monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: spec)
-    T, B, H = 2, 300, 64
+    T, B, H = 2, 300, 100
     args = _inputs(kind, T, B, H, "float32", "cpu")
     d_out, d_state = torch.zeros(T, B, H), torch.zeros(args[1].shape)
     before = cuda_rnn.launch_counts()[f"{kind}_seq_bwd"]
@@ -996,10 +1031,10 @@ def test_a_refused_backward_launch_names_the_shape_rows_and_sms(monkeypatch):
 # ------------------------------------------------------------------ the backward's grid design (gru_seq_grid_bwd, lstm_seq_grid_bwd)
 
 # the five float32 H=512 learner sites (Doom, `tp` (b), the defaults, NetHack, AllegroHandLSTM) and the shapes that keep
-# the row design, where no cluster slice fits or the forward's cluster plan needs waves at a small width: DMLab's
-# instruction encoder over a minibatch, bf16 at H=1024, H=100, and GRU-64 over 1024 and 2048 segments
+# the row design, where no cluster slice fits or the forward's cluster plan needs waves at a small width (the GRU: the
+# LSTM takes the resident design there): bf16 at H=1024, H=100, and GRU-64 over 512, 1024 and 2048 segments
 BWD_GRID_SITES = [("gru", 32, 64, 512), ("gru", 16, 4, 512), ("gru", 32, 32, 512), ("lstm", 32, 24, 512), ("lstm", 16, 2048, 512)]
-BWD_ROW_SITES = [("lstm", 16, 1024, 64, "float32"), ("lstm", 16, 2048, 64, "bfloat16"), ("gru", 16, 1024, 64, "float32"),
+BWD_ROW_SITES = [("lstm", 32, 512, 100, "float32"), ("gru", 16, 512, 64, "float32"), ("gru", 16, 1024, 64, "float32"),
                  ("gru", 16, 2048, 64, "bfloat16"), ("gru", 4, 16, 1024, "bfloat16"), ("lstm", 4, 16, 1024, "bfloat16"),
                  ("gru", 32, 512, 1024, "bfloat16"), ("gru", 3, 5, 100, "float32"), ("lstm", 3, 5, 100, "bfloat16"),
                  ("gru", 32, 512, 100, "bfloat16")]
@@ -1031,9 +1066,14 @@ def test_backward_plan_fits_the_card_and_covers_every_unit(kind, dtype, B, H, sp
     forward = cuda_rnn.launch_plan(kind, 32, B, H, dtype, spec)
     assert (plan.design == "grid") == (forward.design == "grid")
     assert (plan.design == "cluster") == (forward.design == "cluster")
+    assert (plan.design == "resident") == (forward.design == "resident")
     assert plan.smem <= spec.smem_limit
     if plan.design == "cluster":
         _check_cluster_backward_plan(kind, dtype, B, H, spec, plan)
+        return
+    if plan.design == "resident":
+        assert plan == cuda_rnn.resident_plan(kind, B, H, dtype, spec, backward=True)
+        _check_resident_plan(plan, B, H, dtype, spec, cuda_rnn.resident_bwd_smem)
         return
     if plan.design == "rows":
         rows = cuda_rnn.bwd_rows(kind, B, H, dtype, spec)
@@ -1438,9 +1478,9 @@ def _emulate_fma_push(dg, w, slots, r, BT, H, K, U):
 
 
 # the cluster sites' (cluster, units, rows) and the small widths the cluster design also takes (a K that the mma's k16
-# does not divide at the GRU-64's 8 units: 24 gate columns, padded to 32)
+# does not divide at the GRU-64's 8 units: 24 gate columns, padded to 32; the LSTM-64 takes the resident design)
 BWD_EMULATED = BWD_CLUSTER_SITES + [("gru", 7, 24, 128, "bfloat16"), ("lstm", 7, 24, 128, "bfloat16"), ("gru", 5, 3, 64, "bfloat16"),
-                                    ("lstm", 5, 3, 64, "float32"), ("lstm", 32, 512, 256, "bfloat16")]
+                                    ("lstm", 5, 3, 128, "float32"), ("lstm", 32, 512, 256, "bfloat16")]
 
 
 @pytest.mark.parametrize("kind,T,B,H,dtype", BWD_EMULATED, ids=["-".join(map(str, s)) for s in BWD_EMULATED])
@@ -1549,10 +1589,12 @@ def test_a_refused_cluster_backward_launch_names_the_plan_and_the_sms(monkeypatc
     assert cuda_rnn.launch_counts() == before and calls == []
 
 
-# the cluster backward on the card: every cluster site, the small widths of CARD_SHAPES in both dtypes (the GRU-64's K padded
-# to the mma's k16), and ragged last clusters (dp_host's 37, 131 and 255 segments are among the sites)
+# the cluster backward on the card: every cluster site, the small widths of CARD_SHAPES in both dtypes where the cluster design
+# takes them (the GRU-64's K padded to the mma's k16; the LSTM-64 takes the resident design), and ragged last clusters
+# (dp_host's 37, 131 and 255 segments are among the sites)
 BWD_CLUSTER_CARD_SHAPES = BWD_CLUSTER_SITES + [(kind, T, B, H, dtype) for kind in ("gru", "lstm") for dtype in ("float32", "bfloat16")
-                                               for T, B, H in [(7, 24, 128), (1, 8, 128), (5, 3, 64), (3, 45, 256)]]
+                                               for T, B, H in [(7, 24, 128), (1, 8, 128), (5, 3, 64), (3, 45, 256)]
+                                               if cuda_rnn.bwd_plan(kind, B, H, dtype).design == "cluster"]
 
 
 def _recurrence_inputs(kind, T, B, H, dtype, device, seed=13, masked=False):
@@ -1685,3 +1727,504 @@ def test_cluster_backward_plans_run_on_the_card(cuda_device, kind, T, B, H, dtyp
     plan = cuda_rnn.bwd_plan(kind, B, H, dtype, spec)
     assert plan.design == "cluster"
     assert cuda_rnn.max_active_bwd_clusters(kind, dtype, plan) >= max(1, spec.clusters_at_once(plan.cluster))
+
+
+# ------------------------------------------------------------------ the LSTM's resident design (lstm_seq_resident, lstm_seq_resident_bwd)
+
+# DMLab's instruction encoder: a rollout slot's (16, 64, 64), the last-value pass's (16, 128, 64) and a learner minibatch's
+# (16, 1024, 64) in float32, and (16, 2048, 64) in bf16 (the learner's batch at twice the rows)
+RESIDENT_SITES = [(16, 64, 64, "float32"), (16, 128, 64, "float32"), (16, 1024, 64, "float32"), (16, 2048, 64, "bfloat16")]
+RESIDENT_SPECS = {"": cuda_rnn.H100_SXM, **SMALL_SPECS}
+
+
+@pytest.mark.parametrize("name", list(RESIDENT_SPECS))
+@pytest.mark.parametrize("T,B,H,dtype", RESIDENT_SITES, ids=["-".join(map(str, s)) for s in RESIDENT_SITES])
+def test_resident_plans_at_the_dmlab_sites(T, B, H, dtype, name):
+    """At DMLab's instruction-encoder sites, on the H100 SXM and on the smaller cards (132, 114 and 66 SMs): the resident
+    plan's rows cover B, its blocks fill the SMs in one wave, its threads are 4 warps at least where the rows allow, and its
+    shared memory (the forward's and the backward's) is the kernel's formula within the card's limit; the learner minibatch's
+    takes the resident design forward and backward (its cluster plan needs several waves on every card here), and so does
+    every site here (the rollout's and the last value's over a cluster plan of one wave)."""
+    spec = RESIDENT_SPECS[name]
+    fwd, bwd = cuda_rnn.resident_plan("lstm", B, H, dtype, spec), cuda_rnn.resident_plan("lstm", B, H, dtype, spec, backward=True)
+    _check_resident_plan(fwd, B, H, dtype, spec, cuda_rnn.resident_smem)
+    _check_resident_plan(bwd, B, H, dtype, spec, cuda_rnn.resident_bwd_smem)
+    assert fwd.rows * fwd.grid >= B and fwd.grid <= spec.sms and (fwd.rows, fwd.grid) == (bwd.rows, bwd.grid)
+    if B >= 1024:
+        assert cuda_rnn.cluster_waves(cuda_rnn.cluster_plan("lstm", B, H, dtype, spec), spec) > 1
+    assert cuda_rnn.launch_plan("lstm", T, B, H, dtype, spec) == fwd and cuda_rnn.bwd_plan("lstm", B, H, dtype, spec) == bwd
+    if name == "":
+        assert (fwd.rows, fwd.grid, fwd.tile_rows, fwd.threads) == {64: (1, 64, 1, 64), 128: (1, 128, 1, 64), 1024: (8, 128, 4, 128),
+                                                                     2048: (16, 128, 4, 256)}[B]
+
+
+def test_the_resident_design_takes_the_lstm_alone():
+    """The GRU has no resident kernel: no resident plan, and its small widths keep the row design over waves."""
+    assert cuda_rnn.resident_plan("gru", 1024, 64, "float32") is None
+    assert cuda_rnn.launch_plan("gru", 16, 1024, 64, "float32").design == "rows"
+    assert cuda_rnn.bwd_plan("gru", 1024, 64, "float32").design == "rows"
+    assert cuda_rnn.resident_plan("lstm", 1024, 60, "float32") is None  # H a multiple of 8: the forward product's chunks of k
+
+
+def _resident_cxx():
+    """A host program of the resident kernels' rule and formulas, csrc/rnn_seq.cu's own text, for g++."""
+    source = cuda_rnn.SOURCE.read_text()
+    parts = [re.search(r"__host__ __device__ constexpr size_t align16\(size_t n\) \{[^}]*\}", source).group(0),
+             re.search(r"constexpr int kResidentMinThreads = \d+;", source).group(0),
+             re.search(r"__host__ __device__ constexpr int resident_rows_a_thread\(int R, int H\) \{.*?\n\}", source, re.S).group(0),
+             re.search(r"inline size_t resident_smem_bytes\(.*?\n\}", source, re.S).group(0),
+             re.search(r"inline size_t resident_bwd_smem_bytes\(.*?\n\}", source, re.S).group(0)]
+    return ("#include <cstddef>\n#include <cstdio>\n#include <cstdlib>\n#define __host__\n#define __device__\n" + "\n".join(parts)
+            + "\nint main(int argc, char** argv) { for (int i = 1; i + 1 < argc; i += 2) { int H = atoi(argv[i]), R = atoi(argv[i + 1]); "
+              "std::printf(\"%d %zu %zu\\n\", resident_rows_a_thread(R, H), resident_smem_bytes(H, R), resident_bwd_smem_bytes(H, R)); } "
+              "return 0; }\n")
+
+
+def test_resident_rule_and_smem_are_the_kernels(tmp_path):
+    """resident_rows_a_thread, resident_smem and resident_bwd_smem in Python equal the kernel source's own (compiled for the
+    host with g++), at every width and row count the planner can reach here."""
+    if not shutil.which("g++"):
+        pytest.skip("needs g++ to compile the kernel source's formulas for the host")
+    (tmp_path / "resident.cpp").write_text(_resident_cxx())
+    subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(tmp_path / "resident"), str(tmp_path / "resident.cpp")], check=True)
+    cases = [(H, R) for H in (8, 16, 32, 48, 64, 96) for R in (1, 2, 3, 4, 6, 8, 16, 32, 64)]
+    out = subprocess.run([str(tmp_path / "resident"), *[str(v) for case in cases for v in case]], capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    assert len(out) == len(cases)
+    for (H, R), line in zip(cases, out):
+        want = [cuda_rnn.resident_rows_a_thread(R, H), cuda_rnn.resident_smem(H, R), cuda_rnn.resident_bwd_smem(H, R)]
+        assert [int(v) for v in line.split()] == want, (H, R)
+
+
+def _float_at(ptr, n):
+    """n float32 values at a host address (a CPU tensor's data_ptr), copied out."""
+    import ctypes
+
+    return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr)).copy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resident_launch_passes_the_plan(monkeypatch, dtype):
+    """At DMLab's learner shape `_launch` launches `lstm_resident_forward` with the resident plan of the tensor's card (here
+    114 SMs): x_proj, hc0, resets, wh packed in float32 as [H][H][4] (pack_wh: row k, unit j, gate g), T, B, H, the dtype
+    flag, the rows and the shared memory; it counts one `lstm_seq_resident` and nothing else."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    spec = SMALL_SPECS["114-13-0"]
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: spec)
+    T, B, H = 2, 1024, 64
+    args = _inputs("lstm", T, B, H, dtype, "cpu")
+    seen = {}
+    lib = cuda_rnn.load_library()
+    entry = lib.lstm_resident_forward
+
+    def keeping(*call):
+        seen["wh"] = _float_at(call[3], H * 4 * H)  # read while the launch holds it
+        return entry(*call)
+
+    keeping.__name__ = "lstm_resident_forward"
+    lib.lstm_resident_forward = keeping
+    before = cuda_rnn.launch_counts()
+    out, state = cuda_rnn._launch_lstm(*args)
+    plan = cuda_rnn.launch_plan("lstm", T, B, H, dtype, spec)
+    assert plan.design == "resident" and plan != cuda_rnn.launch_plan("lstm", T, B, H, dtype)
+    (name, call), = calls
+    assert name == "lstm_resident_forward" and len(call) == 13 and call[:3] == (args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr())
+    assert list(call[6:12]) == [T, B, H, int(dtype == "bfloat16"), plan.rows, plan.smem]
+    packed = args[3].float().reshape(H, 4, H).permute(0, 2, 1)  # [k][j][g] = wh[k][g * H + j]
+    assert np.array_equal(seen["wh"], packed.numpy().ravel())
+    assert torch.equal(cuda_rnn.unpack_wh(cuda_rnn.pack_wh(args[3], plan), plan), args[3].float())
+    assert out.shape == (T, B, H) and state.shape == args[1].shape
+    after = cuda_rnn.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "lstm_seq_resident": 1}
+    cuda_rnn._launches["lstm_seq_resident"] -= 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resident_backward_launch_passes_the_plan(monkeypatch, dtype):
+    """Where the forward takes the resident design, `_launch_bwd` launches `lstm_seq_resident_backward` with
+    lstm_seq_backward's arguments (wh in float32 in place of wh^T), the resident backward's rows and shared memory on the
+    tensor's card (66 SMs here); it counts one `lstm_seq_resident_bwd` and no other backward."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    spec = SMALL_SPECS["66-7-3"]
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: spec)
+    T, B, H = 2, 1024, 64
+    args = _cluster_bwd_args("lstm", T, B, H, dtype)
+    before = cuda_rnn.launch_counts()
+    outputs = cuda_rnn._launch_bwd("lstm", *args)
+    plan = cuda_rnn.bwd_plan("lstm", B, H, dtype, spec)
+    assert plan.design == "resident" and plan == cuda_rnn.resident_plan("lstm", B, H, dtype, spec, backward=True)
+    (name, call), = calls
+    assert name == "lstm_seq_resident_backward" and len(call) == 16
+    assert call[:3] == tuple(a.data_ptr() for a in args[:3]) and call[3] == args[3].data_ptr() and call[4] == args[5].data_ptr()
+    assert (call[5] == args[6].data_ptr()) == (dtype == "float32")
+    assert list(call[9:15]) == [T, B, H, int(dtype == "bfloat16"), plan.rows, plan.smem]
+    assert [tuple(o.shape) for o in outputs] == [tuple(args[3].shape), tuple(args[1].shape)] and outputs[0].dtype == args[3].dtype
+    after = cuda_rnn.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "lstm_seq_resident_bwd": 1}
+    cuda_rnn._launches["lstm_seq_resident_bwd"] -= 1
+
+
+def test_the_resident_design_refuses_the_gru(monkeypatch):
+    _fake_cuda(monkeypatch, [])
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: cuda_rnn.H100_SXM)
+    plan = cuda_rnn.resident_plan("lstm", 1024, 64, "float32")
+    with pytest.raises(ValueError, match="the resident design takes the LSTM"):
+        cuda_rnn._launch_gru(*_inputs("gru", 2, 1024, 64, "float32", "cpu"), plan=plan)
+    with pytest.raises(ValueError, match="the resident backward takes the LSTM"):
+        cuda_rnn._launch_bwd("gru", *_bwd_args("gru", 2, 1024, 64), plan=plan)
+
+
+def test_a_refused_resident_launch_names_the_plan_and_the_sms(monkeypatch):
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    lib = cuda_rnn.load_library()
+    lib.lstm_seq_resident_backward = lambda *args: 1  # cudaErrorInvalidValue
+    lib.lstm_seq_resident_backward.__name__ = "lstm_seq_resident_backward"
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: SMALL_SPECS["114-13-0"])
+    before = cuda_rnn.launch_counts()
+    with pytest.raises(RuntimeError, match=r"lstm_seq_resident_backward launch failed: CUDA error 1 \(T=2, B=1024, H=64, torch.float32: "
+                                           r"plan Plan\(design='resident'.*: 16 rows a block \(4 a thread\), 64 blocks of 256 threads, "
+                                           r"99328 bytes of shared memory, on a card of 114 SMs"):
+        cuda_rnn._launch_bwd("lstm", *_cluster_bwd_args("lstm", 2, 1024, 64))
+    assert cuda_rnn.launch_counts() == before and calls == []
+
+
+# S1: the grid forward at 8 x 8 register tiles (from GRID_WIDE_ROWS rows: float2 loads of x_proj) and the resident forward
+# (16-byte copies of x_proj), each given a contiguous view of x_proj one float into its buffer
+ODD_OFFSET_FORWARDS = [("lstm", 2, 1024, 512, "grid"), ("gru", 2, 1024, 512, "grid"), ("lstm", 2, 1024, 64, "resident")]
+
+
+@pytest.mark.parametrize("kind,T,B,H,design", ODD_OFFSET_FORWARDS, ids=["-".join(map(str, s)) for s in ODD_OFFSET_FORWARDS])
+def test_forward_copies_an_x_proj_at_an_odd_offset(monkeypatch, kind, T, B, H, design):
+    """The grid and resident forwards read x_proj in pieces of up to 16 bytes: a view one float into a buffer reaches the
+    kernel as a copy on 16 bytes with the same values; the other inputs pass as they are."""
+    calls, seen = [], {}
+    _fake_cuda(monkeypatch, calls)
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: cuda_rnn.H100_SXM)
+    args = _inputs(kind, T, B, H, "float32", "cpu")
+    odd = torch.empty(args[0].numel() + 1)[1:].view_as(args[0]).copy_(args[0])
+    assert odd.data_ptr() % 16 and odd.is_contiguous()
+    plan = cuda_rnn.launch_plan(kind, T, B, H, "float32")
+    assert plan.design == design and (design != "grid" or (plan.tile_rows, plan.tile_cols) == (8, 8))
+    name = {"grid": f"{kind}_grid_forward", "resident": f"{kind}_resident_forward"}[design]
+    lib = cuda_rnn.load_library()
+    entry = getattr(lib, name)
+
+    def keeping(*call):
+        seen["x_proj"] = _float_at(call[0], odd.numel())
+        return entry(*call)
+
+    keeping.__name__ = name
+    setattr(lib, name, keeping)
+    (cuda_rnn._launch_gru if kind == "gru" else cuda_rnn._launch_lstm)(odd, *args[1:])
+    (_, call), = calls
+    assert call[0] % 16 == 0 and call[0] != odd.data_ptr() and call[1:3] == (args[1].data_ptr(), args[2].data_ptr())
+    assert np.array_equal(seen["x_proj"], args[0].numpy().ravel())
+    cuda_rnn._launches[cuda_rnn._kernel_name(kind, plan)] -= 1
+
+
+# ------------------------------------------------------------------ the resident kernels' maps, emulated in float64 (CPU)
+
+# shapes and cards that give each rows-a-thread the kernels are built for (4, 2, 1), a partly filled last block, and a width
+# of one warp: (T, B, H, SMs) -> rows a block (rows a thread): 30 rows on 4 SMs -> 8 (4); 10 on 3 -> 4 (2); 3 on 2 -> 2 (1);
+# 40 on 2 -> 32 (4, 512 threads); H=32: 30 on 4 -> 8 (2); DMLab's rollout shape on the H100 SXM -> 1 (1)
+RESIDENT_EMULATED = [(5, 30, 64, 4), (4, 10, 64, 3), (3, 3, 64, 2), (2, 40, 64, 2), (4, 30, 32, 4), (3, 64, 64, 132)]
+
+
+def _resident_map(plan, H):
+    """Each thread's unit j (tid % H) and first row r0 (tid // H * rows a thread), as the kernels compute them."""
+    tid = np.arange(plan.threads)
+    return tid % H, tid // H * plan.tile_rows
+
+
+def _check_banks(addresses, width):
+    """A warp's shared-memory reads of `width` 4-byte words a lane at these word addresses: each 128-byte wavefront (8
+    lanes of 16 bytes, 16 of 8, 32 of 4) touches each bank once, or every lane reads one address (a broadcast)."""
+    addresses = np.asarray(addresses)
+    if (addresses == addresses[0]).all():
+        return
+    lanes = 32 // width
+    for phase in range(0, len(addresses), lanes):
+        words = (addresses[phase:phase + lanes, None] + np.arange(width)).ravel()
+        assert len(set(words % 32)) == len(words), f"bank conflict: {addresses[phase:phase + lanes]}"
+
+
+def _sig(x):
+    return 1.0 / (1.0 + np.exp(-np.maximum(x, -88.0)))
+
+
+def _emulate_resident_forward(x, hc0, resets, wh, plan):
+    """lstm_resident_kernel in float64, block by block, thread by thread as the kernel's map gives them: each thread's four
+    gate sums of its rows over k in order, each row k's four gate weights read as one float4 from pack_wh's [H][H][4] at word
+    (k * H + j) * 4 and each row's h[k] as one word (a warp's banks checked at block 0, step 0), the cell, outs and the carry.
+    Returns (outs, hc_final) and checks that every (step, row, unit) is written once."""
+    T, B, GH = x.shape
+    H = GH // 4
+    R, RT = plan.rows, plan.tile_rows
+    j, r0 = _resident_map(plan, H)
+    ws = cuda_rnn.pack_wh(torch.tensor(wh), plan).double().numpy().ravel()
+    outs, hc_final, written = np.full((T, B, H), np.nan), np.full((B, 2 * H), np.nan), np.zeros((T, B, H), dtype=np.int64)
+    for block in range(plan.grid):
+        b0 = block * R
+        live = min(R, B - b0)
+        hs = np.zeros((2, R, H))
+        hs[0, :live] = hc0[b0:b0 + live, :H]
+        c = np.zeros((plan.threads, RT))
+        for i in range(RT):
+            m = r0 + i < live
+            c[m, i] = hc0[b0 + r0[m] + i, H + j[m]]
+        for t in range(T):
+            s = t & 1
+            acc = np.zeros((plan.threads, RT, 4))
+            for k in range(H):
+                h_at = s * R * H + (r0[:, None] + np.arange(RT)) * H + k  # each row's h[k]
+                w_at = (k * H + j) * 4  # each thread's float4 of four gate weights
+                if block == 0 and t == 0:
+                    for warp in range(0, plan.threads, 32):
+                        _check_banks(w_at[warp:warp + 32], 4)
+                        for i in range(RT):
+                            _check_banks(h_at[warp:warp + 32, i], 1)
+                w = ws[w_at[:, None] + np.arange(4)]  # [thread][gate]
+                for i in range(RT):
+                    acc[:, i] += hs.ravel()[h_at[:, i]][:, None] * w
+            new_carry = hs[s ^ 1]
+            for i in range(RT):
+                m = r0 + i < live
+                rows, units = r0[m] + i, j[m]
+                p = [x[t, b0 + rows, g * H + units] + acc[m, i, g] for g in range(4)]
+                new_c = _sig(p[1] + 1.0) * c[m, i] + _sig(p[0]) * np.tanh(p[2])
+                new_h = _sig(p[3]) * np.tanh(new_c)
+                outs[t, b0 + rows, units] = new_h
+                written[t, b0 + rows, units] += 1
+                reset = resets[t, b0 + rows] > 0
+                new_carry[rows, units] = np.where(reset, 0.0, new_h)
+                c[m, i] = np.where(reset, 0.0, new_c)
+        for i in range(RT):
+            m = r0 + i < live
+            hc_final[b0 + r0[m] + i, j[m]] = hs[T & 1, r0[m] + i, j[m]]
+            hc_final[b0 + r0[m] + i, H + j[m]] = c[m, i]
+    assert (written == 1).all(), "every (step, row, unit) cell is one thread's"
+    return outs, hc_final
+
+
+def _emulate_resident_backward(d_outs, d_final, resets, proj, hc0, wh, plan):
+    """lstm_resident_bwd_kernel in float64, thread by thread: the cell state entering each step recomputed forward, then in
+    reverse time each thread's cells (the gate cotangents into dg, the carried dh and dc in the thread), and dh[r][j] =
+    dg[r][:] @ wh[j][:] in four partial sums, read as float4s from the padded rows (word j * (4H + 4) + q: a warp's banks checked at block 0, the
+    last step) and from dg's broadcast rows. Returns (d_x_proj, d_hc0)."""
+    T, B, GH = proj.shape
+    H, WS = GH // 4, GH + 4
+    R, RT = plan.rows, plan.tile_rows
+    j, r0 = _resident_map(plan, H)
+    ws = np.zeros((H, WS))
+    ws[:, :GH] = wh
+    ws = ws.ravel()
+    d_x, d_state0 = np.full((T, B, GH), np.nan), np.full((B, 2 * H), np.nan)
+    for block in range(plan.grid):
+        b0 = block * R
+        live = min(R, B - b0)
+        valid = [r0 + i < live for i in range(RT)]
+        rows = [r0 + i for i in range(RT)]
+        cells = np.zeros((T, plan.threads, RT))
+        c = np.zeros((plan.threads, RT))
+        for i in range(RT):
+            c[valid[i], i] = hc0[b0 + rows[i][valid[i]], H + j[valid[i]]]
+        for t in range(T):
+            cells[t] = c
+            for i in range(RT):
+                m = valid[i]
+                a = proj[t, b0 + rows[i][m]]
+                new_c = _sig(a[np.arange(m.sum()), H + j[m]] + 1.0) * c[m, i] + _sig(a[np.arange(m.sum()), j[m]]) * np.tanh(a[np.arange(m.sum()), 2 * H + j[m]])
+                c[m, i] = np.where(resets[t, b0 + rows[i][m]] > 0, 0.0, new_c)
+        dh, dc = np.zeros((plan.threads, RT)), np.zeros((plan.threads, RT))
+        for i in range(RT):
+            m = valid[i]
+            dh[m, i], dc[m, i] = d_final[b0 + rows[i][m], j[m]], d_final[b0 + rows[i][m], H + j[m]]
+        for t in reversed(range(T)):
+            dg = np.zeros((R, GH))  # rows past B stay zero
+            for i in range(RT):
+                m = valid[i]
+                b, u = b0 + rows[i][m], j[m]
+                pi, pf, pg, po = (proj[t, b, g * H + u] for g in range(4))
+                si, sf, so, tg = _sig(pi), _sig(pf + 1.0), _sig(po), np.tanh(pg)
+                dsi, dsf, dso = (np.where(v < -88.0, 0.0, s * (1.0 - s)) for v, s in ((pi, si), (pf + 1.0, sf), (po, so)))
+                cv = cells[t][m, i]
+                tc = np.tanh(sf * cv + si * tg)
+                keep = ~(resets[t, b] > 0)
+                gh = d_outs[t, b, u] + np.where(keep, dh[m, i], 0.0)
+                gc = np.where(keep, dc[m, i], 0.0)
+                dct = gc + gh * so * (1.0 - tc * tc)
+                grads = [dct * tg * dsi, dct * cv * dsf, dct * si * (1.0 - tg * tg), gh * tc * dso]
+                dc[m, i] = dct * sf
+                for g in range(4):
+                    d_x[t, b, g * H + u] = grads[g]
+                    dg[rows[i][m], g * H + u] = grads[g]
+            acc = np.zeros((plan.threads, RT, 4))  # four partial sums a row: columns 4q + e
+            for q in range(0, GH, 4):
+                w_at = j * WS + q
+                if block == 0 and t == T - 1:
+                    for warp in range(0, plan.threads, 32):
+                        _check_banks(w_at[warp:warp + 32], 4)
+                        for i in range(RT):
+                            _check_banks(rows[i][warp:warp + 32] * GH + q, 4)
+                w = ws[w_at[:, None] + np.arange(4)]  # [thread][4]
+                for i in range(RT):
+                    acc[:, i] += dg[np.minimum(rows[i], R - 1), q:q + 4] * (rows[i] < R)[:, None] * w
+            dh = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+        for i in range(RT):
+            m = valid[i]
+            d_state0[b0 + rows[i][m], j[m]] = dh[m, i]
+            d_state0[b0 + rows[i][m], H + j[m]] = dc[m, i]
+    return d_x, d_state0
+
+
+def _resident_emulated_inputs(T, B, H, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(T, B, 4 * H))
+    x[:, : max(1, B // 4), 3 * H:] = -200.0  # gates below -88 (o) on the first quarter of the rows
+    hc0 = rng.normal(size=(B, 2 * H))
+    resets = (rng.random((T, B)) < 0.3).astype(np.float64)
+    resets[:, -1] = 1.0  # the last row reset at every step
+    wh = rng.normal(size=(H, 4 * H)) / math.sqrt(H)
+    return x, hc0, resets, wh
+
+
+@pytest.mark.parametrize("T,B,H,sms", RESIDENT_EMULATED, ids=["-".join(map(str, s)) for s in RESIDENT_EMULATED])
+def test_resident_forward_emulated_in_float64(T, B, H, sms):
+    """lstm_resident_kernel's thread map and wh layout, emulated in float64: every cell is one thread's, every read of wh
+    and h falls in distinct banks or is a broadcast, and the result is lstm_seq_reference's (in float64; the plain version
+    keeps its carries in float32, hence the tolerance)."""
+    spec = cuda_rnn.CardSpec(sms, 0, 0, 232_448)
+    plan = cuda_rnn.resident_plan("lstm", B, H, "float32", spec)
+    assert plan.rows * plan.grid >= B and plan.threads % 32 == 0 or plan.threads == H
+    x, hc0, resets, wh = _resident_emulated_inputs(T, B, H, seed=T + B + H)
+    outs, hc_final = _emulate_resident_forward(x, hc0, resets, wh, plan)
+    ref_out, ref_state = cuda_rnn.lstm_seq_reference(*(torch.tensor(a) for a in (x, hc0, resets, wh)))
+    np.testing.assert_allclose(outs, ref_out.double().numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(hc_final, ref_state.double().numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("T,B,H,sms", RESIDENT_EMULATED, ids=["-".join(map(str, s)) for s in RESIDENT_EMULATED])
+def test_resident_backward_emulated_in_float64(T, B, H, sms):
+    """lstm_resident_bwd_kernel's thread map and padded wh rows, emulated in float64: the recomputed cell state, each
+    thread's cells and its column of dh_prev (reads of wh's padded rows in distinct banks, of dg as broadcasts) give
+    lstm_seq_bwd_reference's d_x_proj and d_hc0, gates below -88 a zero gradient."""
+    spec = cuda_rnn.CardSpec(sms, 0, 0, 232_448)
+    plan = cuda_rnn.resident_plan("lstm", B, H, "float32", spec, backward=True)
+    x, hc0, resets, wh = _resident_emulated_inputs(T, B, H, seed=T + B + H + 1)
+    rng = np.random.default_rng(B)
+    d_outs, d_final = rng.normal(size=(T, B, H)), rng.normal(size=(B, 2 * H))
+    h_prev = np.concatenate([hc0[None, :, :H], rng.normal(size=(T - 1, B, H))]) * 0.5
+    # float32 values (the plain version's backward takes float32 or bf16), emulated in float64
+    inputs = [a.astype(np.float32) for a in (d_outs, d_final, resets, x + h_prev @ wh, hc0, wh)]
+    d_x, d_state0 = _emulate_resident_backward(*(a.astype(np.float64) for a in inputs), plan)
+    want_x, want_state = cuda_rnn.lstm_seq_bwd_reference(*(torch.tensor(a) for a in inputs))
+    scale = max(1.0, float(want_x.abs().max()), float(want_state.abs().max()))
+    np.testing.assert_allclose(d_x, want_x.double().numpy(), rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(d_state0, want_state.double().numpy(), rtol=0, atol=1e-5 * scale)
+    saturated = max(1, B // 4)
+    assert (d_x[:, :saturated, 3 * H:] == 0).all()
+
+
+# ------------------------------------------------------------------ the resident kernels on the card
+
+# DMLab's sites, and odd shapes: B not a multiple of the rows a block (1001 rows in blocks of 8), B=1, T=1, and CARD_SHAPES' (5, 3, 64)
+RESIDENT_CARD_SHAPES = [(T, B, H, dtype) for T, B, H in [(16, 64, 64), (16, 128, 64), (16, 1024, 64), (16, 2048, 64), (5, 1001, 64),
+                                                         (3, 1, 64), (1, 1024, 64), (5, 3, 64)] for dtype in ("float32", "bfloat16")]
+
+
+def _resident_card_plans(cuda_device, B, H, dtype):
+    spec = cuda_rnn.card_spec(cuda_device)
+    return cuda_rnn.resident_plan("lstm", B, H, dtype, spec), cuda_rnn.resident_plan("lstm", B, H, dtype, spec, backward=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,dtype", RESIDENT_CARD_SHAPES, ids=["-".join(map(str, s)) for s in RESIDENT_CARD_SHAPES])
+def test_resident_kernels_match_plain_on_card(cuda_device, T, B, H, dtype):
+    """`lstm_seq_resident` against lstm_seq_reference and `lstm_seq_resident_bwd` against lstm_seq_bwd_reference on the same
+    inputs, forward at the other card tests' tolerance, backward within BWD_TOL; one launch of each, no other."""
+    fwd, bwd = _resident_card_plans(cuda_device, B, H, dtype)
+    args = _inputs("lstm", T, B, H, dtype, cuda_device, seed=17)
+    tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
+    with torch.no_grad():
+        cuda_rnn.reset_launch_counts()
+        out, state = cuda_rnn._launch_lstm(*args, plan=fwd)
+        torch.cuda.synchronize()
+        assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, "lstm_seq_resident": 1}
+        ref_out, ref_state = cuda_rnn.lstm_seq_reference(*args)
+        torch.testing.assert_close(out, ref_out, atol=tol, rtol=0)
+        torch.testing.assert_close(state, ref_state, atol=tol, rtol=0)
+        d_out, d_state = _cotangents(out, state)
+        h_in = cuda_rnn._carries_in(args[1], args[2], out).to(args[0].dtype)
+        rec = (d_out, d_state, args[2], args[0] + h_in @ args[3], args[1], args[3])
+        got = cuda_rnn._launch_lstm_bwd(*rec, plan=bwd)
+        torch.cuda.synchronize()
+        assert cuda_rnn.launch_counts()["lstm_seq_resident_bwd"] == 1
+        want = cuda_rnn.lstm_seq_bwd_reference(*rec)
+    assert all(g.dtype == w.dtype and bool(torch.isfinite(g).all()) for g, w in zip(got, want))
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resident_kernels_on_resets_and_saturated_gates(cuda_device, dtype):
+    """The resident design at DMLab's learner shape: every second row reset at every step and sigmoid gates below -88:
+    finite outputs and gradients, the saturated gates' exactly 0, equal to the plain versions'."""
+    T, B, H = 16, 1024, 64
+    fwd, bwd = _resident_card_plans(cuda_device, B, H, dtype)
+    args = _masked_inputs("lstm", T, B, H, dtype, cuda_device)
+    for g in (0, 1, 3):
+        args[0][:, :64, g * H:(g + 1) * H] = -200.0
+    tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
+    with torch.no_grad():
+        out, state = cuda_rnn._launch_lstm(*args, plan=fwd)
+        ref_out, ref_state = cuda_rnn.lstm_seq_reference(*args)
+        assert bool(torch.isfinite(out).all()) and bool((state[1::2] == 0).all())
+        torch.testing.assert_close(out, ref_out, atol=tol, rtol=0)
+        torch.testing.assert_close(state, ref_state, atol=tol, rtol=0)
+        h_in = cuda_rnn._carries_in(args[1], args[2], out).to(args[0].dtype)
+        rec = (*_cotangents(out, state), args[2], args[0] + h_in @ args[3], args[1], args[3])
+        got = cuda_rnn._launch_lstm_bwd(*rec, plan=bwd)
+        want = cuda_rnn.lstm_seq_bwd_reference(*rec)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    for g in (0, 1, 3):
+        assert bool((got[0][:, :64, g * H:(g + 1) * H] == 0).all()), f"gate {g} below -88 has a gradient"
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_gradient_through_the_resident_design_at_dmlab_learner(cuda_device):
+    """`lstm_seq` at DMLab's learner shape takes the resident design forward and backward (one launch of each), and its
+    gradients match autograd through the plain forward within chip_smoke.py's GRAD_F32_TOL."""
+    T, B, H = 16, 1024, 64
+    assert cuda_rnn.launch_plan("lstm", T, B, H, "float32", cuda_rnn.card_spec(cuda_device)).design == "resident"
+    args = [a.requires_grad_(i != 2) for i, a in enumerate(_inputs("lstm", T, B, H, "float32", cuda_device, seed=19))]
+    cuda_rnn.reset_launch_counts()
+    out, state = cuda_rnn.lstm_seq(*args)
+    wrt = [a for i, a in enumerate(args) if i != 2]
+    grads = torch.autograd.grad((out**2).sum() + state.sum(), wrt)
+    torch.cuda.synchronize()
+    assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, "lstm_seq_resident": 1, "lstm_seq_resident_bwd": 1}
+    ref_out, ref_state = cuda_rnn.lstm_seq_reference(*args)
+    ref_grads = torch.autograd.grad((ref_out**2).sum() + ref_state.sum(), wrt)
+    for g, r in zip(grads, ref_grads):
+        assert float((g - r).abs().max()) / max(1.0, float(r.abs().max())) <= 1e-4  # chip_smoke.GRAD_F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,T,B,H,design", ODD_OFFSET_FORWARDS, ids=["-".join(map(str, s)) for s in ODD_OFFSET_FORWARDS])
+def test_forward_on_an_x_proj_at_an_odd_offset_matches_plain_on_card(cuda_device, kind, T, B, H, design):
+    """S1: a contiguous float32 x_proj one float into its buffer (the grid design at 8 x 8 tiles, the resident design)
+    launches the planned kernel and matches the plain version."""
+    args = _inputs(kind, T, B, H, "float32", cuda_device, seed=21)
+    odd = torch.empty(args[0].numel() + 1, device=cuda_device)[1:].view_as(args[0]).copy_(args[0])
+    assert odd.data_ptr() % 16
+    assert cuda_rnn.launch_plan(kind, T, B, H, "float32", cuda_rnn.card_spec(cuda_device)).design == design
+    with torch.no_grad():
+        out, state = _fns(kind)[0](odd, *args[1:])
+        torch.cuda.synchronize()
+        ref_out, ref_state = _fns(kind)[1](*args)
+    torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=0)
+    torch.testing.assert_close(state, ref_state, atol=1e-4, rtol=0)
