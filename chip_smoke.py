@@ -24,22 +24,29 @@ Phases, each printing one JSON line:
             (BWD_SITES), on rows reset at every step and on gates saturated below -88, in both dtypes; both resident
             kernels (`lstm_seq_resident`, `lstm_seq_resident_bwd`) against their plain versions at DMLab's
             instruction-encoder sites and (16, 2048, 64) (RESIDENT_SITES) and at odd shapes (RESIDENT_ODD_SHAPES), in both
-            dtypes, on rows reset at every step, gates below -88 and x_proj at an odd offset; S1: the grid design at 8 x 8
-            tiles on an x_proj one float into its buffer (S1_SHAPE)
+            dtypes, on rows reset at every step, gates below -88 and x_proj at an odd offset; lstm_seq_in's kernels
+            (`lstm_seq_resident_in`, with and without the backward's buffers, and `lstm_seq_resident_in_bwd` on them) the
+            same way against their plain versions, and the gradient through `lstm_seq_in` at DMLab's learner against
+            autograd through the plain version; S1: the grid design at 8 x 8 tiles on an x_proj one float into its buffer
+            (S1_SHAPE)
   timing    each kernel, its plain version and the bound at the main-path shapes and the doom, dmlab,
             nethack, isaacgym, dp_host, tp and defaults paths' shapes, warm and with L2 flushed, beside the first
             design (rows) at the same shapes (and the cluster plan where the row design takes its place), in turns in
             one call; each kernel in both dtypes at (32, 512, 256); torch.nn.GRU (cuDNN) as a yardstick; at
             RESIDENT_SITES the resident design in turns with the row design and the cluster plan where there is one, warm
-            and L2-cold, and at DMLab's float32 sites cuDNN's torch.nn.LSTM(20, 64) on the same embedding (the forget
-            offset in bias_ih; its outputs held against the plain version) in turns with the Linear that makes x_proj
-            plus the planned kernel, forward and backward (`library_ms`; the port never calls it)
+            and L2-cold; lstm_seq_in's kernel in turns with the unfused route (the Linear that makes x_proj, then the
+            resident kernel), warm and L2-cold; at DMLab's float32 sites the instruction encoder's three routes in turns:
+            `lstm_seq_in`, the Linear + `lstm_seq`, and cuDNN's torch.nn.LSTM(20, 64) on the same embedding (the forget
+            offset in bias_ih; its outputs held against the plain version; `library_ms`, the port never calls it),
+            forward in the site's grad mode and backward; then every device activity of each route, profiled
+            (`route_profile`)
   bwd       at every learner site: the planned backward kernel alone (warm and L2-cold; at the grid and cluster
             sites in turns with the row design at the same shape, and where the other count of receive buffers takes
             other rows, `selfplay`, with that plan too), the whole backward (prologue, kernel,
             epilogue) and the remat in turns at the first site of each kernel, in CUDA-event and host-clock ms and the
             device's busy ms; the plain recurrence; the kernel's bound, bytes and operations; the resident backward at
-            the RESIDENT_SITES no learner runs, in turns with the row design
+            the RESIDENT_SITES no learner runs, in turns with the row design; lstm_seq_in's backward kernel on its
+            forward's buffers at every RESIDENT_SITE, in turns with the resident backward that recomputes the cell states
   plans     the plans made for smaller cards (SMALLER_CARDS: 114 SMs with clusters {8: 13, 16: 0}, 66 SMs with
             {8: 7, 16: 3}) at the grid and cluster sites, launched on this card against the plain version and
             timed warm in turns with this card's own plan; the same for the backward's cluster plans at its sites
@@ -139,8 +146,9 @@ Phases, each printing one JSON line:
             envs of the port's DmlabEnv with its level cache over the stand-in deepmind_lab of
             tests/standins/, batch 1024, async, 4 iterations, the DMLab-30 score tracker registered;
             LSTM launches by site (the core: the cluster design, `lstm_seq`; the instruction encoder in the rollout, the
-            learner and the learner's last-value pass: the resident design, `lstm_seq_resident`, with
-            `lstm_seq_resident_bwd` once for each of the learner's forwards; no `lstm_seq_rows`, no `lstm_seq_bwd`)
+            learner and the learner's last-value pass: lstm_seq_in's fused kernel, `lstm_seq_resident_in`, with
+            `lstm_seq_resident_in_bwd` once for each of the learner's forwards, every call of lstm_seq_in there on the
+            fused route; no `lstm_seq_resident`, no `lstm_seq_rows`, no `lstm_seq_bwd`)
   nethack   nethack_challenge through `examples/nethack/train_nethack.py`'s flags at their defaults (LSTM-512
             float32, batch 1024, rollout 32, async with the quantized learner; 12 workers x 2 envs, cut to one
             worker a core keeping the 24 envs) over the env-level stand-in of tests/standins/ (the card's
@@ -164,7 +172,8 @@ multichip leg and the defaults, the NetHack and AllegroHandLSTM learners, beside
 shapes; the backward's designs, `gru_seq_bwd` and `lstm_seq_bwd` (rows), `gru_seq_grid_bwd` and `lstm_seq_grid_bwd`
 (grid) and `gru_seq_cluster_bwd` and `lstm_seq_cluster_bwd` (cluster), by path and at every learner site each runs, the
 grid and cluster designs beside the row design at the same shapes); `lstm_seq_resident` and `lstm_seq_resident_bwd`, by
-path and by site (RESIDENT_SITES), beside the row design, the cluster plan and cuDNN; every recurrent path's launches hold one backward
+path and by site (RESIDENT_SITES), beside the row design, the cluster plan and cuDNN; `lstm_seq_resident_in` and
+`lstm_seq_resident_in_bwd` the same way, beside the unfused route and cuDNN; every recurrent path's launches hold one backward
 launch for each learner forward launch (rollouts run under no_grad and launch none), of the forward's design; the card's
 name and power limit, and the result line.
 Needs one CUDA card; exits non-zero on any failure. Imports nothing of JAX.
@@ -305,6 +314,10 @@ REPLACES = {
     "lstm_seq_cluster_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
     "lstm_seq_resident": "sample_factory_tpu/ops/pallas_gru.py:271",
     "lstm_seq_resident_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
+    # lstm_seq_in's kernels: the Pallas LSTM with the input product (sample_factory_tpu/ops/rnn_cells.py:124) folded in, and the
+    # backward rule on the buffers that forward saves
+    "lstm_seq_resident_in": "sample_factory_tpu/ops/pallas_gru.py:271",
+    "lstm_seq_resident_in_bwd": "sample_factory_tpu/ops/pallas_gru.py:311",
 }
 # the designs (cluster: `gru_seq`/`lstm_seq`; grid: `gru_seq_grid`/`lstm_seq_grid`; rows: `gru_seq_rows`/`lstm_seq_rows`);
 # the kernels line reports the cluster designs at their main paths' shapes, the grid designs at the doom and
@@ -359,7 +372,8 @@ def backward_launches(counts):
 
 def others(counts, *names):
     """The launches of every kernel but `names` and the backward kernels of their kinds (every design)."""
-    keep = set(names) | {f"{name.split('_seq')[0]}_seq{design}_bwd" for name in names for design in ("", "_grid", "_cluster", "_resident")}
+    keep = set(names) | {f"{name.split('_seq')[0]}_seq{design}_bwd" for name in names
+                         for design in ("", "_grid", "_cluster", "_resident", "_resident_in")}
     return {k: v for k, v in counts.items() if k not in keep}
 
 
@@ -371,9 +385,9 @@ def check_backward_launches(counts, where):
     each row forward with a `*_seq_bwd`."""
     for kind in ("gru", "lstm"):
         want = {"grid": counts[f"{kind}_seq_grid"], "cluster": counts[f"{kind}_seq"], "rows": counts[f"{kind}_seq_rows"],
-                "resident": counts.get(f"{kind}_seq_resident", 0)}
+                "resident": counts.get(f"{kind}_seq_resident", 0), "resident_in": counts.get(f"{kind}_seq_resident_in", 0)}
         got = {"grid": counts[f"{kind}_seq_grid_bwd"], "cluster": counts[f"{kind}_seq_cluster_bwd"], "rows": counts[f"{kind}_seq_bwd"],
-               "resident": counts.get(f"{kind}_seq_resident_bwd", 0)}
+               "resident": counts.get(f"{kind}_seq_resident_bwd", 0), "resident_in": counts.get(f"{kind}_seq_resident_in_bwd", 0)}
         check(got == want, f"{where}: {kind} backward launches {got}, expected {want}: {counts}")
 
 
@@ -428,6 +442,16 @@ def phase_parity(torch, cuda_rnn):
     for variant in ("resets_every_step", "saturated", "odd_offset"):
         for dtype in ("float32", "bfloat16"):
             resident_parity_case(torch, cuda_rnn, *DMLAB_INSTR_LEARNER[:3], dtype, variant)
+    # lstm_seq_in's kernels (the resident design with the input product folded in) the same way, then the gradient through
+    # lstm_seq_in at the learner's site
+    fused = {(T, B, H, dtype): resident_in_parity_case(torch, cuda_rnn, T, B, H, dtype)
+             for T, B, H in [shape[:3] for shape in RESIDENT_SITES.values()] + RESIDENT_ODD_SHAPES for dtype in ("float32", "bfloat16")}
+    for site, shape in RESIDENT_SITES.items():
+        main_err[f"lstm_seq_resident_in@{site}"], main_err[f"lstm_seq_resident_in_bwd@{site}"] = fused[shape]
+    for variant in ("resets_every_step", "saturated", "odd_offset"):
+        for dtype in ("float32", "bfloat16"):
+            resident_in_parity_case(torch, cuda_rnn, *DMLAB_INSTR_LEARNER[:3], dtype, variant)
+    main_err["lstm_seq_in_grad"] = in_gradient_case(torch, cuda_rnn, *DMLAB_INSTR_LEARNER[:3])
     s1_parity_case(torch, cuda_rnn)
     # the error reported for each design: at the shape and dtype of the first path that runs it, and at
     # each site of the grid design
@@ -460,6 +484,8 @@ def phase_parity(torch, cuda_rnn):
     for name, site in BWD_LINE_SITES.items():
         main_err[name] = main_err[f"{name}@{site}"]
     main_err["lstm_seq_resident"] = main_err["lstm_seq_resident@dmlab_instruction_learner"]
+    main_err["lstm_seq_resident_in"] = main_err["lstm_seq_resident_in@dmlab_instruction_learner"]
+    main_err["lstm_seq_resident_in_bwd"] = main_err["lstm_seq_resident_in_bwd@dmlab_instruction_learner"]
     return main_err
 
 
@@ -521,6 +547,104 @@ def resident_parity_case(torch, cuda_rnn, T, B, H, dtype, variant=None):
     if variant == "resets_every_step":
         check(bool((state == 0).all()), f"{where}: a carry survived a reset")
     return fwd_err, (bwd_abs, bwd_err)
+
+
+def in_inputs(torch, T, B, H, dtype, seed, I=None):
+    """lstm_seq_in's inputs as DMLab's instruction encoder gives them: x [T,B,I] a transposed view of an embedding [B,T,I]
+    (I = DMLAB_INSTRUCTION_EMBED), wi, bi, hc0, resets, wh, from a seed."""
+    import numpy as np
+
+    I = I or DMLAB_INSTRUCTION_EMBED
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    x = torch.tensor(rng.normal(size=(B, T, I)).astype(np.float32), device="cuda").to(dt).transpose(0, 1)
+    wi = torch.tensor((rng.normal(size=(I, 4 * H)) / math.sqrt(I)).astype(np.float32), device="cuda").to(dt)
+    bi = torch.tensor((rng.normal(size=(4 * H,)) * 0.1).astype(np.float32), device="cuda").to(dt)
+    hc0 = torch.tensor(rng.normal(size=(B, 2 * H)).astype(np.float32), device="cuda")
+    resets = torch.tensor((rng.random((T, B)) < 0.1).astype(np.float32), device="cuda")
+    wh = torch.tensor((rng.normal(size=(H, 4 * H)) / math.sqrt(H)).astype(np.float32), device="cuda").to(dt)
+    return [x, wi, bi, hc0, resets, wh]
+
+
+def resident_in_parity_case(torch, cuda_rnn, T, B, H, dtype, variant=None):
+    """Both kernels of lstm_seq_in (`lstm_seq_resident_in`, `lstm_seq_resident_in_bwd`) once on their plans at this shape against
+    the plain versions on the same inputs: the forward, without and with the backward's buffers, against
+    lstm_seq_in_saved_reference within fwd_tol (the buffers relative to their largest value; saving changes no output); the
+    backward kernel, on the buffers the forward saved, against lstm_seq_bwd_reference within BWD_TOL of the largest
+    gradient. `variant`: "resets_every_step"; "saturated" (the sigmoid gates of the first quarter of the rows driven below -88
+    through one column of wi: their gradient must be 0); "odd_offset" (x a contiguous view one element into its buffer).
+    Returns (forward error, (backward abs, rel))."""
+    fwd = cuda_rnn.resident_in_plan(T, B, H, DMLAB_INSTRUCTION_EMBED, getattr(torch, dtype), SPEC)
+    bwd = cuda_rnn.resident_plan("lstm", B, H, dtype, SPEC, backward=True)
+    x, wi, bi, hc0, resets, wh = args = in_inputs(torch, T, B, H, dtype, seed=T + B + H + 5)
+    quarter = max(1, B // 4)
+    gates = torch.cat([torch.arange(g * H, (g + 1) * H) for g in (0, 1, 3)]).cuda()
+    if variant == "resets_every_step":
+        resets.fill_(1.0)
+    if variant == "saturated":
+        wi[0] = 0.0
+        wi[0, gates] = -1.0
+        x[:, :, 0] = 0.0
+        x[:, :quarter, 0] = 300.0
+    if variant == "odd_offset":
+        args[0] = odd_view(torch, x.contiguous())
+    with torch.no_grad():
+        before = cuda_rnn.launch_counts()
+        out, state, *_ = cuda_rnn._launch_lstm_in(*args, plan=fwd)
+        out2, state2, proj, cells, xh = cuda_rnn._launch_lstm_in(*args, save=True, plan=fwd)
+        d_out, d_state = (torch.randn(*t.shape, device="cuda", generator=torch.Generator(device="cuda").manual_seed(B)) for t in (out, state))
+        got = cuda_rnn._launch_lstm_in_bwd(d_out, d_state, resets, proj, hc0, wh, cells, plan=bwd)
+        torch.cuda.synchronize()
+        after = cuda_rnn.launch_counts()
+        check({k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "lstm_seq_resident_in": 2, "lstm_seq_resident_in_bwd": 1},
+              f"resident_in {(T, B, H, dtype, variant)}: launches {after} after {before}")
+        ref = cuda_rnn.lstm_seq_in_saved_reference(*args)
+        want = cuda_rnn.lstm_seq_bwd_reference(d_out, d_state, resets, proj, hc0, wh, cells)
+        torch.cuda.synchronize()
+    fwd_err = max(float((out - ref[0]).abs().max()), float((state - ref[1]).abs().max()))
+    saved_err = max(rel_err(g, w) for g, w in zip((proj, cells, xh), ref[2:]))
+    bwd_err = max(rel_err(g, w) for g, w in zip(got, want))
+    bwd_abs = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(t).all()) for t in (out, state, proj, cells, *got))
+    tol = fwd_tol(dtype, T)
+    emit({"phase": "parity", "kernel": "lstm_seq_resident_in", "backward_kernel": "lstm_seq_resident_in_bwd", "shape": [T, B, H],
+          "input": DMLAB_INSTRUCTION_EMBED, "dtype": dtype, "variant": variant, "design": dataclasses.asdict(fwd),
+          "backward_design": dataclasses.asdict(bwd), "fwd_max_abs_err": fwd_err, "saved_rel_err": saved_err, "fwd_tol": tol,
+          "grad_rel_err_plain": bwd_err, "grad_max_abs_err_plain": bwd_abs, "tol_plain": BWD_TOL[dtype], "finite": finite})
+    where = f"resident_in {(T, B, H, dtype, variant)}"
+    check(finite, f"{where}: non-finite outputs or gradients")
+    check(torch.equal(out, out2) and torch.equal(state, state2), f"{where}: writing the backward's buffers changed an output")
+    check(fwd_err <= tol and saved_err <= tol, f"{where}: forward error {fwd_err}, saved buffers {saved_err} > {tol}")
+    check(bwd_err <= BWD_TOL[dtype], f"{where}: backward against the plain recurrence {bwd_err} > {BWD_TOL[dtype]}")
+    if variant == "saturated":
+        check(bool((proj[:, :quarter][..., gates] < -88).all()) and bool((got[0][:, :quarter][..., gates] == 0).all()),
+              f"{where}: a gate below -88 has a gradient")
+    if variant == "resets_every_step":
+        check(bool((state == 0).all()), f"{where}: a carry survived a reset")
+    return fwd_err, (bwd_abs, bwd_err)
+
+
+def in_gradient_case(torch, cuda_rnn, T, B, H):
+    """`lstm_seq_in` at a float32 site as the learner calls it (a gradient into x, wi, bi, hc0 and wh): one launch of each
+    fused kernel, no other RNN kernel; outputs within fwd_tol and gradients within GRAD_F32_TOL of autograd through the plain
+    version. Returns the gradients' error."""
+    args = [a.requires_grad_(i != 4) for i, a in enumerate(in_inputs(torch, T, B, H, "float32", seed=41))]
+    wrt = [a for i, a in enumerate(args) if i != 4]
+    before = cuda_rnn.launch_counts()
+    out, state = cuda_rnn.lstm_seq_in(*args)
+    grads = torch.autograd.grad((out**2).sum() + state.sum(), wrt)
+    torch.cuda.synchronize()
+    after = cuda_rnn.launch_counts()
+    check({k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "lstm_seq_resident_in": 1, "lstm_seq_resident_in_bwd": 1},
+          f"lstm_seq_in {(T, B, H)}: launches {after} after {before}")
+    ref_out, ref_state = cuda_rnn.lstm_seq_in_reference(*args)
+    ref_grads = torch.autograd.grad((ref_out**2).sum() + ref_state.sum(), wrt)
+    fwd = max(float((out - ref_out).detach().abs().max()), float((state - ref_state).detach().abs().max()))
+    grad = max(rel_err(g, r) for g, r in zip(grads, ref_grads))
+    emit({"phase": "parity", "kernel": "lstm_seq_in", "shape": [T, B, H], "input": DMLAB_INSTRUCTION_EMBED, "dtype": "float32",
+          "fwd_max_abs_err": fwd, "fwd_tol": fwd_tol("float32", T), "grad_rel_err": grad, "grad_tol": GRAD_F32_TOL})
+    check(fwd <= fwd_tol("float32", T) and grad <= GRAD_F32_TOL, f"lstm_seq_in {(T, B, H)}: forward {fwd}, gradients {grad}")
+    return grad
 
 
 def s1_parity_case(torch, cuda_rnn):
@@ -740,6 +864,33 @@ def phase_bwd(torch, cuda_rnn, card):
                   "stat": "medians of CUDA-event times; turns: resident, rows, rows, resident; l2_cold: 100 MB written before each",
                   "card": card})
             out[f"resident@{site}"] = row
+        # lstm_seq_in's backward kernel on the buffers its forward saved (no cell-state pass) at every resident site, in turns
+        # with the resident backward on the same proj (the unfused route's, which runs the pass): in_bwd, resident, resident,
+        # in_bwd, warm and L2-cold
+        for site, (T, B, H, dtype) in RESIDENT_SITES.items():
+            args = in_inputs(torch, T, B, H, dtype, seed=5)
+            _, _, proj, cells, _ = cuda_rnn._launch_lstm_in(*args, save=True)
+            resets, hc0, wh = args[4], args[3], args[5]
+            d_out, d_state = torch.randn(T, B, H, device="cuda"), torch.randn(B, 2 * H, device="cuda")
+            plan = cuda_rnn.resident_plan("lstm", B, H, dtype, SPEC, backward=True)
+            kernels = {"in_bwd": lambda: cuda_rnn._launch_lstm_in_bwd(d_out, d_state, resets, proj, hc0, wh, cells, plan=plan),
+                       "resident_bwd": lambda: cuda_rnn._launch_lstm_bwd(d_out, d_state, resets, proj, hc0, wh, plan=plan)}
+            turns = {d: {"warm": [], "l2_cold": []} for d in kernels}
+            for d in ("in_bwd", "resident_bwd", "resident_bwd", "in_bwd"):
+                turns[d]["warm"].append(time_ms(torch, kernels[d]))
+                turns[d]["l2_cold"].append(time_ms(torch, kernels[d], flush=flush))
+            bound_ms, bound_by, nbytes, flops = in_bwd_bound(T, B, H, dtype)
+            med = {d: {k: statistics.median(v) for k, v in t.items()} for d, t in turns.items()}
+            row = {"shape": [T, B, H], "dtype": dtype, "ms": med["in_bwd"]["warm"], "ms_l2_cold": med["in_bwd"]["l2_cold"],
+                   "resident_bwd_ms": med["resident_bwd"]["warm"], "resident_bwd_ms_l2_cold": med["resident_bwd"]["l2_cold"],
+                   "plain_ms": time_ms(torch, lambda: cuda_rnn.lstm_seq_bwd_reference(d_out, d_state, resets, proj, hc0, wh, cells),
+                                       reps=BWD_REPS), "bound_ms": bound_ms, "bound_by": bound_by}
+            emit({"phase": "bwd", "kernel": "lstm_seq_resident_in_bwd", "site": site, "path": "dmlab" if site in GRAD_SITES else None,
+                  **row, "design": dataclasses.asdict(plan), "kernel_turns": turns, "bytes": nbytes, "flops": flops,
+                  "kernel_share_of_bound": bound_ms / row["ms"], "reps": REPS,
+                  "stat": "medians of CUDA-event times; turns: in_bwd (the saved cell states), resident_bwd (the same kernel "
+                          "recomputing them), resident_bwd, in_bwd; l2_cold: 100 MB written before each", "card": card})
+            out[f"resident_in@{site}"] = row
     del flush
     emit({"phase": "bwd", "seconds": time.perf_counter() - start, "card": card})
     return out
@@ -868,6 +1019,32 @@ def bound(kind, T, B, H, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+def in_bound(T, B, H, I, dtype, saving=False):
+    """Least time for lstm_seq_in's forward on an H100: x (in place of x_proj), wi, bi, wh, hc0 and resets read once, outs and
+    hc_final written once, and where the backward's buffers are written (saving) proj, the cell states and xh too, against
+    the 2*T*B*(I+H)*4H operations of its two products at the dtype's peak."""
+    import sample_factory_tpu_torch.ops.cuda_rnn as cuda_rnn
+
+    item = 2 if dtype == "bfloat16" else 4
+    G = 4 * H
+    nbytes = T * B * I * item + (I + H + 1) * G * item + 2 * B * 2 * H * 4 + T * B * 4 + T * B * H * 4
+    if saving:
+        nbytes += T * B * G * item + T * B * H * 4 + T * B * cuda_rnn.in_width(I, H) * item
+    flops = 2 * T * B * (I + H) * G
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def in_bwd_bound(T, B, H, dtype):
+    """Least time for lstm_seq_in's backward kernel on an H100: d_outs, the final state's cotangent, resets, proj, hc0, wh (f32)
+    and the saved cell states read once, d_proj and d_hc0 written once, against the 2*T*B*4H*H operations of dg @ wh^T."""
+    item = 2 if dtype == "bfloat16" else 4
+    nbytes = 2 * T * B * H * 4 + 3 * B * 2 * H * 4 + T * B * 4 + 2 * T * B * 4 * H * item + H * 4 * H * 4
+    flops = 2 * T * B * 4 * H * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
 def phase_plans(torch, cuda_rnn, card):
     """The plans made for the SMALLER_CARDS at the grid sites (PARITY_PATH_SHAPES) and the cluster sites
     (CLUSTER_SITES), launched on this card: each against the plain version at the parity phase's forward
@@ -970,6 +1147,7 @@ def phase_timing(torch, cuda_rnn, card):
               "ms_warm": time_ms(torch, lambda: gru(x, h0)), "ms_l2_cold": time_ms(torch, lambda: gru(x, h0), flush=flush),
               "reps": REPS, "card": card})
         resident = resident_timing(torch, cuda_rnn, flush, card)
+        route_profile(torch, cuda_rnn, card)
     del flush
     # for the kernels line: each design at the shape of the first path that runs it (the cluster and
     # grid designs' rows carry the row design's time there as `first_design_ms`)
@@ -990,13 +1168,15 @@ def phase_timing(torch, cuda_rnn, card):
     return out
 
 
-def cudnn_lstm(torch, cuda_rnn, T, B, H, seed=8):
-    """DMLab's instruction encoder as one library call: cuDNN's torch.nn.LSTM(DMLAB_INSTRUCTION_EMBED, H) (TF32 off) on an
-    embedding [T, B, 20] from a zero state, its weights the port's (wi, bi, wh; the forget gate's +1 folded into bias_ih),
-    against the port's route on the same inputs: the Linear that makes x_proj, then the planned kernel. Returns both routes'
-    callables, {"port": (forward, backward), "cudnn": (forward, backward)} (a backward: of the outputs and the final state
-    into the embedding and every weight), and the largest differences of cuDNN's outputs and gradients from the plain
-    version's."""
+def route_ways(torch, cuda_rnn, T, B, H, seed=8):
+    """DMLab's instruction encoder at one site, three ways on the same inputs: an embedding [T, B, 20] (DMLAB_INSTRUCTION_EMBED)
+    from a zero state, the weights wi, bi, wh. "fused": the port's route, `lstm_seq_in` (one kernel forward; the resident
+    backward on the buffers the forward saved, then one product for the weights and one for the embedding); "unfused": the
+    route with the input product outside the kernel, the Linear that makes x_proj, then `lstm_seq`; "cudnn": cuDNN's
+    torch.nn.LSTM(DMLAB_INSTRUCTION_EMBED, H) (TF32 off; the forget gate's +1 folded into bias_ih), a library call the port
+    never makes. Returns {way: (forward, backward)} (a forward runs in the caller's grad mode; a backward: of the outputs and
+    the final state into the embedding and every weight, on a graph built once) and the largest differences of cuDNN's and
+    the fused route's outputs and gradients from the plain version's."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1016,34 +1196,88 @@ def cudnn_lstm(torch, cuda_rnn, T, B, H, seed=8):
     d_out = torch.tensor(rng.normal(size=(T, B, H)).astype(np.float32), device="cuda")
     d_state = torch.tensor(rng.normal(size=(B, 2 * H)).astype(np.float32), device="cuda")
 
-    def port():
-        return cuda_rnn.lstm_seq(emb @ wi + bi, hc0, resets, wh)
-
-    def library():
+    def cudnn():
         out, (h, c) = lstm(emb)
         return out, torch.cat([h[0], c[0]], dim=-1)
 
-    graphs = {"port": port(), "cudnn": library()}
+    forwards = {"unfused": lambda: cuda_rnn.lstm_seq(emb @ wi + bi, hc0, resets, wh), "cudnn": cudnn}
+    if hasattr(cuda_rnn, "lstm_seq_in"):
+        forwards = {"fused": lambda: cuda_rnn.lstm_seq_in(emb, wi, bi, hc0, resets, wh), **forwards}
+    weights = {"cudnn": list(lstm.parameters())}
+    graphs = {way: fn() for way, fn in forwards.items()}
 
-    def backward(way, weights):
+    def backward(way):
         out, state = graphs[way]
-        return torch.autograd.grad((out, state), [emb, *weights], (d_out, d_state), retain_graph=True)
+        return torch.autograd.grad((out, state), [emb, *weights.get(way, [wi, bi, wh])], (d_out, d_state), retain_graph=True)
 
     ref_out, ref_state = cuda_rnn.lstm_seq_reference(emb @ wi + bi, hc0, resets, wh)
     ref_grads = torch.autograd.grad((ref_out, ref_state), [emb, wi, bi, wh], (d_out, d_state))
-    out, state = graphs["cudnn"]
-    g_emb, g_ih, g_hh, g_bih, _ = backward("cudnn", list(lstm.parameters()))
-    err = {"fwd_max_abs_err": max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max())),
-           "grad_rel_err": max(rel_err(g, r) for g, r in zip((g_emb, g_ih.t(), g_bih, g_hh.t()), ref_grads))}
-    ways = {"port": (port, lambda: backward("port", [wi, bi, wh])), "cudnn": (library, lambda: backward("cudnn", list(lstm.parameters())))}
+    err = {}
+    for way in graphs:
+        if way == "unfused":
+            continue
+        out, state = graphs[way]
+        grads = backward(way)
+        if way == "cudnn":
+            g_emb, g_ih, g_hh, g_bih, _ = grads
+            grads = (g_emb, g_ih.t(), g_bih, g_hh.t())
+        err[way] = {"fwd_max_abs_err": max(float((out - ref_out).abs().max()), float((state - ref_state).abs().max())),
+                    "grad_rel_err": max(rel_err(g, r) for g, r in zip(grads, ref_grads))}
+    ways = {way: (fn, lambda way=way: backward(way)) for way, fn in forwards.items()}
     return ways, err
+
+
+# the instruction encoder's sites under no_grad (the rollout and the last-value pass) and with a gradient (the learner)
+GRAD_SITES = {"dmlab_instruction_learner"}
+ROUTE_PROFILE_REPS = 10
+
+
+def route_profile(torch, cuda_rnn, card):
+    """Every device activity of each route of DMLab's instruction encoder (`route_ways`) at its float32 sites, forward in the
+    site's grad mode and, at the learner's minibatch, backward: ROUTE_PROFILE_REPS calls under torch.profiler (device
+    activities only) after one warm call, each activity's launches and device us a call. Returns them by site, way and
+    direction."""
+    start, out = time.perf_counter(), {}
+    for site, (T, B, H, dtype) in RESIDENT_SITES.items():
+        if dtype != "float32":
+            continue
+        with torch.enable_grad():
+            ways, _ = route_ways(torch, cuda_rnn, T, B, H)
+        grad = site in GRAD_SITES
+        for way, (forward, backward) in ways.items():
+            for direction, fn in [("forward", forward)] + ([("backward", backward)] if grad else []):
+                def calls(fn=fn, direction=direction):
+                    with torch.enable_grad() if grad or direction == "backward" else torch.no_grad():
+                        for _ in range(ROUTE_PROFILE_REPS):
+                            fn()
+                with torch.enable_grad() if grad else torch.no_grad():
+                    fn()
+                torch.cuda.synchronize()
+                _, busy_us, _, events, _ = profiled_device_time(calls)
+                activities = {}
+                for e in events:
+                    name = e.name[:90]
+                    n, us = activities.get(name, (0, 0.0))
+                    activities[name] = (n + 1, us + e.time_range.elapsed_us())
+                row = {"launches_per_call": len(events) / ROUTE_PROFILE_REPS, "device_us_per_call": busy_us / ROUTE_PROFILE_REPS,
+                       "activities": [{"name": name, "launches": n / ROUTE_PROFILE_REPS, "us": us / ROUTE_PROFILE_REPS}
+                                      for name, (n, us) in sorted(activities.items(), key=lambda kv: -kv[1][1])]}
+                out[f"{site}/{way}/{direction}"] = row
+                emit({"phase": "route_profile", "site": site, "shape": [T, B, H], "dtype": dtype, "way": way, "direction": direction,
+                      "grad": grad, **row, "reps": ROUTE_PROFILE_REPS,
+                      "stat": "torch.profiler, device activities only, over reps calls after one warm call; per call", "card": card})
+    emit({"phase": "route_profile", "seconds": time.perf_counter() - start, "card": card})
+    return out
 
 
 def resident_timing(torch, cuda_rnn, flush, card):
     """At RESIDENT_SITES: the resident design in turns with the row design and the cluster plan where there is one (resident,
-    rows, cluster, cluster, rows, resident), each warm and L2-cold, the plain version and the bound; at the float32 sites
-    cuDNN's LSTM (`cudnn_lstm`) in turns with the port's route (port, cudnn, cudnn, port), forward and backward, warm.
-    Returns the kernels line's numbers: `lstm_seq_resident@<site>` and `lstm_seq_resident` (the learner's)."""
+    rows, cluster, cluster, rows, resident), each warm and L2-cold, the plain version and the bound; lstm_seq_in's kernel (with
+    the backward's buffers at the learner's site) in turns with the unfused route, the Linear + the resident kernel (fused,
+    unfused, unfused, fused), warm and L2-cold, its plain version and bound; at the float32 sites the instruction encoder's three
+    routes (`route_ways`: fused, unfused, cuDNN) in turns, forward in the site's grad mode and backward, warm. Returns the kernels
+    line's numbers: `lstm_seq_resident@<site>`, `lstm_seq_resident_in@<site>`, and the learner's as `lstm_seq_resident` and
+    `lstm_seq_resident_in`."""
     out = {}
     with torch.no_grad():
         for site, (T, B, H, dtype) in RESIDENT_SITES.items():
@@ -1065,29 +1299,58 @@ def resident_timing(torch, cuda_rnn, flush, card):
             if over is not None:
                 row.update(cluster_ms=med["cluster"]["warm"], cluster_ms_l2_cold=med["cluster"]["l2_cold"],
                            cluster_waves=cuda_rnn.cluster_waves(over, SPEC))
+            # lstm_seq_in's kernel (with the backward's buffers where the site needs a gradient) in turns with the unfused
+            # route (the Linear, then the resident kernel): fused, unfused, unfused, fused, warm and L2-cold
+            saving = site in GRAD_SITES
+            iargs = in_inputs(torch, T, B, H, dtype, seed=4)
+            fused_plan = cuda_rnn.resident_in_plan(T, B, H, DMLAB_INSTRUCTION_EMBED, getattr(torch, dtype), SPEC)
+            routes = {"fused": lambda: cuda_rnn._launch_lstm_in(*iargs, save=saving, plan=fused_plan),
+                      "unfused": lambda: cuda_rnn._launch_lstm((iargs[0] @ iargs[1] + iargs[2]).contiguous(), *iargs[3:])}
+            in_turns = {d: {"warm": [], "l2_cold": []} for d in routes}
+            for d in ("fused", "unfused", "unfused", "fused"):
+                in_turns[d]["warm"].append(time_ms(torch, routes[d]))
+                in_turns[d]["l2_cold"].append(time_ms(torch, routes[d], flush=flush))
+            in_med = {d: {k: statistics.median(v) for k, v in t.items()} for d, t in in_turns.items()}
+            in_row = {"shape": [T, B, H], "input": DMLAB_INSTRUCTION_EMBED, "dtype": dtype, "saving": saving,
+                      "ms": in_med["fused"]["warm"], "ms_l2_cold": in_med["fused"]["l2_cold"],
+                      "unfused_route_ms": in_med["unfused"]["warm"], "unfused_route_ms_l2_cold": in_med["unfused"]["l2_cold"],
+                      "plain_ms": time_ms(torch, lambda: cuda_rnn.lstm_seq_in_reference(*iargs), reps=BWD_REPS), "library_ms": None}
+            in_row["bound_ms"], in_row["bound_by"], in_bytes, in_flops = in_bound(T, B, H, DMLAB_INSTRUCTION_EMBED, dtype, saving)
             library = {}
             if dtype == "float32":
+                # the routes of the instruction encoder in turns: fused, unfused, cuDNN, cuDNN, unfused, fused; the forward in
+                # the site's grad mode, the backward on a graph built once
                 with torch.enable_grad():
-                    ways, err = cudnn_lstm(torch, cuda_rnn, T, B, H)
+                    ways, err = route_ways(torch, cuda_rnn, T, B, H)
                     ms = {f"{w}_{p}": [] for w in ways for p in ("fwd", "bwd")}
-                    for w in ("port", "cudnn", "cudnn", "port"):  # a longer spin: autograd's host work is behind it
-                        ms[f"{w}_fwd"].append(time_ms(torch, ways[w][0], spin=10 * SPIN_CYCLES))
+                    for w in [*ways, *reversed(ways)]:  # a longer spin: autograd's host work is behind it
+                        with torch.enable_grad() if saving else torch.no_grad():
+                            ms[f"{w}_fwd"].append(time_ms(torch, ways[w][0], spin=10 * SPIN_CYCLES))
                         ms[f"{w}_bwd"].append(time_ms(torch, ways[w][1], reps=BWD_REPS, spin=10 * SPIN_CYCLES))
-                library = {"cudnn_fwd_ms": statistics.median(ms["cudnn_fwd"]), "port_fwd_ms": statistics.median(ms["port_fwd"]),
-                           "cudnn_bwd_ms": statistics.median(ms["cudnn_bwd"]), "port_bwd_ms": statistics.median(ms["port_bwd"]), **err}
-                row["library_ms"] = library["cudnn_fwd_ms"]
-                check(err["fwd_max_abs_err"] <= fwd_tol(dtype, T) and err["grad_rel_err"] <= GRAD_F32_TOL,
-                      f"cuDNN's LSTM at {site} disagrees with the plain version: {err}")
+                library = {f"{k}_ms": statistics.median(v) for k, v in ms.items()}
+                library.update(cudnn_fwd_max_abs_err=err["cudnn"]["fwd_max_abs_err"], cudnn_grad_rel_err=err["cudnn"]["grad_rel_err"],
+                               fused_fwd_max_abs_err=err["fused"]["fwd_max_abs_err"], fused_grad_rel_err=err["fused"]["grad_rel_err"])
+                row["library_ms"] = in_row["library_ms"] = library["cudnn_fwd_ms"]
+                for way in ("cudnn", "fused"):
+                    check(err[way]["fwd_max_abs_err"] <= fwd_tol(dtype, T) and err[way]["grad_rel_err"] <= GRAD_F32_TOL,
+                          f"the {way} route at {site} disagrees with the plain version: {err[way]}")
             emit({"phase": "timing", "kernel": "lstm_seq_resident", "site": site, **row, "design": dataclasses.asdict(plans["resident"]),
                   "turns": turns, "cudnn": library, "bytes": nbytes, "flops": flops, "kernel_share_of_bound": bound_ms / row["ms"],
                   "reps": REPS, "stat": "medians of CUDA-event times; turns: resident, rows[, cluster, cluster], rows, resident; "
                                         "l2_cold: 100 MB written before each; cudnn: torch.nn.LSTM(20, 64) with TF32 off against "
-                                        "the port's Linear + lstm_seq (port, cudnn, cudnn, port), forward and backward, each "
-                                        "route's backward of its outputs and final state into the embedding and every weight, "
-                                        "after a ~5 ms spin",
+                                        "the fused route (lstm_seq_in) and the unfused route (the Linear + lstm_seq) (fused, "
+                                        "unfused, cudnn, cudnn, unfused, fused), the forward in the site's grad mode, each route's "
+                                        "backward of its outputs and final state into the embedding and every weight, after a "
+                                        "~5 ms spin",
                   "card": card})
+            emit({"phase": "timing", "kernel": "lstm_seq_resident_in", "site": site, **in_row, "design": dataclasses.asdict(fused_plan),
+                  "turns": in_turns, "bytes": in_bytes, "flops": in_flops, "kernel_share_of_bound": in_row["bound_ms"] / in_row["ms"],
+                  "reps": REPS, "stat": "medians of CUDA-event times; turns: fused (lstm_seq_in's kernel), unfused (the Linear + "
+                                        "the resident kernel), unfused, fused; l2_cold: 100 MB written before each", "card": card})
             out[f"lstm_seq_resident@{site}"] = {**row, "cudnn": library}
+            out[f"lstm_seq_resident_in@{site}"] = {**in_row, "cudnn": library}
     out["lstm_seq_resident"] = out["lstm_seq_resident@dmlab_instruction_learner"]
+    out["lstm_seq_resident_in"] = out["lstm_seq_resident_in@dmlab_instruction_learner"]
     return out
 
 
@@ -2361,18 +2624,50 @@ def phase_atari(torch, cuda_rnn, card, tmp):
 
 @contextlib.contextmanager
 def launch_shapes(cuda_rnn):
-    """Record (kind, T, B, H) of each kernel launch while the block runs; the wrappers count as before."""
-    seen, launch = [], cuda_rnn._launch
+    """Record (kind, T, B, H) of each forward kernel launch while the block runs, `lstm_seq_in`'s fused kernel's too; the
+    wrappers count as before."""
+    seen, launch, launch_in = [], cuda_rnn._launch, cuda_rnn._launch_lstm_in
 
     def recording(kind, x_proj, *args):
         seen.append((kind, x_proj.shape[0], x_proj.shape[1], x_proj.shape[2] // (3 if kind == "gru" else 4)))
         return launch(kind, x_proj, *args)
 
-    cuda_rnn._launch = recording
+    def recording_in(x, wi, bi, hc0, resets, wh, *args, **kwargs):
+        seen.append(("lstm", x.shape[0], x.shape[1], wh.shape[0]))
+        return launch_in(x, wi, bi, hc0, resets, wh, *args, **kwargs)
+
+    cuda_rnn._launch, cuda_rnn._launch_lstm_in = recording, recording_in
     try:
         yield seen
     finally:
-        cuda_rnn._launch = launch
+        cuda_rnn._launch, cuda_rnn._launch_lstm_in = launch, launch_in
+
+
+@contextlib.contextmanager
+def in_routes(cuda_rnn):
+    """Record the way `lstm_seq_in` takes at each call while the block runs ((T, B, H, I) -> {route: calls})."""
+    seen, route = {}, cuda_rnn.in_route
+
+    def recording(device, T, B, H, I, dtype):
+        way = route(device, T, B, H, I, dtype)
+        by_way = seen.setdefault((T, B, H, I), {})
+        by_way[way] = by_way.get(way, 0) + 1
+        return way
+
+    cuda_rnn.in_route = recording
+    try:
+        yield seen
+    finally:
+        cuda_rnn.in_route = route
+
+
+def site_kernels(cuda_rnn, T, B, H, dtype, I=None):
+    """The forward and backward kernels a site launches: lstm_seq_in's fused pair where `in_route` takes it (an LSTM with an
+    input of width I), else the planned design's (`launch_plan`, `bwd_plan`)."""
+    if I is not None and cuda_rnn.in_route("cuda", T, B, H, I, dtype) == "fused":
+        return "lstm_seq_resident_in", "lstm_seq_resident_in_bwd"
+    return (cuda_rnn._kernel_name("lstm", cuda_rnn.launch_plan("lstm", T, B, H, dtype, SPEC)),
+            cuda_rnn._bwd_kernel_name("lstm", cuda_rnn.bwd_plan("lstm", B, H, dtype, SPEC)))
 
 
 def host_workers(paper_workers, envs, splits=2):
@@ -2568,7 +2863,7 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
     argv = QUIET_HOST + ["--env=dmlab_30", f"--num_workers={workers}", f"--num_envs_per_worker={DMLAB_ENVS // workers}",
                          f"--dmlab_level_cache_path={tmp}/dmlab_cache", f"--train_for_env_steps={DMLAB_ITERS * DMLAB_ENVS * 32 * 4}",
                          "--experiment=dmlab"]  # env steps count frames (frameskip 4)
-    with launch_shapes(cuda_rnn) as shapes:
+    with launch_shapes(cuda_rnn) as shapes, in_routes(cuda_rnn) as routes:
         runner, counts, stats, _ = train(torch, cuda_rnn, argv, tmp, before_run, register_fn=train_dmlab.register_dmlab_components,
                                          parse=train_dmlab.parse_dmlab_args)
     cfg, minibatches = runner.cfg, runner._quantizer.num_minibatches
@@ -2582,31 +2877,36 @@ def dmlab_run(torch, cuda_rnn, card, tmp):
     check(by_site["core"] == by_site["instruction_learner"] == DMLAB_ITERS * minibatches
           and by_site["instruction_learner_last_value"] == DMLAB_ITERS, f"learner launches by site {by_site}")
     check(by_site["instruction_rollout"] >= DMLAB_ITERS * cfg.rollout * cfg.worker_num_splits, f"rollout launches by site {by_site}")
-    # each site's launches go to the design its plan picks (the instruction encoder: the resident design)
+    # each site's launches go to its route (the instruction encoder: lstm_seq_in's fused kernel) or the design its plan picks
+    # (the core); the backward once for each learner minibatch's forward (the core and the instruction encoder), the rollout
+    # and the value of the last observation running under no_grad
+    kernels = {site: site_kernels(cuda_rnn, T, B, H, torch.float32, None if site == "core" else DMLAB_INSTRUCTION_EMBED)
+               for site, (_, T, B, H) in sites.items()}
     expected = dict.fromkeys(counts, 0)
-    for site, (kind, T, B, H) in sites.items():
-        expected[cuda_rnn._kernel_name(kind, cuda_rnn.launch_plan(kind, T, B, H, "float32", SPEC))] += by_site[site]
-    # the backward once for each learner minibatch's forward (the core and the instruction encoder); the rollout
-    # and the value of the last observation run under no_grad
-    for site in ("core", "instruction_learner"):
-        kind, _, B, H = sites[site]
-        expected[cuda_rnn._bwd_kernel_name(kind, cuda_rnn.bwd_plan(kind, B, H, "float32", SPEC))] += by_site[site]
+    for site, (fwd_name, bwd_name) in kernels.items():
+        expected[fwd_name] += by_site[site]
+        if site in ("core", "instruction_learner"):
+            expected[bwd_name] += by_site[site]
     check(sum(by_site.values()) == len(shapes) and counts == expected, f"launches {counts} against {expected}, shapes {set(shapes)}")
-    # the instruction encoder on the resident design: the learner's forward once a minibatch, its backward once for each of
-    # those forwards; the row design on no path
-    on_sxm = SPEC == cuda_rnn.H100_SXM  # every instruction-encoder site on the resident design there
-    check(counts["lstm_seq_resident"] >= by_site["instruction_learner"] and counts["lstm_seq_resident_bwd"] == by_site["instruction_learner"]
-          and (not on_sxm or counts["lstm_seq_resident"] == sum(by_site.values()) - by_site["core"]),
-          f"the instruction encoder's launches {counts}")
+    # the instruction encoder in one launch each way: the fused forward at every site (on the H100 SXM; a smaller card may plan
+    # otherwise), its backward once for each learner forward, no call on the Linear + lstm_seq route, and no resident kernel
+    # of the unfused route; the row design on no path
+    on_sxm = SPEC == cuda_rnn.H100_SXM
+    instruction = {shape: ways for shape, ways in routes.items() if shape[3] == DMLAB_INSTRUCTION_EMBED}
+    check(counts["lstm_seq_resident_in"] >= by_site["instruction_learner"] and counts["lstm_seq_resident_in_bwd"] == by_site["instruction_learner"]
+          and (not on_sxm or (counts["lstm_seq_resident_in"] == sum(by_site.values()) - by_site["core"]
+                              and counts["lstm_seq_resident"] == counts["lstm_seq_resident_bwd"] == 0
+                              and all(set(ways) == {"fused"} for ways in instruction.values()))),
+          f"the instruction encoder's launches {counts}, routes {routes}")
     check(counts["lstm_seq_rows"] == counts["lstm_seq_bwd"] == 0, f"the row design ran: {counts}")
-    SITE_LAUNCHES["dmlab"] = {site: {"kernel": cuda_rnn._kernel_name("lstm", cuda_rnn.launch_plan("lstm", T, B, H, "float32", SPEC)),
-                                     "launches": by_site[site]} for site, (_, T, B, H) in sites.items()}
+    SITE_LAUNCHES["dmlab"] = {site: {"kernel": kernels[site][0], "launches": by_site[site]} for site in sites}
     check(sum(episodes.values()) > 0 and not shm_segments(), f"episodes {episodes}, segments {shm_segments()}")
     cache = os.path.join(tmp, "dmlab_cache")
     emit({"phase": "dmlab", "env": "dmlab_30 (DmlabEnv over the stand-in engine)", "workers": workers, "envs": DMLAB_ENVS, "cut": cut,
           "cpu_count": os.cpu_count(), "splits": cfg.worker_num_splits, "rollout": 32, "batch": 1024,
           "model": "convnet_impala ++ instruction embedding + LSTM-64, LSTM-256 float32", "launches": counts,
-          "lstm_seq_launches_by_site": by_site, "minibatches_per_train_step": minibatches,
+          "lstm_seq_launches_by_site": by_site, "lstm_seq_in_routes": {str(list(k)): v for k, v in routes.items()},
+          "minibatches_per_train_step": minibatches,
           **host_example_line(runner, DMLAB_ITERS, record, DMLAB_ENVS), "episodes_by_task": episodes, "tasks_seen": len(episodes),
           "dmlab_target_objective": [list(d) for d in runner.policy_avg_stats.get(TARGET_OBJECTIVE_STAT, [])],
           "level_cache_maps": len(os.listdir(os.path.join(cache, "maps"))) if os.path.isdir(os.path.join(cache, "maps")) else 0,
@@ -3690,6 +3990,113 @@ def phase_bench(torch, card):
           "rows": [{k: v for k, v in r.items() if k not in ("suite", "note")} for r in rows], "card": card})
 
 
+def kernels_line(paths, main_err, timing, bwd_timing):
+    """The `kernels` line: each kernel's launches by path (`paths`: each path's launch counts) and its numbers from phases
+    `parity` (`main_err`), `timing` and `bwd`."""
+    # launches: each path was driven with the counts at 0 just before it and read just after, and
+    # each kernel's are counted by design (cluster: `*_seq`; grid: `*_seq_grid`; rows: `*_seq_rows`);
+    # `gru_seq` and `lstm_seq` count every design of their port, `*_seq_grid` the grid design alone. A
+    # kernel's numbers are its cluster design's at the main-path shape, the row design's and the grid
+    # design's at the doom (GRU) or nethack (LSTM) path's shape, and the grid design's at each of its sites
+    def by_design(name, counts):
+        return {"cluster": counts[name], "grid": counts[f"{name}_grid"], "rows": counts[f"{name}_rows"],
+                "resident": counts.get(f"{name}_resident", 0), "resident_in": counts.get(f"{name}_resident_in", 0)}
+
+    # the resident design's sites: launches where a path runs the kernel there (the instruction encoder's, `dmlab`)
+    dmlab_sites = {"dmlab_instruction_rollout": "instruction_rollout", "dmlab_instruction_last_value": "instruction_learner_last_value",
+                   "dmlab_instruction_learner": "instruction_learner"}
+
+    def resident_launches(site, backward=False, kernel="lstm_seq_resident"):
+        launched = SITE_LAUNCHES.get("dmlab", {}).get(dmlab_sites.get(site), {"kernel": None, "launches": 0})
+        if launched["kernel"] != kernel:
+            return 0
+        return launched["launches"] if not backward or site == "dmlab_instruction_learner" else 0
+
+    kernels = [
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+         "launches": sum(sum(by_design(name, counts).values()) for counts in paths.values()),
+         "launches_by_design": {d: sum(by_design(name, counts)[d] for counts in paths.values()) for d in by_design(name, paths["main"])},
+         "paths": {path: by_design(name, counts) for path, counts in paths.items()},
+         "max_abs_err": main_err[name], **timing[name], "library_ms": None,
+         "row_design": {"max_abs_err": main_err[f"{name}_rows"], **timing[f"{name}_rows"], "library_ms": None}}
+        for name in ("gru_seq", "lstm_seq")
+    ] + [
+        {"name": f"{kind}_seq_grid", "route": "cuda", "source": SOURCE, "replaces": REPLACES[f"{kind}_seq"],
+         "launches": sum(counts[f"{kind}_seq_grid"] for counts in paths.values()),
+         "paths": {path: counts[f"{kind}_seq_grid"] for path, counts in paths.items()},
+         "max_abs_err": main_err[f"{kind}_seq_grid"], **timing[f"{kind}_seq_grid"], "library_ms": None,
+         "sites": {site: {"launches": paths[path][f"{kind}_seq_grid"], "max_abs_err": main_err[f"{kind}_seq_grid@{site}"],
+                          **timing[f"{kind}_seq_grid@{site}"], "library_ms": None}
+                   for site, (site_kind, _, path) in GRID_SITES.items() if site_kind == kind}}
+        for kind in ("gru", "lstm")
+    ] + [
+        # the backward kernels, each design (the cluster design, `*_seq_cluster_bwd`, at the bf16 and H <= 256 sites; the
+        # grid design, `*_seq_grid_bwd`, at the float32 H=512 ones; the row design, `*_seq_bwd`, where the forward takes the
+        # row design: GRU-1024 and LSTM-1024 in bf16, which no path runs; the resident design, `lstm_seq_resident_bwd`, at DMLab's
+        # instruction encoder over a minibatch): their
+        # numbers at the first learner site of their kind and design (BWD_LINE_SITES), then at each learner site it runs;
+        # ms is the kernel's, whole_backward_ms the prologue, kernel and epilogue's, plain_ms the plain recurrence's,
+        # remat_ms the remat's (the plain forward rerun under autograd); at a grid or cluster site rows_ms is the row
+        # design's kernel at the same shape, timed in turns
+        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+         "launches": sum(counts[name] for counts in paths.values()),
+         "paths": {path: counts[name] for path, counts in paths.items()},
+         "max_abs_err": main_err[name][0], "grad_rel_err": main_err[name][1], **bwd_timing[first], "library_ms": None,
+         "sites": {site: {"launches": paths[path][name] if path else 0, "max_abs_err": main_err[f"{name}@{site}"][0],
+                          "grad_rel_err": main_err[f"{name}@{site}"][1], **bwd_timing[site], "library_ms": None}
+                   for site, (kind, _, path) in BWD_SITES.items() if f"{name}@{site}" in main_err}}
+        for name, first in BWD_LINE_SITES.items()
+    ] + [
+        # the resident design (the LSTM at H <= 64 where a cluster plan needs several waves): its numbers at DMLab's learner
+        # instruction encoder, then at each RESIDENT_SITE (launches where a path runs it there), beside the row design in
+        # turns, the cluster plan where there is one, and cuDNN's LSTM (library_ms: forward; cudnn: both routes, in turns)
+        {"name": "lstm_seq_resident", "route": "cuda", "source": SOURCE, "replaces": REPLACES["lstm_seq_resident"],
+         "launches": sum(counts["lstm_seq_resident"] for counts in paths.values()),
+         "paths": {path: counts["lstm_seq_resident"] for path, counts in paths.items()},
+         "max_abs_err": main_err["lstm_seq_resident"], **timing["lstm_seq_resident"],
+         "sites": {site: {"launches": resident_launches(site), "max_abs_err": main_err[f"lstm_seq_resident@{site}"],
+                          **timing[f"lstm_seq_resident@{site}"]} for site in RESIDENT_SITES}},
+    ]
+    # the resident backward: cuDNN's backward as its library call where the site is float32, and the resident sites no learner
+    # runs (timed in phase `bwd` beside the row design)
+    resident_bwd = next(k for k in kernels if k["name"] == "lstm_seq_resident_bwd")
+    resident_bwd["library_ms"] = timing["lstm_seq_resident"]["cudnn"]["cudnn_bwd_ms"]
+    resident_bwd["cudnn"] = timing["lstm_seq_resident"]["cudnn"]
+    resident_bwd["sites"]["dmlab_instruction_learner"]["library_ms"] = resident_bwd["library_ms"]
+    resident_bwd["sites"].update({
+        site: {"launches": resident_launches(site, backward=True), "max_abs_err": main_err[f"lstm_seq_resident_bwd@{site}"][0],
+               "grad_rel_err": main_err[f"lstm_seq_resident_bwd@{site}"][1], **bwd_timing[f"resident@{site}"],
+               "library_ms": timing[f"lstm_seq_resident@{site}"]["cudnn"].get("cudnn_bwd_ms")}
+        for site in RESIDENT_SITES if site not in BWD_SITES})
+    # lstm_seq_in's kernels, the route of DMLab's instruction encoder: the forward with the input product folded in, its numbers
+    # at the learner's site (where it also writes the backward's buffers) and at each RESIDENT_SITE, beside the unfused route (the
+    # Linear + `lstm_seq_resident`) in turns; the backward on the saved buffers, beside the resident backward that recomputes the
+    # cell states; library_ms: cuDNN's LSTM forward, and its whole backward (cudnn: the three routes in turns, forward and
+    # backward)
+    kernels += [
+        {"name": "lstm_seq_resident_in", "route": "cuda", "source": SOURCE, "replaces": REPLACES["lstm_seq_resident_in"],
+         "launches": sum(counts["lstm_seq_resident_in"] for counts in paths.values()),
+         "paths": {path: counts["lstm_seq_resident_in"] for path, counts in paths.items()},
+         "max_abs_err": main_err["lstm_seq_resident_in"], "lstm_seq_in_grad_rel_err": main_err["lstm_seq_in_grad"],
+         **timing["lstm_seq_resident_in"],
+         "sites": {site: {"launches": resident_launches(site, kernel="lstm_seq_resident_in"),
+                          "max_abs_err": main_err[f"lstm_seq_resident_in@{site}"], **timing[f"lstm_seq_resident_in@{site}"]}
+                   for site in RESIDENT_SITES}},
+        {"name": "lstm_seq_resident_in_bwd", "route": "cuda", "source": SOURCE, "replaces": REPLACES["lstm_seq_resident_in_bwd"],
+         "launches": sum(counts["lstm_seq_resident_in_bwd"] for counts in paths.values()),
+         "paths": {path: counts["lstm_seq_resident_in_bwd"] for path, counts in paths.items()},
+         "max_abs_err": main_err["lstm_seq_resident_in_bwd"][0], "grad_rel_err": main_err["lstm_seq_resident_in_bwd"][1],
+         **bwd_timing["resident_in@dmlab_instruction_learner"],
+         "library_ms": timing["lstm_seq_resident_in"]["cudnn"]["cudnn_bwd_ms"], "cudnn": timing["lstm_seq_resident_in"]["cudnn"],
+         "sites": {site: {"launches": resident_launches(site, backward=True, kernel="lstm_seq_resident_in"),
+                          "max_abs_err": main_err[f"lstm_seq_resident_in_bwd@{site}"][0],
+                          "grad_rel_err": main_err[f"lstm_seq_resident_in_bwd@{site}"][1], **bwd_timing[f"resident_in@{site}"],
+                          "library_ms": timing[f"lstm_seq_resident_in@{site}"]["cudnn"].get("cudnn_bwd_ms")}
+                   for site in RESIDENT_SITES}},
+    ]
+    return kernels
+
+
 def main() -> int:
     # the isaacgym phase's stand-in refuses a process that has imported torch, as NVIDIA's isaacgym
     # does: it is imported first, as a user's script imports it
@@ -3804,82 +4211,7 @@ def main() -> int:
         phase_sampler(torch, card, tmp)
         check(all(v == 0 for v in cuda_rnn.launch_counts().values()), "an RNN kernel launched in the sampler phase")
 
-    # launches: each path was driven with the counts at 0 just before it and read just after, and
-    # each kernel's are counted by design (cluster: `*_seq`; grid: `*_seq_grid`; rows: `*_seq_rows`);
-    # `gru_seq` and `lstm_seq` count every design of their port, `*_seq_grid` the grid design alone. A
-    # kernel's numbers are its cluster design's at the main-path shape, the row design's and the grid
-    # design's at the doom (GRU) or nethack (LSTM) path's shape, and the grid design's at each of its sites
-    def by_design(name, counts):
-        return {"cluster": counts[name], "grid": counts[f"{name}_grid"], "rows": counts[f"{name}_rows"],
-                "resident": counts.get(f"{name}_resident", 0)}
-
-    # the resident design's sites: launches where a path runs the kernel there (the instruction encoder's, `dmlab`)
-    dmlab_sites = {"dmlab_instruction_rollout": "instruction_rollout", "dmlab_instruction_last_value": "instruction_learner_last_value",
-                   "dmlab_instruction_learner": "instruction_learner"}
-
-    def resident_launches(site, backward=False):
-        launched = SITE_LAUNCHES.get("dmlab", {}).get(dmlab_sites.get(site), {"kernel": None, "launches": 0})
-        if launched["kernel"] != "lstm_seq_resident":
-            return 0
-        return launched["launches"] if not backward or site == "dmlab_instruction_learner" else 0
-
-    kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": sum(sum(by_design(name, counts).values()) for counts in paths.values()),
-         "launches_by_design": {d: sum(by_design(name, counts)[d] for counts in paths.values()) for d in by_design(name, paths["main"])},
-         "paths": {path: by_design(name, counts) for path, counts in paths.items()},
-         "max_abs_err": main_err[name], **timing[name], "library_ms": None,
-         "row_design": {"max_abs_err": main_err[f"{name}_rows"], **timing[f"{name}_rows"], "library_ms": None}}
-        for name in ("gru_seq", "lstm_seq")
-    ] + [
-        {"name": f"{kind}_seq_grid", "route": "cuda", "source": SOURCE, "replaces": REPLACES[f"{kind}_seq"],
-         "launches": sum(counts[f"{kind}_seq_grid"] for counts in paths.values()),
-         "paths": {path: counts[f"{kind}_seq_grid"] for path, counts in paths.items()},
-         "max_abs_err": main_err[f"{kind}_seq_grid"], **timing[f"{kind}_seq_grid"], "library_ms": None,
-         "sites": {site: {"launches": paths[path][f"{kind}_seq_grid"], "max_abs_err": main_err[f"{kind}_seq_grid@{site}"],
-                          **timing[f"{kind}_seq_grid@{site}"], "library_ms": None}
-                   for site, (site_kind, _, path) in GRID_SITES.items() if site_kind == kind}}
-        for kind in ("gru", "lstm")
-    ] + [
-        # the backward kernels, each design (the cluster design, `*_seq_cluster_bwd`, at the bf16 and H <= 256 sites; the
-        # grid design, `*_seq_grid_bwd`, at the float32 H=512 ones; the row design, `*_seq_bwd`, where the forward takes the
-        # row design: GRU-1024 and LSTM-1024 in bf16, which no path runs; the resident design, `lstm_seq_resident_bwd`, at DMLab's
-        # instruction encoder over a minibatch): their
-        # numbers at the first learner site of their kind and design (BWD_LINE_SITES), then at each learner site it runs;
-        # ms is the kernel's, whole_backward_ms the prologue, kernel and epilogue's, plain_ms the plain recurrence's,
-        # remat_ms the remat's (the plain forward rerun under autograd); at a grid or cluster site rows_ms is the row
-        # design's kernel at the same shape, timed in turns
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": sum(counts[name] for counts in paths.values()),
-         "paths": {path: counts[name] for path, counts in paths.items()},
-         "max_abs_err": main_err[name][0], "grad_rel_err": main_err[name][1], **bwd_timing[first], "library_ms": None,
-         "sites": {site: {"launches": paths[path][name] if path else 0, "max_abs_err": main_err[f"{name}@{site}"][0],
-                          "grad_rel_err": main_err[f"{name}@{site}"][1], **bwd_timing[site], "library_ms": None}
-                   for site, (kind, _, path) in BWD_SITES.items() if f"{name}@{site}" in main_err}}
-        for name, first in BWD_LINE_SITES.items()
-    ] + [
-        # the resident design (the LSTM at H <= 64 where a cluster plan needs several waves): its numbers at DMLab's learner
-        # instruction encoder, then at each RESIDENT_SITE (launches where a path runs it there), beside the row design in
-        # turns, the cluster plan where there is one, and cuDNN's LSTM (library_ms: forward; cudnn: both routes, in turns)
-        {"name": "lstm_seq_resident", "route": "cuda", "source": SOURCE, "replaces": REPLACES["lstm_seq_resident"],
-         "launches": sum(counts["lstm_seq_resident"] for counts in paths.values()),
-         "paths": {path: counts["lstm_seq_resident"] for path, counts in paths.items()},
-         "max_abs_err": main_err["lstm_seq_resident"], **timing["lstm_seq_resident"],
-         "sites": {site: {"launches": resident_launches(site), "max_abs_err": main_err[f"lstm_seq_resident@{site}"],
-                          **timing[f"lstm_seq_resident@{site}"]} for site in RESIDENT_SITES}},
-    ]
-    # the resident backward: cuDNN's backward as its library call where the site is float32, and the resident sites no learner
-    # runs (timed in phase `bwd` beside the row design)
-    resident_bwd = next(k for k in kernels if k["name"] == "lstm_seq_resident_bwd")
-    resident_bwd["library_ms"] = timing["lstm_seq_resident"]["cudnn"]["cudnn_bwd_ms"]
-    resident_bwd["cudnn"] = timing["lstm_seq_resident"]["cudnn"]
-    resident_bwd["sites"]["dmlab_instruction_learner"]["library_ms"] = resident_bwd["library_ms"]
-    resident_bwd["sites"].update({
-        site: {"launches": resident_launches(site, backward=True), "max_abs_err": main_err[f"lstm_seq_resident_bwd@{site}"][0],
-               "grad_rel_err": main_err[f"lstm_seq_resident_bwd@{site}"][1], **bwd_timing[f"resident@{site}"],
-               "library_ms": timing[f"lstm_seq_resident@{site}"]["cudnn"].get("cudnn_bwd_ms")}
-        for site in RESIDENT_SITES if site not in BWD_SITES})
-    emit({"kernels": kernels})
+    emit({"kernels": kernels_line(paths, main_err, timing, bwd_timing)})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1158,6 +1158,7 @@ struct BwdArgs {
     T* dhn;                // GRU: d_hn = da_n * r [steps][B][H]; LSTM: unused (d_x_proj is the product's gradient)
     float* d_state0;       // d_h0 [B][H] or d_hc0 [B][2H] (the grid design also carries its cells' cotangents there)
     int steps, B, H;
+    bool cells_given;      // the resident LSTM: cbuf holds the cell states the forward saved, and its pass is skipped
 };
 
 // The gate s = 1 / (1 + e), e = exp(-max(x, -88)), each op rounded to T as the plain version's `_sigmoid`
@@ -2404,11 +2405,11 @@ __global__ void __launch_bounds__(kResidentThreads) lstm_resident_bwd_kernel(con
     for (int i = tid; i < 2 * sdg; i += nt) dg0[i] = 0.0f;  // rows past B stay zero in both buffers
 
     // the cell state entering each step, as the forward computed it, into cbuf (each cell its own thread's, which reads it
-    // back below)
+    // back below), unless the forward saved it there
     float c[RT];
 #pragma unroll
     for (int i = 0; i < RT; ++i) c[i] = r0 + i < live ? Num<T>::round(p.s[(size_t)(b0 + r0 + i) * 2 * H + H + j]) : 0.0f;
-    for (int t0 = 0; t0 < steps; t0 += kResidentAhead) {
+    for (int t0 = 0; t0 < (p.cells_given ? 0 : steps); t0 += kResidentAhead) {
         float pi[kResidentAhead][RT], pf[kResidentAhead][RT], pg[kResidentAhead][RT], rst[kResidentAhead][RT];
 #pragma unroll
         for (int u = 0; u < kResidentAhead; ++u) {
@@ -2450,8 +2451,8 @@ __global__ void __launch_bounds__(kResidentThreads) lstm_resident_bwd_kernel(con
     load(steps - 1, av, cv, dv, rv);
     float dh[RT], dc[RT];
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-        const bool in = r0 + i < live;
+    for (int i = 0; i < RT; ++i) {  // no d_final: the final state's cotangent is zero
+        const bool in = r0 + i < live && p.d_final != nullptr;
         dh[i] = in ? p.d_final[(size_t)(b0 + r0 + i) * 2 * H + j] : 0.0f;
         dc[i] = in ? p.d_final[(size_t)(b0 + r0 + i) * 2 * H + H + j] : 0.0f;
     }
@@ -2536,10 +2537,312 @@ __global__ void __launch_bounds__(kResidentThreads) lstm_resident_bwd_kernel(con
     }
 }
 
-// Launch a resident kernel of R rows a block: (R / RT) * H threads, ceil(B / R) blocks; the shared-memory limit above 48 KB
+// ------------------------------------------------------------------ design "resident", the input product folded in
+
+// x's row in a block's shared memory: I rounded up to 4 (float4 reads), zero in the padding; wi's packed rows are padded alike
+__host__ __device__ constexpr int resident_in_pad(int I) { return (I + 3) / 4 * 4; }
+
+// Dynamic shared memory of one lstm_resident_in_kernel block; ops/cuda_rnn.py:resident_in_smem is the same formula, each part on
+// 16 bytes: wh packed as [H][H][4] f32, wi packed as [Ip][H][4] f32, the carry h [2][R][H] f32, x of all `steps` steps
+// [steps][R][Ip] f32, the input parts [2][R][H][4] f32, and for bf16 (`elem` 2) wh and wi as given ([H][4H] and [I][4H]), the
+// landing place of their copies (f32 copies land in the packed parts themselves and are packed there, row by row).
+inline size_t resident_in_smem_bytes(int H, int R, int I, int steps, int elem) {
+    const size_t Ip = resident_in_pad(I), GH = 4 * static_cast<size_t>(H);
+    return align16(16 * static_cast<size_t>(H) * H) + align16(16 * Ip * H) + align16(8 * static_cast<size_t>(R) * H) +
+           align16(4 * static_cast<size_t>(steps) * R * Ip) + align16(32 * static_cast<size_t>(R) * H) +
+           (elem == 2 ? align16(2 * H * GH) + align16(2 * I * GH) : 0);
+}
+
+template <typename T>
+struct InArgs {
+    const T* x;           // [steps][B][I] at strides sxt, sxb (elements), unit stride along I
+    const T* wi;          // [I][4H], as given
+    const T* bi;          // [4H]
+    const float* hc0;     // [B][2H]
+    const float* resets;  // [steps][B]
+    const T* wh;          // [H][4H], as given
+    float* outs;          // [steps][B][H]
+    float* hc_final;      // [B][2H]
+    T* proj;              // the backward's inputs, all three or none: the gate pre-activations [steps][B][4H],
+    float* cells;         // the cell state entering each step [steps][B][H],
+    T* xh;                // and [x | the carry h entering each step | 1 | 0 ...] [steps][B][K]
+    long long sxt, sxb;
+    int steps, B, H, I, K;
+};
+
+// rows of w as given ([rows][4H], landed in shared memory at src) into the packed layout [rows][H][4] f32 at dst (row k, unit j,
+// gate g), a warp a row: each lane reads the four gates of its units (j = lane, lane + 32; H 32 or 64), neighbouring units across
+// the warp, then writes each unit's four as one 16-byte store; the warp has read the whole row before it writes, so src may
+// be dst (an f32 row packed in place).
+template <typename T>
+__device__ __forceinline__ void pack_rows(float* dst, const T* src, int rows, int H) {
+    const int lane = threadIdx.x & 31, warps = blockDim.x / 32;
+    for (int k = threadIdx.x / 32; k < rows; k += warps) {
+        const T* w = src + (size_t)k * 4 * H;
+        float v[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int g = 0; g < 4; ++g) v[u][g] = lane + 32 * u < H ? Num<T>::load(w + g * H + lane + 32 * u) : 0.0f;
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+            if (lane + 32 * u < H)
+                *reinterpret_cast<float4*>(dst + ((size_t)k * H + lane + 32 * u) * 4) = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+        __syncwarp();
+    }
+}
+
+// x of every step of the block's rows into xs [steps][R][Ip] f32, zero past B and in the padding, loads issued eight at a time
+// before their stores; where the backward's buffers are wanted, also those rows' x and constant columns (1, then zeros) of xh.
+template <typename T>
+__device__ __forceinline__ void stage_x(const InArgs<T>& p, float* xs, int b0, int live, int R) {
+    const int Ip = resident_in_pad(p.I), n = p.steps * R * Ip;
+    for (int i0 = threadIdx.x; i0 < n; i0 += 8 * blockDim.x) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const int i = i0 + u * blockDim.x, k = i % Ip, r = i / Ip % R, t = i / (Ip * R);
+            v[u] = i < n && r < live && k < p.I ? Num<T>::load(p.x + t * p.sxt + (b0 + r) * p.sxb + k) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            const int i = i0 + u * blockDim.x, k = i % Ip, r = i / Ip % R, t = i / (Ip * R);
+            if (i >= n) break;
+            xs[i] = v[u];
+            if (p.xh != nullptr && r < live && k < p.I) p.xh[((size_t)t * p.B + b0 + r) * p.K + k] = Num<T>::to(v[u]);
+        }
+    }
+    if (p.xh != nullptr) {
+        const int C = p.K - p.I - p.H;
+        for (int i = threadIdx.x; i < p.steps * R * C; i += blockDim.x) {
+            const int q = i % C, r = i / C % R, t = i / (C * R);
+            if (r < live) p.xh[((size_t)t * p.B + b0 + r) * p.K + p.I + p.H + q] = Num<T>::to(q == 0 ? 1.0f : 0.0f);
+        }
+    }
+}
+
+// The input part of one step for RT rows (xr: the first of them in xs) of unit j: x @ wi over k in order, rounded to T, then
+// + bi in T, as the unfused route rounds it (its Linear's product, then its add).
+template <typename T, int RT>
+__device__ __forceinline__ void input_part(const float* xr, const float* wis, const float (&b)[4], int Ip, int H, int j, float (&xp)[RT][4]) {
+    float acc[RT][4];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+    const float* w = wis + 4 * j;
+#pragma unroll 2
+    for (int k = 0; k < Ip; k += 4) {
+        float4 xv[RT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) xv[i] = *reinterpret_cast<const float4*>(xr + i * Ip + k);  // a broadcast
+        float4 wv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wv[e] = *reinterpret_cast<const float4*>(w + (size_t)(k + e) * 4 * H);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            const float xe[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                acc[i][0] = fmaf(xe[e], wv[e].x, acc[i][0]);
+                acc[i][1] = fmaf(xe[e], wv[e].y, acc[i][1]);
+                acc[i][2] = fmaf(xe[e], wv[e].z, acc[i][2]);
+                acc[i][3] = fmaf(xe[e], wv[e].w, acc[i][3]);
+            }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) xp[i][g] = add<T>(Num<T>::round(acc[i][g]), b[g]);
+}
+
+// lstm_resident_in_forward <- _lstm_kernel (sample_factory_tpu/ops/pallas_gru.py:226-253, pallas_call at :271) with the input
+// product that the JAX package computes before it (sample_factory_tpu/ops/rnn_cells.py:124), counted as lstm_seq_resident_in:
+// the LSTM from the raw input x [T,B,I], wi [I,4H] and bi [4H] in one launch, as cuDNN's LSTM call takes it. The resident
+// design (lstm_resident_kernel's blocks, thread map, product and cells), with x_proj made in the block, off the recurrence's
+// chain:
+//   - the block has twice the resident forward's threads: consumers (tid < nc = R / RT * H), which run the recurrence as
+//     lstm_resident_kernel does, and as many producers, producer q making the input parts of consumer q's cells: during step t
+//     it computes step t + 1's, round_T(x @ wi) + bi in T (as the unfused route rounds it: its Linear's product, then its
+//     add), into one of two shared buffers ([2][R][H][4] f32, each consumer's float4 of a row at its own index: no bank
+//     conflict), which the consumers read after the step's barrier. The producers' FMAs and shared-memory reads fill the
+//     consumers' waits on the product's shared-memory latency. On an H100, made at the top of each step by the consumers
+//     themselves the input part cost about 750 cycles a step at DMLab's learner (rnn_seq_phases), and made for all steps in a
+//     prologue it was slower still (0.0886 ms against 0.0803 a launch, in turns);
+//   - wh and wi are read as given ([K][4H] in T): copied 16 bytes at a time into shared memory as they are, then laid out
+//     packed ([K][H][4] f32, a thread's four gate weights of a row in one 16-byte read) by the block's warps, a row each, f32
+//     rows in place (pack_rows; H 32 or 64), so that no launch of the wrapper packs them (4-byte copies of each element into the
+//     packed layout cost 0.033 ms a launch on an H100);
+//   - x of all T steps of the block's rows is staged in shared memory once ([T][R][Ip] f32: 10 KB at DMLab's learner); x is
+//     read by element at its strides (the instruction encoder's x is a transposed view), so no copy of it and no alignment is
+//     needed;
+//   - where the backward's buffers are wanted (a call that needs a gradient), the consumers also write the gate
+//     pre-activations proj (the backward kernel's input, so the backward's prologue and its product go) and the cell state
+//     entering each step (so the backward's cell-state pass goes), and xh = [x | the carry h entering each step | 1 | 0 ...]
+//     is filled, from which one product gives the gradients of wi, wh and bi; under no_grad (the rollout, the last value) the
+//     block writes none.
+template <typename T, int RT>
+__global__ void __launch_bounds__(kResidentThreads) lstm_resident_in_kernel(const InArgs<T> p, int R) {
+    const int H = p.H, GH = 4 * H, I = p.I, Ip = resident_in_pad(I), steps = p.steps, tid = threadIdx.x;
+    const int nc = blockDim.x / 2;  // the consumers; the producers are the rest
+    const bool consumer = tid < nc;
+    const int q = consumer ? tid : tid - nc;
+    const int j = q % H, r0 = q / H * RT;  // this thread's (or its consumer's) unit and first row
+    const int b0 = static_cast<int>(blockIdx.x) * R, live = min(R, p.B - b0);
+    const bool saving = p.proj != nullptr;
+
+    extern __shared__ __align__(16) unsigned char resident_smem[];
+    float* ws = reinterpret_cast<float*>(resident_smem);  // [H][H][4]
+    float* wis = ws + align16(16 * (size_t)H * H) / 4;    // [Ip][H][4]
+    float* hs = wis + align16(16 * (size_t)Ip * H) / 4;   // [2][R][H]
+    float* xs = hs + align16(8 * (size_t)R * H) / 4;      // [steps][R][Ip]
+    float4* xq = reinterpret_cast<float4*>(xs + align16(4 * (size_t)steps * R * Ip) / 4);  // [2][RT][nc]
+    // wh and wi as given ([H][4H], [I][4H]): an f32 copy lands where it is packed, a bf16 one after the input parts
+    T* whr = sizeof(T) == 4 ? reinterpret_cast<T*>(ws) : reinterpret_cast<T*>(xq + 2 * (size_t)R * H);
+    T* wir = sizeof(T) == 4 ? reinterpret_cast<T*>(wis)
+                            : reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(whr) + align16(sizeof(T) * (size_t)H * GH));
+
+    stage_copy(whr, p.wh, static_cast<int>(sizeof(T)) * H * GH);
+    stage_copy(wir, p.wi, static_cast<int>(sizeof(T)) * I * GH);
+    cp_async_commit();
+    stage_x(p, xs, b0, live, R);
+    float b[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) b[g] = Num<T>::load(p.bi + g * H + j);
+    // the carry is only ever used as a T operand, so it is kept rounded to T; rows past B stay zero
+    for (int i = tid; i < 2 * R * H; i += blockDim.x) {
+        const int r = i / H % R, k = i % H;
+        hs[i] = i < R * H && r < live ? Num<T>::round(p.hc0[(size_t)(b0 + r) * 2 * H + k]) : 0.0f;
+    }
+    float c[RT], rv[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+        const int r = r0 + i;
+        c[i] = r < live ? Num<T>::round(p.hc0[(size_t)(b0 + r) * 2 * H + H + j]) : 0.0f;
+        rv[i] = r < live ? p.resets[b0 + r] : 0.0f;
+        if (consumer && saving && r < live) p.xh[(size_t)(b0 + r) * p.K + I + j] = Num<T>::to(Num<T>::round(p.hc0[(size_t)(b0 + r) * 2 * H + j]));
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // wh and wi have landed as given, x is staged
+    pack_rows(ws, whr, H, H);
+    pack_rows(wis, wir, I, H);
+    for (int i = tid; i < (Ip - I) * 4 * H; i += blockDim.x) wis[(size_t)I * 4 * H + i] = 0.0f;  // wi's padding rows
+    __syncthreads();  // and are packed
+    // the producers: step `t`'s input parts of their consumers' cells into buffer t & 1
+    auto produce = [&](int t) {
+        float xp[RT][4];
+        input_part<T, RT>(xs + ((size_t)t * R + r0) * Ip, wis, b, Ip, H, j, xp);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) xq[((size_t)(t & 1) * RT + i) * nc + q] = make_float4(xp[i][0], xp[i][1], xp[i][2], xp[i][3]);
+    };
+    if (!consumer) produce(0);
+    __syncthreads();  // step 0's input parts are in buffer 0
+
+    for (int t = 0; t < steps; ++t) {
+        const int s = t & 1;
+        if (!consumer) {
+            if (t + 1 < steps) produce(t + 1);
+        } else {
+            PHASE_MARK(c0);
+            float rn[RT], xv[RT][4];  // the next step's resets, in flight while this step runs; this step's input parts
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+                rn[i] = t + 1 < steps && r0 + i < live ? p.resets[(size_t)(t + 1) * p.B + b0 + r0 + i] : 0.0f;
+                const float4 v = xq[((size_t)s * RT + i) * nc + q];
+                xv[i][0] = v.x, xv[i][1] = v.y, xv[i][2] = v.z, xv[i][3] = v.w;
+            }
+            PHASE_MARK(c1);
+            // the product, as lstm_resident_kernel's
+            constexpr int KB = resident_kb<RT>();
+            float acc[RT][4];
+#pragma unroll
+            for (int i = 0; i < RT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+            const float* hr = hs + (size_t)s * R * H + r0 * H;
+            const float* w = ws + 4 * j;
+            float4 wc[KB];
+            float hc[RT][KB];
+            auto chunk = [&](int k0, float4 (&wd)[KB], float (&hd)[RT][KB]) {
+#pragma unroll
+                for (int e = 0; e < KB; ++e) {
+                    wd[e] = *reinterpret_cast<const float4*>(w + (size_t)(k0 + e) * GH);
+#pragma unroll
+                    for (int i = 0; i < RT; ++i) hd[i][e] = hr[i * H + k0 + e];  // a broadcast
+                }
+            };
+            chunk(0, wc, hc);
+            for (int k0 = 0; k0 < H; k0 += KB) {
+                float4 wnext[KB];
+                float hnext[RT][KB];
+                chunk(k0 + KB < H ? k0 + KB : k0, wnext, hnext);
+#pragma unroll
+                for (int e = 0; e < KB; ++e) {
+#pragma unroll
+                    for (int i = 0; i < RT; ++i) {
+                        acc[i][0] = fmaf(hc[i][e], wc[e].x, acc[i][0]);
+                        acc[i][1] = fmaf(hc[i][e], wc[e].y, acc[i][1]);
+                        acc[i][2] = fmaf(hc[i][e], wc[e].z, acc[i][2]);
+                        acc[i][3] = fmaf(hc[i][e], wc[e].w, acc[i][3]);
+                    }
+                }
+#pragma unroll
+                for (int e = 0; e < KB; ++e) {
+                    wc[e] = wnext[e];
+#pragma unroll
+                    for (int i = 0; i < RT; ++i) hc[i][e] = hnext[i][e];
+                }
+            }
+            PHASE_MARK(c2);
+            float* hn = hs + (size_t)(s ^ 1) * R * H;
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+                const float pi = add<T>(xv[i][0], Num<T>::round(acc[i][0])), pf = add<T>(xv[i][1], Num<T>::round(acc[i][1]));
+                const float pg = add<T>(xv[i][2], Num<T>::round(acc[i][2])), po = add<T>(xv[i][3], Num<T>::round(acc[i][3]));
+                const float new_c = add<T>(mul<T>(sigmoid_t<T>(add<T>(pf, 1.0f)), c[i]), mul<T>(sigmoid_t<T>(pi), tanh_t<T>(pg)));
+                const float new_h = mul<T>(sigmoid_t<T>(po), tanh_t<T>(new_c));
+                const bool reset = rv[i] > 0.0f;
+                const int r = r0 + i;
+                if (r < live) {
+                    const size_t row = (size_t)t * p.B + b0 + r;
+                    p.outs[row * H + j] = new_h;
+                    hn[r * H + j] = reset ? 0.0f : new_h;
+                    if (saving) {
+                        T* pr = p.proj + row * GH + j;
+                        pr[0] = Num<T>::to(pi), pr[H] = Num<T>::to(pf), pr[2 * H] = Num<T>::to(pg), pr[3 * H] = Num<T>::to(po);
+                        p.cells[row * H + j] = c[i];
+                        if (t + 1 < steps) p.xh[(row + p.B) * p.K + I + j] = Num<T>::to(reset ? 0.0f : new_h);
+                    }
+                }
+                c[i] = reset ? 0.0f : new_c;
+                rv[i] = rn[i];
+            }
+            PHASE_MARK(c3);
+            PHASE_ADD(0, c1, c2);  // the product
+            PHASE_ADD(1, c2, c3);  // the cells
+            PHASE_ADD(2, c0, c1);  // the next step's resets issued, this step's input parts read
+        }
+        PHASE_MARK(c4);
+        __syncthreads();  // the new carry is whole, and the next step's input parts are made
+        PHASE_MARK(c5);
+        PHASE_ADD(3, c4, c5);  // the barrier (thread 0, a consumer: its wait for the producers too)
+    }
+
+    if (consumer) {
+        const float* hl = hs + (size_t)(steps & 1) * R * H;
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+            const int r = r0 + i;
+            if (r < live) {
+                p.hc_final[(size_t)(b0 + r) * 2 * H + j] = hl[r * H + j];
+                p.hc_final[(size_t)(b0 + r) * 2 * H + H + j] = c[i];
+            }
+        }
+    }
+}
+
+// Launch a resident kernel of R rows and `threads` threads a block, ceil(B / R) blocks; the shared-memory limit above 48 KB
 // raised once per kernel, device and process (as launch_bwd raises it).
 template <typename K, typename... Args>
-int launch_resident(K kernel, int B, int H, int R, int RT, int smem, cudaStream_t stream, Args... args) {
+int launch_resident(K kernel, int B, int R, int threads, int smem, cudaStream_t stream, Args... args) {
     static std::mutex lock;
     static std::map<std::pair<const void*, int>, int> smem_set;  // (kernel, device) -> the limit set there
     {
@@ -2554,7 +2857,7 @@ int launch_resident(K kernel, int B, int H, int R, int RT, int smem, cudaStream_
             set = smem;
         }
     }
-    kernel<<<(B + R - 1) / R, R / RT * H, smem, stream>>>(args...);
+    kernel<<<(B + R - 1) / R, threads, smem, stream>>>(args...);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -2573,9 +2876,25 @@ int resident_forward(const void* x, const void* hc0, const void* resets, const v
     const float *s0 = static_cast<const float*>(hc0), *rs = static_cast<const float*>(resets), *w = static_cast<const float*>(wpk);
     float *o = static_cast<float*>(outs), *sf = static_cast<float*>(hc_final);
     switch (resident_rows_a_thread(R, H)) {
-        case 4: return launch_resident(lstm_resident_kernel<T, 4>, B, H, R, 4, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
-        case 2: return launch_resident(lstm_resident_kernel<T, 2>, B, H, R, 2, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
-        default: return launch_resident(lstm_resident_kernel<T, 1>, B, H, R, 1, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
+        case 4: return launch_resident(lstm_resident_kernel<T, 4>, B, R, R / 4 * H, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
+        case 2: return launch_resident(lstm_resident_kernel<T, 2>, B, R, R / 2 * H, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
+        default: return launch_resident(lstm_resident_kernel<T, 1>, B, R, R / 1 * H, smem, stream, xt, s0, rs, w, o, sf, steps, B, H, R);
+    }
+}
+
+template <typename T>
+int resident_in_forward(const InArgs<T>& p, int R, int smem, cudaStream_t stream) {
+    const bool saved = p.proj != nullptr;
+    const int rt = resident_rows_a_thread(R, p.H);
+    if (!resident_shape_ok(p.steps, p.B, p.H, R, smem, resident_in_smem_bytes(p.H, R, p.I, p.steps, sizeof(T))) || p.H % 32 != 0 || p.H > 64 ||
+        2 * (R / rt) * p.H > kResidentThreads || p.I < 1 || saved != (p.cells != nullptr) || saved != (p.xh != nullptr) ||
+        (saved && p.K < p.I + p.H + 1))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = 2 * (R / rt) * p.H;  // the consumers' and as many producers
+    switch (rt) {
+        case 4: return launch_resident(lstm_resident_in_kernel<T, 4>, p.B, R, threads, smem, stream, p, R);
+        case 2: return launch_resident(lstm_resident_in_kernel<T, 2>, p.B, R, threads, smem, stream, p, R);
+        default: return launch_resident(lstm_resident_in_kernel<T, 1>, p.B, R, threads, smem, stream, p, R);
     }
 }
 
@@ -2583,9 +2902,9 @@ template <typename T>
 int resident_backward(const BwdArgs<T>& p, const float* wh, int R, int smem, cudaStream_t stream) {
     if (!resident_shape_ok(p.steps, p.B, p.H, R, smem, resident_bwd_smem_bytes(p.H, R))) return static_cast<int>(cudaErrorInvalidValue);
     switch (resident_rows_a_thread(R, p.H)) {
-        case 4: return launch_resident(lstm_resident_bwd_kernel<T, 4>, p.B, p.H, R, 4, smem, stream, p, wh, R);
-        case 2: return launch_resident(lstm_resident_bwd_kernel<T, 2>, p.B, p.H, R, 2, smem, stream, p, wh, R);
-        default: return launch_resident(lstm_resident_bwd_kernel<T, 1>, p.B, p.H, R, 1, smem, stream, p, wh, R);
+        case 4: return launch_resident(lstm_resident_bwd_kernel<T, 4>, p.B, R, R / 4 * p.H, smem, stream, p, wh, R);
+        case 2: return launch_resident(lstm_resident_bwd_kernel<T, 2>, p.B, R, R / 2 * p.H, smem, stream, p, wh, R);
+        default: return launch_resident(lstm_resident_bwd_kernel<T, 1>, p.B, R, R / 1 * p.H, smem, stream, p, wh, R);
     }
 }
 
@@ -2844,6 +3163,43 @@ int lstm_seq_resident_backward(const void* d_outs, const void* d_hc_final, const
         return BwdArgs<T>{static_cast<const float*>(d_outs), static_cast<const float*>(d_hc_final), static_cast<const float*>(resets),
                           static_cast<const T*>(proj), nullptr, static_cast<const float*>(hc0), nullptr, static_cast<float*>(cbuf),
                           static_cast<T*>(d_proj), nullptr, static_cast<float*>(d_hc0), steps, B, H};
+    };
+    const float* w = static_cast<const float*>(wh);
+    if (is_bf16) return resident_backward<__nv_bfloat16>(args(static_cast<__nv_bfloat16*>(nullptr)), w, rows, smem, st);
+    return resident_backward<float>(args(static_cast<float*>(nullptr)), w, rows, smem, st);
+}
+
+// The LSTM from its raw input, design "resident" with the input product folded in (lstm_resident_in_kernel): x [steps][B][I] at
+// strides sxt, sxb (elements; unit stride along I), wi [I][4H], bi [4H] and wh [H][4H] as given in T; proj, cells and xh (K
+// columns) all null under no_grad, else the backward's buffers; rows and smem from ops/cuda_rnn.py:resident_in_plan, smem
+// resident_in_smem_bytes(H, rows, I, steps, the element's bytes); twice the resident forward's threads.
+int lstm_resident_in_forward(const void* x, const void* wi, const void* bi, const void* hc0, const void* resets, const void* wh,
+                             void* outs, void* hc_final, void* proj, void* cells, void* xh, long long sxt, long long sxb, int steps,
+                             int B, int H, int I, int K, int is_bf16, int rows, int smem, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto args = [&](auto* typed) {
+        using T = std::remove_const_t<std::remove_pointer_t<decltype(typed)>>;
+        return InArgs<T>{static_cast<const T*>(x), static_cast<const T*>(wi), static_cast<const T*>(bi), static_cast<const float*>(hc0),
+                         static_cast<const float*>(resets), static_cast<const T*>(wh), static_cast<float*>(outs),
+                         static_cast<float*>(hc_final), static_cast<T*>(proj), static_cast<float*>(cells), static_cast<T*>(xh),
+                         sxt, sxb, steps, B, H, I, K};
+    };
+    if (is_bf16) return resident_in_forward(args(static_cast<__nv_bfloat16*>(nullptr)), rows, smem, st);
+    return resident_in_forward(args(static_cast<float*>(nullptr)), rows, smem, st);
+}
+
+// Backward of lstm_resident_in_forward: lstm_seq_resident_backward on the buffers the forward saved, proj and the cell states
+// (cells: its cell-state pass skipped); d_hc_final may be null (a zero cotangent).
+int lstm_seq_resident_in_backward(const void* d_outs, const void* d_hc_final, const void* resets, const void* proj, const void* hc0,
+                                  const void* wh, const void* cells, void* d_proj, void* d_hc0, int steps, int B, int H, int is_bf16,
+                                  int rows, int smem, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    auto args = [&](auto* typed) {
+        using T = std::remove_const_t<std::remove_pointer_t<decltype(typed)>>;
+        return BwdArgs<T>{static_cast<const float*>(d_outs), static_cast<const float*>(d_hc_final), static_cast<const float*>(resets),
+                          static_cast<const T*>(proj), nullptr, static_cast<const float*>(hc0), nullptr,
+                          const_cast<float*>(static_cast<const float*>(cells)), static_cast<T*>(d_proj), nullptr,
+                          static_cast<float*>(d_hc0), steps, B, H, true};
     };
     const float* w = static_cast<const float*>(wh);
     if (is_bf16) return resident_backward<__nv_bfloat16>(args(static_cast<__nv_bfloat16*>(nullptr)), w, rows, smem, st);

@@ -77,6 +77,18 @@ and the card's spec:
   where the forward's cluster plan needs several waves): a block owns `bwd_rows`
   batch rows and all H units and re-reads wh^T from L2 every step.
 
+The LSTM from its raw input, `lstm_seq_in(x, wi, bi, hc0, resets, wh)` (what `FusedLSTMCell(seq=True)`
+calls without a model axis), takes the input product into the kernel where the forward takes the
+resident design (`resident_in_plan`: DMLab's instruction encoder, I=20, at all three of its sites), so
+that its route is one launch each way, as cuDNN's LSTM call is: `lstm_seq_resident_in`
+(`csrc/rnn_seq.cu:lstm_resident_in_kernel`: x read at its strides, wi and wh laid out in shared memory
+by the block, each step's input part made by producer warps beside the recurrence) writes, where a
+gradient is needed, the
+gate pre-activations, the cell state entering each step and xh = [x | the carry h | 1 | 0 ...];
+`lstm_seq_resident_in_bwd` (the resident backward kernel on those buffers, its cell-state pass skipped)
+gives d_x_proj, and two products give the rest: xh^T @ d_x_proj (the gradients of wi, wh and bi in one)
+and d_x_proj @ wi^T. Elsewhere `lstm_seq_in` is the Linear, then `lstm_seq`; on the CPU its plain version.
+
 There is no fallback between them: the plan decides before the launch, and a
 refused launch raises. On a CPU tensor the backward reruns the plain version
 under autograd (`_recompute_grads`), the direct counterpart of `_bwd`.
@@ -88,12 +100,14 @@ runs the plain version. `launch_counts()` counts the launches of each kernel,
 per design ("gru_seq" is the cluster design, "gru_seq_rows" the row design,
 "gru_seq_grid" the grid design; "gru_seq_bwd", "gru_seq_grid_bwd" and
 "gru_seq_cluster_bwd" the backward's row, grid and cluster designs;
-"lstm_seq_resident" and "lstm_seq_resident_bwd" the LSTM's resident design).
+"lstm_seq_resident" and "lstm_seq_resident_bwd" the LSTM's resident design;
+"lstm_seq_resident_in" and "lstm_seq_resident_in_bwd" `lstm_seq_in`'s fused pair).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -182,6 +196,40 @@ def lstm_seq_reference(x_proj, hc0, resets, wh) -> Tuple[torch.Tensor, torch.Ten
     return torch.stack(outs), hc
 
 
+def lstm_seq_in_reference(x, wi, bi, hc0, resets, wh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`lstm_seq_in`'s plain version: x [T,B,I] @ wi [I,4H] + bi [4H] in x's dtype (the Linear of the unfused route: the
+    product rounded to the dtype, then the add), then lstm_seq_reference."""
+    return lstm_seq_reference(x @ wi + bi, hc0, resets, wh)
+
+
+def lstm_seq_in_saved_reference(x, wi, bi, hc0, resets, wh):
+    """The plain version of `lstm_seq_in`'s kernel with the backward's buffers it writes where a gradient is needed:
+    -> (outs, hc_final as lstm_seq_in_reference; proj [T,B,4H] = x_proj + the carry's h @ wh in x's dtype; cells [T,B,H] f32,
+    the cell state entering each step; xh [T,B,K] = [x | the carry's h entering each step | 1 | 0 ...] in x's dtype, K =
+    in_width(I, H))."""
+    dtype = x.dtype
+    T, B, I = x.shape
+    H = hc0.shape[-1] // 2
+    x_proj = x @ wi + bi
+    one = torch.ones((), dtype=dtype, device=x.device)
+    hc, outs, proj, cells, carries = hc0, [], [], [], []
+    for t in range(T):
+        h, c = hc[:, :H].to(dtype), hc[:, H:].to(dtype)
+        carries.append(h)
+        cells.append(c.float())
+        proj.append(x_proj[t] + h @ wh)
+        i, f, g, o = proj[-1].chunk(4, dim=-1)
+        new_c = _sigmoid(f + one) * c + _sigmoid(i) * torch.tanh(g)
+        new_h = _sigmoid(o) * torch.tanh(new_c)
+        new_hc = torch.cat([new_h, new_c], dim=-1).float()
+        outs.append(new_h.float())
+        hc = torch.where(resets[t, :, None] > 0, torch.zeros_like(new_hc), new_hc)
+    constant = torch.zeros((T, B, in_width(I, H) - I - H), dtype=dtype, device=x.device)
+    constant[..., 0] = 1
+    xh = torch.cat([x, torch.stack(carries), constant], dim=-1)
+    return torch.stack(outs), hc, torch.stack(proj), torch.stack(cells), xh
+
+
 def _sigmoid_bwd(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The gate as `_sigmoid` computes it (in x's dtype) and its derivative in f32, e * s * s with
     e = exp(-x): 0 below -88, as the clamp's backward gives it."""
@@ -218,22 +266,28 @@ def gru_seq_bwd_reference(d_outs, d_h_final, resets, x_proj, h_proj, h_prev, wh)
     return torch.stack(d_x[::-1]).to(dtype), torch.stack(d_hn[::-1]).to(dtype), dh
 
 
-def lstm_seq_bwd_reference(d_outs, d_hc_final, resets, proj, hc0, wh) -> Tuple[torch.Tensor, torch.Tensor]:
+def lstm_seq_bwd_reference(d_outs, d_hc_final, resets, proj, hc0, wh, cells=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The LSTM backward's recurrence, plain (the kernel `lstm_seq_bwd`'s signature): the cell state entering
     each step forward in time, in proj's dtype as the forward computes it (the forward saves h, not c), then
     a reverse loop over T in f32 arithmetic.
-    (d_outs [T,B,H] f32, d_hc_final [B,2H] f32, resets [T,B] f32, proj [T,B,4H] = x_proj + the carry's h @ wh,
-    hc0 [B,2H] f32, wh [H,4H]) -> (d_x_proj [T,B,4H] in proj's dtype, also the product's gradient; d_hc0 [B,2H] f32)."""
+    (d_outs [T,B,H] f32, d_hc_final [B,2H] f32 or None (zero), resets [T,B] f32, proj [T,B,4H] = x_proj + the carry's h @ wh,
+    hc0 [B,2H] f32, wh [H,4H]; `cells` [T,B,H] f32: the cell states entering each step where a forward saved them, read in
+    place of the pass) -> (d_x_proj [T,B,4H] in proj's dtype, also the product's gradient; d_hc0 [B,2H] f32)."""
     dtype = proj.dtype
     H = hc0.shape[-1] // 2
     one = torch.ones((), dtype=dtype, device=proj.device)
-    c, cells = hc0[:, H:].to(dtype), []
-    for t in range(proj.shape[0]):
-        cells.append(c)
-        i, f, g, _ = proj[t].chunk(4, dim=-1)
-        new_c = _sigmoid(f + one) * c + _sigmoid(i) * torch.tanh(g)
-        c = torch.where(resets[t, :, None] > 0, torch.zeros_like(new_c), new_c)
+    if cells is not None:
+        cells = cells.to(dtype)
+    else:
+        c, cells = hc0[:, H:].to(dtype), []
+        for t in range(proj.shape[0]):
+            cells.append(c)
+            i, f, g, _ = proj[t].chunk(4, dim=-1)
+            new_c = _sigmoid(f + one) * c + _sigmoid(i) * torch.tanh(g)
+            c = torch.where(resets[t, :, None] > 0, torch.zeros_like(new_c), new_c)
     wt = wh.float().t()
+    if d_hc_final is None:
+        d_hc_final = torch.zeros_like(hc0)
     dh, dc = d_hc_final[:, :H].float(), d_hc_final[:, H:].float()
     d_x = []
     for t in reversed(range(proj.shape[0])):
@@ -484,6 +538,45 @@ def resident_plan(kind: str, B: int, H: int, dtype, spec: CardSpec = H100_SXM, b
         return None
     rt = resident_rows_a_thread(rows, H)
     return Plan("resident", 1, rows, H, smem_of(H, rows), -(-B // rows), tile_rows=rt, threads=rows // rt * H)
+
+
+def resident_in_pad(I: int) -> int:
+    """x's row in a resident_in block's shared memory, and wi's rows: I rounded up to 4 (`resident_in_pad` in csrc/rnn_seq.cu)."""
+    return -(-I // 4) * 4
+
+
+def resident_in_smem(H: int, rows: int, I: int, T: int, itemsize: int) -> int:
+    """Shared memory of one fused resident forward block (`resident_in_smem_bytes` in csrc/rnn_seq.cu), each part on 16 bytes: wh
+    packed as [H][H][4] f32, wi packed as [Ip][H][4] f32, the carry h [2][rows][H] f32, x of all T steps [T][rows][Ip] f32, the
+    input parts [2][rows][H][4] f32, and in bf16 (`itemsize` 2) wh and wi as given ([H][4H], [I][4H]), where their copies land
+    before the block packs them (f32 copies land in the packed parts and are packed in place)."""
+    Ip, GH = resident_in_pad(I), 4 * H
+    given = _a16(2 * H * GH) + _a16(2 * I * GH) if itemsize == 2 else 0
+    return _a16(16 * H * H) + _a16(16 * Ip * H) + _a16(8 * rows * H) + _a16(4 * T * rows * Ip) + _a16(32 * rows * H) + given
+
+
+def in_width(I: int, H: int) -> int:
+    """Columns of the fused forward's saved xh = [x | the carry h | 1 | 0 ...]: I + H + 1 rounded up to 8 (rows on 16 bytes)."""
+    return -(-(I + H + 1) // 8) * 8
+
+
+@functools.lru_cache(maxsize=256)
+def resident_in_plan(T: int, B: int, H: int, I: int, dtype, spec: CardSpec = H100_SXM):
+    """The plan of `lstm_seq_in`'s kernel (the resident design with the input product folded in) on a card of `spec`, or None
+    where it takes none: where `launch_plan` takes the resident design (H a multiple of 32: the kernel packs wi and wh a warp a
+    row), the resident forward's rows and blocks, with twice its
+    threads (its consumers and as many producers of the input parts), where those stay within RESIDENT_MAX_THREADS and the
+    block's shared memory (`resident_in_smem`: x of all T steps staged at once) within spec.smem_limit. At DMLab's learner
+    (16, 1024, 64) f32 with I=20 on the H100 SXM: 128 blocks of 8 rows and 256 threads, 116,736 bytes; no plan at (16, 4096,
+    64), whose resident blocks have 512 threads already."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if I < 1 or H % 32 or launch_plan("lstm", T, B, H, dtype, spec).design != "resident":
+        return None
+    fwd = resident_plan("lstm", B, H, dtype, spec)
+    smem = resident_in_smem(H, fwd.rows, I, T, 2 if dtype == torch.bfloat16 else 4)
+    if 2 * fwd.threads > RESIDENT_MAX_THREADS or smem > spec.smem_limit:
+        return None
+    return dataclasses.replace(fwd, design="resident_in", smem=smem, threads=2 * fwd.threads)
 
 
 @functools.lru_cache(maxsize=256)
@@ -782,6 +875,8 @@ def bind(path: Path, entries: Tuple[str, ...] = ()):
         "max_active_clusters": [i32] * 4, "grid_blocks_per_sm": [i32] * 5, "grid_bwd_blocks_per_sm": [i32] * 3,
         "bwd_max_active_clusters": [i32] * 4,
         "lstm_resident_forward": [ptr] * 6 + [i32] * 6 + [ptr], "lstm_seq_resident_backward": [ptr] * 9 + [i32] * 6 + [ptr],
+        "lstm_resident_in_forward": [ptr] * 11 + [ctypes.c_longlong] * 2 + [i32] * 8 + [ptr],
+        "lstm_seq_resident_in_backward": [ptr] * 9 + [i32] * 6 + [ptr],
     }
     for name in entries or signatures:
         fn = getattr(lib, name)
@@ -826,7 +921,8 @@ def _check_common(x_proj: torch.Tensor, gates: int) -> Tuple[int, int, int]:
 
 
 def _kernel_name(kind: str, plan: Plan) -> str:
-    return {"cluster": f"{kind}_seq", "grid": f"{kind}_seq_grid", "rows": f"{kind}_seq_rows", "resident": f"{kind}_seq_resident"}[plan.design]
+    return {"cluster": f"{kind}_seq", "grid": f"{kind}_seq_grid", "rows": f"{kind}_seq_rows", "resident": f"{kind}_seq_resident",
+            "resident_in": f"{kind}_seq_resident_in"}[plan.design]
 
 
 def _launch(kind, x_proj, state0, resets, wh, bh, plan):
@@ -979,6 +1075,80 @@ def _launch_lstm_bwd(d_outs, d_hc_final, resets, proj, hc0, wh, rows=None, plan=
     return _launch_bwd("lstm", d_outs, d_hc_final, resets, proj, None, hc0, wh, rows, plan)
 
 
+def _launch_lstm_in(x, wi, bi, hc0, resets, wh, save=False, plan=None):
+    """Checks, allocates the outputs and launches `lstm_seq_in`'s kernel (`lstm_resident_in_forward`) on the current stream:
+    `plan`, or `resident_in_plan` for the spec of the card that x lies on. x [T,B,I] goes at its strides (a copy only where its
+    last dimension is strided), wi, bi and wh as they are: the kernel lays wi and wh out in shared memory itself. With `save`,
+    the kernel also writes the backward's buffers. -> (outs, hc_final, proj, cells, xh); the last three None without `save`.
+    A plan the card refuses raises; where there is no plan, the caller takes the unfused route."""
+    if x.dim() != 3 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be [T, B, I] in float32 or bfloat16, got {tuple(x.shape)} {x.dtype}")
+    T, B, I = x.shape
+    H, dev, dt = wh.shape[0], x.device, x.dtype
+    if T < 1 or B < 1 or I < 1 or not 1 <= H <= MAX_HIDDEN:
+        raise ValueError(f"unsupported shape T={T}, B={B}, I={I}, H={H}")
+    _check("wi", wi, (I, 4 * H), dt, dev)
+    _check("bi", bi, (4 * H,), dt, dev)
+    _check("hc0", hc0, (B, 2 * H), torch.float32, dev)
+    _check("resets", resets, (T, B), torch.float32, dev)
+    _check("wh", wh, (H, 4 * H), dt, dev)
+    if x.stride(2) != 1:
+        x = x.contiguous()
+    spec = card_spec(dev)
+    plan = plan or resident_in_plan(T, B, H, I, dt, spec)
+    if plan is None or plan.design != "resident_in":
+        raise ValueError(f"no plan of lstm_seq_in's kernel at T={T}, B={B}, I={I}, H={H}, {dt} on a card of {spec.sms} SMs: {plan}")
+    K = in_width(I, H)
+    outs = torch.empty((T, B, H), dtype=torch.float32, device=dev)
+    state = torch.empty_like(hc0)
+    saved = (torch.empty((T, B, 4 * H), dtype=dt, device=dev), torch.empty((T, B, H), dtype=torch.float32, device=dev),
+             torch.empty((T, B, K), dtype=dt, device=dev)) if save else (None, None, None)
+    ptrs = [x, wi, bi, hc0, resets, wh, outs, state, *saved]
+    fn = load_library().lstm_resident_in_forward
+    with torch.cuda.device(dev):
+        err = fn(*[t.data_ptr() if t is not None else None for t in ptrs], x.stride(0), x.stride(1), T, B, H, I, K,
+                 int(dt == torch.bfloat16), plan.rows, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_resident_in_forward launch failed: CUDA error {err} (T={T}, B={B}, I={I}, H={H}, {dt}: plan {plan}, "
+                           f"on a card of {spec.sms} SMs: {spec})")
+    _launches["lstm_seq_resident_in"] += 1
+    return (outs, state, *saved)
+
+
+def _launch_lstm_in_bwd(d_outs, d_hc_final, resets, proj, hc0, wh, cells, plan=None):
+    """The backward of `lstm_seq_in`'s kernel on the buffers its forward saved (`lstm_seq_resident_in_backward`: the resident
+    backward kernel reading the forward's proj and cell states, its cell-state pass skipped), with lstm_seq_bwd_reference's
+    signature; `d_hc_final` may be None (a zero cotangent). -> (d_proj in proj's dtype, d_hc0 f32). A refused launch raises."""
+    T, B, H = _check_common(proj, 4)
+    dev, dt = proj.device, proj.dtype
+    _check("d_outs", d_outs, (T, B, H), torch.float32, dev)
+    if d_hc_final is not None:
+        _check("d_hc_final", d_hc_final, (B, 2 * H), torch.float32, dev)
+    _check("resets", resets, (T, B), torch.float32, dev)
+    _check("hc0", hc0, (B, 2 * H), torch.float32, dev)
+    _check("wh", wh, (H, 4 * H), dt, dev)
+    _check("cells", cells, (T, B, H), torch.float32, dev)
+    spec = card_spec(dev)
+    plan = plan or resident_plan("lstm", B, H, dt, spec, backward=True)
+    if plan is None or plan.design != "resident":
+        raise ValueError(f"no resident backward plan at B={B}, H={H}, {dt} on a card of {spec.sms} SMs")
+    w = wh.float()
+    if w.data_ptr() % 16:  # copied into shared memory 16 bytes at a time; its other inputs are read by element
+        w = w.clone()
+    d_proj, d_hc0 = torch.empty_like(proj), torch.empty_like(hc0)
+    ptrs = [d_outs, d_hc_final, resets, proj, hc0, w, cells, d_proj, d_hc0]
+    fn = load_library().lstm_seq_resident_in_backward
+    with torch.cuda.device(dev):
+        err = fn(*[t.data_ptr() if t is not None else None for t in ptrs], T, B, H, int(dt == torch.bfloat16), plan.rows, plan.smem,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_resident_in_backward launch failed: CUDA error {err} (T={T}, B={B}, H={H}, {dt}: plan {plan}: "
+                           f"{plan.rows} rows a block ({plan.tile_rows} a thread), {plan.grid} blocks of {plan.threads} threads, "
+                           f"{plan.smem} bytes of shared memory, on a card of {spec.sms} SMs: {spec})")
+    _launches["lstm_seq_resident_in_bwd"] += 1
+    return d_proj, d_hc0
+
+
 def _forward(launch, reference, args):
     device = args[0].device
     if device.type == "cuda":
@@ -1067,6 +1237,50 @@ class LSTMSeqFunction(torch.autograd.Function):
         return d_x, d_hc0, None, d_wh
 
 
+def lstm_seq_in_backward(wi, hc0, resets, wh, proj, cells, xh, d_outs, d_hc_final, recurrence=_launch_lstm_in_bwd):
+    """lstm_seq_in's backward from the buffers its forward saved: the recurrence (`recurrence`: the kernel
+    `lstm_seq_resident_in_bwd`, one launch; the tests and chip_smoke.py pass lstm_seq_bwd_reference) gives d_proj, which is
+    also d_x_proj; then one product, xh^T @ d_proj over T*B rows ([x | h_prev | 1 | 0 ...]^T: the rows of d_wi, d_wh and d_bi),
+    and d_x = d_proj @ wi^T. -> (d_x [T,B,I], d_wi, d_bi, d_wh in their dtypes, d_hc0 f32); `d_hc_final` may be None."""
+    I, H = wi.shape[0], wh.shape[0]
+    d_outs = d_outs.float().contiguous() if d_outs is not None else torch.zeros(proj.shape[:2] + (H,), device=proj.device)
+    d_hc_final = d_hc_final.float().contiguous() if d_hc_final is not None else None
+    d_proj, d_hc0 = recurrence(d_outs, d_hc_final, resets, proj, hc0, wh, cells)
+    g = xh.flatten(0, 1).t() @ d_proj.flatten(0, 1)
+    return d_proj @ wi.t(), g[:I], g[I + H], g[I:I + H], d_hc0
+
+
+class LSTMSeqInFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wi, bi, hc0, resets, wh, save):
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cuda":
+            outs, hc_final, *saved = _launch_lstm_in(x, wi, bi, hc0, resets, wh, save=save)
+            if save:
+                ctx.save_for_backward(wi, hc0, resets, wh, *saved)
+            return outs, hc_final
+        if x.device.type != "cpu":
+            raise ValueError(f"no RNN sequence implementation for device {x.device}")
+        outs, hc_final = lstm_seq_in_reference(x, wi, bi, hc0, resets, wh)
+        ctx.save_for_backward(x, wi, bi, hc0, resets, wh)
+        return outs, hc_final
+
+    @staticmethod
+    def backward(ctx, d_outs, d_hc_final):
+        saved = ctx.saved_tensors
+        if saved[0].device.type != "cuda":
+            needs = list(ctx.needs_input_grad[:6])
+            needs[4] = False  # resets get no gradient
+            grad_outputs = (d_outs if d_outs is not None else torch.zeros(saved[0].shape[:2] + (saved[5].shape[0],)),
+                            d_hc_final if d_hc_final is not None else torch.zeros_like(saved[3]))
+            return (*_recompute_grads(lstm_seq_in_reference, saved, needs, grad_outputs), None)
+        if not saved:
+            raise RuntimeError("lstm_seq_in's forward saved no buffers for a backward (it ran where no input needed a gradient)")
+        wi, hc0, resets, wh, proj, cells, xh = saved
+        d_x, d_wi, d_bi, d_wh, d_hc0 = lstm_seq_in_backward(wi, hc0, resets, wh, proj, cells, xh, d_outs, d_hc_final)
+        return d_x, d_wi, d_bi, d_hc0, None, d_wh, None
+
+
 def gru_seq(x_proj, h0, resets, wh, bh):
     """GRU recurrence (see module doc). CUDA: the hand-written kernel; CPU: the plain version."""
     return GRUSeqFunction.apply(x_proj, h0, resets, wh, bh)
@@ -1077,9 +1291,33 @@ def lstm_seq(x_proj, hc0, resets, wh):
     return LSTMSeqFunction.apply(x_proj, hc0, resets, wh)
 
 
+def lstm_seq_in(x, wi, bi, hc0, resets, wh):
+    """The LSTM from its raw input: x [T,B,I] @ wi [I,4H] + bi [4H] in x's dtype, then lstm_seq's recurrence (hc0 [B,2H] f32,
+    resets [T,B] f32, wh [H,4H]) -> (outs [T,B,H] f32, hc_final [B,2H] f32). CUDA: where `resident_in_plan` gives a plan (where
+    `launch_plan` takes the resident design: DMLab's instruction encoder), one launch of the fused kernel,
+    `lstm_seq_resident_in`, and a backward of one launch, `lstm_seq_resident_in_bwd`, and two products; elsewhere the Linear,
+    then `lstm_seq`. CPU: the plain version (`lstm_seq_in_reference`), its gradient by `_recompute_grads`."""
+    T, B, I = x.shape
+    if in_route(x.device, T, B, wh.shape[0], I, x.dtype) == "unfused":
+        return lstm_seq((x @ wi + bi).contiguous(), hc0, resets, wh)
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in (x, wi, bi, hc0, wh))
+    return LSTMSeqInFunction.apply(x, wi, bi, hc0, resets, wh, save)
+
+
+def in_route(device, T: int, B: int, H: int, I: int, dtype) -> str:
+    """The way `lstm_seq_in` takes: "fused" on a CUDA device where `resident_in_plan` gives a plan for the card's spec,
+    "unfused" on another CUDA shape (the Linear, then `lstm_seq`), "plain" elsewhere (the CPU's plain version; any other
+    device raises in it)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "plain"
+    return "fused" if resident_in_plan(T, B, H, I, dtype, card_spec(device)) is not None else "unfused"
+
+
 _launches = {"gru_seq": 0, "gru_seq_rows": 0, "gru_seq_grid": 0, "lstm_seq": 0, "lstm_seq_rows": 0, "lstm_seq_grid": 0,
              "gru_seq_bwd": 0, "lstm_seq_bwd": 0, "gru_seq_grid_bwd": 0, "lstm_seq_grid_bwd": 0, "gru_seq_cluster_bwd": 0,
-             "lstm_seq_cluster_bwd": 0, "lstm_seq_resident": 0, "lstm_seq_resident_bwd": 0}
+             "lstm_seq_cluster_bwd": 0, "lstm_seq_resident": 0, "lstm_seq_resident_bwd": 0, "lstm_seq_resident_in": 0,
+             "lstm_seq_resident_in_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -1092,5 +1330,6 @@ def launch_counts() -> dict:
     design, "gru_seq_grid"/"lstm_seq_grid" for the grid design, "gru_seq_rows"/"lstm_seq_rows" for
     the row design (the forward's designs), "gru_seq_bwd"/"lstm_seq_bwd" for the backward's row design,
     "gru_seq_grid_bwd"/"lstm_seq_grid_bwd" for its grid design and "gru_seq_cluster_bwd"/"lstm_seq_cluster_bwd" for
-    its cluster design, "lstm_seq_resident"/"lstm_seq_resident_bwd" for the LSTM's resident design, forward and backward."""
+    its cluster design, "lstm_seq_resident"/"lstm_seq_resident_bwd" for the LSTM's resident design, forward and backward, and
+    "lstm_seq_resident_in"/"lstm_seq_resident_in_bwd" for `lstm_seq_in`'s kernels (the input product folded in)."""
     return dict(_launches)

@@ -8,7 +8,10 @@ layout (`wi [in, G*H]`, `wh [H, G*H]`, `bi`, and `bh` for the GRU), so that
   cell(x_seq, h0, resets=r, seq=True)   - BPTT over [T, B]: the input projection of
                                           all T steps is one matmul, the recurrence
                                           runs in `ops/cuda_rnn.py` (the Hopper kernel
-                                          on the card, its plain version on the CPU)
+                                          on the card, its plain version on the CPU);
+                                          the LSTM hands both to `lstm_seq_in`, which
+                                          folds the product into the kernel where its
+                                          plan allows (DMLab's instruction encoder)
 
 Step mode uses `torch.sigmoid` like the JAX cells (`jax.nn.sigmoid`); sequence
 mode uses the kernels' `1 / (1 + exp(-x))`. The two agree in float32 and round
@@ -33,7 +36,7 @@ import torch
 from torch import nn
 
 from sample_factory_tpu_torch.models.model_utils import kernel_init_
-from sample_factory_tpu_torch.ops.cuda_rnn import gru_seq, lstm_seq
+from sample_factory_tpu_torch.ops.cuda_rnn import gru_seq, lstm_seq, lstm_seq_in
 from sample_factory_tpu_torch.parallel.tensor_parallel import copy_to_model, full_param, gather_from_model
 
 
@@ -121,8 +124,7 @@ class FusedLSTMCell(nn.Module):
             new_h, new_c = new_h.float(), new_c.float()
             return new_h, torch.cat([new_h, new_c], dim=-1)
         wi, bi = self.wi.to(dt), self.bi.to(dt)
-        if axis is None:
-            x_proj_seq = x.to(dt) @ wi + bi
-        else:
-            x_proj_seq = gather_from_model(copy_to_model(x, axis).to(dt) @ wi + bi, -1, axis)
+        if axis is None:  # the input product and the recurrence as one function (one kernel where the plan allows)
+            return lstm_seq_in(x.to(dt), wi, bi, hc.contiguous(), resets.float().contiguous(), wh)
+        x_proj_seq = gather_from_model(copy_to_model(x, axis).to(dt) @ wi + bi, -1, axis)
         return lstm_seq(x_proj_seq.contiguous(), hc.contiguous(), resets.float().contiguous(), wh)

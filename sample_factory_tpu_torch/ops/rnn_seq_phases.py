@@ -21,7 +21,9 @@ product with its pushes into the peers' receive slots, the wait for the step's i
 the issue of the next step's copies, and the cluster barrier, and apart, thread 0's cycles in its
 remote stores (inside the product phase). The resident design, forward and backward on its own plans (RESIDENT_CASES:
 DMLab's instruction encoder in a rollout slot and over a learner minibatch; with --resident, these cases alone): the
-product, the cells, the loads of the next step's inputs (into registers), and the block barrier. Needs a CUDA card.
+product, the cells, the loads of the next step's inputs (into registers), and the block barrier; and `lstm_seq_in`'s kernels
+there: the forward with the input product folded in (its "loads" phase: the step's input part and the next step's resets)
+and the backward on the buffers that forward saved (no cell-state pass). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -100,6 +102,23 @@ def _bwd_inputs(kind, T, B, H, dtype="float32"):
     if kind == "gru":
         return d_out, d_state, resets, x, h_in @ wh + bh[0], h_prev, wh
     return d_out, d_state, resets, x + h_in @ wh, s0, wh
+
+
+IN_WIDTH = 20  # DMLab's instruction embedding, the input width of lstm_seq_in's kernel at the resident cases
+
+
+def _in_inputs(T, B, H, dtype, I=IN_WIDTH):
+    """lstm_seq_in's inputs from random data: x [T,B,I] (a transposed view of [B,T,I], as the instruction encoder gives it), wi,
+    bi, hc0, resets, wh."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dt = getattr(torch, dtype)
+    x = torch.randn(B, T, I, generator=g, device="cuda").to(dt).transpose(0, 1)
+    wi = (torch.randn(I, 4 * H, generator=g, device="cuda") / I**0.5).to(dt)
+    bi = (torch.randn(4 * H, generator=g, device="cuda") * 0.1).to(dt)
+    hc0 = torch.randn(B, 2 * H, generator=g, device="cuda")
+    resets = (torch.rand(T, B, generator=g, device="cuda") < 0.1).float()
+    wh = (torch.randn(H, 4 * H, generator=g, device="cuda") / H**0.5).to(dt)
+    return x, wi, bi, hc0, resets, wh
 
 
 def _batched_ms(fn, launches=20, batches=5):
@@ -200,10 +219,18 @@ def main() -> int:
     for kind, T, B, H, dtype in RESIDENT_CASES:
         args = _inputs(kind, T, B, H, dtype)
         rec = _bwd_inputs(kind, T, B, H, dtype)
+        in_args = _in_inputs(T, B, H, dtype)
+        with torch.no_grad():
+            _, _, proj, cells, _ = cuda_rnn._launch_lstm_in(*in_args, save=True)
+        in_rec = (*rec[:3], proj, in_args[3], in_args[5], cells)
         for name, plan, launch in (("lstm_seq_resident", cuda_rnn.resident_plan(kind, B, H, dtype, spec), cuda_rnn._launch_lstm),
                                    ("lstm_seq_resident_bwd", cuda_rnn.resident_plan(kind, B, H, dtype, spec, backward=True),
-                                    cuda_rnn._launch_lstm_bwd)):
-            inputs = args if name == "lstm_seq_resident" else rec
+                                    cuda_rnn._launch_lstm_bwd),
+                                   ("lstm_seq_resident_in", cuda_rnn.resident_in_plan(T, B, H, IN_WIDTH, dtype, spec), cuda_rnn._launch_lstm_in),
+                                   ("lstm_seq_resident_in_bwd", cuda_rnn.resident_plan(kind, B, H, dtype, spec, backward=True),
+                                    cuda_rnn._launch_lstm_in_bwd)):
+            inputs = {"lstm_seq_resident": args, "lstm_seq_resident_bwd": rec, "lstm_seq_resident_in": in_args,
+                      "lstm_seq_resident_in_bwd": in_rec}[name]
             with torch.no_grad():
                 ms = _batched_ms(lambda: launch(*inputs, plan=plan), launches=10)
                 lib.rnn_seq_phases_reset()

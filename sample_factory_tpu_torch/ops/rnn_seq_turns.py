@@ -3,6 +3,7 @@
     python -m sample_factory_tpu_torch.ops.rnn_seq_turns [--against OTHER_RNN_SEQ_CU]
     python -m sample_factory_tpu_torch.ops.rnn_seq_turns --sms N
     python -m sample_factory_tpu_torch.ops.rnn_seq_turns --resident
+    python -m sample_factory_tpu_torch.ops.rnn_seq_turns --resident-in
 
 Prints one JSON line per shape. A route's time is the median of CUDA-event timings of one launch,
 each after a spin of the card (so that the interval is device time, not the host's launch work),
@@ -22,6 +23,10 @@ taken in rounds that alternate the two routes (a, b, b, a, ...):
   in bf16) and below 64 rows ((16, 8, 64), (16, 24, 64) float32, which no path runs), the resident design (`cuda_rnn.resident_plan`) against the row design, forward and backward (the backward's
   recurrence kernel alone, on the inputs its prologue makes), and the forward against the cluster plan where there is
   one, each held against the plain version: the evidence for where `cuda_rnn.launch_plan` takes the resident design;
+- "resident_in" (with --resident-in alone): `lstm_seq_in`'s kernels at DMLab's instruction-encoder sites (the first four of
+  `RESIDENT_SITES`, an input of IN_WIDTH): the forward with the input product folded in against the resident kernel alone on
+  x_proj, against the unfused route (the Linear, then that kernel) and against itself writing the backward's buffers; the
+  backward on those buffers against the resident backward on the same proj, which recomputes the cell states;
 - "sms" (with --sms alone): the paths' sites (`SPEC_SITES`: the grid sites and the cluster sites), the plan
   `cuda_rnn.launch_plan` makes for a card of N SMs (`scaled_spec`: this card's clusters of 8 and 16 scaled
   by N over its SMs, rounded down, and its shared memory) against the plan for this card's own spec
@@ -42,7 +47,7 @@ import subprocess
 import torch
 
 from sample_factory_tpu_torch.ops import cuda_rnn
-from sample_factory_tpu_torch.ops.rnn_seq_phases import _inputs
+from sample_factory_tpu_torch.ops.rnn_seq_phases import IN_WIDTH, _in_inputs, _inputs
 
 SPIN_CYCLES = 1_000_000  # ~0.5 ms at the H100's 1980 MHz
 ROUNDS, REPS = 4, 10
@@ -156,11 +161,48 @@ def resident_turns(spec, sites=RESIDENT_SITES):
         yield record
 
 
+def resident_in_turns(spec, sites=RESIDENT_SITES[:4]):
+    """For each LSTM site (T, B, H, dtype), `lstm_seq_in`'s kernel (the resident design with the input product folded in), under
+    no_grad, in turns with the resident kernel alone on x_proj, with the unfused route (the Linear that makes x_proj, then that
+    kernel) and with itself writing the backward's buffers; the backward on the saved buffers (`lstm_seq_resident_in_bwd`, the
+    cell-state pass skipped) in turns with the resident backward on the same proj (`lstm_seq_resident_bwd`, the pass run).
+    Each output's largest difference from its plain version, relative to its largest value. One dict a site."""
+    for T, B, H, dtype in sites:
+        x, wi, bi, hc0, resets, wh = args = _in_inputs(T, B, H, dtype)
+        plan = cuda_rnn.resident_in_plan(T, B, H, IN_WIDTH, dtype, spec)
+        bwd = cuda_rnn.resident_plan("lstm", B, H, dtype, spec, backward=True)
+        with torch.no_grad():
+            x_proj = (x @ wi + bi).contiguous()
+            out, state, proj, cells, xh = cuda_rnn._launch_lstm_in(*args, save=True, plan=plan)
+            ref = cuda_rnn.lstm_seq_in_saved_reference(*args)
+            d_out = torch.randn(T, B, H, device="cuda")
+            d_state = torch.randn(B, 2 * H, device="cuda")
+            got = cuda_rnn._launch_lstm_in_bwd(d_out, d_state, resets, proj, hc0, wh, cells, plan=bwd)
+            want = cuda_rnn.lstm_seq_bwd_reference(d_out, d_state, resets, proj, hc0, wh, cells)
+            torch.cuda.synchronize()
+            errs = {name: float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+                    for name, a, b in zip(("outs", "hc_final", "proj", "cells", "xh"), (out, state, proj, cells, xh), ref)}
+            errs["bwd"] = max(float((g.float() - w.float()).abs().max()) / max(1.0, float(w.float().abs().max())) for g, w in zip(got, want))
+            record = {"shape": [T, B, H], "input": IN_WIDTH, "dtype": dtype, "plan": dataclasses.asdict(plan), "rel_err": errs}
+            fused = lambda: cuda_rnn._launch_lstm_in(*args, plan=plan)  # noqa: E731
+            record["ms_against_kernel_alone"], record["kernel_alone_ms"], record["spread"], record["kernel_alone_spread"] = in_turns(
+                fused, lambda: cuda_rnn._launch_lstm(x_proj, hc0, resets, wh), spread=True)
+            record["ms_against_unfused_route"], record["unfused_route_ms"] = in_turns(
+                fused, lambda: cuda_rnn._launch_lstm((x @ wi + bi).contiguous(), hc0, resets, wh))
+            record["ms_against_saving"], record["saving_ms"] = in_turns(
+                fused, lambda: cuda_rnn._launch_lstm_in(*args, save=True, plan=plan))
+            record["bwd_ms"], record["bwd_with_pass_ms"] = in_turns(
+                lambda: cuda_rnn._launch_lstm_in_bwd(d_out, d_state, resets, proj, hc0, wh, cells, plan=bwd),
+                lambda: cuda_rnn._launch_lstm_bwd(d_out, d_state, resets, proj, hc0, wh, plan=bwd))
+        yield record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", help="another version of csrc/rnn_seq.cu: time the LSTM's grid sites with both builds")
     parser.add_argument("--sms", type=int, help="time the plans for a card of this many SMs against this card's own, alone")
     parser.add_argument("--resident", action="store_true", help="time the LSTM's resident design at DMLab's sites, alone")
+    parser.add_argument("--resident-in", action="store_true", help="time lstm_seq_in's kernels at DMLab's sites, alone")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("rnn_seq_turns needs a CUDA card")
@@ -171,6 +213,10 @@ def main() -> int:
     if opts.resident:
         for record in resident_turns(cuda_rnn.card_spec(torch.device("cuda"))):
             print(json.dumps({"turns": "resident", **record, "stat": stat, "card": card}), flush=True)
+        return 0
+    if opts.resident_in:
+        for record in resident_in_turns(cuda_rnn.card_spec(torch.device("cuda"))):
+            print(json.dumps({"turns": "resident_in", **record, "stat": stat, "card": card}), flush=True)
         return 0
     if opts.sms:
         for record in against_spec(scaled_spec(cuda_rnn.card_spec(torch.device("cuda")), opts.sms)):

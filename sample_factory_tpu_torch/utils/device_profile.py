@@ -11,7 +11,7 @@ import subprocess
 import time
 
 RNN_KERNELS = ("seq_cluster_kernel", "grid_kernel", "rows_kernel", "seq_bwd_kernel", "seq_bwd_grid_kernel", "seq_bwd_cluster_kernel",
-               "resident_kernel", "resident_bwd_kernel")  # the symbols of csrc/rnn_seq.cu's kernels
+               "resident_kernel", "resident_bwd_kernel", "resident_in_kernel")  # the symbols of csrc/rnn_seq.cu's kernels
 
 
 def card_line() -> str:

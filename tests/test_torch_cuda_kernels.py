@@ -718,7 +718,8 @@ def _fake_cuda(monkeypatch, calls):
                                                                   "gru_seq_backward", "lstm_seq_backward", "gru_seq_grid_backward",
                                                                   "lstm_seq_grid_backward", "gru_seq_cluster_backward",
                                                                   "lstm_seq_cluster_backward", "lstm_resident_forward",
-                                                                  "lstm_seq_resident_backward")})
+                                                                  "lstm_seq_resident_backward", "lstm_resident_in_forward",
+                                                                  "lstm_seq_resident_in_backward")})
     lib.max_active_clusters = lambda gates, is_bf16, size, smem: {8: 13, 16: 0}[size]
     monkeypatch.setattr(cuda_rnn, "load_library", lambda defines=(): lib)
 
@@ -2228,3 +2229,310 @@ def test_forward_on_an_x_proj_at_an_odd_offset_matches_plain_on_card(cuda_device
         ref_out, ref_state = _fns(kind)[1](*args)
     torch.testing.assert_close(out, ref_out, atol=1e-4, rtol=0)
     torch.testing.assert_close(state, ref_state, atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------------------ lstm_seq_in: the resident design with the input product folded in
+
+IN_WIDTH = 20  # DMLab's instruction embedding, the width of the instruction encoder's LSTM-64 input
+
+
+def _in_inputs(T, B, H, dtype, device, seed=0, I=IN_WIDTH):
+    """lstm_seq_in's inputs as the instruction encoder gives them: x [T,B,I] a transposed view of [B,T,I], wi, bi, hc0,
+    resets, wh, made with numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    x = torch.tensor(rng.normal(size=(B, T, I)).astype(np.float32), device=device).to(dt).transpose(0, 1)
+    wi = torch.tensor((rng.normal(size=(I, 4 * H)) / math.sqrt(I)).astype(np.float32), device=device).to(dt)
+    bi = torch.tensor((rng.normal(size=(4 * H,)) * 0.1).astype(np.float32), device=device).to(dt)
+    hc0 = torch.tensor(rng.normal(size=(B, 2 * H)).astype(np.float32), device=device)
+    resets = torch.tensor((rng.random((T, B)) < 0.1).astype(np.float32), device=device)
+    wh = torch.tensor((rng.normal(size=(H, 4 * H)) / math.sqrt(H)).astype(np.float32), device=device).to(dt)
+    return [x, wi, bi, hc0, resets, wh]
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+
+
+IN_PLAN_SHAPES = RESIDENT_SITES + [(32, 1024, 64, "float32"), (16, 1001, 64, "float32"), (16, 2048, 64, "float32"),
+                                   (16, 4096, 64, "float32")]
+IN_PLANS = [pytest.param(T, B, H, dtype, name, id=f"{T}-{B}-{H}-{dtype}" + (f"-{name}" if name else ""))
+            for T, B, H, dtype in IN_PLAN_SHAPES for name in RESIDENT_SPECS]
+
+
+@pytest.mark.parametrize("T,B,H,dtype,name", IN_PLANS)
+def test_resident_in_plans_take_the_resident_forwards_blocks(T, B, H, dtype, name):
+    """lstm_seq_in's plan, on the H100 SXM and the smaller cards, wherever the forward takes the resident design: the resident
+    forward's rows and blocks with twice its threads (the consumers and as many producers), x of all T steps staged, the
+    shared memory the kernel's formula; no plan where the threads would exceed RESIDENT_MAX_THREADS (the resident blocks at
+    4096 rows have 512 already) or the shared memory the card's limit."""
+    spec = RESIDENT_SPECS[name]
+    fwd = cuda_rnn.resident_plan("lstm", B, H, dtype, spec)
+    assert cuda_rnn.launch_plan("lstm", T, B, H, dtype, spec).design == "resident"
+    plan = cuda_rnn.resident_in_plan(T, B, H, IN_WIDTH, getattr(torch, dtype), spec)
+    smem = cuda_rnn.resident_in_smem(H, fwd.rows, IN_WIDTH, T, 2 if dtype == "bfloat16" else 4)
+    if 2 * fwd.threads > cuda_rnn.RESIDENT_MAX_THREADS or smem > spec.smem_limit:
+        assert plan is None
+        return
+    assert plan.design == "resident_in" and plan == cuda_rnn.resident_in_plan(T, B, H, IN_WIDTH, dtype, spec)
+    assert (plan.rows, plan.grid, plan.tile_rows, plan.threads) == (fwd.rows, fwd.grid, fwd.tile_rows, 2 * fwd.threads)
+    assert plan.smem == smem <= spec.smem_limit
+    if name == "" and T == 16 and B in (64, 128, 1024, 2048):
+        assert (plan.threads, plan.smem) == {64: (128, 89_856), 128: (128, 89_856), 1024: (256, 116_736),
+                                             2048: (512, 190_464 if dtype == "bfloat16" else 147_456)}[B]
+    if B == 4096:
+        assert plan is None
+
+
+def test_resident_in_takes_no_shape_the_resident_design_does_not():
+    """No fused plan where the forward takes another design (the DMLab core's LSTM-256, the GRU), nor without an input; the
+    route there is the Linear, then lstm_seq."""
+    assert cuda_rnn.resident_in_plan(32, 32, 256, 20, torch.float32) is None
+    assert cuda_rnn.resident_in_plan(16, 1024, 60, 20, torch.float32) is None
+    assert cuda_rnn.resident_in_plan(16, 1024, 64, 0, torch.float32) is None
+    assert cuda_rnn.resident_in_plan(16, 4096, 64, 20, torch.float32) is None  # 512 resident threads already: no room for producers
+    assert cuda_rnn.in_route("cpu", 16, 1024, 64, 20, torch.float32) == "plain"
+
+
+def _in_cxx():
+    """A host program of the fused forward's shared-memory formula, csrc/rnn_seq.cu's own text, for g++."""
+    source = cuda_rnn.SOURCE.read_text()
+    parts = [re.search(r"__host__ __device__ constexpr size_t align16\(size_t n\) \{[^}]*\}", source).group(0),
+             re.search(r"__host__ __device__ constexpr int resident_in_pad\(int I\) \{[^}]*\}", source).group(0),
+             re.search(r"inline size_t resident_in_smem_bytes\(.*?\n\}", source, re.S).group(0)]
+    return ("#include <cstddef>\n#include <cstdio>\n#include <cstdlib>\n#define __host__\n#define __device__\n" + "\n".join(parts)
+            + "\nint main(int argc, char** argv) { for (int i = 1; i + 4 < argc; i += 5) { std::printf(\"%zu\\n\", resident_in_smem_bytes("
+              "atoi(argv[i]), atoi(argv[i + 1]), atoi(argv[i + 2]), atoi(argv[i + 3]), atoi(argv[i + 4]))); } return 0; }\n")
+
+
+def test_resident_in_smem_is_the_kernels(tmp_path):
+    """resident_in_smem in Python equals the kernel source's resident_in_smem_bytes (compiled for the host with g++)."""
+    if not shutil.which("g++"):
+        pytest.skip("needs g++ to compile the kernel source's formula for the host")
+    (tmp_path / "resident_in.cpp").write_text(_in_cxx())
+    subprocess.run(["g++", "-std=c++17", "-O0", "-o", str(tmp_path / "resident_in"), str(tmp_path / "resident_in.cpp")], check=True)
+    cases = [(H, R, I, T, item) for H in (8, 64) for R in (1, 3, 8, 16) for I in (1, 20, 21) for T in (1, 7, 16) for item in (2, 4)]
+    out = subprocess.run([str(tmp_path / "resident_in"), *[str(v) for case in cases for v in case]], capture_output=True, text=True,
+                         check=True).stdout.split()
+    assert [int(v) for v in out] == [cuda_rnn.resident_in_smem(*case) for case in cases]
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resident_in_launch_passes_x_at_its_strides_and_the_weights_as_given(monkeypatch, dtype, save):
+    """At DMLab's learner shape on a card of 114 SMs, `_launch_lstm_in` launches `lstm_resident_in_forward` once with x's own
+    pointer and strides (the encoder's transposed view: no copy), wi, bi, hc0, resets and wh as they are (the kernel lays wi and
+    wh out in shared memory: no packing launch), the outputs, the backward's three buffers (null without `save`), T, B, H, I,
+    xh's width, the dtype flag and the plan's rows and shared memory; it counts one `lstm_seq_resident_in`."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    spec = SMALL_SPECS["114-13-0"]
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: spec)
+    T, B, H = 3, 1024, 64
+    args = _in_inputs(T, B, H, dtype, "cpu")
+    before = cuda_rnn.launch_counts()
+    outs, state, *saved = cuda_rnn._launch_lstm_in(*args, save=save)
+    plan = cuda_rnn.resident_in_plan(T, B, H, IN_WIDTH, getattr(torch, dtype), spec)
+    assert plan.rows == cuda_rnn.resident_plan("lstm", B, H, dtype, spec).rows
+    (name, call), = calls
+    K = cuda_rnn.in_width(IN_WIDTH, H)
+    assert name == "lstm_resident_in_forward" and len(call) == 22 and not args[0].is_contiguous()
+    assert call[:8] == tuple(t.data_ptr() for t in (*args, outs, state))
+    assert call[8:11] == (tuple(t.data_ptr() for t in saved) if save else (None, None, None))
+    assert call[11:13] == (args[0].stride(0), args[0].stride(1)) == (IN_WIDTH, T * IN_WIDTH)
+    assert list(call[13:21]) == [T, B, H, IN_WIDTH, K, int(dtype == "bfloat16"), plan.rows, plan.smem]
+    assert outs.shape == (T, B, H) and state.shape == args[3].shape
+    if save:
+        assert [tuple(t.shape) for t in saved] == [(T, B, 4 * H), (T, B, H), (T, B, K)]
+        assert [t.dtype for t in saved] == [args[0].dtype, torch.float32, args[0].dtype]
+    after = cuda_rnn.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "lstm_seq_resident_in": 1}
+    cuda_rnn._launches["lstm_seq_resident_in"] -= 1
+
+
+def test_resident_in_backward_launch_passes_the_saved_buffers(monkeypatch):
+    """`_launch_lstm_in_bwd` launches `lstm_seq_resident_in_backward` with the forward's saved proj and cell states, a null final
+    cotangent where none is given, wh in float32 and the resident backward's rows and shared memory (66 SMs here); it counts
+    one `lstm_seq_resident_in_bwd`."""
+    calls = []
+    _fake_cuda(monkeypatch, calls)
+    spec = SMALL_SPECS["66-7-3"]
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: spec)
+    T, B, H = 2, 1024, 64
+    d_out, _, resets, proj, _, hc0, wh = _bwd_args("lstm", T, B, H)
+    cells = torch.zeros(T, B, H)
+    before = cuda_rnn.launch_counts()
+    d_proj, d_hc0 = cuda_rnn._launch_lstm_in_bwd(d_out, None, resets, proj, hc0, wh, cells)
+    plan = cuda_rnn.resident_plan("lstm", B, H, "float32", spec, backward=True)
+    (name, call), = calls
+    assert name == "lstm_seq_resident_in_backward" and len(call) == 16
+    assert call[:9] == (d_out.data_ptr(), None, resets.data_ptr(), proj.data_ptr(), hc0.data_ptr(), wh.data_ptr(), cells.data_ptr(),
+                        d_proj.data_ptr(), d_hc0.data_ptr())
+    assert list(call[9:15]) == [T, B, H, 0, plan.rows, plan.smem]
+    after = cuda_rnn.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {**dict.fromkeys(after, 0), "lstm_seq_resident_in_bwd": 1}
+    cuda_rnn._launches["lstm_seq_resident_in_bwd"] -= 1
+
+
+def test_a_refused_resident_in_launch_raises(monkeypatch):
+    """No fallback: a fused launch the card refuses raises with the plan and the card, and counts nothing."""
+    _fake_cuda(monkeypatch, [])
+    lib = cuda_rnn.load_library()
+    lib.lstm_resident_in_forward = lambda *args: 1  # cudaErrorInvalidValue
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: cuda_rnn.H100_SXM)
+    before = cuda_rnn.launch_counts()
+    with pytest.raises(RuntimeError, match=r"lstm_resident_in_forward launch failed: CUDA error 1 \(T=2, B=1024, I=20, H=64, "
+                                           r"torch.float32: plan Plan\(design='resident_in'.*on a card of 132 SMs"):
+        cuda_rnn._launch_lstm_in(*_in_inputs(2, 1024, 64, "float32", "cpu"))
+    assert cuda_rnn.launch_counts() == before
+
+
+def test_lstm_seq_in_routes_other_cuda_shapes_to_the_linear_and_lstm_seq(monkeypatch):
+    """Where in_route gives "unfused" (a CUDA shape without a fused plan), lstm_seq_in is x @ wi + bi, then lstm_seq."""
+    seen = []
+    monkeypatch.setattr(cuda_rnn, "in_route", lambda *args: "unfused")
+    monkeypatch.setattr(cuda_rnn, "lstm_seq", lambda *args: seen.append(args) or ("outs", "state"))
+    x, wi, bi, hc0, resets, wh = _in_inputs(3, 5, 16, "float32", "cpu")
+    assert cuda_rnn.lstm_seq_in(x, wi, bi, hc0, resets, wh) == ("outs", "state")
+    (x_proj, *rest), = seen
+    assert torch.equal(x_proj, x @ wi + bi) and x_proj.is_contiguous() and all(a is b for a, b in zip(rest, (hc0, resets, wh)))
+
+
+def test_in_route_on_a_card(monkeypatch):
+    """On a CUDA device: "fused" at DMLab's instruction-encoder sites, "unfused" where the forward takes another design."""
+    _fake_cuda(monkeypatch, [])
+    monkeypatch.setattr(cuda_rnn, "card_spec", lambda device: cuda_rnn.H100_SXM)
+    for T, B, H, dtype in RESIDENT_SITES:
+        assert cuda_rnn.in_route("cuda", T, B, H, IN_WIDTH, getattr(torch, dtype)) == "fused"
+    assert cuda_rnn.in_route("cuda", 32, 32, 256, IN_WIDTH, torch.float32) == "unfused"
+
+
+# DMLab's sites, (16, 2048, 64), and odd shapes: 1001 rows (a partly filled last block), B=1, T=1, (5, 3, 64)
+IN_CARD_SHAPES = RESIDENT_CARD_SHAPES
+
+
+def _in_card_plans(cuda_device, T, B, H, dtype):
+    spec = cuda_rnn.card_spec(cuda_device)
+    return (cuda_rnn.resident_in_plan(T, B, H, IN_WIDTH, getattr(torch, dtype), spec),
+            cuda_rnn.resident_plan("lstm", B, H, dtype, spec, backward=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B,H,dtype", IN_CARD_SHAPES, ids=["-".join(map(str, s)) for s in IN_CARD_SHAPES])
+def test_resident_in_kernels_match_plain_on_card(cuda_device, T, B, H, dtype):
+    """`lstm_seq_resident_in` against lstm_seq_in_reference, forward at the other card tests' tolerance, with and without the
+    backward's buffers (the same outputs either way; the buffers against lstm_seq_in_saved_reference's at that tolerance
+    relative to their largest value, x's columns of xh exact); `lstm_seq_resident_in_bwd` on those buffers against
+    lstm_seq_bwd_reference within BWD_TOL; the launches of each, no other."""
+    fwd, bwd = _in_card_plans(cuda_device, T, B, H, dtype)
+    args = _in_inputs(T, B, H, dtype, cuda_device, seed=23)
+    tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
+    with torch.no_grad():
+        cuda_rnn.reset_launch_counts()
+        out, state, *none = cuda_rnn._launch_lstm_in(*args, plan=fwd)
+        torch.cuda.synchronize()
+        assert none == [None, None, None]
+        assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, "lstm_seq_resident_in": 1}
+        ref = cuda_rnn.lstm_seq_in_saved_reference(*args)
+        torch.testing.assert_close(out, ref[0], atol=tol, rtol=0)
+        torch.testing.assert_close(state, ref[1], atol=tol, rtol=0)
+        out2, state2, proj, cells, xh = cuda_rnn._launch_lstm_in(*args, save=True, plan=fwd)
+        assert torch.equal(out2, out) and torch.equal(state2, state)
+        for got, want in zip((proj, cells, xh), ref[2:]):
+            assert _rel(got, want) <= tol
+        assert torch.equal(xh[..., :IN_WIDTH], args[0]) and torch.equal(xh[..., IN_WIDTH + H:], ref[4][..., IN_WIDTH + H:])
+        d_out, d_state = _cotangents(out, state)
+        got = cuda_rnn._launch_lstm_in_bwd(d_out, d_state, args[4], proj, args[3], args[5], cells, plan=bwd)
+        torch.cuda.synchronize()
+        assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, "lstm_seq_resident_in": 2,
+                                            "lstm_seq_resident_in_bwd": 1}
+        want = cuda_rnn.lstm_seq_bwd_reference(d_out, d_state, args[4], proj, args[3], args[5], cells)
+    assert all(g.dtype == w.dtype and bool(torch.isfinite(g).all()) for g, w in zip(got, want))
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resident_in_kernels_on_resets_and_saturated_gates(cuda_device, dtype):
+    """At DMLab's learner shape: every second row reset at every step, and the first 64 rows' sigmoid gates below -88 (their x
+    drives them there through one column of wi): finite outputs and gradients, the saturated gates' exactly 0, the plain
+    versions' results."""
+    T, B, H = 16, 1024, 64
+    fwd, bwd = _in_card_plans(cuda_device, T, B, H, dtype)
+    x, wi, bi, hc0, resets, wh = args = _in_inputs(T, B, H, dtype, cuda_device, seed=29)
+    resets[:, 1::2] = 1.0
+    gates = torch.cat([torch.arange(g * H, (g + 1) * H) for g in (0, 1, 3)])
+    wi[0] = 0.0
+    wi[0, gates] = -1.0
+    x[:, :, 0] = 0.0
+    x[:, :64, 0] = 300.0
+    tol = 1e-4 * max(1, T // 4) if dtype == "float32" else BF16_ATOL
+    with torch.no_grad():
+        out, state, proj, cells, xh = cuda_rnn._launch_lstm_in(*args, save=True, plan=fwd)
+        ref = cuda_rnn.lstm_seq_in_saved_reference(*args)
+        assert bool(torch.isfinite(out).all()) and bool((state[1::2] == 0).all()) and bool((proj[:, :64, gates] < -88).all())
+        torch.testing.assert_close(out, ref[0], atol=tol, rtol=0)
+        torch.testing.assert_close(state, ref[1], atol=tol, rtol=0)
+        d_out, d_state = _cotangents(out, state)
+        got = cuda_rnn._launch_lstm_in_bwd(d_out, d_state, resets, proj, hc0, wh, cells, plan=bwd)
+        want = cuda_rnn.lstm_seq_bwd_reference(d_out, d_state, resets, proj, hc0, wh, cells)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert bool((got[0][:, :64, gates] == 0).all()), "a gate below -88 has a gradient"
+    assert _bwd_rel_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["transposed", "odd_offset"])
+def test_gradient_through_lstm_seq_in_at_dmlab_learner(cuda_device, layout):
+    """`lstm_seq_in` at DMLab's learner shape, on the encoder's transposed x or a contiguous x one float into its buffer: one
+    launch of each fused kernel and no other RNN kernel, its outputs and the gradients of x, wi, bi, hc0 and wh within
+    chip_smoke.py's tolerances (the forward's 1e-4 x T/4, GRAD_F32_TOL) of autograd through the plain version."""
+    T, B, H = 16, 1024, 64
+    args = _in_inputs(T, B, H, "float32", cuda_device, seed=31)
+    if layout == "odd_offset":
+        args[0] = torch.empty(args[0].numel() + 1, device=cuda_device)[1:].view(T, B, IN_WIDTH).copy_(args[0])
+        assert args[0].data_ptr() % 16 and args[0].is_contiguous()
+    assert cuda_rnn.in_route(cuda_device, T, B, H, IN_WIDTH, torch.float32) == "fused"
+    args = [a.requires_grad_(i != 4) for i, a in enumerate(args)]
+    wrt = [a for i, a in enumerate(args) if i != 4]
+    cuda_rnn.reset_launch_counts()
+    out, state = cuda_rnn.lstm_seq_in(*args)
+    grads = torch.autograd.grad((out**2).sum() + state.sum(), wrt)
+    torch.cuda.synchronize()
+    assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, "lstm_seq_resident_in": 1,
+                                        "lstm_seq_resident_in_bwd": 1}
+    ref_out, ref_state = cuda_rnn.lstm_seq_in_reference(*args)
+    ref_grads = torch.autograd.grad((ref_out**2).sum() + ref_state.sum(), wrt)
+    torch.testing.assert_close(out, ref_out, atol=4e-4, rtol=0)
+    torch.testing.assert_close(state, ref_state, atol=4e-4, rtol=0)
+    for g, r in zip(grads, ref_grads):
+        assert _rel(g, r) <= 1e-4  # chip_smoke.GRAD_F32_TOL
+
+
+@pytest.mark.cuda
+def test_lstm_seq_in_keeps_the_unfused_route_at_the_dmlab_core(cuda_device):
+    """At the DMLab core's (32, 32, 256), which takes the cluster design, lstm_seq_in is the Linear, then `lstm_seq`: one
+    `lstm_seq` and one `lstm_seq_cluster_bwd`, no fused kernel; its gradients those of the plain version."""
+    T, B, H = 32, 32, 256
+    args = [a.requires_grad_(i != 4) for i, a in enumerate(_in_inputs(T, B, H, "float32", cuda_device, seed=37))]
+    wrt = [a for i, a in enumerate(args) if i != 4]
+    cuda_rnn.reset_launch_counts()
+    out, state = cuda_rnn.lstm_seq_in(*args)
+    grads = torch.autograd.grad((out**2).sum() + state.sum(), wrt)
+    torch.cuda.synchronize()
+    assert cuda_rnn.launch_counts() == {**{k: 0 for k in cuda_rnn.launch_counts()}, "lstm_seq": 1, "lstm_seq_cluster_bwd": 1}
+    ref_out, ref_state = cuda_rnn.lstm_seq_in_reference(*args)
+    ref_grads = torch.autograd.grad((ref_out**2).sum() + ref_state.sum(), wrt)
+    torch.testing.assert_close(out, ref_out, atol=8e-4, rtol=0)
+    for g, r in zip(grads, ref_grads):
+        assert _rel(g, r) <= 1e-4
+
+
+def test_the_profilers_rnn_kernels_name_every_kernel_of_the_source():
+    """Every `__global__` kernel of csrc/rnn_seq.cu is counted among the RNN kernels by `utils/device_profile.py`, which adds
+    up their device time in chip_smoke.py's and bench_gpu.py's profiles (by a part of the symbol's name)."""
+    from sample_factory_tpu_torch.utils.device_profile import RNN_KERNELS
+
+    names = re.findall(r"__global__ void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\(", cuda_rnn.SOURCE.read_text())
+    assert "lstm_resident_in_kernel" in names and len(names) >= 9
+    assert all(any(k in name for k in RNN_KERNELS) for name in names), names
