@@ -11,10 +11,15 @@ all of it into one XLA program; here it is eager PyTorch, and the BPTT
 recurrence runs the CUDA kernels of `ops/cuda_rnn.py`.
 
 Host syncs per train call: the valid fraction (it scales the learning rate),
-one per extra epoch (early stop), and the KL value under a KL-adaptive
-schedule. An sgd step has none: host scalars that become stats are filled on the
-device (`torch.full`), not copied to it (`torch.tensor(x, device=...)` waits for
-the stream), so that the host can run ahead of the learner's device work.
+the epoch loss after every epoch of several (early stop), and the KL value under
+a KL-adaptive schedule, each through `utils/timing.tracer().host_read`. An sgd
+step has none: host scalars that become stats are filled on the device
+(`torch.full`), not copied to it (`torch.tensor(x, device=...)` waits for the
+stream), so that the host can run ahead of the learner's device work.
+Spans (`utils/timing.py`, recorded while a torch.profiler session records): `learner`
+around a train call; in it `learner.prepare_batch` (with `learner.normalize`,
+`learner.bootstrap`, `learner.advantages`) and each `learner.epoch`; in an epoch each
+`learner.minibatch`, of `learner.forward`, `learner.backward` and `learner.optimizer`.
 
 Data parallelism (a `mesh` with a process group, `parallel/mesh.py`): each of R ranks
 holds the rows of its own envs, and the learner computes what one rank with every
@@ -74,6 +79,7 @@ from sample_factory_tpu_torch.algo.schedules import lr_after_epoch, lr_after_min
 from sample_factory_tpu_torch.envs.spaces import num_action_parameters
 from sample_factory_tpu_torch.parallel.multihost import all_reduce
 from sample_factory_tpu_torch.parallel.tensor_parallel import TPLayout
+from sample_factory_tpu_torch.utils.timing import tracer
 
 PBT_HPARAMS = (
     "learning_rate",
@@ -271,127 +277,138 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0, mesh=None):
         return loss, aux
 
     def sgd_step(ts: PolicyTrainState, valid_frac: float, mb) -> Dict[str, torch.Tensor]:
-        model = ts.model
-        loss, aux = compute_losses(model, mb, ts.hparams)
-        ts.optimizer.zero_grad(set_to_none=False)
-        loss.backward()
-        params = list(model.parameters())
-        for p in params:  # as optax: every parameter gets a gradient, zero if unused
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        if all_sum is not None:
-            # each rank's loss is its part of the global one: the parts' gradients and stats add up
-            summed = all_sum(grads + [aux[k] for k in SUMMED_STATS])
-            torch._foreach_copy_(grads, summed[: len(grads)])
-            aux.update(zip(SUMMED_STATS, summed[len(grads) :]))
-            maxed = all_max([aux[k] for k in MAXED_STATS] + [-aux["ratio_min"]])
-            aux.update(zip(MAXED_STATS, maxed))
-            aux["ratio_min"] = -maxed[-1]
-        if ts.tp is None:
-            grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        else:
-            # the model group's replicas compute the same backward, but not bit for bit on the card: their
-            # mean keeps the replicated leaves, and every decision taken from the stats, equal on its ranks
-            dims, size = ts.tp.param_dims(model), ts.tp.axis.size
-            shared = [g for g, d in zip(grads, dims) if d is None]
-            means = all_reduce(shared + list(aux.values()), group=ts.tp.axis.group)
-            torch._foreach_copy_(shared, [m / size for m in means[: len(shared)]])
-            aux.update((k, m / size) for k, m in zip(list(aux), means[len(shared) :]))
-            grad_norm = ts.tp.global_sq_norm(grads, dims).sqrt()
-        if cfg.max_grad_norm > 0.0:
-            # manual clip so the bound can be a per-policy (PBT) value
-            scale = (ts.hparams["max_grad_norm"] / (grad_norm + 1e-6)).clamp(max=1.0)
-            torch._foreach_mul_(grads, scale)
+        trace = tracer()
+        with trace.span("learner.minibatch"):
+            model = ts.model
+            with trace.span("learner.forward"):
+                loss, aux = compute_losses(model, mb, ts.hparams)
+            with trace.span("learner.backward"):
+                ts.optimizer.zero_grad(set_to_none=False)
+                loss.backward()
+                params = list(model.parameters())
+                for p in params:  # as optax: every parameter gets a gradient, zero if unused
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grads = [p.grad for p in params]
+                if all_sum is not None:
+                    # each rank's loss is its part of the global one: the parts' gradients and stats add up
+                    summed = all_sum(grads + [aux[k] for k in SUMMED_STATS])
+                    torch._foreach_copy_(grads, summed[: len(grads)])
+                    aux.update(zip(SUMMED_STATS, summed[len(grads) :]))
+                    maxed = all_max([aux[k] for k in MAXED_STATS] + [-aux["ratio_min"]])
+                    aux.update(zip(MAXED_STATS, maxed))
+                    aux["ratio_min"] = -maxed[-1]
+                if ts.tp is not None:
+                    # the model group's replicas compute the same backward, but not bit for bit on the card: their
+                    # mean keeps the replicated leaves, and every decision taken from the stats, equal on its ranks
+                    dims, size = ts.tp.param_dims(model), ts.tp.axis.size
+                    shared = [g for g, d in zip(grads, dims) if d is None]
+                    means = all_reduce(shared + list(aux.values()), group=ts.tp.axis.group)
+                    torch._foreach_copy_(shared, [m / size for m in means[: len(shared)]])
+                    aux.update((k, m / size) for k, m in zip(list(aux), means[len(shared) :]))
+            with trace.span("learner.optimizer"):
+                if ts.tp is None:
+                    grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+                else:
+                    grad_norm = ts.tp.global_sq_norm(grads, dims).sqrt()
+                if cfg.max_grad_norm > 0.0:
+                    # manual clip so the bound can be a per-policy (PBT) value
+                    scale = (ts.hparams["max_grad_norm"] / (grad_norm + 1e-6)).clamp(max=1.0)
+                    torch._foreach_mul_(grads, scale)
 
-        # invalid-data LR scaling (reference :789-794)
-        actual_lr = ts.curr_lr * valid_frac
-        set_lr(ts.optimizer, actual_lr)
-        ts.optimizer.step()
+                # invalid-data LR scaling (reference :789-794)
+                actual_lr = ts.curr_lr * valid_frac
+                set_lr(ts.optimizer, actual_lr)
+                ts.optimizer.step()
 
-        ts.curr_lr = lr_after_minibatch(cfg, ts.curr_lr, aux["kl_divergence"], ts.train_step)
-        ts.train_step += 1
-        aux["grad_norm"] = grad_norm.detach()
-        aux["actual_lr"] = grad_norm.new_full((), actual_lr)  # filled on the device: no copy for the host to wait on
+                ts.curr_lr = lr_after_minibatch(cfg, ts.curr_lr, aux["kl_divergence"], ts.train_step)
+            ts.train_step += 1
+            aux["grad_norm"] = grad_norm.detach()
+            aux["actual_lr"] = grad_norm.new_full((), actual_lr)  # filled on the device: no copy for the host to wait on
         return aux
 
     @torch.no_grad()
     def prepare_batch(ts: PolicyTrainState, traj: Dict[str, Any], pid: int):
         """Reference _prepare_batch (:943-1030), on time-major tensors. Updates the
         train state's normalizers; returns (dataset, valid_frac)."""
-        T, N = traj["rewards"].shape[:2]
+        trace = tracer()
+        with trace.span("learner.prepare_batch"):
+            T, N = traj["rewards"].shape[:2]
 
-        # valids: same policy & within lag budget (reference :949-955)
-        same_policy = traj["policy_id"] == pid
-        within_lag = (ts.train_step - traj["policy_version"]) < cfg.max_policy_lag
-        valids_t = (same_policy & within_lag).float()  # [T, N]
-        valids = torch.cat([valids_t, valids_t[-1:]], dim=0)  # [T+1, N]
+            with trace.span("learner.normalize"):
+                # valids: same policy & within lag budget (reference :949-955)
+                same_policy = traj["policy_id"] == pid
+                within_lag = (ts.train_step - traj["policy_version"]) < cfg.max_policy_lag
+                valids_t = (same_policy & within_lag).float()  # [T, N]
+                valids = torch.cat([valids_t, valids_t[-1:]], dim=0)  # [T+1, N]
 
-        # obs normalization: update running stats, then normalize (training mode)
-        pre_obs = _static_preprocess(cfg, traj["obs"])
-        if ts.obs_rms is not None:
-            flat_obs = {k: pre_obs[k].reshape((-1,) + tuple(pre_obs[k].shape[2:])) for k in ts.obs_rms}
-            ts.obs_rms = obs_rms_update(ts.obs_rms, flat_obs, mask=valids.reshape(-1), all_sum=all_sum)
-            normalized_obs = obs_rms_normalize(ts.obs_rms, pre_obs)
-        else:
-            normalized_obs = pre_obs
+                # obs normalization: update running stats, then normalize (training mode)
+                pre_obs = _static_preprocess(cfg, traj["obs"])
+                if ts.obs_rms is not None:
+                    flat_obs = {k: pre_obs[k].reshape((-1,) + tuple(pre_obs[k].shape[2:])) for k in ts.obs_rms}
+                    ts.obs_rms = obs_rms_update(ts.obs_rms, flat_obs, mask=valids.reshape(-1), all_sum=all_sum)
+                    normalized_obs = obs_rms_normalize(ts.obs_rms, pre_obs)
+                else:
+                    normalized_obs = pre_obs
 
-        # T+1 bootstrap values with the current policy (reference :964-967)
-        last_obs = {k: v[-1] for k, v in normalized_obs.items()}
-        _, next_values, _ = ts.model(last_obs, traj["rnn_states"][-1])
-        values = torch.cat([traj["values"], next_values[None]], dim=0)  # [T+1, N]
+            with trace.span("learner.bootstrap"):
+                # T+1 bootstrap values with the current policy (reference :964-967)
+                last_obs = {k: v[-1] for k, v in normalized_obs.items()}
+                _, next_values, _ = ts.model(last_obs, traj["rnn_states"][-1])
+                values = torch.cat([traj["values"], next_values[None]], dim=0)  # [T+1, N]
 
-        # denormalize values for GAE (reference :969-978)
-        if cfg.normalize_returns and ts.returns_rms is not None:
-            denorm_values = rms_denormalize(ts.returns_rms, values[..., None])[..., 0]
-        else:
-            denorm_values = values
+            with trace.span("learner.advantages"):
+                # denormalize values for GAE (reference :969-978)
+                if cfg.normalize_returns and ts.returns_rms is not None:
+                    denorm_values = rms_denormalize(ts.returns_rms, values[..., None])[..., 0]
+                else:
+                    denorm_values = values
 
-        rewards = traj["rewards"]
-        gamma = ts.hparams["gamma"]
-        if cfg.value_bootstrap:
-            # count only timeouts in terminal states (reference :980-990)
-            rewards = rewards + gamma * denorm_values[:-1] * traj["time_outs"] * traj["dones"]
+                rewards = traj["rewards"]
+                gamma = ts.hparams["gamma"]
+                if cfg.value_bootstrap:
+                    # count only timeouts in terminal states (reference :980-990)
+                    rewards = rewards + gamma * denorm_values[:-1] * traj["time_outs"] * traj["dones"]
 
-        if not cfg.with_vtrace:
-            advantages = gae_advantages(rewards, traj["dones"], denorm_values, valids, gamma, cfg.gae_lambda)
-            returns = advantages + valids[:-1] * denorm_values[:-1]
-            if cfg.normalize_returns and ts.returns_rms is not None:
-                # masked by valids: invalid slots carry structurally-zero returns
-                ts.returns_rms = rms_update(ts.returns_rms, returns.reshape(-1, 1), mask=valids_t.reshape(-1), all_sum=all_sum)
-                returns = rms_normalize(ts.returns_rms, returns[..., None])[..., 0]
-        else:
-            # V-trace computes both per minibatch, from fresh values and ratios
-            advantages = torch.zeros_like(rewards)
-            returns = torch.zeros_like(rewards)
+                if not cfg.with_vtrace:
+                    advantages = gae_advantages(rewards, traj["dones"], denorm_values, valids, gamma, cfg.gae_lambda)
+                    returns = advantages + valids[:-1] * denorm_values[:-1]
+                    if cfg.normalize_returns and ts.returns_rms is not None:
+                        # masked by valids: invalid slots carry structurally-zero returns
+                        ts.returns_rms = rms_update(ts.returns_rms, returns.reshape(-1, 1), mask=valids_t.reshape(-1), all_sum=all_sum)
+                        returns = rms_normalize(ts.returns_rms, returns[..., None])[..., 0]
+                else:
+                    # V-trace computes both per minibatch, from fresh values and ratios
+                    advantages = torch.zeros_like(rewards)
+                    returns = torch.zeros_like(rewards)
 
-        # flatten to an env-major dataset [N*T] with each env's rollout contiguous
-        def to_dataset(x):
-            x = x.transpose(0, 1)
-            return x.reshape((N * T,) + tuple(x.shape[2:]))
+            # flatten to an env-major dataset [N*T] with each env's rollout contiguous
+            def to_dataset(x):
+                x = x.transpose(0, 1)
+                return x.reshape((N * T,) + tuple(x.shape[2:]))
 
-        dataset = {
-            "normalized_obs": {k: to_dataset(v[:T]) for k, v in normalized_obs.items()},
-            "rnn_states": to_dataset(traj["rnn_states"][:T]),
-            "actions": to_dataset(traj["actions"]),
-            "action_logits": to_dataset(traj["action_logits"]),
-            "log_prob_actions": to_dataset(traj["log_prob_actions"]),
-            "values": to_dataset(traj["values"]),
-            "rewards": to_dataset(rewards),
-            "dones": to_dataset(traj["dones"]),
-            "advantages": to_dataset(advantages),
-            "returns": to_dataset(returns),
-            "valids": to_dataset(valids[:T]),
-        }
+            dataset = {
+                "normalized_obs": {k: to_dataset(v[:T]) for k, v in normalized_obs.items()},
+                "rnn_states": to_dataset(traj["rnn_states"][:T]),
+                "actions": to_dataset(traj["actions"]),
+                "action_logits": to_dataset(traj["action_logits"]),
+                "log_prob_actions": to_dataset(traj["log_prob_actions"]),
+                "values": to_dataset(traj["values"]),
+                "rewards": to_dataset(rewards),
+                "dones": to_dataset(traj["dones"]),
+                "advantages": to_dataset(advantages),
+                "returns": to_dataset(returns),
+                "valids": to_dataset(valids[:T]),
+            }
 
-        # neutralize invalid slots so logprob math can't NaN (reference :1020-1028)
-        invalid = dataset["valids"] == 0
-        dataset["actions"] = torch.where(invalid[:, None], torch.zeros_like(dataset["actions"]), dataset["actions"])
-        dataset["log_prob_actions"] = torch.where(invalid, torch.full_like(dataset["log_prob_actions"], -1.0), dataset["log_prob_actions"])
-        if all_sum is None:
-            return dataset, float(dataset["valids"].mean())
-        (num_valid,) = all_sum([dataset["valids"].sum()])
-        return dataset, float(num_valid) / (dataset["valids"].numel() * world)
+            # neutralize invalid slots so logprob math can't NaN (reference :1020-1028)
+            invalid = dataset["valids"] == 0
+            dataset["actions"] = torch.where(invalid[:, None], torch.zeros_like(dataset["actions"]), dataset["actions"])
+            dataset["log_prob_actions"] = torch.where(invalid, torch.full_like(dataset["log_prob_actions"], -1.0), dataset["log_prob_actions"])
+            if all_sum is None:
+                return dataset, trace.host_read("valid_frac", dataset["valids"].mean())
+            (num_valid,) = all_sum([dataset["valids"].sum()])
+            return dataset, trace.host_read("valid_frac", num_valid) / (dataset["valids"].numel() * world)
 
     return sgd_step, prepare_batch
 
@@ -433,7 +450,7 @@ def select_minibatches(dataset, rank: int, world: int, batch_size: int, recurren
         first_segment = rank * local_segments
         selections = [
             (sel[(sel >= first_segment) & (sel < first_segment + local_segments)] - first_segment).to(device)
-            for sel in perm.cpu().split(segs_per_mb)
+            for sel in tracer().host_read("perm", perm).split(segs_per_mb)
         ]
 
     def gather(x, sel):
@@ -452,40 +469,44 @@ def make_train_fn(cfg, env_info, policy_id: int = 0, mesh=None) -> Callable:
     _, all_max, rank, world = _data_parallel(mesh)
 
     def train(ts: PolicyTrainState, traj: Dict[str, Any], generator: Optional[torch.Generator] = None, pid: int = policy_id):
-        dataset, valid_frac = prepare_batch(ts, traj, pid)
-        device = dataset["valids"].device
-        batch_size = min(cfg.batch_size, dataset["valids"].shape[0] * world)
+        trace = tracer()
+        with trace.span("learner"):
+            dataset, valid_frac = prepare_batch(ts, traj, pid)
+            device = dataset["valids"].device
+            batch_size = min(cfg.batch_size, dataset["valids"].shape[0] * world)
 
-        def run_epoch():
-            minibatches = select_minibatches(dataset, rank, world, batch_size, recurrence, cfg.shuffle_minibatches, generator)
-            auxes = [sgd_step(ts, valid_frac, mb) for mb in minibatches]
-            aux_seq = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
-            ts.curr_lr = lr_after_epoch(cfg, ts.curr_lr, aux_seq["kl_divergence"].mean())
-            return aux_seq
+            def run_epoch():
+                with trace.span("learner.epoch"):
+                    minibatches = select_minibatches(dataset, rank, world, batch_size, recurrence, cfg.shuffle_minibatches,
+                                                     generator)
+                    auxes = [sgd_step(ts, valid_frac, mb) for mb in minibatches]
+                    aux_seq = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+                    ts.curr_lr = lr_after_epoch(cfg, ts.curr_lr, aux_seq["kl_divergence"].mean())
+                return aux_seq
 
-        # epoch 0 always runs; later epochs stop once the epoch-mean policy loss
-        # plateaus (reference learner.py:676,827-837)
-        aux_seq = run_epoch()
-        epochs_executed = 1
-        if cfg.num_epochs > 1:
-            prev_epoch_loss = float(aux_seq["policy_loss"].mean())
-            for _ in range(1, cfg.num_epochs):
-                aux_seq = run_epoch()
-                epochs_executed += 1
-                epoch_loss = float(aux_seq["policy_loss"].mean())
-                if abs(prev_epoch_loss - epoch_loss) < EARLY_STOPPING_TOLERANCE:
-                    break
-                prev_epoch_loss = epoch_loss
+            # epoch 0 always runs; later epochs stop once the epoch-mean policy loss
+            # plateaus (reference learner.py:676,827-837)
+            aux_seq = run_epoch()
+            epochs_executed = 1
+            if cfg.num_epochs > 1:
+                prev_epoch_loss = trace.host_read("epoch_loss", aux_seq["policy_loss"].mean())
+                for _ in range(1, cfg.num_epochs):
+                    aux_seq = run_epoch()
+                    epochs_executed += 1
+                    epoch_loss = trace.host_read("epoch_loss", aux_seq["policy_loss"].mean())
+                    if abs(prev_epoch_loss - epoch_loss) < EARLY_STOPPING_TOLERANCE:
+                        break
+                    prev_epoch_loss = epoch_loss
 
-        # summaries from a random minibatch of the last executed epoch (reference learner.py:693-703)
-        mb_idx = torch.randint(0, aux_seq["loss"].shape[0], (), generator=generator, device=device)
-        stats = {k: v[mb_idx] for k, v in aux_seq.items()}
-        stats["epochs_executed"] = torch.full((), float(epochs_executed), device=device)
-        stats["valids_fraction"] = torch.full((), valid_frac, device=device)
-        stats["lr"] = torch.full((), ts.curr_lr, device=device)
-        stats["version_diff_max"] = (ts.train_step - traj["policy_version"]).max().float()
-        if all_max is not None:
-            (stats["version_diff_max"],) = all_max([stats["version_diff_max"]])
-        return stats
+            # summaries from a random minibatch of the last executed epoch (reference learner.py:693-703)
+            mb_idx = torch.randint(0, aux_seq["loss"].shape[0], (), generator=generator, device=device)
+            stats = {k: v[mb_idx] for k, v in aux_seq.items()}
+            stats["epochs_executed"] = torch.full((), float(epochs_executed), device=device)
+            stats["valids_fraction"] = torch.full((), valid_frac, device=device)
+            stats["lr"] = torch.full((), ts.curr_lr, device=device)
+            stats["version_diff_max"] = (ts.train_step - traj["policy_version"]).max().float()
+            if all_max is not None:
+                (stats["version_diff_max"],) = all_max([stats["version_diff_max"]])
+            return stats
 
     return train

@@ -6,7 +6,9 @@ over `cfg.rollout` steps, each a few batched torch ops on the env's device. The
 trajectory schema is the same (reference `algo/utils/shared_buffers.py:67-92`):
 time-major [T, N, ...] tensors with the keys of `TRAJECTORY_KEYS`, obs and
 rnn_states with T+1 entries for the bootstrap value, and the rnn state reset
-to zero where an episode ended.
+to zero where an episode ended. Spans (`utils/timing.py`): `rollout`, and in it
+each step's `rollout.step` holding `rollout.policy` (forward and action draw) and
+`rollout.env` (the env's step).
 
 Data parallelism (`parallel/mesh.py`): a rank that steps rows [start, stop) of N envs
 (`SamplerState.shard`) makes every draw of the one-rank rollout, at the global size N
@@ -36,6 +38,7 @@ from sample_factory_tpu_torch.envs.device_env import DeviceEnv, autoreset_step, 
 from sample_factory_tpu_torch.envs.spaces import action_dtype
 from sample_factory_tpu_torch.models.actor_critic import initial_actor_critic_state
 from sample_factory_tpu_torch.parallel.mesh import EnvShard
+from sample_factory_tpu_torch.utils.timing import tracer
 
 TRAJECTORY_KEYS = (
     "obs", "rnn_states", "actions", "action_logits", "log_prob_actions", "values",
@@ -146,58 +149,65 @@ def make_rollout_fn(cfg, env: DeviceEnv, env_info) -> Callable:
 
     @torch.no_grad()
     def rollout(model, obs_rms, ss: SamplerState, policy_version: int, policy_id: int):
-        steps = []
-        completed = {"count": 0.0, "return_sum": 0.0, "raw_return_sum": 0.0, "len_sum": 0.0}
-        for _ in range(cfg.rollout):
-            action_params, values, new_rnn = model(normalize_obs(cfg, obs_rms, ss.obs), ss.rnn_state)
-            # optional action masking: the env publishes a mask under obs['action_mask']
-            if ss.shard is None:
-                dist = get_action_distribution(action_space, action_params, ss.obs.get("action_mask"))
-                actions, log_probs = sample_actions_log_probs(dist, ss.generator)
-                step_draws = reset_draws = None
-            else:
-                actions, log_probs, step_draws, reset_draws = _sharded_step(
-                    env, action_space, ss, action_params, ss.obs.get("action_mask")
-                )
-            actions = actions.to(a_dtype)
+        trace = tracer()
+        with trace.span("rollout"):
+            steps = []
+            completed = {"count": 0.0, "return_sum": 0.0, "raw_return_sum": 0.0, "len_sum": 0.0}
+            for _ in range(cfg.rollout):
+                with trace.span("rollout.step"):
+                    with trace.span("rollout.policy"):
+                        action_params, values, new_rnn = model(normalize_obs(cfg, obs_rms, ss.obs), ss.rnn_state)
+                        # optional action masking: the env publishes a mask under obs['action_mask']
+                        if ss.shard is None:
+                            dist = get_action_distribution(action_space, action_params, ss.obs.get("action_mask"))
+                            actions, log_probs = sample_actions_log_probs(dist, ss.generator)
+                            step_draws = reset_draws = None
+                        else:
+                            actions, log_probs, step_draws, reset_draws = _sharded_step(
+                                env, action_space, ss, action_params, ss.obs.get("action_mask")
+                            )
+                        actions = actions.to(a_dtype)
 
-            next_obs, env_states, rewards, dones, info = autoreset_step(
-                env, ss.env_states, actions, generator=ss.generator, step_draws=step_draws, reset_draws=reset_draws,
-                shaping=ss.shaping,
-            )
-            proc_rewards = _process_rewards(cfg, rewards)
+                    with trace.span("rollout.env"):
+                        next_obs, env_states, rewards, dones, info = autoreset_step(
+                            env, ss.env_states, actions, generator=ss.generator, step_draws=step_draws,
+                            reset_draws=reset_draws, shaping=ss.shaping,
+                        )
 
-            # episodic bookkeeping: accumulate, emit on done, reset accumulators
-            ep_return = ss.ep_return + proc_rewards
-            ep_return_raw = ss.ep_return_raw + rewards
-            ep_len = ss.ep_len + 1.0
-            done_f = dones.float()
-            completed["count"] = completed["count"] + done_f.sum()
-            completed["return_sum"] = completed["return_sum"] + (done_f * ep_return).sum()
-            completed["raw_return_sum"] = completed["raw_return_sum"] + (done_f * ep_return_raw).sum()
-            completed["len_sum"] = completed["len_sum"] + (done_f * ep_len).sum()
+                    proc_rewards = _process_rewards(cfg, rewards)
 
-            steps.append({
-                "obs": ss.obs,
-                "rnn_states": ss.rnn_state,
-                "actions": actions,
-                "action_logits": action_params,
-                "log_prob_actions": log_probs,
-                "values": values,
-                "rewards": proc_rewards,
-                "dones": done_f,
-                "time_outs": info["time_outs"].float(),
-                "policy_version": torch.full(values.shape, policy_version, dtype=torch.int32, device=values.device),
-                "policy_id": torch.full(values.shape, policy_id, dtype=torch.int32, device=values.device),
-            })
+                    # episodic bookkeeping: accumulate, emit on done, reset accumulators
+                    ep_return = ss.ep_return + proc_rewards
+                    ep_return_raw = ss.ep_return_raw + rewards
+                    ep_len = ss.ep_len + 1.0
+                    done_f = dones.float()
+                    completed["count"] = completed["count"] + done_f.sum()
+                    completed["return_sum"] = completed["return_sum"] + (done_f * ep_return).sum()
+                    completed["raw_return_sum"] = completed["raw_return_sum"] + (done_f * ep_return_raw).sum()
+                    completed["len_sum"] = completed["len_sum"] + (done_f * ep_len).sum()
 
-            # rnn state resets at episode boundaries (reference batched_sampling.py:215-228)
-            ss.rnn_state = torch.where(done_f[:, None] > 0, torch.zeros_like(new_rnn), new_rnn)
-            ss.env_states, ss.obs = env_states, next_obs
-            keep = 1.0 - done_f
-            ss.ep_return, ss.ep_len, ss.ep_return_raw = ep_return * keep, ep_len * keep, ep_return_raw * keep
+                    steps.append({
+                        "obs": ss.obs,
+                        "rnn_states": ss.rnn_state,
+                        "actions": actions,
+                        "action_logits": action_params,
+                        "log_prob_actions": log_probs,
+                        "values": values,
+                        "rewards": proc_rewards,
+                        "dones": done_f,
+                        "time_outs": info["time_outs"].float(),
+                        "policy_version": torch.full(values.shape, policy_version, dtype=torch.int32,
+                                                     device=values.device),
+                        "policy_id": torch.full(values.shape, policy_id, dtype=torch.int32, device=values.device),
+                    })
 
-        return ss, _stack_trajectory(steps, ss), completed
+                    # rnn state resets at episode boundaries (reference batched_sampling.py:215-228)
+                    ss.rnn_state = torch.where(done_f[:, None] > 0, torch.zeros_like(new_rnn), new_rnn)
+                    ss.env_states, ss.obs = env_states, next_obs
+                    keep = 1.0 - done_f
+                    ss.ep_return, ss.ep_len, ss.ep_return_raw = ep_return * keep, ep_len * keep, ep_return_raw * keep
+
+            return ss, _stack_trajectory(steps, ss), completed
 
     return rollout
 
@@ -263,65 +273,70 @@ def make_mixed_rollout_fn(cfg, env: DeviceEnv, env_info, num_policies: int) -> C
 
     @torch.no_grad()
     def rollout(models, obs_rms, ss: SamplerState, slot_policies, policy_versions):
-        on_host = [int(p) for p in slot_policies]
-        slots = len(on_host)
-        num_envs = slots // A
-        device = ss.rnn_state.device
-        slot_policies = torch.tensor(on_host, dtype=torch.long, device=device)
-        onehot = torch.nn.functional.one_hot(slot_policies, P).float()  # [slots, P]
-        slot_versions = torch.tensor([int(policy_versions[p]) for p in on_host], dtype=torch.int32, device=device)
-        slot_ids = slot_policies.int()
-        groups = [(p, torch.tensor(rows, dtype=torch.long, device=device))
-                  for p in range(P) if (rows := [s for s, q in enumerate(on_host) if q == p])]
+        trace = tracer()
+        with trace.span("rollout"):
+            on_host = [int(p) for p in slot_policies]
+            slots = len(on_host)
+            num_envs = slots // A
+            device = ss.rnn_state.device
+            slot_policies = torch.tensor(on_host, dtype=torch.long, device=device)
+            onehot = torch.nn.functional.one_hot(slot_policies, P).float()  # [slots, P]
+            slot_versions = torch.tensor([int(policy_versions[p]) for p in on_host], dtype=torch.int32, device=device)
+            slot_ids = slot_policies.int()
+            groups = [(p, torch.tensor(rows, dtype=torch.long, device=device))
+                      for p in range(P) if (rows := [s for s, q in enumerate(on_host) if q == p])]
 
-        # per-agent shaping gathered from the per-policy rows
-        shaping = None
-        if ss.shaping is not None:
-            shaping = {k: v[slot_policies].reshape(num_envs, A) for k, v in ss.shaping.items()}
+            # per-agent shaping gathered from the per-policy rows
+            shaping = None
+            if ss.shaping is not None:
+                shaping = {k: v[slot_policies].reshape(num_envs, A) for k, v in ss.shaping.items()}
 
-        steps = []
-        completed = {k: torch.zeros(P, device=device) for k in ("count", "return_sum", "raw_return_sum", "len_sum")}
-        for _ in range(cfg.rollout):
-            actions, log_probs, action_params, values, new_rnn = mixed_policy_step(models, obs_rms, ss, groups)
+            steps = []
+            completed = {k: torch.zeros(P, device=device) for k in ("count", "return_sum", "raw_return_sum", "len_sum")}
+            for _ in range(cfg.rollout):
+                with trace.span("rollout.step"):
+                    with trace.span("rollout.policy"):
+                        actions, log_probs, action_params, values, new_rnn = mixed_policy_step(models, obs_rms, ss, groups)
 
-            env_actions = actions.reshape((num_envs, A) + tuple(actions.shape[1:]))
-            next_obs, env_states, rewards, dones, info = autoreset_step_ma(
-                env, ss.env_states, env_actions, generator=ss.generator, shaping=shaping
-            )
-            # flatten the agent axis back into slots
-            rewards, dones = rewards.reshape(slots), dones.reshape(slots)
-            next_obs = {k: v.reshape((slots,) + tuple(v.shape[2:])) for k, v in next_obs.items()}
+                    env_actions = actions.reshape((num_envs, A) + tuple(actions.shape[1:]))
+                    with trace.span("rollout.env"):
+                        next_obs, env_states, rewards, dones, info = autoreset_step_ma(
+                            env, ss.env_states, env_actions, generator=ss.generator, shaping=shaping
+                        )
+                    # flatten the agent axis back into slots
+                    rewards, dones = rewards.reshape(slots), dones.reshape(slots)
+                    next_obs = {k: v.reshape((slots,) + tuple(v.shape[2:])) for k, v in next_obs.items()}
 
-            proc_rewards = _process_rewards(cfg, rewards)
-            ep_return = ss.ep_return + proc_rewards
-            ep_return_raw = ss.ep_return_raw + rewards
-            ep_len = ss.ep_len + 1.0
-            done_f = dones.float()
-            completed["count"] += done_f @ onehot
-            completed["return_sum"] += (done_f * ep_return) @ onehot
-            completed["raw_return_sum"] += (done_f * ep_return_raw) @ onehot
-            completed["len_sum"] += (done_f * ep_len) @ onehot
+                    proc_rewards = _process_rewards(cfg, rewards)
+                    ep_return = ss.ep_return + proc_rewards
+                    ep_return_raw = ss.ep_return_raw + rewards
+                    ep_len = ss.ep_len + 1.0
+                    done_f = dones.float()
+                    completed["count"] += done_f @ onehot
+                    completed["return_sum"] += (done_f * ep_return) @ onehot
+                    completed["raw_return_sum"] += (done_f * ep_return_raw) @ onehot
+                    completed["len_sum"] += (done_f * ep_len) @ onehot
 
-            steps.append({
-                "obs": ss.obs,
-                "rnn_states": ss.rnn_state,
-                "actions": actions,
-                "action_logits": action_params,
-                "log_prob_actions": log_probs,
-                "values": values,
-                "rewards": proc_rewards,
-                "dones": done_f,
-                "time_outs": info["time_outs"].reshape(slots).float(),
-                "policy_version": slot_versions,
-                # inactive agents get policy_id -1: masked out by every learner's valids
-                "policy_id": torch.where(info["active"].reshape(slots), slot_ids, torch.full_like(slot_ids, -1)),
-            })
+                    steps.append({
+                        "obs": ss.obs,
+                        "rnn_states": ss.rnn_state,
+                        "actions": actions,
+                        "action_logits": action_params,
+                        "log_prob_actions": log_probs,
+                        "values": values,
+                        "rewards": proc_rewards,
+                        "dones": done_f,
+                        "time_outs": info["time_outs"].reshape(slots).float(),
+                        "policy_version": slot_versions,
+                        # inactive agents get policy_id -1: masked out by every learner's valids
+                        "policy_id": torch.where(info["active"].reshape(slots), slot_ids, torch.full_like(slot_ids, -1)),
+                    })
 
-            ss.rnn_state = torch.where(done_f[:, None] > 0, torch.zeros_like(new_rnn), new_rnn)
-            ss.env_states, ss.obs = env_states, next_obs
-            keep = 1.0 - done_f
-            ss.ep_return, ss.ep_len, ss.ep_return_raw = ep_return * keep, ep_len * keep, ep_return_raw * keep
+                    ss.rnn_state = torch.where(done_f[:, None] > 0, torch.zeros_like(new_rnn), new_rnn)
+                    ss.env_states, ss.obs = env_states, next_obs
+                    keep = 1.0 - done_f
+                    ss.ep_return, ss.ep_len, ss.ep_return_raw = ep_return * keep, ep_len * keep, ep_return_raw * keep
 
-        return ss, _stack_trajectory(steps, ss), completed
+            return ss, _stack_trajectory(steps, ss), completed
 
     return rollout

@@ -4,6 +4,8 @@ Python float held by the train state and set on the optimizer before each step."
 
 from __future__ import annotations
 
+from sample_factory_tpu_torch.utils.timing import tracer
+
 
 def kl_adaptive_lr_update(curr_lr: float, mean_kl: float, kl_threshold: float, min_lr: float, max_lr: float) -> float:
     """If KL > 2*threshold: lr /= 1.5; if KL < 0.5*threshold: lr *= 1.5 (reference :57-66)."""
@@ -24,10 +26,11 @@ def total_sgd_steps_for_linear_decay(cfg) -> int:
 
 
 def lr_after_minibatch(cfg, curr_lr: float, mean_kl, sgd_step: int) -> float:
-    """LR after each minibatch; `mean_kl` is read (a device sync) only by the KL schedule."""
+    """LR after each minibatch; `mean_kl`, a 0-d tensor, is read (a device sync) only by the KL schedule."""
     if cfg.lr_schedule == "kl_adaptive_minibatch":
         return kl_adaptive_lr_update(
-            curr_lr, float(mean_kl), cfg.lr_schedule_kl_threshold, cfg.lr_adaptive_min, cfg.lr_adaptive_max
+            curr_lr, tracer().host_read("kl", mean_kl), cfg.lr_schedule_kl_threshold, cfg.lr_adaptive_min,
+            cfg.lr_adaptive_max,
         )
     if cfg.lr_schedule == "linear_decay":
         return linear_decay_lr(cfg.learning_rate, sgd_step, total_sgd_steps_for_linear_decay(cfg))
@@ -37,6 +40,7 @@ def lr_after_minibatch(cfg, curr_lr: float, mean_kl, sgd_step: int) -> float:
 def lr_after_epoch(cfg, curr_lr: float, mean_kl_over_epoch) -> float:
     if cfg.lr_schedule == "kl_adaptive_epoch":
         return kl_adaptive_lr_update(
-            curr_lr, float(mean_kl_over_epoch), cfg.lr_schedule_kl_threshold, cfg.lr_adaptive_min, cfg.lr_adaptive_max
+            curr_lr, tracer().host_read("kl", mean_kl_over_epoch), cfg.lr_schedule_kl_threshold, cfg.lr_adaptive_min,
+            cfg.lr_adaptive_max,
         )
     return curr_lr

@@ -49,6 +49,7 @@ from sample_factory_tpu_torch.pbt.pbt import PopulationBasedTraining
 from sample_factory_tpu_torch.runner.checkpoint import load_checkpoint, save_checkpoint
 from sample_factory_tpu_torch.runner.runner import EPISODIC_KEYS, Runner
 from sample_factory_tpu_torch.runner.stats import EpisodeStats, SummaryWriter
+from sample_factory_tpu_torch.utils.timing import tracer
 from sample_factory_tpu_torch.utils.utils import done_filename, log
 
 
@@ -198,7 +199,8 @@ class MultiPolicyRunner(Runner):
             return
         pending, self._pending_ep = self._pending_ep, []
         # [iterations, keys, P] in one transfer
-        host = torch.stack([torch.stack([ep[k].float() for k in EPISODIC_KEYS]) for ep in pending]).cpu().tolist()
+        sums = torch.stack([torch.stack([ep[k].float() for k in EPISODIC_KEYS]) for ep in pending])
+        host = tracer().host_read("episode_stats", sums).tolist()
         for count, return_sum, len_sum in host:
             for p in range(self.P):
                 self.episode_stats_per_policy[p].add_rollout_stats(count[p], return_sum[p], len_sum[p])
@@ -209,7 +211,8 @@ class MultiPolicyRunner(Runner):
         if not stats:
             return []
         keys = list(stats[0].keys())
-        values = torch.stack([torch.stack([s[k].detach().float().reshape(()) for k in keys]) for s in stats]).cpu().tolist()
+        stacked = torch.stack([torch.stack([s[k].detach().float().reshape(()) for k in keys]) for s in stats])
+        values = tracer().host_read("report", stacked).tolist()
         return [dict(zip(keys, row)) for row in values]
 
     def _report(self, stats) -> None:

@@ -55,7 +55,7 @@ from sample_factory_tpu_torch.parallel.mesh import make_mesh, replicate_tree, sh
 from sample_factory_tpu_torch.parallel.multihost import agree_on_stop, all_reduce, broadcast_from_primary, is_primary_host, sync_barrier
 from sample_factory_tpu_torch.runner.checkpoint import full_state_dict, load_checkpoint, save_checkpoint
 from sample_factory_tpu_torch.runner.stats import EpisodeStats, FpsTracker, SummaryWriter
-from sample_factory_tpu_torch.utils.timing import Timing
+from sample_factory_tpu_torch.utils.timing import Timing, tracer
 from sample_factory_tpu_torch.utils.utils import (
     done_filename,
     experiment_dir,
@@ -66,7 +66,8 @@ from sample_factory_tpu_torch.utils.utils import (
 from sample_factory_tpu_torch.utils.wandb_utils import finish_wandb, init_wandb
 
 ACTIONS_CHECKSUM_PRIME = 9973  # `_tally_actions` weighs the action at place i by 1 + i mod this
-PROFILED_ITERATIONS = 12
+PROFILE_AFTER = 4  # --profiler_dir: iterations left out of the profile first (warm-up)
+PROFILED_ITERATIONS = 4  # then profiled
 EPISODIC_KEYS = ("count", "return_sum", "len_sum")
 
 
@@ -78,6 +79,10 @@ class AlgoObserver:
 
     def on_training_iteration(self, runner, stats) -> None:
         """Called after every training iteration with a dict of device tensors."""
+
+    def span(self, name: str, start_s: float, end_s: float) -> None:
+        """Called as each span of the program's tracer ends (`utils/timing.py`: only while a torch.profiler
+        session records), with its ends in `time.perf_counter` seconds."""
 
     def extra_summaries(self, runner, policy_id: int, writer, env_steps: int) -> None:
         """Called at every summary report; write custom scalars to the writer."""
@@ -97,7 +102,7 @@ class Runner:
     def __init__(self, cfg):
         self.cfg = cfg
         self.policy_id = 0
-        self.timing = Timing("runner")
+        self.timing = Timing()
         self.observers: list = []
         # custom per-episode stats: handlers called once an episode (host envs), and the
         # per-policy windows that observers fill and PBT reads for --pbt_target_objective
@@ -293,24 +298,31 @@ class Runner:
 
         log.info("Starting training for %d env steps (current: %d)", cfg.train_for_env_steps, self.env_steps)
         status = 0
-        profiler = self._start_profiler()
+        profiler = None
         iterations = 0
+        trace = tracer()
+        trace.clear()
         try:
             while not self._should_end_training():
-                stats, ep_stats = self._train_iteration()
+                trace.begin_iteration(self.observers)
+                with trace.span("iteration"):
+                    stats, ep_stats = self._train_iteration()
+                    self.env_steps += transitions_per_iter * frameskip
+                    self._process_stats(stats, ep_stats)
+                    self._after_iteration()
+                    self._periodic_tasks(stats)
+                self._notify_observers(stats)
                 iterations += 1
-                if profiler is not None and iterations == PROFILED_ITERATIONS:
+                if self.cfg.profiler_dir and iterations == PROFILE_AFTER:
+                    profiler = self._start_profiler()
+                elif profiler is not None and iterations == PROFILE_AFTER + PROFILED_ITERATIONS:
                     self._stop_profiler(profiler)
                     profiler = None
-                self.env_steps += transitions_per_iter * frameskip
-                self._process_stats(stats, ep_stats)
-                self._after_iteration()
-                self._periodic_tasks(stats)
-                self._notify_observers(stats)
         except KeyboardInterrupt:
             log.info("Interrupted, saving checkpoint...")
             status = 1
         finally:
+            trace.end()
             try:
                 if profiler is not None:
                     self._stop_profiler(profiler)
@@ -352,8 +364,8 @@ class Runner:
     # ------------------------------------------------------------- internals
 
     def _start_profiler(self):
-        if not self.cfg.profiler_dir:
-            return None
+        """--profiler_dir: the iterations after the first PROFILE_AFTER, host and device on one clock, with the
+        tracer's spans (on while the profiler records) over the kernels."""
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -366,7 +378,8 @@ class Runner:
         os.makedirs(self.cfg.profiler_dir, exist_ok=True)
         path = os.path.join(self.cfg.profiler_dir, "trace.json")
         profiler.export_chrome_trace(path)
-        log.info("torch.profiler trace of the first iterations written to %s", path)
+        log.info("torch.profiler trace of iterations %d-%d written to %s", PROFILE_AFTER + 1,
+                 PROFILE_AFTER + PROFILED_ITERATIONS, path)
 
     def _wants_to_stop(self) -> bool:
         if self._stop_requested:
@@ -382,7 +395,7 @@ class Runner:
             return True  # every rank's experience, from rank 0's count at init: the same on every rank
         if self._agreed_stop is None:  # before the first iteration
             self._agreed_stop = torch.tensor(float(agree_on_stop(self._wants_to_stop())))
-        return bool(self._agreed_stop.item() > 0)
+        return bool(tracer().host_read("stop", self._agreed_stop) > 0)
 
     def _reduce_across_ranks(self, sums: List[torch.Tensor], dtype: torch.dtype = torch.float32):
         """One all-reduce an iteration, on every rank: `sums` (this rank's parts, on the
@@ -438,7 +451,7 @@ class Runner:
             sums, self._agreed_stop = self._reduce_across_ranks(sums)
             if self.mesh.model > 1:
                 checksums, writes = sums.pop(), sums.pop()
-                host = torch.cat([writes, checksums]).tolist()
+                host = tracer().host_read("agree", torch.cat([writes, checksums])).tolist()
                 self._agreed_writes = tuple(v > 0 for v in host[:3])
                 self._check_model_groups_agree(host[3:])
             ep_stats = {**ep_stats, **dict(zip(keys, sums))}
@@ -454,7 +467,8 @@ class Runner:
             return
         pending, self._pending_ep = self._pending_ep, []
         keys = ("count", "return_sum", "len_sum")
-        host = torch.stack([torch.stack([ep[k].float() for k in keys]) for ep in pending]).cpu().tolist()
+        sums = torch.stack([torch.stack([ep[k].float() for k in keys]) for ep in pending])
+        host = tracer().host_read("episode_stats", sums).tolist()
         for count, return_sum, len_sum in host:
             self.episode_stats.add_rollout_stats(count, return_sum, len_sum)
 
@@ -497,7 +511,8 @@ class Runner:
         stats = self._last_stats if stats is None else stats
         if not stats:
             return {}
-        values = torch.stack([v.detach().float().reshape(()) for v in stats.values()]).cpu().tolist()
+        stacked = torch.stack([v.detach().float().reshape(()) for v in stats.values()])
+        values = tracer().host_read("report", stacked).tolist()
         return dict(zip(stats.keys(), values))
 
     def _report(self, stats) -> None:

@@ -275,7 +275,8 @@ def test_run_rl_on_cpu_writes_checkpoint_and_resumes(tmp_path):
     _, runner = make_rl_runner(parse_custom_args(_smoke_argv(tmp_path, 128) + [f"--profiler_dir={profile_dir}"]))
     runner.init()
     assert runner.run() == 0
-    assert (profile_dir / "trace.json").is_file()  # the profiler window closes with the run
+    # the profile leaves out the first 4 iterations: a 2-iteration run writes none (test_torch_tracing.py: the window)
+    assert not (profile_dir / "trace.json").exists()
     assert runner.env_steps == 128  # 2 iterations of 8 envs x 8 steps
     stats = runner.host_stats()
     assert all(np.isfinite(v) for v in stats.values()) and stats["grad_norm"] > 0
