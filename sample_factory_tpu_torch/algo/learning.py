@@ -21,6 +21,11 @@ around a train call; in it `learner.prepare_batch` (with `learner.normalize`,
 `learner.bootstrap`, `learner.advantages`) and each `learner.epoch`; in an epoch each
 `learner.minibatch`, of `learner.forward`, `learner.backward` and `learner.optimizer`.
 
+On one CUDA rank with contiguous minibatches, a minibatch's work before the optimizer's
+step is the replay of a CUDA graph (`minibatch_graphs.py`): its `learner.minibatch` then
+holds no `learner.forward` or `learner.backward`, only `learner.optimizer` around the eager
+step, and its time is the host's to enqueue the replay and the step.
+
 Data parallelism (a `mesh` with a process group, `parallel/mesh.py`): each of R ranks
 holds the rows of its own envs, and the learner computes what one rank with every
 env computes, as GSPMD does for the JAX package. Every reduction is global: the valid
@@ -64,6 +69,7 @@ from sample_factory_tpu_torch.algo.losses import (
     symmetric_kl_exploration_loss,
     value_loss,
 )
+from sample_factory_tpu_torch.algo.minibatch_graphs import MinibatchGraphs, graph_key, replays_minibatches
 from sample_factory_tpu_torch.algo.optimizers import make_optimizer, set_lr
 from sample_factory_tpu_torch.algo.running_mean_std import (
     obs_rms_init,
@@ -196,7 +202,8 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0, mesh=None):
         return x.max() if x.numel() else x.new_full((), float("-inf"))
 
     def compute_losses(model, mb, hp):
-        """mb: dict of [B, ...] tensors (B = batch, segments contiguous)."""
+        """mb: dict of [B, ...] tensors (B = batch, segments contiguous), and `init_rnn_states` [S, H], the
+        recurrent state entering each of its S segments."""
         B = mb["valids"].shape[0]
         S = B // recurrence
 
@@ -204,7 +211,7 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0, mesh=None):
             return x.reshape((S, recurrence) + tuple(x.shape[1:]))
 
         norm_obs = {k: seg(v) for k, v in mb["normalized_obs"].items()}
-        init_rnn = seg(mb["rnn_states"])[:, 0]
+        init_rnn = mb["init_rnn_states"]
         # reset AFTER consuming step t where the episode ended or the step is invalid
         done_or_invalid = torch.maximum(seg(mb["dones"]), 1.0 - seg(mb["valids"]))
         action_params, new_values = forward_seq(model, norm_obs, init_rnn, done_or_invalid)
@@ -276,56 +283,80 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0, mesh=None):
             aux = {k: v.detach() for k, v in aux.items()}
         return loss, aux
 
-    def sgd_step(ts: PolicyTrainState, valid_frac: float, mb) -> Dict[str, torch.Tensor]:
+    def backward(ts: PolicyTrainState, loss, aux):
+        """The gradients of `loss` in the parameters' .grad (zeroed first), exchanged between the ranks -> (grads,
+        the leaves' sharded dims under tensor parallelism)."""
+        model = ts.model
+        ts.optimizer.zero_grad(set_to_none=False)
+        loss.backward()
+        params = list(model.parameters())
+        for p in params:  # as optax: every parameter gets a gradient, zero if unused
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads, dims = [p.grad for p in params], None
+        if all_sum is not None:
+            # each rank's loss is its part of the global one: the parts' gradients and stats add up
+            summed = all_sum(grads + [aux[k] for k in SUMMED_STATS])
+            torch._foreach_copy_(grads, summed[: len(grads)])
+            aux.update(zip(SUMMED_STATS, summed[len(grads) :]))
+            maxed = all_max([aux[k] for k in MAXED_STATS] + [-aux["ratio_min"]])
+            aux.update(zip(MAXED_STATS, maxed))
+            aux["ratio_min"] = -maxed[-1]
+        if ts.tp is not None:
+            # the model group's replicas compute the same backward, but not bit for bit on the card: their
+            # mean keeps the replicated leaves, and every decision taken from the stats, equal on its ranks
+            dims, size = ts.tp.param_dims(model), ts.tp.axis.size
+            shared = [g for g, d in zip(grads, dims) if d is None]
+            means = all_reduce(shared + list(aux.values()), group=ts.tp.axis.group)
+            torch._foreach_copy_(shared, [m / size for m in means[: len(shared)]])
+            aux.update((k, m / size) for k, m in zip(list(aux), means[len(shared) :]))
+        return grads, dims
+
+    def clip(ts: PolicyTrainState, grads, dims):
+        """The gradients' global norm; the gradients scaled in place to at most `max_grad_norm`."""
+        if ts.tp is None:
+            grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        else:
+            grad_norm = ts.tp.global_sq_norm(grads, dims).sqrt()
+        if cfg.max_grad_norm > 0.0:
+            # manual clip so the bound can be a per-policy (PBT) value
+            scale = (ts.hparams["max_grad_norm"] / (grad_norm + 1e-6)).clamp(max=1.0)
+            torch._foreach_mul_(grads, scale)
+        return grad_norm
+
+    def gradients(ts: PolicyTrainState, mb):
+        """What a minibatch's graph holds: the losses, the clipped gradients -> (aux, grad_norm)."""
+        loss, aux = compute_losses(ts.model, mb, ts.hparams)
+        return aux, clip(ts, *backward(ts, loss, aux))
+
+    def optimizer_step(ts: PolicyTrainState, valid_frac: float, aux, grad_norm):
+        """The eager rest of a minibatch: the rate, Adam's step, the schedule; -> aux with the norm and the rate."""
+        # invalid-data LR scaling (reference :789-794)
+        actual_lr = ts.curr_lr * valid_frac
+        set_lr(ts.optimizer, actual_lr)
+        ts.optimizer.step()
+        ts.curr_lr = lr_after_minibatch(cfg, ts.curr_lr, aux["kl_divergence"], ts.train_step)
+        ts.train_step += 1
+        aux["grad_norm"] = grad_norm.detach()
+        aux["actual_lr"] = grad_norm.new_full((), actual_lr)  # filled on the device: no copy for the host to wait on
+        return aux
+
+    def sgd_step(ts: PolicyTrainState, valid_frac: float, mb,
+                 graphs: Optional[MinibatchGraphs] = None) -> Dict[str, torch.Tensor]:
+        """One minibatch; with `graphs`, everything before the optimizer's step by the replay of the model's graph
+        (`minibatch_graphs.py`)."""
         trace = tracer()
         with trace.span("learner.minibatch"):
-            model = ts.model
+            if graphs is not None:
+                aux, grad_norm = graphs.run(ts, mb, partial(gradients, ts))
+                with trace.span("learner.optimizer"):
+                    return optimizer_step(ts, valid_frac, aux, grad_norm)
             with trace.span("learner.forward"):
-                loss, aux = compute_losses(model, mb, ts.hparams)
+                loss, aux = compute_losses(ts.model, mb, ts.hparams)
             with trace.span("learner.backward"):
-                ts.optimizer.zero_grad(set_to_none=False)
-                loss.backward()
-                params = list(model.parameters())
-                for p in params:  # as optax: every parameter gets a gradient, zero if unused
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                grads = [p.grad for p in params]
-                if all_sum is not None:
-                    # each rank's loss is its part of the global one: the parts' gradients and stats add up
-                    summed = all_sum(grads + [aux[k] for k in SUMMED_STATS])
-                    torch._foreach_copy_(grads, summed[: len(grads)])
-                    aux.update(zip(SUMMED_STATS, summed[len(grads) :]))
-                    maxed = all_max([aux[k] for k in MAXED_STATS] + [-aux["ratio_min"]])
-                    aux.update(zip(MAXED_STATS, maxed))
-                    aux["ratio_min"] = -maxed[-1]
-                if ts.tp is not None:
-                    # the model group's replicas compute the same backward, but not bit for bit on the card: their
-                    # mean keeps the replicated leaves, and every decision taken from the stats, equal on its ranks
-                    dims, size = ts.tp.param_dims(model), ts.tp.axis.size
-                    shared = [g for g, d in zip(grads, dims) if d is None]
-                    means = all_reduce(shared + list(aux.values()), group=ts.tp.axis.group)
-                    torch._foreach_copy_(shared, [m / size for m in means[: len(shared)]])
-                    aux.update((k, m / size) for k, m in zip(list(aux), means[len(shared) :]))
+                grads, dims = backward(ts, loss, aux)
             with trace.span("learner.optimizer"):
-                if ts.tp is None:
-                    grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-                else:
-                    grad_norm = ts.tp.global_sq_norm(grads, dims).sqrt()
-                if cfg.max_grad_norm > 0.0:
-                    # manual clip so the bound can be a per-policy (PBT) value
-                    scale = (ts.hparams["max_grad_norm"] / (grad_norm + 1e-6)).clamp(max=1.0)
-                    torch._foreach_mul_(grads, scale)
-
-                # invalid-data LR scaling (reference :789-794)
-                actual_lr = ts.curr_lr * valid_frac
-                set_lr(ts.optimizer, actual_lr)
-                ts.optimizer.step()
-
-                ts.curr_lr = lr_after_minibatch(cfg, ts.curr_lr, aux["kl_divergence"], ts.train_step)
-            ts.train_step += 1
-            aux["grad_norm"] = grad_norm.detach()
-            aux["actual_lr"] = grad_norm.new_full((), actual_lr)  # filled on the device: no copy for the host to wait on
-        return aux
+                return optimizer_step(ts, valid_frac, aux, clip(ts, grads, dims))
 
     @torch.no_grad()
     def prepare_batch(ts: PolicyTrainState, traj: Dict[str, Any], pid: int):
@@ -387,9 +418,11 @@ def build_train_pieces(cfg, env_info, policy_id: int = 0, mesh=None):
                 x = x.transpose(0, 1)
                 return x.reshape((N * T,) + tuple(x.shape[2:]))
 
+            # of the recurrent states, only the one entering each segment of `recurrence` rows of the dataset
+            starts = torch.arange(0, N * T, recurrence, device=traj["rnn_states"].device)
             dataset = {
                 "normalized_obs": {k: to_dataset(v[:T]) for k, v in normalized_obs.items()},
-                "rnn_states": to_dataset(traj["rnn_states"][:T]),
+                "init_rnn_states": traj["rnn_states"][starts % T, starts // T],
                 "actions": to_dataset(traj["actions"]),
                 "action_logits": to_dataset(traj["action_logits"]),
                 "log_prob_actions": to_dataset(traj["log_prob_actions"]),
@@ -425,19 +458,25 @@ def select_minibatches(dataset, rank: int, world: int, batch_size: int, recurren
     `dataset`-shaped dicts, empty where the rank holds no row of a minibatch.
 
     `dataset` holds this rank's `local` rows of the global env-major dataset of `local * world`
-    rows, rank-major; `batch_size` is already clipped to the global dataset. Contiguous
-    minibatches are rows [i·B, (i+1)·B) (views, no data movement: the reference default);
-    shuffled ones are the i-th slice of one permutation of the global segments drawn from
-    `generator`, which every rank seeds alike (one host sync to split it on more than one rank)."""
+    rows, rank-major, and under `init_rnn_states` one row for each segment of `recurrence` rows;
+    `batch_size` is already clipped to the global dataset. Contiguous minibatches are rows
+    [i·B, (i+1)·B) (views, no data movement: the reference default); shuffled ones are the i-th
+    slice of one permutation of the global segments drawn from `generator`, which every rank
+    seeds alike (one host sync to split it on more than one rank)."""
     local_size = dataset["valids"].shape[0]
     dataset_size = local_size * world
     num_minibatches = dataset_size // batch_size
     first_row, local_segments = rank * local_size, local_size // recurrence
 
+    def select(rows, segments):
+        """`rows` applied to the row leaves, `segments` to the segment leaf."""
+        return {k: segments(v) if k == "init_rnn_states" else _tree_map(rows, v) for k, v in dataset.items()}
+
     if not shuffle:
         def own_rows(i):
             lo, hi = max(i * batch_size, first_row), min((i + 1) * batch_size, first_row + local_size)
-            return _tree_map(lambda x: x[lo - first_row : max(lo, hi) - first_row], dataset)
+            lo, hi = lo - first_row, max(lo, hi) - first_row
+            return select(lambda x: x[lo:hi], lambda x: x[lo // recurrence : hi // recurrence])
 
         return [own_rows(i) for i in range(num_minibatches)]
 
@@ -457,7 +496,7 @@ def select_minibatches(dataset, rank: int, world: int, batch_size: int, recurren
         seg_view = x.reshape((local_segments, recurrence) + tuple(x.shape[1:]))
         return seg_view[sel].reshape((sel.shape[0] * recurrence,) + tuple(x.shape[1:]))
 
-    return [_tree_map(lambda x: gather(x, sel), dataset) for sel in selections]
+    return [select(lambda x: gather(x, sel), lambda x: x[sel]) for sel in selections]
 
 
 def make_train_fn(cfg, env_info, policy_id: int = 0, mesh=None) -> Callable:
@@ -467,19 +506,26 @@ def make_train_fn(cfg, env_info, policy_id: int = 0, mesh=None) -> Callable:
     recurrence = max(1, cfg.recurrence)
     sgd_step, prepare_batch = build_train_pieces(cfg, env_info, policy_id, mesh)
     _, all_max, rank, world = _data_parallel(mesh)
+    graphs = MinibatchGraphs()
 
     def train(ts: PolicyTrainState, traj: Dict[str, Any], generator: Optional[torch.Generator] = None, pid: int = policy_id):
         trace = tracer()
         with trace.span("learner"):
+            graphed = replays_minibatches(cfg, traj["rewards"].device, all_max is not None, ts.tp)
             dataset, valid_frac = prepare_batch(ts, traj, pid)
             device = dataset["valids"].device
             batch_size = min(cfg.batch_size, dataset["valids"].shape[0] * world)
+            if graphed:
+                for p in ts.model.parameters():  # the graph accumulates into gradients that exist before it
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                graphs.begin(ts, graph_key(ts, dataset, batch_size))
 
             def run_epoch():
                 with trace.span("learner.epoch"):
                     minibatches = select_minibatches(dataset, rank, world, batch_size, recurrence, cfg.shuffle_minibatches,
                                                      generator)
-                    auxes = [sgd_step(ts, valid_frac, mb) for mb in minibatches]
+                    auxes = [sgd_step(ts, valid_frac, mb, graphs if graphed else None) for mb in minibatches]
                     aux_seq = {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
                     ts.curr_lr = lr_after_epoch(cfg, ts.curr_lr, aux_seq["kl_divergence"].mean())
                 return aux_seq
@@ -509,4 +555,5 @@ def make_train_fn(cfg, env_info, policy_id: int = 0, mesh=None) -> Callable:
                 (stats["version_diff_max"],) = all_max([stats["version_diff_max"]])
             return stats
 
+    train.graphs = graphs
     return train

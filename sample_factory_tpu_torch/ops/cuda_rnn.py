@@ -1333,3 +1333,10 @@ def launch_counts() -> dict:
     its cluster design, "lstm_seq_resident"/"lstm_seq_resident_bwd" for the LSTM's resident design, forward and backward, and
     "lstm_seq_resident_in"/"lstm_seq_resident_in_bwd" for `lstm_seq_in`'s kernels (the input product folded in)."""
     return dict(_launches)
+
+
+def add_launch_counts(counts: dict) -> None:
+    """Adds `counts` (kernel name -> launches) to the counts: the kernels a CUDA graph's replay launches, which pass
+    through no launcher of this module (`algo/minibatch_graphs.py`)."""
+    for name, n in counts.items():
+        _launches[name] += n

@@ -11,6 +11,7 @@ in a near-zero gradient component can only move that component by a
 fraction of lr = 1e-4).
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -208,8 +209,6 @@ def _invariants_setup(extra=()):
 def test_train_is_deterministic():
     """`tests/test_learner_invariants.py::test_train_is_deterministic`: two train calls on one
     input agree bit for bit (the replicas of a data-parallel run rest on it)."""
-    import copy
-
     cfg, info, ts, traj = _invariants_setup()
     train = make_train_fn(cfg, info)
     runs = [copy.deepcopy(ts) for _ in range(2)]
@@ -243,6 +242,101 @@ def test_invalid_data_does_not_change_update():
     assert float(stats["valids_fraction"]) == 0.5
     for key in ("policy_loss", "exploration_loss", "value_loss", "kl_divergence", "entropy", "adv_mean", "adv_std", "grad_norm"):
         np.testing.assert_allclose(float(stats[key]), float(base[key]), rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("device,distributed,tp,shuffle,graphed", [
+    ("cuda", False, None, False, True),
+    ("cpu", False, None, False, False),
+    ("cuda", True, None, False, False),
+    ("cuda", False, "layout", False, False),
+    ("cuda", False, None, True, False),
+], ids=["one-card-rank", "cpu", "ranks", "tensor-parallel", "shuffled"])
+def test_minibatch_graph_route(device, distributed, tp, shuffle, graphed):
+    """The minibatches replay as CUDA graphs on one CUDA rank with contiguous minibatches, and nowhere else."""
+    from types import SimpleNamespace
+
+    from sample_factory_tpu_torch.algo.minibatch_graphs import replays_minibatches
+
+    cfg = SimpleNamespace(shuffle_minibatches=shuffle)
+    assert replays_minibatches(cfg, torch.device(device), distributed, tp) is graphed
+
+
+@pytest.mark.parametrize("change", ["none", "hparams", "dataset-size", "parameter"])
+def test_minibatch_graph_key(change):
+    """The graph's key holds over a new dataset of the same shapes, and changes with the PBT hyperparameters, a
+    dataset smaller than the batch (the batch is clipped to it) and a parameter's tensor."""
+    from sample_factory_tpu_torch.algo.minibatch_graphs import graph_key
+
+    cfg, info, ts, traj = _invariants_setup()
+    _, prepare_batch = build_train_pieces(cfg, info)
+    for p in ts.model.parameters():
+        p.grad = torch.zeros_like(p)
+
+    def key(traj):
+        dataset, _ = prepare_batch(ts, traj, 0)
+        return graph_key(ts, dataset, min(cfg.batch_size, dataset["valids"].shape[0]))
+
+    before = key(traj)
+    if change == "hparams":
+        ts.hparams["ppo_clip_ratio"] = 0.3
+    if change == "dataset-size":
+        traj = _to(traj, lambda x: x[:, : x.shape[1] // 4])
+    if change == "parameter":
+        p = next(ts.model.parameters())
+        p.data = p.data.clone()
+    assert (key(_to(traj, lambda x: x.clone())) == before) is (change == "none")
+
+
+def _replaying_capture(self, inputs, step):
+    """A CPU stand-in of MinibatchGraphs._capture: step() runs on a copy of the inputs for the call's results and
+    again for the graph's outputs; a "replay" runs step() once more and writes what it returns into those outputs, as
+    a graph's replay writes into its own."""
+    from sample_factory_tpu_torch.algo.minibatch_graphs import _Graph
+
+    static = _to(inputs, lambda x: x.clone())
+    (aux, grad_norm), (static_aux, static_norm) = step(static), step(static)
+
+    class Replay:
+        def replay(self):
+            new_aux, new_norm = step(static)
+            torch._foreach_copy_(list(static_aux.values()) + [static_norm], list(new_aux.values()) + [new_norm])
+
+    return aux, grad_norm, _Graph(Replay(), static, static_aux, static_norm, {})
+
+
+def test_minibatch_graphs_train_as_the_eager_step(monkeypatch):
+    """Three train calls of 2 epochs of 2 minibatches along the graph route (the graph's CPU stand-in) and along
+    the eager one give the same stats, parameters and Adam moments, bit for bit; the graph route captures once,
+    replays every later minibatch, captures again after a PBT change of the hyperparameters, and the optimizer's
+    step post-hook fires once a minibatch on both routes."""
+    from sample_factory_tpu_torch.algo import learning
+    from sample_factory_tpu_torch.algo.minibatch_graphs import MinibatchGraphs
+
+    monkeypatch.setattr(MinibatchGraphs, "_capture", _replaying_capture)
+    cfg, info, ts, traj = _invariants_setup(["--num_epochs=2"])
+    runs = {}
+    for graphed in (False, True):
+        monkeypatch.setattr(learning, "replays_minibatches", lambda *a, graphed=graphed: graphed)
+        run = copy.deepcopy(ts)
+        train = make_train_fn(cfg, info)
+        steps = []
+        run.optimizer.register_step_post_hook(lambda opt, args, kwargs: steps.append(1))
+        stats, counts = [], []
+        for call in range(3):
+            if call == 2:
+                run.hparams["ppo_clip_ratio"] = 0.3  # as PBT changes it between train calls
+            stats.append(train(run, traj, torch.Generator().manual_seed(call)))
+            counts.append((train.graphs.captures, train.graphs.replays, len(steps)))
+        runs[graphed] = run, stats, counts
+    (eager, eager_stats, eager_counts), (graph, graph_stats, graph_counts) = runs[False], runs[True]
+    assert eager_counts == [(0, 0, 4), (0, 0, 8), (0, 0, 12)]
+    assert graph_counts == [(1, 3, 4), (1, 7, 8), (2, 10, 12)]
+    for a, b in zip(eager_stats, graph_stats):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert all(torch.equal(a, b) for a, b in zip(eager.model.state_dict().values(), graph.model.state_dict().values()))
+    for p, q in zip(eager.model.parameters(), graph.model.parameters()):
+        m, n = eager.optimizer.state[p], graph.optimizer.state[q]
+        assert torch.equal(m["exp_avg"], n["exp_avg"]) and torch.equal(m["exp_avg_sq"], n["exp_avg_sq"])
 
 
 def _smoke_argv(train_dir, steps):

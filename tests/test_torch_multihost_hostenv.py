@@ -783,6 +783,23 @@ def test_selector_splits_each_global_minibatch_over_the_ranks():
                 assert parts[1 - i][i]["valids"].shape[0] == 0  # the other rank holds no row of it
 
 
+@pytest.mark.parametrize("shuffle", [False, True], ids=["contiguous", "shuffled"])
+@pytest.mark.parametrize("world", [1, 2])
+def test_selector_gives_each_minibatch_its_segments_initial_states(shuffle, world):
+    """`init_rnn_states` holds one row a segment of 4 rows: every rank's selection of it is the first row of each
+    segment of its selected rows, one and two ranks, contiguous and shuffled."""
+    whole = _dataset(64)
+    whole["init_rnn_states"] = whole["rnn_states"][::4].clone()
+    local = 64 // world
+    for r in range(world):
+        mine = {k: ({n: x[r * local : (r + 1) * local] for n, x in v.items()} if isinstance(v, dict)
+                    else v[r * local // 4 : (r + 1) * local // 4] if k == "init_rnn_states" else v[r * local : (r + 1) * local])
+                for k, v in whole.items()}
+        for mb in select_minibatches(mine, r, world, 32, 4, shuffle, torch.Generator().manual_seed(5)):
+            assert mb["init_rnn_states"].shape[0] * 4 == mb["valids"].shape[0]
+            assert torch.equal(mb["init_rnn_states"], mb["rnn_states"][::4])
+
+
 def test_fused_and_quantized_give_the_same_update_under_a_group(dp):
     for r in _ranks(dp):
         fused, quantized = r["learner"]["fused_vs_quantized"]["fused"], r["learner"]["fused_vs_quantized"]["quantized"]
