@@ -10,7 +10,8 @@ Each is a widest gap, never a mean, so that one wrong answer shows:
   in the reference is at least a thousandth of the median leaf's (a gradient nought to rounding moves a leaf under
   Adam by round-off alone);
 - `value_gap`, `state_gap`: over the followed rollouts, the largest |program - reference| of the values and of the
-  sampled envs' recurrent states, against the root mean square of the reference's over that rollout;
+  sampled envs' recurrent states, against the root mean square of the reference's over that rollout (no `state_gap`
+  where the reference's model has no recurrent state);
 - `logp_gap`: the largest |program - reference| of the action log-probabilities, in nats;
 - `lr_mismatch`: the epochs after which the program's learning rate was not the reference's decision (a KL within 1%
   of a threshold of the KL-adaptive schedule may take either, and the reference takes the program's over), and the
@@ -56,14 +57,16 @@ def numbers(prog: Dict, ref: Dict, leaves0: Dict[str, torch.Tensor], details: Di
     steps = _leaf_gaps(d_prog, d_ref, moving)
     pairs = list(zip(prog["rollouts"], ref["rollouts"]))
     values = [float((p["values"] - r["values"]).abs().max()) / max(_rms(r["values"]), 1e-30) for p, r in pairs]
-    states = [float((p["states"] - r["states"]).abs().max()) / max(_rms(r["states"]), 1e-30) for p, r in pairs]
+    states = [float((p["states"] - r["states"]).abs().max()) / max(_rms(r["states"]), 1e-30) for p, r in pairs
+              if r["states"].numel()]
     logps = [float((p["log_probs"] - r["log_probs"]).abs().max()) for p, r in pairs]
     if details is not None:
         details.update(loss=losses, grad=grads, step=steps, value=values, state=states, logp=logps,
                        left_out=sorted(set(g_ref) - set(moving)), grad_choices=len(ref.get("first_moment_norms") or [0]))
-    return {"loss_gap": max(losses), "grad_gap": max(grads.values()), "step_gap": max(steps.values()),
-            "value_gap": max(values), "state_gap": max(states), "logp_gap": max(logps),
-            "lr_mismatch": float(ref["lr_mismatches"])}
+    out = {"loss_gap": max(losses), "grad_gap": max(grads.values()), "step_gap": max(steps.values()),
+           "value_gap": max(values), "state_gap": max(states, default=None), "logp_gap": max(logps),
+           "lr_mismatch": float(ref["lr_mismatches"])}
+    return {k: v for k, v in out.items() if v is not None}
 
 
 def verdict(values: Dict[str, float], limits: Dict[str, float]) -> bool:

@@ -4,15 +4,20 @@ measured window inside it, and the comparison with the plain reference after it.
 A cell is `workloads/<cell>.json` (its configuration's name, its traffic: the env module of `envs/` and its
 parameters, the number of envs, sync or async), its configuration
 `configs/<config>.json` (the port's flags, the model's widths, the precision and its peak, the limits of the
-comparison), and the metrics that BENCHMARK.json names for it, each read by `metrics/<metric>.py`.
+comparison), and the metrics that BENCHMARK.json names for it, each read by `metrics/<metric>.py`. A configuration
+may name its own plain reference (`model.reference`: `reference/<module>.py`, `reference/model.py` by default), declare
+its observation keys (`observations`: each key's shape and store, uint8, int32 or float32; by default the one key
+`model.obs_key` stored as `obs_store`), and name the encoder factory that its integration registers with the port
+(`encoder_factory`: "<module>:<function>", registered for the run and the factory found before restored after it).
 
 The run, in order:
 1. Set-up: the runner is built and initialised, and the benchmark writes the weights it made from the seed on the
-   device (`reference.model.make_leaves`) into the program's parameters, so that both sides start from them.
+   device (the reference module's `make_leaves`) into the program's parameters, so that both sides start from them.
 2. Warm-up: the first `WARMUP` iterations of `Runner.run`. The first `FOLLOWED` of them are recorded for the reference: the
-   rollout's observations, actions, rewards, dones and time-outs, and the program's outputs (values, log-probs, action
-   parameters, the recurrent states of a sample of envs drawn from the seed), the loss each train call reports,
-   Adam's first moment after the first optimizer step and the parameters after the last followed call.
+   rollout's observations (every declared key), actions, rewards, dones and time-outs, and the program's outputs
+   (values, log-probs, action parameters, the recurrent states of a sample of envs drawn from the seed), the loss each
+   train call reports, Adam's first moment after the first optimizer step and the parameters after the last followed
+   call.
 3. The window: from a synchronized iteration boundary after the warm-up to the first iteration boundary after
    `seconds`, synchronized again. With `trace` the harness's spans around the rollout and train calls are
    synchronized, and after the window `PROFILED` more iterations run under torch.profiler (device activities only).
@@ -27,7 +32,9 @@ The context that the metric readers get: `window_env_steps`, `window_s`, `peak_b
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import importlib
 import importlib.util
 import json
 import shutil
@@ -37,6 +44,7 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
+from port_bench import reference
 from sample_factory_tpu_torch.runner.runner import AlgoObserver
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -225,15 +233,38 @@ def _faulty(fault: Optional[str], rollout_fn, train_fn, model):
     raise ValueError(f"unknown fault {fault!r}")
 
 
-def _host_obs(x, store: str):
-    """A rollout's observations for the reference, on the host: uint8 where the configuration says they are whole
-    numbers in [0, 255] (checked), else float32."""
+@contextlib.contextmanager
+def encoder_factory(name: Optional[str]):
+    """The port's encoder factory "<module>:<function>" registered for the block (none: the factory found is kept),
+    and the factory found before restored after it."""
+    from sample_factory_tpu_torch.algo.context import global_model_factory
+
+    factory = global_model_factory()
+    found = factory.encoder_factory
+    try:
+        if name:
+            module, function = name.split(":")
+            factory.register_encoder_factory(getattr(importlib.import_module(module), function))
+        yield
+    finally:
+        factory.encoder_factory = found
+
+
+def _host_obs(key: str, x, spec: Dict):
+    """A rollout's observations of one key for the reference, on the host, of the shape declared: uint8 where the
+    configuration says they are whole numbers in [0, 255], int32 where they are whole numbers (token ids; both
+    checked), else float32."""
     import torch
 
-    if store == "uint8":
-        if not bool(((x == x.round()) & (x >= 0) & (x <= 255)).all()):
-            raise ValueError("observations recorded as uint8 are not whole numbers in [0, 255]")
-        return x.to(torch.uint8).cpu()
+    if tuple(x.shape[2:]) != spec["shape"]:
+        raise ValueError(f"observations {key!r} of shape {tuple(x.shape[2:])}, declared {spec['shape']}")
+    store = spec["store"]
+    if store in ("uint8", "int32"):
+        whole = not x.is_floating_point() or bool((x == x.round()).all())
+        low, high = (0, 255) if store == "uint8" else (-2**31, 2**31 - 1)
+        if not (whole and bool(((x >= low) & (x <= high)).all())):
+            raise ValueError(f"observations {key!r} recorded as {store} are not whole numbers in [{low}, {high}]")
+        return x.to(torch.uint8 if store == "uint8" else torch.int32).cpu()
     return x.float().cpu()
 
 
@@ -248,8 +279,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     The runner's summaries and checkpoints go to a directory of the run's own under TMPDIR, removed when it ends."""
     train_dir = tempfile.mkdtemp(prefix="port_bench_")
     try:
-        return _run_cell(workload, seed, seconds, trace, device, overrides, fault, control, t_start, root, readings,
-                         train_dir)
+        with reference.searched(root), encoder_factory(cell_plan(workload, root)["config"].get("encoder_factory")):
+            return _run_cell(workload, seed, seconds, trace, device, overrides, fault, control, t_start, root,
+                             readings, train_dir)
     finally:
         shutil.rmtree(train_dir, ignore_errors=True)
 
@@ -265,7 +297,7 @@ def _run_cell(workload, seed, seconds, trace, device, overrides, fault, control,
 
     from port_bench import check
     from port_bench.reference import learner as ref_learner
-    from port_bench.reference import model as ref_model
+    from port_bench.reference.model import Precision
 
     plan = cell_plan(workload, root)
     overrides = overrides or {}
@@ -302,6 +334,7 @@ def _run_cell(workload, seed, seconds, trace, device, overrides, fault, control,
 
     # the weights, made on the device from the seed, written into the program's parameters
     model_spec = config["model"]
+    ref_model = reference.of(model_spec)
     leaves0 = ref_model.make_leaves(model_spec, seed, dev)
     params = dict(runner.train_state.model.named_parameters())
     if set(params) != set(leaves0):
@@ -318,7 +351,7 @@ def _run_cell(workload, seed, seconds, trace, device, overrides, fault, control,
     # the records of the followed iterations
     N = int(traffic["num_envs"])
     sample = torch.randperm(N, generator=torch.Generator().manual_seed(seed))[: min(SAMPLED_ENVS, N)]
-    obs_key = model_spec["obs_key"]
+    obs_specs = reference.observations(config)
     records: List[Dict] = []
     prog = {"rollouts": [], "losses": [], "lrs": [], "step_lrs": [[] for _ in range(FOLLOWED)], "first_moment": None,
             "leaves": None}
@@ -346,7 +379,7 @@ def _run_cell(workload, seed, seconds, trace, device, overrides, fault, control,
         window.span("rollout", start, time.perf_counter())
         calls["rollout"] += 1
         if calls["rollout"] <= FOLLOWED:
-            records.append({"obs": _host_obs(traj["obs"][obs_key], config["obs_store"]),
+            records.append({"obs": {k: _host_obs(k, traj["obs"][k], spec) for k, spec in obs_specs.items()},
                             **{k: traj[k].cpu() for k in ("actions", "rewards", "dones", "time_outs")}})
             prog["rollouts"].append({"values": traj["values"].cpu(), "log_probs": traj["log_prob_actions"].cpu(),
                                      "params": traj["action_logits"].cpu(),
@@ -415,23 +448,23 @@ def _run_cell(workload, seed, seconds, trace, device, overrides, fault, control,
     phase("program freed")
     limits, readings_out = config["limits"], None
     leaves_dev = {k: v.to(dev) for k, v in leaves0.items()}
-    f32 = ref_model.Precision("float32")
+    f32 = Precision("float32")
     if control is not None:
-        prog = ref_learner.follow(config, leaves_dev, records, ref_model.Precision(control), seed, dev, sample)
-    ref = ref_learner.follow(config, leaves_dev, records, f32, seed, dev, sample, judged=prog)
+        prog = ref_learner.follow(config, ref_model, leaves_dev, records, Precision(control), seed, dev, sample)
+    ref = ref_learner.follow(config, ref_model, leaves_dev, records, f32, seed, dev, sample, judged=prog)
     details = {}
     numbers = check.numbers(prog, ref, leaves0, details)
     correct = check.verdict(numbers, limits)
     if readings:
         readings_out = {"program": {"numbers": numbers, "details": details}}
         for name in readings:
-            side = ref_learner.follow(config, leaves_dev, records, ref_model.Precision(name), seed, dev, sample)
-            judge = ref_learner.follow(config, leaves_dev, records, f32, seed, dev, sample, judged=side)
+            side = ref_learner.follow(config, ref_model, leaves_dev, records, Precision(name), seed, dev, sample)
+            judge = ref_learner.follow(config, ref_model, leaves_dev, records, f32, seed, dev, sample, judged=side)
             parts = {}
             readings_out[name] = {"numbers": check.numbers(side, judge, leaves0, parts), "details": parts,
                                   "lrs": side["lrs"], "epoch_kls": side["epoch_kls"]}
             # the program judged by this side in the reference's place
-            side = ref_learner.follow(config, leaves_dev, records, ref_model.Precision(name), seed, dev, sample,
+            side = ref_learner.follow(config, ref_model, leaves_dev, records, Precision(name), seed, dev, sample,
                                       judged=prog)
             parts = {}
             readings_out[name]["program"] = {"numbers": check.numbers(prog, side, leaves0, parts), "details": parts}

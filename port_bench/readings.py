@@ -64,6 +64,8 @@ def main(argv=None):
               flush=True)
     summary = {}
     for name in NUMBERS:
+        if name not in rows[0]["readings"]["program"]["numbers"]:  # state_gap of a model without a recurrent state
+            continue
         sound = [r["readings"]["program"]["numbers"][name] for r in rows if r["fault"] is None]
         control = [r["readings"][args.control]["numbers"][name] for r in rows if r["fault"] is None]
         witness = [r["readings"][WITNESS]["numbers"][name] for r in rows if r["fault"] is None and WITNESS in r["readings"]]

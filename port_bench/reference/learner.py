@@ -1,8 +1,11 @@
-"""The PPO learner of a configuration in plain PyTorch, over the trajectories a run recorded.
+"""The PPO learner of a configuration in plain PyTorch, over the trajectories a run recorded; the model is the
+reference module that the configuration names (`reference/__init__.py`).
 
-`follow(config, leaves, records, prec, seed, device)` replays the first training iterations of a run: for each, the
-rollout's policy step over the recorded observations and actions (from its own parameters, normalizer and carried
-recurrent state), then the train call: the observation normalizer's update, the bootstrap value, GAE with value
+`follow(config, module, leaves, records, prec, seed, device)` replays the first training iterations of a run: for
+each, the rollout's policy step over the recorded observations and actions (from its own parameters, normalizers and
+carried recurrent state), then the train call: the update of each normalized observation key's moments (the keys
+that the flags' `normalize_input_keys` names, every key where it names none; the static subtract-mean and scale on the
+key "obs" before), the bootstrap value, GAE with value
 bootstrap on time-outs, the returns normalizer, contiguous minibatches of whole segments over the epochs, the clipped
 PPO losses with per-minibatch advantage normalization, the gradient clip, Adam, the KL-adaptive learning rate after
 each epoch and the early stop on a flat epoch policy loss. Its outputs are what the program's run is judged by:
@@ -33,7 +36,7 @@ from typing import Dict, List
 
 import torch
 
-from port_bench.reference import model as M
+from port_bench.reference import observations
 
 RATIO_MIN, RATIO_MAX = 0.05, 20.0
 NORM_EPS, NORM_CLIP = 1e-5, 5.0
@@ -84,10 +87,6 @@ class Adam:
             leaves[k].sub_(lr / c1 * self.m[k] / (self.v[k].sqrt() / math.sqrt(c2) + self.eps))
 
 
-def _obs(record: torch.Tensor, device, dtype=torch.float32) -> torch.Tensor:
-    return record.to(device=device, dtype=dtype)
-
-
 def gae(rewards, dones, values, gamma: float, lam: float):
     """rewards, dones [T, N]; values [T + 1, N] -> advantages [T, N]."""
     T = rewards.shape[0]
@@ -109,16 +108,17 @@ def kl_adaptive(lr: float, kl_mean: float, f: Dict) -> float:
 
 
 class Learner:
-    def __init__(self, config: Dict, leaves: Dict[str, torch.Tensor], prec: M.Precision, seed: int, device):
-        self.f, self.model, self.prec, self.device = config["flags"], config["model"], prec, device
+    def __init__(self, config: Dict, module, leaves: Dict[str, torch.Tensor], prec, seed: int, device):
+        self.f, self.model, self.M, self.prec, self.device = config["flags"], config["model"], module, prec, device
         f = self.f
         assert f["lr_schedule"] in ("constant", "kl_adaptive_epoch") and f["exploration_loss"] == "entropy"
         assert not f["with_vtrace"] and not f["shuffle_minibatches"] and f["optimizer"] == "adam"
         self.leaves = {k: v.detach().clone().to(prec.dtype) for k, v in leaves.items()}
         self.adam = Adam(self.leaves, f["adam_beta1"], f["adam_beta2"], f["adam_eps"])
-        obs = self.model["encoder"]
-        shape = (obs["obs_dim"],) if obs["type"] == "mlp" else tuple(obs["obs_hwc"])
-        self.obs_moments = Moments(shape, device, prec.dtype) if f["normalize_input"] else None
+        self.keys = observations(config)
+        named = f.get("normalize_input_keys")
+        self.obs_moments = {k: Moments(spec["shape"], device, prec.dtype) for k, spec in self.keys.items()
+                            if f["normalize_input"] and k != "action_mask" and (named is None or k in named)}
         self.ret_moments = Moments((1,), device, prec.dtype) if f["normalize_returns"] else None
         self.lr = float(f["learning_rate"])
         self.summary_gen = torch.Generator(device=device).manual_seed(seed + 2)
@@ -129,20 +129,39 @@ class Learner:
         self.step_lrs: List[List[float]] = []  # the learning rate of each optimizer step, a list a train call
         self.lr_mismatches = 0
 
-    def _norm(self, obs):
-        return obs if self.obs_moments is None else self.obs_moments.normalize(obs)
+    def _obs(self, record: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Recorded observations on the device: an int32 key that is not normalized as recorded, every other key in
+        the precision's dtype, the key "obs" less `obs_subtract_mean` and over `obs_scale`, as the program's sampler
+        takes them."""
+        out = {}
+        for k, x in record.items():
+            x = x.to(self.device)
+            if self.keys[k]["store"] == "int32" and k not in self.obs_moments:
+                out[k] = x
+                continue
+            x = x.to(self.prec.dtype)
+            subtract, scale = self.f.get("obs_subtract_mean", 0.0), self.f.get("obs_scale", 1.0)  # the port's defaults
+            if k == "obs" and subtract != 0.0:
+                x = x - subtract
+            if k == "obs" and scale != 1.0:
+                x = x / scale
+            out[k] = x
+        return out
+
+    def _norm(self, obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: self.obs_moments[k].normalize(x) if k in self.obs_moments else x for k, x in obs.items()}
 
     @torch.no_grad()
     def rollout(self, rec: Dict, sample: torch.Tensor) -> Dict:
         """The policy step over a recorded rollout: rec["obs"] [T+1, N, ...], rec["actions"], rec["dones"] [T, N]."""
         T, N = rec["dones"].shape
-        p, m, dev = self.leaves, self.model, self.device
+        p, m, M, dev = self.leaves, self.model, self.M, self.device
         if self.state is None:
-            H = m["core"]["size"] * (2 if m["core"]["type"] == "lstm" else 1)
-            self.state = torch.zeros((N, H), device=dev, dtype=self.prec.dtype)
+            self.state = torch.zeros((N, M.state_width(m)), device=dev, dtype=self.prec.dtype)
         out = {"values": [], "log_probs": [], "params": [], "states": [self.state[sample].cpu()], "all_states": [self.state]}
         for t in range(T):
-            params, values, new_state = M.policy_step(p, m, self._norm(_obs(rec["obs"][t], dev, self.prec.dtype)), self.state, self.prec)
+            obs = self._norm(self._obs({k: x[t] for k, x in rec["obs"].items()}))
+            params, values, new_state = M.policy_step(p, m, obs, self.state, self.prec)
             actions = rec["actions"][t].to(dev)
             out["values"].append(values)
             out["log_probs"].append(M.log_prob(m, params, actions.float()))
@@ -156,11 +175,13 @@ class Learner:
                 "all_states": torch.stack(out["all_states"])}
 
     def _losses(self, mb: Dict, count_kl: List, find_ties: bool = False):
-        f, m, R = self.f, self.model, int(self.f["recurrence"])
+        f, m, M, R = self.f, self.model, self.M, int(self.f["recurrence"])
         B = mb["dones"].shape[0]
         S = B // R
 
         def seg(x):
+            if isinstance(x, dict):
+                return {k: seg(v) for k, v in x.items()}
             return x.reshape((S, R) + tuple(x.shape[1:]))
 
         params, values = M.forward_seq(self.leaves, m, seg(mb["obs"]), seg(mb["states"])[:, 0], seg(mb["dones"]), self.prec)
@@ -242,11 +263,12 @@ class Learner:
         T, N = rec["dones"].shape
         gamma = f["gamma"]
         with torch.no_grad():
-            obs = _obs(rec["obs"], dev, self.prec.dtype)  # [T+1, N, ...]
-            if self.obs_moments is not None:
-                self.obs_moments.update(obs)
+            obs = self._obs(rec["obs"])  # a key [T+1, N, ...]
+            for k, moments in self.obs_moments.items():
+                moments.update(obs[k])
             norm_obs = self._norm(obs)
-            _, last_values, _ = M.policy_step(self.leaves, self.model, norm_obs[-1], ro["all_states"][-1], self.prec)
+            last_obs = {k: x[-1] for k, x in norm_obs.items()}
+            _, last_values, _ = self.M.policy_step(self.leaves, self.model, last_obs, ro["all_states"][-1], self.prec)
             values = torch.cat([ro["values"], last_values[None]], dim=0)
             if self.ret_moments is not None:
                 values = self.ret_moments.denormalize(values[..., None])[..., 0]
@@ -262,9 +284,10 @@ class Learner:
             def rows(x):  # time-major [T, N, ...] -> env-major [N*T, ...]
                 return x.transpose(0, 1).reshape((N * T,) + tuple(x.shape[2:]))
 
-            data = {"obs": rows(norm_obs[:T]), "states": rows(ro["all_states"][:T]), "actions": rows(rec["actions"].to(dev)),
-                    "old_params": rows(ro["params"]), "log_probs": rows(ro["log_probs"]), "values": rows(ro["values"]),
-                    "dones": rows(dones), "advantages": rows(advantages), "returns": rows(returns)}
+            data = {"obs": {k: rows(x[:T]) for k, x in norm_obs.items()}, "states": rows(ro["all_states"][:T]),
+                    "actions": rows(rec["actions"].to(dev)), "old_params": rows(ro["params"]),
+                    "log_probs": rows(ro["log_probs"]), "values": rows(ro["values"]), "dones": rows(dones),
+                    "advantages": rows(advantages), "returns": rows(returns)}
         batch = min(int(f["batch_size"]), N * T)
         num_mb = N * T // batch
         names = list(self.leaves)
@@ -273,7 +296,8 @@ class Learner:
         for epoch in range(int(f["num_epochs"])):
             kls, policy_losses, losses = [], [], []
             for i in range(num_mb):
-                mb = {k: v[i * batch : (i + 1) * batch] for k, v in data.items()}
+                mb = {k: v[i * batch : (i + 1) * batch] for k, v in data.items() if k != "obs"}
+                mb["obs"] = {k: v[i * batch : (i + 1) * batch] for k, v in data["obs"].items()}
                 for v in self.leaves.values():
                     v.requires_grad_(True)
                 first = self.first_moment is None
@@ -303,13 +327,15 @@ class Learner:
         return float(losses[index])
 
 
-def follow(config: Dict, leaves: Dict[str, torch.Tensor], records: List[Dict], prec: M.Precision, seed: int, device,
+def follow(config: Dict, module, leaves: Dict[str, torch.Tensor], records: List[Dict], prec, seed: int, device,
            sample: torch.Tensor, judged: Dict = None) -> Dict:
-    """Replay the recorded iterations (see the module's docstring). `judged`: the judged side's "step_lrs" (a list a
-    train call) and "lrs" (after each call), to which the schedule's decisions are held (`Learner._next_lr`)."""
+    """Replay the recorded iterations (see the module's docstring) with the reference module `module` and a
+    `model.Precision` `prec`; each record's "obs" a dict of the configuration's observation keys. `judged`: the judged
+    side's "step_lrs" (a list a train call) and "lrs" (after each call), to which the schedule's decisions are held
+    (`Learner._next_lr`)."""
     out = {"rollouts": [], "losses": [], "lrs": []}
     with prec.active():
-        learner = Learner(config, leaves, prec, seed, device)
+        learner = Learner(config, module, leaves, prec, seed, device)
         for i, rec in enumerate(records):
             ro = learner.rollout(rec, sample)
             call = None if judged is None else {"step_lrs": judged["step_lrs"][i], "final_lr": judged["lrs"][i]}

@@ -3,7 +3,8 @@
 The leaves carry the names and layouts of the trained model's state dict, so that the benchmark can hand the same
 weights to both sides: a Dense weight is [out, in], a conv weight [out, in, k, k], a recurrent cell's `wi` [in, G*H],
 `wh` [H, G*H] with the GRU's gates [r, z, n] and the LSTM's [i, f, g, o] (forget bias 1.0, no recurrent bias); the
-recurrent state is h (GRU) or h || c (LSTM). Observations are channel-last images or flat vectors under one key.
+recurrent state is h (GRU) or h || c (LSTM). Observations are channel-last images or flat vectors under one key,
+`obs_key`, of the dict of observations. The module's interface is `reference/__init__.py`'s.
 
 `Precision` says how every product is computed: "float32" (IEEE, TF32 off: the reference), "tf32" (TF32 on: the
 control of a float32 configuration), "float8" (each operand of every product rounded to float8 e4m3 with a scale of
@@ -134,11 +135,11 @@ def make_leaves(model: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
     return leaves
 
 
-def encode(p, model: Dict, obs: torch.Tensor, prec: Precision) -> torch.Tensor:
-    """obs [..., obs_dim] or [..., H, W, C] (normalized) -> [..., D]."""
+def encode(p, model: Dict, obs: Dict[str, torch.Tensor], prec: Precision) -> torch.Tensor:
+    """obs[obs_key] [..., obs_dim] or [..., H, W, C] (normalized) -> [..., D]."""
     enc, act = model["encoder"], _act(model["nonlinearity"])
     prefix = f"encoder.encoders.enc_{model['obs_key']}"
-    x = obs.to(prec.dtype)
+    x = obs[model["obs_key"]].to(prec.dtype)
     if enc["type"] == "conv":
         batch = x.shape[:-3]
         x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)
@@ -148,6 +149,10 @@ def encode(p, model: Dict, obs: torch.Tensor, prec: Precision) -> torch.Tensor:
     for i in range(len(enc["layers"])):
         x = act(prec.linear(x, p[f"{prefix}.dense.{i}.weight"], p[f"{prefix}.dense.{i}.bias"]))
     return x
+
+
+def state_width(model: Dict) -> int:
+    return model["core"]["size"] * (2 if model["core"]["type"] == "lstm" else 1)
 
 
 def cell(p, model: Dict, x_proj: torch.Tensor, state: torch.Tensor, prec: Precision) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -185,15 +190,15 @@ def heads(p, model: Dict, h: torch.Tensor, prec: Precision) -> Tuple[torch.Tenso
     return out, values
 
 
-def policy_step(p, model: Dict, obs: torch.Tensor, state: torch.Tensor, prec: Precision):
+def policy_step(p, model: Dict, obs: Dict[str, torch.Tensor], state: torch.Tensor, prec: Precision):
     """One rollout step over [N] envs: (action parameters, values, new state)."""
     h, new_state = cell(p, model, input_part(p, model, encode(p, model, obs, prec), prec), state, prec)
     params, values = heads(p, model, h, prec)
     return params, values, new_state
 
 
-def forward_seq(p, model: Dict, obs: torch.Tensor, state0: torch.Tensor, resets: torch.Tensor, prec: Precision):
-    """BPTT over segments: obs [S, R, ...], state0 [S, state], resets [S, R] (the state is zeroed after step t where
+def forward_seq(p, model: Dict, obs: Dict[str, torch.Tensor], state0: torch.Tensor, resets: torch.Tensor, prec: Precision):
+    """BPTT over segments: obs [S, R, ...] a key, state0 [S, state], resets [S, R] (the state is zeroed after step t where
     resets[:, t]) -> (action parameters [S*R, P], values [S*R])."""
     S, R = resets.shape
     x = input_part(p, model, encode(p, model, obs, prec), prec)  # [S, R, G]
@@ -235,3 +240,51 @@ def kl(model: Dict, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
         return ((s0 / s1).log() + (s1.square() + (m1 - m0).square()) / (2.0 * s0.square()) - 0.5).sum(dim=-1)
     lp1, lp0 = F.log_softmax(new, dim=-1), F.log_softmax(old, dim=-1)
     return (lp1.exp() * (lp1 - lp0)).sum(dim=-1)
+
+
+# ------------------------------------------------------------------ counts (`flops.py`, `roofline.py`)
+
+
+def encoder_flops(model: Dict) -> Tuple[int, int]:
+    """2 x the multiply-adds of the encoder over one sample, and its output width."""
+    enc = model["encoder"]
+    flops = 0
+    if enc["type"] == "mlp":
+        width = enc["obs_dim"]
+    else:
+        h, w, c = enc["obs_hwc"]
+        for out, k, s in CONV_FILTERS[enc["conv"]]:
+            h, w = (h - k) // s + 1, (w - k) // s + 1
+            flops += 2 * h * w * out * c * k * k
+            c = out
+        width = h * w * c
+    for size in enc["layers"]:
+        flops += 2 * width * size
+        width = size
+    return flops, width
+
+
+def core_flops(model: Dict, width: int) -> int:
+    """One step of the recurrent cell over an input of `width`: its input and recurrent products."""
+    H = model["core"]["size"]
+    G = {"gru": 3, "lstm": 4}[model["core"]["type"]] * H
+    return 2 * width * G + 2 * H * G
+
+
+def head_flops(model: Dict, width: int) -> int:
+    """The critic and the action head over a feature of `width`."""
+    act = model["action"]
+    return 2 * width * 1 + 2 * width * (act["dim"] if act["type"] == "gaussian" else act["n"])
+
+
+def forward_flops_per_sample(model: Dict) -> int:
+    flops, width = encoder_flops(model)
+    return flops + core_flops(model, width) + head_flops(model, model["core"]["size"])
+
+
+def rnn_sites(config: Dict) -> List[Tuple]:
+    """The core, a forward and a backward in each minibatch at (recurrence, batch / recurrence, H) in the
+    configuration's dtype."""
+    f, core = config["flags"], config["model"]["core"]
+    T = int(f["recurrence"])
+    return [("minibatch", core["type"], T, int(f["batch_size"]) // T, core["size"], f["compute_dtype"])]

@@ -7,6 +7,8 @@ larger of the two. Times in ms.
 
 from __future__ import annotations
 
+from port_bench import reference
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; float32 outside the tensor cores
 
@@ -40,11 +42,18 @@ def bwd_bound(kind, T, B, H, dtype):
 
 
 def learner_rnn_bound_ms(config, epochs: float) -> float:
-    """Least time of one train call's recurrent work: `epochs` x minibatches a forward and a backward at
-    (recurrence, batch / recurrence, H) in the configuration's dtype."""
-    f, core = config["flags"], config["model"]["core"]
-    T = int(f["recurrence"])
-    B, dtype = int(f["batch_size"]) // T, f["compute_dtype"]
+    """Least time of one train call's recurrent work: `epochs` x minibatches a forward and a backward of each recurrent
+    sequence of a minibatch, and, per iteration, a forward of each sequence of a rollout step times the rollout's
+    steps. The sequences are those that the configuration's reference module names (`rnn_sites`; `reference/model.py`:
+    the one core at (recurrence, batch / recurrence, H) in the configuration's dtype, in the minibatches alone)."""
+    f = config["flags"]
     minibatches = config["samples_per_iteration"] // int(f["batch_size"])
-    per_minibatch = bound(core["type"], T, B, core["size"], dtype)[0] + bwd_bound(core["type"], T, B, core["size"], dtype)[0]
-    return epochs * minibatches * per_minibatch
+    total = 0.0
+    for per, kind, T, B, H, dtype in reference.of(config["model"]).rnn_sites(config):
+        if per == "minibatch":
+            total += epochs * minibatches * (bound(kind, T, B, H, dtype)[0] + bwd_bound(kind, T, B, H, dtype)[0])
+        elif per == "rollout_step":
+            total += int(f["rollout"]) * bound(kind, T, B, H, dtype)[0]
+        else:
+            raise ValueError(f"a recurrent sequence {per!r}: neither 'minibatch' nor 'rollout_step'")
+    return total

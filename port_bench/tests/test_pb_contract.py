@@ -6,6 +6,8 @@ from pathlib import Path
 
 import pytest
 
+from port_bench.reference import observations
+
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -69,7 +71,8 @@ def test_cells_and_their_files():
     for c in BENCH["configs"]:
         config = json.loads((ROOT / c["file"]).read_text())
         assert config["name"] == c["name"] and config["source"] == c["source"] and config["reduced"] == c["reduced"]
-        assert config["precision"] == config["flags"]["compute_dtype"] and config["obs_store"] in ("float32", "uint8")
+        assert config["precision"] == config["flags"]["compute_dtype"]
+        assert all(spec["store"] in ("float32", "uint8", "int32") for spec in observations(config).values())
         assert config["peak_flops"] > 0 and all(isinstance(v, (int, float)) for v in config["limits"].values())
     for w in BENCH["workloads"]:
         wl = json.loads((ROOT / "port_bench" / "workloads" / f"{w['name']}.json").read_text())
